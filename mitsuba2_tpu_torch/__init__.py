@@ -1,0 +1,25 @@
+"""mitsuba2_tpu_torch — the PyTorch/CUDA port of mitsuba2_tpu.
+
+Same surface as the JAX package: ``set_variant``, ``load_dict`` and
+``scene.integrator.render(scene, seed=, spp=)``, plus ``set_device``, which
+names the torch device every scene table and buffer lives on. Kernels are
+hand-written CUDA (``csrc/``), built with nvcc at first use; each has a
+plain PyTorch version beside it, which is what runs for tables on the CPU.
+This package never imports ``jax`` or ``mitsuba2_tpu``.
+"""
+
+from .variants import (set_variant, variant, variants, variant_config,
+                       Variant, set_device, device)
+from .core.transform import Transform
+
+__version__ = "0.1.0"
+
+__all__ = ["set_variant", "variant", "variants", "variant_config", "Variant",
+           "set_device", "device", "load_dict", "Transform"]
+
+
+def load_dict(d):
+    """Instantiate a scene/plugin from a Python dict (parity:
+    mitsuba.core.xml.load_dict, src/libcore/python/xml_v.cpp:56)."""
+    from .core.dictio import load_dict as _ld
+    return _ld(d)

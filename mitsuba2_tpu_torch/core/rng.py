@@ -1,0 +1,60 @@
+"""Counter-based random number generation on torch tensors.
+
+Every random value is ``hash(seed, lane_key, dimension)`` through TEA
+(reference: include/mitsuba/core/random.h:75-169, ``sample_tea_32``), bit
+for bit the same streams as ``mitsuba2_tpu.core.rng``. Torch has no
+general uint32 arithmetic, so the words ride int64 tensors that hold
+values in [0, 2**32): sums and xors only ever need their low 32 bits, and
+the mask after each update keeps the right shifts exact.
+"""
+
+from __future__ import annotations
+
+import torch
+
+MASK32 = 0xFFFFFFFF
+
+
+def _u32(x, like=None):
+    """int64 tensor of uint32 values from a tensor, int or array."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.int64) & MASK32
+    dev = like.device if like is not None else None
+    return torch.as_tensor(x, dtype=torch.int64, device=dev) & MASK32
+
+
+def sample_tea_32(v0, v1, rounds: int = 4):
+    """TEA block cipher as a hash: two well-mixed uint32 words (as int64)."""
+    v0 = _u32(v0, v1 if isinstance(v1, torch.Tensor) else None)
+    v1 = _u32(v1, v0)
+    v0, v1 = torch.broadcast_tensors(v0, v1)
+    s = 0
+    for _ in range(rounds):
+        s = (s + 0x9E3779B9) & MASK32
+        v0 = (v0 + (((v1 << 4) + 0xA341316C) ^ (v1 + s)
+                    ^ ((v1 >> 5) + 0xC8013EA4))) & MASK32
+        v1 = (v1 + (((v0 << 4) + 0xAD90777D) ^ (v0 + s)
+                    ^ ((v0 >> 5) + 0x7E95761E))) & MASK32
+    return v0, v1
+
+
+def u32_to_float01(bits):
+    """uint32 -> float32 in [0, 1) via the mantissa trick (random.h):
+    ``((bits >> 9) | 0x3F800000)`` viewed as float32, minus one."""
+    f = ((_u32(bits) >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    return f - 1.0
+
+
+def lane_key(seed, index):
+    """Per-lane decorrelated key from a global seed and lane index."""
+    return sample_tea_32(seed, index)[0]
+
+
+# 5 TEA rounds per sample dimension, as the reference sampler substrate.
+_SAMPLE_ROUNDS = 5
+
+
+def uniform_float(key, dim):
+    """The core primitive: U[0,1) for (lane key, dimension counter)."""
+    v0, _ = sample_tea_32(key, dim, _SAMPLE_ROUNDS)
+    return u32_to_float01(v0)

@@ -1,0 +1,50 @@
+"""Emitter plugins (reference: src/emitters/). This slice ports ``area``.
+
+An area emitter packs its shape's triangles and per-face areas on the host
+at scene compile (``prepare``); the scene turns them into the light table
+the path kernel samples from (area-weighted face pick, then a uniform
+point on the triangle — mesh.cpp:300-307).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..core.object import register_plugin
+from ..render.emitter import Emitter, EmitterFlags
+
+
+@register_plugin("emitter", "area")
+class AreaEmitter(Emitter):
+    """(area.cpp) one-sided surface emitter with uniform radiance."""
+
+    def __init__(self, props=None):
+        super().__init__(props)
+        if props is not None:
+            self.radiance = props.texture("radiance", 1.0)
+        else:
+            from .textures import ConstantTexture
+            self.radiance = ConstantTexture(color=1.0)
+        self.m_flags = EmitterFlags.Surface
+        if self.radiance.is_spatially_varying():
+            self.m_flags |= EmitterFlags.SpatiallyVarying
+        self._packed = False
+
+    def prepare(self, scene):
+        """Per-face sampling tables of the attached mesh: origin ``tv0``,
+        edges ``te1``/``te2``, unit normal ``tn`` and ``face_areas``."""
+        del scene
+        mesh = self.shape
+        if mesh is None or not mesh.is_mesh():
+            raise RuntimeError("area emitter requires a mesh shape")
+        p = mesh.vertices[mesh.faces]
+        self.tv0 = p[:, 0]
+        self.te1 = p[:, 1] - p[:, 0]
+        self.te2 = p[:, 2] - p[:, 0]
+        fn = np.cross(self.te1, self.te2)
+        self.face_areas = (0.5 * np.linalg.norm(fn, axis=-1)).astype(
+            np.float32)
+        self.total_area = float(self.face_areas.sum())
+        self.tn = fn / np.maximum(np.linalg.norm(fn, axis=-1, keepdims=True),
+                                  1e-20)
+        self._packed = True

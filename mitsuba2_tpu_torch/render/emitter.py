@@ -1,0 +1,40 @@
+"""Emitters.
+
+Parity: include/mitsuba/render/emitter.h:61 (EmitterFlags) and the endpoint
+base. Emitters pack their sampling tables on the host at scene compile;
+the path kernel samples them from the scene's light table.
+"""
+
+from __future__ import annotations
+
+import enum
+
+from ..core.object import Object
+
+
+class EmitterFlags(enum.IntFlag):
+    # (emitter.h:14-44)
+    Empty = 0x00000
+    DeltaPosition = 0x00001
+    DeltaDirection = 0x00002
+    Infinite = 0x00004
+    Surface = 0x00008
+    SpatiallyVarying = 0x00010
+    Delta = DeltaPosition | DeltaDirection
+
+
+class Emitter(Object):
+    def __init__(self, props=None):
+        super().__init__(props)
+        self.m_flags = EmitterFlags.Empty
+        self.shape = None          # set when attached to a shape
+
+    def set_shape(self, shape):
+        self.shape = shape
+
+    def is_environment(self) -> bool:
+        return bool(self.m_flags & EmitterFlags.Infinite) and \
+            not bool(self.m_flags & EmitterFlags.Delta)
+
+    def flags(self):
+        return self.m_flags

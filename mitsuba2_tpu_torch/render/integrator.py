@@ -1,0 +1,93 @@
+"""Integrator bases + the render drive.
+
+Parity: include/mitsuba/render/integrator.h:37-143 and
+``mitsuba2_tpu.render.integrator``. A render splits its samples into passes
+of at most ``wavefront_cap`` lanes (lanes = pixels x samples per pass),
+renders each pass with ``render_wavefront`` at its own ``sample_base``,
+accumulates the passes into an image block and develops it. PyTorch runs
+eagerly, so there is no compiled-pass cache.
+"""
+
+from __future__ import annotations
+
+from ..core.object import Object
+from ..core import math as m
+from ..render.film import ImageBlock
+
+
+class Integrator(Object):
+    """(integrator.h:37-51)"""
+
+    def render(self, scene, sensor=0, seed=0, spp=None):
+        raise NotImplementedError
+
+
+class SamplingIntegrator(Integrator):
+    """(integrator.h:70) renders by Monte Carlo sampling per film sample."""
+
+    # lanes per pass of the general wavefront
+    MAX_WAVEFRONT = 1 << 20
+
+    def wavefront_cap(self, scene, sensor):
+        """Max lanes per pass; engines with a smaller per-lane footprint
+        (the path kernel) override this upward."""
+        return self.MAX_WAVEFRONT
+
+    def render(self, scene, sensor=0, seed=0, spp=None, develop=True):
+        """-> (h, w, 3) float32 image on the scene's device (or, with
+        ``develop=False``, the (h, w, 4) accumulation block)."""
+        from ..variants import variant as _variant_name
+        if scene.variant_name != _variant_name():
+            raise RuntimeError(
+                f"scene was loaded under variant {scene.variant_name!r} but "
+                f"the active variant is {_variant_name()!r}; reload the "
+                "scene after set_variant")
+        if isinstance(sensor, int):
+            sensor = scene.sensors[sensor]
+        film = sensor.film
+        sampler = sensor.sampler
+        w, h = film.crop_size
+        if spp is None:
+            spp = sampler.sample_count
+        cap = self.wavefront_cap(scene, sensor)
+        spp_per_pass = max(1, min(spp, cap // (w * h)))
+        while spp % spp_per_pass != 0:
+            spp_per_pass -= 1
+        n_passes = spp // spp_per_pass
+
+        block = ImageBlock((w, h), 3, film.rfilter, scene.device)
+        data = block.create()
+        for p in range(n_passes):
+            data = data + self.render_wavefront(
+                scene, sensor, sampler, seed, p * spp_per_pass,
+                spp_per_pass, spp)
+        return block.develop(data) if develop else data
+
+    def render_wavefront(self, scene, sensor, sampler, seed, sample_base,
+                         spp_pass, spp_total):
+        """One pass over w*h*spp_pass lanes -> the pass's image block."""
+        raise NotImplementedError(
+            f"{type(self).__name__}: the general wavefront is not ported")
+
+
+class MonteCarloIntegrator(SamplingIntegrator):
+    """(integrator.h:143) adds max_depth / rr_depth handling
+    (integrator.cpp:302-315)."""
+
+    def __init__(self, props=None):
+        super().__init__(props)
+        p = props
+        self.max_depth = int(p.int_("max_depth", -1)) if p else -1
+        self.rr_depth = int(p.int_("rr_depth", 5)) if p else 5
+        if self.max_depth < 0:
+            if self.max_depth != -1:
+                raise RuntimeError("max_depth must be >= 0 or -1")
+            # unbounded depth: RR terminates lanes; hard cap for safety
+            self.max_depth = 1024
+
+
+def mis_weight(pdf_a, pdf_b):
+    """Power-2 MIS heuristic (path.cpp:223-227)."""
+    pdf_a = pdf_a * pdf_a
+    pdf_b = pdf_b * pdf_b
+    return m.safe_div(pdf_a, pdf_a + pdf_b, 0.0)

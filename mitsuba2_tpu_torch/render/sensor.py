@@ -1,0 +1,48 @@
+"""Sensors (reference: include/mitsuba/render/sensor.h:16 Sensor,
+sensor.h:155 ProjectiveCamera)."""
+
+from __future__ import annotations
+
+from ..core.object import Object
+
+
+class Sensor(Object):
+    def __init__(self, props=None):
+        super().__init__(props)
+        film = None
+        sampler = None
+        if props is not None:
+            for _, obj in props.objects():
+                kind = getattr(obj, "plugin_category", "")
+                if kind == "film":
+                    film = obj
+                elif kind == "sampler":
+                    sampler = obj
+        if film is None:
+            from ..models.films import HDRFilm
+            from ..core.properties import Properties
+            film = HDRFilm(Properties("hdrfilm"))
+        if sampler is None:
+            from ..render.sampler import Sampler
+            sampler = Sampler()
+        self.film = film
+        self.sampler = sampler
+        self.shutter_open = props.float_("shutter_open", 0.0) \
+            if props else 0.0
+        self.shutter_close = props.float_("shutter_close", 0.0) \
+            if props else 0.0
+
+
+class ProjectiveCamera(Sensor):
+    """(sensor.h:155) adds near/far clip and focus distance."""
+
+    def __init__(self, props=None):
+        super().__init__(props)
+        p = props
+        self.near_clip = p.float_("near_clip", 1e-2) if p else 1e-2
+        self.far_clip = p.float_("far_clip", 1e4) if p else 1e4
+        self.focus_distance = p.float_("focus_distance", self.far_clip) \
+            if p else 1e4
+        from ..core.transform import Transform
+        self.world_transform = p.transform("to_world", Transform.identity()) \
+            if p else Transform.identity()

@@ -1,0 +1,72 @@
+"""Shapes.
+
+Parity: include/mitsuba/render/shape.h:23 and mesh.h:16 (indexed triangle
+mesh). Shape objects hold host-side numpy geometry; the Scene compile step
+packs every mesh into one flat set of per-face device tables.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..core.object import Object
+from ..core.properties import Properties
+
+
+class Shape(Object):
+    """Base shape: carries its BSDF and an optional attached emitter."""
+
+    def __init__(self, props: Properties | None = None):
+        super().__init__(props)
+        self.bsdf = None
+        self.emitter = None
+        if props is not None:
+            for _, obj in props.objects():
+                kind = getattr(obj, "plugin_category", "")
+                if kind == "bsdf":
+                    self.bsdf = obj
+                elif kind == "emitter":
+                    self.emitter = obj
+                    obj.set_shape(self)
+
+    def is_mesh(self):
+        return isinstance(self, Mesh)
+
+    def bbox(self):
+        raise NotImplementedError
+
+
+class Mesh(Shape):
+    """Triangle mesh with world-space baked vertices (the reference also
+    applies to_world at load, mesh.cpp)."""
+
+    def __init__(self, props=None, vertices=None, faces=None, normals=None,
+                 uvs=None, name="mesh"):
+        super().__init__(props)
+        self.name = name
+        self.vertices = np.asarray(vertices, np.float32)
+        self.faces = np.asarray(faces, np.int32)
+        self.normals = None if normals is None else np.asarray(normals,
+                                                               np.float32)
+        self.uvs = None if uvs is None else np.asarray(uvs, np.float32)
+        self.face_normals_only = self.normals is None
+
+    @property
+    def face_count(self):
+        return len(self.faces)
+
+    def bbox(self):
+        return self.vertices.min(0), self.vertices.max(0)
+
+    def apply_transform(self, trafo):
+        mat = np.asarray(trafo.matrix, np.float64)
+        v = self.vertices @ mat[:3, :3].T + mat[:3, 3]
+        self.vertices = v.astype(np.float32)
+        if self.normals is not None:
+            it = np.asarray(trafo.inverse_transpose, np.float64)[:3, :3]
+            n = self.normals @ it.T
+            n /= np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-20)
+            self.normals = n.astype(np.float32)
+        if np.linalg.det(mat[:3, :3]) < 0:
+            # flip winding to keep outward orientation
+            self.faces = self.faces[:, ::-1].copy()

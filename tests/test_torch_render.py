@@ -1,0 +1,191 @@
+"""The ported slice as a whole: ``load_dict`` + ``scene.integrator.render``
+of the PyTorch port against the JAX package on the same dict and seed.
+
+Per pixel against the JAX path kernel (Pallas interpret mode, which the
+JAX integrator takes with its ``_force_megakernel`` test hook), with the
+tolerance stated in test_torch_path_kernel.py; by image mean against the
+JAX wavefront, whose sampler dimensions are sequential and so draw other
+random numbers (the reference's own 5% check, test_megakernel.py:56-63).
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import mitsuba2_tpu as mj
+import mitsuba2_tpu_torch as mt
+from mitsuba2_tpu.python.test.scenes import cornell_box_dict as cornell_j
+from mitsuba2_tpu_torch.ops import path_kernel as pk
+from mitsuba2_tpu_torch.python.test.scenes import cornell_box_dict as cornell_t
+from tests.test_torch_path_kernel import assert_images_agree
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _dicts(width, spp, max_depth, rr_depth):
+    out = []
+    for make in (cornell_j, cornell_t):
+        d = make(width=width, height=width, spp=spp, max_depth=max_depth)
+        d["integrator"]["rr_depth"] = rr_depth
+        out.append(d)
+    return out
+
+
+def test_render_matches_jax_kernel_per_pixel():
+    mj.set_variant("scalar_rgb")
+    mt.set_variant("scalar_rgb")
+    dj, dt = _dicts(16, 16, 4, 2)
+    sj = mj.load_dict(dj)
+    sj.integrator._force_megakernel = True
+    ref = np.asarray(sj.integrator.render(sj, seed=5, spp=16))
+    assert sj.integrator.last_engine == "megakernel"
+    st = mt.load_dict(dt)
+    img = st.integrator.render(st, seed=5, spp=16)
+    assert st.integrator.last_engine == "kernel"
+    assert st.integrator.engine_reason is None
+    assert img.shape == (16, 16, 3) and img.dtype == torch.float32
+    assert img.device == torch.device("cpu")
+    assert torch.isfinite(img).all()
+    assert_images_agree(img.numpy(), ref)
+
+
+def test_render_mean_matches_jax_wavefront():
+    mj.set_variant("scalar_rgb")
+    mt.set_variant("scalar_rgb")
+    dj, dt = _dicts(24, 64, 4, 1000)
+    sj = mj.load_dict(dj)
+    ref = np.asarray(sj.integrator.render(sj, seed=10, spp=64))
+    assert sj.integrator.last_engine == "wavefront"
+    st = mt.load_dict(dt)
+    img = st.integrator.render(st, seed=3, spp=64).numpy()
+    assert abs(img.mean() - ref.mean()) <= 0.05 * ref.mean(), \
+        (img.mean(), ref.mean())
+
+
+def test_pass_splitting_keeps_the_image():
+    """Several passes (per-pass sample_base) render the same samples as
+    one pass; only the order of the per-pixel sums differs."""
+    mt.set_variant("scalar_rgb")
+    d = cornell_t(width=8, height=8, spp=8, max_depth=3)
+    st = mt.load_dict(d)
+    one = st.integrator.render(st, seed=1, spp=8)
+    st.integrator.MAX_WAVEFRONT_KERNEL = 8 * 8 * 2      # 4 passes
+    four = st.integrator.render(st, seed=1, spp=8)
+    torch.testing.assert_close(four, one, rtol=1e-6, atol=1e-7)
+
+
+def _out_of_scope():
+    from mitsuba2_tpu_torch.render.bsdf import BSDF
+    from mitsuba2_tpu_torch.render.shape import Shape
+
+    class Mirror(BSDF):
+        pass
+
+    class Quadric(Shape):
+        def bbox(self):
+            return np.zeros(3), np.ones(3)
+
+    def many_faces(d):
+        for i in range(513):             # 36 + 1026 triangles
+            d[f"tile{i}"] = {"type": "rectangle",
+                             "to_world": mt.Transform.translate([0, 0, -2 - i])}
+
+    def mirror(scene):
+        scene.shapes[0].bsdf = Mirror()
+
+    def quadric(scene):
+        scene.shapes.append(Quadric())
+
+    return {
+        "gaussian rfilter": (lambda d: d["sensor"]["film"]["rfilter"]
+                             .update(type="gaussian"), None,
+                             "rfilter GaussianFilter"),
+        "face count": (many_faces, None, "face count 1062 > 1024"),
+        "mono variant": (None, None, "variant scalar_mono"),
+        "bsdf": (None, mirror, "unsupported BSDF Mirror"),
+        "shape": (None, quadric, "non-triangle shape Quadric"),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_out_of_scope()))
+def test_out_of_scope_scene_raises_with_reason(case):
+    edit_dict, edit_scene, reason = _out_of_scope()[case]
+    mt.set_variant("scalar_mono" if case == "mono variant" else "scalar_rgb")
+    try:
+        d = cornell_t(width=4, height=4, spp=1)
+        if edit_dict:
+            edit_dict(d)
+        scene = mt.load_dict(d)
+        if edit_scene:
+            edit_scene(scene)
+        with pytest.raises(NotImplementedError, match=reason):
+            scene.integrator.render(scene, seed=0, spp=1)
+        assert scene.integrator.engine_reason.startswith(reason)
+        assert scene.integrator.last_engine is None
+    finally:
+        mt.set_variant("scalar_rgb")
+
+
+def test_render_refuses_device_without_kernel():
+    prev = mt.device()
+    try:
+        mt.set_device("meta")
+        scene = mt.load_dict(cornell_t(width=4, height=4, spp=1))
+    finally:
+        mt.set_device(prev)
+    with pytest.raises(ValueError, match="no path kernel"):
+        scene.integrator.render(scene, seed=0, spp=1)
+
+
+def test_package_imports_no_jax():
+    code = (
+        "import sys\n"
+        "import mitsuba2_tpu_torch as mi\n"
+        "from mitsuba2_tpu_torch.python.test.scenes import cornell_box_dict\n"
+        "mi.set_variant('scalar_rgb')\n"
+        "s = mi.load_dict(cornell_box_dict(width=4, height=4, spp=2))\n"
+        "img = s.integrator.render(s, seed=0, spp=2)\n"
+        "assert img.shape == (4, 4, 3)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
+        "('jax.', 'jaxlib', 'mitsuba2_tpu.')) or m == 'mitsuba2_tpu')\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def test_kernel_launch_count_is_untouched_on_cpu():
+    before = pk.path_radiance.launches
+    st = mt.load_dict(cornell_t(width=4, height=4, spp=2))
+    st.integrator.render(st, seed=0, spp=2)
+    assert pk.path_radiance.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_render_goes_through_kernel_and_matches_cpu():
+    """The slice on the card: one kernel launch per pass, and the image of
+    the CPU render (plain version) per pixel, at the main path's depth."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mt.set_variant("scalar_rgb")
+    d = cornell_t(width=32, height=32, spp=8, max_depth=6)
+    prev = mt.device()
+    try:
+        images = {}
+        for dev in ("cpu", "cuda"):
+            mt.set_device(dev)
+            scene = mt.load_dict(d)
+            before = pk.path_radiance.launches
+            images[dev] = scene.integrator.render(scene, seed=2, spp=8)
+            assert scene.integrator.last_engine == "kernel"
+            assert pk.path_radiance.launches == before + (dev == "cuda")
+    finally:
+        mt.set_device(prev)
+    assert images["cuda"].device.type == "cuda"
+    assert_images_agree(images["cuda"].cpu().numpy(), images["cpu"].numpy())
