@@ -78,3 +78,70 @@ def cornell_box_dict(width=256, height=256, spp=64, max_depth=6,
                      "reflectance": {"type": "rgb", "value": white}},
         },
     }
+
+
+def _sky_exr_path():
+    """Synthesized lat-long sky HDR (cached in the temp directory): a
+    gradient dome and a sun blob, the texels of mitsuba2_tpu's fixture
+    sky, written by this package's own EXR writer to a file of its own."""
+    import os
+    import tempfile
+    import numpy as np
+    from ...utils.io_exr import write_exr
+    path = os.path.join(tempfile.gettempdir(),
+                        "mitsuba2_tpu_torch_sky_v1.exr")
+    if not os.path.exists(path):
+        h, w = 64, 128
+        th = np.linspace(0, np.pi, h)[:, None]
+        ph = np.linspace(0, 2 * np.pi, w)[None, :]
+        sky = np.stack([
+            0.25 + 0.35 * np.cos(th / 2) ** 2 + 0 * ph,
+            0.35 + 0.40 * np.cos(th / 2) ** 2 + 0 * ph,
+            0.55 + 0.45 * np.cos(th / 2) ** 2 + 0 * ph], -1)
+        # sun: bright blob at theta=60deg, phi=45deg
+        ang = (np.sin(th) * np.sin(np.pi / 3)
+               * np.cos(ph - np.pi / 4)
+               + np.cos(th) * np.cos(np.pi / 3))
+        sun = np.clip(ang, 0, 1) ** 400
+        sky = sky + sun[..., None] * np.asarray([900.0, 800.0, 600.0])
+        # write beside and rename, so a concurrent reader never sees a
+        # partial file
+        tmp = f"{path}.{os.getpid()}.tmp"
+        write_exr(tmp, sky.astype(np.float32))
+        os.replace(tmp, path)
+    return path
+
+
+def matpreview_dict(width=256, height=256, spp=64, max_depth=6,
+                    alpha=0.1, material="Au"):
+    """The matpreview scene (bench.py's second config): a rough gold
+    sphere on a rough aluminium stand above a checkerboard floor, lit only
+    by an importance-sampled HDR sky (1 sphere, 14 triangles)."""
+    T = Transform
+    return {
+        "type": "scene",
+        "integrator": {"type": "path", "max_depth": max_depth},
+        "envmap": {"type": "envmap", "filename": _sky_exr_path()},
+        "hero": {"type": "sphere", "radius": 1.0, "center": [0, 0, 1.35],
+                 "bsdf": {"type": "roughconductor", "alpha": alpha,
+                          "distribution": "ggx", "material": material}},
+        "stand": {"type": "cube",
+                  "to_world": (T.translate([0, 0, 0.175])
+                               @ T.scale([0.6, 0.6, 0.175])),
+                  "bsdf": {"type": "roughconductor", "alpha": 0.3,
+                           "distribution": "ggx", "material": "Al"}},
+        "floor": {"type": "rectangle", "to_world": T.scale([8, 8, 1]),
+                  "bsdf": {"type": "diffuse",
+                           "reflectance": {
+                               "type": "checkerboard",
+                               "color0": {"type": "rgb", "value": 0.4},
+                               "color1": {"type": "rgb", "value": 0.2},
+                               "to_uv": T.scale([8, 8, 1])}}},
+        "sensor": {
+            "type": "perspective", "fov": 34.0,
+            "to_world": T.look_at(origin=[3.2, -3.8, 2.4],
+                                  target=[0, 0, 1.0], up=[0, 0, 1]),
+            "film": {"type": "hdrfilm", "width": width, "height": height,
+                     "rfilter": {"type": "box"}},
+            "sampler": {"type": "independent", "sample_count": spp}},
+    }

@@ -1,0 +1,55 @@
+"""Conductor Fresnel term and the rgb conductor IOR table (reference:
+include/mitsuba/render/fresnel.h fresnel_conductor, ior.h; counterpart of
+``mitsuba2_tpu.render.fresnel``). The spectral IOR curves come with the
+spectral slice."""
+
+from __future__ import annotations
+
+from ..core import math as m
+
+
+def fresnel_conductor(cos_theta_i, eta_re, eta_im):
+    """Unpolarized Fresnel reflectance of a conductor with complex IOR
+    ``eta_re + i * eta_im`` at incident cosine ``cos_theta_i``
+    (fresnel.h fresnel_conductor); tensors broadcast."""
+    c2 = cos_theta_i * cos_theta_i
+    s2 = 1.0 - c2
+    eta2 = eta_re * eta_re - eta_im * eta_im
+    etak2 = 2.0 * eta_re * eta_im
+
+    t0 = eta2 - s2
+    a2b2 = m.safe_sqrt(t0 * t0 + etak2 * etak2)
+    t1 = a2b2 + c2
+    a = m.safe_sqrt(0.5 * (a2b2 + t0))
+    t2 = 2.0 * a * cos_theta_i
+    rs = m.safe_div(t1 - t2, t1 + t2, 1.0)
+
+    t3 = c2 * a2b2 + s2 * s2
+    t4 = t2 * s2
+    rp = rs * m.safe_div(t3 - t4, t3 + t4, 1.0)
+    return 0.5 * (rp + rs)
+
+
+# Conductor eta/k as linear sRGB triples (role of the data/ior/*.spd files
+# conductor.cpp loads), the same values as mitsuba2_tpu.render.fresnel.
+CONDUCTOR_IOR_RGB = {
+    # name: (eta_rgb, k_rgb)
+    "a-C": ((2.93, 2.20, 1.98), (0.88, 0.74, 0.82)),
+    "Ag": ((0.155, 0.116, 0.138), (4.82, 3.12, 2.14)),
+    "Al": ((1.345, 0.965, 0.617), (7.47, 6.40, 5.30)),
+    "Au": ((0.143, 0.375, 1.442), (3.98, 2.39, 1.60)),
+    "Cu": ((0.200, 0.924, 1.102), (3.91, 2.45, 2.14)),
+    "Cr": ((4.36, 2.91, 1.65), (5.19, 4.22, 3.75)),
+    "Ni": ((2.36, 1.66, 1.47), (4.50, 3.04, 2.34)),
+    "TiO2": ((2.21, 2.31, 2.42), (0.0001, 0.0001, 0.001)),
+    "W": ((4.37, 3.30, 2.99), (3.50, 2.73, 2.36)),
+    "none": ((0.0, 0.0, 0.0), (1.0, 1.0, 1.0)),  # 100% mirror
+}
+
+
+def lookup_conductor_ior(material: str):
+    """-> (eta_rgb, k_rgb) of a named conductor (ior.h)."""
+    if material not in CONDUCTOR_IOR_RGB:
+        raise ValueError(f"unknown conductor {material!r}; known: "
+                         f"{sorted(CONDUCTOR_IOR_RGB)}")
+    return CONDUCTOR_IOR_RGB[material]

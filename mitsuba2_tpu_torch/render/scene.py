@@ -2,11 +2,13 @@
 
 Parity: include/mitsuba/render/scene.h:12 and ``mitsuba2_tpu.render.scene``
 (``Scene._compile``, ``_mesh_face_arrays``). Every mesh packs into per-face
-arrays on the host; the path kernel's tables (ops/path_kernel.py
-``PathTables``) are then built once, on the device chosen with
-``set_device``: Woop rows, per-face normal/albedo/Le/light-pdf rows and
-the light table, laid out as ``DiffusePathMegakernel.__init__`` builds
-them (ops/megakernel.py:2260-2325), in the same light-face order.
+arrays on the host, every analytic sphere into a sphere row; the path
+kernel's tables (ops/path_kernel.py ``PathTables``) are then built once, on
+the device chosen with ``set_device``: Woop rows, per-face attribute rows
+(normal, light pdf, albedo, BSDF kind and parameters, uv), the light
+table, sphere rows, and the envmap's radiance and sampling grid, laid out
+as ``DiffusePathMegakernel.__init__`` builds them (ops/megakernel.py:
+2260-2660), in the same light-face order.
 
 Faces keep their shape order. The reference permutes them into BVH leaf
 order for its chunked sweeps; closest-hit does not depend on face order
@@ -18,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..core.object import Object
-from ..ops.path_kernel import pack_tables
+from ..ops import path_kernel as pk
 
 
 class Scene(Object):
@@ -68,29 +70,32 @@ class Scene(Object):
         for i, e in enumerate(self.emitters):
             e._emitter_index = i
 
-        v0s, e1s, e2s, ngs, albs, face_shape = [], [], [], [], [], []
+        v0s, e1s, e2s, ngs, uvss, face_shape = [], [], [], [], [], []
+        spheres = []
         bb_min = np.full(3, np.inf)
         bb_max = np.full(3, -np.inf)
         for si_idx, s in enumerate(self.shapes):
-            if not s.is_mesh():
+            if s.is_analytic():
+                spheres.append((si_idx, s))
+            elif s.is_mesh():
+                v0, e1, e2, ng, uvs = _mesh_face_arrays(s)
+                v0s.append(v0)
+                e1s.append(e1)
+                e2s.append(e2)
+                ngs.append(ng)
+                uvss.append(uvs)
+                face_shape.append(np.full(len(v0), si_idx, np.int32))
+            else:
                 continue     # the path integrator refuses such scenes
-            v0, e1, e2, ng = _mesh_face_arrays(s)
-            v0s.append(v0)
-            e1s.append(e1)
-            e2s.append(e2)
-            ngs.append(ng)
-            albs.append(np.broadcast_to(_constant_albedo(s.bsdf),
-                                        (len(v0), 3)))
-            face_shape.append(np.full(len(v0), si_idx, np.int32))
             lo, hi = s.bbox()
             bb_min = np.minimum(bb_min, lo)
             bb_max = np.maximum(bb_max, hi)
         self._bb_min = bb_min
         self._bb_max = bb_max
 
-        def cat(xs, width):
+        def cat(xs, shape):
             if not xs:
-                return np.zeros((0, width), np.float32)
+                return np.zeros((0,) + shape, np.float32)
             return np.concatenate(xs).astype(np.float32)
 
         self.face_shape = (np.concatenate(face_shape) if face_shape
@@ -98,28 +103,83 @@ class Scene(Object):
         for e in self.emitters:
             if hasattr(e, "prepare"):
                 e.prepare(self)
-        lights, le_face, lpdf_w = _light_table(
-            self.emitters, self.shapes, self.face_shape)
-        self.tables = pack_tables(cat(v0s, 3), cat(e1s, 3), cat(e2s, 3),
-                                  cat(ngs, 3), cat(albs, 3), le_face, lpdf_w,
-                                  lights, self.device)
+        env = self.environment_emitter
+        lights, le_face, lpdf_w, p_env = _light_table(
+            self.emitters, self.shapes, self.face_shape, env is not None)
+        cols = [_shape_columns(s.bsdf) for s in self.shapes]
+
+        uvs = cat(uvss, (3, 2))
+        fattr = np.zeros((len(self.face_shape), pk.FA), np.float32)
+        fattr[:, pk.C_NG:pk.C_NG + 3] = cat(ngs, (3,))
+        fattr[:, pk.C_LPDF] = lpdf_w
+        fattr[:, pk.C_LE:pk.C_LE + 3] = le_face
+        if cols:
+            fattr += np.stack(cols)[self.face_shape]
+        fattr[:, pk.C_UV0:pk.C_UV0 + 2] = uvs[:, 0]
+        fattr[:, pk.C_DUV1:pk.C_DUV1 + 2] = uvs[:, 1] - uvs[:, 0]
+        fattr[:, pk.C_DUV2:pk.C_DUV2 + 2] = uvs[:, 2] - uvs[:, 0]
+
+        # analytic spheres (megakernel.py:2460-2489): [center, radius] and
+        # the shape's columns; the identity uv mapping passes the hit's
+        # spherical uv through the checker resolve unchanged
+        sph = np.zeros((len(spheres), 4), np.float32)
+        sattr = np.zeros((len(spheres), pk.FA), np.float32)
+        for i, (si_idx, s) in enumerate(spheres):
+            sph[i, :3] = s.center
+            sph[i, 3] = s.radius
+            sattr[i] = cols[si_idx]
+            sattr[i, pk.C_DUV1] = 1.0
+            sattr[i, pk.C_DUV2 + 1] = 1.0
+
+        env_t = env_rot = None
+        if env is not None:
+            env_t = (env.data,) + env_sampling_tables(env.data)
+            env_rot = np.asarray(env.to_world.matrix, np.float32)[:3, :3]
+        self.tables = pk.pack_tables(
+            cat(v0s, (3,)), cat(e1s, (3,)), cat(e2s, (3,)), fattr, lights,
+            self.device, sph=sph, sattr=sattr, env=env_t, env_rot=env_rot,
+            p_env=p_env)
 
     def bbox(self):
         return self._bb_min, self._bb_max
 
 
-def _constant_albedo(bsdf):
-    """Linear-rgb albedo of a constant-texture BSDF, zeros otherwise (the
-    path integrator refuses any other BSDF before the table is read)."""
-    from ..models.textures import ConstantTexture
-    tex = getattr(bsdf, "reflectance", None)
-    if isinstance(tex, ConstantTexture):
-        return tex.rgb
-    return np.zeros(3, np.float32)
+def _shape_columns(bsdf):
+    """A shape's BSDF columns of the attribute row (ops/path_kernel.py
+    C_*): kind, albedo, color1, alpha, eta, k and to_uv, as
+    megakernel.py:2327-2432 and _shape_albedo/_shape_c1 (:2696-2726) set
+    them. Zeros for a BSDF the path kernel refuses (the integrator's gate
+    refuses the scene before the table is read)."""
+    from ..models.bsdfs import SmoothDiffuse, RoughConductor
+    from ..models.textures import ConstantTexture, CheckerboardTexture
+    row = np.zeros(pk.FA, np.float32)
+    row[pk.C_TOUV0] = row[pk.C_TOUV1 + 1] = 1.0        # identity to_uv
+    if pk.bsdf_ineligibility(bsdf) is not None:
+        return row
+    if type(bsdf) is SmoothDiffuse:
+        tex = bsdf.reflectance
+        if type(tex) is ConstantTexture:
+            row[pk.C_ALB:pk.C_ALB + 3] = tex.rgb
+        elif type(tex) is CheckerboardTexture:
+            row[pk.C_KIND] = pk.KIND_CHECKER
+            row[pk.C_ALB:pk.C_ALB + 3] = tex.color0.rgb
+            row[pk.C_C1:pk.C_C1 + 3] = tex.color1.rgb
+            if tex.to_uv is not None:
+                M = np.asarray(tex.to_uv.matrix, np.float32)
+                row[pk.C_TOUV0:pk.C_TOUV0 + 3] = M[0, [0, 1, 3]]
+                row[pk.C_TOUV1:pk.C_TOUV1 + 3] = M[1, [0, 1, 3]]
+    elif type(bsdf) is RoughConductor:
+        row[pk.C_KIND] = pk.KIND_GGX
+        row[pk.C_ALPHA] = bsdf.alpha_u
+        row[pk.C_ALB:pk.C_ALB + 3] = bsdf.specular_reflectance.rgb
+        row[pk.C_ETA:pk.C_ETA + 3] = bsdf.eta_tex.rgb
+        row[pk.C_K:pk.C_K + 3] = bsdf.k_tex.rgb
+    return row
 
 
 def _mesh_face_arrays(s):
-    """Per-face SoA arrays of one mesh -> (v0, e1, e2, ng)."""
+    """Per-face SoA arrays of one mesh -> (v0, e1, e2, ng, uvs (f, 3, 2));
+    a mesh without uvs gets the barycentric (0,0), (1,0), (0,1)."""
     p = s.vertices[s.faces]                      # (f,3,3)
     v0 = p[:, 0]
     e1 = p[:, 1] - p[:, 0]
@@ -127,20 +187,29 @@ def _mesh_face_arrays(s):
     fn = np.cross(e1, e2)
     ng = fn / np.maximum(np.linalg.norm(fn, axis=-1, keepdims=True),
                          1e-20)
-    return v0, e1, e2, ng
+    if s.uvs is not None:
+        uvs = s.uvs[s.faces]
+    else:
+        uvs = np.zeros((len(v0), 3, 2), np.float32)
+        uvs[:, 1, 0] = 1.0
+        uvs[:, 2, 1] = 1.0
+    return v0, e1, e2, ng, uvs
 
 
 def _pad8(x):
     return max(8, int(np.ceil(x / 8)) * 8)
 
 
-def _light_table(emitters, shapes, face_shape):
+def _light_table(emitters, shapes, face_shape, has_env):
     """Area-light faces -> (lights (L, 24), per-face Le (F, 3), per-face
-    light pdf (F,)), as ops/megakernel.py:2260-2325 builds them.
+    light pdf (F,), p_env), as ops/megakernel.py:2260-2325 builds them.
 
     Row layout: v0 0:3 | e1 3:6 | e2 6:9 | n 9:12 | cdf 12 | weight 13 |
-    radiance 14:17 | pad. Faces are picked area-weighted across all lights
-    through the cdf; ``weight`` is the resulting per-area density. Rows are
+    radiance 14:17 | pad. NEE takes the envmap with probability ``p_env``
+    (1/2 beside area lights, 1 without, 0 without an envmap) and otherwise
+    a face, picked area-weighted across all lights through the cdf;
+    ``weight`` is the resulting per-area density, scaled by 1 - p_env.
+    Without area lights the table is one dummy row with cdf 1. Rows are
     padded to a multiple of 8 with ``cdf = 2.0``, which no uniform sample
     selects."""
     n_faces = len(face_shape)
@@ -159,11 +228,13 @@ def _light_table(emitters, shapes, face_shape):
                 [0.0, 0.0], rad, [0.0], [0.0] * 6]))
             light_shape.append(sidx)
     lights = np.asarray(lights, np.float32)
+    p_env = (0.5 if len(lights) else 1.0) if has_env else 0.0
     if len(lights):
         tri_area = 0.5 * np.linalg.norm(
             np.cross(lights[:, 3:6], lights[:, 6:9]), axis=1)
         sel = tri_area / max(tri_area.sum(), 1e-20)
         dens = sel / np.maximum(tri_area, 1e-20)       # per-area density
+        dens = dens * (1.0 - p_env)
         lights[:, 13] = dens
         lights[:, 12] = np.cumsum(sel)
         for row, sidx in enumerate(light_shape):
@@ -178,4 +249,46 @@ def _light_table(emitters, shapes, face_shape):
         padl = np.zeros((Lp - len(lights), 24), np.float32)
         padl[:, 12] = 2.0
         lights = np.concatenate([lights, padl])
-    return lights, le_face, lpdf_w
+    return lights, le_face, lpdf_w, p_env
+
+
+# the env NEE grid's coarsening caps and concentration guard
+# (megakernel.py:2615-2624, their default values)
+ENV_SAMPLE_W, ENV_SAMPLE_H, ENV_SAMPLE_CONC = 64, 32, 32.0
+
+
+def env_sampling_tables(data):
+    """(h, w, 3) env radiance -> (marginal cdf (Hs,), conditional cdf
+    (Hs, Ws), pmf (Hs, Ws)) float32, as megakernel.py:2596-2655 builds
+    them: texel importance luminance * sin(theta_row), sum-pooled 2x2 into
+    a coarser grid while the grid is over 64 x 32 and no texel holds more
+    than 32x the uniform share (a sharp sun keeps the full grid), then
+    normalised and accumulated in float32."""
+    h, w = data.shape[0], data.shape[1]
+    lum = (0.2126 * data[..., 0] + 0.7152 * data[..., 1]
+           + 0.0722 * data[..., 2])
+    stheta = np.sin((np.arange(h) + 0.5) * np.pi / h)
+    imp = np.maximum(lum, 0.0) * stheta[:, None] + 1e-12
+    ws, hs = w, h
+
+    def diffuse_enough(a):
+        return a.max() / a.sum() * a.size < ENV_SAMPLE_CONC
+
+    while ((ws > ENV_SAMPLE_W and ws % 2 == 0)
+           or (hs > ENV_SAMPLE_H and hs % 2 == 0)):
+        nxt = imp
+        nw, nh = ws, hs
+        if ws > ENV_SAMPLE_W and ws % 2 == 0:
+            nxt = nxt.reshape(nxt.shape[0], -1, 2).sum(-1)
+            nw //= 2
+        if hs > ENV_SAMPLE_H and hs % 2 == 0:
+            nxt = nxt.reshape(-1, 2, nxt.shape[1]).sum(1)
+            nh //= 2
+        if not diffuse_enough(nxt):
+            break
+        imp, ws, hs = nxt, nw, nh
+    pmf = (imp / imp.sum()).astype(np.float32)     # (hs, ws)
+    row_sum = pmf.sum(axis=1)
+    marg_cdf = np.cumsum(row_sum)
+    cond_cdf = np.cumsum(pmf / np.maximum(row_sum[:, None], 1e-20), axis=1)
+    return marg_cdf, cond_cdf, pmf

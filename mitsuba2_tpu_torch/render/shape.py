@@ -32,6 +32,11 @@ class Shape(Object):
     def is_mesh(self):
         return isinstance(self, Mesh)
 
+    def is_analytic(self):
+        """True for exactly intersected quadrics (the scene packs them into
+        their own table, not into the triangle tables)."""
+        return False
+
     def bbox(self):
         raise NotImplementedError
 

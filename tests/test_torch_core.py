@@ -52,11 +52,12 @@ def test_set_device_places_scene_tables():
         assert mt.device() == torch.device("cpu")
         scene = mt.load_dict(cornell_t(width=4, height=4, spp=1))
         assert scene.device == torch.device("cpu")
-        assert all(t.device == torch.device("cpu") for t in scene.tables)
+        assert all(t.device == torch.device("cpu")
+                   for t in scene.tables.tensors())
         # the device is taken as given, never replaced by another
         mt.set_device("meta")
         scene = mt.load_dict(cornell_t(width=4, height=4, spp=1))
-        assert all(t.device.type == "meta" for t in scene.tables)
+        assert all(t.device.type == "meta" for t in scene.tables.tensors())
     finally:
         mt.set_device(prev)
 

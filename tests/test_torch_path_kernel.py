@@ -108,7 +108,7 @@ def test_wrapper_runs_plain_version_on_cpu(reference):
 
 def test_wrapper_refuses_devices_without_a_kernel(reference):
     tables, cam, _ = reference
-    meta = pk.PathTables(*(t.to("meta") for t in tables))
+    meta = tables.to("meta")
     with pytest.raises(ValueError, match="no path kernel for device meta"):
         pk.path_radiance(meta, cam.to("meta"), SEED, 0, 1, W, W, 2, 5)
 

@@ -79,10 +79,14 @@ def test_pass_splitting_keeps_the_image():
 
 
 def _out_of_scope():
+    from mitsuba2_tpu_torch.models.emitters import EnvironmentMap
     from mitsuba2_tpu_torch.render.bsdf import BSDF
     from mitsuba2_tpu_torch.render.shape import Shape
 
     class Mirror(BSDF):
+        pass
+
+    class SmoothDielectric(BSDF):       # stands in for the unported plugin
         pass
 
     class Quadric(Shape):
@@ -100,6 +104,27 @@ def _out_of_scope():
     def quadric(scene):
         scene.shapes.append(Quadric())
 
+    def dielectric(scene):
+        scene.shapes[1].bsdf = SmoothDielectric()
+
+    def anisotropic(d):
+        d["back"]["bsdf"] = {"type": "roughconductor", "distribution": "ggx",
+                             "alpha_u": 0.1, "alpha_v": 0.3}
+
+    def sky(width):
+        return EnvironmentMap(data=np.ones((8, width, 3), np.float32))
+
+    def two_envmaps(scene):
+        scene.environment_emitter = sky(16)
+        scene.emitters += [scene.environment_emitter, sky(16)]
+
+    def wide_envmap(scene):
+        scene.environment_emitter = sky(512)
+        scene.emitters.append(scene.environment_emitter)
+
+    def flipped_sphere(d):
+        d["ball"] = {"type": "sphere", "radius": 0.2, "flip_normals": True}
+
     return {
         "gaussian rfilter": (lambda d: d["sensor"]["film"]["rfilter"]
                              .update(type="gaussian"), None,
@@ -108,6 +133,13 @@ def _out_of_scope():
         "mono variant": (None, None, "variant scalar_mono"),
         "bsdf": (None, mirror, "unsupported BSDF Mirror"),
         "shape": (None, quadric, "non-triangle shape Quadric"),
+        "dielectric": (None, dielectric, "unsupported BSDF SmoothDielectric"),
+        "anisotropic roughconductor": (anisotropic, None,
+                                       "unsupported BSDF RoughConductor"),
+        "two envmaps": (None, two_envmaps, "multiple envmaps"),
+        "envmap wider than 256": (None, wide_envmap,
+                                  "envmap larger than 256"),
+        "flipped sphere": (flipped_sphere, None, "sphere with flip_normals"),
     }
 
 
