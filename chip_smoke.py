@@ -2,15 +2,18 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the sources in this checkout and
-prints each kernel instantiation's registers and spills. Then, for each
-path -- the Cornell box (the main path) and the matpreview scene (a rough
-gold sphere under an HDR sky above a checker floor), both at 256x256, 64
-spp, max_depth 6 -- it checks the path kernel against its plain PyTorch
-version on the card at 64x64x16 spp, renders the path through
-``load_dict`` and ``scene.integrator.render``, checks that the render went
-through the path's kernel instantiation and that the image is sane, and
-times render, kernel and plain version at the path's shape. Prints one
+Builds the port's CUDA kernels from the sources in this checkout (the path
+kernel once per color mode, in parallel nvcc processes) and prints each
+kernel instantiation's registers and spills. Then, for each path -- the
+Cornell box (the main path), the matpreview scene (a rough gold sphere
+under an HDR sky above a checker floor), both again under
+``scalar_spectral``, and the Cornell box under ``scalar_mono``, all at
+256x256, 64 spp, max_depth 6 -- it checks the path kernel against its plain
+PyTorch version on the card at 64x64x16 spp, renders the path through
+``set_variant``, ``load_dict`` and ``scene.integrator.render`` on the
+port's default device, checks that the render went through the path's
+kernel instantiation and that the image is sane, and times render, kernel
+and plain version at the path's shape beside the kernel's bound. Prints one
 JSON line of kernel results, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``. Any failed phase exits
 non-zero, and so does a machine without CUDA: nothing runs on the CPU
@@ -32,16 +35,38 @@ PARITY_WIDTH, PARITY_SPP, SEED = 64, 16, 7
 # the tolerance of the CPU tests (tests/test_torch_path_kernel.py)
 PIX_RTOL, PIX_SHARE, MEAN_RTOL = 1e-4, 0.99, 1e-5
 REPEATS = 5
+# the card's published peaks (H100 SXM, dense): fp32 outside the tensor
+# cores, and HBM bandwidth
+PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+# fp32 FLOPs (an FMA counts 2), counted roughly from csrc/path_kernel.cu:
+# per path the camera ray, and in spectral mode per channel the hero
+# wavelength, its D65 lookup and its share of the CIE develop; per traced
+# ray the Woop t test of each face (two dot products, a division) and the
+# quadratic of each sphere; per shadow ray the tests its loop runs before
+# the first occluder; per shaded bounce the NEE sample, MIS, BSDF sample,
+# frame and throughput update (a fixed part and a part per channel; in
+# spectral mode the sigmoid and D65 evaluations per channel), with the GGX
+# eval and visible-normal sample and two Fresnel terms per channel on a
+# conductor; per escape the env lookup (atan2, acos, a bilinear fetch) and
+# per env NEE sample its sin/cos and fetch. Compares, the binary searches
+# and the TEA integer work are not counted, so the bound is a lower one.
+PATH_FLOPS, SPECTRAL_PATH_FLOPS_PER_CHANNEL = 40, 60
+FACE_FLOPS, SPHERE_FLOPS = 12, 20
+SHADE_FLOPS, SHADE_FLOPS_PER_CHANNEL = 200, 40
+SPECTRAL_SHADE_FLOPS_PER_CHANNEL = 25
+GGX_FLOPS, GGX_FLOPS_PER_CHANNEL = 190, 50
+ENV_ESCAPE_FLOPS, ENV_NEE_FLOPS = 80, 100
+SPECTRAL_ENV_FLOPS_PER_CHANNEL = 12
 
 
 def log(*args):
     print(*args, flush=True)
 
 
-def timed(fn, repeats=REPEATS):
+def timed(fn, repeats=REPEATS, warm_up=True):
     """-> (last result, median milliseconds) of fn() on the card, timed
-    with CUDA events after one warm-up call."""
-    out = fn()
+    with CUDA events, after one warm-up call unless told otherwise."""
+    out = fn() if warm_up else None
     times = []
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
@@ -75,40 +100,81 @@ def compare(got, want, label):
 
 
 def ptxas_report(build_log):
-    """-> {instantiation flags: 'N registers, ... spill ...'} from the
-    compiler's -Xptxas=-v output."""
-    out, flags = {}, None
+    """-> {(flags, nc): 'N registers, ... spill ...'} from the compiler's
+    -Xptxas=-v output of one library."""
+    out, inst = {}, None
     for line in build_log.splitlines():
-        m = re.search(r"path_kernelILi(\d+)E", line)
+        m = re.search(r"path_kernelILi(\d+)ELi(\d+)E", line)
         if m:
-            flags = int(m.group(1))
-        if flags is None:
+            inst = (int(m.group(1)), int(m.group(2)))
+        if inst is None:
             continue
         if "spill" in line or "stack frame" in line:
-            out[flags] = line.strip()
+            out[inst] = line.strip()
         elif "Used" in line and "registers" in line:
             regs = re.search(r"Used (\d+) registers", line).group(1)
-            out[flags] = f"{regs} registers; {out.get(flags, '')}"
+            out[inst] = f"{regs} registers; {out.get(inst, '')}"
     return out
 
 
-def run_path(mi, pk, name, make_dict, flags, mean_band):
-    """Parity, main-path render and timing of one path -> its entry of
-    the kernels line."""
-    label = f"path_kernel[{pk.flag_names(flags)}]"
+def bound(pk, tables, stats, n_stats, n_paths):
+    """-> (ms, 'operations' or 'bytes'): the least time the card could
+    take for n_paths paths, from the per-lane work counted by the plain
+    version (``stats`` over ``n_stats`` lanes of the same scene)."""
+    per = {k: v / n_stats for k, v in stats.items()}
+    nc = tables.nc
+    spectral = nc == pk.MODE_NC["spectral"]
+    shade = SHADE_FLOPS + SHADE_FLOPS_PER_CHANNEL * nc
+    env = ENV_ESCAPE_FLOPS, ENV_NEE_FLOPS
+    path = PATH_FLOPS
+    if spectral:
+        path += SPECTRAL_PATH_FLOPS_PER_CHANNEL * nc
+        shade += SPECTRAL_SHADE_FLOPS_PER_CHANNEL * nc
+        env = tuple(e + SPECTRAL_ENV_FLOPS_PER_CHANNEL * nc for e in env)
+    flops = n_paths * (
+        path + per.get("rays", 0.0) * (tables.n_faces * FACE_FLOPS
+                                       + tables.n_spheres * SPHERE_FLOPS)
+        + per.get("shadow_faces", 0.0) * FACE_FLOPS
+        + per.get("shadow_spheres", 0.0) * SPHERE_FLOPS
+        + per.get("shaded", 0.0) * shade
+        + per.get("ggx", 0.0) * (GGX_FLOPS + GGX_FLOPS_PER_CHANNEL * nc)
+        + per.get("escaped", 0.0) * env[0]
+        + per.get("env_nee", 0.0) * env[1])
+    table_bytes = sum(t.numel() * t.element_size() for t in tables.tensors())
+    nbytes = 12 * n_paths + table_bytes
+    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+    log(f"  bound: {flops / n_paths:.0f} FLOP/path, {flops / 1e9:.3f} GFLOP "
+        f"-> {t_ops * 1e3:.4f} ms; {nbytes / 1e6:.3f} MB -> "
+        f"{t_bytes * 1e3:.4f} ms")
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
+
+
+def run_path(mi, pk, name, variant, make_dict, flags, mean_band):
+    """Parity, main-path render and timing of one path under ``variant``
+    -> its entry of the kernels line."""
+    mi.set_variant(variant)
+    nc = pk.MODE_NC[mi.variant_config().color_mode]
+    label = pk.kernel_name(flags, nc)
+    t_path = time.perf_counter()
 
     # ---- parity: kernel against its plain version on the same tables ----
     scene = mi.load_dict(make_dict(PARITY_WIDTH, PARITY_WIDTH, PARITY_SPP,
                                    MAX_DEPTH))
-    if scene.tables.flags & pk.TEMPLATE_FLAGS != flags:
+    if scene.device.type != "cuda":
+        raise SystemExit(f"{name}: the default device is {scene.device}")
+    if (scene.tables.flags & pk.TEMPLATE_FLAGS, scene.tables.nc) \
+            != (flags, nc):
         raise SystemExit(f"{name}: scene tables carry flags "
-                         f"{scene.tables.flags}, not {flags}")
+                         f"{scene.tables.flags}, nc {scene.tables.nc}")
     cam = pk.camera_row(scene.sensors[0], scene.device)
     args = (scene.tables, cam, SEED, 0, PARITY_SPP, PARITY_WIDTH,
             PARITY_WIDTH, MAX_DEPTH, scene.integrator.rr_depth)
     got = pk.path_radiance(*args)
     torch.cuda.synchronize()
-    want = pk.path_radiance_reference(*args)
+    stats = {}
+    want = pk.path_radiance_reference(*args, stats=stats)
     lane_rel = ((got - want).abs() / want.abs().clamp(min=1e-3)).amax(0)
     beyond = float((lane_rel > PIX_RTOL).float().mean())
     log(f"{name} parity {PARITY_WIDTH}^2 x {PARITY_SPP} spp, depth "
@@ -125,7 +191,7 @@ def run_path(mi, pk, name, make_dict, flags, mean_band):
     pk.reset_launch_counts()
     img = integrator.render(scene, seed=0, spp=SPP)
     torch.cuda.synchronize()
-    launches = pk.path_radiance.launches_by_flags[flags]
+    launches = pk.path_radiance.launches_by_kernel[(flags, nc)]
     if integrator.last_engine != "kernel":
         raise SystemExit(f"{name} left the kernel: {integrator.engine_reason}")
     if launches < 1:
@@ -137,7 +203,8 @@ def run_path(mi, pk, name, make_dict, flags, mean_band):
         raise SystemExit(f"{name} image is wrong: {tuple(img.shape)} "
                          f"{img.device} mean {mean}")
     log(f"{name}: {WIDTH}^2 x {SPP} spp, depth {MAX_DEPTH}: {launches} "
-        f"launch(es) of {label}, image mean {mean:.6f}")
+        f"launch(es) of {label}, image mean {mean:.6f}, channel means "
+        f"{[round(float(x), 6) for x in img.mean(dim=(0, 1))]}")
 
     n_paths = WIDTH * WIDTH * SPP
     _, render_ms = timed(lambda: integrator.render(scene, seed=0, spp=SPP))
@@ -145,22 +212,32 @@ def run_path(mi, pk, name, make_dict, flags, mean_band):
     args = (scene.tables, cam, 0, 0, SPP, WIDTH, WIDTH, MAX_DEPTH,
             integrator.rr_depth)
     k_rad, kernel_ms = timed(lambda: pk.path_radiance(*args))
-    p_rad, plain_ms = timed(lambda: pk.path_radiance_reference(*args))
+    # the plain version is the kernel's reference, not a yardstick of
+    # speed: one timed call
+    p_rad, plain_ms = timed(lambda: pk.path_radiance_reference(*args),
+                            repeats=1, warm_up=False)
+    bound_ms, bound_by = bound(pk, scene.tables, stats,
+                               PARITY_WIDTH * PARITY_WIDTH * PARITY_SPP,
+                               n_paths)
     log(f"{name} render (kernel, end to end): {render_ms:.3f} ms median of "
         f"{REPEATS}, {n_paths / render_ms / 1e3:.3f} Mpaths/s")
     log(f"{name} kernel: {kernel_ms:.3f} ms, {n_paths / kernel_ms / 1e3:.3f} "
-        f"Mpaths/s; plain version: {plain_ms:.3f} ms, "
-        f"{n_paths / plain_ms / 1e3:.3f} Mpaths/s")
+        f"Mpaths/s, bound {bound_ms:.4f} ms ({bound_by}), "
+        f"{100 * bound_ms / kernel_ms:.2f}% of bound; plain version: "
+        f"{plain_ms:.3f} ms, {n_paths / plain_ms / 1e3:.3f} Mpaths/s")
     compare(develop(k_rad, WIDTH, SPP), develop(p_rad, WIDTH, SPP),
             f"{name} main-path shape")
+    log(f"{name}: {time.perf_counter() - t_path:.1f} s")
     return {"name": label, "route": "cuda",
             "source": "mitsuba2_tpu_torch/csrc/path_kernel.cu",
             "replaces": "mitsuba2_tpu/ops/megakernel.py:365",
             "launches": launches, "max_abs_err": max_abs_err,
-            "ms": kernel_ms, "plain_ms": plain_ms}
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing is run on the CPU "
               "instead", file=sys.stderr)
@@ -179,22 +256,30 @@ def main():
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}"
         f"; nvcc: {nvcc or 'not found'}")
 
-    # ---- build ----
+    # ---- build: one library per color mode, in parallel ----
     t0 = time.perf_counter()
-    build.load("path_kernel")
-    log(f"build: path_kernel in {time.perf_counter() - t0:.2f} s")
-    report = ptxas_report(build.build_logs.get("path_kernel", ""))
-    for flags in sorted(report):
-        log(f"  ptxas path_kernel[{pk.flag_names(flags)}]: {report[flags]}")
-
-    mi.set_variant("scalar_rgb")
-    mi.set_device("cuda")
+    pk.build_all_libraries()
+    log(f"build: path_kernel, 3 color modes x 16 instantiations, in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for nc in (3, 4, 1):
+        lib = "path_kernel" + build._tag(pk.library_defines(nc))
+        report = ptxas_report(build.build_logs.get(lib, ""))
+        for inst in sorted(report):
+            log(f"  ptxas {pk.kernel_name(*inst)}: {report[inst]}")
 
     full = pk.HAS_SPHERES | pk.HAS_ENV | pk.HAS_GGX | pk.HAS_CHECKER
-    kernels = [run_path(mi, pk, "cornell", cornell_box_dict, 0, (0.05, 1.0)),
-               run_path(mi, pk, "matpreview", matpreview_dict, full,
-                        (0.2, 5.0))]
+    paths = [
+        ("cornell", "scalar_rgb", cornell_box_dict, 0, (0.05, 1.0)),
+        ("matpreview", "scalar_rgb", matpreview_dict, full, (0.2, 5.0)),
+        ("cornell_spectral", "scalar_spectral", cornell_box_dict, 0,
+         (0.05, 1.0)),
+        ("matpreview_spectral", "scalar_spectral", matpreview_dict, full,
+         (0.2, 5.0)),
+        ("cornell_mono", "scalar_mono", cornell_box_dict, 0, (0.05, 1.0)),
+    ]
+    kernels = [run_path(mi, pk, *p) for p in paths]
 
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -2,9 +2,11 @@
 
 Same surface as the JAX package: ``set_variant``, ``load_dict`` and
 ``scene.integrator.render(scene, seed=, spp=)``, plus ``set_device``, which
-names the torch device every scene table and buffer lives on. Kernels are
-hand-written CUDA (``csrc/``), built with nvcc at first use; each has a
-plain PyTorch version beside it, which is what runs for tables on the CPU.
+names the torch device every scene table and buffer lives on: ``cuda``
+unless the caller asks for another (``set_device("cpu")``, as the tests
+do). Kernels are hand-written CUDA (``csrc/``), built with nvcc at first
+use; each has a plain PyTorch version beside it, which is what runs for
+tables on the CPU.
 This package never imports ``jax`` or ``mitsuba2_tpu``.
 """
 

@@ -2,7 +2,8 @@
 
 Parity: mitsuba.core.xml.load_dict (src/libcore/python/xml_v.cpp:56,100-226):
 a nested dict with "type" keys instantiates plugins; "rgb" sub-dicts become
-colors; "id" + {"type": "ref", "id": ...} are named references.
+colors and "spectrum" sub-dicts with a number uniform spectra; "id" +
+{"type": "ref", "id": ...} are named references.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ class ColorValue:
     reflectance wrapping (xml.cpp:774-850)."""
 
     def __init__(self, kind, payload):
-        self.kind = kind        # 'rgb'
+        self.kind = kind        # 'rgb' | 'spectrum-uniform'
         self.payload = payload
 
 
@@ -53,6 +54,11 @@ def _instantiate(d: dict, refs: dict):
 
     if type_name == "rgb":
         return ColorValue("rgb", np.asarray(d["value"], np.float32))
+    if type_name == "spectrum":
+        if not isinstance(d["value"], (int, float)):
+            raise NotImplementedError(
+                "spectrum curves are not ported; only a uniform value")
+        return ColorValue("spectrum-uniform", float(d["value"]))
     if type_name == "ref":
         rid = d["id"]
         if rid not in refs:

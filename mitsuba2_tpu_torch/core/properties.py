@@ -94,6 +94,18 @@ class Properties:
             v = default_value
         return _tex.as_texture(v)
 
+    def texture_d65(self, k, default_value=None):
+        """Emitter radiance: as ``texture``, but rgb values become
+        D65-weighted spectra in spectral variants (xml.cpp
+        create_texture_from_rgb with within_emitter=true)."""
+        from ..models import textures as _tex
+        v = self.get(k, None)
+        if v is None:
+            if default_value is None:
+                raise KeyError(f"texture property '{k}' missing")
+            v = default_value
+        return _tex.as_texture(v, within_emitter=True)
+
     def objects(self, mark=True):
         """All nested plugin-object properties as (key, object) pairs."""
         from .object import Object

@@ -1,23 +1,31 @@
 // Path kernel (sm_90a).
 //
-// Replaces mitsuba2_tpu/ops/megakernel.py::_path_kernel in its K1a scope
-// (triangle meshes of at most 1024 faces, constant-albedo diffuse BSDFs,
-// constant area lights, rgb, box filter) and its matpreview scopes: analytic
-// spheres (K1b), one lat-long envmap with CDF-inverted NEE and escape MIS
-// (K1c), isotropic GGX rough conductors with visible-normal sampling and
-// checkerboard albedo (K1d). It computes exactly the plain PyTorch version
-// path_radiance_reference in ops/path_kernel.py: the same TEA keys and
-// sampler dimensions, the same Woop and sphere tests, the same NEE arms,
-// MIS, roulette and spawn offsets, so the two agree lane by lane up to
-// float rounding.
+// Replaces mitsuba2_tpu/ops/megakernel.py::_path_kernel (megakernel.py:365)
+// in its K1a scope (triangle meshes of at most 1024 faces, constant-albedo
+// diffuse BSDFs, constant area lights, box filter), its matpreview scopes:
+// analytic spheres (K1b), one lat-long envmap with CDF-inverted NEE and
+// escape MIS (K1c), isotropic GGX rough conductors with visible-normal
+// sampling and checkerboard albedo (K1d), and its color modes (K1e): rgb,
+// spectral hero-wavelength transport (megakernel.py:287-324 hero
+// wavelengths and sigmoid reflectances, :436-463 D65 and CMF lookups,
+// :1480-1503, :1553-1558, :1687-1690, :1713-1714 spectral emission, env
+// and albedo, :1567-1587 conductor IOR quadratics, :1378-1393 and
+// :1979-1986 the CIE develop) and mono luminance. It computes exactly the
+// plain PyTorch version path_radiance_reference in ops/path_kernel.py: the
+// same TEA keys and sampler dimensions, the same Woop and sphere tests, the
+// same NEE arms, MIS, roulette and spawn offsets, so the two agree lane by
+// lane up to float rounding.
 //
-// What bounds it on the H100: not bytes. A lane reads 12 floats of tables
-// per face it tests, a few hundred bytes of attributes and env texels per
-// bounce (which stay in L2), and writes 12 bytes at the end; the path state
-// stays in registers. The time goes to the O(F) face loop that every ray
-// and every shadow ray runs, to the shading math, and to divergence: lanes
-// of one warp end their paths at different depths and take different
-// branches (lobe, NEE arm, escape).
+// What bounds it on the H100: operations, not bytes. A lane writes 12
+// bytes (50 MB for the 4,194,304 paths of a 256x256x64 render, about 15 us
+// at 3.35 TB/s) and reads its tables from shared memory and L2; the path
+// state stays in registers. The time goes to the O(F) face loop that every
+// ray and every shadow ray runs (about 15 FLOPs per face test), to the
+// shading math (a few hundred FLOPs per bounce, four channels of it in
+// spectral mode), and to divergence: lanes of one warp end their paths at
+// different depths and take different branches (lobe, NEE arm, escape).
+// chip_smoke.py counts the FLOPs a render's paths need and prints the
+// bound, max(FLOPs / 67 TFLOP/s, bytes / 3.35 TB/s), beside the time.
 //
 // What the design does about that, in this first version:
 // - One thread per lane and the whole path in one launch, the bounce loop
@@ -28,7 +36,18 @@
 //   kernel's static has_spheres / has_env / has_ggx / has_checker gates),
 //   so a scene pays only for the features it has. With no flag set (the
 //   Cornell box) the kernel is the K1a kernel: Woop rows and the first
-//   three attribute float4s of every face staged in shared memory.
+//   three attribute float4s of every face (four in spectral mode, for the
+//   emitter's D65 scale) staged in shared memory.
+// - The color mode is the template parameter NC (3 rgb, 4 hero wavelengths,
+//   1 luminance); one library is built per mode (-DPK_NC), each with its
+//   16 flag instantiations. Throughput and radiance are NC floats in
+//   registers. The hero wavelengths, their D65 values and normalized
+//   positions are computed once per path (the TPU kernel re-derived them
+//   from the key on every bounce), and each table value is a direct two-tap
+//   lerp of the 96-row D65 / CMF table, which sits in shared memory (the
+//   lanes of a warp read different rows; constant memory would serialize
+//   them). The CIE develop to linear sRGB is the path's epilogue, run by
+//   every lane, so the output is 3 floats per lane in every mode.
 // - With any flag set, only what every ray loops over is staged in shared
 //   memory: the Woop rows and the sphere rows. All threads of a warp read
 //   the same face at the same step of the loop, so each read is a
@@ -42,12 +61,19 @@
 //   range and closer than the best so far; the shadow loops stop at the
 //   first occluder.
 // Ray sorting, a BVH, occupancy tuning and warp-coherent scheduling are
-// later work. Math is exact (atan2f, acosf, sinf, cosf; no fast-math).
+// later work. Math is exact (atan2f, acosf, sinf, cosf, logf, expf; no
+// fast-math).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "rng.cuh"
+
+// color channels of this library's instantiations: 3 rgb, 4 spectral
+// (hero wavelengths), 1 mono (ops/path_kernel.py library_defines)
+#ifndef PK_NC
+#error "build with -DPK_NC=3, 4 or 1"
+#endif
 
 #define BLOCK 128
 #define BIG 3.0e38f
@@ -65,6 +91,7 @@ struct PathArgs {
     const float* env_cond;    // (Hs, Ws)
     const float* env_pmf;     // (Hs, Ws)
     const float* env_rot;     // (18,) to_world 3x3, then its transpose
+    const float4* spd;        // (96,) [D65, CMF x, y, z] (spectral)
     const float* cam;         // (16,)
     float* out;               // (3, n_lanes)
     int n_faces, n_lights, n_spheres;
@@ -72,7 +99,7 @@ struct PathArgs {
     float p_env;
     uint32_t seed, sample_base;
     int spp_pass, width, height, max_depth, rr_depth, n_lanes;
-    int flags;
+    int flags, nc;
 };
 
 namespace {
@@ -81,12 +108,39 @@ namespace {
 constexpr int F_SPHERES = 1, F_ENV = 2, F_GGX = 4, F_CHECKER = 8;
 // attribute float4s per face / sphere (ops/path_kernel.py FA / 4)
 constexpr int FA4 = 10;
+// rows of the D65 / CMF table (ops/path_kernel.py SPD_ROWS)
+constexpr int SPD_ROWS = 96;
 
 // float32 roundings of the reference's double constants
 constexpr float INV_2PI = (float)(0.5 / 3.141592653589793);
 constexpr float INV_PI = (float)(1.0 / 3.141592653589793);
 constexpr float TWO_PI = (float)(2.0 * 3.141592653589793);
 constexpr float TWO_PI2 = (float)(2.0 * 3.141592653589793 * 3.141592653589793);
+constexpr float WL_MIN = 360.0f, WL_SPAN = 470.0f;
+constexpr float SPD_STEP = (float)(94.0 / 470.0);
+
+// Component c (a compile-time constant after unrolling) of a float4.
+__device__ __forceinline__ float comp(const float4& v, int c) {
+    return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// Jakob-Hanika sigmoid reflectance at normalized wavelength x.
+__device__ __forceinline__ float sigmoid_poly(float c0, float c1, float c2,
+                                              float x) {
+    const float t = (c0 * x + c1) * x + c2;
+    return 0.5f + t / (2.0f * sqrtf(1.0f + t * t));
+}
+
+// Column `col` of the D65 / CMF table at wavelength wl (nm): a two-tap
+// lerp (megakernel.py:436-463).
+__device__ __forceinline__ float spd_lerp(const float4* spd, float wl,
+                                          int col) {
+    const float tpos = (wl - WL_MIN) * SPD_STEP;
+    const float i0 = fminf(fmaxf(floorf(tpos), 0.0f), 93.0f);
+    const float w1 = fminf(fmaxf(tpos - i0, 0.0f), 1.0f);
+    const int i = (int)i0;
+    return comp(spd[i], col) * (1.0f - w1) + comp(spd[i + 1], col) * w1;
+}
 
 // Woop row of one face: three float4 [Wu | Wv | Wz].
 __device__ __forceinline__ float dot_o(float4 w, float ox, float oy, float oz) {
@@ -163,9 +217,10 @@ __device__ __forceinline__ void env_uv(const PathArgs& a, float dx, float dy,
     st = sqrtf(fmaxf(1.0f - dy * dy, 1e-12f));
 }
 
-// Bilinear lat-long fetch with u and v wrapping (megakernel.py:1219).
-__device__ __forceinline__ void env_fetch(const PathArgs& a, float u,
-                                          float v, float* rgb) {
+// Bilinear lat-long fetch of the four texel planes with u and v wrapping
+// (megakernel.py:1219).
+__device__ __forceinline__ float4 env_fetch(const PathArgs& a, float u,
+                                           float v) {
     const int W = a.env_w, H = a.env_h;
     const float fu = u * (float)W - 0.5f;
     const float fv = v * (float)H - 0.5f;
@@ -178,15 +233,18 @@ __device__ __forceinline__ void env_fetch(const PathArgs& a, float u,
     const float4 t10 = __ldg(a.env + iv1 * W + iu0);
     const float4 t01 = __ldg(a.env + iv0 * W + iu1);
     const float4 t11 = __ldg(a.env + iv1 * W + iu1);
-    const float c0x = (1.0f - wv) * t00.x + wv * t10.x;
-    const float c0y = (1.0f - wv) * t00.y + wv * t10.y;
-    const float c0z = (1.0f - wv) * t00.z + wv * t10.z;
-    const float c1x = (1.0f - wv) * t01.x + wv * t11.x;
-    const float c1y = (1.0f - wv) * t01.y + wv * t11.y;
-    const float c1z = (1.0f - wv) * t01.z + wv * t11.z;
-    rgb[0] = (1.0f - wu) * c0x + wu * c1x;
-    rgb[1] = (1.0f - wu) * c0y + wu * c1y;
-    rgb[2] = (1.0f - wu) * c0z + wu * c1z;
+    float4 out;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+        const float c0 = (1.0f - wv) * comp(t00, c) + wv * comp(t10, c);
+        const float c1 = (1.0f - wv) * comp(t01, c) + wv * comp(t11, c);
+        const float r = (1.0f - wu) * c0 + wu * c1;
+        if (c == 0) out.x = r;
+        else if (c == 1) out.y = r;
+        else if (c == 2) out.z = r;
+        else out.w = r;
+    }
+    return out;
 }
 
 // Solid-angle density of the env NEE arm toward world direction d.
@@ -201,11 +259,11 @@ __device__ __forceinline__ float env_pdf(const PathArgs& a, float dx,
         / fmaxf(TWO_PI2 * st, 1e-8f);
 }
 
-// CDF-inverted env sample -> world direction, solid-angle pdf, radiance.
+// CDF-inverted env sample -> world direction, solid-angle pdf, texel.
 __device__ __forceinline__ void env_sample(const PathArgs& a, float u1,
                                            float u2, float j1, float j2,
                                            float& dx, float& dy, float& dz,
-                                           float& pdf, float* rgb) {
+                                           float& pdf, float4& texel) {
     const int ws = a.env_ws, hs = a.env_hs;
     const int iv = min(count_le(a.env_marg, hs, u1), hs - 1);
     const int iu = min(count_le(a.env_cond + iv * ws, ws, u2), ws - 1);
@@ -219,7 +277,7 @@ __device__ __forceinline__ void env_sample(const PathArgs& a, float u1,
     dy = cosf(theta);
     dz = -st * cosf(phi);
     pdf = pmf * (float)(ws * hs) / fmaxf(TWO_PI2 * st, 1e-8f);
-    env_fetch(a, uu, vv, rgb);
+    texel = env_fetch(a, uu, vv);
     if (a.env_has_rot) rot3(a.env_rot, dx, dy, dz);
 }
 
@@ -255,27 +313,37 @@ __device__ __forceinline__ float ggx_g1(float cz, float a) {
     return 2.0f / (1.0f + sqrtf(1.0f + a2 * t2));
 }
 
-template <int FLAGS>
+template <int FLAGS, int NC>
 __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
     constexpr bool SPH = FLAGS & F_SPHERES;
     constexpr bool ENV = FLAGS & F_ENV;
     constexpr bool GGX = FLAGS & F_GGX;
     constexpr bool CHK = FLAGS & F_CHECKER;
+    constexpr bool SPEC = NC == 4;
     // attributes from global memory, spheres in shared memory
     constexpr bool WIDE = FLAGS != 0;
+    // attribute float4s staged per face when !WIDE: [ng, lpdf_w]
+    // [albedo, kind] [Le, alpha], and [eta, le_scale] in spectral mode
+    constexpr int STAGE = SPEC ? 4 : 3;
     const int n_faces = a.n_faces;
     extern __shared__ float4 smem[];
-    float4* s_woop = smem;                 // 3 float4 per face
-    // Cornell: [ng, lpdf_w] [albedo, kind] [Le, alpha] per face;
-    // otherwise the sphere rows
-    float4* s_more = smem + 3 * n_faces;
-    for (int i = threadIdx.x; i < 3 * n_faces; i += blockDim.x) {
+    float4* s_spd = smem;                            // SPD_ROWS (spectral)
+    float4* s_woop = smem + (SPEC ? SPD_ROWS : 0);   // 3 float4 per face
+    // Cornell: STAGE attribute float4 per face; otherwise the sphere rows
+    float4* s_more = s_woop + 3 * n_faces;
+    for (int i = threadIdx.x; i < 3 * n_faces; i += blockDim.x)
         s_woop[i] = a.woop[i];
-        if constexpr (!WIDE) s_more[i] = a.fattr[(i / 3) * FA4 + i % 3];
+    if constexpr (!WIDE) {
+        for (int i = threadIdx.x; i < STAGE * n_faces; i += blockDim.x)
+            s_more[i] = a.fattr[(i / STAGE) * FA4 + i % STAGE];
     }
     if constexpr (SPH) {
         for (int i = threadIdx.x; i < a.n_spheres; i += blockDim.x)
             s_more[i] = a.sph[i];
+    }
+    if constexpr (SPEC) {
+        for (int i = threadIdx.x; i < SPD_ROWS; i += blockDim.x)
+            s_spd[i] = a.spd[i];
     }
     __syncthreads();
     const int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -305,8 +373,33 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
     float dz = cam[6] * lx + cam[7] * ly + cam[8] * lz;
     float ox = cam[9], oy = cam[10], oz = cam[11];
 
-    float thr[3] = {1.0f, 1.0f, 1.0f};
-    float res[3] = {0.0f, 0.0f, 0.0f};
+    float thr[NC], res[NC];
+    // spectral: hero wavelengths (nm), their normalized x and D65 values,
+    // constant along the path (megakernel.py:306-324)
+    float wl[NC], xw[NC], d65[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+        thr[c] = 1.0f;
+        res[c] = 0.0f;
+    }
+    if constexpr (SPEC) {
+        float u, u_unused;
+        rng2(key, 1u, u, u_unused);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+            float uc = u + (float)c * (1.0f / NC);
+            uc = uc - floorf(uc);
+            const float arg = 0.8569106254698279f - 1.8275019724092267f * uc;
+            const float ath =
+                0.5f * logf((1.0f + arg) / fmaxf(1.0f - arg, 1e-12f));
+            wl[c] = 538.0f - ath * 138.88888888888889f;
+            const float e = expf(0.0072f * (wl[c] - 538.0f));
+            const float ch = 0.5f * (e + 1.0f / e);
+            thr[c] = 253.82f * ch * ch;     // sensor weight 1 / pdf
+            xw[c] = (wl[c] - WL_MIN) / WL_SPAN * 2.0f - 1.0f;
+            d65[c] = spd_lerp(s_spd, wl[c], 0);
+        }
+    }
     float prev_pdf = 0.0f;      // 0: camera ray, no MIS at the first hit
     const float p_env = a.p_env;
 
@@ -348,10 +441,16 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
                 float w_esc = 1.0f;
                 if (depth > 0 && p_env > 0.0f && prev_pdf > 0.0f)
                     w_esc = mis(prev_pdf, env_pdf(a, dx, dy, dz) * p_env);
-                float u, v, st, L[3];
+                float u, v, st;
                 env_uv(a, dx, dy, dz, u, v, st);
-                env_fetch(a, u, v, L);
-                for (int c = 0; c < 3; ++c) res[c] += w_esc * thr[c] * L[c];
+                const float4 e = env_fetch(a, u, v);
+#pragma unroll
+                for (int c = 0; c < NC; ++c) {
+                    const float L = SPEC
+                        ? sigmoid_poly(e.x, e.y, e.z, xw[c]) * e.w * d65[c]
+                        : comp(e, c);
+                    res[c] += w_esc * thr[c] * L;
+                }
             }
             break;
         }
@@ -363,9 +462,9 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
             a1 = __ldg(A + 1);
             a2 = __ldg(A + 2);
         } else {
-            a0 = s_more[3 * face];
-            a1 = s_more[3 * face + 1];
-            a2 = s_more[3 * face + 2];
+            a0 = s_more[STAGE * face];
+            a1 = s_more[STAGE * face + 1];
+            a2 = s_more[STAGE * face + 2];
         }
         float nx = a0.x, ny = a0.y, nz = a0.z;
         if constexpr (SPH) {
@@ -377,7 +476,6 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
                 nz = (oz + t * dz - c.z) * inv_r;
             }
         }
-        float alb[3] = {a1.x, a1.y, a1.z};
 
         // ---- emission, MIS-weighted against NEE after the camera ----
         const float cos_hit = -(dx * nx + dy * ny + dz * nz);
@@ -388,12 +486,25 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
                 ? t * t * a0.w / fmaxf(cos_hit, 1e-6f) : 0.0f;
             em_w = prev_pdf > 0.0f ? mis(prev_pdf, pdf_l_hit) : 1.0f;
         }
-        res[0] += em_w * thr[0] * a2.x;
-        res[1] += em_w * thr[1] * a2.y;
-        res[2] += em_w * thr[2] * a2.z;
+        if constexpr (SPEC) {
+            // Le = sigmoid(coefficients) * D65 * le_scale; 0 off emitters
+            const float le_scale = WIDE ? __ldg(A + 3).w
+                                        : s_more[STAGE * face + 3].w;
+            if (le_scale != 0.0f) {
+#pragma unroll
+                for (int c = 0; c < NC; ++c)
+                    res[c] += em_w * thr[c]
+                        * (sigmoid_poly(a2.x, a2.y, a2.z, xw[c]) * d65[c]
+                           * le_scale);
+            }
+        } else {
+#pragma unroll
+            for (int c = 0; c < NC; ++c) res[c] += em_w * thr[c] * comp(a2, c);
+        }
         if (depth == a.max_depth - 1) break; // last bounce: emission only
 
-        // ---- checkerboard albedo: parity of floor(u') + floor(v') ----
+        // ---- albedo payload; checkerboard: parity of floor(u') + floor(v')
+        float4 pay = a1;
         if constexpr (CHK) {
             if (a1.w > 1.5f && a1.w < 2.5f) {
                 float bu, bv;
@@ -413,14 +524,14 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
                 const float u2 = a8.x * uu + a8.y * vv + a8.z;
                 const float v2 = a9.x * uu + a9.y * vv + a9.z;
                 const float sum = floorf(u2) + floorf(v2);
-                if (sum - 2.0f * floorf(0.5f * sum) > 0.5f) {
-                    const float4 a5 = __ldg(A + 5);
-                    alb[0] = a5.x;
-                    alb[1] = a5.y;
-                    alb[2] = a5.z;
-                }
+                if (sum - 2.0f * floorf(0.5f * sum) > 0.5f) pay = __ldg(A + 5);
             }
         }
+        float alb[NC];
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+            alb[c] = SPEC ? sigmoid_poly(pay.x, pay.y, pay.z, xw[c])
+                          : comp(pay, c);
         bool is_ggx = false;
         if constexpr (GGX) is_ggx = a1.w > 0.5f && a1.w < 1.5f;
 
@@ -435,19 +546,28 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
         const float tyx = ob, tyy = s + ny * ny * oa, tyz = -ny;
 
         // ---- Russian roulette (path.cpp:133-141) ----
-        float thr_[3] = {thr[0], thr[1], thr[2]};
+        float thr_[NC];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) thr_[c] = thr[c];
         if (depth + 1 > a.rr_depth) {
             float rr_u, rr_unused;
             rng2(key, dim0 + 0u, rr_u, rr_unused);
-            const float q = fminf(fmaxf(fmaxf(thr[0], thr[1]), thr[2]), 0.95f);
+            float mx = thr[0];
+#pragma unroll
+            for (int c = 1; c < NC; ++c) mx = fmaxf(mx, thr[c]);
+            const float q = fminf(mx, 0.95f);
             if (!(rr_u < q)) break;
             const float inv_q = 1.0f / fmaxf(q, 1e-8f);
-            for (int c = 0; c < 3; ++c) thr_[c] = thr[c] * inv_q;
+#pragma unroll
+            for (int c = 0; c < NC; ++c) thr_[c] = thr[c] * inv_q;
         }
 
-        // the incident direction in the local frame (GGX lobes)
+        // the incident direction in the local frame and the conductor's
+        // complex IOR per channel (GGX lobes)
         float wix = 0.0f, wiy = 0.0f, wiz = 1.0f, alpha = 1.0f;
-        float3 eta = {0.0f, 0.0f, 0.0f}, kap = {0.0f, 0.0f, 0.0f};
+        float eta[NC], kap[NC];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) eta[c] = kap[c] = 0.0f;
         if constexpr (GGX) {
             if (is_ggx) {
                 wix = -dx * txx - dy * txy - dz * txz;
@@ -455,8 +575,22 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
                 wiz = fmaxf(-dx * nx - dy * ny - dz * nz, 1e-6f);
                 alpha = fmaxf(a2.w, 1e-3f);
                 const float4 a3 = __ldg(A + 3), a4 = __ldg(A + 4);
-                eta = make_float3(a3.x, a3.y, a3.z);
-                kap = make_float3(a4.x, a4.y, a4.z);
+                if constexpr (SPEC) {
+                    // quadratics in x, clamped to the fit span [x_lo, x_hi]
+                    const float x_lo = a4.w, x_hi = __ldg(A + 5).w;
+#pragma unroll
+                    for (int c = 0; c < NC; ++c) {
+                        const float xc = fminf(fmaxf(xw[c], x_lo), x_hi);
+                        eta[c] = (a3.x * xc + a3.y) * xc + a3.z;
+                        kap[c] = (a4.x * xc + a4.y) * xc + a4.z;
+                    }
+                } else {
+#pragma unroll
+                    for (int c = 0; c < NC; ++c) {
+                        eta[c] = comp(a3, c);
+                        kap[c] = comp(a4, c);
+                    }
+                }
             }
         }
 
@@ -472,11 +606,17 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
                 u_area = (u_sel - p_env) / fmaxf(1.0f - p_env, 1e-8f);
             }
         }
-        float dlx, dly, dlz, dist, pdf_l, lrad[3];
+        float dlx, dly, dlz, dist, pdf_l, lrad[NC];
         if (use_env) {
             float ej1, ej2, epdf;
+            float4 e;
             rng2(key, dim0 + 5u, ej1, ej2);
-            env_sample(a, u_b1, u_b2, ej1, ej2, dlx, dly, dlz, epdf, lrad);
+            env_sample(a, u_b1, u_b2, ej1, ej2, dlx, dly, dlz, epdf, e);
+#pragma unroll
+            for (int c = 0; c < NC; ++c)
+                lrad[c] = SPEC
+                    ? sigmoid_poly(e.x, e.y, e.z, xw[c]) * e.w * d65[c]
+                    : comp(e, c);
             pdf_l = epdf * p_env;
             dist = 1e7f;                     // the whole open segment
         } else {
@@ -501,9 +641,12 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
             const float cos_l = -(dlx * LT[9] + dly * LT[10] + dlz * LT[11]);
             pdf_l = cos_l > 1e-6f
                 ? dist2 * LT[13] / fmaxf(cos_l, 1e-6f) : 0.0f;
-            lrad[0] = LT[14];
-            lrad[1] = LT[15];
-            lrad[2] = LT[16];
+#pragma unroll
+            for (int c = 0; c < NC; ++c)
+                lrad[c] = SPEC
+                    ? sigmoid_poly(LT[14], LT[15], LT[16], xw[c]) * d65[c]
+                        * LT[17]
+                    : LT[14 + c];
         }
         const float cos_s = dlx * nx + dly * ny + dlz * nz;
         if (pdf_l > 0.0f && cos_s > 0.0f) {
@@ -529,9 +672,10 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
             if (!occluded) {
                 // BSDF toward the light: f * cos (albedo included) and pdf
                 float pdf_bsdf = fmaxf(cos_s, 0.0f) / PI_F;
-                float fcos[3];
+                float fcos[NC];
                 const float fd = cos_s / PI_F;
-                for (int c = 0; c < 3; ++c) fcos[c] = alb[c] * fd;
+#pragma unroll
+                for (int c = 0; c < NC; ++c) fcos[c] = alb[c] * fd;
                 if constexpr (GGX) {
                     if (is_ggx) {
                         const float wox = dlx * txx + dly * txy + dlz * txz;
@@ -551,16 +695,15 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
                             D * (g1i * ggx_g1(fmaxf(woz, 1e-6f), alpha))
                             / fmaxf(4.0f * wiz, 1e-20f);
                         pdf_bsdf = g1i * D / fmaxf(4.0f * wiz, 1e-20f);
-                        fcos[0] = alb[0] * spec
-                            * fresnel_cond(ci_h, eta.x, kap.x);
-                        fcos[1] = alb[1] * spec
-                            * fresnel_cond(ci_h, eta.y, kap.y);
-                        fcos[2] = alb[2] * spec
-                            * fresnel_cond(ci_h, eta.z, kap.z);
+#pragma unroll
+                        for (int c = 0; c < NC; ++c)
+                            fcos[c] = alb[c] * spec
+                                * fresnel_cond(ci_h, eta[c], kap[c]);
                     }
                 }
                 const float base = mis(pdf_l, pdf_bsdf) / fmaxf(pdf_l, 1e-20f);
-                for (int c = 0; c < 3; ++c)
+#pragma unroll
+                for (int c = 0; c < NC; ++c)
                     res[c] += thr_[c] * base * fcos[c] * lrad[c];
             }
         }
@@ -607,19 +750,23 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
             ok_lobe = wz > 1e-6f && wm > 0.0f;
             const float g1o = ggx_g1(fmaxf(wz, 1e-6f), alpha);
             const float cm = fmaxf(wm, 0.0f);
-            thr[0] = thr_[0] * (alb[0] * fresnel_cond(cm, eta.x, kap.x) * g1o);
-            thr[1] = thr_[1] * (alb[1] * fresnel_cond(cm, eta.y, kap.y) * g1o);
-            thr[2] = thr_[2] * (alb[2] * fresnel_cond(cm, eta.z, kap.z) * g1o);
+#pragma unroll
+            for (int c = 0; c < NC; ++c)
+                thr[c] = thr_[c]
+                    * (alb[c] * fresnel_cond(cm, eta[c], kap[c]) * g1o);
         } else {
             // cosine-weighted diffuse
             concentric(u_c1, u_c2, wx, wy);
             wz = sqrtf(fmaxf(1.0f - wx * wx - wy * wy, 0.0f));
             bsdf_pdf = wz / PI_F;
             ok_lobe = wz > 0.0f;
-            for (int c = 0; c < 3; ++c) thr[c] = thr_[c] * alb[c];
+#pragma unroll
+            for (int c = 0; c < NC; ++c) thr[c] = thr_[c] * alb[c];
         }
-        if (!(ok_lobe && bsdf_pdf > 0.0f && thr[0] + thr[1] + thr[2] > 0.0f))
-            break;
+        float thr_sum = thr[0];
+#pragma unroll
+        for (int c = 1; c < NC; ++c) thr_sum += thr[c];
+        if (!(ok_lobe && bsdf_pdf > 0.0f && thr_sum > 0.0f)) break;
         dx = wx * txx + wy * tyx + wz * nx;
         dy = wx * txy + wy * tyy + wz * ny;
         dz = wx * txz + wy * tyz + wz * nz;
@@ -629,53 +776,84 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
         oz = pz + nz * eps;
         prev_pdf = bsdf_pdf;
     }
+
+    // ---- epilogue: linear sRGB out, 3 floats per lane ----
+    float out[3];
+    if constexpr (SPEC) {
+        // CIE develop (megakernel.py:1378-1393): CMFs at the hero
+        // wavelengths, averaged over the channels, then XYZ -> sRGB
+        float xyz[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+            const float ok = wl[c] >= WL_MIN && wl[c] <= WL_MIN + WL_SPAN
+                ? 1.0f : 0.0f;
+#pragma unroll
+            for (int k = 0; k < 3; ++k)
+                xyz[k] += spd_lerp(s_spd, wl[c], 1 + k) * ok * res[c];
+        }
+#pragma unroll
+        for (int k = 0; k < 3; ++k) xyz[k] *= 1.0f / NC;
+        out[0] = 3.240479f * xyz[0] + -1.537150f * xyz[1]
+            + -0.498535f * xyz[2];
+        out[1] = -0.969256f * xyz[0] + 1.875991f * xyz[1]
+            + 0.041556f * xyz[2];
+        out[2] = 0.055648f * xyz[0] + -0.204043f * xyz[1]
+            + 1.057311f * xyz[2];
+    } else {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) out[k] = res[NC == 1 ? 0 : k];
+    }
     // 64-bit offsets: 2 * n_lanes overflows int from 2^30 lanes on
     const size_t n = (size_t)a.n_lanes;
-    a.out[lane] = res[0];
-    a.out[n + lane] = res[1];
-    a.out[2 * n + lane] = res[2];
+    a.out[lane] = out[0];
+    a.out[n + lane] = out[1];
+    a.out[2 * n + lane] = out[2];
 }
 
-template <int FLAGS>
+template <int FLAGS, int NC>
 int launch(const PathArgs& a, cudaStream_t stream) {
-    // Cornell: Woop rows and three attribute float4s per face; otherwise
-    // Woop rows and the sphere rows
-    const size_t smem = FLAGS == 0
-        ? (size_t)a.n_faces * 6 * sizeof(float4)
-        : ((size_t)a.n_faces * 3 + (size_t)a.n_spheres) * sizeof(float4);
+    // Cornell: Woop rows and STAGE attribute float4s per face; otherwise
+    // Woop rows and the sphere rows; the SPD table first in spectral mode
+    constexpr size_t stage = NC == 4 ? 4 : 3;
+    const size_t smem = ((NC == 4 ? (size_t)SPD_ROWS : 0)
+        + (FLAGS == 0 ? (size_t)a.n_faces * (3 + stage)
+                      : (size_t)a.n_faces * 3 + (size_t)a.n_spheres))
+        * sizeof(float4);
     cudaError_t err = cudaFuncSetAttribute(
-        path_kernel<FLAGS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        path_kernel<FLAGS, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
     const int grid = (a.n_lanes + BLOCK - 1) / BLOCK;
-    path_kernel<FLAGS><<<grid, BLOCK, smem, stream>>>(a);
+    path_kernel<FLAGS, NC><<<grid, BLOCK, smem, stream>>>(a);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry point: launches the instantiation of args->flags, one thread per
-// lane, on `stream` and returns cudaGetLastError() (0 when the launch was
+// C entry point: launches the instantiation of args->flags in this
+// library's color mode (args->nc must be PK_NC), one thread per lane, on
+// `stream`, and returns cudaGetLastError() (0 when the launch was
 // accepted).
 extern "C" int path_render(const PathArgs* args, void* stream) {
     const cudaStream_t s = (cudaStream_t)stream;
+    if (args->nc != PK_NC) return (int)cudaErrorInvalidValue;
     switch (args->flags) {
-        case 0: return launch<0>(*args, s);
-        case 1: return launch<1>(*args, s);
-        case 2: return launch<2>(*args, s);
-        case 3: return launch<3>(*args, s);
-        case 4: return launch<4>(*args, s);
-        case 5: return launch<5>(*args, s);
-        case 6: return launch<6>(*args, s);
-        case 7: return launch<7>(*args, s);
-        case 8: return launch<8>(*args, s);
-        case 9: return launch<9>(*args, s);
-        case 10: return launch<10>(*args, s);
-        case 11: return launch<11>(*args, s);
-        case 12: return launch<12>(*args, s);
-        case 13: return launch<13>(*args, s);
-        case 14: return launch<14>(*args, s);
-        case 15: return launch<15>(*args, s);
+        case 0: return launch<0, PK_NC>(*args, s);
+        case 1: return launch<1, PK_NC>(*args, s);
+        case 2: return launch<2, PK_NC>(*args, s);
+        case 3: return launch<3, PK_NC>(*args, s);
+        case 4: return launch<4, PK_NC>(*args, s);
+        case 5: return launch<5, PK_NC>(*args, s);
+        case 6: return launch<6, PK_NC>(*args, s);
+        case 7: return launch<7, PK_NC>(*args, s);
+        case 8: return launch<8, PK_NC>(*args, s);
+        case 9: return launch<9, PK_NC>(*args, s);
+        case 10: return launch<10, PK_NC>(*args, s);
+        case 11: return launch<11, PK_NC>(*args, s);
+        case 12: return launch<12, PK_NC>(*args, s);
+        case 13: return launch<13, PK_NC>(*args, s);
+        case 14: return launch<14, PK_NC>(*args, s);
+        case 15: return launch<15, PK_NC>(*args, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

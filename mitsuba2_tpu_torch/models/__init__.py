@@ -1,7 +1,7 @@
 """The plugin library. Importing this package registers every plugin."""
 
-from . import (textures, rfilters, bsdfs, emitters, sensors, films,
+from . import (textures, spectra, rfilters, bsdfs, emitters, sensors, films,
                samplers, shapes, integrators)
 
-ALL_PLUGIN_MODULES = [textures, rfilters, bsdfs, emitters, sensors, films,
+ALL_PLUGIN_MODULES = [textures, spectra, rfilters, bsdfs, emitters, sensors, films,
                       samplers, shapes, integrators]

@@ -6,7 +6,21 @@ from __future__ import annotations
 
 from ..core.object import register_plugin
 from ..render.bsdf import BSDF, BSDFFlags
-from ..render.fresnel import lookup_conductor_ior
+from ..render.fresnel import lookup_conductor_curves, lookup_conductor_ior
+
+
+def _spectral_ior(tex, curve=None):
+    """In spectral variants a conductor's constant eta or k becomes a
+    ``ConductorIORSpectrum`` (the sigmoid upsampling is bounded to [0, 1]
+    and would clip k > 1): the curve fit of a named material with
+    tabulated curves, else the quadratic through its rgb anchors. Other
+    textures pass through (mitsuba2_tpu.models.bsdfs._spectral_ior)."""
+    from ..variants import current
+    from .textures import ConstantTexture
+    if not current().is_spectral or type(tex) is not ConstantTexture:
+        return tex
+    from .spectra import ConductorIORSpectrum
+    return ConductorIORSpectrum(tex.rgb, curve=curve)
 
 
 @register_plugin("bsdf", "diffuse")
@@ -34,7 +48,8 @@ class RoughConductor(BSDF):
     ``alpha`` or ``alpha_u``/``alpha_v``, ``distribution`` and
     ``sample_visible`` (mitsuba2_tpu.models.bsdfs.RoughConductor). The
     path kernel takes isotropic GGX with alpha >= 0.01 and samples visible
-    normals."""
+    normals. In spectral variants eta and k are ``ConductorIORSpectrum``
+    curves."""
 
     def __init__(self, props=None):
         super().__init__(props)
@@ -42,12 +57,17 @@ class RoughConductor(BSDF):
         p = props
         material = p.string("material", "none") if p else "none"
         if p is not None and (p.has_property("eta") or p.has_property("k")):
-            self.eta_tex = p.texture("eta", 0.0)
-            self.k_tex = p.texture("k", 1.0)
+            self.eta_tex = _spectral_ior(p.texture("eta", 0.0))
+            self.k_tex = _spectral_ior(p.texture("k", 1.0))
         else:
             eta_rgb, k_rgb = lookup_conductor_ior(material)
-            self.eta_tex = as_texture(list(eta_rgb))
-            self.k_tex = as_texture(list(k_rgb))
+            curves = lookup_conductor_curves(material)
+            self.eta_tex = _spectral_ior(
+                as_texture(list(eta_rgb)),
+                (curves[0], curves[1]) if curves else None)
+            self.k_tex = _spectral_ior(
+                as_texture(list(k_rgb)),
+                (curves[0], curves[2]) if curves else None)
         self.specular_reflectance = p.texture("specular_reflectance", 1.0) \
             if p else ConstantTexture(color=1.0)
         dist = p.string("distribution", "beckmann") if p else "beckmann"

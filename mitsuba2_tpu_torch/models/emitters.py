@@ -20,15 +20,17 @@ from ..render.emitter import Emitter, EmitterFlags
 
 @register_plugin("emitter", "area")
 class AreaEmitter(Emitter):
-    """(area.cpp) one-sided surface emitter with uniform radiance."""
+    """(area.cpp) one-sided surface emitter with uniform radiance: a
+    constant color, or in spectral variants a D65-weighted spectrum
+    (``SRGBD65Spectrum`` or ``D65Spectrum``)."""
 
     def __init__(self, props=None):
         super().__init__(props)
         if props is not None:
-            self.radiance = props.texture("radiance", 1.0)
+            self.radiance = props.texture_d65("radiance", 1.0)
         else:
-            from .textures import ConstantTexture
-            self.radiance = ConstantTexture(color=1.0)
+            from .textures import as_texture
+            self.radiance = as_texture(1.0, within_emitter=True)
         self.m_flags = EmitterFlags.Surface
         if self.radiance.is_spatially_varying():
             self.m_flags |= EmitterFlags.SpatiallyVarying

@@ -1,0 +1,104 @@
+"""Spectrum plugins of the spectral variants (reference: src/spectra/
+{d65,srgb_d65}.cpp, roughconductor.cpp:306-430; counterpart of
+``mitsuba2_tpu.models.spectra``). Each holds the payload the path kernel
+evaluates at its hero wavelengths:
+
+- ``D65Spectrum`` and ``SRGBD65Spectrum``, emitter spectra:
+  value(wl) = sigmoid(_coeff, wl) * d65(wl) * _d65_scale;
+- ``ConductorIORSpectrum``, a conductor's eta or k: a quadratic in the
+  normalized wavelength, clamped to its fit span.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..core import spectrum as spec
+from ..core.object import register_plugin
+from ..render.texture import Texture
+
+
+def _norm_x(wl_nm):
+    """Wavelength in nm -> the sigmoid model's normalized x in [-1, 1]."""
+    return (wl_nm - spec.MTS_CIE_MIN) / (spec.MTS_CIE_MAX
+                                         - spec.MTS_CIE_MIN) * 2.0 - 1.0
+
+
+@register_plugin("spectrum", "d65")
+class D65Spectrum(Texture):
+    """(d65.cpp) the CIE D65 illuminant normalized to luminance
+    ``scale``."""
+
+    def __init__(self, props=None, scale=None):
+        super().__init__(props)
+        if props is not None:
+            scale = props.float_("scale", 1.0)
+        scale = 1.0 if scale is None else float(scale)
+        wl = np.linspace(spec.MTS_CIE_MIN, spec.MTS_CIE_MAX,
+                         spec.MTS_CIE_SAMPLES)
+        norm = spec.trapezoid(spec.CIE_D65_TABLE * spec.CIE_XYZ_TABLE[:, 1],
+                              wl)
+        # unit reflectance (the sigmoid saturates to 1) times d65
+        self._coeff = np.asarray([0.0, 0.0, 1.0e5], np.float32)
+        self._d65_scale = float(scale / norm)
+
+
+@register_plugin("spectrum", "srgb_d65")
+class SRGBD65Spectrum(Texture):
+    """(srgb_d65.cpp) an sRGB color times the D65 illuminant: the emitter
+    spectrum of rgb-specified lights. A color brighter than 1 is fitted
+    at unit maximum and the excess goes into the scale."""
+
+    def __init__(self, props=None, color=None):
+        super().__init__(props)
+        if props is not None:
+            color = props.get("color", props.get("value", 1.0))
+        color = np.asarray(color, np.float32)
+        if color.ndim == 0:
+            color = np.broadcast_to(color, (3,)).copy()
+        from ..render.srgb import srgb_model_fetch
+        peak = max(color.max(), 1.0)
+        self._coeff = np.asarray(
+            srgb_model_fetch(np.clip(color / peak, 0, 1)),
+            np.float32).reshape(3)
+        self._d65_scale = float(float(peak) / spec.d65_y_normalization())
+
+
+# anchor wavelengths of rgb-anchored conductor IOR curves (approximate
+# centroids of the CIE-weighted sRGB primaries)
+IOR_ANCHORS_NM = (600.0, 550.0, 450.0)     # (r, g, b)
+
+
+def _anchored_quad_coeffs(rgb):
+    """(a, b, c) of the quadratic in x through the three (anchor, value)
+    points: exact and unbounded (eta and k exceed 1)."""
+    xs = np.asarray([_norm_x(w) for w in IOR_ANCHORS_NM])
+    return np.polyfit(xs, np.asarray(rgb, np.float64), 2)
+
+
+class ConductorIORSpectrum(Texture):
+    """A conductor's eta or k in spectral variants:
+    value(x) = (a x + b) x + c at the clamped normalized wavelength x.
+
+    ``rgb`` is the material's rgb triple. Without ``curve`` the quadratic
+    runs through the rgb values at the anchor wavelengths and is clamped
+    to the anchors' span; with ``curve`` = (wavelengths_nm, values) it is
+    the least-squares fit to the curve over its whole span, and clamped to
+    that span."""
+
+    def __init__(self, rgb, curve=None):
+        super().__init__(None)
+        if curve is not None:
+            wl_t = np.asarray(curve[0], np.float64)
+            v_t = np.asarray(curve[1], np.float64)
+            wl_d = np.linspace(wl_t[0], wl_t[-1], 128)
+            self._coeff = np.asarray(
+                np.polyfit(_norm_x(wl_d), np.interp(wl_d, wl_t, v_t), 2),
+                np.float32)
+            lo, hi = float(wl_t[0]), float(wl_t[-1])
+        else:
+            self._coeff = np.asarray(_anchored_quad_coeffs(
+                np.asarray(rgb, np.float32).reshape(3)), np.float32)
+            lo, hi = min(IOR_ANCHORS_NM), max(IOR_ANCHORS_NM)
+        self._x_lo = float(_norm_x(lo))
+        self._x_hi = float(_norm_x(hi))

@@ -2,9 +2,13 @@
 
 Each ``csrc/<name>.cu`` compiles with nvcc for sm_90a into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
-seconds). Libraries go into ``mitsuba2_tpu_torch/_build/``, named by a
-hash of every source in ``csrc/`` and the flags, and are built at first
-use. A missing nvcc or a failed compile raises.
+seconds), once per set of ``-D`` defines it is asked for (the path kernel
+is built once per color mode). Libraries go into
+``mitsuba2_tpu_torch/_build/``, named by the defines and a hash of every
+source in ``csrc/``, the flags and the defines, and are built at first
+use, or all at once in parallel nvcc processes with ``build_all``; each
+build's compiler output (ptxas -v: registers, spills) is kept beside its
+library as ``<library>.log``. A missing nvcc or a failed compile raises.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
-# compiler output of each build made in this process, by kernel name
+# compiler output of each build made in this process, by library name
+# (kernel name and defines, e.g. "path_kernel-pk_nc4")
 build_logs: dict[str, str] = {}
 
 
@@ -47,41 +52,93 @@ def find_nvcc() -> str | None:
     return None
 
 
-def library_path(name: str) -> Path:
-    """Where the build of ``csrc/<name>.cu`` for the current sources
-    lives."""
+def _tag(defines) -> str:
+    return "".join(f"-{k.lower()}{v}" for k, v in sorted(defines.items()))
+
+
+def library_path(name: str, defines=None) -> Path:
+    """Where the build of ``csrc/<name>.cu`` with ``defines`` ({macro:
+    value}) for the current sources lives."""
+    defines = defines or {}
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(defines.items())).encode())
     for p in sorted(CSRC.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{name}{_tag(defines)}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library exists already."""
-    out = library_path(name)
+def _start(name: str, defines):
+    """Start nvcc for one library -> (output path, temp path, command,
+    process), or None if the library exists already."""
+    out = library_path(name, defines)
     if out.exists():
-        return out
+        return None
     nvcc = find_nvcc()
     if nvcc is None:
         raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on "
                            "PATH to build the CUDA kernels")
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    cmd = [nvcc, *NVCC_FLAGS,
+           *(f"-D{k}={v}" for k, v in sorted((defines or {}).items())),
+           "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return out, tmp, cmd, proc
+
+
+def _finish(name: str, defines, started) -> Path:
+    out, tmp, cmd, proc = started
+    stdout, stderr = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    build_logs[name] = proc.stdout + proc.stderr
+                           f"{' '.join(cmd)}\n{stdout}{stderr}")
+    log = stdout + stderr
+    build_logs[name + _tag(defines or {})] = log
+    # the compiler's report (ptxas -v) beside the library
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+def build(name: str, defines=None) -> Path:
+    """Compile ``csrc/<name>.cu`` with ``defines`` unless its library
+    exists already."""
+    started = _start(name, defines)
+    if started is None:
+        return library_path(name, defines)
+    return _finish(name, defines, started)
+
+
+def build_all(name: str, define_sets) -> None:
+    """Compile ``csrc/<name>.cu`` once per defines dict, all nvcc
+    processes at once; every process is waited for, and the first failure
+    raises after that."""
     with _LOCK:
-        lib = _LIBS.get(name)
+        started = []
+        try:
+            for d in define_sets:
+                started.append((d, _start(name, d)))
+        finally:
+            errors = []
+            for d, st in started:
+                if st is None:
+                    continue
+                try:
+                    _finish(name, d, st)
+                except RuntimeError as e:
+                    errors.append(e)
+        if errors:
+            raise errors[0]
+
+
+def load(name: str, defines=None) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` with ``defines``, built on
+    first use."""
+    key = name + _tag(defines or {})
+    with _LOCK:
+        lib = _LIBS.get(key)
         if lib is None:
-            lib = _LIBS[name] = ctypes.CDLL(str(build(name)))
+            lib = _LIBS[key] = ctypes.CDLL(str(build(name, defines)))
         return lib

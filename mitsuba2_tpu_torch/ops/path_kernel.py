@@ -6,7 +6,8 @@ Counterpart of ``mitsuba2_tpu/ops/megakernel.py`` for its K1a scope
 BSDFs, constant area lights, rgb, box filter) and the matpreview scopes:
 analytic spheres (K1b), one lat-long envmap with its importance-sampled
 NEE arm (K1c), isotropic GGX rough conductors and checkerboard albedo
-(K1d). One lane is one camera path, lanes are pixel-major
+(K1d), in the rgb, spectral and mono color modes (K1e). One lane is
+one camera path, lanes are pixel-major
 (``lane = pixel * spp_pass + s``), and the estimator is ``_path_kernel``'s
 (path.cpp:92-234): emission with power-2 MIS against area NEE, the
 environment on escape with MIS against env NEE, two-armed NEE (env with
@@ -18,6 +19,15 @@ kernel's TEA streams: lane key ``_tea(seed, _tea(pixel, sample, 4), 4)``,
 film jitter at dim 0, and dims ``2 + 8 * depth + k`` per bounce (k = 0
 roulette, 1-2 NEE, 4 BSDF sample, 5 env NEE jitter), so a port render
 agrees with the reference per pixel at equal seed.
+
+Color modes (``PathTables.nc``): 3 rgb channels; 4 hero wavelengths in
+spectral mode, drawn once per path from the lane key at sampler dim 1,
+with reflectances, emission and env radiance evaluated from sigmoid
+coefficients (render/srgb.py) and the D65 table, conductor IOR from
+clamped quadratics, and the radiance developed at the end of every path
+against the CIE CMFs into linear sRGB (megakernel.py:287-324, 436-463,
+1378-1393); 1 luminance channel in mono mode. The output is (3, n)
+linear sRGB in every mode.
 
 ``path_radiance`` runs the hand-written kernel (csrc/path_kernel.cu) for
 tables on a CUDA device and ``path_radiance_reference`` -- the same
@@ -33,6 +43,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..core import spectrum as spec
 from ..core.rng import sample_tea_32, u32_to_float01
 from ..render.fresnel import fresnel_conductor
 
@@ -48,16 +59,28 @@ _PI = 3.141592653589793
 _CHUNK_ELEMS = 1 << 24
 
 # Per-face (and per-sphere) attribute columns, FA floats a row: ten float4
-# the kernel reads as [ng, lpdf_w] [albedo, kind] [Le, alpha] [eta, 0]
-# [k, 0] [color1, 0] [uv0, duv1] [duv2, 0, 0] [to_uv row 0, 0]
-# [to_uv row 1, 0]. albedo is the diffuse reflectance, the checker's
-# color0 or the conductor's specular reflectance; to_uv rows are
-# [m00 m01 m03] and [m10 m11 m13] of the checker's affine uv transform.
+# the kernel reads as [ng, lpdf_w] [albedo, kind] [Le, alpha]
+# [eta, le_scale] [k, x_lo] [color1, x_hi] [uv0, duv1] [duv2, 0, 0]
+# [to_uv row 0, 0] [to_uv row 1, 0]. albedo is the diffuse reflectance,
+# the checker's color0 or the conductor's specular reflectance; to_uv rows
+# are [m00 m01 m03] and [m10 m11 m13] of the checker's affine uv
+# transform. Colors hold the color mode's payload: rgb, the sigmoid
+# coefficients (spectral) or the luminance repeated (mono). Spectral only:
+# le_scale is the emitter's D65 scale, eta and k hold the IOR quadratics'
+# (a, b, c) and [x_lo, x_hi] their clamp span in normalized wavelength.
 FA = 40
 C_NG, C_LPDF, C_ALB, C_KIND, C_LE, C_ALPHA = 0, 3, 4, 7, 8, 11
 C_ETA, C_K, C_C1, C_UV0, C_DUV1, C_DUV2 = 12, 16, 20, 24, 26, 28
 C_TOUV0, C_TOUV1 = 32, 36
+C_LESCALE, C_XLO, C_XHI = C_ETA + 3, C_K + 3, C_C1 + 3
 KIND_DIFFUSE, KIND_GGX, KIND_CHECKER = 0, 1, 2
+
+# color channels per color mode: rgb, hero wavelengths, luminance
+MODE_NC = {"rgb": 3, "spectral": 4, "mono": 1}
+NC_MODE = {nc: mode for mode, nc in MODE_NC.items()}
+# rows of the D65 / CMF table: 95 CIE samples, padded
+SPD_ROWS = 96
+_WL_MIN, _WL_MAX = 360.0, 830.0
 
 # Scene-content flags: the kernel is instantiated per combination of the
 # first four (the reference kernel's static has_spheres / has_env /
@@ -74,6 +97,22 @@ def flag_names(flags) -> str:
     return "+".join(names) or "cornell"
 
 
+def kernel_name(flags, nc) -> str:
+    """Name of one instantiation, e.g. 'path_kernel[cornell, spectral]'."""
+    return f"path_kernel[{flag_names(flags)}, {NC_MODE[nc]}]"
+
+
+def spd_table() -> np.ndarray:
+    """(96, 4) float32: D65 / 100 in column 0 and the CIE 1931 x, y, z
+    responses in columns 1-3 at 360..830 nm in 5 nm steps, padded by
+    repeating the last row (megakernel.py:2667-2682)."""
+    out = np.zeros((SPD_ROWS, 4), np.float32)
+    out[:95, 0] = spec.CIE_D65_TABLE
+    out[:95, 1:4] = spec.CIE_XYZ_TABLE
+    out[95:] = out[94]
+    return out
+
+
 class PathTables(NamedTuple):
     """The scene's flat table set, all float32 on one device.
 
@@ -85,13 +124,17 @@ class PathTables(NamedTuple):
              _light_table), with the cdf-2.0 padding rows.
     sph      (S, 4): sphere [center, radius]; sattr (S, FA) their
              attribute rows (normal columns unused, identity uv).
-    env      (H, W, 4): lat-long radiance texels [r, g, b, 0], row v.
+    env      (H, W, 4): lat-long radiance texels, row v: [r, g, b, 0],
+             [luminance, 0, 0, 0] (mono) or [c0, c1, c2, scale]
+             (spectral, render/scene.py env_texels).
     env_marg (Hs,), env_cond (Hs, Ws), env_pmf (Hs, Ws): the env NEE
              grid's marginal cdf over rows, per-row conditional cdf and
              joint pmf.
     env_rot  (18,): the env's rigid to_world 3x3 row-major, then its
              transpose.
-    flags    HAS_* bits; p_env the probability of the env NEE arm.
+    spd      (96, 4) in spectral mode (``spd_table``), else (0, 4).
+    flags    HAS_* bits; p_env the probability of the env NEE arm; nc the
+             color channels (``MODE_NC``).
     """
     woop: torch.Tensor
     fattr: torch.Tensor
@@ -103,8 +146,10 @@ class PathTables(NamedTuple):
     env_cond: torch.Tensor
     env_pmf: torch.Tensor
     env_rot: torch.Tensor
+    spd: torch.Tensor
     flags: int = 0
     p_env: float = 0.0
+    nc: int = 3
 
     @property
     def n_faces(self) -> int:
@@ -149,9 +194,9 @@ def build_woop(v0, e1, e2) -> np.ndarray:
 
 
 def _make_tables(woop, fattr, lights, sph, sattr, env, env_rot, p_env,
-                 device) -> PathTables:
+                 device, nc) -> PathTables:
     """numpy tables -> PathTables on ``device``; flags from the content.
-    ``env`` is None or (radiance (H, W, 3), marginal cdf, conditional cdf,
+    ``env`` is None or (texels (H, W, 4), marginal cdf, conditional cdf,
     pmf); ``env_rot`` None or the rigid 3x3 to_world."""
     flags = 0
     sph = np.zeros((0, 4), np.float32) if sph is None else sph
@@ -164,19 +209,19 @@ def _make_tables(woop, fattr, lights, sph, sattr, env, env_rot, p_env,
     if (kinds == KIND_CHECKER).any():
         flags |= HAS_CHECKER
     if env is None:
-        rgb = np.zeros((0, 0, 3), np.float32)
+        texels = np.zeros((0, 0, 4), np.float32)
         marg = np.zeros(0, np.float32)
         cond = pmf = np.zeros((0, 0), np.float32)
         p_env = 0.0
     else:
         flags |= HAS_ENV
-        rgb, marg, cond, pmf = env
-    texels = np.zeros(rgb.shape[:2] + (4,), np.float32)
-    texels[..., :3] = rgb
+        texels, marg, cond, pmf = env
     rot = np.eye(3, dtype=np.float32) if env_rot is None \
         else np.asarray(env_rot, np.float32).reshape(3, 3)
     if env is not None and not np.allclose(rot, np.eye(3), atol=1e-6):
         flags |= HAS_ENV_ROT
+    spd = spd_table() if nc == MODE_NC["spectral"] \
+        else np.zeros((0, 4), np.float32)
 
     def dev(a):
         return torch.as_tensor(np.array(a, np.float32), device=device)
@@ -186,15 +231,15 @@ def _make_tables(woop, fattr, lights, sph, sattr, env, env_rot, p_env,
                       dev(pmf),
                       dev(np.concatenate([rot.reshape(-1),
                                           rot.T.reshape(-1)])),
-                      flags, float(p_env))
+                      dev(spd), flags, float(p_env), nc)
 
 
 def pack_tables(v0, e1, e2, fattr, lights, device, sph=None, sattr=None,
-                env=None, env_rot=None, p_env=0.0) -> PathTables:
+                env=None, env_rot=None, p_env=0.0, nc=3) -> PathTables:
     """Host per-face arrays -> the device table set (see ``_make_tables``
     for ``env`` and ``env_rot``)."""
     return _make_tables(build_woop(v0, e1, e2), fattr, lights, sph, sattr,
-                        env, env_rot, p_env, device)
+                        env, env_rot, p_env, device, nc)
 
 
 def _attr_from_reference(A):
@@ -217,14 +262,15 @@ def _attr_from_reference(A):
                         (C_K, (15, 18)), (C_C1, (18, 21)),
                         (C_UV0, (21, 23)), (C_DUV1, (23, 25)),
                         (C_DUV2, (25, 27)), (C_TOUV0, (27, 30)),
-                        (C_TOUV1, (30, 33))):
+                        (C_TOUV1, (30, 33)), (C_LESCALE, (43, 44)),
+                        (C_XLO, (44, 45)), (C_XHI, (45, 46))):
         out[:, dst:dst + j - i] = rows(i, j)
     return out
 
 
 def tables_from_reference(woop, fattr, lights, cam, device=None, sph=None,
                           sattr=None, env=None, envs=None, env_size=None,
-                          p_env=0.0, env_rot=None):
+                          p_env=0.0, env_rot=None, nc=3):
     """The reference kernel's own tables -> (PathTables, camera row).
 
     Takes numpy arrays in ``DiffusePathMegakernel``'s layouts: ``woop``
@@ -233,8 +279,10 @@ def tables_from_reference(woop, fattr, lights, cam, device=None, sph=None,
     and the (1, 16) camera row; for spheres ``sph`` (8, S) and ``sattr``
     (fa, S) from ``_sattr()``; for an envmap ``env`` (3Wp, Hp), ``envs``
     (2Wsp + 8, Hsp), ``env_size`` = (env_w, env_h, env_ws, env_hs),
-    ``p_env`` and ``env_rot`` (its 9-tuple or None). The never-hit padding
-    faces come along unchanged; padding spheres and texels are dropped."""
+    ``p_env`` and ``env_rot`` (its 9-tuple or None); ``nc`` the color mode's
+    channel count (the spectral env has a fourth, scale, plane). The
+    never-hit padding faces come along unchanged; padding spheres and
+    texels are dropped."""
     woop = np.asarray(woop, np.float32)
     F = np.asarray(fattr).shape[1]
     if woop.shape != (3 * F, 4):
@@ -253,16 +301,19 @@ def tables_from_reference(woop, fattr, lights, cam, device=None, sph=None,
     if env is not None:
         w, h, ws, hs = env_size
         env = np.asarray(env, np.float32)
-        wp = env.shape[0] // 3
-        rgb = np.stack([env[c * wp:c * wp + w, :h].T for c in range(3)], -1)
+        planes = 4 if nc == MODE_NC["spectral"] else 3
+        wp = env.shape[0] // planes
+        texels = np.zeros((h, w, 4), np.float32)
+        for c in range(planes):
+            texels[..., c] = env[c * wp:c * wp + w, :h].T
         envs = np.asarray(envs, np.float32)
         wsp = (envs.shape[0] - 8) // 2
-        env_t = (rgb, envs[2 * wsp, :hs], envs[:ws, :hs].T,
+        env_t = (texels, envs[2 * wsp, :hs], envs[:ws, :hs].T,
                  envs[wsp:wsp + ws, :hs].T)
     dev = torch.device("cpu") if device is None else torch.device(device)
     tables = _make_tables(rows, _attr_from_reference(fattr),
                           np.asarray(lights, np.float32).T, sph_rows,
-                          sattr_rows, env_t, env_rot, p_env, dev)
+                          sattr_rows, env_t, env_rot, p_env, dev, nc)
     cam = torch.as_tensor(np.asarray(cam, np.float32).reshape(16),
                           device=dev)
     return tables, cam
@@ -337,6 +388,61 @@ def _dot3(a, b):
 def _normalized(v, floor=1e-20):
     inv = torch.rsqrt(torch.clamp(_dot3(v, v), min=floor))
     return [x * inv for x in v]
+
+
+def _hero_wavelengths(key, nc):
+    """The path's nc hero wavelengths (nm) and their sensor weights
+    1 / pdf, from the lane key at sampler dim 1 (megakernel.py:306-324:
+    sample_rgb_spectrum with atanh through log and cosh through exp)."""
+    u, _ = _rng2(key, 1)
+    wls, wts = [], []
+    for c in range(nc):
+        uc = u + c * (1.0 / nc)
+        uc = uc - torch.floor(uc)
+        arg = 0.8569106254698279 - 1.8275019724092267 * uc
+        ath = 0.5 * torch.log((1.0 + arg)
+                              / torch.clamp(1.0 - arg, min=1e-12))
+        wl = 538.0 - ath * 138.88888888888889
+        e = torch.exp(0.0072 * (wl - 538.0))
+        ch = 0.5 * (e + 1.0 / e)
+        wls.append(wl)
+        wts.append(253.82 * ch * ch)
+    return wls, wts
+
+
+def _wl_norm(wl):
+    return (wl - _WL_MIN) / (_WL_MAX - _WL_MIN) * 2.0 - 1.0
+
+
+def _sigmoid(c0, c1, c2, x):
+    """Jakob-Hanika sigmoid reflectance at normalized wavelength x."""
+    t = (c0 * x + c1) * x + c2
+    return 0.5 + t / (2.0 * torch.sqrt(1.0 + t * t))
+
+
+def _spd_lerp(spd, wl, col):
+    """Column ``col`` of the SPD table, linearly interpolated at the
+    wavelengths (megakernel.py:436-463 d65_flat, cmf_flat)."""
+    tpos = (wl - _WL_MIN) * (94.0 / (_WL_MAX - _WL_MIN))
+    i0 = torch.clamp(torch.floor(tpos), 0.0, 93.0)
+    w1 = torch.clamp(tpos - i0, 0.0, 1.0)
+    i = i0.to(torch.int64)
+    return spd[i, col] * (1.0 - w1) + spd[i + 1, col] * w1
+
+
+def _cie_develop(spd, res, wls):
+    """Hero-wavelength radiance -> linear sRGB rows: the CMFs at the
+    wavelengths (zero outside [360, 830] nm), summed over the channels and
+    divided by their count, then XYZ_TO_SRGB (megakernel.py:1378-1393)."""
+    xyz = [torch.zeros_like(res[0]) for _ in range(3)]
+    for r, wl in zip(res, wls):
+        ok = ((wl >= _WL_MIN) & (wl <= _WL_MAX)).to(r.dtype)
+        for k in range(3):
+            xyz[k] = xyz[k] + _spd_lerp(spd, wl, 1 + k) * ok * r
+    xyz = [x * (1.0 / len(res)) for x in xyz]
+    M = spec.XYZ_TO_SRGB
+    return [float(M[r, 0]) * xyz[0] + float(M[r, 1]) * xyz[1]
+            + float(M[r, 2]) * xyz[2] for r in range(3)]
 
 
 # ----------------------------------------------------------------------------
@@ -431,12 +537,33 @@ def _closest_hit(tables, o, d, maxt):
     return t, A, bu, bv
 
 
-def _occluded(tables, o, d, maxt):
+def _first_or_all(hits):
+    """Per lane: tests a loop over the columns of ``hits`` that stops at
+    the first hit runs (index of the first hit + 1, else all)."""
+    n = hits.shape[1]
+    first = torch.where(hits, torch.arange(n, device=hits.device),
+                        torch.full_like(hits, n, dtype=torch.int64))
+    return (first.min(dim=1).values + 1).clamp(max=n)
+
+
+def _occluded(tables, o, d, maxt, stats=None, live=None):
+    """Shadow any-hit of every lane; ``stats`` (with the ``live`` lanes
+    that trace the ray) sums the face and sphere tests the kernel's loops,
+    which stop at the first occluder, run ("shadow_faces",
+    "shadow_spheres")."""
     occ = torch.zeros(o[0].shape[0], dtype=torch.bool, device=o[0].device)
     if tables.n_faces:
-        occ = occ | _face_ok(*_woop_t_uv(tables.woop, o, d), maxt).any(1)
+        hits = _face_ok(*_woop_t_uv(tables.woop, o, d), maxt)
+        occ = hits.any(1)
+        if stats is not None:
+            stats["shadow_faces"] = stats.get("shadow_faces", 0) + int(
+                _first_or_all(hits)[live].sum())
     if tables.flags & HAS_SPHERES:
-        occ = occ | _sphere_t(tables.sph, o, d, maxt)[1].any(1)
+        hits = _sphere_t(tables.sph, o, d, maxt)[1]
+        if stats is not None:
+            stats["shadow_spheres"] = stats.get("shadow_spheres", 0) + int(
+                _first_or_all(hits)[live & ~occ].sum())
+        occ = occ | hits.any(1)
     return occ
 
 
@@ -459,7 +586,8 @@ def _env_uv(tables, d):
 
 
 def _env_fetch(tables, u, v):
-    """Bilinear lat-long fetch, u and v wrapping (megakernel.py:1219)."""
+    """Bilinear lat-long fetch of all four texel planes, u and v wrapping
+    (megakernel.py:1219)."""
     H, W = tables.env.shape[:2]
     fu = u * W - 0.5
     fv = v * H - 0.5
@@ -475,7 +603,7 @@ def _env_fetch(tables, u, v):
     c0 = (1.0 - wv) * T[iv0, iu0] + wv * T[iv1, iu0]
     c1 = (1.0 - wv) * T[iv0, iu1] + wv * T[iv1, iu1]
     out = (1.0 - wu) * c0 + wu * c1
-    return [out[:, c] for c in range(3)]
+    return [out[:, c] for c in range(4)]
 
 
 def _env_pdf(tables, d):
@@ -492,7 +620,7 @@ def _env_pdf(tables, d):
 def _env_sample(tables, u1, u2, j1, j2):
     """CDF-inverted env sample: the row whose marginal cdf first exceeds
     u1, the column whose conditional cdf first exceeds u2, uniform jitter
-    in the texel. -> (world direction, solid-angle pdf, radiance)."""
+    in the texel. -> (world direction, solid-angle pdf, texel planes)."""
     hs, ws = tables.env_pmf.shape
     iv = (tables.env_marg[None, :] <= u1[:, None]).sum(1).clamp(0, hs - 1)
     iu = (tables.env_cond[iv] <= u2[:, None]).sum(1).clamp(0, ws - 1)
@@ -511,10 +639,17 @@ def _env_sample(tables, u1, u2, j1, j2):
 
 
 def _trace_lanes(tables, cam, key, pixel, width, height, max_depth,
-                 rr_depth):
-    """Radiance (3, n) of the lanes with TEA keys ``key`` at ``pixel``."""
+                 rr_depth, stats=None):
+    """Radiance (3, n) linear sRGB of the lanes with TEA keys ``key`` at
+    ``pixel``. ``stats``, if given, sums the lanes that trace a ray
+    ("rays"), escape to the envmap ("escaped"), shade a bounce ("shaded",
+    of them "ggx" on a conductor), sample the env NEE arm ("env_nee") and
+    trace a shadow ray ("shadow"), and the shadow rays' tests
+    (``_occluded``)."""
     dev = key.device
     f32 = torch.float32
+    nc = tables.nc
+    spectral = nc == MODE_NC["spectral"]
     n = key.shape[0]
     zero = torch.zeros(n, dtype=f32, device=dev)
     one = torch.ones_like(zero)
@@ -532,8 +667,15 @@ def _trace_lanes(tables, cam, key, pixel, width, height, max_depth,
     d = [cam[3 * r] * lx + cam[3 * r + 1] * ly + cam[3 * r + 2] * lz
          for r in range(3)]
     o = [zero + cam[9 + r] for r in range(3)]
-    thr = [one.clone() for _ in range(3)]
-    res = [zero.clone() for _ in range(3)]
+    if spectral:
+        # hero wavelengths, constant along the path; the sensor weight
+        # 1 / pdf is the initial throughput (megakernel.py:1347-1351)
+        wls, thr = _hero_wavelengths(key, nc)
+        xw = [_wl_norm(w) for w in wls]
+        d65 = [_spd_lerp(tables.spd, w, 0) for w in wls]
+    else:
+        thr = [one.clone() for _ in range(nc)]
+    res = [zero.clone() for _ in range(nc)]
     prev_pdf = zero
     active = torch.ones(n, dtype=torch.bool, device=dev)
     lights = tables.lights
@@ -543,29 +685,43 @@ def _trace_lanes(tables, cam, key, pixel, width, height, max_depth,
     p_env = tables.p_env
     env_arm = has_env and p_env > 0.0
 
+    def count(name, mask):
+        if stats is not None:
+            stats[name] = stats.get(name, 0) + int(mask.sum())
+
     for depth in range(max_depth):
         dim0 = 2 + 8 * depth
+        count("rays", active)
         t, A, bu, bv = _closest_hit(tables, o, d,
                                     torch.where(active, big, -big))
         ng = [A[:, C_NG + k] for k in range(3)]
         lpdf_w = A[:, C_LPDF]
-        alb = [A[:, C_ALB + c] for c in range(3)]
-        le = [A[:, C_LE + c] for c in range(3)]
         kind = A[:, C_KIND]
         hit = t < _BIG * 0.5
+        if spectral:
+            le = [_sigmoid(A[:, C_LE], A[:, C_LE + 1], A[:, C_LE + 2], xw[c])
+                  * d65[c] * A[:, C_LESCALE] for c in range(nc)]
+        else:
+            le = [A[:, C_LE + c] for c in range(nc)]
 
         # environment on escape, MIS-weighted against the env NEE arm
         if has_env:
-            env_rgb = _env_fetch(tables, *_env_uv(tables, d)[:2])
+            ep = _env_fetch(tables, *_env_uv(tables, d)[:2])
+            if spectral:
+                env_ch = [_sigmoid(ep[0], ep[1], ep[2], xw[c]) * ep[3]
+                          * d65[c] for c in range(nc)]
+            else:
+                env_ch = ep[:nc]
             if p_env > 0.0 and depth > 0:
                 epdf = _env_pdf(tables, d) * p_env
                 w_esc = torch.where(prev_pdf > 0.0, _mis(prev_pdf, epdf), one)
             else:
                 w_esc = one
             esc = active & ~hit
-            for c in range(3):
+            count("escaped", esc)
+            for c in range(nc):
                 res[c] = res[c] + torch.where(esc, w_esc * thr[c]
-                                              * env_rgb[c], zero)
+                                              * env_ch[c], zero)
 
         # emission, MIS-weighted against NEE after the camera vertex
         cos_hit = -(d[0] * ng[0] + d[1] * ng[1] + d[2] * ng[2])
@@ -578,13 +734,14 @@ def _trace_lanes(tables, cam, key, pixel, width, height, max_depth,
             em_w = torch.where(prev_pdf > 0.0, _mis(prev_pdf, pdf_l_hit),
                                one)
         wgt = torch.where(active & hit & (cos_hit > 0), em_w, zero)
-        for c in range(3):
+        for c in range(nc):
             res[c] = res[c] + wgt * thr[c] * le[c]
         if depth == max_depth - 1:
             break
 
-        # checkerboard albedo: uv from the barycentrics, affine to_uv,
-        # parity of floor(u') + floor(v')
+        # albedo payload; checkerboard: uv from the barycentrics, affine
+        # to_uv, parity of floor(u') + floor(v')
+        pay = [A[:, C_ALB + c] for c in range(3)]
         if tables.flags & HAS_CHECKER:
             uu = A[:, C_UV0] + bu * A[:, C_DUV1] + bv * A[:, C_DUV2]
             vv = A[:, C_UV0 + 1] + bu * A[:, C_DUV1 + 1] \
@@ -595,12 +752,30 @@ def _trace_lanes(tables, cam, key, pixel, width, height, max_depth,
                 + A[:, C_TOUV1 + 2]
             par = torch.remainder(torch.floor(u2) + torch.floor(v2), 2.0)
             use_c1 = (kind > 1.5) & (kind < 2.5) & (par > 0.5)
-            alb = [torch.where(use_c1, A[:, C_C1 + c], alb[c])
+            pay = [torch.where(use_c1, A[:, C_C1 + c], pay[c])
                    for c in range(3)]
+        if spectral:
+            alb = [_sigmoid(pay[0], pay[1], pay[2], xw[c]) for c in range(nc)]
+        else:
+            alb = pay[:nc]
         is_ggx = (kind > 0.5) & (kind < 1.5)
+        if has_ggx:
+            if spectral:
+                # eta(x), k(x): the IOR quadratics at the clamped x
+                xc = [torch.clamp(xw[c], A[:, C_XLO], A[:, C_XHI])
+                      for c in range(nc)]
+                eta = [(A[:, C_ETA] * xc[c] + A[:, C_ETA + 1]) * xc[c]
+                       + A[:, C_ETA + 2] for c in range(nc)]
+                kap = [(A[:, C_K] * xc[c] + A[:, C_K + 1]) * xc[c]
+                       + A[:, C_K + 2] for c in range(nc)]
+            else:
+                eta = [A[:, C_ETA + c] for c in range(nc)]
+                kap = [A[:, C_K + c] for c in range(nc)]
 
         # FrontSide lobes only: back-face hits end the path
         act = active & hit & (cos_hit > 0)
+        count("shaded", act)
+        count("ggx", act & is_ggx)
         n_ = ng
         p = [o[k] + t * d[k] for k in range(3)]
         eps = (1.0 + torch.maximum(p[0].abs(), torch.maximum(
@@ -626,11 +801,13 @@ def _trace_lanes(tables, cam, key, pixel, width, height, max_depth,
         # Russian roulette (path.cpp:133-141)
         if depth + 1 > rr_depth:
             rr_u, _ = _rng2(key, dim0 + 0)
-            q = torch.clamp(torch.maximum(torch.maximum(thr[0], thr[1]),
-                                          thr[2]), max=0.95)
+            mx = thr[0]
+            for c in range(1, nc):
+                mx = torch.maximum(mx, thr[c])
+            q = torch.clamp(mx, max=0.95)
             act = act & (rr_u < q)
             inv_q = 1.0 / torch.clamp(q, min=1e-8)
-            thr_ = [thr[c] * inv_q for c in range(3)]
+            thr_ = [thr[c] * inv_q for c in range(nc)]
         else:
             thr_ = list(thr)
 
@@ -658,24 +835,36 @@ def _trace_lanes(tables, cam, key, pixel, width, height, max_depth,
         pdf_l = torch.where(cos_l > 1e-6,
                             dist2 * LT[:, 13] / torch.clamp(cos_l, min=1e-6),
                             zero)
-        lrad = [LT[:, 14 + c] for c in range(3)]
+        if spectral:
+            lrad = [_sigmoid(LT[:, 14], LT[:, 15], LT[:, 16], xw[c])
+                    * d65[c] * LT[:, 17] for c in range(nc)]
+        else:
+            lrad = [LT[:, 14 + c] for c in range(nc)]
         if env_arm:
             ej1, ej2 = _rng2(key, dim0 + 5)
-            edl, epdf, erad = _env_sample(tables, u_b1, u_b2, ej1, ej2)
+            edl, epdf, ep = _env_sample(tables, u_b1, u_b2, ej1, ej2)
+            if spectral:
+                erad = [_sigmoid(ep[0], ep[1], ep[2], xw[c]) * ep[3] * d65[c]
+                        for c in range(nc)]
+            else:
+                erad = ep[:nc]
             dl = [torch.where(use_env, edl[k], dl[k]) for k in range(3)]
             pdf_l = torch.where(use_env, epdf * p_env, pdf_l)
             lrad = [torch.where(use_env, erad[c], lrad[c])
-                    for c in range(3)]
+                    for c in range(nc)]
             # env shadow rays test the whole open segment
             dist = torch.where(use_env, torch.full_like(dist, 1e7), dist)
         cos_s = _dot3(dl, n_)
         nee_ok = act & (pdf_l > 0) & (cos_s > 0)
+        count("shadow", nee_ok)
+        if env_arm:
+            count("env_nee", act & use_env)
         occluded = _occluded(
             tables, [p[k] + n_[k] * eps for k in range(3)], dl,
-            torch.where(nee_ok, dist * (1.0 - 1e-3), -big))
+            torch.where(nee_ok, dist * (1.0 - 1e-3), -big), stats, nee_ok)
         # BSDF toward the light: f * cos and the BSDF's own pdf
         pdf_bsdf_l = torch.clamp(cos_s, min=0.0) / _PI
-        fcos = [alb[c] * (cos_s / _PI) for c in range(3)]
+        fcos = [alb[c] * (cos_s / _PI) for c in range(nc)]
         if has_ggx:
             wo = to_local(dl)
             h = _normalized([wi[0] + wo[0], wi[1] + wo[1], wiz + wo[2]])
@@ -683,18 +872,18 @@ def _trace_lanes(tables, cam, key, pixel, width, height, max_depth,
                                min=0.0)
             D = _ggx_d(h[2], alpha)
             g1i = _ggx_g1(wiz, alpha)
-            spec = D * (g1i * _ggx_g1(torch.clamp(wo[2], min=1e-6), alpha)) \
+            spec_ = D * (g1i * _ggx_g1(torch.clamp(wo[2], min=1e-6), alpha)) \
                 / torch.clamp(4.0 * wiz, min=1e-20)
             pdf_ggx_l = g1i * D / torch.clamp(4.0 * wiz, min=1e-20)
             ggx_ok = (wo[2] > 0).to(f32)
             pdf_bsdf_l = torch.where(is_ggx, pdf_ggx_l, pdf_bsdf_l)
             fcos = [torch.where(
-                is_ggx, alb[c] * spec * fresnel_conductor(
-                    ci_h, A[:, C_ETA + c], A[:, C_K + c]) * ggx_ok,
-                fcos[c]) for c in range(3)]
+                is_ggx, alb[c] * spec_ * fresnel_conductor(
+                    ci_h, eta[c], kap[c]) * ggx_ok,
+                fcos[c]) for c in range(nc)]
         base = _mis(pdf_l, pdf_bsdf_l) / torch.clamp(pdf_l, min=1e-20)
         gate = nee_ok & ~occluded
-        for c in range(3):
+        for c in range(nc):
             res[c] = res[c] + torch.where(
                 gate, thr_[c] * base * fcos[c] * lrad[c], zero)
 
@@ -738,18 +927,24 @@ def _trace_lanes(tables, cam, key, pixel, width, height, max_depth,
             bsdf_pdf = torch.where(is_ggx, pdf_ggx, bsdf_pdf)
             ok_lobe = torch.where(is_ggx, (go[2] > 1e-6) & (wm > 0), ok_lobe)
             mm = [torch.where(is_ggx, alb[c] * fresnel_conductor(
-                torch.clamp(wm, min=0.0), A[:, C_ETA + c], A[:, C_K + c])
-                * g1o, alb[c]) for c in range(3)]
+                torch.clamp(wm, min=0.0), eta[c], kap[c])
+                * g1o, alb[c]) for c in range(nc)]
         nd = to_world(wsel)
-        thr = [thr_[c] * torch.where(act, mm[c], one) for c in range(3)]
-        active = (act & ok_lobe & (bsdf_pdf > 0)
-                  & (thr[0] + thr[1] + thr[2] > 0))
+        thr = [thr_[c] * torch.where(act, mm[c], one) for c in range(nc)]
+        thr_sum = thr[0]
+        for c in range(1, nc):
+            thr_sum = thr_sum + thr[c]
+        active = act & ok_lobe & (bsdf_pdf > 0) & (thr_sum > 0)
         # leave on the side the new ray goes (always the normal's side
         # for the lobes of this scope)
         off = torch.where(wsel[2] >= 0.0, eps, -eps)
         o = [p[k] + n_[k] * off for k in range(3)]
         d = nd
         prev_pdf = bsdf_pdf
+    if spectral:
+        return torch.stack(_cie_develop(tables.spd, res, wls))
+    if nc == 1:
+        return torch.stack(res * 3)
     return torch.stack(res)
 
 
@@ -764,14 +959,15 @@ def lane_keys(seed, sample_base, spp_pass, lanes):
 
 
 def path_radiance_reference(tables, cam, seed, sample_base, spp_pass,
-                            width, height, max_depth, rr_depth):
+                            width, height, max_depth, rr_depth, stats=None):
     """Plain PyTorch version of the path kernel -> (3, n) float32 per-lane
-    radiance, n = width * height * spp_pass, on the tables' device.
+    linear sRGB radiance, n = width * height * spp_pass, on the tables'
+    device.
 
     Vectorised over lanes with a Python loop over depth and brute-force
     (lanes x faces), (lanes x spheres) and (lanes x cdf entries) tests, in
     lane chunks that keep each such temporary within ``_CHUNK_ELEMS``
-    elements."""
+    elements. ``stats``: see ``_trace_lanes``."""
     dev = tables.device
     n = width * height * spp_pass
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
@@ -782,7 +978,8 @@ def path_radiance_reference(tables, cam, seed, sample_base, spp_pass,
         lanes = torch.arange(start, min(n, start + step), device=dev)
         key, pixel = lane_keys(seed, sample_base, spp_pass, lanes)
         out[:, start:start + len(lanes)] = _trace_lanes(
-            tables, cam, key, pixel, width, height, max_depth, rr_depth)
+            tables, cam, key, pixel, width, height, max_depth, rr_depth,
+            stats)
     return out
 
 
@@ -794,7 +991,7 @@ class _PathArgs(ctypes.Structure):
     """csrc/path_kernel.cu's PathArgs, field for field."""
     _fields_ = ([(name, ctypes.c_void_p) for name in (
         "woop", "fattr", "lights", "sph", "sattr", "env", "env_marg",
-        "env_cond", "env_pmf", "env_rot", "cam", "out")]
+        "env_cond", "env_pmf", "env_rot", "spd", "cam", "out")]
         + [(name, ctypes.c_int) for name in (
             "n_faces", "n_lights", "n_spheres", "env_w", "env_h", "env_ws",
             "env_hs", "env_has_rot")]
@@ -802,7 +999,7 @@ class _PathArgs(ctypes.Structure):
            ("sample_base", ctypes.c_uint32)]
         + [(name, ctypes.c_int) for name in (
             "spp_pass", "width", "height", "max_depth", "rr_depth",
-            "n_lanes", "flags")])
+            "n_lanes", "flags", "nc")])
 
 
 def _check_tables(tables, cam):
@@ -816,6 +1013,7 @@ def _check_tables(tables, cam):
               ("env_cond", tables.env_cond, tables.env_pmf.shape),
               ("env_pmf", tables.env_pmf, tables.env_pmf.shape),
               ("env_rot", tables.env_rot, (18,)),
+              ("spd", tables.spd, (SPD_ROWS if tables.nc == 4 else 0, 4)),
               ("cam", cam, (16,)))
     for name, t, shape in shapes:
         if t.dtype != torch.float32 or not t.is_contiguous() \
@@ -831,6 +1029,8 @@ def _check_tables(tables, cam):
         raise ValueError(f"{tables.n_faces} faces > {MAX_FACES}")
     if tables.n_spheres > MAX_SPHERES:
         raise ValueError(f"{tables.n_spheres} spheres > {MAX_SPHERES}")
+    if tables.nc not in NC_MODE:
+        raise ValueError(f"no path kernel for {tables.nc} color channels")
     if tables.flags & HAS_ENV and (min(tables.env.shape[:2]) < 1
                                    or min(tables.env_pmf.shape) < 1):
         raise ValueError("an envmap needs non-empty radiance and grid "
@@ -853,7 +1053,7 @@ def path_radiance(tables, cam, seed, sample_base, spp_pass, width, height,
     n = width * height * spp_pass
     if n >= 1 << 31:
         raise ValueError(f"{n} lanes overflow the kernel's int32 lane ids")
-    render = _path_render()
+    render = _path_render(tables.nc)
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
     if n == 0:
         return out
@@ -863,35 +1063,50 @@ def path_radiance(tables, cam, seed, sample_base, spp_pass, width, height,
         *(t.data_ptr() for t in (
             tables.woop, tables.fattr, tables.lights, tables.sph,
             tables.sattr, tables.env, tables.env_marg, tables.env_cond,
-            tables.env_pmf, tables.env_rot, cam, out)),
+            tables.env_pmf, tables.env_rot, tables.spd, cam, out)),
         tables.n_faces, tables.lights.shape[0], tables.n_spheres, W, H, Ws,
         Hs, int(bool(tables.flags & HAS_ENV_ROT)), tables.p_env,
         seed & 0xFFFFFFFF, sample_base & 0xFFFFFFFF, spp_pass, width,
-        height, max_depth, rr_depth, n, tables.flags & TEMPLATE_FLAGS)
+        height, max_depth, rr_depth, n, tables.flags & TEMPLATE_FLAGS,
+        tables.nc)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = render(ctypes.byref(args), stream)
     if err != 0:
         raise RuntimeError(f"path_kernel launch failed: CUDA error {err}")
     path_radiance.launches += 1
-    path_radiance.launches_by_flags[tables.flags & TEMPLATE_FLAGS] += 1
+    path_radiance.launches_by_kernel[
+        (tables.flags & TEMPLATE_FLAGS, tables.nc)] += 1
     return out
 
 
-# kernel launches in total and by instantiation (TEMPLATE_FLAGS bits)
+# kernel launches in total and by instantiation ((TEMPLATE_FLAGS bits, nc))
 path_radiance.launches = 0
-path_radiance.launches_by_flags = collections.Counter()
+path_radiance.launches_by_kernel = collections.Counter()
 
 
 def reset_launch_counts():
     path_radiance.launches = 0
-    path_radiance.launches_by_flags.clear()
+    path_radiance.launches_by_kernel.clear()
 
 
-def _path_render():
-    """csrc/path_kernel.cu's C entry point, built on first use."""
+def library_defines(nc):
+    """nvcc defines of the path kernel's library for ``nc`` channels: one
+    library per color mode, each with its 16 flag instantiations."""
+    return {"PK_NC": nc}
+
+
+def build_all_libraries():
+    """Build the three color modes' libraries at once (parallel nvcc)."""
+    from .build import build_all
+    build_all("path_kernel", [library_defines(nc) for nc in (3, 4, 1)])
+
+
+def _path_render(nc):
+    """csrc/path_kernel.cu's C entry point for ``nc`` color channels,
+    built on first use."""
     from .build import load
-    fn = load("path_kernel").path_render
+    fn = load("path_kernel", library_defines(nc)).path_render
     fn.argtypes = [ctypes.POINTER(_PathArgs), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -926,10 +1141,12 @@ class PathKernel:
         return img.T.reshape(h, w, 4)
 
 
-def bsdf_ineligibility(bsdf):
-    """-> None if the kernel shades ``bsdf``, else the reason
-    (megakernel.py:2004 _bsdf_columns, narrowed to this slice)."""
+def bsdf_ineligibility(bsdf, mode):
+    """-> None if the kernel shades ``bsdf`` in color mode ``mode``, else
+    the reason (megakernel.py:2004 _bsdf_columns, narrowed to this
+    slice)."""
     from ..models.bsdfs import SmoothDiffuse, RoughConductor
+    from ..models.spectra import ConductorIORSpectrum
     from ..models.textures import ConstantTexture, CheckerboardTexture
     name = f"unsupported BSDF {type(bsdf).__name__}"
     if type(bsdf) is SmoothDiffuse:
@@ -942,11 +1159,17 @@ def bsdf_ineligibility(bsdf):
             return None
         return name
     if type(bsdf) is RoughConductor:
+        if mode == "spectral" and not all(
+                type(t) is ConductorIORSpectrum
+                for t in (bsdf.eta_tex, bsdf.k_tex)):
+            # curve spectra the user supplied (megakernel.py:3094-3103)
+            return "conductor IOR curve spectra in spectral mode"
         if bsdf.dist_type != "ggx" or bsdf.alpha_u != bsdf.alpha_v \
                 or bsdf.alpha_u < 0.01:
             return name
-        if not all(type(t) is ConstantTexture for t in (
-                bsdf.eta_tex, bsdf.k_tex, bsdf.specular_reflectance)):
+        ior = () if mode == "spectral" else (bsdf.eta_tex, bsdf.k_tex)
+        if not all(type(t) is ConstantTexture
+                   for t in (*ior, bsdf.specular_reflectance)):
             return name
         return None
     return name
@@ -956,13 +1179,26 @@ def path_kernel_ineligibility(scene):
     """-> None if the scene is inside the kernel's scope, else a short
     reason (megakernel.py:3076 megakernel_ineligibility, narrowed to this
     slice)."""
-    from ..variants import current, variant
+    from ..variants import current
     from ..models.emitters import AreaEmitter, EnvironmentMap
     from ..models.shapes import SphereShape
     from ..models.textures import ConstantTexture
     var = current()
-    if not var.is_rgb or var.polarized or var.double_precision:
-        return f"variant {variant()} (only scalar_rgb renders)"
+    if var.polarized:
+        return "polarized variant"
+    if var.double_precision:
+        return "double-precision variant"
+    mode = var.color_mode
+    if mode == "spectral":
+        for sh in scene.shapes:
+            reason = bsdf_ineligibility(sh.bsdf, mode)
+            if reason == "conductor IOR curve spectra in spectral mode":
+                return reason
+        for e in scene.emitters:
+            if type(e) is AreaEmitter and not hasattr(e.radiance,
+                                                      "_d65_scale"):
+                return ("area emitter spectrum without srgb_d65 payload "
+                        "in spectral mode")
     if not scene.shapes:
         return "no shapes"
     for sh in scene.shapes:
@@ -977,7 +1213,7 @@ def path_kernel_ineligibility(scene):
             # the kernel shades the outward normal (megakernel.py:944)
             return "sphere with flip_normals"
     for sh in scene.shapes:
-        reason = bsdf_ineligibility(sh.bsdf)
+        reason = bsdf_ineligibility(sh.bsdf, mode)
         if reason is not None:
             return reason
     for e in scene.emitters:
@@ -992,6 +1228,6 @@ def path_kernel_ineligibility(scene):
             continue
         if type(e) is not AreaEmitter:
             return f"unsupported emitter {type(e).__name__}"
-        if type(e.radiance) is not ConstantTexture:
+        if mode != "spectral" and type(e.radiance) is not ConstantTexture:
             return "textured area emitter"
     return None

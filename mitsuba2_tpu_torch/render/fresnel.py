@@ -1,7 +1,7 @@
 """Conductor Fresnel term and the rgb conductor IOR table (reference:
 include/mitsuba/render/fresnel.h fresnel_conductor, ior.h; counterpart of
-``mitsuba2_tpu.render.fresnel``). The spectral IOR curves come with the
-spectral slice."""
+``mitsuba2_tpu.render.fresnel``), and the full-range eta/k curves of the
+headline metals that spectral variants fit their IOR spectra to."""
 
 from __future__ import annotations
 
@@ -53,3 +53,33 @@ def lookup_conductor_ior(material: str):
         raise ValueError(f"unknown conductor {material!r}; known: "
                          f"{sorted(CONDUCTOR_IOR_RGB)}")
     return CONDUCTOR_IOR_RGB[material]
+
+
+# Full-visible-range eta/k curves of the headline metals (role of the
+# reference's data/ior/<m>.eta.spd and .k.spd tables, ior.h:137-141):
+# interpolated published optical constants (Johnson & Christy 1972 for
+# Au, Ag and Cu; Rakic 1998 Lorentz-Drude for Al), the same values as
+# mitsuba2_tpu.render.fresnel. Layout: (wavelengths_nm, eta, k), strictly
+# increasing wavelengths.
+CONDUCTOR_IOR_CURVES = {
+    "Au": ((360, 400, 450, 500, 550, 600, 650, 700, 750, 830),
+           (1.72, 1.66, 1.50, 0.85, 0.43, 0.25, 0.17, 0.13, 0.14, 0.17),
+           (1.85, 1.96, 1.88, 1.90, 2.46, 2.99, 3.30, 3.84, 4.27, 4.90)),
+    "Ag": ((360, 400, 450, 500, 550, 600, 650, 700, 750, 830),
+           (0.09, 0.05, 0.04, 0.05, 0.06, 0.06, 0.07, 0.08, 0.09, 0.10),
+           (1.61, 2.07, 2.45, 2.87, 3.32, 3.75, 4.15, 4.52, 4.90, 5.50)),
+    "Cu": ((360, 400, 450, 500, 550, 600, 650, 700, 750, 830),
+           (1.27, 1.18, 1.17, 1.13, 1.04, 0.47, 0.22, 0.21, 0.22, 0.26),
+           (1.95, 2.21, 2.36, 2.56, 2.59, 2.81, 3.29, 3.67, 4.05, 4.50)),
+    "Al": ((360, 400, 450, 500, 550, 600, 650, 700, 750, 800, 830),
+           (0.41, 0.49, 0.61, 0.77, 0.96, 1.20, 1.47, 1.83, 2.40,
+            2.80, 2.75),
+           (4.43, 4.86, 5.47, 6.08, 6.69, 7.26, 7.79, 8.31, 8.62,
+            8.45, 8.31)),
+}
+
+
+def lookup_conductor_curves(material: str):
+    """-> (wavelengths, eta, k) full-range curves of a named conductor, or
+    None where only its rgb triples exist."""
+    return CONDUCTOR_IOR_CURVES.get(material)

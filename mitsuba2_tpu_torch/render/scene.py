@@ -6,9 +6,16 @@ arrays on the host, every analytic sphere into a sphere row; the path
 kernel's tables (ops/path_kernel.py ``PathTables``) are then built once, on
 the device chosen with ``set_device``: Woop rows, per-face attribute rows
 (normal, light pdf, albedo, BSDF kind and parameters, uv), the light
-table, sphere rows, and the envmap's radiance and sampling grid, laid out
-as ``DiffusePathMegakernel.__init__`` builds them (ops/megakernel.py:
-2260-2660), in the same light-face order.
+table, sphere rows, the envmap's radiance and sampling grid and, in
+spectral variants, the D65 and CIE table, laid out as
+``DiffusePathMegakernel.__init__`` builds them (ops/megakernel.py:
+2260-2682), in the same light-face order.
+
+Colors are packed as the variant the scene was loaded under reads them:
+linear rgb; in spectral variants the sigmoid model's coefficients (with a
+D65 scale for emitters and envmap texels, and the IOR quadratics for
+conductors); in mono variants the luminance, repeated over the three
+color slots.
 
 Faces keep their shape order. The reference permutes them into BVH leaf
 order for its chunked sweeps; closest-hit does not depend on face order
@@ -19,6 +26,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..core import spectrum as spec
 from ..core.object import Object
 from ..ops import path_kernel as pk
 
@@ -27,10 +35,12 @@ class Scene(Object):
     def __init__(self, props=None, shapes=None, sensors=None, emitters=None,
                  integrator=None):
         super().__init__(props)
-        from ..variants import variant as _variant_name, device as _device
+        from ..variants import (variant as _variant_name, device as _device,
+                                current as _current)
         # a scene belongs to the variant and device it was loaded under;
         # integrator.render checks the variant
         self.variant_name = _variant_name()
+        self.color_mode = _current().color_mode
         self.device = _device()
         self.shapes = list(shapes or [])
         self.sensors = list(sensors or [])
@@ -104,15 +114,18 @@ class Scene(Object):
             if hasattr(e, "prepare"):
                 e.prepare(self)
         env = self.environment_emitter
-        lights, le_face, lpdf_w, p_env = _light_table(
-            self.emitters, self.shapes, self.face_shape, env is not None)
-        cols = [_shape_columns(s.bsdf) for s in self.shapes]
+        mode = self.color_mode
+        lights, le_face, le_scale, lpdf_w, p_env = _light_table(
+            self.emitters, self.shapes, self.face_shape, env is not None,
+            mode)
+        cols = [_shape_columns(s.bsdf, mode) for s in self.shapes]
 
         uvs = cat(uvss, (3, 2))
         fattr = np.zeros((len(self.face_shape), pk.FA), np.float32)
         fattr[:, pk.C_NG:pk.C_NG + 3] = cat(ngs, (3,))
         fattr[:, pk.C_LPDF] = lpdf_w
         fattr[:, pk.C_LE:pk.C_LE + 3] = le_face
+        fattr[:, pk.C_LESCALE] = le_scale
         if cols:
             fattr += np.stack(cols)[self.face_shape]
         fattr[:, pk.C_UV0:pk.C_UV0 + 2] = uvs[:, 0]
@@ -133,47 +146,60 @@ class Scene(Object):
 
         env_t = env_rot = None
         if env is not None:
-            env_t = (env.data,) + env_sampling_tables(env.data)
+            env_t = (env_texels(env.data, mode),) \
+                + env_sampling_tables(env.data)
             env_rot = np.asarray(env.to_world.matrix, np.float32)[:3, :3]
         self.tables = pk.pack_tables(
             cat(v0s, (3,)), cat(e1s, (3,)), cat(e2s, (3,)), fattr, lights,
             self.device, sph=sph, sattr=sattr, env=env_t, env_rot=env_rot,
-            p_env=p_env)
+            p_env=p_env, nc=pk.MODE_NC[mode])
 
     def bbox(self):
         return self._bb_min, self._bb_max
 
 
-def _shape_columns(bsdf):
+def _shape_columns(bsdf, mode):
     """A shape's BSDF columns of the attribute row (ops/path_kernel.py
-    C_*): kind, albedo, color1, alpha, eta, k and to_uv, as
-    megakernel.py:2327-2432 and _shape_albedo/_shape_c1 (:2696-2726) set
-    them. Zeros for a BSDF the path kernel refuses (the integrator's gate
-    refuses the scene before the table is read)."""
+    C_*) in color mode ``mode``: kind, albedo, color1, alpha, eta, k, the
+    IOR fit span and to_uv, as megakernel.py:2327-2432 and
+    _shape_albedo/_shape_c1 (:2685-2726) set them. Zeros for a BSDF the
+    path kernel refuses (the integrator's gate refuses the scene before
+    the table is read)."""
     from ..models.bsdfs import SmoothDiffuse, RoughConductor
-    from ..models.textures import ConstantTexture, CheckerboardTexture
+    from ..models.textures import CheckerboardTexture, mono_luminance
     row = np.zeros(pk.FA, np.float32)
     row[pk.C_TOUV0] = row[pk.C_TOUV1 + 1] = 1.0        # identity to_uv
-    if pk.bsdf_ineligibility(bsdf) is not None:
+    if pk.bsdf_ineligibility(bsdf, mode) is not None:
         return row
     if type(bsdf) is SmoothDiffuse:
         tex = bsdf.reflectance
-        if type(tex) is ConstantTexture:
-            row[pk.C_ALB:pk.C_ALB + 3] = tex.rgb
-        elif type(tex) is CheckerboardTexture:
+        if type(tex) is CheckerboardTexture:
             row[pk.C_KIND] = pk.KIND_CHECKER
-            row[pk.C_ALB:pk.C_ALB + 3] = tex.color0.rgb
-            row[pk.C_C1:pk.C_C1 + 3] = tex.color1.rgb
+            row[pk.C_ALB:pk.C_ALB + 3] = tex.color0.payload()
+            row[pk.C_C1:pk.C_C1 + 3] = tex.color1.payload()
             if tex.to_uv is not None:
                 M = np.asarray(tex.to_uv.matrix, np.float32)
                 row[pk.C_TOUV0:pk.C_TOUV0 + 3] = M[0, [0, 1, 3]]
                 row[pk.C_TOUV1:pk.C_TOUV1 + 3] = M[1, [0, 1, 3]]
+        else:
+            row[pk.C_ALB:pk.C_ALB + 3] = tex.payload()
     elif type(bsdf) is RoughConductor:
         row[pk.C_KIND] = pk.KIND_GGX
         row[pk.C_ALPHA] = bsdf.alpha_u
-        row[pk.C_ALB:pk.C_ALB + 3] = bsdf.specular_reflectance.rgb
-        row[pk.C_ETA:pk.C_ETA + 3] = bsdf.eta_tex.rgb
-        row[pk.C_K:pk.C_K + 3] = bsdf.k_tex.rgb
+        row[pk.C_ALB:pk.C_ALB + 3] = bsdf.specular_reflectance.payload()
+        eta, k = bsdf.eta_tex, bsdf.k_tex
+        if mode == "spectral":
+            # eta(x), k(x) quadratics and the clamp span of their fit
+            row[pk.C_ETA:pk.C_ETA + 3] = eta._coeff
+            row[pk.C_K:pk.C_K + 3] = k._coeff
+            row[pk.C_XLO] = eta._x_lo
+            row[pk.C_XHI] = eta._x_hi
+        elif mode == "mono":
+            row[pk.C_ETA:pk.C_ETA + 3] = mono_luminance(eta.rgb)
+            row[pk.C_K:pk.C_K + 3] = mono_luminance(k.rgb)
+        else:
+            row[pk.C_ETA:pk.C_ETA + 3] = eta.rgb
+            row[pk.C_K:pk.C_K + 3] = k.rgb
     return row
 
 
@@ -200,32 +226,52 @@ def _pad8(x):
     return max(8, int(np.ceil(x / 8)) * 8)
 
 
-def _light_table(emitters, shapes, face_shape, has_env):
-    """Area-light faces -> (lights (L, 24), per-face Le (F, 3), per-face
-    light pdf (F,), p_env), as ops/megakernel.py:2260-2325 builds them.
+def _emitter_payload(radiance, mode):
+    """(3,) radiance payload and D65 scale of an area emitter's radiance:
+    linear rgb and 0, the luminance repeated and 0 (mono), or the sigmoid
+    coefficients and the D65 scale (spectral, srgb_d65.cpp). Zeros for a
+    radiance the path kernel refuses."""
+    from ..models.textures import ConstantTexture, mono_luminance
+    if mode == "spectral":
+        if not hasattr(radiance, "_d65_scale"):
+            return np.zeros(3, np.float32), 0.0
+        return np.asarray(radiance._coeff, np.float32), radiance._d65_scale
+    if type(radiance) is not ConstantTexture:
+        return np.zeros(3, np.float32), 0.0
+    rgb = np.asarray(radiance.rgb, np.float32).reshape(3)
+    if mode == "mono":
+        return np.full(3, mono_luminance(rgb), np.float32), 0.0
+    return rgb, 0.0
+
+
+def _light_table(emitters, shapes, face_shape, has_env, mode):
+    """Area-light faces -> (lights (L, 24), per-face Le payload (F, 3),
+    per-face D65 scale (F,), per-face light pdf (F,), p_env), as
+    ops/megakernel.py:2257-2325 builds them.
 
     Row layout: v0 0:3 | e1 3:6 | e2 6:9 | n 9:12 | cdf 12 | weight 13 |
-    radiance 14:17 | pad. NEE takes the envmap with probability ``p_env``
-    (1/2 beside area lights, 1 without, 0 without an envmap) and otherwise
-    a face, picked area-weighted across all lights through the cdf;
-    ``weight`` is the resulting per-area density, scaled by 1 - p_env.
-    Without area lights the table is one dummy row with cdf 1. Rows are
-    padded to a multiple of 8 with ``cdf = 2.0``, which no uniform sample
-    selects."""
+    radiance payload 14:17 | D65 scale 17 | pad. NEE takes the envmap
+    with probability ``p_env`` (1/2 beside area lights, 1 without, 0
+    without an envmap) and otherwise a face, picked area-weighted across
+    all lights through the cdf; ``weight`` is the resulting per-area
+    density, scaled by 1 - p_env. Without area lights the table is one
+    dummy row with cdf 1. Rows are padded to a multiple of 8 with
+    ``cdf = 2.0``, which no uniform sample selects."""
     n_faces = len(face_shape)
     le_face = np.zeros((n_faces, 3), np.float32)
+    le_scale = np.zeros((n_faces,), np.float32)
     lpdf_w = np.zeros((n_faces,), np.float32)
     lights = []
     light_shape = []
     for e in emitters:
         if not getattr(e, "_packed", False):
             continue
-        rad = np.asarray(e.radiance.rgb, np.float32).reshape(3)
+        rad, rscale = _emitter_payload(e.radiance, mode)
         sidx = shapes.index(e.shape)
         for k in range(len(e.face_areas)):
             lights.append(np.concatenate([
                 e.tv0[k], e.te1[k], e.te2[k], e.tn[k],
-                [0.0, 0.0], rad, [0.0], [0.0] * 6]))
+                [0.0, 0.0], rad, [rscale], [0.0] * 6]))
             light_shape.append(sidx)
     lights = np.asarray(lights, np.float32)
     p_env = (0.5 if len(lights) else 1.0) if has_env else 0.0
@@ -240,6 +286,7 @@ def _light_table(emitters, shapes, face_shape, has_env):
         for row, sidx in enumerate(light_shape):
             mask = face_shape == sidx
             le_face[mask] = lights[row, 14:17]
+            le_scale[mask] = lights[row, 17]
             lpdf_w[mask] = dens[row]
     else:
         lights = np.zeros((1, 24), np.float32)
@@ -249,7 +296,28 @@ def _light_table(emitters, shapes, face_shape, has_env):
         padl = np.zeros((Lp - len(lights), 24), np.float32)
         padl[:, 12] = 2.0
         lights = np.concatenate([lights, padl])
-    return lights, le_face, lpdf_w, p_env
+    return lights, le_face, le_scale, lpdf_w, p_env
+
+
+def env_texels(data, mode):
+    """(h, w, 3) env radiance -> (h, w, 4) float32 texels in color mode
+    ``mode``: [r, g, b, 0]; [luminance, 0, 0, 0] (mono); or (spectral,
+    envmap.cpp:95-115) the sigmoid coefficients of rgb / s and the scale
+    s / d65_y_normalization(), s = 2 max(rgb), with the whitepoint
+    normalization folded into the scale (megakernel.py:2569-2593)."""
+    from ..models.textures import mono_luminance
+    texels = np.zeros(data.shape[:2] + (4,), np.float32)
+    if mode == "spectral":
+        from .srgb import srgb_model_fetch
+        sc = 2.0 * data.max(axis=-1)
+        unit = data / np.maximum(sc, 1e-8)[..., None]
+        texels[..., :3] = srgb_model_fetch(unit)
+        texels[..., 3] = sc / spec.d65_y_normalization()
+    elif mode == "mono":
+        texels[..., 0] = mono_luminance(data)
+    else:
+        texels[..., :3] = data
+    return texels
 
 
 # the env NEE grid's coarsening caps and concentration guard

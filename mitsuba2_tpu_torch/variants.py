@@ -2,12 +2,15 @@
 
 A variant is a runtime configuration: color representation, polarization
 and precision (reference: resources/mitsuba.conf.template:95-278). Names
-parse as in ``mitsuba2_tpu.variants``; in this slice only ``scalar_rgb``
-renders, and the path integrator refuses any other variant at render time.
+parse as in ``mitsuba2_tpu.variants``; the rgb, spectral and mono color
+modes render, and the path integrator refuses polarized and double
+precision variants at render time.
 
-The torch device every scene table and buffer lives on is chosen here
-explicitly with ``set_device`` and is never detected. Both settings are
-thread-local, like the reference's variant (src/python/__init__.py:120-180).
+The torch device every scene table and buffer lives on is ``cuda`` unless
+the caller names another with ``set_device`` (the CPU tests ask for
+``cpu``); it is never detected, so on a machine without a card a scene
+load that did not ask for the CPU fails. Both settings are thread-local,
+like the reference's variant (src/python/__init__.py:120-180).
 """
 
 from __future__ import annotations
@@ -94,7 +97,7 @@ class _State(threading.local):
     def __init__(self):
         self.variant = Variant("rgb")
         self.name = "scalar_rgb"
-        self.device = torch.device("cpu")
+        self.device = torch.device("cuda")
 
 
 _state = _State()
@@ -134,8 +137,9 @@ def variants() -> list[str]:
 
 def set_device(dev) -> None:
     """Select the torch device scenes load their tables onto (for this
-    thread). Nothing is detected: a scene loaded after
-    ``set_device("cuda")`` lives on the card or fails to load."""
+    thread; ``cuda`` until set). Nothing is detected: a scene loaded on
+    ``cuda`` lives on the card or fails to load, and only a scene loaded
+    after ``set_device("cpu")`` runs the plain PyTorch versions."""
     _state.device = torch.device(dev)
 
 

@@ -1,6 +1,8 @@
 """Core layer of the PyTorch port against the JAX package: transforms,
 variant names, device selection and the dict loader's plugin graph."""
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -9,6 +11,9 @@ import mitsuba2_tpu as mj
 import mitsuba2_tpu_torch as mt
 from mitsuba2_tpu.python.test.scenes import cornell_box_dict as cornell_j
 from mitsuba2_tpu_torch.python.test.scenes import cornell_box_dict as cornell_t
+from tests.test_torch_path_kernel import cpu_device_fixture
+
+_on_cpu = cpu_device_fixture()
 
 
 def _transforms(T):
@@ -46,6 +51,12 @@ def test_variant_names_match_jax():
 
 
 def test_set_device_places_scene_tables():
+    # the default, as a fresh thread sees it, is the card
+    seen = []
+    fresh = threading.Thread(target=lambda: seen.append(mt.device()))
+    fresh.start()
+    fresh.join()
+    assert seen == [torch.device("cuda")]
     prev = mt.device()
     try:
         mt.set_device("cpu")
@@ -60,6 +71,27 @@ def test_set_device_places_scene_tables():
         assert all(t.device.type == "meta" for t in scene.tables.tensors())
     finally:
         mt.set_device(prev)
+
+
+def test_load_without_device_goes_to_the_card():
+    """A load that names no device lands on the card; without one it
+    raises and does not carry on on the CPU."""
+    out = []
+
+    def load():
+        try:
+            out.append(mt.load_dict(cornell_t(width=4, height=4, spp=1)))
+        except Exception as e:          # noqa: BLE001 - the outcome is data
+            out.append(e)
+
+    fresh = threading.Thread(target=load)
+    fresh.start()
+    fresh.join()
+    if torch.cuda.is_available():
+        assert out[0].device == torch.device("cuda")
+        assert all(t.is_cuda for t in out[0].tables.tensors())
+    else:
+        assert isinstance(out[0], (RuntimeError, AssertionError)), out[0]
 
 
 def test_load_dict_plugin_graph_matches_jax(variant_scalar_rgb):

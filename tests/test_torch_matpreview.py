@@ -25,7 +25,10 @@ import torch
 import mitsuba2_tpu_torch as mt
 from mitsuba2_tpu_torch.ops import path_kernel as pk
 from mitsuba2_tpu_torch.python.test.scenes import matpreview_dict as mp_t
-from tests.test_torch_path_kernel import assert_images_agree, box_develop
+from tests.test_torch_path_kernel import (
+    assert_images_agree, box_develop, cpu_device_fixture)
+
+_on_cpu = cpu_device_fixture()
 
 W, SPP, MAX_DEPTH, RR_DEPTH, SEED = 16, 16, 4, 2, 3
 FULL = pk.HAS_SPHERES | pk.HAS_ENV | pk.HAS_GGX | pk.HAS_CHECKER
@@ -48,7 +51,7 @@ def jax_tables(mk, sensor):
     return pk.tables_from_reference(
         np.asarray(mk.woop), np.asarray(mk._fattr()), np.asarray(mk.lights),
         jax_cam(sensor), sph=np.asarray(mk.sph),
-        sattr=np.asarray(mk._sattr()), **env)
+        sattr=np.asarray(mk._sattr()), nc=mk.nc, **env)
 
 
 def port_scene(width=W, spp=SPP, max_depth=MAX_DEPTH):
@@ -186,11 +189,11 @@ def test_wrapper_runs_plain_version_on_cpu():
     st = port_scene(width=8, spp=2)
     cam = pk.camera_row(st.sensors[0], "cpu")
     before = pk.path_radiance.launches
-    before_by = dict(pk.path_radiance.launches_by_flags)
+    before_by = dict(pk.path_radiance.launches_by_kernel)
     out = pk.path_radiance(st.tables, cam, SEED, 0, 2, 8, 8, MAX_DEPTH,
                            RR_DEPTH)
     assert pk.path_radiance.launches == before       # no kernel launched
-    assert dict(pk.path_radiance.launches_by_flags) == before_by
+    assert dict(pk.path_radiance.launches_by_kernel) == before_by
     assert torch.equal(out, pk.path_radiance_reference(
         st.tables, cam, SEED, 0, 2, 8, 8, MAX_DEPTH, RR_DEPTH))
 
@@ -211,10 +214,10 @@ def test_cuda_kernel_matches_plain_version():
     assert scene.tables.flags & pk.TEMPLATE_FLAGS == FULL
     cam = pk.camera_row(scene.sensors[0], scene.device)
     args = (scene.tables, cam, SEED, 0, 16, 32, 32, 6, 3)
-    before = pk.path_radiance.launches_by_flags[FULL]
+    before = pk.path_radiance.launches_by_kernel[(FULL, 3)]
     got = pk.path_radiance(*args)
     torch.cuda.synchronize()
-    assert pk.path_radiance.launches_by_flags[FULL] == before + 1
+    assert pk.path_radiance.launches_by_kernel[(FULL, 3)] == before + 1
     want = pk.path_radiance_reference(*args)
     assert_images_agree(box_develop(got, 32, 32, 16).cpu().numpy(),
                         box_develop(want, 32, 32, 16).cpu().numpy())

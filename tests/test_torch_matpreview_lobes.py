@@ -19,7 +19,10 @@ import mitsuba2_tpu_torch as mt
 from mitsuba2_tpu_torch.ops import path_kernel as pk
 from mitsuba2_tpu_torch.python.test.scenes import cornell_box_dict as cb_t
 from tests.test_torch_matpreview import jax_tables
-from tests.test_torch_path_kernel import assert_images_agree, box_develop
+from tests.test_torch_path_kernel import (
+    assert_images_agree, box_develop, cpu_device_fixture)
+
+_on_cpu = cpu_device_fixture()
 
 W, SPP, MAX_DEPTH, RR_DEPTH, SEED = 16, 8, 4, 2, 13
 FLAGS = pk.HAS_SPHERES | pk.HAS_GGX | pk.HAS_CHECKER
@@ -94,10 +97,10 @@ def test_cuda_kernel_matches_plain_version():
         mt.set_device(prev)
     cam = pk.camera_row(scene.sensors[0], scene.device)
     args = (scene.tables, cam, SEED, 0, 16, 32, 32, 6, 3)
-    before = pk.path_radiance.launches_by_flags[FLAGS]
+    before = pk.path_radiance.launches_by_kernel[(FLAGS, 3)]
     got = pk.path_radiance(*args)
     torch.cuda.synchronize()
-    assert pk.path_radiance.launches_by_flags[FLAGS] == before + 1
+    assert pk.path_radiance.launches_by_kernel[(FLAGS, 3)] == before + 1
     want = pk.path_radiance_reference(*args)
     assert_images_agree(box_develop(got, 32, 32, 16).cpu().numpy(),
                         box_develop(want, 32, 32, 16).cpu().numpy())

@@ -18,6 +18,9 @@ import torch
 import mitsuba2_tpu as mj
 import mitsuba2_tpu_torch as mt
 from mitsuba2_tpu_torch.ops import path_kernel as pk
+from tests.test_torch_path_kernel import cpu_device_fixture
+
+_on_cpu = cpu_device_fixture()
 
 RNG = np.random.default_rng(20261016)
 

@@ -24,7 +24,10 @@ import mitsuba2_tpu_torch as mt
 from mitsuba2_tpu_torch.ops import path_kernel as pk
 from tests.test_torch_matpreview import (W, SPP, MAX_DEPTH, RR_DEPTH, FULL,
                                          jax_tables, port_scene)
-from tests.test_torch_path_kernel import box_develop, pixel_errors
+from tests.test_torch_path_kernel import (
+    box_develop, pixel_errors, cpu_device_fixture)
+
+_on_cpu = cpu_device_fixture()
 
 REPO = Path(__file__).resolve().parent.parent
 SEED = 5
@@ -115,6 +118,7 @@ def test_matpreview_render_imports_no_jax():
         "import mitsuba2_tpu_torch as mi\n"
         "from mitsuba2_tpu_torch.python.test.scenes import matpreview_dict\n"
         "mi.set_variant('scalar_rgb')\n"
+        "mi.set_device('cpu')\n"
         "s = mi.load_dict(matpreview_dict(4, 4, 2, 3))\n"
         "img = s.integrator.render(s, seed=0, spp=2)\n"
         "assert img.shape == (4, 4, 3) and s.integrator.last_engine\n"
@@ -141,10 +145,10 @@ def test_cuda_render_goes_through_kernel_and_matches_cpu():
         for dev in ("cpu", "cuda"):
             mt.set_device(dev)
             scene = port_scene(width=32, spp=8, max_depth=6)
-            before = pk.path_radiance.launches_by_flags[FULL]
+            before = pk.path_radiance.launches_by_kernel[(FULL, 3)]
             images[dev] = scene.integrator.render(scene, seed=2, spp=8)
             assert scene.integrator.last_engine == "kernel"
-            assert pk.path_radiance.launches_by_flags[FULL] \
+            assert pk.path_radiance.launches_by_kernel[(FULL, 3)] \
                 == before + (dev == "cuda")
     finally:
         mt.set_device(prev)

@@ -28,6 +28,22 @@ W, SPP, MAX_DEPTH, RR_DEPTH, SEED = 16, 16, 4, 2, 3
 PIX_RTOL, PIX_SHARE, MEAN_RTOL = 1e-4, 0.99, 1e-5
 
 
+def cpu_device_fixture():
+    """A module-scoped autouse fixture that loads this module's scenes on
+    the CPU (the port's default device is ``cuda``) and restores the
+    previous device afterwards. Each test_torch_*.py module binds one."""
+    @pytest.fixture(scope="module", autouse=True)
+    def _on_cpu():
+        prev = mt.device()
+        mt.set_device("cpu")
+        yield
+        mt.set_device(prev)
+    return _on_cpu
+
+
+_on_cpu = cpu_device_fixture()
+
+
 def pixel_errors(a, b):
     """Largest relative channel error of each pixel of (h, w, 3) images."""
     return (np.abs(a - b) / np.maximum(np.abs(b), 1e-3)).max(-1)

@@ -21,7 +21,10 @@ import mitsuba2_tpu_torch as mt
 from mitsuba2_tpu.python.test.scenes import cornell_box_dict as cornell_j
 from mitsuba2_tpu_torch.ops import path_kernel as pk
 from mitsuba2_tpu_torch.python.test.scenes import cornell_box_dict as cornell_t
-from tests.test_torch_path_kernel import assert_images_agree
+from tests.test_torch_path_kernel import (
+    assert_images_agree, cpu_device_fixture)
+
+_on_cpu = cpu_device_fixture()
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -125,12 +128,29 @@ def _out_of_scope():
     def flipped_sphere(d):
         d["ball"] = {"type": "sphere", "radius": 0.2, "flip_normals": True}
 
+    def plain_emitter(scene):
+        from mitsuba2_tpu_torch.models.textures import ConstantTexture
+        scene.emitters[0].radiance = ConstantTexture(color=1.0)
+
+    def ior_curve(d):
+        # a curve spectrum the user gave as the conductor's eta
+        d["tallbox"]["bsdf"] = {"type": "roughconductor", "alpha": 0.2,
+                                "distribution": "ggx",
+                                "eta": {"type": "d65"}, "k": [3.9, 2.4, 1.6]}
+
     return {
         "gaussian rfilter": (lambda d: d["sensor"]["film"]["rfilter"]
                              .update(type="gaussian"), None,
                              "rfilter GaussianFilter"),
         "face count": (many_faces, None, "face count 1062 > 1024"),
-        "mono variant": (None, None, "variant scalar_mono"),
+        "polarized variant": (None, None, "polarized variant"),
+        "double-precision variant": (None, None,
+                                     "double-precision variant"),
+        "conductor IOR curve spectrum": (
+            ior_curve, None, "conductor IOR curve spectra in spectral mode"),
+        "emitter without D65 payload": (
+            None, plain_emitter,
+            "area emitter spectrum without srgb_d65 payload"),
         "bsdf": (None, mirror, "unsupported BSDF Mirror"),
         "shape": (None, quadric, "non-triangle shape Quadric"),
         "dielectric": (None, dielectric, "unsupported BSDF SmoothDielectric"),
@@ -143,10 +163,16 @@ def _out_of_scope():
     }
 
 
+_CASE_VARIANT = {"polarized variant": "scalar_rgb_polarized",
+                 "double-precision variant": "scalar_rgb_double",
+                 "conductor IOR curve spectrum": "scalar_spectral",
+                 "emitter without D65 payload": "scalar_spectral"}
+
+
 @pytest.mark.parametrize("case", sorted(_out_of_scope()))
 def test_out_of_scope_scene_raises_with_reason(case):
     edit_dict, edit_scene, reason = _out_of_scope()[case]
-    mt.set_variant("scalar_mono" if case == "mono variant" else "scalar_rgb")
+    mt.set_variant(_CASE_VARIANT.get(case, "scalar_rgb"))
     try:
         d = cornell_t(width=4, height=4, spp=1)
         if edit_dict:
@@ -179,6 +205,7 @@ def test_package_imports_no_jax():
         "import mitsuba2_tpu_torch as mi\n"
         "from mitsuba2_tpu_torch.python.test.scenes import cornell_box_dict\n"
         "mi.set_variant('scalar_rgb')\n"
+        "mi.set_device('cpu')\n"
         "s = mi.load_dict(cornell_box_dict(width=4, height=4, spp=2))\n"
         "img = s.integrator.render(s, seed=0, spp=2)\n"
         "assert img.shape == (4, 4, 3)\n"

@@ -12,6 +12,9 @@ from mitsuba2_tpu.core import rng as rng_j
 from mitsuba2_tpu.ops import megakernel as mk_j
 from mitsuba2_tpu_torch.core import rng as rng_t
 from mitsuba2_tpu_torch.ops import path_kernel as pk_t
+from tests.test_torch_path_kernel import cpu_device_fixture
+
+_on_cpu = cpu_device_fixture()
 
 N = 100_000
 

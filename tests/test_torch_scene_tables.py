@@ -15,6 +15,9 @@ from mitsuba2_tpu.ops.megakernel import DiffusePathMegakernel
 from mitsuba2_tpu.python.test.scenes import cornell_box_dict as cornell_j
 from mitsuba2_tpu_torch.ops import path_kernel as pk
 from mitsuba2_tpu_torch.python.test.scenes import cornell_box_dict as cornell_t
+from tests.test_torch_path_kernel import cpu_device_fixture
+
+_on_cpu = cpu_device_fixture()
 
 TOL = 1e-6
 
