@@ -3,21 +3,23 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout (the path
-kernel once per color mode, in parallel nvcc processes) and prints each
-kernel instantiation's registers and spills. Then, for each path -- the
-Cornell box (the main path), the matpreview scene (a rough gold sphere
-under an HDR sky above a checker floor), both again under
-``scalar_spectral``, and the Cornell box under ``scalar_mono``, all at
-256x256, 64 spp, max_depth 6 -- it checks the path kernel against its plain
-PyTorch version on the card at 64x64x16 spp, renders the path through
-``set_variant``, ``load_dict`` and ``scene.integrator.render`` on the
-port's default device, checks that the render went through the path's
-kernel instantiation and that the image is sane, and times render, kernel
-and plain version at the path's shape beside the kernel's bound. Prints one
-JSON line of kernel results, the card's name and power limit, and as its
-last line ``{"ok": true, "device": {...}}``. Any failed phase exits
-non-zero, and so does a machine without CUDA: nothing runs on the CPU
-instead.
+kernel once per color mode and the volumetric kernel, in parallel nvcc
+processes) and prints each kernel instantiation's registers and spills.
+Then, for each path -- the Cornell box (the main path), the matpreview
+scene (a rough gold sphere under an HDR sky above a checker floor), both
+again under ``scalar_spectral``, and the Cornell box under ``scalar_mono``,
+all at 256x256, 64 spp, max_depth 6; and the volpath slab (bench.py's
+volpath config: a 16^3 heterogeneous medium in a null box before an area
+light) at 256x256, 16 spp, max_depth 16 -- it checks the path's kernel
+against its plain PyTorch version on the card at 64x64x16 spp, renders the
+path through ``set_variant``, ``load_dict`` and
+``scene.integrator.render`` on the port's default device, checks that the
+render went through the path's kernel instantiation and that the image is
+sane, and times render, kernel and plain version at the path's shape
+beside the kernel's bound. Prints one JSON line of kernel results, the
+card's name and power limit, and as its last line
+``{"ok": true, "device": {...}}``. Any failed phase exits non-zero, and so
+does a machine without CUDA: nothing runs on the CPU instead.
 """
 
 import json
@@ -26,6 +28,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -57,6 +60,21 @@ SPECTRAL_SHADE_FLOPS_PER_CHANNEL = 25
 GGX_FLOPS, GGX_FLOPS_PER_CHANNEL = 190, 50
 ENV_ESCAPE_FLOPS, ENV_NEE_FLOPS = 80, 100
 SPECTRAL_ENV_FLOPS_PER_CHANNEL = 12
+# the volpath path (bench.py bench_volpath): 256x256, 16 spp, max_depth 16
+VOL_SPP, VOL_MAX_DEPTH = 16, 16
+# fp32 FLOPs of the volumetric kernel, counted roughly from
+# csrc/volpath_kernel.cu: per round the box interval (about 55) and the
+# Woop t test of each opaque face (FACE_FLOPS); per delta-tracking or
+# ratio-tracking step the free-flight distance (a logf counted as one);
+# per grid fetch the medium-local point, three clamped axes and seven
+# lerps; per NEE evaluation the light sample, the direction, the pdf, the
+# phase or BSDF value, the shadow ray's box interval and the sum (its face
+# tests counted apart); per phase sample the HG inversion, the frame and
+# the direction; per surface event the emission, frame, lobe sample and
+# spawn. mix32 and TEA integer work and compares are not counted, so the
+# bound is a lower one.
+VOL_ROUND_FLOPS, VOL_STEP_FLOPS, VOL_FETCH_FLOPS = 55, 6, 80
+VOL_NEE_FLOPS, VOL_PHASE_FLOPS, VOL_SURFACE_FLOPS = 130, 50, 110
 
 
 def log(*args):
@@ -99,14 +117,15 @@ def compare(got, want, label):
     return float(np.abs(g - r).max())
 
 
-def ptxas_report(build_log):
-    """-> {(flags, nc): 'N registers, ... spill ...'} from the compiler's
-    -Xptxas=-v output of one library."""
+def ptxas_report(build_log, kernel="path_kernel"):
+    """-> {template arguments: 'N registers, ... spill ...'} of ``kernel``'s
+    instantiations from the compiler's -Xptxas=-v output of one library:
+    (flags, nc) for the path kernel, (flags,) for the volumetric one."""
     out, inst = {}, None
     for line in build_log.splitlines():
-        m = re.search(r"path_kernelILi(\d+)ELi(\d+)E", line)
+        m = re.search(kernel + r"ILi(\d+)E(?:Li(\d+)E)?", line)
         if m:
-            inst = (int(m.group(1)), int(m.group(2)))
+            inst = tuple(int(g) for g in m.groups() if g is not None)
         if inst is None:
             continue
         if "spill" in line or "stack frame" in line:
@@ -140,6 +159,32 @@ def bound(pk, tables, stats, n_stats, n_paths):
         + per.get("ggx", 0.0) * (GGX_FLOPS + GGX_FLOPS_PER_CHANNEL * nc)
         + per.get("escaped", 0.0) * env[0]
         + per.get("env_nee", 0.0) * env[1])
+    return roofline(flops, tables, n_paths)
+
+
+def vol_bound(tables, stats, n_stats, n_paths):
+    """-> (ms, 'operations' or 'bytes'): the least time the card could
+    take for n_paths volpath paths, from the per-lane work counted by the
+    plain version (``stats`` over ``n_stats`` lanes of the same scene)."""
+    per = {k: v / n_stats for k, v in stats.items()}
+    flops = n_paths * (
+        PATH_FLOPS
+        + per["rounds"] * (VOL_ROUND_FLOPS + tables.n_faces * FACE_FLOPS)
+        + (per["delta_steps"] + per["ratio_steps"]) * VOL_STEP_FLOPS
+        + (per["delta_fetches"] + per["ratio_fetches"]) * VOL_FETCH_FLOPS
+        + per["nee"] * VOL_NEE_FLOPS
+        + per.get("shadow_faces", 0.0) * FACE_FLOPS
+        + per["phase"] * VOL_PHASE_FLOPS
+        + per["surface"] * VOL_SURFACE_FLOPS)
+    log("  per path: " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                   sorted(per.items())))
+    return roofline(flops, tables, n_paths)
+
+
+def roofline(flops, tables, n_paths):
+    """-> (ms, 'operations' or 'bytes'): the larger of ``flops`` over the
+    fp32 peak and the bytes (the tables read once, 12 B written per path)
+    over the HBM rate."""
     table_bytes = sum(t.numel() * t.element_size() for t in tables.tensors())
     nbytes = 12 * n_paths + table_bytes
     t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
@@ -151,34 +196,40 @@ def bound(pk, tables, stats, n_stats, n_paths):
     return t_bytes * 1e3, "bytes"
 
 
-def run_path(mi, pk, name, variant, make_dict, flags, mean_band):
-    """Parity, main-path render and timing of one path under ``variant``
-    -> its entry of the kernels line."""
-    mi.set_variant(variant)
-    nc = pk.MODE_NC[mi.variant_config().color_mode]
-    label = pk.kernel_name(flags, nc)
+class Route(NamedTuple):
+    """One path's kernel, as ``drive`` uses it."""
+    label: str          # the instantiation's name
+    key: object         # its key in ``radiance.launches_by_kernel``
+    radiance: object    # the kernel's wrapper
+    reference: object   # its plain version (takes ``stats=``)
+    reset: object       # sets the launch counts to 0
+    tables: object      # scene -> its tables for the kernel
+    bound: object       # (tables, stats, n_stats, n_paths) -> (ms, by)
+    source: str
+    replaces: str
+
+
+def drive(mi, pk, name, make_dict, spp, max_depth, mean_band, route):
+    """Parity, main-path render and timing of one path -> its entry of the
+    kernels line."""
     t_path = time.perf_counter()
 
     # ---- parity: kernel against its plain version on the same tables ----
     scene = mi.load_dict(make_dict(PARITY_WIDTH, PARITY_WIDTH, PARITY_SPP,
-                                   MAX_DEPTH))
+                                   max_depth))
     if scene.device.type != "cuda":
         raise SystemExit(f"{name}: the default device is {scene.device}")
-    if (scene.tables.flags & pk.TEMPLATE_FLAGS, scene.tables.nc) \
-            != (flags, nc):
-        raise SystemExit(f"{name}: scene tables carry flags "
-                         f"{scene.tables.flags}, nc {scene.tables.nc}")
     cam = pk.camera_row(scene.sensors[0], scene.device)
-    args = (scene.tables, cam, SEED, 0, PARITY_SPP, PARITY_WIDTH,
-            PARITY_WIDTH, MAX_DEPTH, scene.integrator.rr_depth)
-    got = pk.path_radiance(*args)
+    args = (route.tables(scene), cam, SEED, 0, PARITY_SPP, PARITY_WIDTH,
+            PARITY_WIDTH, max_depth, scene.integrator.rr_depth)
+    got = route.radiance(*args)
     torch.cuda.synchronize()
     stats = {}
-    want = pk.path_radiance_reference(*args, stats=stats)
+    want = route.reference(*args, stats=stats)
     lane_rel = ((got - want).abs() / want.abs().clamp(min=1e-3)).amax(0)
     beyond = float((lane_rel > PIX_RTOL).float().mean())
     log(f"{name} parity {PARITY_WIDTH}^2 x {PARITY_SPP} spp, depth "
-        f"{MAX_DEPTH}: lanes not bit-identical "
+        f"{max_depth}: lanes not bit-identical "
         f"{float((got != want).any(0).float().mean()):.4f}, lanes beyond "
         f"{PIX_RTOL:g} relative {beyond:.6f}")
     max_abs_err = compare(develop(got, PARITY_WIDTH, PARITY_SPP),
@@ -186,54 +237,94 @@ def run_path(mi, pk, name, variant, make_dict, flags, mean_band):
                           f"{name} parity")
 
     # ---- the path itself, through the user's entry points ----
-    scene = mi.load_dict(make_dict(WIDTH, WIDTH, SPP, MAX_DEPTH))
+    scene = mi.load_dict(make_dict(WIDTH, WIDTH, spp, max_depth))
     integrator = scene.integrator
-    pk.reset_launch_counts()
-    img = integrator.render(scene, seed=0, spp=SPP)
+    route.reset()
+    img = integrator.render(scene, seed=0, spp=spp)
     torch.cuda.synchronize()
-    launches = pk.path_radiance.launches_by_kernel[(flags, nc)]
+    launches = route.radiance.launches_by_kernel[route.key]
     if integrator.last_engine != "kernel":
         raise SystemExit(f"{name} left the kernel: {integrator.engine_reason}")
     if launches < 1:
-        raise SystemExit(f"{name} launched no {label}")
+        raise SystemExit(f"{name} launched no {route.label}")
     mean = float(img.mean())
     if img.shape != (WIDTH, WIDTH, 3) or img.device.type != "cuda" \
             or not bool(torch.isfinite(img).all()) \
             or not mean_band[0] < mean < mean_band[1]:
         raise SystemExit(f"{name} image is wrong: {tuple(img.shape)} "
                          f"{img.device} mean {mean}")
-    log(f"{name}: {WIDTH}^2 x {SPP} spp, depth {MAX_DEPTH}: {launches} "
-        f"launch(es) of {label}, image mean {mean:.6f}, channel means "
+    log(f"{name}: {WIDTH}^2 x {spp} spp, depth {max_depth}: {launches} "
+        f"launch(es) of {route.label}, image mean {mean:.6f}, channel means "
         f"{[round(float(x), 6) for x in img.mean(dim=(0, 1))]}")
 
-    n_paths = WIDTH * WIDTH * SPP
-    _, render_ms = timed(lambda: integrator.render(scene, seed=0, spp=SPP))
+    n_paths = WIDTH * WIDTH * spp
+    _, render_ms = timed(lambda: integrator.render(scene, seed=0, spp=spp))
+    tables = route.tables(scene)
     cam = pk.camera_row(scene.sensors[0], scene.device)
-    args = (scene.tables, cam, 0, 0, SPP, WIDTH, WIDTH, MAX_DEPTH,
+    args = (tables, cam, 0, 0, spp, WIDTH, WIDTH, max_depth,
             integrator.rr_depth)
-    k_rad, kernel_ms = timed(lambda: pk.path_radiance(*args))
+    k_rad, kernel_ms = timed(lambda: route.radiance(*args))
     # the plain version is the kernel's reference, not a yardstick of
     # speed: one timed call
-    p_rad, plain_ms = timed(lambda: pk.path_radiance_reference(*args),
-                            repeats=1, warm_up=False)
-    bound_ms, bound_by = bound(pk, scene.tables, stats,
-                               PARITY_WIDTH * PARITY_WIDTH * PARITY_SPP,
-                               n_paths)
+    p_rad, plain_ms = timed(lambda: route.reference(*args), repeats=1,
+                            warm_up=False)
+    bound_ms, bound_by = route.bound(
+        tables, stats, PARITY_WIDTH * PARITY_WIDTH * PARITY_SPP, n_paths)
     log(f"{name} render (kernel, end to end): {render_ms:.3f} ms median of "
         f"{REPEATS}, {n_paths / render_ms / 1e3:.3f} Mpaths/s")
     log(f"{name} kernel: {kernel_ms:.3f} ms, {n_paths / kernel_ms / 1e3:.3f} "
         f"Mpaths/s, bound {bound_ms:.4f} ms ({bound_by}), "
         f"{100 * bound_ms / kernel_ms:.2f}% of bound; plain version: "
         f"{plain_ms:.3f} ms, {n_paths / plain_ms / 1e3:.3f} Mpaths/s")
-    compare(develop(k_rad, WIDTH, SPP), develop(p_rad, WIDTH, SPP),
+    compare(develop(k_rad, WIDTH, spp), develop(p_rad, WIDTH, spp),
             f"{name} main-path shape")
     log(f"{name}: {time.perf_counter() - t_path:.1f} s")
-    return {"name": label, "route": "cuda",
-            "source": "mitsuba2_tpu_torch/csrc/path_kernel.cu",
-            "replaces": "mitsuba2_tpu/ops/megakernel.py:365",
-            "launches": launches, "max_abs_err": max_abs_err,
-            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+    return {"name": route.label, "route": "cuda", "source": route.source,
+            "replaces": route.replaces, "launches": launches,
+            "max_abs_err": max_abs_err, "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def run_path(mi, pk, name, variant, make_dict, flags, mean_band):
+    """One path of the path kernel under ``variant`` (256^2 x 64 spp,
+    depth 6) -> its entry of the kernels line."""
+    mi.set_variant(variant)
+    nc = pk.MODE_NC[mi.variant_config().color_mode]
+
+    def tables(scene):
+        if (scene.tables.flags & pk.TEMPLATE_FLAGS, scene.tables.nc) \
+                != (flags, nc):
+            raise SystemExit(f"{name}: scene tables carry flags "
+                             f"{scene.tables.flags}, nc {scene.tables.nc}")
+        return scene.tables
+
+    return drive(mi, pk, name, make_dict, SPP, MAX_DEPTH, mean_band, Route(
+        pk.kernel_name(flags, nc), (flags, nc), pk.path_radiance,
+        pk.path_radiance_reference, pk.reset_launch_counts, tables,
+        lambda *a: bound(pk, *a), "mitsuba2_tpu_torch/csrc/path_kernel.cu",
+        "mitsuba2_tpu/ops/megakernel.py:365"))
+
+
+def run_volpath(mi, pk, vk, volpath_slab_dict):
+    """The volpath slab (256^2 x 16 spp, depth 16) through the volumetric
+    kernel's hg instantiation -> its entry of the kernels line."""
+    mi.set_variant("scalar_rgb")
+    flags = vk.HAS_HG
+
+    def tables(scene):
+        t = vk.build_vol_tables(scene)
+        if t.flags != flags:
+            raise SystemExit(f"volpath: scene tables carry flags {t.flags}")
+        return t
+
+    return drive(mi, pk, "volpath", volpath_slab_dict, VOL_SPP,
+                 VOL_MAX_DEPTH, (0.3, 5.0), Route(
+                     vk.kernel_name(flags), flags, vk.volpath_radiance,
+                     vk.volpath_radiance_reference, vk.reset_launch_counts,
+                     tables, vol_bound,
+                     "mitsuba2_tpu_torch/csrc/volpath_kernel.cu",
+                     "mitsuba2_tpu/ops/volmegakernel.py:186"))
 
 
 def main():
@@ -249,23 +340,30 @@ def main():
 
     import mitsuba2_tpu_torch as mi
     from mitsuba2_tpu_torch.ops import build, path_kernel as pk
-    from mitsuba2_tpu_torch.python.test.scenes import (cornell_box_dict,
-                                                       matpreview_dict)
+    from mitsuba2_tpu_torch.ops import volpath_kernel as vk
+    from mitsuba2_tpu_torch.python.test.scenes import (
+        cornell_box_dict, matpreview_dict, volpath_slab_dict)
 
     nvcc = build.find_nvcc()
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}"
         f"; nvcc: {nvcc or 'not found'}")
 
-    # ---- build: one library per color mode, in parallel ----
+    # ---- build: one library per color mode and the volumetric kernel's,
+    # in parallel ----
     t0 = time.perf_counter()
-    pk.build_all_libraries()
-    log(f"build: path_kernel, 3 color modes x 16 instantiations, in "
+    build.build_all(pk.libraries() + vk.libraries())
+    log(f"build: path_kernel, 3 color modes x 16 instantiations, and "
+        f"volpath_kernel, 16 instantiations, in "
         f"{time.perf_counter() - t0:.2f} s")
     for nc in (3, 4, 1):
         lib = "path_kernel" + build._tag(pk.library_defines(nc))
         report = ptxas_report(build.build_logs.get(lib, ""))
         for inst in sorted(report):
             log(f"  ptxas {pk.kernel_name(*inst)}: {report[inst]}")
+    report = ptxas_report(build.build_logs.get("volpath_kernel", ""),
+                          "volpath_kernel")
+    for inst in sorted(report):
+        log(f"  ptxas {vk.kernel_name(*inst)}: {report[inst]}")
 
     full = pk.HAS_SPHERES | pk.HAS_ENV | pk.HAS_GGX | pk.HAS_CHECKER
     paths = [
@@ -278,6 +376,7 @@ def main():
         ("cornell_mono", "scalar_mono", cornell_box_dict, 0, (0.05, 1.0)),
     ]
     kernels = [run_path(mi, pk, *p) for p in paths]
+    kernels.append(run_volpath(mi, pk, vk, volpath_slab_dict))
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

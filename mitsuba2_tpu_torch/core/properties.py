@@ -106,6 +106,17 @@ class Properties:
             v = default_value
         return _tex.as_texture(v, within_emitter=True)
 
+    def volume(self, k, default_value=None):
+        """Fetch a volume property; numbers and colors wrap into constant
+        volumes (``models/media.py as_volume``)."""
+        from ..models import media as _media
+        v = self.get(k, None)
+        if v is None:
+            if default_value is None:
+                raise KeyError(f"volume property '{k}' missing")
+            v = default_value
+        return _media.as_volume(v)
+
     def objects(self, mark=True):
         """All nested plugin-object properties as (key, object) pairs."""
         from .object import Object

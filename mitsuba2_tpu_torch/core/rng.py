@@ -2,7 +2,8 @@
 
 Every random value is ``hash(seed, lane_key, dimension)`` through TEA
 (reference: include/mitsuba/core/random.h:75-169, ``sample_tea_32``), bit
-for bit the same streams as ``mitsuba2_tpu.core.rng``. Torch has no
+for bit the same streams as ``mitsuba2_tpu.core.rng``; the volumetric
+kernel's tracking streams use the cheaper ``mix32`` hash. Torch has no
 general uint32 arithmetic, so the words ride int64 tensors that hold
 values in [0, 2**32): sums and xors only ever need their low 32 bits, and
 the mask after each update keeps the right shifts exact.
@@ -36,6 +37,29 @@ def sample_tea_32(v0, v1, rounds: int = 4):
         v1 = (v1 + (((v0 << 4) + 0xAD90777D) ^ (v0 + s)
                     ^ ((v0 >> 5) + 0x7E95761E))) & MASK32
     return v0, v1
+
+
+def _mul32(a, c: int):
+    """Low 32 bits of uint32 a (int64) times the constant uint32 c, in two
+    16-bit halves so that no int64 product overflows."""
+    lo = (a & 0xFFFF) * c
+    hi = ((((a >> 16) * c) & 0xFFFF) << 16)
+    return (lo + hi) & MASK32
+
+
+def mix32(key, dim):
+    """Weyl-offset murmur3 finalizer of (key, dim): the cheap counter RNG of
+    the volumetric tracking streams (``_mix32`` of
+    mitsuba2_tpu/ops/megakernel.py:208-224), bit for bit. ``dim`` is an
+    int or an int64 tensor of uint32 values."""
+    key = _u32(key)
+    d = _u32(dim, key)
+    h = (key + _mul32(d, 0x9E3779B9)) & MASK32
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
 
 
 def u32_to_float01(bits):

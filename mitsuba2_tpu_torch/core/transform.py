@@ -83,3 +83,8 @@ class Transform(NamedTuple):
     def __matmul__(self, other: "Transform") -> "Transform":
         return Transform(self.matrix @ other.matrix,
                          self.inverse_transpose @ other.inverse_transpose)
+
+    def inverse(self) -> "Transform":
+        """Swaps the matrix and the transposed inverse (no arithmetic)."""
+        return Transform(np.ascontiguousarray(self.inverse_transpose.T),
+                         np.ascontiguousarray(self.matrix.T))

@@ -68,6 +68,7 @@
 #include <stdint.h>
 
 #include "rng.cuh"
+#include "shading.cuh"
 
 // color channels of this library's instantiations: 3 rgb, 4 spectral
 // (hero wavelengths), 1 mono (ops/path_kernel.py library_defines)
@@ -77,7 +78,6 @@
 
 #define BLOCK 128
 #define BIG 3.0e38f
-#define PI_F 3.14159265358979f
 
 // Field for field ops/path_kernel.py::_PathArgs.
 struct PathArgs {
@@ -279,38 +279,6 @@ __device__ __forceinline__ void env_sample(const PathArgs& a, float u1,
     pdf = pmf * (float)(ws * hs) / fmaxf(TWO_PI2 * st, 1e-8f);
     texel = env_fetch(a, uu, vv);
     if (a.env_has_rot) rot3(a.env_rot, dx, dy, dz);
-}
-
-// Exact unpolarized conductor Fresnel (megakernel.py:255).
-__device__ __forceinline__ float fresnel_cond(float c, float eta, float k) {
-    const float c2 = c * c;
-    const float s2 = 1.0f - c2;
-    const float eta2 = eta * eta - k * k;
-    const float etak2 = 2.0f * eta * k;
-    const float t0 = eta2 - s2;
-    const float a2b2 = sqrtf(fmaxf(t0 * t0 + etak2 * etak2, 0.0f));
-    const float t1 = a2b2 + c2;
-    const float a = sqrtf(fmaxf(0.5f * (a2b2 + t0), 0.0f));
-    const float t2 = 2.0f * a * c;
-    const float rs = (t1 - t2) / fmaxf(t1 + t2, 1e-20f);
-    const float t3 = c2 * a2b2 + s2 * s2;
-    const float t4 = t2 * s2;
-    const float rp = rs * (t3 - t4) / fmaxf(t3 + t4, 1e-20f);
-    return 0.5f * (rp + rs);
-}
-
-__device__ __forceinline__ float ggx_d(float hz, float a) {
-    const float a2 = a * a;
-    const float d = hz * hz * (a2 - 1.0f) + 1.0f;
-    return a2 / fmaxf(PI_F * d * d, 1e-20f);
-}
-
-// Smith G1 of isotropic GGX from the cosine alone.
-__device__ __forceinline__ float ggx_g1(float cz, float a) {
-    cz = fmaxf(cz, 1e-6f);
-    const float a2 = a * a;
-    const float t2 = (1.0f - cz * cz) / (cz * cz);
-    return 2.0f / (1.0f + sqrtf(1.0f + a2 * t2));
 }
 
 template <int FLAGS, int NC>

@@ -1,6 +1,6 @@
 // Device-side RNG and sampling helpers shared by the path kernels.
 //
-// Replaces mitsuba2_tpu/ops/megakernel.py:194-252 (_tea, _u01, _rng2,
+// Replaces mitsuba2_tpu/ops/megakernel.py:194-252 (_tea, _mix32, _u01, _rng2,
 // _concentric, _mis). TEA and the float conversion are bit-exact with
 // mitsuba2_tpu/core/rng.py and with the plain versions in
 // ops/path_kernel.py; _concentric and _mis agree to float rounding.
@@ -55,4 +55,17 @@ __device__ __forceinline__ float mis(float a, float b) {
     const float a2 = a * a;
     const float b2 = b * b;
     return a2 > 0.0f ? a2 / fmaxf(a2 + b2, 1e-30f) : 0.0f;
+}
+
+// Weyl-offset murmur3 finalizer of (key, dim): the counter RNG of the
+// volumetric tracking streams (mitsuba2_tpu/ops/megakernel.py:208-224
+// _mix32), bit-exact with mix32 in core/rng.py.
+__device__ __forceinline__ uint32_t mix32(uint32_t key, uint32_t dim) {
+    uint32_t h = key + dim * 0x9E3779B9u;
+    h ^= h >> 16;
+    h *= 0x85EBCA6Bu;
+    h ^= h >> 13;
+    h *= 0xC2B2AE35u;
+    h ^= h >> 16;
+    return h;
 }

@@ -1,7 +1,8 @@
 """The plugin library. Importing this package registers every plugin."""
 
 from . import (textures, spectra, rfilters, bsdfs, emitters, sensors, films,
-               samplers, shapes, integrators)
+               samplers, shapes, integrators, media, media_impl, phase)
 
-ALL_PLUGIN_MODULES = [textures, spectra, rfilters, bsdfs, emitters, sensors, films,
-                      samplers, shapes, integrators]
+ALL_PLUGIN_MODULES = [textures, spectra, rfilters, bsdfs, emitters, sensors,
+                      films, samplers, shapes, integrators, media, media_impl,
+                      phase]

@@ -1,12 +1,14 @@
-"""BSDF plugins (reference: src/bsdfs/). This slice ports ``diffuse`` and
-``roughconductor``. The path kernel shades both itself from the scene's
-per-face columns (ops/path_kernel.py), so the plugins hold parameters."""
+"""BSDF plugins (reference: src/bsdfs/). This slice ports ``diffuse``,
+``roughconductor``, ``dielectric`` and ``null``. The kernels shade them
+themselves from the scene's per-face columns (ops/path_kernel.py,
+ops/volpath_kernel.py), so the plugins hold parameters."""
 
 from __future__ import annotations
 
 from ..core.object import register_plugin
 from ..render.bsdf import BSDF, BSDFFlags
-from ..render.fresnel import lookup_conductor_curves, lookup_conductor_ior
+from ..render.fresnel import (lookup_conductor_curves, lookup_conductor_ior,
+                              lookup_ior)
 
 
 def _spectral_ior(tex, curve=None):
@@ -86,3 +88,44 @@ class RoughConductor(BSDF):
             flags |= BSDFFlags.Anisotropic
         self.m_components = [flags]
         self.m_flags = flags
+
+
+@register_plugin("bsdf", "null")
+class NullBSDF(BSDF):
+    """(null.cpp) the pass-through material of a medium's boundary."""
+
+    def __init__(self, props=None):
+        super().__init__(props)
+        self.m_components = [BSDFFlags.Null | BSDFFlags.FrontSide
+                             | BSDFFlags.BackSide]
+        self.m_flags = self.m_components[0]
+
+
+@register_plugin("bsdf", "dielectric")
+class SmoothDielectric(BSDF):
+    """(dielectric.cpp) a perfectly smooth dielectric interface: relative
+    IOR ``eta = int_ior / ext_ior`` (names or numbers, bk7 in air by
+    default), ``specular_reflectance`` and ``specular_transmittance``. Two
+    delta lobes, picked by the Fresnel term; two-sided."""
+
+    def __init__(self, props=None):
+        super().__init__(props)
+        from .textures import ConstantTexture
+        p = props
+        int_ior = lookup_ior(p.get("int_ior", "bk7")) if p else 1.5046
+        ext_ior = lookup_ior(p.get("ext_ior", "air")) if p else 1.000277
+        self.eta = int_ior / ext_ior
+        if p is not None:
+            self.specular_reflectance = p.texture("specular_reflectance",
+                                                  1.0)
+            self.specular_transmittance = p.texture(
+                "specular_transmittance", 1.0)
+        else:
+            self.specular_reflectance = ConstantTexture(color=1.0)
+            self.specular_transmittance = ConstantTexture(color=1.0)
+        self.m_components = [
+            BSDFFlags.DeltaReflection | BSDFFlags.FrontSide
+            | BSDFFlags.BackSide,
+            BSDFFlags.DeltaTransmission | BSDFFlags.FrontSide
+            | BSDFFlags.BackSide | BSDFFlags.NonSymmetric]
+        self.m_flags = self.m_components[0] | self.m_components[1]

@@ -155,6 +155,8 @@ class SphereShape(Shape):
             mesh.normals = -mesh.normals
         mesh.bsdf = self.bsdf
         mesh.emitter = self.emitter
+        mesh.interior_medium = self.interior_medium
+        mesh.exterior_medium = self.exterior_medium
         if self.emitter is not None:
             self.emitter.set_shape(mesh)
         return mesh

@@ -3,7 +3,7 @@
 Each ``csrc/<name>.cu`` compiles with nvcc for sm_90a into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds), once per set of ``-D`` defines it is asked for (the path kernel
-is built once per color mode). Libraries go into
+is built once per color mode, the volumetric kernel once). Libraries go into
 ``mitsuba2_tpu_torch/_build/``, named by the defines and a hash of every
 source in ``csrc/``, the flags and the defines, and are built at first
 use, or all at once in parallel nvcc processes with ``build_all``; each
@@ -111,18 +111,18 @@ def build(name: str, defines=None) -> Path:
     return _finish(name, defines, started)
 
 
-def build_all(name: str, define_sets) -> None:
-    """Compile ``csrc/<name>.cu`` once per defines dict, all nvcc
+def build_all(jobs) -> None:
+    """Compile each (name, defines) library of ``jobs``, all nvcc
     processes at once; every process is waited for, and the first failure
     raises after that."""
     with _LOCK:
         started = []
         try:
-            for d in define_sets:
-                started.append((d, _start(name, d)))
+            for name, d in jobs:
+                started.append((name, d, _start(name, d)))
         finally:
             errors = []
-            for d, st in started:
+            for name, d, st in started:
                 if st is None:
                     continue
                 try:

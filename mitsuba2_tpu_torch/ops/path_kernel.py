@@ -385,6 +385,17 @@ def _dot3(a, b):
     return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
 
 
+def _frame(n):
+    """Duff et al.'s branchless orthonormal basis (t1, t2) around unit
+    vectors n (3 tensors)."""
+    one = torch.ones_like(n[2])
+    s = torch.where(n[2] >= 0.0, one, -one)
+    oa = -1.0 / (s + n[2])
+    ob = n[0] * n[1] * oa
+    return ([1.0 + s * n[0] * n[0] * oa, s * ob, -s * n[0]],
+            [ob, s + n[1] * n[1] * oa, -n[1]])
+
+
 def _normalized(v, floor=1e-20):
     inv = torch.rsqrt(torch.clamp(_dot3(v, v), min=floor))
     return [x * inv for x in v]
@@ -780,12 +791,7 @@ def _trace_lanes(tables, cam, key, pixel, width, height, max_depth,
         p = [o[k] + t * d[k] for k in range(3)]
         eps = (1.0 + torch.maximum(p[0].abs(), torch.maximum(
             p[1].abs(), p[2].abs()))) * 1.8e-4
-        # branchless orthonormal basis around n (Duff et al.)
-        s = torch.where(n_[2] >= 0, one, -one)
-        oa = -1.0 / (s + n_[2])
-        ob = n_[0] * n_[1] * oa
-        tx = [1.0 + s * n_[0] * n_[0] * oa, s * ob, -s * n_[0]]
-        ty = [ob, s + n_[1] * n_[1] * oa, -n_[1]]
+        tx, ty = _frame(n_)
 
         def to_local(v):
             return [_dot3(v, tx), _dot3(v, ty), _dot3(v, n_)]
@@ -1096,10 +1102,10 @@ def library_defines(nc):
     return {"PK_NC": nc}
 
 
-def build_all_libraries():
-    """Build the three color modes' libraries at once (parallel nvcc)."""
-    from .build import build_all
-    build_all("path_kernel", [library_defines(nc) for nc in (3, 4, 1)])
+def libraries():
+    """(name, defines) of the three color modes' libraries, for
+    ``build.build_all``."""
+    return [("path_kernel", library_defines(nc)) for nc in (3, 4, 1)]
 
 
 def _path_render(nc):
@@ -1199,6 +1205,8 @@ def path_kernel_ineligibility(scene):
                                                       "_d65_scale"):
                 return ("area emitter spectrum without srgb_d65 payload "
                         "in spectral mode")
+    if scene.has_media:
+        return "participating media"
     if not scene.shapes:
         return "no shapes"
     for sh in scene.shapes:

@@ -3,6 +3,8 @@ this package's Transform)."""
 
 from __future__ import annotations
 
+import numpy as np
+
 from ...core.transform import Transform
 
 
@@ -145,3 +147,41 @@ def matpreview_dict(width=256, height=256, spp=64, max_depth=6,
                      "rfilter": {"type": "box"}},
             "sampler": {"type": "independent", "sample_count": spp}},
     }
+
+
+def volpath_slab_dict(width=256, height=256, spp=16, max_depth=16,
+                      grid=None, albedo=0.8, g=0.3, **extra):
+    """bench.py's volpath scene (``bench_volpath``): a null-BSDF 2x2x2 cube
+    bounding a heterogeneous medium (sigma_t a 16^3 grid drawn from
+    ``default_rng(0)`` in [0.2, 2.0] unless ``grid`` is given, rgb albedo,
+    HG phase of anisotropy g) in front of a rectangular area light of
+    radiance 4, seen by a 35-degree pinhole through a box filter, under
+    ``volpath``. ``extra`` adds or replaces top-level entries."""
+    T = Transform
+    if grid is None:
+        grid = np.random.default_rng(0).uniform(
+            0.2, 2.0, (16, 16, 16)).astype(np.float32)
+    d = {"type": "scene",
+         "integrator": {"type": "volpath", "max_depth": max_depth},
+         "slab": {"type": "cube", "bsdf": {"type": "null"},
+                  "interior": {"type": "heterogeneous",
+                               "sigma_t": {"type": "grid3d", "data": grid},
+                               "albedo": {"type": "rgb",
+                                          "value": [albedo] * 3},
+                               "to_world": (T.translate([-1, -1, -1])
+                                            @ T.scale(2.0)),
+                               "phase": {"type": "hg", "g": g}}},
+         "light": {"type": "rectangle",
+                   "to_world": T.translate([0, 0, -2.5]) @ T.scale(2.0),
+                   "emitter": {"type": "area",
+                               "radiance": {"type": "rgb",
+                                            "value": [4.0] * 3}}},
+         "sensor": {"type": "perspective", "fov": 35.0,
+                    "to_world": T.look_at([0, 0, 4], [0, 0, 0], [0, 1, 0]),
+                    "film": {"type": "hdrfilm", "width": width,
+                             "height": height,
+                             "rfilter": {"type": "box"}},
+                    "sampler": {"type": "independent",
+                                "sample_count": spp}}}
+    d.update(extra)
+    return d

@@ -1,11 +1,66 @@
-"""Conductor Fresnel term and the rgb conductor IOR table (reference:
-include/mitsuba/render/fresnel.h fresnel_conductor, ior.h; counterpart of
-``mitsuba2_tpu.render.fresnel``), and the full-range eta/k curves of the
-headline metals that spectral variants fit their IOR spectra to."""
+"""Dielectric and conductor Fresnel terms, the named dielectric IORs and
+the rgb conductor IOR table (reference: include/mitsuba/render/fresnel.h,
+ior.h; counterpart of ``mitsuba2_tpu.render.fresnel``), and the
+full-range eta/k curves of the headline metals that spectral variants fit
+their IOR spectra to."""
 
 from __future__ import annotations
 
+import torch
+
 from ..core import math as m
+
+
+def fresnel(cos_theta_i, eta):
+    """Unpolarized Fresnel reflectance of a dielectric interface with
+    relative IOR ``eta`` (fresnel.h fresnel) -> (F, cos_theta_t, eta_it,
+    eta_ti): the reflectance, the transmitted cosine (signed, on the
+    other side), the relative IOR seen by the incident ray and its
+    inverse. ``eta`` is a number or a tensor."""
+    eta = torch.as_tensor(eta, dtype=cos_theta_i.dtype,
+                          device=cos_theta_i.device)
+    outside = cos_theta_i >= 0
+    rcp_eta = 1.0 / eta
+    eta_it = torch.where(outside, eta, rcp_eta)
+    eta_ti = torch.where(outside, rcp_eta, eta)
+    cos_theta_t_sqr = 1.0 - eta_ti * eta_ti * (1.0 - cos_theta_i
+                                               * cos_theta_i)
+    cos_i = cos_theta_i.abs()
+    cos_t = m.safe_sqrt(cos_theta_t_sqr)
+    a_s = m.safe_div(cos_i - eta_it * cos_t, cos_i + eta_it * cos_t, 0.0)
+    a_p = m.safe_div(eta_it * cos_i - cos_t, eta_it * cos_i + cos_t, 0.0)
+    F = 0.5 * (a_s * a_s + a_p * a_p)
+    F = torch.where(cos_theta_t_sqr <= 0.0, torch.ones_like(F), F)
+    F = torch.where(eta == 1.0, torch.zeros_like(F), F)
+    return F, torch.where(cos_theta_i <= 0, cos_t, -cos_t), eta_it, eta_ti
+
+
+# Named dielectric IORs (ior.h), the values of mitsuba2_tpu.render.fresnel.
+IOR_DATABASE = {
+    "vacuum": 1.0, "helium": 1.000036, "hydrogen": 1.000132,
+    "air": 1.000277, "carbon dioxide": 1.00045,
+    "water": 1.3330, "acetone": 1.36, "ethanol": 1.361,
+    "carbon tetrachloride": 1.461, "glycerol": 1.4729, "benzene": 1.501,
+    "silicone oil": 1.52045, "bromine": 1.661,
+    "water ice": 1.31, "fused quartz": 1.458, "pyrex": 1.470,
+    "acrylic glass": 1.49, "polypropylene": 1.49, "bk7": 1.5046,
+    "sodium chloride": 1.544, "amber": 1.55, "pet": 1.5750,
+    "diamond": 2.419,
+}
+
+
+def lookup_ior(name_or_value, default=None):
+    """An IOR given as a number or a name of ``IOR_DATABASE`` (ior.h
+    lookup_ior)."""
+    if name_or_value is None:
+        name_or_value = default
+    if isinstance(name_or_value, (int, float)):
+        return float(name_or_value)
+    key = str(name_or_value).lower()
+    if key not in IOR_DATABASE:
+        raise ValueError(f"unknown IOR name {name_or_value!r}; known: "
+                         f"{sorted(IOR_DATABASE)}")
+    return IOR_DATABASE[key]
 
 
 def fresnel_conductor(cos_theta_i, eta_re, eta_im):

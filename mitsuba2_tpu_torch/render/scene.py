@@ -110,6 +110,11 @@ class Scene(Object):
 
         self.face_shape = (np.concatenate(face_shape) if face_shape
                            else np.zeros(0, np.int32))
+        # per-face host arrays in shape order, kept for the tables built
+        # after load (the volumetric kernel's, ops/volpath_kernel.py)
+        self.v0, self.e1, self.e2 = (cat(v0s, (3,)), cat(e1s, (3,)),
+                                     cat(e2s, (3,)))
+        self.ng = cat(ngs, (3,))
         for e in self.emitters:
             if hasattr(e, "prepare"):
                 e.prepare(self)
@@ -122,7 +127,7 @@ class Scene(Object):
 
         uvs = cat(uvss, (3, 2))
         fattr = np.zeros((len(self.face_shape), pk.FA), np.float32)
-        fattr[:, pk.C_NG:pk.C_NG + 3] = cat(ngs, (3,))
+        fattr[:, pk.C_NG:pk.C_NG + 3] = self.ng
         fattr[:, pk.C_LPDF] = lpdf_w
         fattr[:, pk.C_LE:pk.C_LE + 3] = le_face
         fattr[:, pk.C_LESCALE] = le_scale
@@ -150,9 +155,21 @@ class Scene(Object):
                 + env_sampling_tables(env.data)
             env_rot = np.asarray(env.to_world.matrix, np.float32)[:3, :3]
         self.tables = pk.pack_tables(
-            cat(v0s, (3,)), cat(e1s, (3,)), cat(e2s, (3,)), fattr, lights,
+            self.v0, self.e1, self.e2, fattr, lights,
             self.device, sph=sph, sattr=sattr, env=env_t, env_rot=env_rot,
             p_env=p_env, nc=pk.MODE_NC[mode])
+        # the light table and per-face emission on the host, for the same
+        self.light_rows, self.le_face, self.lpdf_w = lights, le_face, lpdf_w
+
+        # media in first-seen shape order, interior before exterior
+        # (mitsuba2_tpu/render/scene.py:293-312)
+        self.media = []
+        for s in self.shapes:
+            for med in (s.interior_medium, s.exterior_medium):
+                if med is not None and all(med is not x
+                                           for x in self.media):
+                    self.media.append(med)
+        self.has_media = bool(self.media)
 
     def bbox(self):
         return self._bb_min, self._bb_max

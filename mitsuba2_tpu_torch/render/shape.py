@@ -14,20 +14,29 @@ from ..core.properties import Properties
 
 
 class Shape(Object):
-    """Base shape: carries its BSDF and an optional attached emitter."""
+    """Base shape: carries its BSDF, an optional attached emitter and the
+    media inside and outside it (a nested medium under the key
+    ``exterior`` is the outside one, any other the inside one)."""
 
     def __init__(self, props: Properties | None = None):
         super().__init__(props)
         self.bsdf = None
         self.emitter = None
+        self.interior_medium = None
+        self.exterior_medium = None
         if props is not None:
-            for _, obj in props.objects():
+            for key, obj in props.objects():
                 kind = getattr(obj, "plugin_category", "")
                 if kind == "bsdf":
                     self.bsdf = obj
                 elif kind == "emitter":
                     self.emitter = obj
                     obj.set_shape(self)
+                elif kind == "medium":
+                    if key == "exterior":
+                        self.exterior_medium = obj
+                    else:
+                        self.interior_medium = obj
 
     def is_mesh(self):
         return isinstance(self, Mesh)
