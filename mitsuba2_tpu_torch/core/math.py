@@ -6,6 +6,9 @@ from __future__ import annotations
 import torch
 
 Pi = 3.141592653589793
+# Ray-offset epsilon (include/mitsuba/render/fwd.h: float32 machine epsilon
+# times 1500, as mitsuba2_tpu.core.math has it): a ray's default mint
+RayEpsilon = 1.1920929e-07 * 1500.0
 
 
 def safe_div(a, b, fallback=0.0):

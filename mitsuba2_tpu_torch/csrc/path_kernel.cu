@@ -1,8 +1,11 @@
 // Path kernel (sm_90a).
 //
 // Replaces mitsuba2_tpu/ops/megakernel.py::_path_kernel (megakernel.py:365)
-// in its K1a scope (triangle meshes of at most 1024 faces, constant-albedo
-// diffuse BSDFs, constant area lights, box filter), its matpreview scopes:
+// in its K1a scope (triangle meshes, constant-albedo diffuse BSDFs,
+// constant area lights, box filter), its large-mesh tiers (K1f: the
+// streamed sweep and the HBM BVH walk, megakernel.py:570-675, :676-1009,
+// :1077-1197, :2085, here one per-ray walk, csrc/bvh.cuh, for more than
+// 1024 faces), its matpreview scopes:
 // analytic spheres (K1b), one lat-long envmap with CDF-inverted NEE and
 // escape MIS (K1c), isotropic GGX rough conductors with visible-normal
 // sampling and checkerboard albedo (K1d), and its color modes (K1e): rgb,
@@ -53,6 +56,11 @@
 //   the same face at the same step of the loop, so each read is a
 //   broadcast. The attribute row of the hit face or sphere (ten float4) is
 //   read once per bounce from global memory through the read-only path.
+// - Above 1024 faces (F_BVH) the Woop rows stay in global memory and every
+//   ray and shadow ray walks the scene's traversal tree instead of the
+//   loop (csrc/bvh.cuh: near child first, a stack per thread, ties to the
+//   lowest face id, the shadow walk ending at the first occluder). The
+//   walk's barycentrics feed the checker lookup. The sphere loop stays.
 // - The env radiance is one float4 texel per 16 bytes (a bilinear fetch is
 //   four loads); env sampling is two binary searches (marginal cdf, then
 //   the row's conditional cdf), giving exactly the reference's
@@ -60,13 +68,14 @@
 // - The closest-hit loop computes u and v only for a face whose t is in
 //   range and closer than the best so far; the shadow loops stop at the
 //   first occluder.
-// Ray sorting, a BVH, occupancy tuning and warp-coherent scheduling are
-// later work. Math is exact (atan2f, acosf, sinf, cosf, logf, expf; no
+// Ray sorting, occupancy tuning and warp-coherent scheduling are later
+// work. Math is exact (atan2f, acosf, sinf, cosf, logf, expf; no
 // fast-math).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bvh.cuh"
 #include "rng.cuh"
 #include "shading.cuh"
 
@@ -92,6 +101,9 @@ struct PathArgs {
     const float* env_pmf;     // (Hs, Ws)
     const float* env_rot;     // (18,) to_world 3x3, then its transpose
     const float4* spd;        // (96,) [D65, CMF x, y, z] (spectral)
+    const float4* bvh_nodes;  // (P, 4) traversal pair nodes (csrc/bvh.cuh)
+    const float4* bvh_woop;   // (F, 3) Woop rows in the tree's face order
+    const int* bvh_prim;      // (F,) face id of each tree position
     const float* cam;         // (16,)
     float* out;               // (3, n_lanes)
     int n_faces, n_lights, n_spheres;
@@ -106,6 +118,7 @@ namespace {
 
 // instantiation flags (ops/path_kernel.py HAS_*)
 constexpr int F_SPHERES = 1, F_ENV = 2, F_GGX = 4, F_CHECKER = 8;
+constexpr int F_BVH = 16;
 // attribute float4s per face / sphere (ops/path_kernel.py FA / 4)
 constexpr int FA4 = 10;
 // rows of the D65 / CMF table (ops/path_kernel.py SPD_ROWS)
@@ -142,26 +155,10 @@ __device__ __forceinline__ float spd_lerp(const float4* spd, float wl,
     return comp(spd[i], col) * (1.0f - w1) + comp(spd[i + 1], col) * w1;
 }
 
-// Woop row of one face: three float4 [Wu | Wv | Wz].
-__device__ __forceinline__ float dot_o(float4 w, float ox, float oy, float oz) {
-    return ox * w.x + oy * w.y + oz * w.z + w.w;
-}
-
-__device__ __forceinline__ float dot_d(float4 w, float dx, float dy, float dz) {
-    return dx * w.x + dy * w.y + dz * w.z;
-}
-
-// Barycentric test of face f at parameter t (min-form test of the
-// reference, written as three comparisons so that NaN fails it).
-__device__ __forceinline__ bool inside(const float4* wp, float t,
-                                       float ox, float oy, float oz,
-                                       float dx, float dy, float dz) {
-    const float4 wu = wp[0];
-    const float4 wv = wp[1];
-    const float u = dot_o(wu, ox, oy, oz) + t * dot_d(wu, dx, dy, dz);
-    const float v = dot_o(wv, ox, oy, oz) + t * dot_d(wv, dx, dy, dz);
-    return u >= 0.0f && v >= 0.0f && 1.0f - u - v >= 0.0f;
-}
+// Woop rows of one face: three float4 [Wu | Wv | Wz] (csrc/bvh.cuh).
+using bvh::dot_d;
+using bvh::dot_o;
+using bvh::inside;
 
 // Sphere hit parameter: the near root if above 0, else the far root;
 // > 0 only on a hit (megakernel.py:917-929).
@@ -288,6 +285,7 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
     constexpr bool GGX = FLAGS & F_GGX;
     constexpr bool CHK = FLAGS & F_CHECKER;
     constexpr bool SPEC = NC == 4;
+    constexpr bool BVH = FLAGS & F_BVH;
     // attributes from global memory, spheres in shared memory
     constexpr bool WIDE = FLAGS != 0;
     // attribute float4s staged per face when !WIDE: [ng, lpdf_w]
@@ -296,11 +294,15 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
     const int n_faces = a.n_faces;
     extern __shared__ float4 smem[];
     float4* s_spd = smem;                            // SPD_ROWS (spectral)
-    float4* s_woop = smem + (SPEC ? SPD_ROWS : 0);   // 3 float4 per face
+    // 3 float4 per face; none in the BVH tier
+    float4* s_woop = smem + (SPEC ? SPD_ROWS : 0);
     // Cornell: STAGE attribute float4 per face; otherwise the sphere rows
-    float4* s_more = s_woop + 3 * n_faces;
-    for (int i = threadIdx.x; i < 3 * n_faces; i += blockDim.x)
-        s_woop[i] = a.woop[i];
+    float4* s_more = s_woop + (BVH ? 0 : 3 * n_faces);
+    if constexpr (!BVH) {
+        for (int i = threadIdx.x; i < 3 * n_faces; i += blockDim.x)
+            s_woop[i] = a.woop[i];
+    }
+    const bvh::Tree tree{a.bvh_nodes, a.bvh_woop, a.bvh_prim};
     if constexpr (!WIDE) {
         for (int i = threadIdx.x; i < STAGE * n_faces; i += blockDim.x)
             s_more[i] = a.fattr[(i / STAGE) * FA4 + i % STAGE];
@@ -377,13 +379,26 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
         // ---- closest hit: lowest face id on ties, faces before spheres ----
         float t = BIG;
         int face = -1;
-        for (int f = 0; f < n_faces; ++f) {
-            const float4 wz = s_woop[3 * f + 2];
-            const float tf = -dot_o(wz, ox, oy, oz) / dot_d(wz, dx, dy, dz);
-            if (!(tf >= 0.0f && tf <= BIG && tf < t)) continue;
-            if (inside(s_woop + 3 * f, tf, ox, oy, oz, dx, dy, dz)) {
-                t = tf;
-                face = f;
+        float hu = 0.0f, hv = 0.0f;      // barycentrics of the face hit
+        if constexpr (BVH) {
+            face = bvh::closest_hit<false>(
+                tree, bvh::make_ray(ox, oy, oz, dx, dy, dz, 0.0f), BIG, t,
+                hu, hv);
+            if (face < 0) t = BIG;
+        } else {
+            for (int f = 0; f < n_faces; ++f) {
+                const float4 wz = s_woop[3 * f + 2];
+                const float tf =
+                    -dot_o(wz, ox, oy, oz) / dot_d(wz, dx, dy, dz);
+                if (!(tf >= 0.0f && tf <= BIG && tf < t)) continue;
+                float u, v;
+                if (inside(s_woop[3 * f], s_woop[3 * f + 1], tf, ox, oy, oz,
+                           dx, dy, dz, u, v)) {
+                    t = tf;
+                    face = f;
+                    hu = u;
+                    hv = v;
+                }
             }
         }
         int sphere = -1;
@@ -480,10 +495,8 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
                     bu = atan2f(ny, nx) * INV_2PI + 0.5f;
                     bv = acosf(fminf(fmaxf(nz, -1.0f), 1.0f)) * INV_PI;
                 } else {                     // barycentrics of the hit
-                    const float4 wu = s_woop[3 * face];
-                    const float4 wv = s_woop[3 * face + 1];
-                    bu = dot_o(wu, ox, oy, oz) + t * dot_d(wu, dx, dy, dz);
-                    bv = dot_o(wv, ox, oy, oz) + t * dot_d(wv, dx, dy, dz);
+                    bu = hu;
+                    bv = hv;
                 }
                 const float4 a6 = __ldg(A + 6), a7 = __ldg(A + 7);
                 const float4 a8 = __ldg(A + 8), a9 = __ldg(A + 9);
@@ -622,13 +635,20 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
                         soz = pz + nz * eps;
             const float maxt = dist * 0.999f;
             bool occluded = false;
-            for (int f = 0; f < n_faces && !occluded; ++f) {
-                const float4 wz = s_woop[3 * f + 2];
-                const float tf = -dot_o(wz, sox, soy, soz)
-                    / dot_d(wz, dlx, dly, dlz);
-                if (!(tf >= 0.0f && tf <= maxt)) continue;
-                occluded = inside(s_woop + 3 * f, tf, sox, soy, soz,
-                                  dlx, dly, dlz);
+            if constexpr (BVH) {
+                occluded = bvh::any_hit<false>(
+                    tree, bvh::make_ray(sox, soy, soz, dlx, dly, dlz, 0.0f),
+                    maxt);
+            } else {
+                for (int f = 0; f < n_faces && !occluded; ++f) {
+                    const float4 wz = s_woop[3 * f + 2];
+                    const float tf = -dot_o(wz, sox, soy, soz)
+                        / dot_d(wz, dlx, dly, dlz);
+                    if (!(tf >= 0.0f && tf <= maxt)) continue;
+                    float u, v;
+                    occluded = inside(s_woop[3 * f], s_woop[3 * f + 1], tf,
+                                      sox, soy, soz, dlx, dly, dlz, u, v);
+                }
             }
             if constexpr (SPH) {
                 for (int k = 0; k < a.n_spheres && !occluded; ++k) {
@@ -781,11 +801,13 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
 template <int FLAGS, int NC>
 int launch(const PathArgs& a, cudaStream_t stream) {
     // Cornell: Woop rows and STAGE attribute float4s per face; otherwise
-    // Woop rows and the sphere rows; the SPD table first in spectral mode
+    // Woop rows (none in the BVH tier) and the sphere rows; the SPD table
+    // first in spectral mode
     constexpr size_t stage = NC == 4 ? 4 : 3;
+    const size_t woop = (FLAGS & F_BVH) ? 0 : (size_t)a.n_faces * 3;
     const size_t smem = ((NC == 4 ? (size_t)SPD_ROWS : 0)
         + (FLAGS == 0 ? (size_t)a.n_faces * (3 + stage)
-                      : (size_t)a.n_faces * 3 + (size_t)a.n_spheres))
+                      : woop + (size_t)a.n_spheres))
         * sizeof(float4);
     cudaError_t err = cudaFuncSetAttribute(
         path_kernel<FLAGS, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -822,6 +844,22 @@ extern "C" int path_render(const PathArgs* args, void* stream) {
         case 13: return launch<13, PK_NC>(*args, s);
         case 14: return launch<14, PK_NC>(*args, s);
         case 15: return launch<15, PK_NC>(*args, s);
+        case 16: return launch<16, PK_NC>(*args, s);
+        case 17: return launch<17, PK_NC>(*args, s);
+        case 18: return launch<18, PK_NC>(*args, s);
+        case 19: return launch<19, PK_NC>(*args, s);
+        case 20: return launch<20, PK_NC>(*args, s);
+        case 21: return launch<21, PK_NC>(*args, s);
+        case 22: return launch<22, PK_NC>(*args, s);
+        case 23: return launch<23, PK_NC>(*args, s);
+        case 24: return launch<24, PK_NC>(*args, s);
+        case 25: return launch<25, PK_NC>(*args, s);
+        case 26: return launch<26, PK_NC>(*args, s);
+        case 27: return launch<27, PK_NC>(*args, s);
+        case 28: return launch<28, PK_NC>(*args, s);
+        case 29: return launch<29, PK_NC>(*args, s);
+        case 30: return launch<30, PK_NC>(*args, s);
+        case 31: return launch<31, PK_NC>(*args, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -1,11 +1,14 @@
-"""Shape plugins (reference: src/shapes/ — rectangle and sphere; the cube
-is composed of rectangles in the reference's scene assets and is a plugin
-here).
+"""Shape plugins (reference: src/shapes/ — rectangle, sphere, obj and
+serialized; the cube is composed of rectangles in the reference's scene
+assets and is a plugin here).
 
 Rectangle and cube are flat triangle meshes with the same vertices, faces,
 winding and normals as ``mitsuba2_tpu.models.shapes``. The sphere is an
 analytic quadric that the scene packs into its sphere table; it becomes a
-triangle mesh only where the reference tessellates it too.
+triangle mesh only where the reference tessellates it too. ``obj`` and
+``serialized`` load triangle meshes from files (utils/io_obj.py,
+utils/serialized.py), with ``face_normals`` and ``to_world``, and
+``serialized`` with ``shape_index``.
 """
 
 from __future__ import annotations
@@ -163,3 +166,38 @@ class SphereShape(Shape):
 
     def bbox(self):
         return self.center - self.radius, self.center + self.radius
+
+
+@register_plugin("shape", "obj")
+class OBJShape(Mesh):
+    """(obj.cpp:1-354) Wavefront OBJ mesh: ``filename``, ``face_normals``
+    (drop the file's vertex normals), ``to_world``."""
+
+    def __init__(self, props=None):
+        from ..utils.io_obj import load_obj
+        filename = props.string("filename")
+        v, f, n, uv = load_obj(filename)
+        if props.bool_("face_normals", False):
+            n = None
+        super().__init__(props, vertices=v, faces=f, normals=n, uvs=uv,
+                         name=filename)
+        self.apply_transform(_get_to_world(props))
+
+
+@register_plugin("shape", "serialized")
+class SerializedShape(Mesh):
+    """(serialized.cpp:1-374) Mitsuba 0.x .serialized mesh: ``filename``
+    (through the file resolver), ``shape_index``, ``face_normals``,
+    ``to_world``."""
+
+    def __init__(self, props=None):
+        from ..core.fresolver import file_resolver
+        from ..utils.serialized import load_serialized
+        filename = file_resolver().resolve(props.string("filename"))
+        v, f, n, uv = load_serialized(filename,
+                                      props.int_("shape_index", 0))
+        if props.bool_("face_normals", False):
+            n = None
+        super().__init__(props, vertices=v, faces=f, normals=n, uvs=uv,
+                         name=filename)
+        self.apply_transform(_get_to_world(props))

@@ -28,6 +28,10 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
+# host libraries: the flags mitsuba2_tpu/ops/bvh.py builds the reference's
+# copy of the BVH builder with, so the two give the same floats
+CXX_FLAGS = ("-O2", "-fPIC", "-shared")
+
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 # compiler output of each build made in this process, by library name
@@ -52,6 +56,20 @@ def find_nvcc() -> str | None:
     return None
 
 
+def find_cxx() -> str | None:
+    """The host C++ compiler: g++ (the reference builds its copy with
+    it), else $CXX, else c++ on $PATH."""
+    for c in ("g++", os.environ.get("CXX"), "c++"):
+        path = c and shutil.which(c)
+        if path:
+            return path
+    return None
+
+
+def _is_host(name: str) -> bool:
+    return (CSRC / f"{name}.cpp").is_file()
+
+
 def _tag(defines) -> str:
     return "".join(f"-{k.lower()}{v}" for k, v in sorted(defines.items()))
 
@@ -60,29 +78,37 @@ def library_path(name: str, defines=None) -> Path:
     """Where the build of ``csrc/<name>.cu`` with ``defines`` ({macro:
     value}) for the current sources lives."""
     defines = defines or {}
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    host = _is_host(name)
+    h = hashlib.sha256(" ".join(CXX_FLAGS if host else NVCC_FLAGS).encode())
     h.update(repr(sorted(defines.items())).encode())
-    for p in sorted(CSRC.glob("*.cu*")):
+    for p in ([CSRC / f"{name}.cpp"] if host
+              else sorted(CSRC.glob("*.cu*"))):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"{name}{_tag(defines)}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str, defines):
-    """Start nvcc for one library -> (output path, temp path, command,
-    process), or None if the library exists already."""
+    """Start the compiler for one library -> (output path, temp path,
+    command, process), or None if the library exists already."""
     out = library_path(name, defines)
     if out.exists():
         return None
-    nvcc = find_nvcc()
-    if nvcc is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on "
-                           "PATH to build the CUDA kernels")
+    if _is_host(name):
+        compiler, flags, src = find_cxx(), CXX_FLAGS, CSRC / f"{name}.cpp"
+        if compiler is None:
+            raise RuntimeError("no C++ compiler: set CXX or put g++ on PATH "
+                               f"to build {src.name}")
+    else:
+        compiler, flags, src = find_nvcc(), NVCC_FLAGS, CSRC / f"{name}.cu"
+        if compiler is None:
+            raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc "
+                               "on PATH to build the CUDA kernels")
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS,
+    cmd = [compiler, *flags,
            *(f"-D{k}={v}" for k, v in sorted((defines or {}).items())),
-           "-o", str(tmp), str(CSRC / f"{name}.cu")]
+           "-o", str(tmp), str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
     return out, tmp, cmd, proc
@@ -92,8 +118,9 @@ def _finish(name: str, defines, started) -> Path:
     out, tmp, cmd, proc = started
     stdout, stderr = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{stdout}{stderr}")
+        raise RuntimeError(f"{Path(cmd[0]).name} failed "
+                           f"({proc.returncode}): {' '.join(cmd)}\n"
+                           f"{stdout}{stderr}")
     log = stdout + stderr
     build_logs[name + _tag(defines or {})] = log
     # the compiler's report (ptxas -v) beside the library
@@ -134,8 +161,8 @@ def build_all(jobs) -> None:
 
 
 def load(name: str, defines=None) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu`` with ``defines``, built on
-    first use."""
+    """The loaded library of ``csrc/<name>.cu`` (or ``.cpp``) with
+    ``defines``, built on first use."""
     key = name + _tag(defines or {})
     with _LOCK:
         lib = _LIBS.get(key)

@@ -2,11 +2,12 @@
 wrapper.
 
 Counterpart of ``mitsuba2_tpu/ops/megakernel.py`` for its K1a scope
-(triangle meshes of at most ``MAX_FACES`` faces, constant-albedo diffuse
-BSDFs, constant area lights, rgb, box filter) and the matpreview scopes:
-analytic spheres (K1b), one lat-long envmap with its importance-sampled
-NEE arm (K1c), isotropic GGX rough conductors and checkerboard albedo
-(K1d), in the rgb, spectral and mono color modes (K1e). One lane is
+(triangle meshes, constant-albedo diffuse BSDFs, constant area lights,
+rgb, box filter), the matpreview scopes: analytic spheres (K1b), one
+lat-long envmap with its importance-sampled NEE arm (K1c), isotropic GGX
+rough conductors and checkerboard albedo (K1d), the rgb, spectral and mono
+color modes (K1e), and meshes of up to ``MAX_FACES_HBM`` faces (K1f). One
+lane is
 one camera path, lanes are pixel-major
 (``lane = pixel * spp_pass + s``), and the estimator is ``_path_kernel``'s
 (path.cpp:92-234): emission with power-2 MIS against area NEE, the
@@ -29,9 +30,17 @@ against the CIE CMFs into linear sRGB (megakernel.py:287-324, 436-463,
 1378-1393); 1 luminance channel in mono mode. The output is (3, n)
 linear sRGB in every mode.
 
+Two intersection tiers, as in the reference: up to ``MAX_FACES_SHARED``
+faces the kernel stages the Woop rows in shared memory and loops over all
+of them; above that (``HAS_BVH``) every ray walks the scene's traversal
+tree (ops/bvh.py, csrc/bvh.cuh), whose pair nodes, Woop rows and face ids
+``PathTables`` carries for every scene. Both give the closest hit with ties
+to the lowest face id, in the reference's face order.
+
 ``path_radiance`` runs the hand-written kernel (csrc/path_kernel.cu) for
 tables on a CUDA device and ``path_radiance_reference`` -- the same
-function in plain PyTorch -- for tables on the CPU.
+function in plain PyTorch, a linear sweep over every face in either tier
+-- for tables on the CPU.
 """
 
 from __future__ import annotations
@@ -46,11 +55,15 @@ import torch
 from ..core import spectrum as spec
 from ..core.rng import sample_tea_32, u32_to_float01
 from ..render.fresnel import fresnel_conductor
+from . import bvh as bvh_ops
+from .intersect import traverse
 
-# The reference's unrolled face-sweep tier holds at most
-# UNROLLED_CHUNKS * FACE_CHUNK faces (megakernel.py:82-85); larger meshes
-# wait for the per-ray BVH traversal.
-MAX_FACES = 1024
+# Faces the kernel stages in shared memory and sweeps linearly (the
+# reference's unrolled tier, UNROLLED_CHUNKS * FACE_CHUNK, megakernel.py:
+# 82-85); above it the BVH tier. The gate's cap is the reference's
+# (megakernel.py:96).
+MAX_FACES_SHARED = 1024
+MAX_FACES_HBM = 1 << 20
 MAX_SPHERES = 64         # megakernel.py MAX_SPHERES
 MAX_ENV_W = 256          # megakernel.py MAX_ENV_W
 _BIG = 3.0e38
@@ -83,16 +96,19 @@ SPD_ROWS = 96
 _WL_MIN, _WL_MAX = 360.0, 830.0
 
 # Scene-content flags: the kernel is instantiated per combination of the
-# first four (the reference kernel's static has_spheres / has_env /
-# has_ggx / has_checker gates); HAS_ENV_ROT is a run-time branch.
-HAS_SPHERES, HAS_ENV, HAS_GGX, HAS_CHECKER, HAS_ENV_ROT = 1, 2, 4, 8, 16
-TEMPLATE_FLAGS = HAS_SPHERES | HAS_ENV | HAS_GGX | HAS_CHECKER
+# first five (the reference kernel's static has_spheres / has_env /
+# has_ggx / has_checker gates, and the BVH tier for more than
+# MAX_FACES_SHARED faces); HAS_ENV_ROT is a run-time branch.
+HAS_SPHERES, HAS_ENV, HAS_GGX, HAS_CHECKER, HAS_BVH = 1, 2, 4, 8, 16
+HAS_ENV_ROT = 32
+TEMPLATE_FLAGS = HAS_SPHERES | HAS_ENV | HAS_GGX | HAS_CHECKER | HAS_BVH
 
 
 def flag_names(flags) -> str:
     """'cornell' for no scene-content flag, else e.g. 'spheres+env+ggx'."""
     names = [n for f, n in ((HAS_SPHERES, "spheres"), (HAS_ENV, "env"),
-                            (HAS_GGX, "ggx"), (HAS_CHECKER, "checker"))
+                            (HAS_GGX, "ggx"), (HAS_CHECKER, "checker"),
+                            (HAS_BVH, "bvh"))
              if flags & f]
     return "+".join(names) or "cornell"
 
@@ -133,8 +149,13 @@ class PathTables(NamedTuple):
     env_rot  (18,): the env's rigid to_world 3x3 row-major, then its
              transpose.
     spd      (96, 4) in spectral mode (``spd_table``), else (0, 4).
+    bvh_nodes (P, 16): the traversal tree's pair nodes (ops/bvh.py
+             ``pack_traversal``); bvh_woop (F, 12) the Woop rows and
+             bvh_prim (F,) int32 the face ids in the tree's face order;
+             empty without faces.
     flags    HAS_* bits; p_env the probability of the env NEE arm; nc the
-             color channels (``MODE_NC``).
+             color channels (``MODE_NC``); bvh_depth the tree's depth in
+             pair nodes.
     """
     woop: torch.Tensor
     fattr: torch.Tensor
@@ -147,9 +168,13 @@ class PathTables(NamedTuple):
     env_pmf: torch.Tensor
     env_rot: torch.Tensor
     spd: torch.Tensor
+    bvh_nodes: torch.Tensor
+    bvh_woop: torch.Tensor
+    bvh_prim: torch.Tensor
     flags: int = 0
     p_env: float = 0.0
     nc: int = 3
+    bvh_depth: int = 0
 
     @property
     def n_faces(self) -> int:
@@ -194,10 +219,12 @@ def build_woop(v0, e1, e2) -> np.ndarray:
 
 
 def _make_tables(woop, fattr, lights, sph, sattr, env, env_rot, p_env,
-                 device, nc) -> PathTables:
+                 device, nc, traversal=None) -> PathTables:
     """numpy tables -> PathTables on ``device``; flags from the content.
     ``env`` is None or (texels (H, W, 4), marginal cdf, conditional cdf,
-    pmf); ``env_rot`` None or the rigid 3x3 to_world."""
+    pmf); ``env_rot`` None or the rigid 3x3 to_world; ``traversal`` None
+    or the traversal tree (ops/bvh.py BVH) over the faces of ``woop``,
+    which more than MAX_FACES_SHARED faces need."""
     flags = 0
     sph = np.zeros((0, 4), np.float32) if sph is None else sph
     sattr = np.zeros((0, FA), np.float32) if sattr is None else sattr
@@ -222,6 +249,14 @@ def _make_tables(woop, fattr, lights, sph, sattr, env, env_rot, p_env,
         flags |= HAS_ENV_ROT
     spd = spd_table() if nc == MODE_NC["spectral"] \
         else np.zeros((0, 4), np.float32)
+    nodes = np.zeros((0, bvh_ops.PAIR_SLOTS), np.float32)
+    order = np.zeros(0, np.int32)
+    depth = 0
+    if traversal is not None:
+        nodes, depth = bvh_ops.pack_traversal(traversal)
+        order = traversal.order
+    if len(woop) > MAX_FACES_SHARED and traversal is not None:
+        flags |= HAS_BVH
 
     def dev(a):
         return torch.as_tensor(np.array(a, np.float32), device=device)
@@ -231,15 +266,27 @@ def _make_tables(woop, fattr, lights, sph, sattr, env, env_rot, p_env,
                       dev(pmf),
                       dev(np.concatenate([rot.reshape(-1),
                                           rot.T.reshape(-1)])),
-                      dev(spd), flags, float(p_env), nc)
+                      dev(spd), dev(nodes), dev(np.asarray(woop)[order]),
+                      torch.as_tensor(np.asarray(order, np.int32),
+                                      device=device),
+                      flags, float(p_env), nc, depth)
 
 
 def pack_tables(v0, e1, e2, fattr, lights, device, sph=None, sattr=None,
-                env=None, env_rot=None, p_env=0.0, nc=3) -> PathTables:
+                env=None, env_rot=None, p_env=0.0, nc=3,
+                traversal=None) -> PathTables:
     """Host per-face arrays -> the device table set (see ``_make_tables``
-    for ``env`` and ``env_rot``)."""
+    for ``env``, ``env_rot`` and ``traversal``)."""
     return _make_tables(build_woop(v0, e1, e2), fattr, lights, sph, sattr,
-                        env, env_rot, p_env, device, nc)
+                        env, env_rot, p_env, device, nc, traversal)
+
+
+def with_bvh_tier(tables) -> PathTables:
+    """The same tables with the BVH tier forced, whatever the face count
+    (a check of the tier on a small scene)."""
+    if not tables.bvh_nodes.shape[0]:
+        raise ValueError("the tables carry no traversal tree")
+    return tables._replace(flags=tables.flags | HAS_BVH)
 
 
 def _attr_from_reference(A):
@@ -327,6 +374,27 @@ def camera_row(sensor, device) -> torch.Tensor:
     row = np.concatenate([mat[:3, :3].reshape(-1), mat[:3, 3], [tan_half],
                           np.zeros(3, np.float32)]).astype(np.float32)
     return torch.as_tensor(row, device=device)
+
+
+def camera_rays(cam, width, height, spp, seed):
+    """Pinhole rays of camera row ``cam`` through every sample of every
+    pixel, in the kernel's lane order (pixel-major), jittered uniformly in
+    the pixel by a generator seeded with ``seed`` on the camera's device
+    -> (o, d), each (n, 3) float32. The ray queries' test and measurement
+    batch; the kernel draws its own jitter from the TEA streams."""
+    dev = cam.device
+    n = width * height * spp
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pixel = torch.arange(n, device=dev) // spp
+    sx = ((pixel % width).float()
+          + torch.rand(n, generator=g, device=dev)) / width
+    sy = ((pixel // width).float()
+          + torch.rand(n, generator=g, device=dev)) / height
+    loc = torch.stack([-(2.0 * sx - 1.0) * cam[12],
+                       (1.0 - 2.0 * sy) * cam[12] / (width / height),
+                       torch.ones_like(sx)], 1)
+    d = (loc / loc.norm(dim=1, keepdim=True)) @ cam[:9].reshape(3, 3).T
+    return cam[9:12].expand(n, 3).contiguous(), d.contiguous()
 
 
 # ----------------------------------------------------------------------------
@@ -548,6 +616,22 @@ def _closest_hit(tables, o, d, maxt):
     return t, A, bu, bv
 
 
+def _count_walk(tables, o, d, maxt, live, stats, key, any_hit):
+    """Adds the box tests and face tests that the BVH tier's walk
+    (csrc/bvh.cuh, emulated by ops/intersect.py ``traverse``) runs for the
+    ``live`` lanes' rays to ``stats[key + "_boxes"]`` and
+    ``stats[key + "_faces"]``."""
+    idx = live.nonzero()[:, 0]
+    walk = traverse(tables.bvh_nodes, tables.bvh_woop, tables.bvh_prim,
+                    torch.stack([x[idx] for x in o], 1),
+                    torch.stack([x[idx] for x in d], 1),
+                    torch.zeros(len(idx), device=idx.device), maxt[idx],
+                    any_hit=any_hit)
+    for part in ("boxes", "faces"):
+        stats[f"{key}_{part}"] = stats.get(f"{key}_{part}", 0) + int(
+            walk[part].sum())
+
+
 def _first_or_all(hits):
     """Per lane: tests a loop over the columns of ``hits`` that stops at
     the first hit runs (index of the first hit + 1, else all)."""
@@ -561,12 +645,16 @@ def _occluded(tables, o, d, maxt, stats=None, live=None):
     """Shadow any-hit of every lane; ``stats`` (with the ``live`` lanes
     that trace the ray) sums the face and sphere tests the kernel's loops,
     which stop at the first occluder, run ("shadow_faces",
-    "shadow_spheres")."""
+    "shadow_spheres"; in the BVH tier the walk's "shadow_walk_boxes" and
+    "shadow_walk_faces")."""
     occ = torch.zeros(o[0].shape[0], dtype=torch.bool, device=o[0].device)
     if tables.n_faces:
         hits = _face_ok(*_woop_t_uv(tables.woop, o, d), maxt)
         occ = hits.any(1)
-        if stats is not None:
+        if stats is not None and tables.flags & HAS_BVH:
+            _count_walk(tables, o, d, maxt, live, stats, "shadow_walk",
+                        True)
+        elif stats is not None:
             stats["shadow_faces"] = stats.get("shadow_faces", 0) + int(
                 _first_or_all(hits)[live].sum())
     if tables.flags & HAS_SPHERES:
@@ -655,8 +743,9 @@ def _trace_lanes(tables, cam, key, pixel, width, height, max_depth,
     ``pixel``. ``stats``, if given, sums the lanes that trace a ray
     ("rays"), escape to the envmap ("escaped"), shade a bounce ("shaded",
     of them "ggx" on a conductor), sample the env NEE arm ("env_nee") and
-    trace a shadow ray ("shadow"), and the shadow rays' tests
-    (``_occluded``)."""
+    trace a shadow ray ("shadow"), the shadow rays' tests (``_occluded``)
+    and, in the BVH tier, the walk's box and face tests of the rays
+    ("walk_boxes", "walk_faces")."""
     dev = key.device
     f32 = torch.float32
     nc = tables.nc
@@ -703,6 +792,8 @@ def _trace_lanes(tables, cam, key, pixel, width, height, max_depth,
     for depth in range(max_depth):
         dim0 = 2 + 8 * depth
         count("rays", active)
+        if stats is not None and tables.flags & HAS_BVH:
+            _count_walk(tables, o, d, big, active, stats, "walk", False)
         t, A, bu, bv = _closest_hit(tables, o, d,
                                     torch.where(active, big, -big))
         ng = [A[:, C_NG + k] for k in range(3)]
@@ -965,25 +1056,28 @@ def lane_keys(seed, sample_base, spp_pass, lanes):
 
 
 def path_radiance_reference(tables, cam, seed, sample_base, spp_pass,
-                            width, height, max_depth, rr_depth, stats=None):
+                            width, height, max_depth, rr_depth, stats=None,
+                            lanes=None):
     """Plain PyTorch version of the path kernel -> (3, n) float32 per-lane
     linear sRGB radiance, n = width * height * spp_pass, on the tables'
-    device.
+    device; or of the int64 lane indices ``lanes`` only (3, len(lanes)),
+    the same values as those columns of the whole.
 
     Vectorised over lanes with a Python loop over depth and brute-force
     (lanes x faces), (lanes x spheres) and (lanes x cdf entries) tests, in
     lane chunks that keep each such temporary within ``_CHUNK_ELEMS``
     elements. ``stats``: see ``_trace_lanes``."""
     dev = tables.device
-    n = width * height * spp_pass
-    out = torch.empty((3, n), dtype=torch.float32, device=dev)
+    if lanes is None:
+        lanes = torch.arange(width * height * spp_pass, device=dev)
+    out = torch.empty((3, len(lanes)), dtype=torch.float32, device=dev)
     widest = max(tables.n_faces + tables.n_spheres, tables.lights.shape[0],
                  *tables.env_cond.shape, 1)
     step = max(1, _CHUNK_ELEMS // widest)
-    for start in range(0, n, step):
-        lanes = torch.arange(start, min(n, start + step), device=dev)
-        key, pixel = lane_keys(seed, sample_base, spp_pass, lanes)
-        out[:, start:start + len(lanes)] = _trace_lanes(
+    for start in range(0, len(lanes), step):
+        chunk = lanes[start:start + step]
+        key, pixel = lane_keys(seed, sample_base, spp_pass, chunk)
+        out[:, start:start + len(chunk)] = _trace_lanes(
             tables, cam, key, pixel, width, height, max_depth, rr_depth,
             stats)
     return out
@@ -997,7 +1091,8 @@ class _PathArgs(ctypes.Structure):
     """csrc/path_kernel.cu's PathArgs, field for field."""
     _fields_ = ([(name, ctypes.c_void_p) for name in (
         "woop", "fattr", "lights", "sph", "sattr", "env", "env_marg",
-        "env_cond", "env_pmf", "env_rot", "spd", "cam", "out")]
+        "env_cond", "env_pmf", "env_rot", "spd", "bvh_nodes", "bvh_woop",
+        "bvh_prim", "cam", "out")]
         + [(name, ctypes.c_int) for name in (
             "n_faces", "n_lights", "n_spheres", "env_w", "env_h", "env_ws",
             "env_hs", "env_has_rot")]
@@ -1020,19 +1115,36 @@ def _check_tables(tables, cam):
               ("env_pmf", tables.env_pmf, tables.env_pmf.shape),
               ("env_rot", tables.env_rot, (18,)),
               ("spd", tables.spd, (SPD_ROWS if tables.nc == 4 else 0, 4)),
+              ("bvh_nodes", tables.bvh_nodes, (tables.bvh_nodes.shape[0],
+                                               16)),
+              ("bvh_woop", tables.bvh_woop, (tables.bvh_prim.shape[0], 12)),
+              ("bvh_prim", tables.bvh_prim, (tables.bvh_prim.shape[0],)),
               ("cam", cam, (16,)))
     for name, t, shape in shapes:
-        if t.dtype != torch.float32 or not t.is_contiguous() \
+        dtype = torch.int32 if name == "bvh_prim" else torch.float32
+        if t.dtype != dtype or not t.is_contiguous() \
                 or tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{name} must be a contiguous float32 "
+            raise ValueError(f"{name} must be a contiguous {dtype} "
                              f"{tuple(shape)} tensor, got {tuple(t.shape)} "
                              f"{t.dtype}")
         if t.device != tables.device:
             raise ValueError(f"{name} is on {t.device}, not {tables.device}")
     if tables.lights.shape[0] < 1:
         raise ValueError("the light table needs at least its dummy row")
-    if tables.n_faces > MAX_FACES:
-        raise ValueError(f"{tables.n_faces} faces > {MAX_FACES}")
+    if tables.n_faces > MAX_FACES_HBM:
+        raise ValueError(f"{tables.n_faces} faces > {MAX_FACES_HBM}")
+    if tables.flags & HAS_BVH:
+        if tables.bvh_prim.shape[0] != tables.n_faces \
+                or not tables.bvh_nodes.shape[0]:
+            raise ValueError("the BVH tier needs the traversal tree of "
+                             "every face")
+        if tables.bvh_depth > bvh_ops.STACK_DEPTH:
+            raise ValueError(f"traversal tree depth {tables.bvh_depth} > "
+                             f"the kernel's stack of "
+                             f"{bvh_ops.STACK_DEPTH}")
+    elif tables.n_faces > MAX_FACES_SHARED:
+        raise ValueError(f"{tables.n_faces} faces > {MAX_FACES_SHARED} "
+                         f"need the BVH tier")
     if tables.n_spheres > MAX_SPHERES:
         raise ValueError(f"{tables.n_spheres} spheres > {MAX_SPHERES}")
     if tables.nc not in NC_MODE:
@@ -1069,7 +1181,8 @@ def path_radiance(tables, cam, seed, sample_base, spp_pass, width, height,
         *(t.data_ptr() for t in (
             tables.woop, tables.fattr, tables.lights, tables.sph,
             tables.sattr, tables.env, tables.env_marg, tables.env_cond,
-            tables.env_pmf, tables.env_rot, tables.spd, cam, out)),
+            tables.env_pmf, tables.env_rot, tables.spd, tables.bvh_nodes,
+            tables.bvh_woop, tables.bvh_prim, cam, out)),
         tables.n_faces, tables.lights.shape[0], tables.n_spheres, W, H, Ws,
         Hs, int(bool(tables.flags & HAS_ENV_ROT)), tables.p_env,
         seed & 0xFFFFFFFF, sample_base & 0xFFFFFFFF, spp_pass, width,
@@ -1098,7 +1211,7 @@ def reset_launch_counts():
 
 def library_defines(nc):
     """nvcc defines of the path kernel's library for ``nc`` channels: one
-    library per color mode, each with its 16 flag instantiations."""
+    library per color mode, each with its 32 flag instantiations."""
     return {"PK_NC": nc}
 
 
@@ -1212,8 +1325,8 @@ def path_kernel_ineligibility(scene):
     for sh in scene.shapes:
         if not sh.is_mesh() and type(sh) is not SphereShape:
             return f"non-triangle shape {type(sh).__name__}"
-    if scene.tables.n_faces > MAX_FACES:
-        return f"face count {scene.tables.n_faces} > {MAX_FACES}"
+    if scene.tables.n_faces > MAX_FACES_HBM:
+        return f"face count {scene.tables.n_faces} > {MAX_FACES_HBM}"
     if scene.tables.n_spheres > MAX_SPHERES:
         return f"sphere count > {MAX_SPHERES}"
     for sh in scene.shapes:

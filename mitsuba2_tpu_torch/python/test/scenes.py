@@ -82,17 +82,29 @@ def cornell_box_dict(width=256, height=256, spp=64, max_depth=6,
     }
 
 
+def _write_once(path, write):
+    """``path``, written by ``write(tmp)`` first if it does not exist: the
+    file is written beside and renamed, so a concurrent reader (another
+    test worker) never sees a partial file."""
+    import os
+    if not os.path.exists(path):
+        tmp = f"{path}.{os.getpid()}.tmp"
+        write(tmp)
+        os.replace(tmp, path)
+    return path
+
+
 def _sky_exr_path():
     """Synthesized lat-long sky HDR (cached in the temp directory): a
     gradient dome and a sun blob, the texels of mitsuba2_tpu's fixture
     sky, written by this package's own EXR writer to a file of its own."""
     import os
     import tempfile
-    import numpy as np
     from ...utils.io_exr import write_exr
     path = os.path.join(tempfile.gettempdir(),
                         "mitsuba2_tpu_torch_sky_v1.exr")
-    if not os.path.exists(path):
+
+    def write(tmp):
         h, w = 64, 128
         th = np.linspace(0, np.pi, h)[:, None]
         ph = np.linspace(0, 2 * np.pi, w)[None, :]
@@ -106,12 +118,9 @@ def _sky_exr_path():
                + np.cos(th) * np.cos(np.pi / 3))
         sun = np.clip(ang, 0, 1) ** 400
         sky = sky + sun[..., None] * np.asarray([900.0, 800.0, 600.0])
-        # write beside and rename, so a concurrent reader never sees a
-        # partial file
-        tmp = f"{path}.{os.getpid()}.tmp"
         write_exr(tmp, sky.astype(np.float32))
-        os.replace(tmp, path)
-    return path
+
+    return _write_once(path, write)
 
 
 def matpreview_dict(width=256, height=256, spp=64, max_depth=6,
@@ -185,3 +194,154 @@ def volpath_slab_dict(width=256, height=256, spp=16, max_depth=16,
                                 "sample_count": spp}}}
     d.update(extra)
     return d
+
+
+def _bumpy_sphere_obj_path(nu=64, nv=48, bump=0.15, version=1):
+    """Synthesized dense OBJ mesh (cached in the temp directory under this
+    package's own name): a displaced UV sphere with 2 nu (nv - 1)
+    triangles, the vertices, faces and text of mitsuba2_tpu's fixture
+    (``mitsuba2_tpu/python/test/scenes.py:174``)."""
+    import os
+    import tempfile
+    path = os.path.join(tempfile.gettempdir(),
+                        f"mitsuba2_tpu_torch_bumpy_{nu}x{nv}_v{version}.obj")
+
+    def write(tmp):
+        th = np.linspace(0, np.pi, nv)
+        ph = np.linspace(0, 2 * np.pi, nu, endpoint=False)
+        T, P = np.meshgrid(th, ph, indexing="ij")        # (nv, nu)
+        r = 1.0 + bump * np.sin(6 * T) * np.cos(5 * P)
+        x = r * np.sin(T) * np.cos(P)
+        y = r * np.cos(T)
+        z = r * np.sin(T) * np.sin(P)
+        verts = np.stack([x, y, z], -1).reshape(-1, 3)   # (nv*nu, 3)
+        faces = []
+        for i in range(nv - 1):
+            for j in range(nu):
+                a = i * nu + j
+                b = i * nu + (j + 1) % nu
+                c = (i + 1) * nu + j
+                d = (i + 1) * nu + (j + 1) % nu
+                faces.append((a, b, d))
+                faces.append((a, d, c))
+        with open(tmp, "w") as f:
+            for v in verts:
+                f.write(f"v {v[0]:.6f} {v[1]:.6f} {v[2]:.6f}\n")
+            for a, b, c in faces:
+                f.write(f"f {a + 1} {b + 1} {c + 1}\n")
+
+    return _write_once(path, write)
+
+
+def bumpy_sphere_dict(width=128, height=128, spp=32, max_depth=4,
+                      nu=64, nv=48):
+    """bench.py's biggeo scene (``bench.py:140-152`` renders it with nu=512,
+    nv=257: 262,144 mesh faces): a displaced sphere loaded from an OBJ
+    file over a diffuse floor under a rectangular area light, box filter."""
+    T = Transform
+    return {
+        "type": "scene",
+        "integrator": {"type": "path", "max_depth": max_depth},
+        "hero": {"type": "obj", "filename": _bumpy_sphere_obj_path(nu, nv),
+                 "to_world": T.translate([0, 0.2, 0]),
+                 "bsdf": {"type": "diffuse",
+                          "reflectance": {"type": "rgb",
+                                          "value": [0.55, 0.35, 0.25]}}},
+        "floor": {"type": "rectangle",
+                  "to_world": (T.translate([0, -1.3, 0])
+                               @ T.rotate([1, 0, 0], -90) @ T.scale(6)),
+                  "bsdf": {"type": "diffuse",
+                           "reflectance": {"type": "rgb", "value": 0.5}}},
+        "light": {"type": "rectangle",
+                  "to_world": (T.translate([0, 3.5, 1.0]) @ T.scale(1.2)
+                               @ T.rotate([1, 0, 0], 90)),
+                  "emitter": {"type": "area",
+                              "radiance": {"type": "rgb", "value": 10.0}}},
+        "sensor": {
+            "type": "perspective", "fov": 45.0,
+            "to_world": T.look_at([0, 0.6, 4.2], [0, 0, 0], [0, 1, 0]),
+            "film": {"type": "hdrfilm", "width": width, "height": height,
+                     "rfilter": {"type": "box"}},
+            "sampler": {"type": "independent", "sample_count": spp}},
+    }
+
+
+def _hero_serialized_path(nu=512, nv=200, bump=0.12, version=1):
+    """Synthesized smooth-shaded hero mesh in the Mitsuba 0.x .serialized
+    container (cached in the temp directory under this package's own
+    name): 2 nu (nv - 1) triangles with area-weighted vertex normals and
+    uvs, the arrays of mitsuba2_tpu's fixture
+    (``mitsuba2_tpu/python/test/scenes.py:243``)."""
+    import os
+    import tempfile
+    from ...utils.serialized import write_serialized
+    path = os.path.join(tempfile.gettempdir(),
+                        f"mitsuba2_tpu_torch_hero_{nu}x{nv}_v{version}"
+                        ".serialized")
+
+    def write(tmp):
+        th = np.linspace(0, np.pi, nv)
+        ph = np.linspace(0, 2 * np.pi, nu, endpoint=False)
+        T, P = np.meshgrid(th, ph, indexing="ij")        # (nv, nu)
+        r = 1.0 + bump * (np.sin(6 * T) * np.cos(5 * P)
+                          + 0.4 * np.sin(13 * T + 2.0) * np.sin(11 * P))
+        x = r * np.sin(T) * np.cos(P)
+        y = r * np.cos(T)
+        z = r * np.sin(T) * np.sin(P)
+        verts = np.stack([x, y, z], -1).reshape(-1, 3).astype(np.float32)
+        uv = np.stack([P / (2 * np.pi), T / np.pi],
+                      -1).reshape(-1, 2).astype(np.float32)
+        idx = np.arange(nv * nu).reshape(nv, nu)
+        a = idx[:-1, :]
+        b = np.roll(idx[:-1, :], -1, axis=1)
+        c = idx[1:, :]
+        d = np.roll(idx[1:, :], -1, axis=1)
+        faces = np.concatenate([
+            np.stack([a, b, d], -1).reshape(-1, 3),
+            np.stack([a, d, c], -1).reshape(-1, 3)]).astype(np.int32)
+        # smooth vertex normals: area-weighted sum of face normals
+        fv = verts[faces]
+        fn = np.cross(fv[:, 1] - fv[:, 0], fv[:, 2] - fv[:, 0])
+        normals = np.zeros_like(verts)
+        for k in range(3):
+            np.add.at(normals, faces[:, k], fn)
+        nl = np.linalg.norm(normals, axis=1, keepdims=True)
+        normals = (normals / np.maximum(nl, 1e-20)).astype(np.float32)
+        write_serialized(tmp, [(verts, faces, normals, uv)])
+
+    return _write_once(path, write)
+
+
+def hero_serialized_dict(width=256, height=256, spp=32, max_depth=5,
+                         nu=512, nv=200):
+    """bench.py's hero scene (``bench.py:125-137``; 203,776 mesh faces at
+    the default nu=512, nv=200): a smooth-shaded .serialized mesh with a
+    GGX gold finish under the importance-sampled sky, on a checkerboard
+    floor, box filter. ``nu`` and ``nv`` size the mesh."""
+    T = Transform
+    return {
+        "type": "scene",
+        "integrator": {"type": "path", "max_depth": max_depth},
+        "envmap": {"type": "envmap", "filename": _sky_exr_path()},
+        "hero": {"type": "serialized",
+                 "filename": _hero_serialized_path(nu, nv),
+                 "to_world": T.translate([0, 0, 1.1]),
+                 "bsdf": {"type": "roughconductor", "alpha": 0.12,
+                          "distribution": "ggx", "material": "Au"}},
+        "floor": {"type": "rectangle",
+                  "to_world": (T.translate([0, 0, -0.15])
+                               @ T.scale([8, 8, 1])),
+                  "bsdf": {"type": "diffuse",
+                           "reflectance": {
+                               "type": "checkerboard",
+                               "color0": {"type": "rgb", "value": 0.45},
+                               "color1": {"type": "rgb", "value": 0.2},
+                               "to_uv": T.scale([8, 8, 1])}}},
+        "sensor": {
+            "type": "perspective", "fov": 36.0,
+            "to_world": T.look_at(origin=[3.1, -3.7, 2.6],
+                                  target=[0, 0, 0.9], up=[0, 0, 1]),
+            "film": {"type": "hdrfilm", "width": width, "height": height,
+                     "rfilter": {"type": "box"}},
+            "sampler": {"type": "independent", "sample_count": spp}},
+    }

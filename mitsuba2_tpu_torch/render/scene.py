@@ -17,17 +17,24 @@ D65 scale for emitters and envmap texels, and the IOR quadratics for
 conductors); in mono variants the luminance, repeated over the three
 color slots.
 
-Faces keep their shape order. The reference permutes them into BVH leaf
-order for its chunked sweeps; closest-hit does not depend on face order
-except on exact ties, and the per-ray BVH comes with the large-mesh slice.
+Faces take the reference's order: the binned-SAH builder (ops/bvh.py,
+``leaf_size=64``) runs over the faces in shape order, and its permutation
+is applied to every per-face array before any table is built
+(mitsuba2_tpu/render/scene.py:253-275), so face ids, prim ids and exact
+ties are the reference's. A second build at ``bvh.TRAVERSAL_LEAF`` faces
+per leaf over the permuted faces gives the traversal tree that the path
+kernel's BVH tier and the scene's ray queries (``ray_intersect_preliminary``,
+``ray_test``, through ops/intersect_kernel.py) walk per ray.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..core import spectrum as spec
 from ..core.object import Object
+from ..ops import bvh as bvh_ops
 from ..ops import path_kernel as pk
 
 
@@ -108,13 +115,26 @@ class Scene(Object):
                 return np.zeros((0,) + shape, np.float32)
             return np.concatenate(xs).astype(np.float32)
 
-        self.face_shape = (np.concatenate(face_shape) if face_shape
-                           else np.zeros(0, np.int32))
-        # per-face host arrays in shape order, kept for the tables built
+        face_shape = (np.concatenate(face_shape) if face_shape
+                      else np.zeros(0, np.int32))
+        v0, e1, e2 = cat(v0s, (3,)), cat(e1s, (3,)), cat(e2s, (3,))
+        ng, uvs = cat(ngs, (3,)), cat(uvss, (3, 2))
+        # the reference's face order (its BVH leaf order), then the
+        # traversal tree over the permuted faces
+        self.bvh = None
+        if len(v0) > 1:
+            self.bvh = bvh_ops.build_bvh(v0, e1, e2, leaf_size=64)
+            perm = self.bvh.order
+            v0, e1, e2, ng, uvs, face_shape = (
+                x[perm] for x in (v0, e1, e2, ng, uvs, face_shape))
+        self.traversal = None
+        if len(v0):
+            self.traversal = bvh_ops.build_bvh(
+                v0, e1, e2, leaf_size=bvh_ops.TRAVERSAL_LEAF)
+        # per-face host arrays in face order, kept for the tables built
         # after load (the volumetric kernel's, ops/volpath_kernel.py)
-        self.v0, self.e1, self.e2 = (cat(v0s, (3,)), cat(e1s, (3,)),
-                                     cat(e2s, (3,)))
-        self.ng = cat(ngs, (3,))
+        self.face_shape = face_shape
+        self.v0, self.e1, self.e2, self.ng, self.uvs = v0, e1, e2, ng, uvs
         for e in self.emitters:
             if hasattr(e, "prepare"):
                 e.prepare(self)
@@ -125,7 +145,6 @@ class Scene(Object):
             mode)
         cols = [_shape_columns(s.bsdf, mode) for s in self.shapes]
 
-        uvs = cat(uvss, (3, 2))
         fattr = np.zeros((len(self.face_shape), pk.FA), np.float32)
         fattr[:, pk.C_NG:pk.C_NG + 3] = self.ng
         fattr[:, pk.C_LPDF] = lpdf_w
@@ -142,6 +161,7 @@ class Scene(Object):
         # spherical uv through the checker resolve unchanged
         sph = np.zeros((len(spheres), 4), np.float32)
         sattr = np.zeros((len(spheres), pk.FA), np.float32)
+        self.sphere_shape = np.asarray([i for i, _ in spheres], np.int32)
         for i, (si_idx, s) in enumerate(spheres):
             sph[i, :3] = s.center
             sph[i, 3] = s.radius
@@ -157,7 +177,7 @@ class Scene(Object):
         self.tables = pk.pack_tables(
             self.v0, self.e1, self.e2, fattr, lights,
             self.device, sph=sph, sattr=sattr, env=env_t, env_rot=env_rot,
-            p_env=p_env, nc=pk.MODE_NC[mode])
+            p_env=p_env, nc=pk.MODE_NC[mode], traversal=self.traversal)
         # the light table and per-face emission on the host, for the same
         self.light_rows, self.le_face, self.lpdf_w = lights, le_face, lpdf_w
 
@@ -173,6 +193,77 @@ class Scene(Object):
 
     def bbox(self):
         return self._bb_min, self._bb_max
+
+    # ------------------------------------------------------------ ray queries
+    def _sphere_closest_hit(self, o, d, mint, maxt):
+        """Every ray against every analytic sphere, the reference's plain
+        pass (mitsuba2_tpu/render/scene.py:541-562) -> (t (n,) inf on a
+        miss, sphere index (n,) or -1)."""
+        sph = self.tables.sph
+        oc = o[:, None, :] - sph[None, :, :3]
+        a = (d * d).sum(-1)[:, None]
+        b = (oc * d[:, None, :]).sum(-1)
+        cc = (oc * oc).sum(-1) - sph[None, :, 3] ** 2
+        disc = b * b - a * cc
+        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        t0 = (-b - sq) / a
+        t1 = (-b + sq) / a
+        t_near = torch.where(t0 > mint[:, None], t0, t1)
+        ok = (disc > 0) & (t_near > mint[:, None]) & (t_near < maxt[:, None])
+        t_near = torch.where(ok, t_near, float("inf"))
+        t_best, s_best = t_near.min(dim=1)
+        return t_best, torch.where(torch.isfinite(t_best),
+                                   s_best.to(torch.int32), -1)
+
+    def _segment_ends(self, ray, active):
+        if active is None:
+            return ray.maxt
+        return torch.where(active, ray.maxt, float("-inf")).contiguous()
+
+    def ray_intersect_preliminary(self, ray, active=None):
+        """Closest hit of a batch of rays (core/ray.py Ray on the scene's
+        device) -> render/records.py PreliminaryIntersection (scene.h;
+        mitsuba2_tpu/render/scene.py:637-720). Mesh faces go through K2
+        (ops/intersect_kernel.py), the analytic spheres through the
+        reference's plain pass; a sphere hit has prim id F + its index and
+        uv 0. Rays with ``active`` False miss."""
+        from ..ops.intersect_kernel import isect_closest
+        from .records import PreliminaryIntersection
+        maxt = self._segment_ends(ray, active)
+        t, uv, prim = isect_closest(self.tables, ray.o, ray.d, ray.mint,
+                                    maxt)
+        n_faces = self.tables.n_faces
+        shape_idx = torch.full_like(prim, -1)
+        if n_faces:
+            fs = torch.as_tensor(self.face_shape, device=prim.device)
+            shape_idx = fs[prim.clamp(0, n_faces - 1).long()]
+        if self.tables.n_spheres:
+            ts, s_idx = self._sphere_closest_hit(ray.o, ray.d, ray.mint,
+                                                 maxt)
+            closer = ts < t
+            t = torch.where(closer, ts, t)
+            prim = torch.where(closer & (s_idx >= 0), n_faces + s_idx, prim)
+            uv = torch.where(closer[:, None], 0.0, uv)
+            ss = torch.as_tensor(self.sphere_shape, device=prim.device)
+            shape_idx = torch.where(
+                prim >= n_faces,
+                ss[(prim - n_faces).clamp(0, len(ss) - 1).long()],
+                shape_idx)
+        shape_idx = torch.where(prim >= 0, shape_idx, -1)
+        return PreliminaryIntersection(t, uv, shape_idx.to(torch.int32),
+                                       prim.to(torch.int32))
+
+    def ray_test(self, ray, active=None):
+        """Whether each ray is occluded within its [mint, maxt] (scene.h
+        ray_test; mitsuba2_tpu/render/scene.py:965-989): mesh faces through
+        K2's any-hit entry, spheres through the plain pass -> (n,) bool."""
+        from ..ops.intersect_kernel import isect_any
+        maxt = self._segment_ends(ray, active)
+        hit = isect_any(self.tables, ray.o, ray.d, ray.mint, maxt)
+        if self.tables.n_spheres:
+            ts, _ = self._sphere_closest_hit(ray.o, ray.d, ray.mint, maxt)
+            hit = hit | torch.isfinite(ts)
+        return hit
 
 
 def _shape_columns(bsdf, mode):

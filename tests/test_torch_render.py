@@ -97,9 +97,7 @@ def _out_of_scope():
             return np.zeros(3), np.ones(3)
 
     def many_faces(d):
-        for i in range(513):             # 36 + 1026 triangles
-            d[f"tile{i}"] = {"type": "rectangle",
-                             "to_world": mt.Transform.translate([0, 0, -2 - i])}
+        add_tiles(d, 513)                # 36 + 1026 triangles
 
     def mirror(scene):
         scene.shapes[0].bsdf = Mirror()
@@ -142,6 +140,7 @@ def _out_of_scope():
         "gaussian rfilter": (lambda d: d["sensor"]["film"]["rfilter"]
                              .update(type="gaussian"), None,
                              "rfilter GaussianFilter"),
+        # the cap lowered to 1024 (the reference's is MAX_FACES_HBM)
         "face count": (many_faces, None, "face count 1062 > 1024"),
         "polarized variant": (None, None, "polarized variant"),
         "double-precision variant": (None, None,
@@ -163,6 +162,13 @@ def _out_of_scope():
     }
 
 
+def add_tiles(d, n):
+    """``n`` rectangles (2n triangles) behind the Cornell box."""
+    for i in range(n):
+        d[f"tile{i}"] = {"type": "rectangle",
+                         "to_world": mt.Transform.translate([0, 0, -2 - i])}
+
+
 _CASE_VARIANT = {"polarized variant": "scalar_rgb_polarized",
                  "double-precision variant": "scalar_rgb_double",
                  "conductor IOR curve spectrum": "scalar_spectral",
@@ -170,8 +176,10 @@ _CASE_VARIANT = {"polarized variant": "scalar_rgb_polarized",
 
 
 @pytest.mark.parametrize("case", sorted(_out_of_scope()))
-def test_out_of_scope_scene_raises_with_reason(case):
+def test_out_of_scope_scene_raises_with_reason(case, monkeypatch):
     edit_dict, edit_scene, reason = _out_of_scope()[case]
+    if case == "face count":
+        monkeypatch.setattr(pk, "MAX_FACES_HBM", 1024)
     mt.set_variant(_CASE_VARIANT.get(case, "scalar_rgb"))
     try:
         d = cornell_t(width=4, height=4, spp=1)
@@ -186,6 +194,42 @@ def test_out_of_scope_scene_raises_with_reason(case):
         assert scene.integrator.last_engine is None
     finally:
         mt.set_variant("scalar_rgb")
+
+
+def test_scene_above_the_shared_tier_takes_the_bvh_tier():
+    """1,062 faces are more than the shared-memory tier's 1024: the scene
+    is accepted, its tables select the BVH tier, and the render is the
+    plain version's image of the same tables without that tier."""
+    mt.set_variant("scalar_rgb")
+    d = cornell_t(width=8, height=8, spp=2, max_depth=3)
+    add_tiles(d, 513)
+    scene = mt.load_dict(d)
+    assert scene.tables.n_faces == 1062
+    assert scene.tables.flags & pk.HAS_BVH
+    img = scene.integrator.render(scene, seed=4, spp=2)
+    assert scene.integrator.engine_reason is None
+    assert scene.integrator.last_engine == "kernel"
+    shared = scene.tables._replace(flags=scene.tables.flags & ~pk.HAS_BVH)
+    rad = pk.path_radiance_reference(
+        shared, pk.camera_row(scene.sensors[0], "cpu"), 4, 0, 2, 8, 8, 3,
+        scene.integrator.rr_depth)
+    torch.testing.assert_close(
+        img, rad.reshape(3, 64, 2).mean(2).T.reshape(8, 8, 3))
+
+
+def test_face_cap_is_the_references(monkeypatch):
+    """The cap is megakernel.py's MAX_FACES_HBM; the wrapper refuses tables
+    above it as the gate does (here with the cap lowered)."""
+    assert pk.MAX_FACES_HBM == 1 << 20
+    mt.set_variant("scalar_rgb")
+    d = cornell_t(width=4, height=4, spp=1)
+    add_tiles(d, 513)
+    scene = mt.load_dict(d)
+    cam = pk.camera_row(scene.sensors[0], "cpu")
+    pk._check_tables(scene.tables, cam)
+    monkeypatch.setattr(pk, "MAX_FACES_HBM", 1024)
+    with pytest.raises(ValueError, match="1062 faces > 1024"):
+        pk._check_tables(scene.tables, cam)
 
 
 def test_render_refuses_device_without_kernel():
@@ -204,6 +248,10 @@ def test_package_imports_no_jax():
         "import sys\n"
         "import mitsuba2_tpu_torch as mi\n"
         "from mitsuba2_tpu_torch.python.test.scenes import cornell_box_dict\n"
+        "from mitsuba2_tpu_torch.ops import bvh, intersect, intersect_kernel\n"
+        "from mitsuba2_tpu_torch.utils import io_obj, serialized\n"
+        "from mitsuba2_tpu_torch.core import fresolver, ray\n"
+        "from mitsuba2_tpu_torch.render import records\n"
         "mi.set_variant('scalar_rgb')\n"
         "mi.set_device('cpu')\n"
         "s = mi.load_dict(cornell_box_dict(width=4, height=4, spp=2))\n"
