@@ -3,34 +3,42 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels and its host BVH builder from the sources
-in this checkout (the path kernel once per color mode, the volumetric
-kernel, the intersection kernel and csrc/bvh.cpp, in parallel compiler
-processes) and prints each kernel instantiation's registers and spills.
-Then, for each path -- the Cornell box (the main path), the matpreview
-scene (a rough gold sphere under an HDR sky above a checker floor), both
-again under ``scalar_spectral``, and the Cornell box under ``scalar_mono``,
-all at 256x256, 64 spp, max_depth 6; the volpath slab (bench.py's volpath
-config: a 16^3 heterogeneous medium in a null box before an area light) at
-256x256, 16 spp, max_depth 16; and the two big-mesh paths of the BVH tier,
+in this checkout (the path kernel twice per color mode, without and with
+its lobes flag, the film splat, the volumetric kernel, the intersection
+kernel and csrc/bvh.cpp, in parallel compiler processes) and prints each
+kernel instantiation's registers and spills. Then, for each path -- the
+Cornell box (the main path), the matpreview scene (a rough gold sphere
+under an HDR sky above a checker floor), both again under
+``scalar_spectral``, and the Cornell box under ``scalar_mono``, all at
+256x256, 64 spp, max_depth 6; the volpath slab (bench.py's volpath config:
+a 16^3 heterogeneous medium in a null box before an area light) at
+256x256, 16 spp, max_depth 16; the two big-mesh paths of the BVH tier,
 biggeo (a 262,144-face displaced sphere from an OBJ file) and hero (a
 203,776-face .serialized mesh in GGX gold under the sky on a checker
-floor), at 256x256, 32 spp, max_depth 5 -- it checks the path's kernel
-against its plain PyTorch version on the card (64x64x16 spp; 32x32x4 spp
-for the big meshes, whose plain version sweeps every face), renders the
-path through ``set_variant``, ``load_dict`` and
-``scene.integrator.render`` on the port's default device, checks that the
-render went through the path's kernel instantiation and that the image is
-sane, times render, kernel and plain version beside the kernel's bound,
-and holds the kernel's lanes at the main shape against the plain
-version's (for the big meshes, those of every 31st pixel). It holds the
-BVH tier forced on the Cornell box against the shared-memory tier, and
-drives the scene's ray queries (``Scene.ray_intersect_preliminary`` and
-``Scene.ray_test``, the intersection kernel's closest-hit and any-hit
-entries) on biggeo's 2,097,152 camera rays and as many rays toward its
-light, against their plain twin on 65,536 of each. Prints one JSON line of
-kernel results, the card's name and power limit, and as its last line
-``{"ok": true, "device": {...}}``. Any failed phase exits non-zero, and so
-does a machine without CUDA: nothing runs on the CPU instead.
+floor), at 256x256, 32 spp, max_depth 5; and the materials Cornell box
+(glass, plastic, rough plastic and bitmap surfaces, a disk and a cylinder,
+the default gaussian film) under ``scalar_rgb`` and ``scalar_spectral`` at
+256x256, 64 spp, max_depth 6 -- it checks the path's kernel against its
+plain PyTorch version on the card (64x64x16 spp; 32x32x4 spp for the big
+meshes, whose plain version sweeps every face), renders the path through
+``set_variant``, ``load_dict`` and ``scene.integrator.render`` on the
+port's default device, checks that the render went through the path's
+kernel instantiation (and the splat kernel, under a film filter other than
+the box) and that the image is sane, times render, kernel, splat and plain
+version beside the kernel's bound, and holds the kernel's lanes at the main
+shape against the plain version's (for the big meshes, those of every 31st
+pixel) and the splat kernel's block against its plain version's. The
+materials scene's kernel is also held against its plain version under
+``scalar_mono`` at the parity shape, and its first hits must show every new
+kind on at least 1% of camera rays. It holds the BVH tier forced on the
+Cornell box against the shared-memory tier, and drives the scene's ray
+queries (``Scene.ray_intersect_preliminary`` and ``Scene.ray_test``, the
+intersection kernel's closest-hit and any-hit entries) on biggeo's
+2,097,152 camera rays and as many rays toward its light, against their
+plain twin on 65,536 of each. Prints one JSON line of kernel results, the
+card's name and power limit, and as its last line ``{"ok": true,
+"device": {...}}``. Any failed phase exits non-zero, and so does a machine
+without CUDA: nothing runs on the CPU instead.
 """
 
 import json
@@ -61,6 +69,11 @@ ISECT_PARITY_RAYS, ISECT_COUNT_RAYS = 65536, 8192
 ISECT_PRIM_SHARE, ISECT_ATOL = 0.999, 1e-5
 # the tolerance of the CPU tests (tests/test_torch_path_kernel.py)
 PIX_RTOL, PIX_SHARE, MEAN_RTOL = 1e-4, 0.99, 1e-5
+# the image means of the materials scene's main run, whose glass box sends
+# caustic paths to the light: float rounding decides whether about one
+# lane in 10^4 reaches the light's edge, and a few such bright lanes move
+# the mean of 4,194,304 lanes by about 4e-5 (PERF.md §2)
+CAUSTIC_MEAN_RTOL = 1e-4
 REPEATS = 5
 # the card's published peaks (H100 SXM, dense): fp32 outside the tensor
 # cores, and HBM bandwidth
@@ -103,6 +116,31 @@ VOL_SPP, VOL_MAX_DEPTH = 16, 16
 # bound is a lower one.
 VOL_ROUND_FLOPS, VOL_STEP_FLOPS, VOL_FETCH_FLOPS = 55, 6, 80
 VOL_NEE_FLOPS, VOL_PHASE_FLOPS, VOL_SURFACE_FLOPS = 130, 50, 110
+# the lobes flag's work (csrc/path_kernel.cu): per disk or cylinder test
+# the ray into the object frame (two 3x3 products) and the disk's plane or
+# the cylinder's quadratic (a square root, a division); per dielectric
+# event a Fresnel term and the reflected or refracted direction, and per
+# channel the throughput; per plastic event (smooth or rough) the Fresnel
+# terms at wi, wo and the sampled direction, the coat's probability, the
+# base's denominator, its NEE value and the cosine sample, per channel the
+# base's value twice; per rough plastic event the coat's GGX evaluation
+# toward the light and at the sampled direction and, where picked, a
+# visible-normal sample; per bitmap fetch the texel coordinates and the
+# three-channel bilinear lerp of its four texels
+QUAD_FLOPS = 60
+DIEL_FLOPS, DIEL_FLOPS_PER_CHANNEL = 45, 3
+PLASTIC_FLOPS, PLASTIC_FLOPS_PER_CHANNEL = 150, 10
+ROUGH_PLASTIC_FLOPS, ROUGH_PLASTIC_FLOPS_PER_CHANNEL = 190, 4
+BITMAP_FLOPS = 50
+# the splat (csrc/splat_kernel.cu): per lane 2K filter values (an exp or a
+# sine or a cubic, about 20 FLOPs each) and K x 4 products, per lane and
+# tap 4 multiply-adds; per block pixel the K^2 x 4 tap sums
+SPLAT_FILTER_FLOPS = 20
+# the new kinds that must be the first hit of at least this share of the
+# materials scene's camera rays
+NEW_KINDS = ("dielectric", "plastic", "roughplastic", "bitmap", "disk",
+             "cylinder")
+MIN_FIRST_HIT_SHARE = 0.01
 
 
 def log(*args):
@@ -133,7 +171,7 @@ def develop(rad, w, spp, h=None):
     return rad.reshape(3, h * w, spp).mean(dim=2).T.reshape(h, w, 3)
 
 
-def compare(got, want, label):
+def compare(got, want, label, mean_rtol=MEAN_RTOL):
     """Per-pixel agreement of two (w, w, 3) images -> max abs error."""
     g = got.double().cpu().numpy()
     r = want.double().cpu().numpy()
@@ -143,7 +181,7 @@ def compare(got, want, label):
     log(f"{label}: max pixel rel diff {err.max():.3e}, p99 "
         f"{np.quantile(err, 0.99):.3e}, share within {PIX_RTOL:g} "
         f"{share:.6f}, mean rel diff {mean_rel:.3e}")
-    if share < PIX_SHARE or mean_rel > MEAN_RTOL:
+    if share < PIX_SHARE or mean_rel > mean_rtol:
         raise SystemExit(f"{label}: kernel and plain version disagree")
     return float(np.abs(g - r).max())
 
@@ -210,11 +248,34 @@ def bound(pk, tables, stats, n_stats, n_paths):
         path + faces
         + per.get("rays", 0.0) * tables.n_spheres * SPHERE_FLOPS
         + per.get("shadow_spheres", 0.0) * SPHERE_FLOPS
+        + (per.get("quad_tests", 0.0) + per.get("shadow_quads", 0.0))
+        * QUAD_FLOPS
         + per.get("shaded", 0.0) * shade
         + per.get("ggx", 0.0) * (GGX_FLOPS + GGX_FLOPS_PER_CHANNEL * nc)
+        + per.get("dielectric", 0.0)
+        * (DIEL_FLOPS + DIEL_FLOPS_PER_CHANNEL * nc)
+        + per.get("plastic", 0.0)
+        * (PLASTIC_FLOPS + PLASTIC_FLOPS_PER_CHANNEL * nc)
+        + per.get("roughplastic", 0.0)
+        * (ROUGH_PLASTIC_FLOPS + ROUGH_PLASTIC_FLOPS_PER_CHANNEL * nc)
+        + per.get("bitmap", 0.0) * BITMAP_FLOPS
         + per.get("escaped", 0.0) * env[0]
         + per.get("env_nee", 0.0) * env[1])
+    if tables.flags & pk.HAS_LOBES:
+        log("  lobes per path: " + ", ".join(
+            f"{k} {per.get(k, 0.0):.4f}" for k in (
+                "dielectric", "plastic", "roughplastic", "bitmap",
+                "quad_tests", "shadow_quads")))
     return roofline(flops, tables, n_paths)
+
+
+def splat_bound(n_lanes, k, n_block):
+    """-> (ms, 'operations' or 'bytes'): the splat's least time: 12 bytes
+    read per lane and 16 written per block pixel, against its FLOPs."""
+    flops = n_lanes * (2 * k * SPLAT_FILTER_FLOPS + 4 * k + 8 * k * k) \
+        + n_block * 4 * k * k
+    return roofline(flops, 16 * n_block, n_lanes, out_bytes=0, in_bytes=12,
+                    what="lane")
 
 
 def vol_bound(tables, stats, n_stats, n_paths):
@@ -281,11 +342,60 @@ class Route(NamedTuple):
     # shape, on every ``plain_stride``-th pixel only where it is not 0
     parity: tuple = (PARITY_WIDTH, PARITY_SPP)
     plain_stride: int = 0
+    # whether the parity run's first hits must show every NEW_KINDS kind
+    first_hits: bool = False
+    # the bar of the image means at the main shape
+    mean_rtol: float = MEAN_RTOL
+
+
+def check_first_hits(name, stats, n):
+    """The parity run's first-hit share of each new kind -> SystemExit if
+    one is below MIN_FIRST_HIT_SHARE."""
+    shares = {k: stats.get(f"first_{k}", 0) / n for k in NEW_KINDS}
+    log(f"{name} first-hit shares: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in shares.items()))
+    if min(shares.values()) < MIN_FIRST_HIT_SHARE:
+        raise SystemExit(f"{name}: a new kind is the first hit of less "
+                         f"than {MIN_FIRST_HIT_SHARE:.0%} of camera rays")
+
+
+def check_splat(name, rad, spp, rfilter, launches):
+    """The splat kernel on a pass's lanes against its plain version: every
+    block pixel within 1e-5 relative or 1e-6 absolute -> its entry of the
+    kernels line."""
+    from mitsuba2_tpu_torch.ops import splat as sp
+    block, splat_ms = timed(lambda: sp.splat(rad, 0, 0, spp, WIDTH, WIDTH,
+                                             rfilter))
+    want, plain_ms = timed(lambda: sp.splat_reference(
+        rad, 0, 0, spp, WIDTH, WIDTH, rfilter), repeats=1, warm_up=False)
+    err = (block - want).abs()
+    ok = (err <= 1e-5 * want.abs()) | (err <= 1e-6)
+    rel = float((err / want.abs().clamp(min=1e-30)).max())
+    log(f"{name} splat {type(rfilter).__name__} block "
+        f"{tuple(block.shape)}: max rel diff {rel:.3e}, block pixels "
+        f"within 1e-5 or 1e-6 {float(ok.float().mean()):.6f}")
+    if not bool(ok.all()):
+        raise SystemExit(f"{name}: splat kernel and plain version disagree")
+    k = 2 * ((block.shape[0] - WIDTH) // 2) + 1
+    bound_ms, bound_by = splat_bound(rad.shape[1], k,
+                                     block.shape[0] * block.shape[1])
+    log(f"{name} splat: kernel {splat_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}), {100 * bound_ms / splat_ms:.2f}% of bound; plain "
+        f"version {plain_ms:.3f} ms")
+    return {"name": f"splat_kernel[{name}]", "route": "cuda",
+            "source": "mitsuba2_tpu_torch/csrc/splat_kernel.cu",
+            "replaces": "mitsuba2_tpu/ops/megakernel.py:3041",
+            "launches": launches, "max_abs_err": float(err.max()),
+            "ms": splat_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def drive(mi, pk, name, make_dict, spp, max_depth, mean_band, route):
-    """Parity, main-path render and timing of one path -> its entry of the
-    kernels line."""
+    """Parity, main-path render and timing of one path -> its entries of
+    the kernels line: the path's kernel, and the splat's where the film
+    filter is not the box."""
+    from mitsuba2_tpu_torch.models.rfilters import BoxFilter
+    from mitsuba2_tpu_torch.ops import splat as sp
     t_path = time.perf_counter()
 
     # ---- parity: kernel against its plain version on the same tables ----
@@ -307,14 +417,21 @@ def drive(mi, pk, name, make_dict, spp, max_depth, mean_band, route):
         f"lanes beyond {PIX_RTOL:g} relative {beyond:.6f}")
     max_abs_err = compare(develop(got, pw, pspp), develop(want, pw, pspp),
                           f"{name} parity")
+    if route.first_hits:
+        check_first_hits(name, stats, pw * pw * pspp)
 
     # ---- the path itself, through the user's entry points ----
     scene = mi.load_dict(make_dict(WIDTH, WIDTH, spp, max_depth))
     integrator = scene.integrator
+    rfilter = scene.sensors[0].film.rfilter
     route.reset()
+    sp.reset_launch_counts()
     img = integrator.render(scene, seed=0, spp=spp)
     torch.cuda.synchronize()
     launches = route.radiance.launches_by_kernel[route.key]
+    splat_launches = sp.splat.launches
+    if not isinstance(rfilter, BoxFilter) and splat_launches < 1:
+        raise SystemExit(f"{name} launched no splat_kernel")
     if integrator.last_engine != "kernel":
         raise SystemExit(f"{name} left the kernel: {integrator.engine_reason}")
     if launches < 1:
@@ -336,6 +453,10 @@ def drive(mi, pk, name, make_dict, spp, max_depth, mean_band, route):
     args = (tables, cam, 0, 0, spp, WIDTH, WIDTH, max_depth,
             integrator.rr_depth)
     k_rad, kernel_ms = timed(lambda: route.radiance(*args))
+    entries = []
+    if not isinstance(rfilter, BoxFilter):
+        entries.append(check_splat(name, k_rad, spp, rfilter,
+                                   splat_launches))
     # the plain version is the kernel's reference, not a yardstick of
     # speed: one timed call, on the main run's lanes or on those of a
     # strided sample of its pixels (all their samples)
@@ -349,8 +470,10 @@ def drive(mi, pk, name, make_dict, spp, max_depth, mean_band, route):
     p_rad, plain_ms = timed(lambda: route.reference(*args, **kw),
                             repeats=1, warm_up=False)
     bound_ms, bound_by = route.bound(tables, stats, pw * pw * pspp, n_paths)
-    log(f"{name} render (kernel, end to end): {render_ms:.3f} ms median of "
-        f"{REPEATS}, {n_paths / render_ms / 1e3:.3f} Mpaths/s")
+    log(f"{name} render (end to end: kernel, film develop"
+        f"{'' if isinstance(rfilter, BoxFilter) else ' through the splat'}):"
+        f" {render_ms:.3f} ms median of {REPEATS}, "
+        f"{n_paths / render_ms / 1e3:.3f} Mpaths/s")
     n_plain = n_pix * spp
     log(f"{name} kernel: {kernel_ms:.3f} ms, {n_paths / kernel_ms / 1e3:.3f} "
         f"Mpaths/s, bound {bound_ms:.4f} ms ({bound_by}), "
@@ -363,20 +486,21 @@ def drive(mi, pk, name, make_dict, spp, max_depth, mean_band, route):
         f"{float((lane_rel > PIX_RTOL).float().mean()):.6f}")
     max_abs_err = max(max_abs_err, compare(
         develop(k_rad, n_pix, spp, 1), develop(p_rad, n_pix, spp, 1),
-        f"{name} main-path shape"))
+        f"{name} main-path shape", route.mean_rtol))
     log(f"{name}: {time.perf_counter() - t_path:.1f} s")
-    return {"name": route.label, "route": "cuda", "source": route.source,
-            "replaces": route.replaces, "launches": launches,
-            "max_abs_err": max_abs_err, "ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+    return [{"name": route.label, "route": "cuda", "source": route.source,
+             "replaces": route.replaces, "launches": launches,
+             "max_abs_err": max_abs_err, "ms": kernel_ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": None}] + entries
 
 
 def run_path(mi, pk, name, variant, make_dict, flags, mean_band,
              spp=SPP, max_depth=MAX_DEPTH, **route):
     """One path of the path kernel under ``variant`` (256^2 x 64 spp,
-    depth 6 unless told otherwise) -> its entry of the kernels line.
-    ``route`` overrides ``Route`` fields (parity shape, replaces)."""
+    depth 6 unless told otherwise) -> its entries of the kernels line.
+    ``route`` overrides ``Route`` fields (parity shape, replaces, first
+    hits)."""
     mi.set_variant(variant)
     nc = pk.MODE_NC[mi.variant_config().color_mode]
 
@@ -529,6 +653,9 @@ def run_isect(mi, pk, ik, isx, bumpy_sphere_dict):
         f"{hit_share:.4f} hit; {n} rays toward the light, {occ_share:.4f} "
         f"occluded; launches {launches}")
 
+    # the plain twin's face-order Woop rows (the BVH tier's tables carry
+    # only the tree-order rows)
+    woop = pk.face_woop(tables)
     entries = []
     for name, fn, ref, main, out_bytes in (
             ("isect_closest", ik.isect_closest, isx.closest_hit_reference,
@@ -541,13 +668,13 @@ def run_isect(mi, pk, ik, isx, bumpy_sphere_dict):
             got = fn(tables, *sub)
             torch.cuda.synchronize()
             log(f"  {name}, {label} rays:")
-            errs.append(isect_parity(name, got, ref(tables.woop, *sub)))
+            errs.append(isect_parity(name, got, ref(woop, *sub)))
             ms = timed(lambda: fn(tables, *ray))[1]
             log(f"    kernel on {n} rays: {ms:.4f} ms, "
                 f"{n / ms / 1e3:.3f} Mrays/s")
         sub = every_kth(main, ISECT_PARITY_RAYS)
         kernel_ms = timed(lambda: fn(tables, *main))[1]
-        plain_ms = timed(lambda: ref(tables.woop, *sub), repeats=1,
+        plain_ms = timed(lambda: ref(woop, *sub), repeats=1,
                          warm_up=False)[1]
         walk = isx.traverse(tables.bvh_nodes, tables.bvh_woop,
                             tables.bvh_prim,
@@ -583,7 +710,7 @@ def run_isect(mi, pk, ik, isx, bumpy_sphere_dict):
 
 def run_volpath(mi, pk, vk, volpath_slab_dict):
     """The volpath slab (256^2 x 16 spp, depth 16) through the volumetric
-    kernel's hg instantiation -> its entry of the kernels line."""
+    kernel's hg instantiation -> its entries of the kernels line."""
     mi.set_variant("scalar_rgb")
     flags = vk.HAS_HG
 
@@ -602,6 +729,46 @@ def run_volpath(mi, pk, vk, volpath_slab_dict):
                      "mitsuba2_tpu/ops/volmegakernel.py:186"))
 
 
+def check_mono_materials(mi, pk, cornell_materials_dict):
+    """The materials scene's kernel under ``scalar_mono`` against its plain
+    version at the parity shape, and one render through the user's entry
+    points there -> its entry of the kernels line (times and bound at the
+    parity shape)."""
+    mi.set_variant("scalar_mono")
+    flags, pw, pspp = pk.HAS_SPHERES | pk.HAS_LOBES, PARITY_WIDTH, \
+        PARITY_SPP
+    scene = mi.load_dict(cornell_materials_dict(pw, pw, pspp, MAX_DEPTH))
+    if scene.tables.flags & pk.TEMPLATE_FLAGS != flags:
+        raise SystemExit(f"mono materials: tables carry {scene.tables.flags}")
+    cam = pk.camera_row(scene.sensors[0], scene.device)
+    args = (scene.tables, cam, SEED, 0, pspp, pw, pw, MAX_DEPTH,
+            scene.integrator.rr_depth)
+    got, kernel_ms = timed(lambda: pk.path_radiance(*args))
+    stats = {}
+    want, plain_ms = timed(lambda: pk.path_radiance_reference(
+        *args, stats=stats), repeats=1, warm_up=False)
+    max_abs_err = compare(develop(got, pw, pspp), develop(want, pw, pspp),
+                          "cornell_materials_mono parity")
+    pk.reset_launch_counts()
+    img = scene.integrator.render(scene, seed=0, spp=pspp)
+    torch.cuda.synchronize()
+    launches = pk.path_radiance.launches_by_kernel[(flags, 1)]
+    if launches < 1 or scene.integrator.last_engine != "kernel" \
+            or not bool(torch.isfinite(img).all()):
+        raise SystemExit("mono materials: the render left the kernel")
+    n = pw * pw * pspp
+    bound_ms, bound_by = bound(pk, scene.tables, stats, n, n)
+    log(f"cornell_materials_mono at {pw}^2 x {pspp} spp: kernel "
+        f"{kernel_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); plain "
+        f"version {plain_ms:.3f} ms; image mean {float(img.mean()):.6f}")
+    return {"name": pk.kernel_name(flags, 1), "route": "cuda",
+            "source": "mitsuba2_tpu_torch/csrc/path_kernel.cu",
+            "replaces": "mitsuba2_tpu/ops/megakernel.py:365",
+            "launches": launches, "max_abs_err": max_abs_err,
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -617,37 +784,49 @@ def main():
     from mitsuba2_tpu_torch.ops import build, path_kernel as pk
     from mitsuba2_tpu_torch.ops import intersect as isx
     from mitsuba2_tpu_torch.ops import intersect_kernel as ik
+    from mitsuba2_tpu_torch.ops import splat as sp
     from mitsuba2_tpu_torch.ops import volpath_kernel as vk
     from mitsuba2_tpu_torch.python.test.scenes import (
-        bumpy_sphere_dict, cornell_box_dict, hero_serialized_dict,
-        matpreview_dict, volpath_slab_dict)
+        bumpy_sphere_dict, cornell_box_dict, cornell_materials_dict,
+        hero_serialized_dict, matpreview_dict, volpath_slab_dict)
 
     nvcc = build.find_nvcc()
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}"
         f"; nvcc: {nvcc or 'not found'}")
 
-    # ---- build: one library per color mode, the volumetric and the
-    # intersection kernel's and the host BVH builder, in parallel ----
+    # ---- build: two libraries per color mode, the splat, the volumetric
+    # and the intersection kernel's and the host BVH builder, in parallel ----
     t0 = time.perf_counter()
-    build.build_all(pk.libraries() + vk.libraries() + ik.libraries()
-                    + [("bvh", {})])
-    log(f"build: path_kernel, 3 color modes x 32 instantiations, "
+    jobs = (pk.libraries() + sp.libraries() + vk.libraries()
+            + ik.libraries() + [("bvh", {})])
+    build.build_all(jobs)
+    log(f"build: {len(jobs)} libraries -- path_kernel, 3 color modes x 2 "
+        f"libraries x 32 instantiations (192), splat_kernel, "
         f"volpath_kernel, 16 instantiations, intersect_kernel and the BVH "
-        f"builder, in {time.perf_counter() - t0:.2f} s")
+        f"builder -- in {time.perf_counter() - t0:.2f} s")
     # each library's register range, and each instantiation a path below
     # runs (the full reports stay beside the libraries, build.py)
     full = pk.HAS_SPHERES | pk.HAS_ENV | pk.HAS_GGX | pk.HAS_CHECKER
-    on_paths = (0, full, pk.HAS_BVH, (full & ~pk.HAS_SPHERES) | pk.HAS_BVH)
+    materials = pk.HAS_SPHERES | pk.HAS_LOBES
+    on_paths = (0, full, pk.HAS_BVH, (full & ~pk.HAS_SPHERES) | pk.HAS_BVH,
+                materials)
     def build_log(name, defines=None):
         path = build.library_path(name, defines).with_suffix(".log")
         return path.read_text() if path.exists() else ""
 
     for nc in (3, 4, 1):
-        report = ptxas_report(build_log("path_kernel",
-                                        pk.library_defines(nc)))
-        log_ptxas(f"path_kernel, PK_NC={nc}", report,
-                  {(f, nc) for f in on_paths},
-                  lambda inst: pk.kernel_name(*inst))
+        for lobes in (False, True):
+            report = ptxas_report(build_log(
+                "path_kernel", pk.library_defines(nc, lobes)))
+            log_ptxas(f"path_kernel, PK_NC={nc}, PK_LOBES={int(lobes)}",
+                      report, {(f, nc) for f in on_paths},
+                      lambda inst: pk.kernel_name(*inst))
+    fn = None
+    for line in build_log("splat_kernel").splitlines():
+        m = re.search(r"(splat_(?:taps|gather))E9SplatArgs", line)
+        fn = m.group(1) if m else fn
+        if fn and "Used" in line:
+            log(f"  ptxas {fn}: {line.split(':', 1)[1].strip()}")
     log_ptxas("volpath_kernel",
               ptxas_report(build_log("volpath_kernel"), "volpath_kernel"),
               {(vk.HAS_HG,)}, lambda inst: vk.kernel_name(*inst))
@@ -667,23 +846,30 @@ def main():
          (0.2, 5.0)),
         ("cornell_mono", "scalar_mono", cornell_box_dict, 0, (0.05, 1.0)),
     ]
-    kernels = [run_path(mi, pk, *p) for p in paths]
-    kernels.append(run_volpath(mi, pk, vk, volpath_slab_dict))
+    kernels = [e for p in paths for e in run_path(mi, pk, *p)]
+    kernels += run_volpath(mi, pk, vk, volpath_slab_dict)
     # the big meshes: the BVH tier, parity and the walk counts at 32^2 x 4
     # spp, the plain version on every 31st pixel of the main shape
     big = dict(spp=BIG_SPP, max_depth=BIG_MAX_DEPTH,
                parity=(BIG_PARITY_WIDTH, BIG_PARITY_SPP),
                plain_stride=BIG_PLAIN_STRIDE)
-    kernels.append(run_path(
+    kernels += run_path(
         mi, pk, "biggeo", "scalar_rgb",
         lambda w, h, spp, depth: bumpy_sphere_dict(w, h, spp, depth, 512,
                                                    257),
-        pk.HAS_BVH, (0.03, 0.5), **big))
-    kernels.append(run_path(
+        pk.HAS_BVH, (0.03, 0.5), **big)
+    kernels += run_path(
         mi, pk, "hero", "scalar_rgb", hero_serialized_dict,
-        (full & ~pk.HAS_SPHERES) | pk.HAS_BVH, (0.2, 5.0), **big))
+        (full & ~pk.HAS_SPHERES) | pk.HAS_BVH, (0.2, 5.0), **big)
     kernels += run_isect(mi, pk, ik, isx, bumpy_sphere_dict)
     check_bvh_tier_on_cornell(mi, pk, cornell_box_dict)
+    # the materials scene: the lobes flag's instantiation and the splat
+    for name, variant in (("cornell_materials", "scalar_rgb"),
+                          ("cornell_materials_spectral", "scalar_spectral")):
+        kernels += run_path(mi, pk, name, variant, cornell_materials_dict,
+                            materials, (0.03, 1.0), first_hits=True,
+                            mean_rtol=CAUSTIC_MEAN_RTOL)
+    kernels.append(check_mono_materials(mi, pk, cornell_materials_dict))
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -1,23 +1,26 @@
 // Path kernel (sm_90a).
 //
 // Replaces mitsuba2_tpu/ops/megakernel.py::_path_kernel (megakernel.py:365)
-// in its K1a scope (triangle meshes, constant-albedo diffuse BSDFs,
-// constant area lights, box filter), its large-mesh tiers (K1f: the
-// streamed sweep and the HBM BVH walk, megakernel.py:570-675, :676-1009,
-// :1077-1197, :2085, here one per-ray walk, csrc/bvh.cuh, for more than
-// 1024 faces), its matpreview scopes:
-// analytic spheres (K1b), one lat-long envmap with CDF-inverted NEE and
-// escape MIS (K1c), isotropic GGX rough conductors with visible-normal
-// sampling and checkerboard albedo (K1d), and its color modes (K1e): rgb,
-// spectral hero-wavelength transport (megakernel.py:287-324 hero
-// wavelengths and sigmoid reflectances, :436-463 D65 and CMF lookups,
-// :1480-1503, :1553-1558, :1687-1690, :1713-1714 spectral emission, env
-// and albedo, :1567-1587 conductor IOR quadratics, :1378-1393 and
-// :1979-1986 the CIE develop) and mono luminance. It computes exactly the
-// plain PyTorch version path_radiance_reference in ops/path_kernel.py: the
-// same TEA keys and sampler dimensions, the same Woop and sphere tests, the
-// same NEE arms, MIS, roulette and spawn offsets, so the two agree lane by
-// lane up to float rounding.
+// in its whole scope: triangle meshes, constant area lights (K1a); its
+// large-mesh tiers (K1f: the streamed sweep and the HBM BVH walk,
+// megakernel.py:570-675, :676-1009, :1077-1197, :2085, here one per-ray
+// walk, csrc/bvh.cuh, for more than 1024 faces); analytic spheres, disks
+// and cylinders (K1b: :909-1058, :1194); one lat-long envmap with
+// CDF-inverted NEE and escape MIS (K1c); the BSDFs of K1d: diffuse with
+// constant, checkerboard (:1417-1427) or bitmap albedo (:1428-1470),
+// isotropic GGX rough conductors with visible-normal sampling, smooth
+// dielectrics (two-sided, :1588-1612, :1871-1894), smooth and rough
+// plastics (:1773-1793, :1895-1952) and the eta-aware roulette (:1648,
+// :1960); and its color modes (K1e): rgb, spectral hero-wavelength
+// transport (megakernel.py:287-324 hero wavelengths and sigmoid
+// reflectances, :436-463 D65 and CMF lookups, :1480-1503, :1553-1558,
+// :1687-1690, :1713-1714 spectral emission, env and albedo, :1567-1587
+// conductor IOR quadratics, :1378-1393 and :1979-1986 the CIE develop) and
+// mono luminance. It computes exactly the plain PyTorch version
+// path_radiance_reference in ops/path_kernel.py: the same TEA keys and
+// sampler dimensions, the same Woop, sphere and quad tests, the same NEE
+// arms, MIS, lobe choices, roulette and spawn offsets, so the two agree
+// lane by lane up to float rounding.
 //
 // What bounds it on the H100: operations, not bytes. A lane writes 12
 // bytes (50 MB for the 4,194,304 paths of a 256x256x64 render, about 15 us
@@ -36,35 +39,48 @@
 //   between bounces (the TPU kernel relaunched per bounce and carried
 //   state in HBM), and a lane whose path ends simply leaves the loop.
 // - The scene content picks the instantiation (template FLAGS, the TPU
-//   kernel's static has_spheres / has_env / has_ggx / has_checker gates),
-//   so a scene pays only for the features it has. With no flag set (the
-//   Cornell box) the kernel is the K1a kernel: Woop rows and the first
+//   kernel's static has_spheres / has_env / has_ggx / has_checker gates,
+//   the BVH tier, and one flag, "lobes", for the dielectric, plastic,
+//   roughplastic and bitmap lobes, told apart by kind at run time, and for
+//   disks and cylinders, looped over by their run-time count beside the
+//   spheres), so a scene pays only for the features it has, and the code
+//   of the lobes flag is in no instantiation without it. With no flag set
+//   (the Cornell box) the kernel is the K1a kernel: Woop rows and the first
 //   three attribute float4s of every face (four in spectral mode, for the
 //   emitter's D65 scale) staged in shared memory.
 // - The color mode is the template parameter NC (3 rgb, 4 hero wavelengths,
-//   1 luminance); one library is built per mode (-DPK_NC), each with its
-//   16 flag instantiations. Throughput and radiance are NC floats in
-//   registers. The hero wavelengths, their D65 values and normalized
-//   positions are computed once per path (the TPU kernel re-derived them
-//   from the key on every bounce), and each table value is a direct two-tap
-//   lerp of the 96-row D65 / CMF table, which sits in shared memory (the
-//   lanes of a warp read different rows; constant memory would serialize
-//   them). The CIE develop to linear sRGB is the path's epilogue, run by
-//   every lane, so the output is 3 floats per lane in every mode.
+//   1 luminance); two libraries are built per mode (-DPK_NC, and -DPK_LOBES
+//   for the lobes flag), each with its 32 instantiations of the other flags.
+//   Throughput and radiance are NC floats in registers. The hero
+//   wavelengths, their D65 values and normalized positions are computed
+//   once per path (the TPU kernel re-derived them from the key on every
+//   bounce), and each table value is a direct two-tap lerp of the 96-row
+//   D65 / CMF table, which sits in shared memory (the lanes of a warp read
+//   different rows; constant memory would serialize them). The CIE develop
+//   to linear sRGB is the path's epilogue, run by every lane, so the output
+//   is 3 floats per lane in every mode.
 // - With any flag set, only what every ray loops over is staged in shared
-//   memory: the Woop rows and the sphere rows. All threads of a warp read
-//   the same face at the same step of the loop, so each read is a
-//   broadcast. The attribute row of the hit face or sphere (ten float4) is
-//   read once per bounce from global memory through the read-only path.
+//   memory: the Woop rows, the sphere rows and the disk and cylinder rows
+//   (four float4 each). All threads of a warp read the same row at the same
+//   step of a loop, so each read is a broadcast. The attribute row of the
+//   hit face, sphere or quad (twelve float4) is read once per bounce from
+//   global memory through the read-only path, a float4 where a branch needs
+//   it. The disk and cylinder solve is not contracted into fused
+//   multiply-adds, so that its hit points near a silhouette, where the
+//   quadratic is ill-conditioned, are the plain version's.
 // - Above 1024 faces (F_BVH) the Woop rows stay in global memory and every
 //   ray and shadow ray walks the scene's traversal tree instead of the
 //   loop (csrc/bvh.cuh: near child first, a stack per thread, ties to the
 //   lowest face id, the shadow walk ending at the first occluder). The
-//   walk's barycentrics feed the checker lookup. The sphere loop stays.
+//   walk's barycentrics feed the checker and bitmap lookups. The sphere and
+//   quad loops stay.
 // - The env radiance is one float4 texel per 16 bytes (a bilinear fetch is
 //   four loads); env sampling is two binary searches (marginal cdf, then
 //   the row's conditional cdf), giving exactly the reference's
-//   count(cdf <= u) index; the env pdf is a direct pmf load.
+//   count(cdf <= u) index; the env pdf is a direct pmf load. A bitmap is a
+//   run of float4 texels in one flat buffer, fetched bilinearly with four
+//   loads at the texture's offset (the TPU kernel's atlas and its matmul
+//   gather have no counterpart).
 // - The closest-hit loop computes u and v only for a face whose t is in
 //   range and closer than the best so far; the shadow loops stop at the
 //   first occluder.
@@ -81,8 +97,11 @@
 
 // color channels of this library's instantiations: 3 rgb, 4 spectral
 // (hero wavelengths), 1 mono (ops/path_kernel.py library_defines)
-#ifndef PK_NC
-#error "build with -DPK_NC=3, 4 or 1"
+// color channels of this library's instantiations: 3 rgb, 4 spectral
+// (hero wavelengths), 1 mono; and whether they carry the lobes flag
+// (ops/path_kernel.py library_defines)
+#if !defined(PK_NC) || !defined(PK_LOBES)
+#error "build with -DPK_NC=3, 4 or 1 and -DPK_LOBES=0 or 1"
 #endif
 
 #define BLOCK 128
@@ -91,10 +110,10 @@
 // Field for field ops/path_kernel.py::_PathArgs.
 struct PathArgs {
     const float4* woop;       // (F, 3) float4: [Wu | Wv | Wz]
-    const float4* fattr;      // (F, 10) float4: attribute columns
+    const float4* fattr;      // (F, 12) float4: attribute columns
     const float* lights;      // (L, 24)
     const float4* sph;        // (S,) [center, radius]
-    const float4* sattr;      // (S, 10) float4
+    const float4* sattr;      // (S, 12) float4
     const float4* env;        // (H, W) [r, g, b, 0]
     const float* env_marg;    // (Hs,)
     const float* env_cond;    // (Hs, Ws)
@@ -112,15 +131,24 @@ struct PathArgs {
     uint32_t seed, sample_base;
     int spp_pass, width, height, max_depth, rr_depth, n_lanes;
     int flags, nc;
+    // the lobes flag's tables, last so that the fields above keep their
+    // offsets in the kernel parameters (and the earlier instantiations
+    // their registers)
+    const float4* qd;         // (Q, 4) float4: disk / cylinder rows
+    const float4* qattr;      // (Q, 12) float4
+    const float4* tex;        // (T,) bitmap texels [payload, 0]
+    int n_quads;
 };
 
 namespace {
 
 // instantiation flags (ops/path_kernel.py HAS_*)
 constexpr int F_SPHERES = 1, F_ENV = 2, F_GGX = 4, F_CHECKER = 8;
-constexpr int F_BVH = 16;
-// attribute float4s per face / sphere (ops/path_kernel.py FA / 4)
-constexpr int FA4 = 10;
+constexpr int F_BVH = 16, F_LOBES = 32;
+// attribute float4s per face / sphere / quad (ops/path_kernel.py FA / 4)
+constexpr int FA4 = 12;
+// float4s of a disk or cylinder row (ops/path_kernel.py QD / 4)
+constexpr int QD4 = 4;
 // rows of the D65 / CMF table (ops/path_kernel.py SPD_ROWS)
 constexpr int SPD_ROWS = 96;
 
@@ -175,9 +203,155 @@ __device__ __forceinline__ float sphere_t(float4 c, float ox, float oy,
     return t0 > 0.0f ? t0 : -b + sq;
 }
 
+// Products and sums rounded once each and never fused, in the plain
+// version's order: the quadric solve is ill-conditioned near a silhouette,
+// where a fused multiply-add moves the hit point visibly.
+__device__ __forceinline__ float mul(float a, float b) {
+    return __fmul_rn(a, b);
+}
+__device__ __forceinline__ float add(float a, float b) {
+    return __fadd_rn(a, b);
+}
+__device__ __forceinline__ float sub(float a, float b) {
+    return __fsub_rn(a, b);
+}
+// (a0 x + a1 y) + a2 z
+__device__ __forceinline__ float row3(float a0, float a1, float a2, float x,
+                                      float y, float z) {
+    return add(add(mul(a0, x), mul(a1, y)), mul(a2, z));
+}
+
+// A disk's or cylinder's rows: the to_object rows [A00 A01 A02 A10]
+// [A11 A12 A20 A21] [A22 bx by bz] and [kind r length 0].
+// The point v (w = 1) or direction (w = 0) in the object frame.
+__device__ __forceinline__ void quad_frame(const float4* Q, float x, float y,
+                                           float z, bool point,
+                                           float out[3]) {
+    const float4 q0 = Q[0], q1 = Q[1], q2 = Q[2];
+    out[0] = row3(q0.x, q0.y, q0.z, x, y, z);
+    out[1] = row3(q0.w, q1.x, q1.y, x, y, z);
+    out[2] = row3(q1.z, q1.w, q2.x, x, y, z);
+    if (point) {
+        out[0] = add(out[0], q2.y);
+        out[1] = add(out[1], q2.z);
+        out[2] = add(out[2], q2.w);
+    }
+}
+
+// Disk or cylinder hit parameter in (0, maxt), else -1, in the quad's
+// canonical frame (megakernel.py:1010-1058): the unit disk at z = 0, or the
+// cylinder of radius r around z in [0, length], its near root unless that
+// leaves the span.
+__device__ __forceinline__ float quad_t(const float4* Q, float ox, float oy,
+                                        float oz, float dx, float dy,
+                                        float dz, float maxt) {
+    float o[3], d[3];
+    quad_frame(Q, ox, oy, oz, true, o);
+    quad_frame(Q, dx, dy, dz, false, d);
+    const float4 q3 = Q[3];
+    float t;
+    bool ok;
+    if (q3.x < 1.5f) {                       // disk
+        const bool dz_ok = fabsf(d[2]) > 1e-12f;
+        t = __fdiv_rn(-o[2], dz_ok ? d[2] : 1.0f);
+        const float hx = add(o[0], mul(t, d[0]));
+        const float hy = add(o[1], mul(t, d[1]));
+        ok = dz_ok && add(mul(hx, hx), mul(hy, hy)) <= 1.0f;
+    } else {                                 // cylinder
+        const float a2 = add(mul(d[0], d[0]), mul(d[1], d[1]));
+        const float b2 = mul(2.0f, add(mul(d[0], o[0]), mul(d[1], o[1])));
+        const float c2 = sub(add(mul(o[0], o[0]), mul(o[1], o[1])),
+                             mul(q3.y, q3.y));
+        const float disc = sub(mul(b2, b2), mul(mul(4.0f, a2), c2));
+        const float sqd = __fsqrt_rn(fmaxf(disc, 0.0f));
+        const bool a2ok = fabsf(a2) > 1e-20f;
+        const float inv2a = __fdiv_rn(1.0f, a2ok ? mul(2.0f, a2) : 1.0f);
+        const float t_n = mul(sub(-b2, sqd), inv2a);
+        const float t_f = mul(add(-b2, sqd), inv2a);
+        const float zn = add(o[2], mul(d[2], t_n));
+        const float zf = add(o[2], mul(d[2], t_f));
+        const bool n_ok = zn >= 0.0f && zn <= q3.z && t_n > 0.0f
+            && t_n < maxt;
+        const bool f_ok = zf >= 0.0f && zf <= q3.z && t_f > 0.0f
+            && t_f < maxt;
+        ok = a2ok && disc > 0.0f && (n_ok || f_ok);
+        t = n_ok ? t_n : t_f;
+    }
+    return ok && t > 0.0f && t < maxt ? t : -1.0f;
+}
+
+// The hit point o + t d of a disk or cylinder, in its object frame.
+__device__ __forceinline__ void quad_local(const float4* Q, float ox,
+                                          float oy, float oz, float dx,
+                                          float dy, float dz, float t,
+                                          float ql[3]) {
+    quad_frame(Q, add(ox, mul(t, dx)), add(oy, mul(t, dy)),
+               add(oz, mul(t, dz)), true, ql);
+}
+
+// A cylinder's normal A^T (x, y, 0) / r at the local hit point, times flip
+// (A is rigid).
+__device__ __forceinline__ void quad_normal(const float4* Q,
+                                           const float ql[3], float flip,
+                                           float& nx, float& ny, float& nz) {
+    const float4 q0 = Q[0], q1 = Q[1];
+    const float inv_r = __fdiv_rn(1.0f, fmaxf(Q[3].y, 1e-20f));
+    nx = mul(mul(add(mul(q0.x, ql[0]), mul(q0.w, ql[1])), inv_r), flip);
+    ny = mul(mul(add(mul(q0.y, ql[0]), mul(q1.x, ql[1])), inv_r), flip);
+    nz = mul(mul(add(mul(q0.z, ql[0]), mul(q1.y, ql[1])), inv_r), flip);
+}
+
+// The analytic uv of a disk hit (r, phi / 2 pi) or of a cylinder hit
+// (phi / 2 pi, z / length) (megakernel.py:992-1007).
+__device__ __forceinline__ void quad_uv(const float4* Q, float ox, float oy,
+                                       float oz, float dx, float dy,
+                                       float dz, float t, float& u,
+                                       float& v) {
+    float ql[3];
+    quad_local(Q, ox, oy, oz, dx, dy, dz, t, ql);
+    float phi = atan2f(ql[1], ql[0]) * INV_2PI;
+    phi = phi < 0.0f ? phi + 1.0f : phi;
+    if (Q[3].x > 1.5f) {
+        u = phi;
+        v = ql[2] * (1.0f / fmaxf(Q[3].z, 1e-20f));
+    } else {
+        u = sqrtf(fmaxf(ql[0] * ql[0] + ql[1] * ql[1], 0.0f));
+        v = phi;
+    }
+}
+
 __device__ __forceinline__ int imod(int a, int m) {
     const int r = a % m;
     return r < 0 ? r + m : r;
+}
+
+// Bilinear fetch, u and v wrapping, of the W x H texels at T:
+// interpolated along v, then u (megakernel.py:1219, :1428-1470).
+__device__ __forceinline__ float4 bilinear(const float4* T, int W, int H,
+                                           float u, float v) {
+    const float fu = u * (float)W - 0.5f;
+    const float fv = v * (float)H - 0.5f;
+    const float u0 = floorf(fu), v0 = floorf(fv);
+    const float wu = fu - u0, wv = fv - v0;
+    const int iu0 = imod((int)u0, W), iv0 = imod((int)v0, H);
+    const int iu1 = iu0 + 1 == W ? 0 : iu0 + 1;
+    const int iv1 = iv0 + 1 == H ? 0 : iv0 + 1;
+    const float4 t00 = __ldg(T + iv0 * W + iu0);
+    const float4 t10 = __ldg(T + iv1 * W + iu0);
+    const float4 t01 = __ldg(T + iv0 * W + iu1);
+    const float4 t11 = __ldg(T + iv1 * W + iu1);
+    float4 out;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+        const float c0 = (1.0f - wv) * comp(t00, c) + wv * comp(t10, c);
+        const float c1 = (1.0f - wv) * comp(t01, c) + wv * comp(t11, c);
+        const float r = (1.0f - wu) * c0 + wu * c1;
+        if (c == 0) out.x = r;
+        else if (c == 1) out.y = r;
+        else if (c == 2) out.z = r;
+        else out.w = r;
+    }
+    return out;
 }
 
 // Count of entries <= x of a non-decreasing array: the reference's
@@ -218,30 +392,7 @@ __device__ __forceinline__ void env_uv(const PathArgs& a, float dx, float dy,
 // (megakernel.py:1219).
 __device__ __forceinline__ float4 env_fetch(const PathArgs& a, float u,
                                            float v) {
-    const int W = a.env_w, H = a.env_h;
-    const float fu = u * (float)W - 0.5f;
-    const float fv = v * (float)H - 0.5f;
-    const float u0 = floorf(fu), v0 = floorf(fv);
-    const float wu = fu - u0, wv = fv - v0;
-    const int iu0 = imod((int)u0, W), iv0 = imod((int)v0, H);
-    const int iu1 = iu0 + 1 == W ? 0 : iu0 + 1;
-    const int iv1 = iv0 + 1 == H ? 0 : iv0 + 1;
-    const float4 t00 = __ldg(a.env + iv0 * W + iu0);
-    const float4 t10 = __ldg(a.env + iv1 * W + iu0);
-    const float4 t01 = __ldg(a.env + iv0 * W + iu1);
-    const float4 t11 = __ldg(a.env + iv1 * W + iu1);
-    float4 out;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-        const float c0 = (1.0f - wv) * comp(t00, c) + wv * comp(t10, c);
-        const float c1 = (1.0f - wv) * comp(t01, c) + wv * comp(t11, c);
-        const float r = (1.0f - wu) * c0 + wu * c1;
-        if (c == 0) out.x = r;
-        else if (c == 1) out.y = r;
-        else if (c == 2) out.z = r;
-        else out.w = r;
-    }
-    return out;
+    return bilinear(a.env, a.env_w, a.env_h, u, v);
 }
 
 // Solid-angle density of the env NEE arm toward world direction d.
@@ -278,6 +429,65 @@ __device__ __forceinline__ void env_sample(const PathArgs& a, float u1,
     if (a.env_has_rot) rot3(a.env_rot, dx, dy, dz);
 }
 
+// Isotropic GGX toward the local direction wo (wi's z clamped): the
+// incident cosine to the half vector, f * cos without the Fresnel term,
+// D G / (4 wi_z), and the visible-normal pdf G1(wi) D / (4 wi_z).
+__device__ __forceinline__ void ggx_eval(float wix, float wiy, float wiz,
+                                         float wox, float woy, float woz,
+                                         float alpha, float& ci_h,
+                                         float& spec, float& pdf) {
+    float hx = wix + wox, hy = wiy + woy, hz = wiz + woz;
+    const float hinv = rsqrtf(fmaxf(hx * hx + hy * hy + hz * hz, 1e-20f));
+    hx *= hinv;
+    hy *= hinv;
+    hz *= hinv;
+    ci_h = fmaxf(wix * hx + wiy * hy + wiz * hz, 0.0f);
+    const float D = ggx_d(hz, alpha);
+    const float g1i = ggx_g1(wiz, alpha);
+    spec = D * (g1i * ggx_g1(fmaxf(woz, 1e-6f), alpha))
+        / fmaxf(4.0f * wiz, 1e-20f);
+    pdf = g1i * D / fmaxf(4.0f * wiz, 1e-20f);
+}
+
+// GGX visible-normal sample (Heitz 2018) of the local incident direction
+// wi with clamped z: the reflected direction w, wi . m and m_z.
+__device__ __forceinline__ void vndf_sample(float wix, float wiy, float wiz,
+                                            float alpha, float u1, float u2,
+                                            float& wx, float& wy, float& wz,
+                                            float& wm, float& mhz_out) {
+    float vhx = alpha * wix, vhy = alpha * wiy, vhz = wiz;
+    const float vinv =
+        rsqrtf(fmaxf(vhx * vhx + vhy * vhy + vhz * vhz, 1e-20f));
+    vhx *= vinv;
+    vhy *= vinv;
+    vhz *= vinv;
+    const float lensq = vhx * vhx + vhy * vhy;
+    const float linv = rsqrtf(fmaxf(lensq, 1e-20f));
+    const float t1x = lensq > 1e-12f ? -vhy * linv : 1.0f;
+    const float t1y = lensq > 1e-12f ? vhx * linv : 0.0f;
+    const float t2x = -vhz * t1y, t2y = vhz * t1x;
+    const float t2z = vhx * t1y - vhy * t1x;
+    const float rr = sqrtf(fmaxf(u1, 0.0f));
+    const float phi = TWO_PI * u2;
+    const float p1 = rr * cosf(phi);
+    float p2 = rr * sinf(phi);
+    const float s_ = 0.5f * (1.0f + vhz);
+    p2 = (1.0f - s_) * sqrtf(fmaxf(1.0f - p1 * p1, 0.0f)) + s_ * p2;
+    const float pzz = sqrtf(fmaxf(1.0f - p1 * p1 - p2 * p2, 0.0f));
+    float mhx = alpha * (p1 * t1x + p2 * t2x + pzz * vhx);
+    float mhy = alpha * (p1 * t1y + p2 * t2y + pzz * vhy);
+    float mhz = fmaxf(p2 * t2z + pzz * vhz, 1e-6f);
+    const float minv = rsqrtf(mhx * mhx + mhy * mhy + mhz * mhz);
+    mhx *= minv;
+    mhy *= minv;
+    mhz *= minv;
+    wm = wix * mhx + wiy * mhy + wiz * mhz;
+    wx = 2.0f * wm * mhx - wix;
+    wy = 2.0f * wm * mhy - wiy;
+    wz = 2.0f * wm * mhz - wiz;
+    mhz_out = mhz;
+}
+
 template <int FLAGS, int NC>
 __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
     constexpr bool SPH = FLAGS & F_SPHERES;
@@ -286,6 +496,11 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
     constexpr bool CHK = FLAGS & F_CHECKER;
     constexpr bool SPEC = NC == 4;
     constexpr bool BVH = FLAGS & F_BVH;
+    // the dielectric, plastic, roughplastic and bitmap lobes, and the disk
+    // and cylinder rows (with the spheres' flag); everything they add
+    // compiles only into these instantiations
+    constexpr bool LOBES = FLAGS & F_LOBES;
+    constexpr bool QUADS = SPH && LOBES;
     // attributes from global memory, spheres in shared memory
     constexpr bool WIDE = FLAGS != 0;
     // attribute float4s staged per face when !WIDE: [ng, lpdf_w]
@@ -296,7 +511,8 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
     float4* s_spd = smem;                            // SPD_ROWS (spectral)
     // 3 float4 per face; none in the BVH tier
     float4* s_woop = smem + (SPEC ? SPD_ROWS : 0);
-    // Cornell: STAGE attribute float4 per face; otherwise the sphere rows
+    // Cornell: STAGE attribute float4 per face; otherwise the sphere rows,
+    // then QD4 float4 per disk or cylinder (s_more + n_spheres)
     float4* s_more = s_woop + (BVH ? 0 : 3 * n_faces);
     if constexpr (!BVH) {
         for (int i = threadIdx.x; i < 3 * n_faces; i += blockDim.x)
@@ -310,6 +526,10 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
     if constexpr (SPH) {
         for (int i = threadIdx.x; i < a.n_spheres; i += blockDim.x)
             s_more[i] = a.sph[i];
+    }
+    if constexpr (QUADS) {
+        for (int i = threadIdx.x; i < QD4 * a.n_quads; i += blockDim.x)
+            s_more[a.n_spheres + i] = a.qd[i];
     }
     if constexpr (SPEC) {
         for (int i = threadIdx.x; i < SPD_ROWS; i += blockDim.x)
@@ -370,13 +590,15 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
             d65[c] = spd_lerp(s_spd, wl[c], 0);
         }
     }
-    float prev_pdf = 0.0f;      // 0: camera ray, no MIS at the first hit
+    float prev_pdf = 0.0f;      // 0: camera ray or delta lobe, no MIS
+    // the relative IOR crossed so far; roulette weighs by its square
+    float eta_st = 1.0f;
     const float p_env = a.p_env;
 
     for (int depth = 0; depth < a.max_depth; ++depth) {
         const uint32_t dim0 = 2u + 8u * (uint32_t)depth;
 
-        // ---- closest hit: lowest face id on ties, faces before spheres ----
+        // ---- closest hit: lowest id on ties; faces, spheres, quads ----
         float t = BIG;
         int face = -1;
         float hu = 0.0f, hv = 0.0f;      // barycentrics of the face hit
@@ -418,7 +640,25 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
                 sphere = -1;
             }
         }
-        if (face < 0 && sphere < 0) {
+        int quad = -1;
+        if constexpr (QUADS) {
+            float tq_best = BIG;
+            for (int q = 0; q < a.n_quads; ++q) {
+                const float tq = quad_t(s_more + a.n_spheres + QD4 * q, ox,
+                                        oy, oz, dx, dy, dz, BIG);
+                if (tq > 0.0f && tq < tq_best) {
+                    tq_best = tq;
+                    quad = q;
+                }
+            }
+            if (tq_best < t) {
+                t = tq_best;
+                face = sphere = -1;
+            } else {
+                quad = -1;
+            }
+        }
+        if (face < 0 && sphere < 0 && quad < 0) {
             // ---- escaped: the environment, MIS-weighted against env NEE ----
             if constexpr (ENV) {
                 float w_esc = 1.0f;
@@ -438,7 +678,8 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
             break;
         }
         const float4* A = sphere >= 0 ? a.sattr + FA4 * sphere
-                                      : a.fattr + FA4 * face;
+                        : quad >= 0 ? a.qattr + FA4 * quad
+                                    : a.fattr + FA4 * face;
         float4 a0, a1, a2;
         if constexpr (WIDE) {
             a0 = __ldg(A);
@@ -459,10 +700,24 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
                 nz = (oz + t * dz - c.z) * inv_r;
             }
         }
+        if constexpr (QUADS) {
+            // a cylinder's normal A^T (x, y, 0) / r at the local hit point,
+            // times flip; a disk's is in its attribute row
+            if (quad >= 0 && s_more[a.n_spheres + QD4 * quad + 3].x > 1.5f) {
+                float ql[3];
+                quad_local(s_more + a.n_spheres + QD4 * quad, ox, oy, oz, dx,
+                           dy, dz, t, ql);
+                quad_normal(s_more + a.n_spheres + QD4 * quad, ql,
+                            __ldg(A + 7).z, nx, ny, nz);
+            }
+        }
 
         // ---- emission, MIS-weighted against NEE after the camera ----
         const float cos_hit = -(dx * nx + dy * ny + dz * nz);
-        if (!(cos_hit > 0.0f)) break;        // back face: FrontSide only
+        // dielectrics are two-sided; every other lobe FrontSide only
+        const bool is_diel = LOBES && a1.w > 2.5f && a1.w < 3.5f;
+        if (!(cos_hit > 0.0f) && !is_diel) break;  // back face
+        if (!LOBES || cos_hit > 0.0f) {
         float em_w = 1.0f;
         if (depth > 0) {
             const float pdf_l_hit = cos_hit > 1e-6f
@@ -484,6 +739,7 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
 #pragma unroll
             for (int c = 0; c < NC; ++c) res[c] += em_w * thr[c] * comp(a2, c);
         }
+        }
         if (depth == a.max_depth - 1) break; // last bounce: emission only
 
         // ---- albedo payload; checkerboard: parity of floor(u') + floor(v')
@@ -494,6 +750,9 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
                 if (sphere >= 0) {           // spherical uv
                     bu = atan2f(ny, nx) * INV_2PI + 0.5f;
                     bv = acosf(fminf(fmaxf(nz, -1.0f), 1.0f)) * INV_PI;
+                } else if (quad >= 0) {      // polar or cylindrical uv
+                    quad_uv(s_more + a.n_spheres + QD4 * quad, ox, oy, oz,
+                            dx, dy, dz, t, bu, bv);
                 } else {                     // barycentrics of the hit
                     bu = hu;
                     bv = hv;
@@ -508,6 +767,26 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
                 if (sum - 2.0f * floorf(0.5f * sum) > 0.5f) pay = __ldg(A + 5);
             }
         }
+        if constexpr (LOBES) {
+            if (a1.w > 5.5f) {
+                // bitmap: a bilinear fetch at the uv, repeat wrap
+                float bu = hu, bv = hv;
+                if (sphere >= 0) {
+                    bu = atan2f(ny, nx) * INV_2PI + 0.5f;
+                    bv = acosf(fminf(fmaxf(nz, -1.0f), 1.0f)) * INV_PI;
+                } else if (quad >= 0) {
+                    quad_uv(s_more + a.n_spheres + QD4 * quad, ox, oy, oz,
+                            dx, dy, dz, t, bu, bv);
+                }
+                const float4 a6 = __ldg(A + 6), a7 = __ldg(A + 7);
+                const float uu = a6.x + bu * a6.z + bv * a7.x;
+                const float vv = a6.y + bu * a6.w + bv * a7.y;
+                // [nonlinear, first texel, width, height]
+                const float4 r = __ldg(A + 11);
+                pay = bilinear(a.tex + (int)r.y, (int)fmaxf(r.z, 1.0f),
+                               (int)fmaxf(r.w, 1.0f), uu, vv);
+            }
+        }
         float alb[NC];
 #pragma unroll
         for (int c = 0; c < NC; ++c)
@@ -515,6 +794,8 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
                           : comp(pay, c);
         bool is_ggx = false;
         if constexpr (GGX) is_ggx = a1.w > 0.5f && a1.w < 1.5f;
+        const bool is_plas = LOBES && a1.w > 3.5f && a1.w < 5.5f;
+        const bool is_rplas = LOBES && a1.w > 4.5f && a1.w < 5.5f;
 
         const float px = ox + t * dx, py = oy + t * dy, pz = oz + t * dz;
         const float eps =
@@ -536,7 +817,7 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
             float mx = thr[0];
 #pragma unroll
             for (int c = 1; c < NC; ++c) mx = fmaxf(mx, thr[c]);
-            const float q = fminf(mx, 0.95f);
+            const float q = fminf(LOBES ? mx * eta_st * eta_st : mx, 0.95f);
             if (!(rr_u < q)) break;
             const float inv_q = 1.0f / fmaxf(q, 1e-8f);
 #pragma unroll
@@ -571,6 +852,38 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
                         eta[c] = comp(a3, c);
                         kap[c] = comp(a4, c);
                     }
+                }
+            }
+        }
+        // the dielectric's and the plastics' parameters, payload and the
+        // coat's terms at wi (lobes)
+        float wiz_r = 1.0f, eta_d = 1.0f, inv_eta2 = 0.0f, Fp_i = 0.0f;
+        float prob_sp = 0.0f, c2[NC], den[NC];
+        if constexpr (LOBES) {
+            if (is_diel || is_plas) {
+                wix = -dx * txx - dy * txy - dz * txz;
+                wiy = -dx * tyx - dy * tyy - dz * tyz;
+                wiz_r = -dx * nx - dy * ny - dz * nz;
+                wiz = fmaxf(wiz_r, 1e-6f);
+                alpha = fmaxf(a2.w, 1e-3f);
+                const float4 a5 = __ldg(A + 5), a10 = __ldg(A + 10);
+#pragma unroll
+                for (int c = 0; c < NC; ++c)
+                    c2[c] = SPEC ? sigmoid_poly(a5.x, a5.y, a5.z, xw[c])
+                                 : comp(a5, c);
+                eta_d = fmaxf(a10.x, 1e-3f);
+                inv_eta2 = a10.w;
+                if (is_plas) {
+                    // the coat's sampling probability and the base's
+                    // internal-scattering denominator (plastic.cpp)
+                    const float ssw = a10.y, fdr = a10.z;
+                    const bool nonlin = __ldg(A + 11).x > 0.5f;
+                    Fp_i = fresnel_diel(wiz, eta_d);
+                    prob_sp = Fp_i * ssw / fmaxf(
+                        Fp_i * ssw + (1.0f - Fp_i) * (1.0f - ssw), 1e-8f);
+#pragma unroll
+                    for (int c = 0; c < NC; ++c)
+                        den[c] = 1.0f - (nonlin ? alb[c] * fdr : fdr);
                 }
             }
         }
@@ -630,7 +943,8 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
                     : LT[14 + c];
         }
         const float cos_s = dlx * nx + dly * ny + dlz * nz;
-        if (pdf_l > 0.0f && cos_s > 0.0f) {
+        // delta lobes take no NEE
+        if (pdf_l > 0.0f && cos_s > 0.0f && !is_diel) {
             const float sox = px + nx * eps, soy = py + ny * eps,
                         soz = pz + nz * eps;
             const float maxt = dist * 0.999f;
@@ -657,6 +971,11 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
                     occluded = ts > 0.0f && ts < maxt;
                 }
             }
+            if constexpr (QUADS) {
+                for (int q = 0; q < a.n_quads && !occluded; ++q)
+                    occluded = quad_t(s_more + a.n_spheres + QD4 * q, sox,
+                                      soy, soz, dlx, dly, dlz, maxt) > 0.0f;
+            }
             if (!occluded) {
                 // BSDF toward the light: f * cos (albedo included) and pdf
                 float pdf_bsdf = fmaxf(cos_s, 0.0f) / PI_F;
@@ -666,27 +985,42 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
                 for (int c = 0; c < NC; ++c) fcos[c] = alb[c] * fd;
                 if constexpr (GGX) {
                     if (is_ggx) {
-                        const float wox = dlx * txx + dly * txy + dlz * txz;
-                        const float woy = dlx * tyx + dly * tyy + dlz * tyz;
-                        const float woz = cos_s;
-                        float hx = wix + wox, hy = wiy + woy, hz = wiz + woz;
-                        const float hinv =
-                            rsqrtf(fmaxf(hx * hx + hy * hy + hz * hz, 1e-20f));
-                        hx *= hinv;
-                        hy *= hinv;
-                        hz *= hinv;
-                        const float ci_h =
-                            fmaxf(wix * hx + wiy * hy + wiz * hz, 0.0f);
-                        const float D = ggx_d(hz, alpha);
-                        const float g1i = ggx_g1(wiz, alpha);
-                        const float spec =
-                            D * (g1i * ggx_g1(fmaxf(woz, 1e-6f), alpha))
-                            / fmaxf(4.0f * wiz, 1e-20f);
-                        pdf_bsdf = g1i * D / fmaxf(4.0f * wiz, 1e-20f);
+                        float ci_h, spec, pdf_g;
+                        ggx_eval(wix, wiy, wiz, dlx * txx + dly * txy
+                                 + dlz * txz, dlx * tyx + dly * tyy
+                                 + dlz * tyz, cos_s, alpha, ci_h, spec,
+                                 pdf_g);
+                        pdf_bsdf = pdf_g;
 #pragma unroll
                         for (int c = 0; c < NC; ++c)
                             fcos[c] = alb[c] * spec
                                 * fresnel_cond(ci_h, eta[c], kap[c]);
+                    }
+                }
+                if constexpr (LOBES) {
+                    if (is_plas) {
+                        // the diffuse base behind the coat, plus the rough
+                        // one's GGX coat (plastic.cpp, roughplastic.cpp)
+                        const float woz = fmaxf(cos_s, 0.0f);
+                        const float dcom = INV_PI * inv_eta2 * woz
+                            * (1.0f - Fp_i)
+                            * (1.0f - fresnel_diel(woz, eta_d));
+                        float sp = 0.0f;
+                        pdf_bsdf = woz / PI_F * (1.0f - prob_sp);
+                        if (is_rplas) {
+                            float ci_h, spec, pdf_g;
+                            ggx_eval(wix, wiy, wiz, dlx * txx + dly * txy
+                                     + dlz * txz, dlx * tyx + dly * tyy
+                                     + dlz * tyz, cos_s, alpha, ci_h, spec,
+                                     pdf_g);
+                            sp = spec * fresnel_diel(ci_h, eta_d);
+                            pdf_bsdf += pdf_g * prob_sp;
+                        }
+#pragma unroll
+                        for (int c = 0; c < NC; ++c) {
+                            fcos[c] = alb[c] / fmaxf(den[c], 1e-8f) * dcom;
+                            if (is_rplas) fcos[c] += c2[c] * sp;
+                        }
                     }
                 }
                 const float base = mis(pdf_l, pdf_bsdf) / fmaxf(pdf_l, 1e-20f);
@@ -701,38 +1035,14 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
         rng2(key, dim0 + 4u, u_c1, u_c2);
         float wx, wy, wz, bsdf_pdf;
         bool ok_lobe;
+        // the pdf an emission hit is weighed against (0 after a delta
+        // lobe), and the relative IOR the ray crosses
+        float mis_pdf = -1.0f, eta_mul = 1.0f;
         if (is_ggx) {
             // GGX visible normals (Heitz 2018); throughput albedo F G1(wo)
-            float vhx = alpha * wix, vhy = alpha * wiy, vhz = wiz;
-            const float vinv =
-                rsqrtf(fmaxf(vhx * vhx + vhy * vhy + vhz * vhz, 1e-20f));
-            vhx *= vinv;
-            vhy *= vinv;
-            vhz *= vinv;
-            const float lensq = vhx * vhx + vhy * vhy;
-            const float linv = rsqrtf(fmaxf(lensq, 1e-20f));
-            const float t1x = lensq > 1e-12f ? -vhy * linv : 1.0f;
-            const float t1y = lensq > 1e-12f ? vhx * linv : 0.0f;
-            const float t2x = -vhz * t1y, t2y = vhz * t1x;
-            const float t2z = vhx * t1y - vhy * t1x;
-            const float rr = sqrtf(fmaxf(u_c1, 0.0f));
-            const float phi = TWO_PI * u_c2;
-            const float p1 = rr * cosf(phi);
-            float p2 = rr * sinf(phi);
-            const float s_ = 0.5f * (1.0f + vhz);
-            p2 = (1.0f - s_) * sqrtf(fmaxf(1.0f - p1 * p1, 0.0f)) + s_ * p2;
-            const float pzz = sqrtf(fmaxf(1.0f - p1 * p1 - p2 * p2, 0.0f));
-            float mhx = alpha * (p1 * t1x + p2 * t2x + pzz * vhx);
-            float mhy = alpha * (p1 * t1y + p2 * t2y + pzz * vhy);
-            float mhz = fmaxf(p2 * t2z + pzz * vhz, 1e-6f);
-            const float minv = rsqrtf(mhx * mhx + mhy * mhy + mhz * mhz);
-            mhx *= minv;
-            mhy *= minv;
-            mhz *= minv;
-            const float wm = wix * mhx + wiy * mhy + wiz * mhz;
-            wx = 2.0f * wm * mhx - wix;
-            wy = 2.0f * wm * mhy - wiy;
-            wz = 2.0f * wm * mhz - wiz;
+            float wm, mhz;
+            vndf_sample(wix, wiy, wiz, alpha, u_c1, u_c2, wx, wy, wz, wm,
+                        mhz);
             bsdf_pdf = ggx_g1(wiz, alpha) * ggx_d(mhz, alpha)
                 / fmaxf(4.0f * wiz, 1e-20f);
             ok_lobe = wz > 1e-6f && wm > 0.0f;
@@ -742,6 +1052,80 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
             for (int c = 0; c < NC; ++c)
                 thr[c] = thr_[c]
                     * (alb[c] * fresnel_cond(cm, eta[c], kap[c]) * g1o);
+        } else if (LOBES && is_diel) {
+            // reflect or refract by the Fresnel term, from either side;
+            // transmission scales radiance by eta_ti^2 (dielectric.cpp)
+            float u_lobe, u_unused;
+            rng2(key, dim0 + 3u, u_lobe, u_unused);
+            float cos_t, eta_it, eta_ti;
+            const float F = fresnel_diel(wiz_r, eta_d, cos_t, eta_it, eta_ti);
+            const bool refl = u_lobe <= F;
+            wx = refl ? -wix : -eta_ti * wix;
+            wy = refl ? -wiy : -eta_ti * wiy;
+            wz = refl ? wiz_r : cos_t;
+#pragma unroll
+            for (int c = 0; c < NC; ++c)
+                thr[c] = thr_[c] * (refl ? alb[c] : c2[c] * eta_ti * eta_ti);
+            bsdf_pdf = refl ? F : 1.0f - F;
+            mis_pdf = 0.0f;
+            ok_lobe = true;
+            eta_mul = refl ? 1.0f : eta_it;
+        } else if (LOBES && is_plas) {
+            // the coat with probability prob_sp (a mirror, or the rough
+            // one's GGX sample), else the cosine-sampled base
+            float u_lobe, u_unused;
+            rng2(key, dim0 + 3u, u_lobe, u_unused);
+            const bool sel_sp = u_lobe < prob_sp;
+            concentric(u_c1, u_c2, wx, wy);
+            wz = sqrtf(fmaxf(1.0f - wx * wx - wy * wy, 0.0f));
+            if (sel_sp && is_rplas) {
+                float wm, mhz;
+                vndf_sample(wix, wiy, wiz, alpha, u_c1, u_c2, wx, wy, wz, wm,
+                            mhz);
+            } else if (sel_sp) {
+                wx = -wix;
+                wy = -wiy;
+                wz = wiz;
+            }
+            const float ppz = fmaxf(wz, 0.0f);
+            const float dcom = INV_PI * inv_eta2 * ppz * (1.0f - Fp_i)
+                * (1.0f - fresnel_diel(ppz, eta_d));
+            const float pdf_base = ppz / PI_F * (1.0f - prob_sp);
+            if (is_rplas) {
+                // eval(wo) / pdf(wo) over the mixture pdf
+                const float h2x = wix + wx, h2y = wiy + wy, h2z = wiz + wz;
+                const float h2inv = rsqrtf(
+                    fmaxf(h2x * h2x + h2y * h2y + h2z * h2z, 1e-20f));
+                const float ci_h2 = fmaxf(
+                    (wix * h2x + wiy * h2y + wiz * h2z) * h2inv, 0.0f);
+                const float D2 = ggx_d(h2z * h2inv, alpha);
+                const float g1i = ggx_g1(wiz, alpha);
+                const float spec2 = D2
+                    * (g1i * ggx_g1(fmaxf(wz, 1e-6f), alpha))
+                    * fresnel_diel(ci_h2, eta_d) / fmaxf(4.0f * wiz, 1e-20f);
+                const float pdf_g2 = g1i * D2 / fmaxf(4.0f * wiz, 1e-20f);
+                bsdf_pdf = pdf_g2 * prob_sp + pdf_base;
+                const float inv_prp = 1.0f / fmaxf(bsdf_pdf, 1e-20f);
+#pragma unroll
+                for (int c = 0; c < NC; ++c)
+                    thr[c] = thr_[c]
+                        * ((c2[c] * spec2
+                            + alb[c] / fmaxf(den[c], 1e-8f) * dcom)
+                           * inv_prp);
+            } else {
+                // the per-lobe weights in closed form
+                const float inv_ps = 1.0f / fmaxf(prob_sp, 1e-8f);
+                const float inv_pd = 1.0f / fmaxf(pdf_base, 1e-20f);
+#pragma unroll
+                for (int c = 0; c < NC; ++c)
+                    thr[c] = thr_[c]
+                        * (sel_sp ? c2[c] * Fp_i * inv_ps
+                                  : alb[c] / fmaxf(den[c], 1e-8f) * dcom
+                                      * inv_pd);
+                bsdf_pdf = sel_sp ? prob_sp : pdf_base;
+                mis_pdf = sel_sp ? 0.0f : pdf_base;
+            }
+            ok_lobe = wz > 1e-6f;
         } else {
             // cosine-weighted diffuse
             concentric(u_c1, u_c2, wx, wy);
@@ -758,11 +1142,21 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
         dx = wx * txx + wy * tyx + wz * nx;
         dy = wx * txy + wy * tyy + wz * ny;
         dz = wx * txz + wy * tyz + wz * nz;
-        // wz > 0: the new ray leaves on the normal's side
-        ox = px + nx * eps;
-        oy = py + ny * eps;
-        oz = pz + nz * eps;
-        prev_pdf = bsdf_pdf;
+        if constexpr (LOBES) {
+            eta_st *= eta_mul;
+            // a refraction leaves on the far side
+            const float off = wz >= 0.0f ? eps : -eps;
+            ox = px + nx * off;
+            oy = py + ny * off;
+            oz = pz + nz * off;
+            prev_pdf = mis_pdf < 0.0f ? bsdf_pdf : mis_pdf;
+        } else {
+            // wz > 0: the new ray leaves on the normal's side
+            ox = px + nx * eps;
+            oy = py + ny * eps;
+            oz = pz + nz * eps;
+            prev_pdf = bsdf_pdf;
+        }
     }
 
     // ---- epilogue: linear sRGB out, 3 floats per lane ----
@@ -801,13 +1195,15 @@ __global__ void __launch_bounds__(BLOCK) path_kernel(const PathArgs a) {
 template <int FLAGS, int NC>
 int launch(const PathArgs& a, cudaStream_t stream) {
     // Cornell: Woop rows and STAGE attribute float4s per face; otherwise
-    // Woop rows (none in the BVH tier) and the sphere rows; the SPD table
-    // first in spectral mode
+    // Woop rows (none in the BVH tier), the sphere rows and (lobes) QD4
+    // float4s per disk or cylinder; the SPD table first in spectral mode
     constexpr size_t stage = NC == 4 ? 4 : 3;
     const size_t woop = (FLAGS & F_BVH) ? 0 : (size_t)a.n_faces * 3;
+    const size_t quads = (FLAGS & F_SPHERES) && (FLAGS & F_LOBES)
+        ? (size_t)QD4 * a.n_quads : 0;
     const size_t smem = ((NC == 4 ? (size_t)SPD_ROWS : 0)
         + (FLAGS == 0 ? (size_t)a.n_faces * (3 + stage)
-                      : woop + (size_t)a.n_spheres))
+                      : woop + (size_t)a.n_spheres + quads))
         * sizeof(float4);
     cudaError_t err = cudaFuncSetAttribute(
         path_kernel<FLAGS, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -818,48 +1214,53 @@ int launch(const PathArgs& a, cudaStream_t stream) {
     return (int)cudaGetLastError();
 }
 
+// The 32 instantiations of this library: every combination of the five
+// flags below the lobes flag, with the lobes flag as PK_LOBES says.
+constexpr int LIB = PK_LOBES ? F_LOBES : 0;
+
 }  // namespace
 
 // C entry point: launches the instantiation of args->flags in this
-// library's color mode (args->nc must be PK_NC), one thread per lane, on
-// `stream`, and returns cudaGetLastError() (0 when the launch was
-// accepted).
+// library's color mode (args->nc must be PK_NC, and the lobes bit of
+// args->flags PK_LOBES), one thread per lane, on `stream`, and returns
+// cudaGetLastError() (0 when the launch was accepted).
 extern "C" int path_render(const PathArgs* args, void* stream) {
     const cudaStream_t s = (cudaStream_t)stream;
-    if (args->nc != PK_NC) return (int)cudaErrorInvalidValue;
-    switch (args->flags) {
-        case 0: return launch<0, PK_NC>(*args, s);
-        case 1: return launch<1, PK_NC>(*args, s);
-        case 2: return launch<2, PK_NC>(*args, s);
-        case 3: return launch<3, PK_NC>(*args, s);
-        case 4: return launch<4, PK_NC>(*args, s);
-        case 5: return launch<5, PK_NC>(*args, s);
-        case 6: return launch<6, PK_NC>(*args, s);
-        case 7: return launch<7, PK_NC>(*args, s);
-        case 8: return launch<8, PK_NC>(*args, s);
-        case 9: return launch<9, PK_NC>(*args, s);
-        case 10: return launch<10, PK_NC>(*args, s);
-        case 11: return launch<11, PK_NC>(*args, s);
-        case 12: return launch<12, PK_NC>(*args, s);
-        case 13: return launch<13, PK_NC>(*args, s);
-        case 14: return launch<14, PK_NC>(*args, s);
-        case 15: return launch<15, PK_NC>(*args, s);
-        case 16: return launch<16, PK_NC>(*args, s);
-        case 17: return launch<17, PK_NC>(*args, s);
-        case 18: return launch<18, PK_NC>(*args, s);
-        case 19: return launch<19, PK_NC>(*args, s);
-        case 20: return launch<20, PK_NC>(*args, s);
-        case 21: return launch<21, PK_NC>(*args, s);
-        case 22: return launch<22, PK_NC>(*args, s);
-        case 23: return launch<23, PK_NC>(*args, s);
-        case 24: return launch<24, PK_NC>(*args, s);
-        case 25: return launch<25, PK_NC>(*args, s);
-        case 26: return launch<26, PK_NC>(*args, s);
-        case 27: return launch<27, PK_NC>(*args, s);
-        case 28: return launch<28, PK_NC>(*args, s);
-        case 29: return launch<29, PK_NC>(*args, s);
-        case 30: return launch<30, PK_NC>(*args, s);
-        case 31: return launch<31, PK_NC>(*args, s);
+    if (args->nc != PK_NC || (args->flags & F_LOBES) != LIB)
+        return (int)cudaErrorInvalidValue;
+    switch (args->flags & ~F_LOBES) {
+        case 0: return launch<LIB | 0, PK_NC>(*args, s);
+        case 1: return launch<LIB | 1, PK_NC>(*args, s);
+        case 2: return launch<LIB | 2, PK_NC>(*args, s);
+        case 3: return launch<LIB | 3, PK_NC>(*args, s);
+        case 4: return launch<LIB | 4, PK_NC>(*args, s);
+        case 5: return launch<LIB | 5, PK_NC>(*args, s);
+        case 6: return launch<LIB | 6, PK_NC>(*args, s);
+        case 7: return launch<LIB | 7, PK_NC>(*args, s);
+        case 8: return launch<LIB | 8, PK_NC>(*args, s);
+        case 9: return launch<LIB | 9, PK_NC>(*args, s);
+        case 10: return launch<LIB | 10, PK_NC>(*args, s);
+        case 11: return launch<LIB | 11, PK_NC>(*args, s);
+        case 12: return launch<LIB | 12, PK_NC>(*args, s);
+        case 13: return launch<LIB | 13, PK_NC>(*args, s);
+        case 14: return launch<LIB | 14, PK_NC>(*args, s);
+        case 15: return launch<LIB | 15, PK_NC>(*args, s);
+        case 16: return launch<LIB | 16, PK_NC>(*args, s);
+        case 17: return launch<LIB | 17, PK_NC>(*args, s);
+        case 18: return launch<LIB | 18, PK_NC>(*args, s);
+        case 19: return launch<LIB | 19, PK_NC>(*args, s);
+        case 20: return launch<LIB | 20, PK_NC>(*args, s);
+        case 21: return launch<LIB | 21, PK_NC>(*args, s);
+        case 22: return launch<LIB | 22, PK_NC>(*args, s);
+        case 23: return launch<LIB | 23, PK_NC>(*args, s);
+        case 24: return launch<LIB | 24, PK_NC>(*args, s);
+        case 25: return launch<LIB | 25, PK_NC>(*args, s);
+        case 26: return launch<LIB | 26, PK_NC>(*args, s);
+        case 27: return launch<LIB | 27, PK_NC>(*args, s);
+        case 28: return launch<LIB | 28, PK_NC>(*args, s);
+        case 29: return launch<LIB | 29, PK_NC>(*args, s);
+        case 30: return launch<LIB | 30, PK_NC>(*args, s);
+        case 31: return launch<LIB | 31, PK_NC>(*args, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -1,9 +1,10 @@
 // Device-side shading helpers shared by the path kernels.
 //
-// Replaces mitsuba2_tpu/ops/megakernel.py:255-284 (_fresnel_cond, _ggx_d,
-// _ggx_g1): the conductor Fresnel term and the isotropic GGX distribution
-// and Smith G1, in float32 as the plain versions compute them
-// (render/fresnel.py fresnel_conductor, ops/path_kernel.py).
+// Replaces mitsuba2_tpu/ops/megakernel.py:255-284 and :347
+// (_fresnel_cond, _ggx_d, _ggx_g1, _fresnel_diel): the conductor and
+// dielectric Fresnel terms and the isotropic GGX distribution and Smith
+// G1, in float32 as the plain versions compute them (render/fresnel.py
+// fresnel_conductor, ops/path_kernel.py).
 #pragma once
 
 #define PI_F 3.14159265358979f
@@ -38,4 +39,30 @@ __device__ __forceinline__ float ggx_g1(float cz, float a) {
     const float a2 = a * a;
     const float t2 = (1.0f - cz * cz) / (cz * cz);
     return 2.0f / (1.0f + sqrtf(1.0f + a2 * t2));
+}
+
+// Unpolarized dielectric Fresnel reflectance at signed incident cosine
+// cos_i and relative IOR eta seen from the normal's side
+// (megakernel.py:347); also the signed transmitted cosine and the
+// relative IORs eta_it (incident over transmitted side) and eta_ti.
+__device__ __forceinline__ float fresnel_diel(float cos_i, float eta,
+                                              float& cos_t, float& eta_it,
+                                              float& eta_ti) {
+    const bool outside = cos_i >= 0.0f;
+    const float rcp = 1.0f / eta;
+    eta_it = outside ? eta : rcp;
+    eta_ti = outside ? rcp : eta;
+    const float c2t = 1.0f - eta_ti * eta_ti * (1.0f - cos_i * cos_i);
+    const float aci = fabsf(cos_i);
+    const float act = sqrtf(fmaxf(c2t, 0.0f));
+    const float a_s = (aci - eta_it * act) / fmaxf(aci + eta_it * act, 1e-20f);
+    const float a_p = (eta_it * aci - act) / fmaxf(eta_it * aci + act, 1e-20f);
+    const float F = 0.5f * (a_s * a_s + a_p * a_p);
+    cos_t = outside ? -act : act;
+    return eta == 1.0f ? 0.0f : (c2t <= 0.0f ? 1.0f : F);
+}
+
+__device__ __forceinline__ float fresnel_diel(float cos_i, float eta) {
+    float cos_t, eta_it, eta_ti;
+    return fresnel_diel(cos_i, eta, cos_t, eta_it, eta_ti);
 }

@@ -1,13 +1,15 @@
 """BSDF plugins (reference: src/bsdfs/). This slice ports ``diffuse``,
-``roughconductor``, ``dielectric`` and ``null``. The kernels shade them
-themselves from the scene's per-face columns (ops/path_kernel.py,
-ops/volpath_kernel.py), so the plugins hold parameters."""
+``roughconductor``, ``dielectric``, ``plastic``, ``roughplastic`` and
+``null``. The kernels shade them themselves from the scene's per-face
+columns (ops/path_kernel.py, ops/volpath_kernel.py), so the plugins hold
+parameters."""
 
 from __future__ import annotations
 
 from ..core.object import register_plugin
 from ..render.bsdf import BSDF, BSDFFlags
-from ..render.fresnel import (lookup_conductor_curves, lookup_conductor_ior,
+from ..render.fresnel import (fresnel_diffuse_reflectance,
+                              lookup_conductor_curves, lookup_conductor_ior,
                               lookup_ior)
 
 
@@ -23,6 +25,23 @@ def _spectral_ior(tex, curve=None):
         return tex
     from .spectra import ConductorIORSpectrum
     return ConductorIORSpectrum(tex.rgb, curve=curve)
+
+
+def _microfacet_from_props(p):
+    """-> (distribution, alpha_u, alpha_v, sample_visible) of a rough
+    BSDF's properties: ``distribution`` (beckmann by default), ``alpha``
+    or ``alpha_u``/``alpha_v`` (0.1), ``sample_visible`` (true)
+    (mitsuba2_tpu.models.bsdfs._microfacet_from_props)."""
+    dist = p.string("distribution", "beckmann") if p else "beckmann"
+    if dist not in ("ggx", "beckmann"):
+        raise ValueError(f"unknown microfacet distribution {dist!r}")
+    if p is not None and (p.has_property("alpha_u")
+                          or p.has_property("alpha_v")):
+        au, av = p.float_("alpha_u"), p.float_("alpha_v")
+    else:
+        au = av = p.float_("alpha", 0.1) if p else 0.1
+    sv = p.bool_("sample_visible", True) if p else True
+    return dist, float(au), float(av), sv
 
 
 @register_plugin("bsdf", "diffuse")
@@ -72,17 +91,8 @@ class RoughConductor(BSDF):
                 (curves[0], curves[2]) if curves else None)
         self.specular_reflectance = p.texture("specular_reflectance", 1.0) \
             if p else ConstantTexture(color=1.0)
-        dist = p.string("distribution", "beckmann") if p else "beckmann"
-        if dist not in ("ggx", "beckmann"):
-            raise ValueError(f"unknown microfacet distribution {dist!r}")
-        if p is not None and (p.has_property("alpha_u")
-                              or p.has_property("alpha_v")):
-            au, av = p.float_("alpha_u"), p.float_("alpha_v")
-        else:
-            au = av = p.float_("alpha", 0.1) if p else 0.1
-        self.dist_type = dist
-        self.alpha_u, self.alpha_v = float(au), float(av)
-        self.sample_visible = p.bool_("sample_visible", True) if p else True
+        (self.dist_type, self.alpha_u, self.alpha_v,
+         self.sample_visible) = _microfacet_from_props(p)
         flags = BSDFFlags.GlossyReflection | BSDFFlags.FrontSide
         if self.alpha_u != self.alpha_v:
             flags |= BSDFFlags.Anisotropic
@@ -128,4 +138,67 @@ class SmoothDielectric(BSDF):
             | BSDFFlags.BackSide,
             BSDFFlags.DeltaTransmission | BSDFFlags.FrontSide
             | BSDFFlags.BackSide | BSDFFlags.NonSymmetric]
+        self.m_flags = self.m_components[0] | self.m_components[1]
+
+
+class _Plastic(BSDF):
+    """A dielectric coating of relative IOR ``eta = int_ior / ext_ior``
+    (polypropylene in air by default) over a diffuse base
+    ``diffuse_reflectance`` (0.5), with ``specular_reflectance`` (1) and
+    the ``nonlinear`` internal-scattering compensation (plastic.cpp,
+    roughplastic.cpp). The constructor derives what the path kernel reads:
+    the coat's sampling weight s / (d + s) of the two textures' mean
+    luminances, the internal diffuse Fresnel reflectance ``fdr_int`` and
+    1 / eta^2 (mitsuba2_tpu.models.bsdfs.SmoothPlastic.__init__)."""
+
+    def __init__(self, props=None):
+        super().__init__(props)
+        from .textures import ConstantTexture
+        p = props
+        int_ior = lookup_ior(p.get("int_ior", "polypropylene")) if p \
+            else 1.49
+        ext_ior = lookup_ior(p.get("ext_ior", "air")) if p else 1.000277
+        self.eta = int_ior / ext_ior
+        if p is not None:
+            self.diffuse_reflectance = p.texture("diffuse_reflectance", 0.5)
+            self.specular_reflectance = p.texture("specular_reflectance",
+                                                  1.0)
+        else:
+            self.diffuse_reflectance = ConstantTexture(color=0.5)
+            self.specular_reflectance = ConstantTexture(color=1.0)
+        self.nonlinear = p.bool_("nonlinear", False) if p else False
+        d_mean = self.diffuse_reflectance.mean()
+        s_mean = self.specular_reflectance.mean()
+        self.specular_sampling_weight = s_mean / (d_mean + s_mean)
+        self.fdr_int = float(fresnel_diffuse_reflectance(1.0 / self.eta))
+        self.inv_eta_2 = 1.0 / (self.eta * self.eta)
+
+
+@register_plugin("bsdf", "plastic")
+class SmoothPlastic(_Plastic):
+    """(plastic.cpp) a smooth coat: a delta reflection lobe picked by the
+    Fresnel-weighted sampling weight, else the cosine-sampled base."""
+
+    def __init__(self, props=None):
+        super().__init__(props)
+        self.m_components = [
+            BSDFFlags.DeltaReflection | BSDFFlags.FrontSide,
+            BSDFFlags.DiffuseReflection | BSDFFlags.FrontSide]
+        self.m_flags = self.m_components[0] | self.m_components[1]
+
+
+@register_plugin("bsdf", "roughplastic")
+class RoughPlastic(_Plastic):
+    """(roughplastic.cpp) a microfacet coat (``distribution``, ``alpha``,
+    ``sample_visible`` as roughconductor) over the diffuse base. The path
+    kernel takes isotropic GGX with alpha >= 0.01 and visible-normal
+    sampling."""
+
+    def __init__(self, props=None):
+        super().__init__(props)
+        (self.dist_type, self.alpha_u, self.alpha_v,
+         self.sample_visible) = _microfacet_from_props(props)
+        self.m_components = [
+            BSDFFlags.GlossyReflection | BSDFFlags.FrontSide,
+            BSDFFlags.DiffuseReflection | BSDFFlags.FrontSide]
         self.m_flags = self.m_components[0] | self.m_components[1]

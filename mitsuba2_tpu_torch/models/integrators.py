@@ -66,17 +66,19 @@ class _KernelIntegrator(MonteCarloIntegrator):
         return mk
 
 
-def _sensor_ineligibility(sensor):
-    """The kernels' camera scope: a perspective pinhole, a box filter, no
-    motion blur."""
+def _sensor_ineligibility(sensor, box_only=False):
+    """The kernels' camera scope: a perspective pinhole and no motion
+    blur; with ``box_only`` (the volumetric kernel, as the reference's
+    gate at mitsuba2_tpu/models/integrators.py:510-511) a box filter. The
+    path kernel splats through any filter (ops/splat.py)."""
     from ..models.rfilters import BoxFilter
     from ..models.sensors import PerspectiveCamera
     if type(sensor) is not PerspectiveCamera:
         return f"sensor {type(sensor).__name__}"
+    if box_only and not isinstance(sensor.film.rfilter, BoxFilter):
+        return f"rfilter {type(sensor.film.rfilter).__name__}"
     if sensor.shutter_open != sensor.shutter_close:
         return "motion blur (open shutter)"
-    if type(sensor.film.rfilter) is not BoxFilter:
-        return f"rfilter {type(sensor.film.rfilter).__name__}"
     return None
 
 
@@ -114,7 +116,7 @@ class VolumetricPathIntegrator(_KernelIntegrator):
         if type(self) not in (VolumetricPathIntegrator,
                               VolumetricMISPathIntegrator):
             return "non-volpath integrator subclass"
-        reason = _sensor_ineligibility(sensor)
+        reason = _sensor_ineligibility(sensor, box_only=True)
         if reason is None and self.max_depth >= 64:
             reason = "max_depth >= 64 (static launch unroll)"
         return reason or vol_kernel_ineligibility(scene)

@@ -1,11 +1,13 @@
-"""Shape plugins (reference: src/shapes/ — rectangle, sphere, obj and
-serialized; the cube is composed of rectangles in the reference's scene
-assets and is a plugin here).
+"""Shape plugins (reference: src/shapes/ — rectangle, sphere, disk,
+cylinder, obj and serialized; the cube is composed of rectangles in the
+reference's scene assets and is a plugin here).
 
 Rectangle and cube are flat triangle meshes with the same vertices, faces,
 winding and normals as ``mitsuba2_tpu.models.shapes``. The sphere is an
-analytic quadric that the scene packs into its sphere table; it becomes a
-triangle mesh only where the reference tessellates it too. ``obj`` and
+analytic quadric that the scene packs into its sphere table; disk and
+cylinder are analytic quadrics intersected in their canonical object frame,
+packed into the scene's quad table (``prim_row``). Each becomes a triangle
+mesh only where the reference tessellates it too. ``obj`` and
 ``serialized`` load triangle meshes from files (utils/io_obj.py,
 utils/serialized.py), with ``face_normals`` and ``to_world``, and
 ``serialized`` with ``shape_index``.
@@ -166,6 +168,167 @@ class SphereShape(Shape):
 
     def bbox(self):
         return self.center - self.radius, self.center + self.radius
+
+
+class _AnalyticQuadric(Shape):
+    """Base of the quadrics other than the sphere (disk, cylinder): a world
+    ray transforms into the canonical object frame through the packed
+    to_object matrix (disk.cpp:146-166, cylinder.cpp:243-291;
+    mitsuba2_tpu.models.shapes._AnalyticQuadric). ``expand`` tessellates a
+    quadric that carries an emitter (area sampling runs on triangle
+    tables)."""
+
+    QUAD_KIND = 0.0
+
+    def __init__(self, props):
+        super().__init__(props)
+        self._res = int(props.int_("resolution_hint", 64))
+        self.flip_normals = props.bool_("flip_normals", False)
+
+    def is_analytic(self):
+        return True
+
+    def expand(self):
+        if self.emitter is not None:
+            return [self._tessellate()]
+        return [self]
+
+    def _finish_tessellation(self, mesh):
+        mesh.bsdf = self.bsdf
+        mesh.emitter = self.emitter
+        mesh.interior_medium = self.interior_medium
+        mesh.exterior_medium = self.exterior_medium
+        if self.emitter is not None:
+            self.emitter.set_shape(mesh)
+        return mesh
+
+    def prim_row(self) -> np.ndarray:
+        """24 float32: [A rows 0:9 | b 9:12 | B rows 12:21 | kind 21 |
+        radius 22 | length 23]; A is the to_object linear part, b its
+        translation, B the to_world linear part; kind 1 disk, 2 cylinder."""
+        return np.concatenate([
+            self._A.reshape(9), self._b.reshape(3), self._B.reshape(9),
+            np.asarray([self.QUAD_KIND, getattr(self, "radius", 1.0),
+                        getattr(self, "length", 1.0)], np.float32)]
+        ).astype(np.float32)
+
+
+@register_plugin("shape", "disk")
+class DiskShape(_AnalyticQuadric):
+    """(disk.cpp:85-225) the unit disk z = 0 in object space under an
+    arbitrary affine ``to_world`` (ellipses included), ``flip_normals``."""
+
+    QUAD_KIND = 1.0
+
+    def __init__(self, props=None):
+        p = props or Properties("disk")
+        super().__init__(p)
+        tw = _get_to_world(props)
+        M = np.asarray(tw.matrix, np.float64)
+        A = np.linalg.inv(M[:3, :3])
+        self._B = M[:3, :3].astype(np.float32)
+        self._A = A.astype(np.float32)
+        self._b = (-A @ M[:3, 3]).astype(np.float32)
+        self._to_world = tw
+
+    def bbox(self):
+        M = np.asarray(self._to_world.matrix, np.float64)
+        pts = np.asarray([[x, y, 0.0, 1.0] for x in (-1, 1)
+                          for y in (-1, 1)]) @ M.T
+        return (pts[:, :3].min(0).astype(np.float32),
+                pts[:, :3].max(0).astype(np.float32))
+
+    def _tessellate(self) -> Mesh:
+        res = self._res
+        ph = np.linspace(0, 2 * np.pi, res, endpoint=False)
+        rim = np.stack([np.cos(ph), np.sin(ph), np.zeros_like(ph)], -1)
+        v = np.concatenate([[[0, 0, 0]], rim]).astype(np.float32)
+        f = np.asarray([[0, 1 + i, 1 + (i + 1) % res] for i in range(res)],
+                       np.int32)
+        n = np.tile(np.array([[0, 0, 1]], np.float32), (len(v), 1))
+        mesh = Mesh(None, vertices=v, faces=f, normals=n,
+                    uvs=0.5 * (v[:, :2] + 1.0), name="disk")
+        mesh.apply_transform(self._to_world)
+        return self._finish_tessellation(mesh)
+
+
+@register_plugin("shape", "cylinder")
+class CylinderShape(_AnalyticQuadric):
+    """(cylinder.cpp:83-390) the open cylinder of ``radius`` from ``p0``
+    to ``p1``: to_world composed with translate(p0), the axis frame
+    (Duff et al.'s basis, so uv phases follow the reference) and
+    scale(radius, radius, length); radius and length are then taken back
+    out and the rigid rest packs into the quad table."""
+
+    QUAD_KIND = 2.0
+
+    def __init__(self, props=None):
+        p = props or Properties("cylinder")
+        super().__init__(p)
+        radius = p.float_("radius", 1.0)
+        p0 = np.asarray(p.get("p0", [0, 0, 0]), np.float64).reshape(3)
+        p1 = np.asarray(p.get("p1", [0, 0, 1]), np.float64).reshape(3)
+        M = np.asarray(_get_to_world(props).matrix, np.float64).copy()
+        axis = p1 - p0
+        ln = np.linalg.norm(axis)
+        az = axis / max(ln, 1e-12)
+        sgn = 1.0 if az[2] >= 0 else -1.0
+        a_ = -1.0 / (sgn + az[2])
+        b_ = az[0] * az[1] * a_
+        L = np.eye(4)
+        L[:3, 0] = np.asarray([1.0 + sgn * az[0] * az[0] * a_, sgn * b_,
+                               -sgn * az[0]]) * radius
+        L[:3, 1] = np.asarray([b_, sgn + az[1] * az[1] * a_,
+                               -az[1]]) * radius
+        L[:3, 2] = az * ln
+        L[:3, 3] = p0
+        M = M @ L
+        sx, sy, sz = np.linalg.norm(M[:3, :3], axis=0)
+        self.radius = float(0.5 * (sx + sy))
+        self.length = float(sz)
+        R = np.stack([M[:3, 0] / max(sx, 1e-20), M[:3, 1] / max(sy, 1e-20),
+                      M[:3, 2] / max(sz, 1e-20)], axis=1)
+        self._B = R.astype(np.float32)
+        self._A = R.T.astype(np.float32)
+        self._b = (-R.T @ M[:3, 3]).astype(np.float32)
+        Mw = np.eye(4)
+        Mw[:3, :3] = R
+        Mw[:3, 3] = M[:3, 3]
+        self._to_world_rigid = Transform.from_matrix(Mw.astype(np.float32))
+
+    def bbox(self):
+        B = self._B.astype(np.float64)
+        x = np.sqrt((B[:, 0] * self.radius) ** 2
+                    + (B[:, 1] * self.radius) ** 2)
+        q0 = -self._A.T.astype(np.float64) @ self._b
+        q1 = q0 + B[:, 2] * self.length
+        return (np.minimum(q0 - x, q1 - x).astype(np.float32),
+                np.maximum(q0 + x, q1 + x).astype(np.float32))
+
+    def _tessellate(self) -> Mesh:
+        res = self._res
+        ph = np.linspace(0, 2 * np.pi, res, endpoint=False)
+        ring = np.stack([np.cos(ph), np.sin(ph), np.zeros_like(ph)],
+                        -1) * self.radius
+        v = np.concatenate([ring, ring + np.asarray(
+            [0, 0, self.length])]).astype(np.float32)
+        n = np.concatenate([ring, ring]).astype(np.float32)
+        n /= np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-20)
+        uv = np.concatenate([
+            np.stack([ph / (2 * np.pi), np.zeros_like(ph)], -1),
+            np.stack([ph / (2 * np.pi), np.ones_like(ph)], -1)]
+        ).astype(np.float32)
+        faces = []
+        for i in range(res):
+            a, b = i, (i + 1) % res
+            faces += [[a, b, res + a], [b, res + b, res + a]]
+        if self.flip_normals:
+            faces = [f[::-1] for f in faces]
+            n = -n
+        mesh = Mesh(None, vertices=v, faces=np.asarray(faces, np.int32),
+                    normals=n, uvs=uv, name="cylinder")
+        mesh.apply_transform(self._to_world_rigid)
+        return self._finish_tessellation(mesh)
 
 
 @register_plugin("shape", "obj")

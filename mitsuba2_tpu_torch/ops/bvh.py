@@ -16,9 +16,8 @@ ctypes. It serves twice:
   and the scene's ray queries). Its leaves hold contiguous ranges of its
   own ``order``, whose entries are the reference's face ids.
 
-The median-split numpy builder is kept only behind ``force_numpy=True``:
-another builder gives another face order, so a failed native build raises
-instead of falling back.
+There is no other builder: another builder gives another face order, so
+a failed native build raises instead of falling back.
 """
 
 from __future__ import annotations
@@ -69,46 +68,6 @@ class BVH:
                        self.nodes[i, _LO].copy(), self.nodes[i, _HI].copy())
 
 
-def _build_numpy(v0, e1, e2, leaf_size):
-    """Median-split builder (no SAH), same node layout."""
-    n = len(v0)
-    p0, p1, p2 = v0, v0 + e1, v0 + e2
-    lo_f = np.minimum(np.minimum(p0, p1), p2)
-    hi_f = np.maximum(np.maximum(p0, p1), p2)
-    cen = 0.5 * (lo_f + hi_f)
-    order = np.arange(n, dtype=np.int32)
-    nodes = []
-
-    def rec(begin, end):
-        idx = len(nodes)
-        nodes.append(np.zeros(_NODE_SLOTS, np.float32))
-        sel = order[begin:end]
-        node = nodes[idx]
-        node[_LO] = lo_f[sel].min(0)
-        node[_HI] = hi_f[sel].max(0)
-        ints = node.view(np.int32)
-        cnt = end - begin
-        if cnt <= leaf_size:
-            ints[_LEFT], ints[_COUNT], ints[_RIGHT] = begin, cnt, -1
-            return idx
-        axis = int(np.argmax((cen[sel].max(0) - cen[sel].min(0))))
-        key = np.argsort(cen[sel, axis], kind="stable")
-        order[begin:end] = sel[key]
-        mid = begin + cnt // 2
-        left = rec(begin, mid)
-        right = rec(mid, end)
-        ints[_LEFT], ints[_COUNT], ints[_RIGHT] = left, 0, right
-        return idx
-
-    if n:
-        rec(0, n)
-    else:
-        node = np.zeros(_NODE_SLOTS, np.float32)
-        node.view(np.int32)[_RIGHT] = -1
-        nodes.append(node)
-    return BVH(np.stack(nodes), order)
-
-
 def _native():
     """csrc/bvh.cpp's ``bvh_build``, built on first use; a failed build
     raises."""
@@ -121,16 +80,17 @@ def _native():
     return fn
 
 
-def build_bvh(v0, e1, e2, leaf_size: int = 64,
-              force_numpy: bool = False) -> BVH:
-    """BVH over triangles (v0 + u e1 + v e2): the native binned-SAH
-    builder, or the numpy median split when ``force_numpy`` asks for it."""
+def build_bvh(v0, e1, e2, leaf_size: int = 64) -> BVH:
+    """BVH over triangles (v0 + u e1 + v e2) by the native binned-SAH
+    builder; no faces give one empty leaf."""
     v0 = np.ascontiguousarray(v0, np.float32)
     e1 = np.ascontiguousarray(e1, np.float32)
     e2 = np.ascontiguousarray(e2, np.float32)
     n = len(v0)
-    if force_numpy or n == 0:
-        return _build_numpy(v0, e1, e2, leaf_size)
+    if n == 0:
+        node = np.zeros((1, _NODE_SLOTS), np.float32)
+        node.view(np.int32)[0, _RIGHT] = -1
+        return BVH(node, np.zeros(0, np.int32))
     order = np.empty(n, np.int32)
     max_nodes = 4 * n + 4
     buf = np.empty((max_nodes, _NODE_SLOTS), np.float32)
@@ -165,26 +125,6 @@ def validate_bvh(bvh: BVH, v0, e1, e2) -> None:
             for c in (ints[i, _LEFT], ints[i, _RIGHT]):
                 assert (bvh.nodes[c, _LO] >= bvh.nodes[i, _LO] - 1e-4).all()
                 assert (bvh.nodes[c, _HI] <= bvh.nodes[i, _HI] + 1e-4).all()
-
-
-def chunk_bounds(v0, e1, e2, chunk: int) -> np.ndarray:
-    """Per-face-chunk AABBs (n_chunks, 6) = [lo, hi] over each contiguous
-    ``chunk`` of (BVH-ordered) faces. Padding slots get inverted boxes so
-    they never extend a chunk."""
-    v0 = np.asarray(v0, np.float32)
-    p = np.stack([v0, v0 + np.asarray(e1, np.float32),
-                  v0 + np.asarray(e2, np.float32)], 1)       # (F,3,3)
-    lo = p.min(1)
-    hi = p.max(1)
-    f = len(v0)
-    pad = (-f) % chunk
-    if pad:
-        lo = np.concatenate([lo, np.full((pad, 3), np.inf, np.float32)])
-        hi = np.concatenate([hi, np.full((pad, 3), -np.inf, np.float32)])
-    n_chunks = len(lo) // chunk
-    lo = lo.reshape(n_chunks, chunk, 3).min(1)
-    hi = hi.reshape(n_chunks, chunk, 3).max(1)
-    return np.concatenate([lo, hi], -1)
 
 
 def pack_traversal(bvh: BVH):

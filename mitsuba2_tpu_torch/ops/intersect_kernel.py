@@ -23,6 +23,7 @@ import torch
 
 from . import intersect
 from .bvh import STACK_DEPTH
+from .path_kernel import face_woop
 
 
 class _IsectArgs(ctypes.Structure):
@@ -73,7 +74,8 @@ def isect_closest(tables, o, d, mint, maxt):
     device -> (t (n,), uv (n, 2), prim (n,) int32)."""
     n = _check(tables, o, d, mint, maxt)
     if tables.device.type == "cpu":
-        return intersect.closest_hit_reference(tables.woop, o, d, mint, maxt)
+        return intersect.closest_hit_reference(face_woop(tables), o, d, mint,
+                                              maxt)
     t = torch.full((n,), float("inf"), device=o.device)
     uv = torch.zeros((n, 2), device=o.device)
     prim = torch.full((n,), -1, dtype=torch.int32, device=o.device)
@@ -90,7 +92,8 @@ def isect_any(tables, o, d, mint, maxt):
     (n,) -> (n,) bool on the tables' device."""
     n = _check(tables, o, d, mint, maxt)
     if tables.device.type == "cpu":
-        return intersect.any_hit_reference(tables.woop, o, d, mint, maxt)
+        return intersect.any_hit_reference(face_woop(tables), o, d, mint,
+                                          maxt)
     hit = torch.zeros((n,), dtype=torch.bool, device=o.device)
     if n == 0 or tables.n_faces == 0:
         return hit

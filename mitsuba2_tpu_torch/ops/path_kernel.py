@@ -3,23 +3,27 @@ wrapper.
 
 Counterpart of ``mitsuba2_tpu/ops/megakernel.py`` for its K1a scope
 (triangle meshes, constant-albedo diffuse BSDFs, constant area lights,
-rgb, box filter), the matpreview scopes: analytic spheres (K1b), one
-lat-long envmap with its importance-sampled NEE arm (K1c), isotropic GGX
-rough conductors and checkerboard albedo (K1d), the rgb, spectral and mono
-color modes (K1e), and meshes of up to ``MAX_FACES_HBM`` faces (K1f). One
-lane is
-one camera path, lanes are pixel-major
+rgb), the matpreview scopes: analytic spheres, disks and cylinders (K1b),
+one lat-long envmap with its importance-sampled NEE arm (K1c), isotropic
+GGX rough conductors, checkerboard and bitmap albedo, smooth dielectrics
+and smooth and rough plastics (K1d), the rgb, spectral and mono color
+modes (K1e), and meshes of up to ``MAX_FACES_HBM`` faces (K1f). One lane
+is one camera path, lanes are pixel-major
 (``lane = pixel * spp_pass + s``), and the estimator is ``_path_kernel``'s
 (path.cpp:92-234): emission with power-2 MIS against area NEE, the
 environment on escape with MIS against env NEE, two-armed NEE (env with
 probability ``p_env``, else a light face through the light-table cdf)
-with a shadow any-hit, cosine sampling of the diffuse lobe or visible-
-normal sampling of the GGX lobe, Russian roulette after ``rr_depth``,
-and an emission-only last bounce. Random numbers are the reference
-kernel's TEA streams: lane key ``_tea(seed, _tea(pixel, sample, 4), 4)``,
-film jitter at dim 0, and dims ``2 + 8 * depth + k`` per bounce (k = 0
-roulette, 1-2 NEE, 4 BSDF sample, 5 env NEE jitter), so a port render
-agrees with the reference per pixel at equal seed.
+with a shadow any-hit, BSDF sampling (cosine for the diffuse lobe,
+visible normals for GGX, a Fresnel-weighted pick of the dielectric's two
+delta lobes and of the plastics' coat or base), Russian roulette after
+``rr_depth`` on the throughput times the squared relative IOR the path
+has crossed, and an emission-only last bounce. Random numbers are the
+reference kernel's TEA streams: lane key ``_tea(seed, _tea(pixel, sample,
+4), 4)``, film jitter at dim 0, and dims ``2 + 8 * depth + k`` per bounce
+(k = 0 roulette, 1-2 NEE, 3 lobe choice, 4 BSDF sample, 5 env NEE
+jitter), so a port render agrees with the reference per pixel at equal
+seed. The film's reconstruction filter is applied after the kernel
+(ops/splat.py).
 
 Color modes (``PathTables.nc``): 3 rgb channels; 4 hero wavelengths in
 spectral mode, drawn once per path from the lane key at sampler dim 1,
@@ -35,7 +39,8 @@ faces the kernel stages the Woop rows in shared memory and loops over all
 of them; above that (``HAS_BVH``) every ray walks the scene's traversal
 tree (ops/bvh.py, csrc/bvh.cuh), whose pair nodes, Woop rows and face ids
 ``PathTables`` carries for every scene. Both give the closest hit with ties
-to the lowest face id, in the reference's face order.
+to the lowest face id, in the reference's face order; faces win ties
+against spheres, spheres against disks and cylinders.
 
 ``path_radiance`` runs the hand-written kernel (csrc/path_kernel.cu) for
 tables on a CUDA device and ``path_radiance_reference`` -- the same
@@ -64,29 +69,51 @@ from .intersect import traverse
 # (megakernel.py:96).
 MAX_FACES_SHARED = 1024
 MAX_FACES_HBM = 1 << 20
-MAX_SPHERES = 64         # megakernel.py MAX_SPHERES
+MAX_SPHERES = 64         # megakernel.py MAX_SPHERES, also the disk and
+#                          cylinder cap (:3118)
 MAX_ENV_W = 256          # megakernel.py MAX_ENV_W
+# bitmap albedo: per-texture width cap and texel rows of all textures
+# together (megakernel.py MAX_ATLAS_W, MAX_ATLAS_H)
+MAX_TEX_W, MAX_TEX_ROWS = 1024, 2048
 _BIG = 3.0e38
 _PI = 3.141592653589793
 # lanes x (faces, cdf entries) per chunk of the plain version's sweeps
 _CHUNK_ELEMS = 1 << 24
 
-# Per-face (and per-sphere) attribute columns, FA floats a row: ten float4
-# the kernel reads as [ng, lpdf_w] [albedo, kind] [Le, alpha]
-# [eta, le_scale] [k, x_lo] [color1, x_hi] [uv0, duv1] [duv2, 0, 0]
-# [to_uv row 0, 0] [to_uv row 1, 0]. albedo is the diffuse reflectance,
-# the checker's color0 or the conductor's specular reflectance; to_uv rows
-# are [m00 m01 m03] and [m10 m11 m13] of the checker's affine uv
-# transform. Colors hold the color mode's payload: rgb, the sigmoid
-# coefficients (spectral) or the luminance repeated (mono). Spectral only:
-# le_scale is the emitter's D65 scale, eta and k hold the IOR quadratics'
-# (a, b, c) and [x_lo, x_hi] their clamp span in normalized wavelength.
-FA = 40
+# Per-face (and per-sphere, per-disk and per-cylinder) attribute columns,
+# FA floats a row: twelve float4 the kernel reads as [ng, lpdf_w]
+# [albedo, kind] [Le, alpha] [eta, le_scale] [k, x_lo] [color1, x_hi]
+# [uv0, duv1] [duv2, flip, 0] [to_uv row 0, 0] [to_uv row 1, 0]
+# [eta_d, ssw, fdr, inv_eta2] [nonlinear, tex_offset, tex_w, tex_h].
+# albedo is the diffuse reflectance, the checker's color0, or the
+# conductor's or dielectric's specular reflectance; color1 the checker's
+# color1, the dielectric's specular transmittance or the plastic's
+# specular reflectance; to_uv rows are [m00 m01 m03] and [m10 m11 m13] of
+# the checker's affine uv transform. Colors hold the color mode's payload:
+# rgb, the sigmoid coefficients (spectral) or the luminance repeated
+# (mono). Spectral only: le_scale is the emitter's D65 scale, eta and k
+# hold the IOR quadratics' (a, b, c) and [x_lo, x_hi] their clamp span in
+# normalized wavelength. Dielectric and plastics: eta_d the relative IOR;
+# plastics: the coat's sampling weight, the internal diffuse Fresnel
+# reflectance, 1 / eta_d^2 and the nonlinear switch (megakernel.py:
+# 2337-2412). Bitmap albedo: the texture's first texel in
+# ``PathTables.tex`` and its width and height. flip is -1 on a disk or
+# cylinder with flip_normals, else 1 (quads only).
+FA = 48
 C_NG, C_LPDF, C_ALB, C_KIND, C_LE, C_ALPHA = 0, 3, 4, 7, 8, 11
 C_ETA, C_K, C_C1, C_UV0, C_DUV1, C_DUV2 = 12, 16, 20, 24, 26, 28
-C_TOUV0, C_TOUV1 = 32, 36
+C_FLIP, C_TOUV0, C_TOUV1 = 30, 32, 36
+C_ETAD, C_SSW, C_FDR, C_INVETA2, C_NONLIN, C_TEX = 40, 41, 42, 43, 44, 45
 C_LESCALE, C_XLO, C_XHI = C_ETA + 3, C_K + 3, C_C1 + 3
 KIND_DIFFUSE, KIND_GGX, KIND_CHECKER = 0, 1, 2
+KIND_DIELECTRIC, KIND_PLASTIC, KIND_ROUGHPLASTIC, KIND_BITMAP = 3, 4, 5, 6
+# the lobes the HAS_LOBES instantiations shade
+LOBE_KINDS = (KIND_DIELECTRIC, KIND_PLASTIC, KIND_ROUGHPLASTIC, KIND_BITMAP)
+# disk and cylinder rows (the reference's qd, megakernel.py:2492-2530):
+# [to_object A rows 0:9, its translation 9:12, kind 12 (1 disk,
+# 2 cylinder), radius 13, length 14, 0]
+QD = 16
+QUAD_DISK, QUAD_CYLINDER = 1.0, 2.0
 
 # color channels per color mode: rgb, hero wavelengths, luminance
 MODE_NC = {"rgb": 3, "spectral": 4, "mono": 1}
@@ -96,19 +123,28 @@ SPD_ROWS = 96
 _WL_MIN, _WL_MAX = 360.0, 830.0
 
 # Scene-content flags: the kernel is instantiated per combination of the
-# first five (the reference kernel's static has_spheres / has_env /
-# has_ggx / has_checker gates, and the BVH tier for more than
-# MAX_FACES_SHARED faces); HAS_ENV_ROT is a run-time branch.
+# first six (the reference kernel's static has_spheres / has_env /
+# has_ggx / has_checker gates, the BVH tier for more than
+# MAX_FACES_SHARED faces, and one flag, "lobes", for the dielectric,
+# plastic, roughplastic and bitmap lobes, which the kernel tells apart by
+# kind at run time, and for disks and cylinders). Disks and cylinders set
+# both the spheres and the lobes flag: the kernel loops over the sphere
+# rows and the disk and cylinder rows by their run-time counts, and the
+# instantiations without the lobes flag carry none of that code, so the
+# scenes of the earlier scopes run the kernel they ran before.
+# HAS_ENV_ROT is a run-time branch.
 HAS_SPHERES, HAS_ENV, HAS_GGX, HAS_CHECKER, HAS_BVH = 1, 2, 4, 8, 16
-HAS_ENV_ROT = 32
-TEMPLATE_FLAGS = HAS_SPHERES | HAS_ENV | HAS_GGX | HAS_CHECKER | HAS_BVH
+HAS_LOBES = 32
+HAS_ENV_ROT = 64
+TEMPLATE_FLAGS = (HAS_SPHERES | HAS_ENV | HAS_GGX | HAS_CHECKER | HAS_BVH
+                  | HAS_LOBES)
 
 
 def flag_names(flags) -> str:
     """'cornell' for no scene-content flag, else e.g. 'spheres+env+ggx'."""
     names = [n for f, n in ((HAS_SPHERES, "spheres"), (HAS_ENV, "env"),
                             (HAS_GGX, "ggx"), (HAS_CHECKER, "checker"),
-                            (HAS_BVH, "bvh"))
+                            (HAS_BVH, "bvh"), (HAS_LOBES, "lobes"))
              if flags & f]
     return "+".join(names) or "cornell"
 
@@ -135,11 +171,15 @@ class PathTables(NamedTuple):
     woop     (F, 12): per face [Wu | Wv | Wz], each 4 floats, mapping a
              homogeneous world point to the unit triangle:
              u = p . Wu[:3] + Wu[3] (ops/intersect_pallas.py:55 build_woop).
+             Empty (0, 12) for BVH-tier tables off the CPU, whose kernel
+             reads only ``bvh_woop``; ``face_woop`` gives the rows.
     fattr    (F, FA): per-face attribute columns (C_* above).
     lights   (L, 24): the megakernel's light rows (render/scene.py
              _light_table), with the cdf-2.0 padding rows.
     sph      (S, 4): sphere [center, radius]; sattr (S, FA) their
              attribute rows (normal columns unused, identity uv).
+    qd       (Q, QD): disk and cylinder rows; qattr (Q, FA) their
+             attribute rows (a disk's normal, identity uv, flip).
     env      (H, W, 4): lat-long radiance texels, row v: [r, g, b, 0],
              [luminance, 0, 0, 0] (mono) or [c0, c1, c2, scale]
              (spectral, render/scene.py env_texels).
@@ -149,6 +189,8 @@ class PathTables(NamedTuple):
     env_rot  (18,): the env's rigid to_world 3x3 row-major, then its
              transpose.
     spd      (96, 4) in spectral mode (``spd_table``), else (0, 4).
+    tex      (T, 4): the bitmap textures' texels one after another, each
+             row-major, [payload (3), 0] (the color mode's payload).
     bvh_nodes (P, 16): the traversal tree's pair nodes (ops/bvh.py
              ``pack_traversal``); bvh_woop (F, 12) the Woop rows and
              bvh_prim (F,) int32 the face ids in the tree's face order;
@@ -162,12 +204,15 @@ class PathTables(NamedTuple):
     lights: torch.Tensor
     sph: torch.Tensor
     sattr: torch.Tensor
+    qd: torch.Tensor
+    qattr: torch.Tensor
     env: torch.Tensor
     env_marg: torch.Tensor
     env_cond: torch.Tensor
     env_pmf: torch.Tensor
     env_rot: torch.Tensor
     spd: torch.Tensor
+    tex: torch.Tensor
     bvh_nodes: torch.Tensor
     bvh_woop: torch.Tensor
     bvh_prim: torch.Tensor
@@ -178,15 +223,19 @@ class PathTables(NamedTuple):
 
     @property
     def n_faces(self) -> int:
-        return self.woop.shape[0]
+        return self.fattr.shape[0]
 
     @property
     def n_spheres(self) -> int:
         return self.sph.shape[0]
 
     @property
+    def n_quads(self) -> int:
+        return self.qd.shape[0]
+
+    @property
     def device(self) -> torch.device:
-        return self.woop.device
+        return self.fattr.device
 
     def tensors(self) -> tuple:
         return tuple(v for v in self if isinstance(v, torch.Tensor))
@@ -195,6 +244,16 @@ class PathTables(NamedTuple):
         return self._replace(**{k: v.to(device) for k, v in
                                 self._asdict().items()
                                 if isinstance(v, torch.Tensor)})
+
+
+def face_woop(tables) -> torch.Tensor:
+    """(F, 12) Woop rows in face order: ``tables.woop``, or where those
+    tables left it out, the tree-order rows put back in face order."""
+    if tables.woop.shape[0] == tables.n_faces:
+        return tables.woop
+    out = torch.empty_like(tables.bvh_woop)
+    out[tables.bvh_prim.long()] = tables.bvh_woop
+    return out
 
 
 def build_woop(v0, e1, e2) -> np.ndarray:
@@ -219,22 +278,33 @@ def build_woop(v0, e1, e2) -> np.ndarray:
 
 
 def _make_tables(woop, fattr, lights, sph, sattr, env, env_rot, p_env,
-                 device, nc, traversal=None) -> PathTables:
+                 device, nc, traversal=None, quads=None,
+                 tex=None) -> PathTables:
     """numpy tables -> PathTables on ``device``; flags from the content.
     ``env`` is None or (texels (H, W, 4), marginal cdf, conditional cdf,
     pmf); ``env_rot`` None or the rigid 3x3 to_world; ``traversal`` None
     or the traversal tree (ops/bvh.py BVH) over the faces of ``woop``,
-    which more than MAX_FACES_SHARED faces need."""
+    which more than MAX_FACES_SHARED faces need; ``quads`` None or (qd,
+    qattr); ``tex`` None or the (T, 4) texels."""
     flags = 0
     sph = np.zeros((0, 4), np.float32) if sph is None else sph
     sattr = np.zeros((0, FA), np.float32) if sattr is None else sattr
+    qd, qattr = ((np.zeros((0, QD), np.float32), np.zeros((0, FA),
+                                                           np.float32))
+                 if quads is None else quads)
+    tex = np.zeros((0, 4), np.float32) if tex is None else tex
     if len(sph):
         flags |= HAS_SPHERES
-    kinds = np.concatenate([fattr[:, C_KIND], sattr[:, C_KIND]])
+    if len(qd):
+        flags |= HAS_SPHERES | HAS_LOBES
+    kinds = np.concatenate([fattr[:, C_KIND], sattr[:, C_KIND],
+                            qattr[:, C_KIND]])
     if (kinds == KIND_GGX).any():
         flags |= HAS_GGX
     if (kinds == KIND_CHECKER).any():
         flags |= HAS_CHECKER
+    if np.isin(kinds, LOBE_KINDS).any():
+        flags |= HAS_LOBES
     if env is None:
         texels = np.zeros((0, 0, 4), np.float32)
         marg = np.zeros(0, np.float32)
@@ -255,30 +325,37 @@ def _make_tables(woop, fattr, lights, sph, sattr, env, env_rot, p_env,
     if traversal is not None:
         nodes, depth = bvh_ops.pack_traversal(traversal)
         order = traversal.order
+    woop = np.asarray(woop, np.float32)
+    tree_woop = woop[order]
     if len(woop) > MAX_FACES_SHARED and traversal is not None:
         flags |= HAS_BVH
+        if torch.device(device).type != "cpu":
+            # the BVH tier reads only the tree-order rows; the plain
+            # versions rebuild the face order on demand (``face_woop``)
+            woop = np.zeros((0, 12), np.float32)
 
     def dev(a):
         return torch.as_tensor(np.array(a, np.float32), device=device)
 
     return PathTables(dev(woop), dev(fattr), dev(lights), dev(sph),
-                      dev(sattr), dev(texels), dev(marg), dev(cond),
-                      dev(pmf),
+                      dev(sattr), dev(qd), dev(qattr), dev(texels),
+                      dev(marg), dev(cond), dev(pmf),
                       dev(np.concatenate([rot.reshape(-1),
                                           rot.T.reshape(-1)])),
-                      dev(spd), dev(nodes), dev(np.asarray(woop)[order]),
+                      dev(spd), dev(tex), dev(nodes), dev(tree_woop),
                       torch.as_tensor(np.asarray(order, np.int32),
                                       device=device),
                       flags, float(p_env), nc, depth)
 
 
 def pack_tables(v0, e1, e2, fattr, lights, device, sph=None, sattr=None,
-                env=None, env_rot=None, p_env=0.0, nc=3,
-                traversal=None) -> PathTables:
+                env=None, env_rot=None, p_env=0.0, nc=3, traversal=None,
+                quads=None, tex=None) -> PathTables:
     """Host per-face arrays -> the device table set (see ``_make_tables``
-    for ``env``, ``env_rot`` and ``traversal``)."""
+    for ``env``, ``env_rot``, ``traversal``, ``quads`` and ``tex``)."""
     return _make_tables(build_woop(v0, e1, e2), fattr, lights, sph, sattr,
-                        env, env_rot, p_env, device, nc, traversal)
+                        env, env_rot, p_env, device, nc, traversal, quads,
+                        tex)
 
 
 def with_bvh_tier(tables) -> PathTables:
@@ -309,15 +386,43 @@ def _attr_from_reference(A):
                         (C_K, (15, 18)), (C_C1, (18, 21)),
                         (C_UV0, (21, 23)), (C_DUV1, (23, 25)),
                         (C_DUV2, (25, 27)), (C_TOUV0, (27, 30)),
-                        (C_TOUV1, (30, 33)), (C_LESCALE, (43, 44)),
-                        (C_XLO, (44, 45)), (C_XHI, (45, 46))):
+                        (C_TOUV1, (30, 33)), (C_ETAD, (33, 38)),
+                        (C_FLIP, (38, 39)), (C_TEX, (40, 43)),
+                        (C_LESCALE, (43, 44)), (C_XLO, (44, 45)),
+                        (C_XHI, (45, 46))):
         out[:, dst:dst + j - i] = rows(i, j)
     return out
 
 
+def _texels_from_atlas(atlas, attrs):
+    """The reference's channel-blocked (3 aw, Ha) bitmap atlas -> (T, 4)
+    texels, each texture row-major after the other in the order of its
+    first atlas row; rewrites the row offset in the C_TEX column of every
+    (N, FA) row set of ``attrs`` (in place) into the texture's first
+    texel."""
+    atlas = np.asarray(atlas, np.float32)
+    aw = atlas.shape[0] // 3
+    regions = sorted({tuple(int(x) for x in row[C_TEX:C_TEX + 3])
+                      for A in attrs for row in A
+                      if row[C_KIND] == KIND_BITMAP})
+    texels, first, offset = [], {}, 0
+    for voff, w, h in regions:
+        first[voff] = offset
+        block = np.zeros((h, w, 4), np.float32)
+        for c in range(3):
+            block[..., c] = atlas[c * aw:c * aw + w, voff:voff + h].T
+        texels.append(block.reshape(-1, 4))
+        offset += w * h
+    for A in attrs:
+        bmp = A[:, C_KIND] == KIND_BITMAP
+        A[bmp, C_TEX] = [first[int(v)] for v in A[bmp, C_TEX]]
+    return np.concatenate(texels) if texels else None
+
+
 def tables_from_reference(woop, fattr, lights, cam, device=None, sph=None,
                           sattr=None, env=None, envs=None, env_size=None,
-                          p_env=0.0, env_rot=None, nc=3):
+                          p_env=0.0, env_rot=None, nc=3, qd=None,
+                          qattr=None, atlas=None):
     """The reference kernel's own tables -> (PathTables, camera row).
 
     Takes numpy arrays in ``DiffusePathMegakernel``'s layouts: ``woop``
@@ -327,9 +432,11 @@ def tables_from_reference(woop, fattr, lights, cam, device=None, sph=None,
     (fa, S) from ``_sattr()``; for an envmap ``env`` (3Wp, Hp), ``envs``
     (2Wsp + 8, Hsp), ``env_size`` = (env_w, env_h, env_ws, env_hs),
     ``p_env`` and ``env_rot`` (its 9-tuple or None); ``nc`` the color mode's
-    channel count (the spectral env has a fourth, scale, plane). The
-    never-hit padding faces come along unchanged; padding spheres and
-    texels are dropped."""
+    channel count (the spectral env has a fourth, scale, plane); for disks
+    and cylinders ``qd`` (16, Q) and ``qattr`` (fa, Q) from ``_qattr()``;
+    for bitmap albedo the rgb ``atlas`` (3 aw, Ha). The never-hit padding
+    faces come along unchanged; padding spheres, quads and texels are
+    dropped."""
     woop = np.asarray(woop, np.float32)
     F = np.asarray(fattr).shape[1]
     if woop.shape != (3 * F, 4):
@@ -344,6 +451,19 @@ def tables_from_reference(woop, fattr, lights, cam, device=None, sph=None,
         alive = sph[4] > 0.5
         sph_rows = sph[0:4, alive].T
         sattr_rows = _attr_from_reference(np.asarray(sattr)[:, alive])
+    quads = None
+    if qd is not None:
+        qd = np.asarray(qd, np.float32)
+        alive = qd[15] > 0.5
+        qd_rows = np.zeros((int(alive.sum()), QD), np.float32)
+        qd_rows[:, :15] = qd[:15, alive].T
+        quads = (qd_rows, _attr_from_reference(np.asarray(qattr)[:, alive]))
+    fattr = _attr_from_reference(fattr)
+    tex = None
+    if atlas is not None:
+        attrs = [fattr] + [a for a in (sattr_rows,
+                                       quads and quads[1]) if a is not None]
+        tex = _texels_from_atlas(atlas, attrs)
     env_t = None
     if env is not None:
         w, h, ws, hs = env_size
@@ -358,9 +478,9 @@ def tables_from_reference(woop, fattr, lights, cam, device=None, sph=None,
         env_t = (texels, envs[2 * wsp, :hs], envs[:ws, :hs].T,
                  envs[wsp:wsp + ws, :hs].T)
     dev = torch.device("cpu") if device is None else torch.device(device)
-    tables = _make_tables(rows, _attr_from_reference(fattr),
-                          np.asarray(lights, np.float32).T, sph_rows,
-                          sattr_rows, env_t, env_rot, p_env, dev, nc)
+    tables = _make_tables(rows, fattr, np.asarray(lights, np.float32).T,
+                          sph_rows, sattr_rows, env_t, env_rot, p_env, dev,
+                          nc, quads=quads, tex=tex)
     cam = torch.as_tensor(np.asarray(cam, np.float32).reshape(16),
                           device=dev)
     return tables, cam
@@ -578,26 +698,73 @@ def _argmin_lowest(t):
     return tmin, k.clamp(max=t.shape[1] - 1)
 
 
-def _closest_hit(tables, o, d, maxt):
-    """-> (t (n,), attributes (n, FA), bary u, bary v); t = BIG and zero
-    attributes where nothing is hit. Faces tie to the lowest face id and
-    win ties against spheres; a sphere hit carries its outward normal in
-    the normal columns and its spherical uv as (u, v)."""
+def _quad_t(qd, o, d, maxt):
+    """Every lane against every disk and cylinder, in each one's canonical
+    object frame (megakernel.py:1010-1058 ``_quad_hits``: the unit disk at
+    z = 0; a cylinder of radius r around z in [0, length], its near root
+    unless that leaves the span) -> (t, ok), each (n, Q)."""
+    A = [qd[:, k] for k in range(9)]
+
+    def local(v, w=None):
+        out = [A[3 * r] * v[0][:, None] + A[3 * r + 1] * v[1][:, None]
+               + A[3 * r + 2] * v[2][:, None] for r in range(3)]
+        return out if w is None else [x + w[:, r] for r, x in
+                                      enumerate(out)]
+
+    olx, oly, olz = local(o, qd[:, 9:12])
+    dlx, dly, dlz = local(d)
+    is_disk = qd[:, 12] < 1.5
+    r, ln = qd[:, 13], qd[:, 14]
+    mt = maxt[:, None]
+    dz_ok = dlz.abs() > 1e-12
+    t_d = -olz / torch.where(dz_ok, dlz, 1.0)
+    hx = olx + t_d * dlx
+    hy = oly + t_d * dly
+    ok_d = dz_ok & (hx * hx + hy * hy <= 1.0)
+    a2 = dlx * dlx + dly * dly
+    b2 = 2.0 * (dlx * olx + dly * oly)
+    c2 = olx * olx + oly * oly - r * r
+    disc = b2 * b2 - 4.0 * a2 * c2
+    sqd = torch.sqrt(torch.clamp(disc, min=0.0))
+    a2ok = a2.abs() > 1e-20
+    inv2a = 1.0 / torch.where(a2ok, 2.0 * a2, 1.0)
+    t_n = (-b2 - sqd) * inv2a
+    t_f = (-b2 + sqd) * inv2a
+    zn = olz + dlz * t_n
+    zf = olz + dlz * t_f
+    n_ok = (zn >= 0) & (zn <= ln) & (t_n > 0.0) & (t_n < mt)
+    f_ok = (zf >= 0) & (zf <= ln) & (t_f > 0.0) & (t_f < mt)
+    ok_c = a2ok & (disc > 0) & (n_ok | f_ok)
+    tq = torch.where(is_disk, t_d, torch.where(n_ok, t_n, t_f))
+    ok = torch.where(is_disk, ok_d, ok_c) & (tq > 0.0) & (tq < mt)
+    return tq, ok
+
+
+def _closest_hit(tables, o, d, maxt, first_hits=None):
+    """-> (t (n,), attributes (n, FA), u, v); t = BIG and zero attributes
+    where nothing is hit. Faces tie to the lowest face id and win ties
+    against spheres, spheres against disks and cylinders; a sphere or
+    quad hit carries its normal in the normal columns and its analytic uv
+    (spherical; polar on a disk, cylindrical on a cylinder) as (u, v),
+    which the identity uv rows of its attributes pass through; a face hit
+    its barycentrics. ``first_hits``, if given, sums the lanes whose hit
+    is a disk ("disk") or a cylinder ("cylinder")."""
     n = o[0].shape[0]
     big = torch.full((n,), _BIG, dtype=torch.float32, device=o[0].device)
     zero = torch.zeros_like(big)
     t, A, bu, bv = big, torch.zeros((n, FA), device=big.device), zero, zero
+    need_uv = tables.flags & (HAS_CHECKER | HAS_LOBES)
     if tables.n_faces:
-        tf, uf, vf = _woop_t_uv(tables.woop, o, d)
+        tf, uf, vf = _woop_t_uv(face_woop(tables), o, d)
         ok = _face_ok(tf, uf, vf, maxt)
         tmin, k = _argmin_lowest(torch.where(ok, tf, big[:, None]))
         hit = tmin < _BIG * 0.5
         t = tmin
         A = torch.where(hit[:, None], tables.fattr[k], A)
-        if tables.flags & HAS_CHECKER:
+        if need_uv:
             bu = torch.where(hit, uf.gather(1, k[:, None])[:, 0], zero)
             bv = torch.where(hit, vf.gather(1, k[:, None])[:, 0], zero)
-    if tables.flags & HAS_SPHERES:
+    if tables.n_spheres:
         ts, oks = _sphere_t(tables.sph, o, d, maxt)
         tsmin, s = _argmin_lowest(torch.where(oks, ts, big[:, None]))
         closer = tsmin < t
@@ -608,11 +775,44 @@ def _closest_hit(tables, o, d, maxt):
         SA = torch.cat([torch.stack(sn, 1), tables.sattr[s][:, 3:]], 1)
         A = torch.where(closer[:, None], SA, A)
         t = torch.where(closer, tsmin, t)
-        if tables.flags & HAS_CHECKER:
+        if need_uv:
             su = torch.atan2(sn[1], sn[0]) * (0.5 / _PI) + 0.5
             sv = torch.acos(torch.clamp(sn[2], -1.0, 1.0)) * (1.0 / _PI)
             bu = torch.where(closer, su, bu)
             bv = torch.where(closer, sv, bv)
+    if tables.n_quads:
+        tq, okq = _quad_t(tables.qd, o, d, maxt)
+        tqmin, q = _argmin_lowest(torch.where(okq, tq, big[:, None]))
+        closer = tqmin < t
+        tsafe = torch.where(closer, tqmin, t)
+        P, QA = tables.qd[q], tables.qattr[q]
+        h = [o[k] + tsafe * d[k] for k in range(3)]
+        ql = [P[:, 3 * r] * h[0] + P[:, 3 * r + 1] * h[1]
+              + P[:, 3 * r + 2] * h[2] + P[:, 9 + r] for r in range(3)]
+        inv_r = 1.0 / torch.clamp(P[:, 13], min=1e-20)
+        flip = QA[:, C_FLIP]
+        is_cyl = P[:, 12] > 1.5
+        # a cylinder's normal A^T (x, y, 0) / r (A is rigid); a disk's is
+        # packed in its attribute row
+        qn = [torch.where(is_cyl, (P[:, k] * ql[0] + P[:, 3 + k] * ql[1])
+                          * inv_r * flip, QA[:, C_NG + k]) for k in range(3)]
+        QA = torch.cat([torch.stack(qn, 1), QA[:, 3:]], 1)
+        A = torch.where(closer[:, None], QA, A)
+        t = torch.where(closer, tqmin, t)
+        if need_uv:
+            phi = torch.atan2(ql[1], ql[0]) * (0.5 / _PI)
+            phi = torch.where(phi < 0.0, phi + 1.0, phi)
+            r_loc = torch.sqrt(torch.clamp(ql[0] * ql[0] + ql[1] * ql[1],
+                                           min=0.0))
+            inv_l = 1.0 / torch.clamp(P[:, 14], min=1e-20)
+            bu = torch.where(closer, torch.where(is_cyl, phi, r_loc), bu)
+            bv = torch.where(closer, torch.where(is_cyl, ql[2] * inv_l,
+                                                 phi), bv)
+        if first_hits is not None:
+            for name, kind in (("disk", QUAD_DISK),
+                               ("cylinder", QUAD_CYLINDER)):
+                first_hits[name] = first_hits.get(name, 0) + int(
+                    (closer & (P[:, 12] == kind)).sum())
     return t, A, bu, bv
 
 
@@ -643,25 +843,32 @@ def _first_or_all(hits):
 
 def _occluded(tables, o, d, maxt, stats=None, live=None):
     """Shadow any-hit of every lane; ``stats`` (with the ``live`` lanes
-    that trace the ray) sums the face and sphere tests the kernel's loops,
-    which stop at the first occluder, run ("shadow_faces",
-    "shadow_spheres"; in the BVH tier the walk's "shadow_walk_boxes" and
-    "shadow_walk_faces")."""
+    that trace the ray) sums the face, sphere and quad tests the kernel's
+    loops, which stop at the first occluder, run ("shadow_faces",
+    "shadow_spheres", "shadow_quads"; in the BVH tier the walk's
+    "shadow_walk_boxes" and "shadow_walk_faces")."""
     occ = torch.zeros(o[0].shape[0], dtype=torch.bool, device=o[0].device)
+
+    def count(name, hits):
+        if stats is not None:
+            stats[name] = stats.get(name, 0) + int(
+                _first_or_all(hits)[live & ~occ].sum())
+
     if tables.n_faces:
-        hits = _face_ok(*_woop_t_uv(tables.woop, o, d), maxt)
-        occ = hits.any(1)
+        hits = _face_ok(*_woop_t_uv(face_woop(tables), o, d), maxt)
         if stats is not None and tables.flags & HAS_BVH:
             _count_walk(tables, o, d, maxt, live, stats, "shadow_walk",
                         True)
-        elif stats is not None:
-            stats["shadow_faces"] = stats.get("shadow_faces", 0) + int(
-                _first_or_all(hits)[live].sum())
-    if tables.flags & HAS_SPHERES:
+        else:
+            count("shadow_faces", hits)
+        occ = hits.any(1)
+    if tables.n_spheres:
         hits = _sphere_t(tables.sph, o, d, maxt)[1]
-        if stats is not None:
-            stats["shadow_spheres"] = stats.get("shadow_spheres", 0) + int(
-                _first_or_all(hits)[live & ~occ].sum())
+        count("shadow_spheres", hits)
+        occ = occ | hits.any(1)
+    if tables.n_quads:
+        hits = _quad_t(tables.qd, o, d, maxt)[1]
+        count("shadow_quads", hits)
         occ = occ | hits.any(1)
     return occ
 
@@ -737,15 +944,103 @@ def _env_sample(tables, u1, u2, j1, j2):
     return ld, pdf, rad
 
 
+def _fresnel_diel(cos_i, eta):
+    """Unpolarized dielectric Fresnel reflectance at signed incident
+    cosine ``cos_i`` and relative IOR ``eta`` seen from the normal's side
+    (megakernel.py:347 ``_fresnel_diel``) -> (F, signed transmitted cosine,
+    eta_it, eta_ti)."""
+    outside = cos_i >= 0
+    rcp = 1.0 / eta
+    eta_it = torch.where(outside, eta, rcp)
+    eta_ti = torch.where(outside, rcp, eta)
+    c2t = 1.0 - eta_ti * eta_ti * (1.0 - cos_i * cos_i)
+    aci = cos_i.abs()
+    act = torch.sqrt(torch.clamp(c2t, min=0.0))
+    a_s = (aci - eta_it * act) / torch.clamp(aci + eta_it * act, min=1e-20)
+    a_p = (eta_it * aci - act) / torch.clamp(eta_it * aci + act, min=1e-20)
+    F = 0.5 * (a_s * a_s + a_p * a_p)
+    F = torch.where(eta == 1.0, 0.0, torch.where(c2t <= 0.0, 1.0, F))
+    return F, torch.where(outside, -act, act), eta_it, eta_ti
+
+
+def _tex_fetch(tex, A, uu, vv):
+    """Bilinear fetch of the bitmap texels of attribute rows ``A`` at uv
+    (uu, vv), u and v wrapping (megakernel.py:1428-1470 with the atlas
+    read directly) -> the three payload channels."""
+    tw = torch.clamp(A[:, C_TEX + 1], min=1.0)
+    th = torch.clamp(A[:, C_TEX + 2], min=1.0)
+    fu = uu * tw - 0.5
+    fv = vv * th - 0.5
+    u0 = torch.floor(fu)
+    v0 = torch.floor(fv)
+    wu = (fu - u0)[:, None]
+    wv = (fv - v0)[:, None]
+    twi = tw.to(torch.int64)
+    thi = th.to(torch.int64)
+    iu0 = torch.remainder(u0.to(torch.int64), twi)
+    iv0 = torch.remainder(v0.to(torch.int64), thi)
+    iu1 = torch.remainder(iu0 + 1, twi)
+    iv1 = torch.remainder(iv0 + 1, thi)
+    base = A[:, C_TEX].to(torch.int64)
+
+    def texel(iv, iu):
+        return tex[base + iv * twi + iu]
+
+    c0 = (1.0 - wv) * texel(iv0, iu0) + wv * texel(iv1, iu0)
+    c1 = (1.0 - wv) * texel(iv0, iu1) + wv * texel(iv1, iu1)
+    out = (1.0 - wu) * c0 + wu * c1
+    return [out[:, c] for c in range(3)]
+
+
+def _vndf_sample(wi, wiz, alpha, u_c1, u_c2):
+    """GGX visible-normal sample (Heitz 2018) -> (reflected direction,
+    wi . m, m_z)."""
+    one = torch.ones_like(wiz)
+    vh = _normalized([alpha * wi[0], alpha * wi[1], wiz])
+    lensq = vh[0] * vh[0] + vh[1] * vh[1]
+    linv = torch.rsqrt(torch.clamp(lensq, min=1e-20))
+    t1x = torch.where(lensq > 1e-12, -vh[1] * linv, one)
+    t1y = torch.where(lensq > 1e-12, vh[0] * linv, 0.0)
+    t2 = [-vh[2] * t1y, vh[2] * t1x, vh[0] * t1y - vh[1] * t1x]
+    rr = torch.sqrt(torch.clamp(u_c1, min=0.0))
+    phi = 2.0 * _PI * u_c2
+    p1 = rr * torch.cos(phi)
+    p2 = rr * torch.sin(phi)
+    s_ = 0.5 * (1.0 + vh[2])
+    p2 = (1.0 - s_) * torch.sqrt(torch.clamp(1.0 - p1 * p1, min=0.0)) \
+        + s_ * p2
+    pz = torch.sqrt(torch.clamp(1.0 - p1 * p1 - p2 * p2, min=0.0))
+    nh = [p1 * t1x + p2 * t2[0] + pz * vh[0],
+          p1 * t1y + p2 * t2[1] + pz * vh[1],
+          p2 * t2[2] + pz * vh[2]]
+    mh = [alpha * nh[0], alpha * nh[1], torch.clamp(nh[2], min=1e-6)]
+    minv = torch.rsqrt(_dot3(mh, mh))
+    mh = [x * minv for x in mh]
+    wm = wi[0] * mh[0] + wi[1] * mh[1] + wiz * mh[2]
+    go = [2.0 * wm * mh[0] - wi[0], 2.0 * wm * mh[1] - wi[1],
+          2.0 * wm * mh[2] - wiz]
+    return go, wm, mh[2]
+
+
+# the first-hit kinds ``_trace_lanes`` counts ("first_<name>")
+FIRST_HIT_KINDS = (("dielectric", KIND_DIELECTRIC),
+                   ("plastic", KIND_PLASTIC),
+                   ("roughplastic", KIND_ROUGHPLASTIC),
+                   ("bitmap", KIND_BITMAP))
+
+
 def _trace_lanes(tables, cam, key, pixel, width, height, max_depth,
                  rr_depth, stats=None):
     """Radiance (3, n) linear sRGB of the lanes with TEA keys ``key`` at
     ``pixel``. ``stats``, if given, sums the lanes that trace a ray
     ("rays"), escape to the envmap ("escaped"), shade a bounce ("shaded",
-    of them "ggx" on a conductor), sample the env NEE arm ("env_nee") and
-    trace a shadow ray ("shadow"), the shadow rays' tests (``_occluded``)
-    and, in the BVH tier, the walk's box and face tests of the rays
-    ("walk_boxes", "walk_faces")."""
+    of them "ggx" on a conductor, "dielectric", "plastic" of which
+    "roughplastic", "bitmap" fetches), sample the env NEE arm ("env_nee")
+    and trace a shadow ray ("shadow"), the shadow rays' tests
+    (``_occluded``), in the BVH tier the walk's box and face tests of the
+    rays ("walk_boxes", "walk_faces"), and the camera rays whose first hit
+    is a dielectric, plastic, roughplastic, bitmap, disk or cylinder
+    ("first_<name>")."""
     dev = key.device
     f32 = torch.float32
     nc = tables.nc
@@ -777,11 +1072,15 @@ def _trace_lanes(tables, cam, key, pixel, width, height, max_depth,
         thr = [one.clone() for _ in range(nc)]
     res = [zero.clone() for _ in range(nc)]
     prev_pdf = zero
+    # the relative IOR crossed so far; roulette weighs the throughput by
+    # its square (megakernel.py:1648, 1960)
+    eta_st = one
     active = torch.ones(n, dtype=torch.bool, device=dev)
     lights = tables.lights
     L = lights.shape[0]
     has_env = bool(tables.flags & HAS_ENV)
     has_ggx = bool(tables.flags & HAS_GGX)
+    has_lobes = bool(tables.flags & HAS_LOBES)
     p_env = tables.p_env
     env_arm = has_env and p_env > 0.0
 
@@ -789,17 +1088,31 @@ def _trace_lanes(tables, cam, key, pixel, width, height, max_depth,
         if stats is not None:
             stats[name] = stats.get(name, 0) + int(mask.sum())
 
+    def payload(c0, c1, c2):
+        if spectral:
+            return [_sigmoid(c0, c1, c2, xw[c]) for c in range(nc)]
+        return [c0, c1, c2][:nc]
+
     for depth in range(max_depth):
         dim0 = 2 + 8 * depth
         count("rays", active)
         if stats is not None and tables.flags & HAS_BVH:
             _count_walk(tables, o, d, big, active, stats, "walk", False)
+        if stats is not None and tables.n_quads:
+            stats["quad_tests"] = stats.get("quad_tests", 0) \
+                + tables.n_quads * int(active.sum())
+        first = {} if stats is not None and depth == 0 else None
         t, A, bu, bv = _closest_hit(tables, o, d,
-                                    torch.where(active, big, -big))
+                                    torch.where(active, big, -big), first)
         ng = [A[:, C_NG + k] for k in range(3)]
         lpdf_w = A[:, C_LPDF]
         kind = A[:, C_KIND]
         hit = t < _BIG * 0.5
+        if first is not None:
+            for name, k in FIRST_HIT_KINDS:
+                first[name] = int((hit & (kind == k)).sum())
+            for name, v in first.items():
+                stats[f"first_{name}"] = stats.get(f"first_{name}", 0) + v
         if spectral:
             le = [_sigmoid(A[:, C_LE], A[:, C_LE + 1], A[:, C_LE + 2], xw[c])
                   * d65[c] * A[:, C_LESCALE] for c in range(nc)]
@@ -841,13 +1154,15 @@ def _trace_lanes(tables, cam, key, pixel, width, height, max_depth,
         if depth == max_depth - 1:
             break
 
-        # albedo payload; checkerboard: uv from the barycentrics, affine
-        # to_uv, parity of floor(u') + floor(v')
+        # albedo payload: uv from the barycentrics (or the analytic uv);
+        # checkerboard: affine to_uv, parity of floor(u') + floor(v');
+        # bitmap: a bilinear texel fetch at the uv itself
         pay = [A[:, C_ALB + c] for c in range(3)]
-        if tables.flags & HAS_CHECKER:
+        if tables.flags & (HAS_CHECKER | HAS_LOBES):
             uu = A[:, C_UV0] + bu * A[:, C_DUV1] + bv * A[:, C_DUV2]
             vv = A[:, C_UV0 + 1] + bu * A[:, C_DUV1 + 1] \
                 + bv * A[:, C_DUV2 + 1]
+        if tables.flags & HAS_CHECKER:
             u2 = A[:, C_TOUV0] * uu + A[:, C_TOUV0 + 1] * vv \
                 + A[:, C_TOUV0 + 2]
             v2 = A[:, C_TOUV1] * uu + A[:, C_TOUV1 + 1] * vv \
@@ -856,10 +1171,11 @@ def _trace_lanes(tables, cam, key, pixel, width, height, max_depth,
             use_c1 = (kind > 1.5) & (kind < 2.5) & (par > 0.5)
             pay = [torch.where(use_c1, A[:, C_C1 + c], pay[c])
                    for c in range(3)]
-        if spectral:
-            alb = [_sigmoid(pay[0], pay[1], pay[2], xw[c]) for c in range(nc)]
-        else:
-            alb = pay[:nc]
+        is_bmp = kind > 5.5
+        if has_lobes and tables.tex.shape[0]:
+            tx_ = _tex_fetch(tables.tex, A, uu, vv)
+            pay = [torch.where(is_bmp, tx_[c], pay[c]) for c in range(3)]
+        alb = payload(*pay)
         is_ggx = (kind > 0.5) & (kind < 1.5)
         if has_ggx:
             if spectral:
@@ -873,11 +1189,28 @@ def _trace_lanes(tables, cam, key, pixel, width, height, max_depth,
             else:
                 eta = [A[:, C_ETA + c] for c in range(nc)]
                 kap = [A[:, C_K + c] for c in range(nc)]
+        is_diel = (kind > 2.5) & (kind < 3.5)
+        is_plas = (kind > 3.5) & (kind < 5.5)      # smooth or rough
+        is_rplas = (kind > 4.5) & (kind < 5.5)
+        if has_lobes:
+            # dielectric transmittance / plastic coat reflectance payload
+            c2 = payload(*(A[:, C_C1 + c] for c in range(3)))
+            eta_d = torch.clamp(A[:, C_ETAD], min=1e-3)
+            ssw = A[:, C_SSW]
+            fdr = A[:, C_FDR]
+            inv_eta2 = A[:, C_INVETA2]
+            nonlin = A[:, C_NONLIN] > 0.5
 
-        # FrontSide lobes only: back-face hits end the path
-        act = active & hit & (cos_hit > 0)
+        # FrontSide lobes: back-face hits end the path; dielectrics are
+        # two-sided
+        act = active & hit & ((cos_hit > 0) | is_diel)
         count("shaded", act)
         count("ggx", act & is_ggx)
+        if has_lobes:
+            count("dielectric", act & is_diel)
+            count("plastic", act & is_plas)
+            count("roughplastic", act & is_rplas)
+            count("bitmap", act & is_bmp)
         n_ = ng
         p = [o[k] + t * d[k] for k in range(3)]
         eps = (1.0 + torch.maximum(p[0].abs(), torch.maximum(
@@ -901,7 +1234,7 @@ def _trace_lanes(tables, cam, key, pixel, width, height, max_depth,
             mx = thr[0]
             for c in range(1, nc):
                 mx = torch.maximum(mx, thr[c])
-            q = torch.clamp(mx, max=0.95)
+            q = torch.clamp(mx * eta_st * eta_st, max=0.95)
             act = act & (rr_u < q)
             inv_q = 1.0 / torch.clamp(q, min=1e-8)
             thr_ = [thr[c] * inv_q for c in range(nc)]
@@ -952,7 +1285,8 @@ def _trace_lanes(tables, cam, key, pixel, width, height, max_depth,
             # env shadow rays test the whole open segment
             dist = torch.where(use_env, torch.full_like(dist, 1e7), dist)
         cos_s = _dot3(dl, n_)
-        nee_ok = act & (pdf_l > 0) & (cos_s > 0)
+        # delta lobes take no NEE
+        nee_ok = act & (pdf_l > 0) & (cos_s > 0) & ~is_diel
         count("shadow", nee_ok)
         if env_arm:
             count("env_nee", act & use_env)
@@ -962,7 +1296,7 @@ def _trace_lanes(tables, cam, key, pixel, width, height, max_depth,
         # BSDF toward the light: f * cos and the BSDF's own pdf
         pdf_bsdf_l = torch.clamp(cos_s, min=0.0) / _PI
         fcos = [alb[c] * (cos_s / _PI) for c in range(nc)]
-        if has_ggx:
+        if has_ggx or has_lobes:
             wo = to_local(dl)
             h = _normalized([wi[0] + wo[0], wi[1] + wo[1], wiz + wo[2]])
             ci_h = torch.clamp(wi[0] * h[0] + wi[1] * h[1] + wiz * h[2],
@@ -973,19 +1307,41 @@ def _trace_lanes(tables, cam, key, pixel, width, height, max_depth,
                 / torch.clamp(4.0 * wiz, min=1e-20)
             pdf_ggx_l = g1i * D / torch.clamp(4.0 * wiz, min=1e-20)
             ggx_ok = (wo[2] > 0).to(f32)
+        if has_ggx:
             pdf_bsdf_l = torch.where(is_ggx, pdf_ggx_l, pdf_bsdf_l)
             fcos = [torch.where(
                 is_ggx, alb[c] * spec_ * fresnel_conductor(
                     ci_h, eta[c], kap[c]) * ggx_ok,
                 fcos[c]) for c in range(nc)]
+        if has_lobes:
+            # (rough) plastic: the diffuse base behind the coat, plus the
+            # GGX coat of the rough one (megakernel.py:1773-1793)
+            Fp_i = _fresnel_diel(wiz, eta_d)[0]
+            Fp_o = _fresnel_diel(torch.clamp(wo[2], min=0.0), eta_d)[0]
+            prob_sp = Fp_i * ssw / torch.clamp(
+                Fp_i * ssw + (1.0 - Fp_i) * (1.0 - ssw), min=1e-8)
+            den = [1.0 - torch.where(nonlin, alb[c] * fdr, fdr)
+                   for c in range(nc)]
+            dcom = (1.0 / _PI) * inv_eta2 * torch.clamp(wo[2], min=0.0) \
+                * (1.0 - Fp_i) * (1.0 - Fp_o)
+            sp = spec_ * _fresnel_diel(ci_h, eta_d)[0] * ggx_ok
+            fcos = [torch.where(
+                is_plas, alb[c] / torch.clamp(den[c], min=1e-8) * dcom
+                + torch.where(is_rplas, c2[c] * sp, 0.0), fcos[c])
+                for c in range(nc)]
+            pdf_plas = pdf_bsdf_l * (1.0 - prob_sp) \
+                + torch.where(is_rplas, pdf_ggx_l * prob_sp, 0.0)
+            pdf_bsdf_l = torch.where(is_plas, pdf_plas, pdf_bsdf_l)
         base = _mis(pdf_l, pdf_bsdf_l) / torch.clamp(pdf_l, min=1e-20)
         gate = nee_ok & ~occluded
         for c in range(nc):
             res[c] = res[c] + torch.where(
                 gate, thr_[c] * base * fcos[c] * lrad[c], zero)
 
-        # BSDF sample: cosine-weighted diffuse, or GGX visible normals
-        # (Heitz 2018) with throughput albedo * F * G1(wo)
+        # BSDF sample: cosine-weighted diffuse, GGX visible normals with
+        # throughput albedo * F * G1(wo), a Fresnel-weighted pick of the
+        # dielectric's reflection or refraction, or the plastic's coat or
+        # base (megakernel.py:1804-1952)
         u_c1, u_c2 = _rng2(key, dim0 + 4)
         cx, cy = _concentric(u_c1, u_c2)
         cz = torch.sqrt(torch.clamp(1.0 - cx * cx - cy * cy, min=0.0))
@@ -993,31 +1349,10 @@ def _trace_lanes(tables, cam, key, pixel, width, height, max_depth,
         bsdf_pdf = cz / _PI
         ok_lobe = cz > 0
         mm = list(alb)
+        if has_ggx or has_lobes:
+            go, wm, mhz = _vndf_sample(wi, wiz, alpha, u_c1, u_c2)
         if has_ggx:
-            vh = _normalized([alpha * wi[0], alpha * wi[1], wiz])
-            lensq = vh[0] * vh[0] + vh[1] * vh[1]
-            linv = torch.rsqrt(torch.clamp(lensq, min=1e-20))
-            t1x = torch.where(lensq > 1e-12, -vh[1] * linv, one)
-            t1y = torch.where(lensq > 1e-12, vh[0] * linv, zero)
-            t2 = [-vh[2] * t1y, vh[2] * t1x, vh[0] * t1y - vh[1] * t1x]
-            rr = torch.sqrt(torch.clamp(u_c1, min=0.0))
-            phi = 2.0 * _PI * u_c2
-            p1 = rr * torch.cos(phi)
-            p2 = rr * torch.sin(phi)
-            s_ = 0.5 * (1.0 + vh[2])
-            p2 = (1.0 - s_) * torch.sqrt(torch.clamp(1.0 - p1 * p1, min=0.0)) \
-                + s_ * p2
-            pz = torch.sqrt(torch.clamp(1.0 - p1 * p1 - p2 * p2, min=0.0))
-            nh = [p1 * t1x + p2 * t2[0] + pz * vh[0],
-                  p1 * t1y + p2 * t2[1] + pz * vh[1],
-                  p2 * t2[2] + pz * vh[2]]
-            mh = [alpha * nh[0], alpha * nh[1], torch.clamp(nh[2], min=1e-6)]
-            minv = torch.rsqrt(_dot3(mh, mh))
-            mh = [x * minv for x in mh]
-            wm = wi[0] * mh[0] + wi[1] * mh[1] + wiz * mh[2]
-            go = [2.0 * wm * mh[0] - wi[0], 2.0 * wm * mh[1] - wi[1],
-                  2.0 * wm * mh[2] - wiz]
-            pdf_ggx = _ggx_g1(wiz, alpha) * _ggx_d(mh[2], alpha) \
+            pdf_ggx = _ggx_g1(wiz, alpha) * _ggx_d(mhz, alpha) \
                 / torch.clamp(4.0 * wiz, min=1e-20)
             g1o = _ggx_g1(torch.clamp(go[2], min=1e-6), alpha)
             wsel = [torch.where(is_ggx, go[k], wsel[k]) for k in range(3)]
@@ -1026,18 +1361,84 @@ def _trace_lanes(tables, cam, key, pixel, width, height, max_depth,
             mm = [torch.where(is_ggx, alb[c] * fresnel_conductor(
                 torch.clamp(wm, min=0.0), eta[c], kap[c])
                 * g1o, alb[c]) for c in range(nc)]
+        # the pdf emission hits are weighed against; 0 after a delta lobe
+        mis_pdf = bsdf_pdf
+        eta_mul = one
+        if has_lobes:
+            u_lobe, _ = _rng2(key, dim0 + 3)
+            # smooth dielectric: reflect or refract by the Fresnel term,
+            # from either side; transmission scales radiance by eta_ti^2
+            F_d, cos_t, eta_it, eta_ti = _fresnel_diel(wi[2], eta_d)
+            refl = u_lobe <= F_d
+            dd = [torch.where(refl, -wi[0], -eta_ti * wi[0]),
+                  torch.where(refl, -wi[1], -eta_ti * wi[1]),
+                  torch.where(refl, wi[2], cos_t)]
+            md = [torch.where(refl, alb[c], c2[c] * eta_ti * eta_ti)
+                  for c in range(nc)]
+            wsel = [torch.where(is_diel, dd[k], wsel[k]) for k in range(3)]
+            mm = [torch.where(is_diel, md[c], mm[c]) for c in range(nc)]
+            bsdf_pdf = torch.where(is_diel, torch.where(refl, F_d, 1.0 - F_d),
+                                   bsdf_pdf)
+            mis_pdf = torch.where(is_diel, 0.0, mis_pdf)
+            ok_lobe = ok_lobe | is_diel
+            eta_mul = torch.where(is_diel & ~refl, eta_it, eta_mul)
+            # plastics: the coat with probability prob_sp (a mirror, or
+            # the rough one's GGX sample), else the cosine-sampled base
+            sel_sp = u_lobe < prob_sp
+            pp = [torch.where(sel_sp, torch.where(is_rplas, go[k], sk), ck)
+                  for k, (sk, ck) in enumerate(((-wi[0], cx), (-wi[1], cy),
+                                                (wiz, cz)))]
+            ppz = torch.clamp(pp[2], min=0.0)
+            Fp_os = _fresnel_diel(ppz, eta_d)[0]
+            dcom_s = (1.0 / _PI) * inv_eta2 * ppz * (1.0 - Fp_i) \
+                * (1.0 - Fp_os)
+            fd = [alb[c] / torch.clamp(den[c], min=1e-8) * dcom_s
+                  for c in range(nc)]
+            pdf_cos = ppz / _PI
+            pdf_base = pdf_cos * (1.0 - prob_sp)
+            # smooth: the per-lobe weights in closed form
+            inv_pd = 1.0 / torch.clamp(pdf_base, min=1e-20)
+            inv_ps = 1.0 / torch.clamp(prob_sp, min=1e-8)
+            msm = [torch.where(sel_sp, c2[c] * Fp_i * inv_ps, fd[c] * inv_pd)
+                   for c in range(nc)]
+            pdf_sm = torch.where(sel_sp, prob_sp, pdf_base)
+            mis_sm = torch.where(sel_sp, 0.0, pdf_base)
+            # rough: eval(wo) / pdf(wo) over the mixture pdf
+            h2 = [wi[0] + pp[0], wi[1] + pp[1], wiz + pp[2]]
+            h2inv = torch.rsqrt(torch.clamp(_dot3(h2, h2), min=1e-20))
+            ci_h2 = torch.clamp((wi[0] * h2[0] + wi[1] * h2[1]
+                                 + wiz * h2[2]) * h2inv, min=0.0)
+            D2 = _ggx_d(h2[2] * h2inv, alpha)
+            G2 = _ggx_g1(wiz, alpha) * _ggx_g1(torch.clamp(pp[2], min=1e-6),
+                                               alpha)
+            spec2 = D2 * G2 * _fresnel_diel(ci_h2, eta_d)[0] \
+                / torch.clamp(4.0 * wiz, min=1e-20)
+            pdf_g2 = _ggx_g1(wiz, alpha) * D2 \
+                / torch.clamp(4.0 * wiz, min=1e-20)
+            pdf_rp = pdf_g2 * prob_sp + pdf_base
+            inv_prp = 1.0 / torch.clamp(pdf_rp, min=1e-20)
+            mrp = [(c2[c] * spec2 + fd[c]) * inv_prp for c in range(nc)]
+            wsel = [torch.where(is_plas, pp[k], wsel[k]) for k in range(3)]
+            mm = [torch.where(is_plas, torch.where(is_rplas, mrp[c], msm[c]),
+                              mm[c]) for c in range(nc)]
+            bsdf_pdf = torch.where(is_plas, torch.where(is_rplas, pdf_rp,
+                                                        pdf_sm), bsdf_pdf)
+            mis_pdf = torch.where(is_plas, torch.where(is_rplas, pdf_rp,
+                                                       mis_sm), mis_pdf)
+            ok_lobe = torch.where(is_plas, pp[2] > 1e-6, ok_lobe)
         nd = to_world(wsel)
         thr = [thr_[c] * torch.where(act, mm[c], one) for c in range(nc)]
         thr_sum = thr[0]
         for c in range(1, nc):
             thr_sum = thr_sum + thr[c]
         active = act & ok_lobe & (bsdf_pdf > 0) & (thr_sum > 0)
-        # leave on the side the new ray goes (always the normal's side
-        # for the lobes of this scope)
+        eta_st = torch.where(active, eta_st * eta_mul, eta_st)
+        # leave on the side the new ray goes (transmission continues
+        # through the surface)
         off = torch.where(wsel[2] >= 0.0, eps, -eps)
         o = [p[k] + n_[k] * off for k in range(3)]
         d = nd
-        prev_pdf = bsdf_pdf
+        prev_pdf = mis_pdf
     if spectral:
         return torch.stack(_cie_develop(tables.spd, res, wls))
     if nc == 1:
@@ -1071,8 +1472,8 @@ def path_radiance_reference(tables, cam, seed, sample_base, spp_pass,
     if lanes is None:
         lanes = torch.arange(width * height * spp_pass, device=dev)
     out = torch.empty((3, len(lanes)), dtype=torch.float32, device=dev)
-    widest = max(tables.n_faces + tables.n_spheres, tables.lights.shape[0],
-                 *tables.env_cond.shape, 1)
+    widest = max(tables.n_faces + tables.n_spheres + tables.n_quads,
+                 tables.lights.shape[0], *tables.env_cond.shape, 1)
     step = max(1, _CHUNK_ELEMS // widest)
     for start in range(0, len(lanes), step):
         chunk = lanes[start:start + step]
@@ -1100,21 +1501,29 @@ class _PathArgs(ctypes.Structure):
            ("sample_base", ctypes.c_uint32)]
         + [(name, ctypes.c_int) for name in (
             "spp_pass", "width", "height", "max_depth", "rr_depth",
-            "n_lanes", "flags", "nc")])
+            "n_lanes", "flags", "nc")]
+        + [(name, ctypes.c_void_p) for name in ("qd", "qattr", "tex")]
+        + [("n_quads", ctypes.c_int)])
 
 
 def _check_tables(tables, cam):
-    shapes = (("woop", tables.woop, (tables.n_faces, 12)),
+    # BVH-tier tables may leave the face-order Woop rows out
+    woop_rows = (tables.woop.shape[0] if tables.flags & HAS_BVH
+                 and tables.woop.shape[0] == 0 else tables.n_faces)
+    shapes = (("woop", tables.woop, (woop_rows, 12)),
               ("fattr", tables.fattr, (tables.n_faces, FA)),
               ("lights", tables.lights, (tables.lights.shape[0], 24)),
               ("sph", tables.sph, (tables.n_spheres, 4)),
               ("sattr", tables.sattr, (tables.n_spheres, FA)),
+              ("qd", tables.qd, (tables.n_quads, QD)),
+              ("qattr", tables.qattr, (tables.n_quads, FA)),
               ("env", tables.env, tables.env.shape[:2] + (4,)),
               ("env_marg", tables.env_marg, tables.env_pmf.shape[:1]),
               ("env_cond", tables.env_cond, tables.env_pmf.shape),
               ("env_pmf", tables.env_pmf, tables.env_pmf.shape),
               ("env_rot", tables.env_rot, (18,)),
               ("spd", tables.spd, (SPD_ROWS if tables.nc == 4 else 0, 4)),
+              ("tex", tables.tex, (tables.tex.shape[0], 4)),
               ("bvh_nodes", tables.bvh_nodes, (tables.bvh_nodes.shape[0],
                                                16)),
               ("bvh_woop", tables.bvh_woop, (tables.bvh_prim.shape[0], 12)),
@@ -1147,6 +1556,12 @@ def _check_tables(tables, cam):
                          f"need the BVH tier")
     if tables.n_spheres > MAX_SPHERES:
         raise ValueError(f"{tables.n_spheres} spheres > {MAX_SPHERES}")
+    if tables.n_quads > MAX_SPHERES:
+        raise ValueError(f"{tables.n_quads} disks and cylinders > "
+                         f"{MAX_SPHERES}")
+    if tables.tex.shape[0] >= 1 << 24:
+        raise ValueError("texel offsets beyond 2^24 are not exact in the "
+                         "float32 attribute columns")
     if tables.nc not in NC_MODE:
         raise ValueError(f"no path kernel for {tables.nc} color channels")
     if tables.flags & HAS_ENV and (min(tables.env.shape[:2]) < 1
@@ -1171,7 +1586,8 @@ def path_radiance(tables, cam, seed, sample_base, spp_pass, width, height,
     n = width * height * spp_pass
     if n >= 1 << 31:
         raise ValueError(f"{n} lanes overflow the kernel's int32 lane ids")
-    render = _path_render(tables.nc)
+    flags = tables.flags & TEMPLATE_FLAGS
+    render = _path_render(tables.nc, bool(flags & HAS_LOBES))
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
     if n == 0:
         return out
@@ -1186,16 +1602,16 @@ def path_radiance(tables, cam, seed, sample_base, spp_pass, width, height,
         tables.n_faces, tables.lights.shape[0], tables.n_spheres, W, H, Ws,
         Hs, int(bool(tables.flags & HAS_ENV_ROT)), tables.p_env,
         seed & 0xFFFFFFFF, sample_base & 0xFFFFFFFF, spp_pass, width,
-        height, max_depth, rr_depth, n, tables.flags & TEMPLATE_FLAGS,
-        tables.nc)
+        height, max_depth, rr_depth, n, flags, tables.nc,
+        *(t.data_ptr() for t in (tables.qd, tables.qattr, tables.tex)),
+        tables.n_quads)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = render(ctypes.byref(args), stream)
     if err != 0:
         raise RuntimeError(f"path_kernel launch failed: CUDA error {err}")
     path_radiance.launches += 1
-    path_radiance.launches_by_kernel[
-        (tables.flags & TEMPLATE_FLAGS, tables.nc)] += 1
+    path_radiance.launches_by_kernel[(flags, tables.nc)] += 1
     return out
 
 
@@ -1209,23 +1625,25 @@ def reset_launch_counts():
     path_radiance.launches_by_kernel.clear()
 
 
-def library_defines(nc):
-    """nvcc defines of the path kernel's library for ``nc`` channels: one
-    library per color mode, each with its 32 flag instantiations."""
-    return {"PK_NC": nc}
+def library_defines(nc, lobes):
+    """nvcc defines of the path kernel's library for ``nc`` channels with
+    or without the lobes flag: two libraries per color mode, each with 32
+    flag instantiations, so that six compiler processes build them side by
+    side."""
+    return {"PK_NC": nc, "PK_LOBES": int(lobes)}
 
 
 def libraries():
-    """(name, defines) of the three color modes' libraries, for
-    ``build.build_all``."""
-    return [("path_kernel", library_defines(nc)) for nc in (3, 4, 1)]
+    """(name, defines) of the six libraries, for ``build.build_all``."""
+    return [("path_kernel", library_defines(nc, lobes)) for nc in (3, 4, 1)
+            for lobes in (False, True)]
 
 
-def _path_render(nc):
-    """csrc/path_kernel.cu's C entry point for ``nc`` color channels,
-    built on first use."""
+def _path_render(nc, lobes):
+    """csrc/path_kernel.cu's C entry point for ``nc`` color channels, with
+    or without the lobes flag, built on first use."""
     from .build import load
-    fn = load("path_kernel", library_defines(nc)).path_render
+    fn = load("path_kernel", library_defines(nc, lobes)).path_render
     fn.argtypes = [ctypes.POINTER(_PathArgs), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -1242,6 +1660,7 @@ class PathKernel:
     def __init__(self, scene, sensor, max_depth, rr_depth):
         self.tables = scene.tables
         self.size = sensor.film.crop_size
+        self.rfilter = sensor.film.rfilter
         # uploaded once: a pageable host-to-device copy per pass would
         # make the host wait for the previous pass's kernel
         self.cam = camera_row(sensor, self.tables.device)
@@ -1249,32 +1668,56 @@ class PathKernel:
         self.rr_depth = rr_depth
 
     def render_pass(self, seed, sample_base, spp_pass):
-        """-> (h, w, 4) box-filtered block: per-pixel radiance sums over
-        the pass's samples and the sample count as weight."""
+        """-> the pass's image block: under the box filter (h, w, 4)
+        per-pixel radiance sums and the sample count as weight; under any
+        other filter the (h + 2b, w + 2b, 4) block of the samples splatted
+        through it (ops/splat.py; megakernel.py:3032-3073)."""
+        from ..models.rfilters import BoxFilter
+        from .splat import splat
         w, h = self.size
         rgb = path_radiance(self.tables, self.cam, seed, sample_base,
                             spp_pass, w, h, self.max_depth, self.rr_depth)
-        rgb = rgb.reshape(3, w * h, spp_pass).sum(dim=2)
-        img = torch.cat([rgb, torch.full((1, w * h), float(spp_pass),
-                                         device=rgb.device)])
-        return img.T.reshape(h, w, 4)
+        if isinstance(self.rfilter, BoxFilter):
+            rgb = rgb.reshape(3, w * h, spp_pass).sum(dim=2)
+            img = torch.cat([rgb, torch.full((1, w * h), float(spp_pass),
+                                             device=rgb.device)])
+            return img.T.reshape(h, w, 4)
+        return splat(rgb, seed, sample_base, spp_pass, w, h, self.rfilter)
+
+
+def _constant(*textures):
+    from ..models.textures import ConstantTexture
+    return all(type(t) is ConstantTexture for t in textures)
+
+
+def _iso_ggx(bsdf):
+    """Isotropic GGX of alpha >= 0.01 (megakernel.py:2021-2028); the
+    kernel samples visible normals only."""
+    return bsdf.dist_type == "ggx" and bsdf.alpha_u == bsdf.alpha_v \
+        and bsdf.alpha_u >= 0.01
 
 
 def bsdf_ineligibility(bsdf, mode):
     """-> None if the kernel shades ``bsdf`` in color mode ``mode``, else
-    the reason (megakernel.py:2004 _bsdf_columns, narrowed to this
-    slice)."""
-    from ..models.bsdfs import SmoothDiffuse, RoughConductor
+    the reason (megakernel.py:2004 _bsdf_columns)."""
+    from ..models.bsdfs import (SmoothDiffuse, RoughConductor,
+                                SmoothDielectric, SmoothPlastic,
+                                RoughPlastic)
     from ..models.spectra import ConductorIORSpectrum
-    from ..models.textures import ConstantTexture, CheckerboardTexture
+    from ..models.textures import CheckerboardTexture, BitmapTexture
     name = f"unsupported BSDF {type(bsdf).__name__}"
     if type(bsdf) is SmoothDiffuse:
         tex = bsdf.reflectance
-        if type(tex) is ConstantTexture:
+        if _constant(tex):
             return None
         if type(tex) is CheckerboardTexture \
-                and type(tex.color0) is ConstantTexture \
-                and type(tex.color1) is ConstantTexture:
+                and _constant(tex.color0, tex.color1):
+            return None
+        if type(tex) is BitmapTexture:
+            w, h = tex.resolution
+            if w > MAX_TEX_W or h > MAX_TEX_ROWS:
+                return (f"bitmap {w}x{h} beyond the kernel's {MAX_TEX_W} "
+                        f"texels a row or {MAX_TEX_ROWS} rows")
             return None
         return name
     if type(bsdf) is RoughConductor:
@@ -1283,24 +1726,46 @@ def bsdf_ineligibility(bsdf, mode):
                 for t in (bsdf.eta_tex, bsdf.k_tex)):
             # curve spectra the user supplied (megakernel.py:3094-3103)
             return "conductor IOR curve spectra in spectral mode"
-        if bsdf.dist_type != "ggx" or bsdf.alpha_u != bsdf.alpha_v \
-                or bsdf.alpha_u < 0.01:
+        if not _iso_ggx(bsdf):
             return name
         ior = () if mode == "spectral" else (bsdf.eta_tex, bsdf.k_tex)
-        if not all(type(t) is ConstantTexture
-                   for t in (*ior, bsdf.specular_reflectance)):
+        if not _constant(*ior, bsdf.specular_reflectance):
+            return name
+        return None
+    if type(bsdf) is SmoothDielectric:
+        if not _constant(bsdf.specular_reflectance,
+                         bsdf.specular_transmittance):
+            return name
+        return None
+    if type(bsdf) in (SmoothPlastic, RoughPlastic):
+        if type(bsdf) is RoughPlastic and not (_iso_ggx(bsdf)
+                                               and bsdf.sample_visible):
+            return name
+        if not _constant(bsdf.diffuse_reflectance,
+                         bsdf.specular_reflectance):
             return name
         return None
     return name
 
 
+def bitmaps(shapes):
+    """The distinct bitmap textures of the shapes' BSDFs, in first-use
+    order (the order their texels are packed in)."""
+    from ..models.textures import BitmapTexture
+    out = []
+    for sh in shapes:
+        tex = getattr(sh.bsdf, "reflectance", None)
+        if type(tex) is BitmapTexture and all(tex is not t for t in out):
+            out.append(tex)
+    return out
+
+
 def path_kernel_ineligibility(scene):
     """-> None if the scene is inside the kernel's scope, else a short
-    reason (megakernel.py:3076 megakernel_ineligibility, narrowed to this
-    slice)."""
+    reason (megakernel.py:3076 megakernel_ineligibility)."""
     from ..variants import current
     from ..models.emitters import AreaEmitter, EnvironmentMap
-    from ..models.shapes import SphereShape
+    from ..models.shapes import SphereShape, DiskShape, CylinderShape
     from ..models.textures import ConstantTexture
     var = current()
     if var.polarized:
@@ -1323,12 +1788,15 @@ def path_kernel_ineligibility(scene):
     if not scene.shapes:
         return "no shapes"
     for sh in scene.shapes:
-        if not sh.is_mesh() and type(sh) is not SphereShape:
+        if not sh.is_mesh() and type(sh) not in (SphereShape, DiskShape,
+                                                 CylinderShape):
             return f"non-triangle shape {type(sh).__name__}"
     if scene.tables.n_faces > MAX_FACES_HBM:
         return f"face count {scene.tables.n_faces} > {MAX_FACES_HBM}"
     if scene.tables.n_spheres > MAX_SPHERES:
         return f"sphere count > {MAX_SPHERES}"
+    if scene.tables.n_quads > MAX_SPHERES:
+        return f"disk/cylinder count > {MAX_SPHERES}"
     for sh in scene.shapes:
         if type(sh) is SphereShape and sh.flip_normals:
             # the kernel shades the outward normal (megakernel.py:944)
@@ -1337,6 +1805,10 @@ def path_kernel_ineligibility(scene):
         reason = bsdf_ineligibility(sh.bsdf, mode)
         if reason is not None:
             return reason
+    rows = sum(t.resolution[1] for t in bitmaps(scene.shapes))
+    if rows > MAX_TEX_ROWS:
+        # megakernel.py:2439-2441 (MAX_ATLAS_H)
+        return f"bitmap texel rows {rows} > {MAX_TEX_ROWS}"
     for e in scene.emitters:
         if type(e) is EnvironmentMap:
             if e is not scene.environment_emitter:

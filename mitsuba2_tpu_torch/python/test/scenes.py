@@ -123,6 +123,67 @@ def _sky_exr_path():
     return _write_once(path, write)
 
 
+def _materials_texture_path():
+    """Synthesized 64x64 albedo texture (cached in the temp directory under
+    this package's own name): a red gradient along u, a green one along v
+    and a blue 8x8-texel checker, as the reference's bitmap tests draw
+    theirs (tests/test_megakernel.py:150-154), written by this package's
+    EXR writer."""
+    import os
+    import tempfile
+    from ...utils.io_exr import write_exr
+    path = os.path.join(tempfile.gettempdir(),
+                        "mitsuba2_tpu_torch_materials_v1.exr")
+
+    def write(tmp):
+        n = 64
+        tex = np.zeros((n, n, 3), np.float32)
+        tex[..., 0] = np.linspace(0.1, 0.9, n)[None, :]
+        tex[..., 1] = np.linspace(0.8, 0.2, n)[:, None]
+        tex[..., 2] = (np.add.outer(np.arange(n) // 8,
+                                    np.arange(n) // 8) % 2) * 0.5 + 0.2
+        write_exr(tmp, tex)
+
+    return _write_once(path, write)
+
+
+def cornell_materials_dict(width=256, height=256, spp=64, max_depth=6,
+                           rfilter="gaussian", base=None, T=Transform):
+    """The Cornell box with the reference's default film filter and the
+    path kernel's other lobes and shapes: a glass tall box, a rough
+    plastic short box (GGX, alpha 0.2), a plastic floor, a nonlinear
+    plastic ceiling, a bitmap-textured back wall, and on the floor a
+    textured disk rug and a plastic cylinder rod. ``base`` is the Cornell
+    dict to edit (this package's ``cornell_box_dict`` by default) and
+    ``T`` its Transform, so the same edits apply to another package's
+    dict."""
+    d = base if base is not None else cornell_box_dict(
+        width, height, spp, max_depth, rfilter=rfilter)
+    tex = {"type": "bitmap", "filename": _materials_texture_path()}
+
+    def rgb(v):
+        return {"type": "rgb", "value": v}
+
+    d["tallbox"]["bsdf"] = {"type": "dielectric"}
+    d["shortbox"]["bsdf"] = {"type": "roughplastic", "distribution": "ggx",
+                             "alpha": 0.2,
+                             "diffuse_reflectance": rgb([0.2, 0.4, 0.7])}
+    d["floor"]["bsdf"] = {"type": "plastic",
+                          "diffuse_reflectance": rgb([0.5, 0.2, 0.2])}
+    d["ceiling"]["bsdf"] = {"type": "plastic", "nonlinear": True,
+                            "diffuse_reflectance": rgb(0.8)}
+    d["back"]["bsdf"] = {"type": "diffuse", "reflectance": dict(tex)}
+    d["rug"] = {"type": "disk",
+                "to_world": (T.translate([-0.3, -0.995, 0.55])
+                             @ T.rotate([1, 0, 0], -90) @ T.scale(0.35)),
+                "bsdf": {"type": "diffuse", "reflectance": dict(tex)}}
+    d["rod"] = {"type": "cylinder", "radius": 0.1,
+                "p0": [0.05, -0.9, 0.7], "p1": [0.75, -0.9, 0.7],
+                "bsdf": {"type": "plastic",
+                         "diffuse_reflectance": rgb([0.7, 0.6, 0.2])}}
+    return d
+
+
 def matpreview_dict(width=256, height=256, spp=64, max_depth=6,
                     alpha=0.1, material="Au"):
     """The matpreview scene (bench.py's second config): a rough gold

@@ -2,9 +2,11 @@
 
 Parity: include/mitsuba/render/film.h:21 (crop window, develop) and
 imageblock.h:20 (accumulation with a filter-weight channel). The block is a
-``(h + 2b, w + 2b, ch + 1)`` tensor of weighted sums; ``develop``
-normalizes by the weight channel. The box filter (border 0) is the only
-splat in this slice: its passes arrive already reduced per pixel.
+``(h + 2b, w + 2b, ch + 1)`` tensor of weighted sums with a border of b =
+ceil(radius - 1/2) pixels; ``put`` splats samples at continuous film
+positions through the filter's (2b + 1)^2 taps, ``develop`` crops the
+border and normalizes by the weight channel. The path kernel's passes
+arrive already splatted (ops/splat.py).
 """
 
 from __future__ import annotations
@@ -15,12 +17,18 @@ import torch
 from ..core.object import Object
 
 
+def border(rfilter) -> int:
+    """Pixels of an image block's border for ``rfilter``: ceil(radius -
+    1/2) (imageblock.cpp)."""
+    return int(np.ceil(rfilter.radius - 0.5))
+
+
 class ImageBlock:
     def __init__(self, size, n_channels, rfilter, device):
         self.size = tuple(int(s) for s in size)  # (w, h)
         self.n_channels = int(n_channels)
         self.rfilter = rfilter
-        self.border = int(np.ceil(rfilter.radius - 0.5))
+        self.border = border(rfilter)
         self.device = device
 
     def create(self) -> torch.Tensor:
@@ -28,6 +36,40 @@ class ImageBlock:
         b = self.border
         return torch.zeros((h + 2 * b, w + 2 * b, self.n_channels + 1),
                            dtype=torch.float32, device=self.device)
+
+    def put(self, data: torch.Tensor, pos, values, active=None,
+            weight=None) -> torch.Tensor:
+        """``data`` with samples ``values`` (n, ch) splatted at continuous
+        film positions ``pos`` (n, 2): each tap of the (2b + 1)^2 stencil
+        around the pixel a sample falls into gets the filter's weight at
+        tap center - sample position, per axis (imageblock.cpp:62;
+        mitsuba2_tpu/render/film.py ImageBlock.put). Taps outside the
+        bordered block are dropped. Returns a new tensor."""
+        b = self.border
+        w, h = self.size
+        px = torch.floor(pos[..., 0])
+        py = torch.floor(pos[..., 1])
+        if weight is None:
+            weight = torch.ones(pos.shape[:-1], dtype=data.dtype,
+                                device=data.device)
+        if active is not None:
+            weight = torch.where(active, weight, 0.0)
+            values = torch.where(active[..., None], values, 0.0)
+        vals_w = torch.cat([values, weight[..., None]], -1)
+        data = data.clone()
+        for ty in range(2 * b + 1):
+            for tx in range(2 * b + 1):
+                cx = px + (tx - b)
+                cy = py + (ty - b)
+                fw = (self.rfilter.eval(cx + 0.5 - pos[..., 0])
+                      * self.rfilter.eval(cy + 0.5 - pos[..., 1]))
+                ix = torch.clamp(cx.long() + b, 0, w + 2 * b - 1)
+                iy = torch.clamp(cy.long() + b, 0, h + 2 * b - 1)
+                inside = ((cx >= -b) & (cx < w + b)
+                          & (cy >= -b) & (cy < h + b))
+                data.index_put_((iy, ix), vals_w * torch.where(
+                    inside, fw, 0.0)[..., None], accumulate=True)
+        return data
 
     def develop(self, data: torch.Tensor) -> torch.Tensor:
         """-> (h, w, ch) image normalized by accumulated filter weight."""

@@ -35,6 +35,27 @@ def fresnel(cos_theta_i, eta):
     return F, torch.where(cos_theta_i <= 0, cos_t, -cos_t), eta_it, eta_ti
 
 
+def fresnel_diffuse_reflectance(eta) -> torch.Tensor:
+    """Average Fresnel reflectance of diffuse internal scattering at
+    relative IOR ``eta`` (fresnel.h fresnel_diffuse_reflectance: the Egan
+    and Hilgeman / d'Eon polynomial fits), in float32."""
+    eta = torch.as_tensor(eta, dtype=torch.float32)
+
+    def powers(ie):
+        ie2 = ie * ie
+        ie3 = ie2 * ie
+        ie4 = ie3 * ie
+        return ie, ie2, ie3, ie4, ie4 * ie
+
+    ie, ie2, ie3, ie4, ie5 = powers(eta)
+    below = (0.919317 - 3.4793 * ie + 6.75335 * ie2 - 7.80989 * ie3
+             + 4.98554 * ie4 - 1.36881 * ie5)
+    ie, ie2, ie3, ie4, ie5 = powers(1.0 / eta)
+    above = (-9.23372 + 22.2272 * ie - 20.9292 * ie2 + 10.2291 * ie3
+             - 2.54396 * ie4 + 0.254913 * ie5)
+    return torch.where(eta < 1.0, below, above)
+
+
 # Named dielectric IORs (ior.h), the values of mitsuba2_tpu.render.fresnel.
 IOR_DATABASE = {
     "vacuum": 1.0, "helium": 1.000036, "hydrogen": 1.000132,

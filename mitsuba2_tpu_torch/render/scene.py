@@ -2,14 +2,15 @@
 
 Parity: include/mitsuba/render/scene.h:12 and ``mitsuba2_tpu.render.scene``
 (``Scene._compile``, ``_mesh_face_arrays``). Every mesh packs into per-face
-arrays on the host, every analytic sphere into a sphere row; the path
-kernel's tables (ops/path_kernel.py ``PathTables``) are then built once, on
-the device chosen with ``set_device``: Woop rows, per-face attribute rows
-(normal, light pdf, albedo, BSDF kind and parameters, uv), the light
-table, sphere rows, the envmap's radiance and sampling grid and, in
-spectral variants, the D65 and CIE table, laid out as
-``DiffusePathMegakernel.__init__`` builds them (ops/megakernel.py:
-2260-2682), in the same light-face order.
+arrays on the host, every analytic sphere into a sphere row, every disk
+and cylinder into a quad row; the path kernel's tables (ops/path_kernel.py
+``PathTables``) are then built once, on the device chosen with
+``set_device``: Woop rows, per-face attribute rows (normal, light pdf,
+albedo, BSDF kind and parameters, uv, texture region), the light table,
+sphere and quad rows with their attribute rows, the bitmap textures'
+texels, the envmap's radiance and sampling grid and, in spectral variants,
+the D65 and CIE table, laid out as ``DiffusePathMegakernel.__init__``
+builds them (ops/megakernel.py:2260-2682), in the same light-face order.
 
 Colors are packed as the variant the scene was loaded under reads them:
 linear rgb; in spectral variants the sigmoid model's coefficients (with a
@@ -64,6 +65,11 @@ class Scene(Object):
                     self.emitters.append(obj)
                 elif kind == "integrator":
                     self.integrator = obj
+        # emitter-carrying analytic shapes need triangle tables for area
+        # sampling; expand() does it for loaded scenes, this for shapes
+        # given directly (mitsuba2_tpu/render/scene.py:82-86)
+        self.shapes = [s._tessellate() if s.is_analytic()
+                       and s.emitter is not None else s for s in self.shapes]
         # collect shape-attached emitters (scene.cpp:22-59 classification)
         for s in self.shapes:
             if s.emitter is not None and s.emitter not in self.emitters:
@@ -88,12 +94,13 @@ class Scene(Object):
             e._emitter_index = i
 
         v0s, e1s, e2s, ngs, uvss, face_shape = [], [], [], [], [], []
-        spheres = []
+        spheres, quadrics = [], []
         bb_min = np.full(3, np.inf)
         bb_max = np.full(3, -np.inf)
         for si_idx, s in enumerate(self.shapes):
             if s.is_analytic():
-                spheres.append((si_idx, s))
+                (quadrics if hasattr(s, "prim_row") else spheres).append(
+                    (si_idx, s))
             elif s.is_mesh():
                 v0, e1, e2, ng, uvs = _mesh_face_arrays(s)
                 v0s.append(v0)
@@ -143,7 +150,11 @@ class Scene(Object):
         lights, le_face, le_scale, lpdf_w, p_env = _light_table(
             self.emitters, self.shapes, self.face_shape, env is not None,
             mode)
-        cols = [_shape_columns(s.bsdf, mode) for s in self.shapes]
+        textures = pk.bitmaps(self.shapes)
+        offsets = np.cumsum([0] + [t.rgb.shape[0] * t.rgb.shape[1]
+                                   for t in textures])
+        cols = [_shape_columns(s.bsdf, mode, textures, offsets)
+                for s in self.shapes]
 
         fattr = np.zeros((len(self.face_shape), pk.FA), np.float32)
         fattr[:, pk.C_NG:pk.C_NG + 3] = self.ng
@@ -169,6 +180,31 @@ class Scene(Object):
             sattr[i, pk.C_DUV1] = 1.0
             sattr[i, pk.C_DUV2 + 1] = 1.0
 
+        # disks and cylinders (mitsuba2_tpu/render/scene.py:333-350,
+        # megakernel.py:2492-2530): quad_table rows [prim_row (24), shape
+        # index, flip]; the kernel's rows [A, b, kind, radius, length, 0]
+        # and attribute rows with a disk's normal (A's third row,
+        # normalized, times flip), identity uv and the flip
+        self.quad_table = np.zeros((len(quadrics), 26), np.float32)
+        qd = np.zeros((len(quadrics), pk.QD), np.float32)
+        qattr = np.zeros((len(quadrics), pk.FA), np.float32)
+        for i, (si_idx, s) in enumerate(quadrics):
+            row = s.prim_row()
+            flip = np.float32(-1.0 if s.flip_normals else 1.0)
+            self.quad_table[i] = np.concatenate([row, [si_idx, flip]])
+            qd[i, :12] = row[:12]
+            qd[i, 12:15] = row[21:24]
+            arow = row[6:9]
+            qattr[i] = cols[si_idx]
+            qattr[i, pk.C_NG:pk.C_NG + 3] = arow / max(
+                np.linalg.norm(arow), np.float32(1e-20)) * flip
+            qattr[i, pk.C_DUV1] = 1.0
+            qattr[i, pk.C_DUV2 + 1] = 1.0
+            qattr[i, pk.C_FLIP] = flip
+        tex = (np.concatenate([np.pad(t.payload, ((0, 0), (0, 0), (0, 1)))
+                               .reshape(-1, 4) for t in textures])
+               if textures else None)
+
         env_t = env_rot = None
         if env is not None:
             env_t = (env_texels(env.data, mode),) \
@@ -177,7 +213,8 @@ class Scene(Object):
         self.tables = pk.pack_tables(
             self.v0, self.e1, self.e2, fattr, lights,
             self.device, sph=sph, sattr=sattr, env=env_t, env_rot=env_rot,
-            p_env=p_env, nc=pk.MODE_NC[mode], traversal=self.traversal)
+            p_env=p_env, nc=pk.MODE_NC[mode], traversal=self.traversal,
+            quads=(qd, qattr), tex=tex)
         # the light table and per-face emission on the host, for the same
         self.light_rows, self.le_face, self.lpdf_w = lights, le_face, lpdf_w
 
@@ -215,6 +252,50 @@ class Scene(Object):
         return t_best, torch.where(torch.isfinite(t_best),
                                    s_best.to(torch.int32), -1)
 
+    def _quad_closest_hit(self, o, d, mint, maxt):
+        """Every ray against every disk and cylinder in its object frame,
+        the reference's plain pass (mitsuba2_tpu/render/scene.py:564-611)
+        -> (t (n,) inf on a miss, quad index (n,) or -1)."""
+        tab = torch.as_tensor(self.quad_table, device=o.device)
+        t_best = torch.full_like(mint, float("inf"))
+        q_best = torch.full(mint.shape, -1, dtype=torch.int32,
+                            device=o.device)
+        for q in range(len(self.quad_table)):
+            A = tab[q, 0:9].reshape(3, 3)
+            o_l = o @ A.T + tab[q, 9:12]
+            d_l = d @ A.T
+            if self.quad_table[q, 21] == 1.0:      # disk
+                dz = d_l[:, 2]
+                t = -o_l[:, 2] / torch.where(dz.abs() > 1e-12, dz,
+                                             float("inf"))
+                x = o_l[:, 0] + t * d_l[:, 0]
+                y = o_l[:, 1] + t * d_l[:, 1]
+                ok = (x * x + y * y <= 1.0) & (t >= mint) & (t <= maxt)
+            else:                                  # cylinder
+                r, ln = tab[q, 22], tab[q, 23]
+                a2 = d_l[:, 0] ** 2 + d_l[:, 1] ** 2
+                b2 = 2.0 * (d_l[:, 0] * o_l[:, 0] + d_l[:, 1] * o_l[:, 1])
+                c2 = o_l[:, 0] ** 2 + o_l[:, 1] ** 2 - r * r
+                disc = b2 * b2 - 4.0 * a2 * c2
+                sq = torch.sqrt(torch.clamp(disc, min=0.0))
+                inv2a = 1.0 / torch.where(a2.abs() > 1e-20, 2.0 * a2,
+                                          float("inf"))
+                t_near = (-b2 - sq) * inv2a
+                t_far = (-b2 + sq) * inv2a
+                zn = o_l[:, 2] + d_l[:, 2] * t_near
+                zf = o_l[:, 2] + d_l[:, 2] * t_far
+                near_ok = (zn >= 0) & (zn <= ln) & (t_near >= mint) \
+                    & (t_near <= maxt)
+                far_ok = (zf >= 0) & (zf <= ln) & (t_far >= mint) \
+                    & (t_far <= maxt)
+                ok = (disc > 0) & (near_ok | far_ok)
+                t = torch.where(near_ok, t_near, t_far)
+            t = torch.where(ok, t, float("inf"))
+            closer = t < t_best
+            t_best = torch.where(closer, t, t_best)
+            q_best = torch.where(closer, q, q_best)
+        return t_best, q_best
+
     def _segment_ends(self, ray, active):
         if active is None:
             return ray.maxt
@@ -225,8 +306,10 @@ class Scene(Object):
         device) -> render/records.py PreliminaryIntersection (scene.h;
         mitsuba2_tpu/render/scene.py:637-720). Mesh faces go through K2
         (ops/intersect_kernel.py), the analytic spheres through the
-        reference's plain pass; a sphere hit has prim id F + its index and
-        uv 0. Rays with ``active`` False miss."""
+        reference's plain pass, and so do the disks and cylinders after
+        them; a sphere hit has prim id F + its index, a disk or cylinder
+        hit F + S + its index, and uv 0. Rays with ``active`` False
+        miss."""
         from ..ops.intersect_kernel import isect_closest
         from .records import PreliminaryIntersection
         maxt = self._segment_ends(ray, active)
@@ -249,6 +332,18 @@ class Scene(Object):
                 prim >= n_faces,
                 ss[(prim - n_faces).clamp(0, len(ss) - 1).long()],
                 shape_idx)
+        if len(self.quad_table):
+            base = n_faces + self.tables.n_spheres
+            tq, q_idx = self._quad_closest_hit(ray.o, ray.d, ray.mint, maxt)
+            closer = tq < t
+            t = torch.where(closer, tq, t)
+            prim = torch.where(closer & (q_idx >= 0), base + q_idx, prim)
+            uv = torch.where(closer[:, None], 0.0, uv)
+            qs = torch.as_tensor(self.quad_table[:, 24].astype(np.int32),
+                                 device=prim.device)
+            shape_idx = torch.where(
+                prim >= base,
+                qs[(prim - base).clamp(0, len(qs) - 1).long()], shape_idx)
         shape_idx = torch.where(prim >= 0, shape_idx, -1)
         return PreliminaryIntersection(t, uv, shape_idx.to(torch.int32),
                                        prim.to(torch.int32))
@@ -256,25 +351,33 @@ class Scene(Object):
     def ray_test(self, ray, active=None):
         """Whether each ray is occluded within its [mint, maxt] (scene.h
         ray_test; mitsuba2_tpu/render/scene.py:965-989): mesh faces through
-        K2's any-hit entry, spheres through the plain pass -> (n,) bool."""
+        K2's any-hit entry, spheres, disks and cylinders through the plain
+        passes -> (n,) bool."""
         from ..ops.intersect_kernel import isect_any
         maxt = self._segment_ends(ray, active)
         hit = isect_any(self.tables, ray.o, ray.d, ray.mint, maxt)
         if self.tables.n_spheres:
             ts, _ = self._sphere_closest_hit(ray.o, ray.d, ray.mint, maxt)
             hit = hit | torch.isfinite(ts)
+        if len(self.quad_table):
+            tq, _ = self._quad_closest_hit(ray.o, ray.d, ray.mint, maxt)
+            hit = hit | torch.isfinite(tq)
         return hit
 
 
-def _shape_columns(bsdf, mode):
+def _shape_columns(bsdf, mode, textures, offsets):
     """A shape's BSDF columns of the attribute row (ops/path_kernel.py
     C_*) in color mode ``mode``: kind, albedo, color1, alpha, eta, k, the
-    IOR fit span and to_uv, as megakernel.py:2327-2432 and
-    _shape_albedo/_shape_c1 (:2685-2726) set them. Zeros for a BSDF the
-    path kernel refuses (the integrator's gate refuses the scene before
-    the table is read)."""
-    from ..models.bsdfs import SmoothDiffuse, RoughConductor
-    from ..models.textures import CheckerboardTexture, mono_luminance
+    IOR fit span, to_uv, the dielectric's and plastics' parameters and a
+    bitmap's texel region (its first texel: ``offsets`` at its index in
+    ``textures``), as megakernel.py:2327-2432 and _shape_albedo /
+    _shape_c1 (:2685-2726) set them. Zeros for a BSDF the path kernel
+    refuses (the integrator's gate refuses the scene before the table is
+    read)."""
+    from ..models.bsdfs import (SmoothDiffuse, RoughConductor,
+                                SmoothDielectric, SmoothPlastic)
+    from ..models.textures import (CheckerboardTexture, BitmapTexture,
+                                   mono_luminance)
     row = np.zeros(pk.FA, np.float32)
     row[pk.C_TOUV0] = row[pk.C_TOUV1 + 1] = 1.0        # identity to_uv
     if pk.bsdf_ineligibility(bsdf, mode) is not None:
@@ -289,6 +392,10 @@ def _shape_columns(bsdf, mode):
                 M = np.asarray(tex.to_uv.matrix, np.float32)
                 row[pk.C_TOUV0:pk.C_TOUV0 + 3] = M[0, [0, 1, 3]]
                 row[pk.C_TOUV1:pk.C_TOUV1 + 3] = M[1, [0, 1, 3]]
+        elif type(tex) is BitmapTexture:
+            row[pk.C_KIND] = pk.KIND_BITMAP
+            i = next(k for k, t in enumerate(textures) if t is tex)
+            row[pk.C_TEX:pk.C_TEX + 3] = (offsets[i], *tex.resolution)
         else:
             row[pk.C_ALB:pk.C_ALB + 3] = tex.payload()
     elif type(bsdf) is RoughConductor:
@@ -308,6 +415,21 @@ def _shape_columns(bsdf, mode):
         else:
             row[pk.C_ETA:pk.C_ETA + 3] = eta.rgb
             row[pk.C_K:pk.C_K + 3] = k.rgb
+    elif type(bsdf) is SmoothDielectric:
+        row[pk.C_KIND] = pk.KIND_DIELECTRIC
+        row[pk.C_ALB:pk.C_ALB + 3] = bsdf.specular_reflectance.payload()
+        row[pk.C_C1:pk.C_C1 + 3] = bsdf.specular_transmittance.payload()
+        row[pk.C_ETAD] = bsdf.eta
+    else:                                   # smooth or rough plastic
+        rough = type(bsdf) is not SmoothPlastic
+        row[pk.C_KIND] = pk.KIND_ROUGHPLASTIC if rough else pk.KIND_PLASTIC
+        if rough:
+            row[pk.C_ALPHA] = bsdf.alpha_u
+        row[pk.C_ALB:pk.C_ALB + 3] = bsdf.diffuse_reflectance.payload()
+        row[pk.C_C1:pk.C_C1 + 3] = bsdf.specular_reflectance.payload()
+        row[pk.C_ETAD:pk.C_NONLIN + 1] = (
+            bsdf.eta, bsdf.specular_sampling_weight, bsdf.fdr_int,
+            bsdf.inv_eta_2, 1.0 if bsdf.nonlinear else 0.0)
     return row
 
 

@@ -80,7 +80,7 @@ def with_leaf(pk, bvh, scene, leaf):
     order = torch.as_tensor(tree.order, device=tables.device)
     return tables._replace(
         bvh_nodes=torch.as_tensor(nodes, device=tables.device),
-        bvh_woop=tables.woop[order.long()].contiguous(),
+        bvh_woop=pk.face_woop(tables)[order.long()].contiguous(),
         bvh_prim=order.to(torch.int32), bvh_depth=depth)
 
 

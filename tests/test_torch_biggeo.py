@@ -95,7 +95,7 @@ def test_face_tables_are_the_references_row_for_row(reference):
     assert packed[:pk.C_ETA].all()
     np.testing.assert_allclose(st.tables.fattr.numpy()[:, packed],
                                ref_attr[:, packed], rtol=1e-6, atol=1e-7)
-    to_uv = st.tables.fattr.numpy()[:, pk.C_TOUV0:]
+    to_uv = st.tables.fattr.numpy()[:, pk.C_TOUV0:pk.C_TOUV1 + 4]
     assert (to_uv == [1, 0, 0, 0, 0, 1, 0, 0]).all()
     # the reference's streamed layout: (4, chunk * 3C) per-chunk blocks
     C = mk.chunk

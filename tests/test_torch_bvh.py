@@ -39,6 +39,57 @@ def bumpy_triangles(nu=32, nv=20):
     return p[:, 0], p[:, 1] - p[:, 0], p[:, 2] - p[:, 0]
 
 
+def median_split(v0, e1, e2, leaf_size):
+    """A median-split builder (no SAH) in the native builder's node layout:
+    the JAX package's ``force_numpy`` builder, which the port has no use
+    for (another builder gives another face order)."""
+    n = len(v0)
+    p0, p1, p2 = v0, v0 + e1, v0 + e2
+    lo_f = np.minimum(np.minimum(p0, p1), p2)
+    hi_f = np.maximum(np.maximum(p0, p1), p2)
+    cen = 0.5 * (lo_f + hi_f)
+    order = np.arange(n, dtype=np.int32)
+    nodes = []
+
+    def rec(begin, end):
+        idx = len(nodes)
+        nodes.append(np.zeros(bvh._NODE_SLOTS, np.float32))
+        sel = order[begin:end]
+        node = nodes[idx]
+        node[bvh._LO] = lo_f[sel].min(0)
+        node[bvh._HI] = hi_f[sel].max(0)
+        ints = node.view(np.int32)
+        cnt = end - begin
+        if cnt <= leaf_size:
+            ints[bvh._LEFT], ints[bvh._COUNT], ints[bvh._RIGHT] = \
+                begin, cnt, -1
+            return idx
+        axis = int(np.argmax((cen[sel].max(0) - cen[sel].min(0))))
+        key = np.argsort(cen[sel, axis], kind="stable")
+        order[begin:end] = sel[key]
+        mid = begin + cnt // 2
+        left = rec(begin, mid)
+        right = rec(mid, end)
+        ints[bvh._LEFT], ints[bvh._COUNT], ints[bvh._RIGHT] = left, 0, right
+        return idx
+
+    rec(0, n)
+    return bvh.BVH(np.stack(nodes), order)
+
+
+def chunk_bounds(v0, e1, e2, chunk):
+    """Per-face-chunk AABBs (n_chunks, 6) = [lo, hi] over each contiguous
+    ``chunk`` of faces, padding slots inverted (the JAX package's
+    ``chunk_bounds``, whose culling the port's walk does not need)."""
+    p = np.stack([v0, v0 + e1, v0 + e2], 1)
+    lo, hi = p.min(1), p.max(1)
+    pad = (-len(v0)) % chunk
+    lo = np.concatenate([lo, np.full((pad, 3), np.inf, np.float32)])
+    hi = np.concatenate([hi, np.full((pad, 3), -np.inf, np.float32)])
+    return np.concatenate([lo.reshape(-1, chunk, 3).min(1),
+                           hi.reshape(-1, chunk, 3).max(1)], -1)
+
+
 MESHES = {"random": lambda: random_triangles(3000, 1),
           "bumpy": bumpy_triangles,
           "flat": lambda: random_triangles(200, 2)[:1] + tuple(
@@ -62,7 +113,7 @@ def test_native_builder_matches_jax(mesh, leaf_size):
 def test_median_split_only_on_request():
     from mitsuba2_tpu.ops import bvh as bvh_j
     tris = random_triangles(500, 3)
-    ours = bvh.build_bvh(*tris, leaf_size=16, force_numpy=True)
+    ours = median_split(*tris, leaf_size=16)
     theirs = bvh_j.build_bvh(*tris, leaf_size=16, force_numpy=True)
     np.testing.assert_array_equal(ours.order, theirs.order)
     np.testing.assert_array_equal(ours.nodes.view(np.int32),
@@ -86,7 +137,7 @@ def test_chunk_bounds_match_jax():
     from mitsuba2_tpu.ops import bvh as bvh_j
     tris = bumpy_triangles()
     for chunk in (64, 100):
-        np.testing.assert_array_equal(bvh.chunk_bounds(*tris, chunk),
+        np.testing.assert_array_equal(chunk_bounds(*tris, chunk),
                                       bvh_j.chunk_bounds(*tris, chunk))
 
 

@@ -30,6 +30,7 @@ import torch
 import mitsuba2_tpu_torch as mt
 from mitsuba2_tpu_torch.core.ray import Ray
 from mitsuba2_tpu_torch.ops import intersect, intersect_kernel as ik
+from mitsuba2_tpu_torch.ops.path_kernel import face_woop
 from tests.test_torch_bvh import _jax_scene_and_port_scene
 from tests.test_torch_path_kernel import cpu_device_fixture
 
@@ -195,12 +196,13 @@ def test_cuda_isect_matches_plain_twin():
     torch.cuda.synchronize()
     assert (ik.isect_closest.launches, ik.isect_any.launches) == (
         before[0] + 1, before[1] + 1)
-    rt, ruv, rprim = intersect.closest_hit_reference(scene.tables.woop,
-                                                     *args)
+    woop = face_woop(scene.tables)      # the BVH tier uploads no face rows
+    assert scene.tables.woop.shape[0] == 0 and woop.shape[0] > 1024
+    rt, ruv, rprim = intersect.closest_hit_reference(woop, *args)
     same = prim == rprim
     assert same.float().mean() >= ID_SHARE
     ok = same & (rprim >= 0)
     torch.testing.assert_close(t[ok], rt[ok], rtol=1e-6, atol=0)
     torch.testing.assert_close(uv[ok], ruv[ok], rtol=0, atol=1e-6)
-    rhit = intersect.any_hit_reference(scene.tables.woop, *args)
+    rhit = intersect.any_hit_reference(woop, *args)
     assert (hit == rhit).float().mean() >= ID_SHARE

@@ -48,15 +48,27 @@ def test_exr_round_trips_bit_exact_across_packages(tmp_path, half,
     np.testing.assert_array_equal(read_t(mine)[0], want)
 
 
-def test_read_image_reads_exr_and_names_other_formats(tmp_path):
+def test_read_image_reads_exr_and_names_other_formats(tmp_path,
+                                                     monkeypatch):
+    """EXR reads as written; an 8-bit PNG reads through PIL, decoded from
+    sRGB as the JAX package decodes it, and without PIL the error names
+    the missing package."""
+    import sys
+    from PIL import Image
+    from mitsuba2_tpu.utils.io_image import read_image as read_j
     from mitsuba2_tpu_torch.utils.io_exr import write_exr
     from mitsuba2_tpu_torch.utils.io_image import read_image
     img = RNG.random((4, 5, 3)).astype(np.float32)
     path = str(tmp_path / "a.exr")
     write_exr(path, img, half=False)
     np.testing.assert_array_equal(read_image(path), img)
-    with pytest.raises(NotImplementedError, match="'.png'"):
-        read_image(str(tmp_path / "a.png"))
+    png = str(tmp_path / "a.png")
+    Image.fromarray((img * 255).astype(np.uint8)).save(png)
+    np.testing.assert_allclose(read_image(png), read_j(png), rtol=2e-6,
+                               atol=1e-7)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with pytest.raises(ImportError, match="PIL"):
+        read_image(png)
 
 
 def test_fresnel_conductor_and_ior_table():

@@ -82,14 +82,16 @@ def test_pass_splitting_keeps_the_image():
 
 
 def _out_of_scope():
+    from mitsuba2_tpu_torch.models.bsdfs import SmoothDiffuse
     from mitsuba2_tpu_torch.models.emitters import EnvironmentMap
+    from mitsuba2_tpu_torch.models.textures import BitmapTexture
     from mitsuba2_tpu_torch.render.bsdf import BSDF
     from mitsuba2_tpu_torch.render.shape import Shape
 
     class Mirror(BSDF):
         pass
 
-    class SmoothDielectric(BSDF):       # stands in for the unported plugin
+    class RoughDielectric(BSDF):        # stands in for the unported plugin
         pass
 
     class Quadric(Shape):
@@ -105,8 +107,25 @@ def _out_of_scope():
     def quadric(scene):
         scene.shapes.append(Quadric())
 
-    def dielectric(scene):
-        scene.shapes[1].bsdf = SmoothDielectric()
+    def rough_dielectric(scene):
+        # test_megakernel.py:237-240
+        scene.shapes[1].bsdf = RoughDielectric()
+
+    def beckmann_plastic(d):
+        d["shortbox"]["bsdf"] = {"type": "roughplastic", "alpha": 0.2}
+
+    def wide_bitmap(scene):
+        bsdf = SmoothDiffuse()
+        bsdf.reflectance = BitmapTexture(data=np.ones((2, 1025, 3)))
+        scene.shapes[0].bsdf = bsdf
+
+    def many_disks(d):
+        for i in range(65):
+            d[f"disk{i}"] = {"type": "disk", "to_world": mt.Transform.translate(
+                [0, 0, -2 - i])}
+
+    def disk_in_volpath(d):
+        d["rug"] = {"type": "disk"}
 
     def anisotropic(d):
         d["back"]["bsdf"] = {"type": "roughconductor", "distribution": "ggx",
@@ -137,9 +156,6 @@ def _out_of_scope():
                                 "eta": {"type": "d65"}, "k": [3.9, 2.4, 1.6]}
 
     return {
-        "gaussian rfilter": (lambda d: d["sensor"]["film"]["rfilter"]
-                             .update(type="gaussian"), None,
-                             "rfilter GaussianFilter"),
         # the cap lowered to 1024 (the reference's is MAX_FACES_HBM)
         "face count": (many_faces, None, "face count 1062 > 1024"),
         "polarized variant": (None, None, "polarized variant"),
@@ -152,7 +168,15 @@ def _out_of_scope():
             "area emitter spectrum without srgb_d65 payload"),
         "bsdf": (None, mirror, "unsupported BSDF Mirror"),
         "shape": (None, quadric, "non-triangle shape Quadric"),
-        "dielectric": (None, dielectric, "unsupported BSDF SmoothDielectric"),
+        "roughdielectric": (None, rough_dielectric,
+                            "unsupported BSDF RoughDielectric"),
+        "beckmann roughplastic": (beckmann_plastic, None,
+                                  "unsupported BSDF RoughPlastic"),
+        "bitmap wider than 1024": (None, wide_bitmap,
+                                   "bitmap 1025x2 beyond the kernel's 1024"),
+        "65 disks": (many_disks, None, "disk/cylinder count > 64"),
+        "disk in a volpath scene": (
+            disk_in_volpath, None, "analytic shapes/instances"),
         "anisotropic roughconductor": (anisotropic, None,
                                        "unsupported BSDF RoughConductor"),
         "two envmaps": (None, two_envmaps, "multiple envmaps"),
@@ -177,12 +201,14 @@ _CASE_VARIANT = {"polarized variant": "scalar_rgb_polarized",
 
 @pytest.mark.parametrize("case", sorted(_out_of_scope()))
 def test_out_of_scope_scene_raises_with_reason(case, monkeypatch):
+    from mitsuba2_tpu_torch.python.test.scenes import volpath_slab_dict
     edit_dict, edit_scene, reason = _out_of_scope()[case]
     if case == "face count":
         monkeypatch.setattr(pk, "MAX_FACES_HBM", 1024)
     mt.set_variant(_CASE_VARIANT.get(case, "scalar_rgb"))
     try:
-        d = cornell_t(width=4, height=4, spp=1)
+        d = (volpath_slab_dict if "volpath" in case else cornell_t)(
+            width=4, height=4, spp=1)
         if edit_dict:
             edit_dict(d)
         scene = mt.load_dict(d)
@@ -194,6 +220,38 @@ def test_out_of_scope_scene_raises_with_reason(case, monkeypatch):
         assert scene.integrator.last_engine is None
     finally:
         mt.set_variant("scalar_rgb")
+
+
+def _formerly_refused():
+    def gaussian(d):
+        d["sensor"]["film"]["rfilter"]["type"] = "gaussian"
+
+    def dielectric(d):
+        d["tallbox"]["bsdf"] = {"type": "dielectric"}
+
+    return {"gaussian rfilter": (gaussian, 0, 8),
+            "dielectric": (dielectric, pk.HAS_LOBES, 4)}
+
+
+@pytest.mark.parametrize("case", sorted(_formerly_refused()))
+def test_formerly_refused_scene_renders(case):
+    """The reference's default film filter and the smooth dielectric, which
+    the path kernel refused before its splat and its lobes were ported,
+    render through the kernel's plain version: the developed image, and
+    the (h + 2b, w + 2b) block of the gaussian's border."""
+    edit, flags, block_w = _formerly_refused()[case]
+    mt.set_variant("scalar_rgb")
+    d = cornell_t(width=4, height=4, spp=2, max_depth=3)
+    edit(d)
+    scene = mt.load_dict(d)
+    assert scene.tables.flags & pk.TEMPLATE_FLAGS == flags
+    img = scene.integrator.render(scene, seed=0, spp=2)
+    assert scene.integrator.last_engine == "kernel"
+    assert scene.integrator.engine_reason is None
+    assert img.shape == (4, 4, 3) and torch.isfinite(img).all()
+    assert img.mean() > 0
+    block = scene.integrator.render(scene, seed=0, spp=2, develop=False)
+    assert block.shape == (block_w, block_w, 4)
 
 
 def test_scene_above_the_shared_tier_takes_the_bvh_tier():
