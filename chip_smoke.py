@@ -5,7 +5,8 @@
 Builds the port's CUDA kernels and its host BVH builder from the sources
 in this checkout (the path kernel twice per color mode, without and with
 its lobes flag, the film splat, the volumetric kernel, the intersection
-kernel and csrc/bvh.cpp, in parallel compiler processes) and prints each
+kernel, the face sweep and csrc/bvh.cpp, in parallel compiler processes)
+and prints each
 kernel instantiation's registers and spills. Then, for each path -- the
 Cornell box (the main path), the matpreview scene (a rough gold sphere
 under an HDR sky above a checker floor), both again under
@@ -35,7 +36,14 @@ Cornell box against the shared-memory tier, and drives the scene's ray
 queries (``Scene.ray_intersect_preliminary`` and ``Scene.ray_test``, the
 intersection kernel's closest-hit and any-hit entries) on biggeo's
 2,097,152 camera rays and as many rays toward its light, against their
-plain twin on 65,536 of each. Prints one JSON line of kernel results, the
+plain twin on 65,536 of each. Last comes the measurement path: the
+face-test ceilings through ``tools/shape_ceiling.py`` (the sweep kernel's
+shared-memory and global instantiations at the tool's default shapes,
+beside ``torch.matmul`` of the same product), each instantiation's timed
+outputs against its plain version on the same inputs, each path kernel's
+face tests a second
+against the ceilings, and the Cornell box's per-depth utilization report
+(``core/profiler.py``). Prints one JSON line of kernel results, the
 card's name and power limit, and as its last line ``{"ok": true,
 "device": {...}}``. Any failed phase exits non-zero, and so does a machine
 without CUDA: nothing runs on the CPU instead.
@@ -51,6 +59,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from mitsuba2_tpu_torch.core import profiler as prof
 
 WIDTH, SPP, MAX_DEPTH = 256, 64, 6
 PARITY_WIDTH, PARITY_SPP, SEED = 64, 16, 7
@@ -75,67 +85,8 @@ PIX_RTOL, PIX_SHARE, MEAN_RTOL = 1e-4, 0.99, 1e-5
 # the mean of 4,194,304 lanes by about 4e-5 (PERF.md §2)
 CAUSTIC_MEAN_RTOL = 1e-4
 REPEATS = 5
-# the card's published peaks (H100 SXM, dense): fp32 outside the tensor
-# cores, and HBM bandwidth
-PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
-# fp32 FLOPs (an FMA counts 2), counted roughly from csrc/path_kernel.cu:
-# per path the camera ray, and in spectral mode per channel the hero
-# wavelength, its D65 lookup and its share of the CIE develop; per traced
-# ray the Woop t test of each face (two dot products, a division) and the
-# quadratic of each sphere; per shadow ray the tests its loop runs before
-# the first occluder; per shaded bounce the NEE sample, MIS, BSDF sample,
-# frame and throughput update (a fixed part and a part per channel; in
-# spectral mode the sigmoid and D65 evaluations per channel), with the GGX
-# eval and visible-normal sample and two Fresnel terms per channel on a
-# conductor; per escape the env lookup (atan2, acos, a bilinear fetch) and
-# per env NEE sample its sin/cos and fetch. Compares, the binary searches
-# and the TEA integer work are not counted, so the bound is a lower one.
-# In the BVH tier (csrc/bvh.cuh) a ray's face work is the walk's: per box
-# test of a child box six subtractions and six multiplications, per face
-# test the Woop t (FACE_FLOPS), with the walk's counts from ops/
-# intersect.py ``traverse`` over the plain version's rays.
-PATH_FLOPS, SPECTRAL_PATH_FLOPS_PER_CHANNEL = 40, 60
-FACE_FLOPS, SPHERE_FLOPS, BOX_FLOPS = 12, 20, 12
-SHADE_FLOPS, SHADE_FLOPS_PER_CHANNEL = 200, 40
-SPECTRAL_SHADE_FLOPS_PER_CHANNEL = 25
-GGX_FLOPS, GGX_FLOPS_PER_CHANNEL = 190, 50
-ENV_ESCAPE_FLOPS, ENV_NEE_FLOPS = 80, 100
-SPECTRAL_ENV_FLOPS_PER_CHANNEL = 12
 # the volpath path (bench.py bench_volpath): 256x256, 16 spp, max_depth 16
 VOL_SPP, VOL_MAX_DEPTH = 16, 16
-# fp32 FLOPs of the volumetric kernel, counted roughly from
-# csrc/volpath_kernel.cu: per round the box interval (about 55) and the
-# Woop t test of each opaque face (FACE_FLOPS); per delta-tracking or
-# ratio-tracking step the free-flight distance (a logf counted as one);
-# per grid fetch the medium-local point, three clamped axes and seven
-# lerps; per NEE evaluation the light sample, the direction, the pdf, the
-# phase or BSDF value, the shadow ray's box interval and the sum (its face
-# tests counted apart); per phase sample the HG inversion, the frame and
-# the direction; per surface event the emission, frame, lobe sample and
-# spawn. mix32 and TEA integer work and compares are not counted, so the
-# bound is a lower one.
-VOL_ROUND_FLOPS, VOL_STEP_FLOPS, VOL_FETCH_FLOPS = 55, 6, 80
-VOL_NEE_FLOPS, VOL_PHASE_FLOPS, VOL_SURFACE_FLOPS = 130, 50, 110
-# the lobes flag's work (csrc/path_kernel.cu): per disk or cylinder test
-# the ray into the object frame (two 3x3 products) and the disk's plane or
-# the cylinder's quadratic (a square root, a division); per dielectric
-# event a Fresnel term and the reflected or refracted direction, and per
-# channel the throughput; per plastic event (smooth or rough) the Fresnel
-# terms at wi, wo and the sampled direction, the coat's probability, the
-# base's denominator, its NEE value and the cosine sample, per channel the
-# base's value twice; per rough plastic event the coat's GGX evaluation
-# toward the light and at the sampled direction and, where picked, a
-# visible-normal sample; per bitmap fetch the texel coordinates and the
-# three-channel bilinear lerp of its four texels
-QUAD_FLOPS = 60
-DIEL_FLOPS, DIEL_FLOPS_PER_CHANNEL = 45, 3
-PLASTIC_FLOPS, PLASTIC_FLOPS_PER_CHANNEL = 150, 10
-ROUGH_PLASTIC_FLOPS, ROUGH_PLASTIC_FLOPS_PER_CHANNEL = 190, 4
-BITMAP_FLOPS = 50
-# the splat (csrc/splat_kernel.cu): per lane 2K filter values (an exp or a
-# sine or a cubic, about 20 FLOPs each) and K x 4 products, per lane and
-# tap 4 multiply-adds; per block pixel the K^2 x 4 tap sums
-SPLAT_FILTER_FLOPS = 20
 # the new kinds that must be the first hit of at least this share of the
 # materials scene's camera rays
 NEW_KINDS = ("dielectric", "plastic", "roughplastic", "bitmap", "disk",
@@ -150,17 +101,7 @@ def log(*args):
 def timed(fn, repeats=REPEATS, warm_up=True):
     """-> (last result, median milliseconds) of fn() on the card, timed
     with CUDA events, after one warm-up call unless told otherwise."""
-    out = fn() if warm_up else None
-    times = []
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        out = fn()
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop))
+    out, times = prof.cuda_times(fn, repeats, warm_up)
     return out, statistics.median(times)
 
 
@@ -223,59 +164,25 @@ def bound(pk, tables, stats, n_stats, n_paths):
     take for n_paths paths, from the per-lane work counted by the plain
     version (``stats`` over ``n_stats`` lanes of the same scene)."""
     per = {k: v / n_stats for k, v in stats.items()}
-    nc = tables.nc
-    spectral = nc == pk.MODE_NC["spectral"]
-    shade = SHADE_FLOPS + SHADE_FLOPS_PER_CHANNEL * nc
-    env = ENV_ESCAPE_FLOPS, ENV_NEE_FLOPS
-    path = PATH_FLOPS
-    if spectral:
-        path += SPECTRAL_PATH_FLOPS_PER_CHANNEL * nc
-        shade += SPECTRAL_SHADE_FLOPS_PER_CHANNEL * nc
-        env = tuple(e + SPECTRAL_ENV_FLOPS_PER_CHANNEL * nc for e in env)
     if tables.flags & pk.HAS_BVH:
-        faces = ((per["walk_boxes"] + per.get("shadow_walk_boxes", 0.0))
-                 * BOX_FLOPS
-                 + (per["walk_faces"] + per.get("shadow_walk_faces", 0.0))
-                 * FACE_FLOPS)
         log("  walk per path: " + ", ".join(
             f"{k} {v:.3f}" for k, v in sorted(per.items()) if "walk" in k)
             + f"; per ray {per['walk_boxes'] / per['rays']:.2f} box and "
             f"{per['walk_faces'] / per['rays']:.2f} face tests")
-    else:
-        faces = (per.get("rays", 0.0) * tables.n_faces
-                 + per.get("shadow_faces", 0.0)) * FACE_FLOPS
-    flops = n_paths * (
-        path + faces
-        + per.get("rays", 0.0) * tables.n_spheres * SPHERE_FLOPS
-        + per.get("shadow_spheres", 0.0) * SPHERE_FLOPS
-        + (per.get("quad_tests", 0.0) + per.get("shadow_quads", 0.0))
-        * QUAD_FLOPS
-        + per.get("shaded", 0.0) * shade
-        + per.get("ggx", 0.0) * (GGX_FLOPS + GGX_FLOPS_PER_CHANNEL * nc)
-        + per.get("dielectric", 0.0)
-        * (DIEL_FLOPS + DIEL_FLOPS_PER_CHANNEL * nc)
-        + per.get("plastic", 0.0)
-        * (PLASTIC_FLOPS + PLASTIC_FLOPS_PER_CHANNEL * nc)
-        + per.get("roughplastic", 0.0)
-        * (ROUGH_PLASTIC_FLOPS + ROUGH_PLASTIC_FLOPS_PER_CHANNEL * nc)
-        + per.get("bitmap", 0.0) * BITMAP_FLOPS
-        + per.get("escaped", 0.0) * env[0]
-        + per.get("env_nee", 0.0) * env[1])
     if tables.flags & pk.HAS_LOBES:
         log("  lobes per path: " + ", ".join(
             f"{k} {per.get(k, 0.0):.4f}" for k in (
                 "dielectric", "plastic", "roughplastic", "bitmap",
                 "quad_tests", "shadow_quads")))
-    return roofline(flops, tables, n_paths)
+    return roofline(prof.path_kernel_flop_count(tables, stats, n_stats,
+                                                n_paths), tables, n_paths)
 
 
 def splat_bound(n_lanes, k, n_block):
     """-> (ms, 'operations' or 'bytes'): the splat's least time: 12 bytes
     read per lane and 16 written per block pixel, against its FLOPs."""
-    flops = n_lanes * (2 * k * SPLAT_FILTER_FLOPS + 4 * k + 8 * k * k) \
-        + n_block * 4 * k * k
-    return roofline(flops, 16 * n_block, n_lanes, out_bytes=0, in_bytes=12,
-                    what="lane")
+    return roofline(prof.splat_flop_count(n_lanes, k, n_block), 16 * n_block,
+                    n_lanes, out_bytes=0, in_bytes=12, what="lane")
 
 
 def vol_bound(tables, stats, n_stats, n_paths):
@@ -283,48 +190,20 @@ def vol_bound(tables, stats, n_stats, n_paths):
     take for n_paths volpath paths, from the per-lane work counted by the
     plain version (``stats`` over ``n_stats`` lanes of the same scene)."""
     per = {k: v / n_stats for k, v in stats.items()}
-    flops = n_paths * (
-        PATH_FLOPS
-        + per["rounds"] * (VOL_ROUND_FLOPS + tables.n_faces * FACE_FLOPS)
-        + (per["delta_steps"] + per["ratio_steps"]) * VOL_STEP_FLOPS
-        + (per["delta_fetches"] + per["ratio_fetches"]) * VOL_FETCH_FLOPS
-        + per["nee"] * VOL_NEE_FLOPS
-        + per.get("shadow_faces", 0.0) * FACE_FLOPS
-        + per["phase"] * VOL_PHASE_FLOPS
-        + per["surface"] * VOL_SURFACE_FLOPS)
     log("  per path: " + ", ".join(f"{k} {v:.3f}" for k, v in
                                    sorted(per.items())))
-    return roofline(flops, tables, n_paths)
-
-
-def read_tables(tables):
-    """The tables an instantiation reads: a path kernel's shared-memory
-    tier reads no traversal tree, its BVH tier not the face-order Woop
-    rows."""
-    from mitsuba2_tpu_torch.ops.path_kernel import HAS_BVH
-    if not hasattr(tables, "bvh_nodes"):
-        return tables.tensors()
-    skip = ({"woop"} if tables.flags & HAS_BVH
-            else {"bvh_nodes", "bvh_woop", "bvh_prim"})
-    return [v for k, v in tables._asdict().items()
-            if isinstance(v, torch.Tensor) and k not in skip]
+    return roofline(prof.volpath_flop_count(tables, stats, n_stats, n_paths),
+                    tables, n_paths)
 
 
 def roofline(flops, tables, n_items, out_bytes=12, in_bytes=0, what="path"):
-    """-> (ms, 'operations' or 'bytes'): the larger of ``flops`` over the
-    fp32 peak and the bytes (the tables read once: ``read_tables`` of a
-    table set, or a byte count; ``in_bytes`` read and ``out_bytes``
-    written per item) over the HBM rate."""
-    table_bytes = tables if isinstance(tables, int) else sum(
-        t.numel() * t.element_size() for t in read_tables(tables))
-    nbytes = (in_bytes + out_bytes) * n_items + table_bytes
-    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+    """-> (ms, 'operations' or 'bytes') of ``prof.roofline``, logging its
+    two times."""
+    b = prof.roofline(flops, tables, n_items, out_bytes, in_bytes)
     log(f"  bound: {flops / n_items:.0f} FLOP/{what}, {flops / 1e9:.3f} "
-        f"GFLOP -> {t_ops * 1e3:.4f} ms; {nbytes / 1e6:.3f} MB -> "
-        f"{t_bytes * 1e3:.4f} ms")
-    if t_ops >= t_bytes:
-        return t_ops * 1e3, "operations"
-    return t_bytes * 1e3, "bytes"
+        f"GFLOP -> {b.ops_ms:.4f} ms; {b.nbytes / 1e6:.3f} MB -> "
+        f"{b.bytes_ms:.4f} ms")
+    return b.ms, b.by
 
 
 class Route(NamedTuple):
@@ -391,9 +270,11 @@ def check_splat(name, rad, spp, rfilter, launches):
 
 
 def drive(mi, pk, name, make_dict, spp, max_depth, mean_band, route):
-    """Parity, main-path render and timing of one path -> its entries of
+    """Parity, main-path render and timing of one path -> (its entries of
     the kernels line: the path's kernel, and the splat's where the film
-    filter is not the box."""
+    filter is not the box; for the path kernel {name: (face tests a second
+    of its main run, the ceiling that bounds them, 'shared' or 'l2')},
+    else {})."""
     from mitsuba2_tpu_torch.models.rfilters import BoxFilter
     from mitsuba2_tpu_torch.ops import splat as sp
     t_path = time.perf_counter()
@@ -480,6 +361,13 @@ def drive(mi, pk, name, make_dict, spp, max_depth, mean_band, route):
         f"{100 * bound_ms / kernel_ms:.2f}% of bound; plain version: "
         f"{plain_ms:.3f} ms for {n_plain} paths, "
         f"{n_plain / plain_ms / 1e3:.3f} Mpaths/s")
+    face_rates = {}
+    if route.radiance is pk.path_radiance:
+        tests = prof.face_test_count(tables, stats, pw * pw * pspp, n_paths)
+        face_rates[name] = (tests / (kernel_ms / 1e3),
+                            "l2" if tables.flags & pk.HAS_BVH else "shared")
+        log(f"{name} face tests: {tests / n_paths:.2f} a path, "
+            f"{face_rates[name][0] / 1e9:.3f} G/s")
     lane_rel = ((k_rad - p_rad).abs() / p_rad.abs().clamp(min=1e-3)).amax(0)
     log(f"{name} main-path shape, {n_pix} pixels x {spp} spp: lanes beyond "
         f"{PIX_RTOL:g} relative "
@@ -492,15 +380,15 @@ def drive(mi, pk, name, make_dict, spp, max_depth, mean_band, route):
              "replaces": route.replaces, "launches": launches,
              "max_abs_err": max_abs_err, "ms": kernel_ms,
              "plain_ms": plain_ms, "bound_ms": bound_ms,
-             "bound_by": bound_by, "library_ms": None}] + entries
+             "bound_by": bound_by, "library_ms": None}] + entries, face_rates
 
 
 def run_path(mi, pk, name, variant, make_dict, flags, mean_band,
              spp=SPP, max_depth=MAX_DEPTH, **route):
     """One path of the path kernel under ``variant`` (256^2 x 64 spp,
-    depth 6 unless told otherwise) -> its entries of the kernels line.
-    ``route`` overrides ``Route`` fields (parity shape, replaces, first
-    hits)."""
+    depth 6 unless told otherwise) -> its entries of the kernels line and
+    its face-test rate (``drive``). ``route`` overrides ``Route`` fields
+    (parity shape, replaces, first hits)."""
     mi.set_variant(variant)
     nc = pk.MODE_NC[mi.variant_config().color_mode]
 
@@ -607,6 +495,35 @@ def isect_parity(name, got, want):
     return err
 
 
+def sweep_parity(name, got, want):
+    """The sweep kernel's (t, uv, prim, hits) against its plain version's
+    -> the largest abs error of t over the rays whose prims agree. The
+    kernel runs the path kernel's fused face test, the plain version K2's
+    unfused one, and on N(0,1) Woop rows (thin random faces, whose u and v
+    are differences of large products) the two forms part by float
+    rounding on a few rays: a ray agrees when its prim is equal and its t
+    (relative to max(1, |t|)) and uv are within ISECT_ATOL, or both miss;
+    ISECT_PRIM_SHARE of the rays must agree, and as many hit counts."""
+    (t, uv, prim, hits), (rt, ruv, rprim, rhits) = got, want
+    same = prim == rprim
+    both = same & (rprim >= 0)
+    t_err = torch.where(both, (t - rt).abs() / rt.abs().clamp(min=1.0), 0.0)
+    uv_err = torch.where(both, (uv - ruv).abs().amax(1), 0.0)
+    agree = (both & (t_err <= ISECT_ATOL) & (uv_err <= ISECT_ATOL)) \
+        | (same & (rprim < 0) & torch.isinf(t))
+    share = float(agree.float().mean())
+    hits_share = float((hits == rhits).float().mean())
+    log(f"    parity: prims equal on {float(same.float().mean()):.6f} of "
+        f"{len(same)} rays, agree on {share:.6f} ({int((~agree).sum())} "
+        f"rays not); hits {float((rprim >= 0).float().mean()):.4f}, t rel "
+        f"err {float(t_err.max()):.3e}, uv err {float(uv_err.max()):.3e}; "
+        f"hit counts equal on {hits_share:.6f}, mean "
+        f"{float(rhits.float().mean()):.3f}")
+    if share < ISECT_PRIM_SHARE or hits_share < ISECT_PRIM_SHARE:
+        raise SystemExit(f"{name}: kernel and plain version disagree")
+    return float(torch.where(both, (t - rt).abs(), 0.0).max())
+
+
 def run_isect(mi, pk, ik, isx, bumpy_sphere_dict):
     """The scene's ray queries on biggeo through the intersection kernel:
     ``Scene.ray_intersect_preliminary`` on the 2,097,152 camera rays of a
@@ -691,7 +608,7 @@ def run_isect(mi, pk, ik, isx, bumpy_sphere_dict):
             f"nodes and {int(walk['face_reads'][:, 0].sum())} of "
             f"{len(walk['face_reads'])} faces, {read / 1e6:.3f} MB")
         bound_ms, bound_by = roofline(
-            n * (boxes * BOX_FLOPS + faces * FACE_FLOPS), read, n,
+            prof.walk_flop_count(n, boxes, faces), read, n,
             out_bytes=out_bytes, in_bytes=32, what="ray")
         log(f"{name}: kernel {kernel_ms:.4f} ms on {n} rays, bound "
             f"{bound_ms:.4f} ms ({bound_by}), "
@@ -710,7 +627,8 @@ def run_isect(mi, pk, ik, isx, bumpy_sphere_dict):
 
 def run_volpath(mi, pk, vk, volpath_slab_dict):
     """The volpath slab (256^2 x 16 spp, depth 16) through the volumetric
-    kernel's hg instantiation -> its entries of the kernels line."""
+    kernel's hg instantiation -> its entries of the kernels line and no
+    face-test rate (``drive``)."""
     mi.set_variant("scalar_rgb")
     flags = vk.HAS_HG
 
@@ -769,6 +687,60 @@ def check_mono_materials(mi, pk, cornell_materials_dict):
             "bound_by": bound_by, "library_ms": None}
 
 
+def run_ceiling(mi, sk, cornell_box_dict, face_rates):
+    """The measurement path: the face-test ceilings through
+    ``tools/shape_ceiling.py``'s entry point (both instantiations of the
+    sweep kernel at the tool's default shapes), each instantiation's last
+    timed outputs against its plain version on the same inputs, the
+    paths' face-test rates (``face_rates``, from ``drive``) against the
+    ceilings, and the Cornell box's per-depth utilization report -> the
+    two entries of the kernels line."""
+    from mitsuba2_tpu_torch.tools import shape_ceiling as sc
+    t_phase = time.perf_counter()
+    sk.reset_launch_counts()
+    res = sc.run(log=log)
+    torch.cuda.synchronize()
+    launches = dict(sk.sweep.launches_by_kernel)
+    for r in res.values():
+        if launches.get(r["name"], 0) < 1:
+            raise SystemExit(f"the ceiling missed {r['name']}: {launches}")
+    entries = []
+    for r in res.values():
+        woop, o, d = r["inputs"]
+        got = r["outputs"]
+        want, plain_ms = timed(lambda: sk.sweep_reference(
+            woop, o, d, r["iters"]), repeats=1, warm_up=False)
+        log(f"  {r['name']} against its plain version on the same inputs, "
+            f"{r['faces']} faces x {r['rays']} rays x {r['iters']} "
+            f"iterations (plain version {plain_ms:.3f} ms):")
+        err = sweep_parity(r["name"], got, want)
+        entries.append({
+            "name": r["name"], "route": "cuda",
+            "source": "mitsuba2_tpu_torch/csrc/sweep_kernel.cu",
+            "replaces": "benchmarks/mxu_shape_ceiling.py:44",
+            "launches": launches[r["name"]], "max_abs_err": err,
+            "ms": r["ms"], "plain_ms": plain_ms, "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    ceilings = {"shared": res["shared"]["tests_per_s"],
+                "l2": res["global"]["tests_per_s"]}
+    for name, (rate, tier) in face_rates.items():
+        log(f"{name}: {rate / 1e9:.3f} G face tests/s, "
+            f"{100 * rate / ceilings[tier]:.2f}% of the {tier} ceiling "
+            f"({ceilings[tier] / 1e9:.2f} G/s)")
+    mi.set_variant("scalar_rgb")
+    scene = mi.load_dict(cornell_box_dict(WIDTH, WIDTH, SPP, MAX_DEPTH))
+    report, rows = prof.path_kernel_utilization_report(
+        scene, SPP, MAX_DEPTH, REPEATS, ceilings=ceilings,
+        parity=(PARITY_WIDTH, PARITY_SPP))
+    log(report)
+    if len(rows) != MAX_DEPTH or not all(
+            0 < r["kernel_ms"] and 0 < r["pct_face"] < float("inf")
+            for r in rows):
+        raise SystemExit("the utilization report is implausible")
+    log(f"ceiling phase: {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -785,6 +757,7 @@ def main():
     from mitsuba2_tpu_torch.ops import intersect as isx
     from mitsuba2_tpu_torch.ops import intersect_kernel as ik
     from mitsuba2_tpu_torch.ops import splat as sp
+    from mitsuba2_tpu_torch.ops import sweep_kernel as sk
     from mitsuba2_tpu_torch.ops import volpath_kernel as vk
     from mitsuba2_tpu_torch.python.test.scenes import (
         bumpy_sphere_dict, cornell_box_dict, cornell_materials_dict,
@@ -798,12 +771,13 @@ def main():
     # and the intersection kernel's and the host BVH builder, in parallel ----
     t0 = time.perf_counter()
     jobs = (pk.libraries() + sp.libraries() + vk.libraries()
-            + ik.libraries() + [("bvh", {})])
+            + ik.libraries() + sk.libraries() + [("bvh", {})])
     build.build_all(jobs)
     log(f"build: {len(jobs)} libraries -- path_kernel, 3 color modes x 2 "
         f"libraries x 32 instantiations (192), splat_kernel, "
-        f"volpath_kernel, 16 instantiations, intersect_kernel and the BVH "
-        f"builder -- in {time.perf_counter() - t0:.2f} s")
+        f"volpath_kernel, 16 instantiations, intersect_kernel, "
+        f"sweep_kernel and csrc/bvh.cpp -- in "
+        f"{time.perf_counter() - t0:.2f} s")
     # each library's register range, and each instantiation a path below
     # runs (the full reports stay beside the libraries, build.py)
     full = pk.HAS_SPHERES | pk.HAS_ENV | pk.HAS_GGX | pk.HAS_CHECKER
@@ -836,6 +810,12 @@ def main():
         entry = m.group(1) if m else entry
         if entry and "Used" in line:
             log(f"  ptxas {entry}: {line.split(':', 1)[1].strip()}")
+    entry = None
+    for line in build_log("sweep_kernel").splitlines():
+        m = re.search(r"sweep_kernelILb([01])E", line)
+        entry = sk.kernel_name(m.group(1) == "1") if m else entry
+        if entry and "Used" in line:
+            log(f"  ptxas {entry}: {line.split(':', 1)[1].strip()}")
 
     paths = [
         ("cornell", "scalar_rgb", cornell_box_dict, 0, (0.05, 1.0)),
@@ -846,30 +826,40 @@ def main():
          (0.2, 5.0)),
         ("cornell_mono", "scalar_mono", cornell_box_dict, 0, (0.05, 1.0)),
     ]
-    kernels = [e for p in paths for e in run_path(mi, pk, *p)]
-    kernels += run_volpath(mi, pk, vk, volpath_slab_dict)
+    # the kernels line, and the path kernel's face-test rates by path
+    kernels, face_rates = [], {}
+
+    def take(path):
+        entries, rates = path
+        kernels.extend(entries)
+        face_rates.update(rates)
+
+    for p in paths:
+        take(run_path(mi, pk, *p))
+    take(run_volpath(mi, pk, vk, volpath_slab_dict))
     # the big meshes: the BVH tier, parity and the walk counts at 32^2 x 4
     # spp, the plain version on every 31st pixel of the main shape
     big = dict(spp=BIG_SPP, max_depth=BIG_MAX_DEPTH,
                parity=(BIG_PARITY_WIDTH, BIG_PARITY_SPP),
                plain_stride=BIG_PLAIN_STRIDE)
-    kernels += run_path(
+    take(run_path(
         mi, pk, "biggeo", "scalar_rgb",
         lambda w, h, spp, depth: bumpy_sphere_dict(w, h, spp, depth, 512,
                                                    257),
-        pk.HAS_BVH, (0.03, 0.5), **big)
-    kernels += run_path(
+        pk.HAS_BVH, (0.03, 0.5), **big))
+    take(run_path(
         mi, pk, "hero", "scalar_rgb", hero_serialized_dict,
-        (full & ~pk.HAS_SPHERES) | pk.HAS_BVH, (0.2, 5.0), **big)
+        (full & ~pk.HAS_SPHERES) | pk.HAS_BVH, (0.2, 5.0), **big))
     kernels += run_isect(mi, pk, ik, isx, bumpy_sphere_dict)
     check_bvh_tier_on_cornell(mi, pk, cornell_box_dict)
     # the materials scene: the lobes flag's instantiation and the splat
     for name, variant in (("cornell_materials", "scalar_rgb"),
                           ("cornell_materials_spectral", "scalar_spectral")):
-        kernels += run_path(mi, pk, name, variant, cornell_materials_dict,
-                            materials, (0.03, 1.0), first_hits=True,
-                            mean_rtol=CAUSTIC_MEAN_RTOL)
+        take(run_path(mi, pk, name, variant, cornell_materials_dict,
+                      materials, (0.03, 1.0), first_hits=True,
+                      mean_rtol=CAUSTIC_MEAN_RTOL))
     kernels.append(check_mono_materials(mi, pk, cornell_materials_dict))
+    kernels += run_ceiling(mi, sk, cornell_box_dict, face_rates)
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

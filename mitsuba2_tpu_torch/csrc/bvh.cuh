@@ -117,10 +117,10 @@ __device__ __forceinline__ float face_t(float4 wz, const Ray& r) {
     return -dot_o(wz, r.ox, r.oy, r.oz) / dot_d(wz, r.dx, r.dy, r.dz);
 }
 
+// u and v of one face at t from its U and V rows -> whether t is inside.
 template <bool K2>
-__device__ __forceinline__ bool face_uv(const float4* w, float t,
+__device__ __forceinline__ bool face_uv(float4 wu, float4 wv, float t,
                                         const Ray& r, float& u, float& v) {
-    const float4 wu = __ldg(w), wv = __ldg(w + 1);
     if constexpr (K2) {
         u = __fadd_rn(dot_o_rn(wu, r.ox, r.oy, r.oz),
                       __fmul_rn(t, dot_d_rn(wu, r.dx, r.dy, r.dz)));
@@ -129,6 +129,13 @@ __device__ __forceinline__ bool face_uv(const float4* w, float t,
         return u >= 0.0f && v >= 0.0f && __fadd_rn(u, v) <= 1.0f;
     }
     return inside(wu, wv, t, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, u, v);
+}
+
+// The same with the rows read through the read-only path.
+template <bool K2>
+__device__ __forceinline__ bool face_uv(const float4* w, float t,
+                                        const Ray& r, float& u, float& v) {
+    return face_uv<K2>(__ldg(w), __ldg(w + 1), t, r, u, v);
 }
 
 // Slab test of one child box against [mint, cap] -> hit, entry t.

@@ -27,10 +27,11 @@ card's name and power limit first. Exits non-zero without a CUDA device.
 
 import subprocess
 import sys
+import tempfile
 
 import torch
 
-from .prof_volpath import kernel_ms
+from ..core.profiler import device_op_summary, kernel_ms, trace
 
 WIDTH, SPP, MAX_DEPTH, SEED = 256, 32, 5, 7
 WARPS = 256
@@ -85,33 +86,16 @@ def with_leaf(pk, bvh, scene, leaf):
 
 
 def profile(scene, label):
-    from torch.profiler import ProfilerActivity, profile as tprofile
     integ = scene.integrator
     for _ in range(3):
         integ.render(scene, seed=0, spp=SPP)
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
+    log_dir = tempfile.mkdtemp(prefix="prof_bvh_")
+    with trace(log_dir):
         for i in range(5):
             integ.render(scene, seed=i, spp=SPP)
-        torch.cuda.synchronize()
-    spans, by_name = [], {}
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        t0, t1 = ev.time_range.start, ev.time_range.end
-        spans.append((t0, t1))
-        by_name[ev.name] = by_name.get(ev.name, 0.0) + (t1 - t0)
-    if not spans:
-        print(f"{label} profile: the trace holds no device events")
-        return
-    busy = sum(by_name.values())
-    span = max(t1 for _, t1 in spans) - min(t0 for t0, _ in spans)
-    print(f"{label} profile: 5 renders, device busy {busy / 1e3:.3f} ms of "
-          f"a {span / 1e3:.3f} ms span ({100 * busy / span:.2f}%)")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:4]:
-        print(f"  {100 * us / busy:6.2f}%  {us / 5:.1f} us/render  "
-              f"{name[:90]}")
+    print(f"{label} profile, 5 renders: "
+          + device_op_summary(log_dir, top=4))
 
 
 def main():

@@ -24,30 +24,17 @@ Kernel times are CUDA-event medians of 5 after a warm-up. Prints the
 card's name and power limit first. Exits non-zero without a CUDA device.
 """
 
-import statistics
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import torch
 
+from ..core.profiler import device_op_summary, kernel_ms, trace
+
 WIDTH, SPP = 256, 16
 STATS_WIDTH, STATS_SPP, SEED = 64, 16, 7
-
-
-def kernel_ms(fn, repeats=5):
-    fn()
-    times = []
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        fn()
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times)
 
 
 def measure(mi, pk, vk, slab, max_depth, grid=None, scale=1.0):
@@ -84,34 +71,16 @@ def describe(per):
 
 
 def profile(mi, slab):
-    from torch.profiler import ProfilerActivity, profile as tprofile
     scene = mi.load_dict(slab(WIDTH, WIDTH, SPP, 16))
     integ = scene.integrator
     for _ in range(3):
         integ.render(scene, seed=0, spp=SPP)
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
+    log_dir = tempfile.mkdtemp(prefix="prof_volpath_")
+    with trace(log_dir):
         for i in range(10):
             integ.render(scene, seed=i, spp=SPP)
-        torch.cuda.synchronize()
-    spans, by_name = [], {}
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        t0, t1 = ev.time_range.start, ev.time_range.end
-        spans.append((t0, t1))
-        by_name[ev.name] = by_name.get(ev.name, 0.0) + (t1 - t0)
-    if not spans:
-        print("profile: the trace holds no device events")
-        return
-    busy = sum(by_name.values())
-    span = max(t1 for _, t1 in spans) - min(t0 for t0, _ in spans)
-    print(f"profile: 10 renders, device busy {busy / 1e3:.3f} ms of a "
-          f"{span / 1e3:.3f} ms span ({100 * busy / span:.2f}%)")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
-        print(f"  {100 * us / busy:6.2f}%  {us / 10:.1f} us/render  "
-              f"{name[:90]}")
+    print("profile, 10 renders: " + device_op_summary(log_dir, top=6))
 
 
 def main():
