@@ -31,8 +31,14 @@ shape against the plain version's (for the big meshes, those of every 31st
 pixel) and the splat kernel's block against its plain version's. The
 materials scene's kernel is also held against its plain version under
 ``scalar_mono`` at the parity shape, and its first hits must show every new
-kind on at least 1% of camera rays. It holds the BVH tier forced on the
-Cornell box against the shared-memory tier, and drives the scene's ray
+kind on at least 1% of camera rays. Each path kernel launch of the main
+run prints its grid, which must be the card's SMs times the blocks
+resident on each where the launch is persistent (every family but the BVH
+tier without the env, which runs a thread a lane; the lobes family
+always), its shared memory and ptxas's registers and spills, and two launches of each path kernel must give bit-identical
+outputs (lanes reach threads in no fixed order). It holds the BVH tier and
+the lobes flag, each forced on the Cornell box, against the flag-free
+kernel and times all three, and drives the scene's ray
 queries (``Scene.ray_intersect_preliminary`` and ``Scene.ray_test``, the
 intersection kernel's closest-hit and any-hit entries) on biggeo's
 2,097,152 camera rays and as many rays toward its light, against their
@@ -42,8 +48,9 @@ shared-memory and global instantiations at the tool's default shapes,
 beside ``torch.matmul`` of the same product), each instantiation's timed
 outputs against its plain version on the same inputs, each path kernel's
 face tests a second
-against the ceilings, and the Cornell box's per-depth utilization report
-(``core/profiler.py``). Prints one JSON line of kernel results, the
+against the ceilings, and the per-depth utilization report and the
+lane-occupancy count (``core/profiler.py``) of the Cornell box and of the
+materials box. Prints one JSON line of kernel results, the
 card's name and power limit, and as its last line ``{"ok": true,
 "device": {...}}``. Any failed phase exits non-zero, and so does a machine
 without CUDA: nothing runs on the CPU instead.
@@ -61,12 +68,15 @@ import numpy as np
 import torch
 
 from mitsuba2_tpu_torch.core import profiler as prof
+# the path kernel's paths and their main shapes
+from mitsuba2_tpu_torch.tools.time_paths import PATHS
 
+# the main shape of the volpath slab, of the Cornell box's forced flags
+# and of the per-depth reports
 WIDTH, SPP, MAX_DEPTH = 256, 64, 6
 PARITY_WIDTH, PARITY_SPP, SEED = 64, 16, 7
-# the big-mesh paths (bench.py biggeo, hero): 256x256, 32 spp, max_depth
-# 5; parity and the plain version's time at 32x32x4 spp
-BIG_SPP, BIG_MAX_DEPTH = 32, 5
+# the big-mesh paths (bench.py biggeo, hero): parity and the plain
+# version's time at 32x32x4 spp
 BIG_PARITY_WIDTH, BIG_PARITY_SPP = 32, 4
 # the plain version at the main shape on every 31st pixel (2,115 pixels,
 # all their samples)
@@ -85,6 +95,9 @@ PIX_RTOL, PIX_SHARE, MEAN_RTOL = 1e-4, 0.99, 1e-5
 # the mean of 4,194,304 lanes by about 4e-5 (PERF.md §2)
 CAUSTIC_MEAN_RTOL = 1e-4
 REPEATS = 5
+# the shape of the lane-occupancy count (width, spp): 64 spp, so that a
+# warp of a one-thread-per-lane launch holds 32 samples of one pixel
+OCC_SHAPE = (32, 64)
 # the volpath path (bench.py bench_volpath): 256x256, 16 spp, max_depth 16
 VOL_SPP, VOL_MAX_DEPTH = 16, 16
 # the new kinds that must be the first hit of at least this share of the
@@ -125,25 +138,6 @@ def compare(got, want, label, mean_rtol=MEAN_RTOL):
     if share < PIX_SHARE or mean_rel > mean_rtol:
         raise SystemExit(f"{label}: kernel and plain version disagree")
     return float(np.abs(g - r).max())
-
-
-def ptxas_report(build_log, kernel="path_kernel"):
-    """-> {template arguments: 'N registers, ... spill ...'} of ``kernel``'s
-    instantiations from the compiler's -Xptxas=-v output of one library:
-    (flags, nc) for the path kernel, (flags,) for the volumetric one."""
-    out, inst = {}, None
-    for line in build_log.splitlines():
-        m = re.search(kernel + r"ILi(\d+)E(?:Li(\d+)E)?", line)
-        if m:
-            inst = tuple(int(g) for g in m.groups() if g is not None)
-        if inst is None:
-            continue
-        if "spill" in line or "stack frame" in line:
-            out[inst] = line.strip()
-        elif "Used" in line and "registers" in line:
-            regs = re.search(r"Used (\d+) registers", line).group(1)
-            out[inst] = f"{regs} registers; {out.get(inst, '')}"
-    return out
 
 
 def log_ptxas(lib, report, shown, name):
@@ -238,15 +232,15 @@ def check_first_hits(name, stats, n):
                          f"than {MIN_FIRST_HIT_SHARE:.0%} of camera rays")
 
 
-def check_splat(name, rad, spp, rfilter, launches):
+def check_splat(name, rad, width, spp, rfilter, launches):
     """The splat kernel on a pass's lanes against its plain version: every
     block pixel within 1e-5 relative or 1e-6 absolute -> its entry of the
     kernels line."""
     from mitsuba2_tpu_torch.ops import splat as sp
-    block, splat_ms = timed(lambda: sp.splat(rad, 0, 0, spp, WIDTH, WIDTH,
+    block, splat_ms = timed(lambda: sp.splat(rad, 0, 0, spp, width, width,
                                              rfilter))
     want, plain_ms = timed(lambda: sp.splat_reference(
-        rad, 0, 0, spp, WIDTH, WIDTH, rfilter), repeats=1, warm_up=False)
+        rad, 0, 0, spp, width, width, rfilter), repeats=1, warm_up=False)
     err = (block - want).abs()
     ok = (err <= 1e-5 * want.abs()) | (err <= 1e-6)
     rel = float((err / want.abs().clamp(min=1e-30)).max())
@@ -255,7 +249,7 @@ def check_splat(name, rad, spp, rfilter, launches):
         f"within 1e-5 or 1e-6 {float(ok.float().mean()):.6f}")
     if not bool(ok.all()):
         raise SystemExit(f"{name}: splat kernel and plain version disagree")
-    k = 2 * ((block.shape[0] - WIDTH) // 2) + 1
+    k = 2 * ((block.shape[0] - width) // 2) + 1
     bound_ms, bound_by = splat_bound(rad.shape[1], k,
                                      block.shape[0] * block.shape[1])
     log(f"{name} splat: kernel {splat_ms:.4f} ms, bound {bound_ms:.4f} ms "
@@ -269,8 +263,10 @@ def check_splat(name, rad, spp, rfilter, launches):
             "bound_by": bound_by, "library_ms": None}
 
 
-def drive(mi, pk, name, make_dict, spp, max_depth, mean_band, route):
-    """Parity, main-path render and timing of one path -> (its entries of
+def drive(mi, pk, name, make_dict, width, spp, max_depth, mean_band,
+          route):
+    """Parity, and render and timing at the main shape (width^2 x spp,
+    max_depth) of one path -> (its entries of
     the kernels line: the path's kernel, and the splat's where the film
     filter is not the box; for the path kernel {name: (face tests a second
     of its main run, the ceiling that bounds them, 'shared' or 'l2')},
@@ -302,7 +298,7 @@ def drive(mi, pk, name, make_dict, spp, max_depth, mean_band, route):
         check_first_hits(name, stats, pw * pw * pspp)
 
     # ---- the path itself, through the user's entry points ----
-    scene = mi.load_dict(make_dict(WIDTH, WIDTH, spp, max_depth))
+    scene = mi.load_dict(make_dict(width, width, spp, max_depth))
     integrator = scene.integrator
     rfilter = scene.sensors[0].film.rfilter
     route.reset()
@@ -318,30 +314,38 @@ def drive(mi, pk, name, make_dict, spp, max_depth, mean_band, route):
     if launches < 1:
         raise SystemExit(f"{name} launched no {route.label}")
     mean = float(img.mean())
-    if img.shape != (WIDTH, WIDTH, 3) or img.device.type != "cuda" \
+    if img.shape != (width, width, 3) or img.device.type != "cuda" \
             or not bool(torch.isfinite(img).all()) \
             or not mean_band[0] < mean < mean_band[1]:
         raise SystemExit(f"{name} image is wrong: {tuple(img.shape)} "
                          f"{img.device} mean {mean}")
-    log(f"{name}: {WIDTH}^2 x {spp} spp, depth {max_depth}: {launches} "
+    log(f"{name}: {width}^2 x {spp} spp, depth {max_depth}: {launches} "
         f"launch(es) of {route.label}, image mean {mean:.6f}, channel means "
         f"{[round(float(x), 6) for x in img.mean(dim=(0, 1))]}")
 
-    n_paths = WIDTH * WIDTH * spp
+    n_paths = width * width * spp
     _, render_ms = timed(lambda: integrator.render(scene, seed=0, spp=spp))
     tables = route.tables(scene)
     cam = pk.camera_row(scene.sensors[0], scene.device)
-    args = (tables, cam, 0, 0, spp, WIDTH, WIDTH, max_depth,
+    args = (tables, cam, 0, 0, spp, width, width, max_depth,
             integrator.rr_depth)
     k_rad, kernel_ms = timed(lambda: route.radiance(*args))
+    if route.radiance is pk.path_radiance:
+        log_launch(pk, name, route, n_paths)
+        # lanes are handed to threads in no fixed order; a lane's result
+        # depends on its key alone
+        same = torch.equal(k_rad, route.radiance(*args))
+        log(f"{name}: two launches bit-identical: {same}")
+        if not same:
+            raise SystemExit(f"{name}: two launches of {route.label} differ")
     entries = []
     if not isinstance(rfilter, BoxFilter):
-        entries.append(check_splat(name, k_rad, spp, rfilter,
+        entries.append(check_splat(name, k_rad, width, spp, rfilter,
                                    splat_launches))
     # the plain version is the kernel's reference, not a yardstick of
     # speed: one timed call, on the main run's lanes or on those of a
     # strided sample of its pixels (all their samples)
-    n_pix, kw = WIDTH * WIDTH, {}
+    n_pix, kw = width * width, {}
     if route.plain_stride:
         pix = torch.arange(0, n_pix, route.plain_stride, device=cam.device)
         n_pix = len(pix)
@@ -383,13 +387,34 @@ def drive(mi, pk, name, make_dict, spp, max_depth, mean_band, route):
              "bound_by": bound_by, "library_ms": None}] + entries, face_rates
 
 
-def run_path(mi, pk, name, variant, make_dict, flags, mean_band,
-             spp=SPP, max_depth=MAX_DEPTH, **route):
-    """One path of the path kernel under ``variant`` (256^2 x 64 spp,
-    depth 6 unless told otherwise) -> its entries of the kernels line and
-    its face-test rate (``drive``). ``route`` overrides ``Route`` fields
-    (parity shape, replaces, first hits)."""
-    mi.set_variant(variant)
+# ptxas's report of each path kernel instantiation, by (flags, nc)
+PTXAS = {}
+
+
+def log_launch(pk, name, route, n_lanes):
+    """The main run's launch of the path kernel: its grid, which must be
+    the SMs times the blocks resident on each where it is persistent (the
+    lobes instantiations always), else a block per 128 of ``n_lanes``, its
+    shared memory and ptxas's registers and spills."""
+    info = pk.path_radiance.last_launch[route.key]
+    log(f"{name} launch of {route.label}: "
+        f"{'persistent' if info['persistent'] else 'a thread a lane'}, "
+        f"grid {info['grid']}, {info['blocks_per_sm']} blocks of "
+        f"{pk.BLOCK} resident an SM x {info['sms']} SMs, {info['smem']} B "
+        f"dynamic shared a block; ptxas: {PTXAS.get(route.key, 'no report')}")
+    if info["grid"] != pk.launch_grid(info, n_lanes) or (
+            route.key[0] & pk.HAS_LOBES and not info["persistent"]):
+        raise SystemExit(f"{name}: the launch's grid {info['grid']} is "
+                         f"not its loop's ({info})")
+
+
+def run_path(mi, pk, scenes, path, flags, mean_band, **route):
+    """One path of the path kernel (a ``PATHS`` row, its builder from the
+    ``scenes`` module) at its main shape -> its entries of the kernels line
+    and its face-test rate (``drive``). ``route`` overrides ``Route``
+    fields (parity shape, replaces, first hits)."""
+    name = path.name
+    mi.set_variant(path.variant)
     nc = pk.MODE_NC[mi.variant_config().color_mode]
 
     def tables(scene):
@@ -401,17 +426,19 @@ def run_path(mi, pk, name, variant, make_dict, flags, mean_band,
 
     fields = dict(replaces="mitsuba2_tpu/ops/megakernel.py:365")
     fields.update(route)
-    return drive(mi, pk, name, make_dict, spp, max_depth, mean_band, Route(
+    return drive(mi, pk, name, path.make(scenes), path.width, path.spp,
+                 path.max_depth, mean_band, Route(
         pk.kernel_name(flags, nc), (flags, nc), pk.path_radiance,
         pk.path_radiance_reference, pk.reset_launch_counts, tables,
         lambda *a: bound(pk, *a), "mitsuba2_tpu_torch/csrc/path_kernel.cu",
         **fields))
 
 
-def check_bvh_tier_on_cornell(mi, pk, cornell_box_dict):
-    """The BVH tier forced on the Cornell box against its shared-memory
-    tier: the same lanes at 64^2 x 16 spp, and both timed at the main
-    shape."""
+def check_forced_on_cornell(mi, pk, cornell_box_dict):
+    """The BVH tier and the lobes flag, each forced on the Cornell box,
+    against its flag-free shared-memory tier: the same lanes at 64^2 x 16
+    spp, and all three timed at the main shape (the lobes flag's cost
+    with no divergence by kind)."""
     mi.set_variant("scalar_rgb")
     times = {}
     for width, spp in ((PARITY_WIDTH, PARITY_SPP), (WIDTH, SPP)):
@@ -420,18 +447,22 @@ def check_bvh_tier_on_cornell(mi, pk, cornell_box_dict):
         args = (cam, SEED, 0, spp, width, width, MAX_DEPTH,
                 scene.integrator.rr_depth)
         tiers = {"shared": scene.tables,
-                 "bvh": pk.with_bvh_tier(scene.tables)}
+                 "bvh": pk.with_bvh_tier(scene.tables),
+                 "lobes": scene.tables._replace(
+                     flags=scene.tables.flags | pk.HAS_LOBES)}
         if width == PARITY_WIDTH:
             out = {k: pk.path_radiance(t, *args) for k, t in tiers.items()}
-            compare(develop(out["bvh"], width, spp),
-                    develop(out["shared"], width, spp),
-                    "cornell, the BVH tier against the shared tier")
+            for k in ("bvh", "lobes"):
+                compare(develop(out[k], width, spp),
+                        develop(out["shared"], width, spp),
+                        f"cornell, {k} forced against the flag-free kernel")
             continue
         for k, t in tiers.items():
             times[k] = timed(lambda: pk.path_radiance(t, *args))[1]
-    log(f"cornell {WIDTH}^2 x {SPP} spp kernel: shared tier "
+    log(f"cornell {WIDTH}^2 x {SPP} spp kernel: flag-free "
         f"{times['shared']:.3f} ms, BVH tier forced {times['bvh']:.3f} ms "
-        f"({times['bvh'] / times['shared']:.3f}x)")
+        f"({times['bvh'] / times['shared']:.3f}x), lobes flag forced "
+        f"{times['lobes']:.3f} ms ({times['lobes'] / times['shared']:.3f}x)")
 
 
 def light_rays(scene, Ray, hits, ray, n, seed):
@@ -524,22 +555,23 @@ def sweep_parity(name, got, want):
     return float(torch.where(both, (t - rt).abs(), 0.0).max())
 
 
-def run_isect(mi, pk, ik, isx, bumpy_sphere_dict):
-    """The scene's ray queries on biggeo through the intersection kernel:
-    ``Scene.ray_intersect_preliminary`` on the 2,097,152 camera rays of a
-    256^2 x 32 spp image and on as many rays toward the light,
+def run_isect(mi, pk, ik, isx, scenes, big):
+    """The scene's ray queries on biggeo (``big``, its ``PATHS`` row)
+    through the intersection kernel: ``Scene.ray_intersect_preliminary``
+    on the 2,097,152 camera rays of its 256^2 x 32 spp image and on as
+    many rays toward the light,
     ``Scene.ray_test`` on the light rays; each entry point against its
     plain twin on 65,536 rays of both sets, timed on 2,097,152 -> the two
     entries of the kernels line."""
     from mitsuba2_tpu_torch.core.ray import Ray
     t_phase = time.perf_counter()
     mi.set_variant("scalar_rgb")
-    scene = mi.load_dict(bumpy_sphere_dict(WIDTH, WIDTH, BIG_SPP,
-                                           BIG_MAX_DEPTH, 512, 257))
+    scene = mi.load_dict(big.make(scenes)(big.width, big.width, big.spp,
+                                          big.max_depth))
     tables = scene.tables
     cam_ray = Ray.make(*pk.camera_rays(
-        pk.camera_row(scene.sensors[0], scene.device), WIDTH, WIDTH,
-        BIG_SPP, SEED))
+        pk.camera_row(scene.sensors[0], scene.device), big.width, big.width,
+        big.spp, SEED))
     n = cam_ray.o.shape[0]
 
     # ---- the queries through the user's entry points ----
@@ -638,7 +670,7 @@ def run_volpath(mi, pk, vk, volpath_slab_dict):
             raise SystemExit(f"volpath: scene tables carry flags {t.flags}")
         return t
 
-    return drive(mi, pk, "volpath", volpath_slab_dict, VOL_SPP,
+    return drive(mi, pk, "volpath", volpath_slab_dict, WIDTH, VOL_SPP,
                  VOL_MAX_DEPTH, (0.3, 5.0), Route(
                      vk.kernel_name(flags), flags, vk.volpath_radiance,
                      vk.volpath_radiance_reference, vk.reset_launch_counts,
@@ -647,21 +679,22 @@ def run_volpath(mi, pk, vk, volpath_slab_dict):
                      "mitsuba2_tpu/ops/volmegakernel.py:186"))
 
 
-def check_mono_materials(mi, pk, cornell_materials_dict):
-    """The materials scene's kernel under ``scalar_mono`` against its plain
-    version at the parity shape, and one render through the user's entry
-    points there -> its entry of the kernels line (times and bound at the
-    parity shape)."""
-    mi.set_variant("scalar_mono")
-    flags, pw, pspp = pk.HAS_SPHERES | pk.HAS_LOBES, PARITY_WIDTH, \
-        PARITY_SPP
-    scene = mi.load_dict(cornell_materials_dict(pw, pw, pspp, MAX_DEPTH))
+def check_mono_materials(mi, pk, scenes, path):
+    """The materials scene's kernel under ``scalar_mono`` (``path``, its
+    ``PATHS`` row, at the parity shape) against its plain version, and one
+    render through the user's entry points there -> its entry of the
+    kernels line (times and bound at that shape)."""
+    mi.set_variant(path.variant)
+    flags, pw, pspp = pk.HAS_SPHERES | pk.HAS_LOBES, path.width, path.spp
+    scene = mi.load_dict(path.make(scenes)(pw, pw, pspp, path.max_depth))
     if scene.tables.flags & pk.TEMPLATE_FLAGS != flags:
         raise SystemExit(f"mono materials: tables carry {scene.tables.flags}")
     cam = pk.camera_row(scene.sensors[0], scene.device)
-    args = (scene.tables, cam, SEED, 0, pspp, pw, pw, MAX_DEPTH,
+    args = (scene.tables, cam, SEED, 0, pspp, pw, pw, path.max_depth,
             scene.integrator.rr_depth)
     got, kernel_ms = timed(lambda: pk.path_radiance(*args))
+    if not torch.equal(got, pk.path_radiance(*args)):
+        raise SystemExit("mono materials: two launches differ")
     stats = {}
     want, plain_ms = timed(lambda: pk.path_radiance_reference(
         *args, stats=stats), repeats=1, warm_up=False)
@@ -687,7 +720,8 @@ def check_mono_materials(mi, pk, cornell_materials_dict):
             "bound_by": bound_by, "library_ms": None}
 
 
-def run_ceiling(mi, sk, cornell_box_dict, face_rates):
+def run_ceiling(mi, pk, sk, cornell_box_dict, cornell_materials_dict,
+                face_rates):
     """The measurement path: the face-test ceilings through
     ``tools/shape_ceiling.py``'s entry point (both instantiations of the
     sweep kernel at the tool's default shapes), each instantiation's last
@@ -728,15 +762,27 @@ def run_ceiling(mi, sk, cornell_box_dict, face_rates):
             f"{100 * rate / ceilings[tier]:.2f}% of the {tier} ceiling "
             f"({ceilings[tier] / 1e9:.2f} G/s)")
     mi.set_variant("scalar_rgb")
-    scene = mi.load_dict(cornell_box_dict(WIDTH, WIDTH, SPP, MAX_DEPTH))
-    report, rows = prof.path_kernel_utilization_report(
-        scene, SPP, MAX_DEPTH, REPEATS, ceilings=ceilings,
-        parity=(PARITY_WIDTH, PARITY_SPP))
-    log(report)
-    if len(rows) != MAX_DEPTH or not all(
-            0 < r["kernel_ms"] and 0 < r["pct_face"] < float("inf")
-            for r in rows):
-        raise SystemExit("the utilization report is implausible")
+    for name, make_dict in (("cornell", cornell_box_dict),
+                            ("cornell_materials", cornell_materials_dict)):
+        scene = mi.load_dict(make_dict(WIDTH, WIDTH, SPP, MAX_DEPTH))
+        report, rows = prof.path_kernel_utilization_report(
+            scene, SPP, MAX_DEPTH, REPEATS, ceilings=ceilings,
+            parity=(PARITY_WIDTH, PARITY_SPP))
+        log(f"{name}: {report}")
+        if len(rows) != MAX_DEPTH or not all(
+                0 < r["kernel_ms"] and 0 < r["pct_face"] < float("inf")
+                for r in rows):
+            raise SystemExit(f"{name}: the utilization report is "
+                             f"implausible")
+        # the lane slots a one-thread-per-lane launch would leave idle,
+        # counted by the plain version in that launch's lane order
+        w, spp = OCC_SHAPE
+        scene = mi.load_dict(make_dict(w, w, spp, MAX_DEPTH))
+        occ = prof.lane_occupancy(
+            scene.tables, pk.camera_row(scene.sensors[0], scene.device), w,
+            w, spp, MAX_DEPTH, scene.integrator.rr_depth)
+        log(f"{name} lane occupancy at {w}^2 x {spp} spp, seed 0:\n"
+            + "\n".join(prof.lane_occupancy_lines(occ)))
     log(f"ceiling phase: {time.perf_counter() - t_phase:.1f} s")
     return entries
 
@@ -759,9 +805,9 @@ def main():
     from mitsuba2_tpu_torch.ops import splat as sp
     from mitsuba2_tpu_torch.ops import sweep_kernel as sk
     from mitsuba2_tpu_torch.ops import volpath_kernel as vk
+    from mitsuba2_tpu_torch.python.test import scenes
     from mitsuba2_tpu_torch.python.test.scenes import (
-        bumpy_sphere_dict, cornell_box_dict, cornell_materials_dict,
-        hero_serialized_dict, matpreview_dict, volpath_slab_dict)
+        cornell_box_dict, cornell_materials_dict, volpath_slab_dict)
 
     nvcc = build.find_nvcc()
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}"
@@ -790,8 +836,9 @@ def main():
 
     for nc in (3, 4, 1):
         for lobes in (False, True):
-            report = ptxas_report(build_log(
+            report = build.ptxas_report(build_log(
                 "path_kernel", pk.library_defines(nc, lobes)))
+            PTXAS.update(report)
             log_ptxas(f"path_kernel, PK_NC={nc}, PK_LOBES={int(lobes)}",
                       report, {(f, nc) for f in on_paths},
                       lambda inst: pk.kernel_name(*inst))
@@ -802,7 +849,8 @@ def main():
         if fn and "Used" in line:
             log(f"  ptxas {fn}: {line.split(':', 1)[1].strip()}")
     log_ptxas("volpath_kernel",
-              ptxas_report(build_log("volpath_kernel"), "volpath_kernel"),
+              build.ptxas_report(build_log("volpath_kernel"),
+                                 "volpath_kernel"),
               {(vk.HAS_HG,)}, lambda inst: vk.kernel_name(*inst))
     entry = None
     for line in build_log("intersect_kernel").splitlines():
@@ -817,49 +865,42 @@ def main():
         if entry and "Used" in line:
             log(f"  ptxas {entry}: {line.split(':', 1)[1].strip()}")
 
-    paths = [
-        ("cornell", "scalar_rgb", cornell_box_dict, 0, (0.05, 1.0)),
-        ("matpreview", "scalar_rgb", matpreview_dict, full, (0.2, 5.0)),
-        ("cornell_spectral", "scalar_spectral", cornell_box_dict, 0,
-         (0.05, 1.0)),
-        ("matpreview_spectral", "scalar_spectral", matpreview_dict, full,
-         (0.2, 5.0)),
-        ("cornell_mono", "scalar_mono", cornell_box_dict, 0, (0.05, 1.0)),
-    ]
+    # each path's template flags, image mean band and Route overrides
+    big = dict(parity=(BIG_PARITY_WIDTH, BIG_PARITY_SPP),
+               plain_stride=BIG_PLAIN_STRIDE)
+    checks = {
+        "cornell": (0, (0.05, 1.0), {}),
+        "matpreview": (full, (0.2, 5.0), {}),
+        "cornell_spectral": (0, (0.05, 1.0), {}),
+        "matpreview_spectral": (full, (0.2, 5.0), {}),
+        "cornell_mono": (0, (0.05, 1.0), {}),
+        # the big meshes: the BVH tier, parity and the walk counts at
+        # 32^2 x 4 spp, the plain version on every 31st pixel
+        "biggeo": (pk.HAS_BVH, (0.03, 0.5), big),
+        "hero": ((full & ~pk.HAS_SPHERES) | pk.HAS_BVH, (0.2, 5.0), big),
+        # the materials scene: the lobes flag's instantiation and the splat
+        "cornell_materials": (materials, (0.03, 1.0), dict(
+            first_hits=True, mean_rtol=CAUSTIC_MEAN_RTOL)),
+        "cornell_materials_spectral": (materials, (0.03, 1.0), dict(
+            first_hits=True, mean_rtol=CAUSTIC_MEAN_RTOL)),
+    }
     # the kernels line, and the path kernel's face-test rates by path
     kernels, face_rates = [], {}
-
-    def take(path):
-        entries, rates = path
+    for path in PATHS:
+        if path.name == "cornell_materials_mono":
+            # at the parity shape, against the plain version
+            kernels.append(check_mono_materials(mi, pk, scenes, path))
+            continue
+        flags, band, route = checks[path.name]
+        entries, rates = run_path(mi, pk, scenes, path, flags, band, **route)
         kernels.extend(entries)
         face_rates.update(rates)
-
-    for p in paths:
-        take(run_path(mi, pk, *p))
-    take(run_volpath(mi, pk, vk, volpath_slab_dict))
-    # the big meshes: the BVH tier, parity and the walk counts at 32^2 x 4
-    # spp, the plain version on every 31st pixel of the main shape
-    big = dict(spp=BIG_SPP, max_depth=BIG_MAX_DEPTH,
-               parity=(BIG_PARITY_WIDTH, BIG_PARITY_SPP),
-               plain_stride=BIG_PLAIN_STRIDE)
-    take(run_path(
-        mi, pk, "biggeo", "scalar_rgb",
-        lambda w, h, spp, depth: bumpy_sphere_dict(w, h, spp, depth, 512,
-                                                   257),
-        pk.HAS_BVH, (0.03, 0.5), **big))
-    take(run_path(
-        mi, pk, "hero", "scalar_rgb", hero_serialized_dict,
-        (full & ~pk.HAS_SPHERES) | pk.HAS_BVH, (0.2, 5.0), **big))
-    kernels += run_isect(mi, pk, ik, isx, bumpy_sphere_dict)
-    check_bvh_tier_on_cornell(mi, pk, cornell_box_dict)
-    # the materials scene: the lobes flag's instantiation and the splat
-    for name, variant in (("cornell_materials", "scalar_rgb"),
-                          ("cornell_materials_spectral", "scalar_spectral")):
-        take(run_path(mi, pk, name, variant, cornell_materials_dict,
-                      materials, (0.03, 1.0), first_hits=True,
-                      mean_rtol=CAUSTIC_MEAN_RTOL))
-    kernels.append(check_mono_materials(mi, pk, cornell_materials_dict))
-    kernels += run_ceiling(mi, sk, cornell_box_dict, face_rates)
+    kernels += run_volpath(mi, pk, vk, volpath_slab_dict)[0]
+    kernels += run_isect(mi, pk, ik, isx, scenes,
+                         next(p for p in PATHS if p.name == "biggeo"))
+    check_forced_on_cornell(mi, pk, cornell_box_dict)
+    kernels += run_ceiling(mi, pk, sk, cornell_box_dict,
+                           cornell_materials_dict, face_rates)
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -18,7 +18,9 @@ include/mitsuba/core/profiler.h):
   plain versions' per-path counts) and ``roofline``, the least time the
   card could take for them; ``path_kernel_utilization_report``, the path
   kernel's per-depth utilization against those ceilings (the counterpart
-  of ``megakernel_mfu_report``).
+  of ``megakernel_mfu_report``); ``lane_occupancy``, the plain
+  version's count of the lane slots a one-thread-per-lane launch leaves
+  idle, and of the shading kinds a warp holds, per depth.
 """
 
 from __future__ import annotations
@@ -473,3 +475,64 @@ def path_kernel_utilization_report(scene, spp=64, max_depth=6, runs=5,
             f"{r['gbs']:6.1f} {r['pct_hbm']:5.2f} {r['gtests']:7.2f} "
             f"{r['pct_face']:6.2f}")
     return "\n".join(lines), rows
+
+
+# lanes of a warp
+WARP = 32
+
+
+def lane_occupancy(tables, cam, width, height, spp, max_depth, rr_depth,
+                   seed=0):
+    """Per-depth lane counts of the plain version (``_trace_lanes``'
+    ``lane_masks``) in a one-thread-per-lane launch's order, lane = pixel
+    * spp + sample, cut into warps of 32 consecutive lanes -> one row a
+    depth: "live" (lanes that trace a ray), "live_share" (of all lanes),
+    "slot_share" (live lanes over 32 x the warps with a live lane: the
+    share of the lane slots of busy warps that do work), "busy_warps",
+    "kinds_per_warp" (the mean number of distinct shading arms in a warp
+    with a lane that shades a bounce: the ``KIND_*`` values, plastic and
+    rough plastic counted as the one arm they share in the kernel; None on
+    the last bounce, which shades nothing). Counts, not times: the same on
+    every device."""
+    from ..ops import path_kernel as pk
+    masks = []
+    pk.path_radiance_reference(tables, cam, seed, 0, spp, width, height,
+                               max_depth, rr_depth,
+                               stats={"lane_masks": masks})
+    n = width * height * spp
+    pad = -n % WARP
+    rows = []
+    for d in range(max_depth):
+        entries = [m for m in masks if m["depth"] == d]
+        live = torch.cat([m["live"] for m in entries])
+        live = torch.nn.functional.pad(live, (0, pad)).view(-1, WARP)
+        per_warp = live.sum(dim=1)
+        busy = int((per_warp > 0).sum())
+        n_live = int(per_warp.sum())
+        kinds = None
+        if all("kind" in m for m in entries):
+            kind = torch.cat([m["kind"] for m in entries])
+            kind = torch.where(kind == pk.KIND_ROUGHPLASTIC,
+                               pk.KIND_PLASTIC, kind)
+            kind = torch.nn.functional.pad(kind, (0, pad),
+                                           value=-1).view(-1, WARP)
+            shading = (kind >= 0).any(dim=1)
+            distinct = sum((kind == k).any(dim=1).to(torch.int64)
+                           for k in range(int(kind.max()) + 1))
+            kinds = (float(distinct[shading].double().mean())
+                     if bool(shading.any()) else 0.0)
+        rows.append({"depth": d, "live": n_live, "live_share": n_live / n,
+                     "slot_share": n_live / (WARP * busy) if busy else 0.0,
+                     "busy_warps": busy, "kinds_per_warp": kinds})
+    return rows
+
+
+def lane_occupancy_lines(rows):
+    """``lane_occupancy``'s rows as a table of text lines."""
+    lines = ["depth   live  live_share slot_share busy_warps kinds/warp"]
+    for r in rows:
+        k = r["kinds_per_warp"]
+        lines.append(f"{r['depth']:5d} {r['live']:7d} {r['live_share']:10.4f}"
+                     f" {r['slot_share']:10.4f} {r['busy_warps']:10d} "
+                     f"{'-' if k is None else f'{k:.3f}':>10}")
+    return lines

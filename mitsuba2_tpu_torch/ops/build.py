@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -169,3 +170,23 @@ def load(name: str, defines=None) -> ctypes.CDLL:
         if lib is None:
             lib = _LIBS[key] = ctypes.CDLL(str(build(name, defines)))
         return lib
+
+
+def ptxas_report(build_log, kernel="path_kernel"):
+    """-> {template arguments: 'N registers, ... spill ...'} of ``kernel``'s
+    instantiations from the compiler's -Xptxas=-v output of one library
+    (its ``.log``): (flags, nc) for the path kernel, (flags,) for the
+    volumetric one."""
+    out, inst = {}, None
+    for line in build_log.splitlines():
+        m = re.search(kernel + r"ILi(\d+)E(?:Li(\d+)E)?", line)
+        if m:
+            inst = tuple(int(g) for g in m.groups() if g is not None)
+        if inst is None:
+            continue
+        if "spill" in line or "stack frame" in line:
+            out[inst] = line.strip()
+        elif "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out[inst] = f"{regs} registers; {out.get(inst, '')}"
+    return out

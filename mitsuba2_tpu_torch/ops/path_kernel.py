@@ -1040,7 +1040,10 @@ def _trace_lanes(tables, cam, key, pixel, width, height, max_depth,
     (``_occluded``), in the BVH tier the walk's box and face tests of the
     rays ("walk_boxes", "walk_faces"), and the camera rays whose first hit
     is a dielectric, plastic, roughplastic, bitmap, disk or cylinder
-    ("first_<name>")."""
+    ("first_<name>"). A list under ``stats["lane_masks"]`` receives, per
+    depth, {"depth", "live": the lanes that trace a ray, "kind": the kind
+    of the lanes that shade a bounce, -1 elsewhere (absent on the last
+    bounce)}; without that key nothing is recorded."""
     dev = key.device
     f32 = torch.float32
     nc = tables.nc
@@ -1093,9 +1096,12 @@ def _trace_lanes(tables, cam, key, pixel, width, height, max_depth,
             return [_sigmoid(c0, c1, c2, xw[c]) for c in range(nc)]
         return [c0, c1, c2][:nc]
 
+    masks = None if stats is None else stats.get("lane_masks")
     for depth in range(max_depth):
         dim0 = 2 + 8 * depth
         count("rays", active)
+        if masks is not None:
+            masks.append({"depth": depth, "live": active})
         if stats is not None and tables.flags & HAS_BVH:
             _count_walk(tables, o, d, big, active, stats, "walk", False)
         if stats is not None and tables.n_quads:
@@ -1205,6 +1211,8 @@ def _trace_lanes(tables, cam, key, pixel, width, height, max_depth,
         # two-sided
         act = active & hit & ((cos_hit > 0) | is_diel)
         count("shaded", act)
+        if masks is not None:
+            masks[-1]["kind"] = torch.where(act, kind.to(torch.int64), -1)
         count("ggx", act & is_ggx)
         if has_lobes:
             count("dielectric", act & is_diel)
@@ -1503,7 +1511,28 @@ class _PathArgs(ctypes.Structure):
             "spp_pass", "width", "height", "max_depth", "rr_depth",
             "n_lanes", "flags", "nc")]
         + [(name, ctypes.c_void_p) for name in ("qd", "qattr", "tex")]
-        + [("n_quads", ctypes.c_int)])
+        + [("n_quads", ctypes.c_int), ("counter", ctypes.c_void_p)])
+
+
+# threads a block (csrc/path_kernel.cu BLOCK)
+BLOCK = 128
+# what csrc/path_kernel.cu's entry point reports of a launch: blocks of
+# the instantiation resident an SM, the card's SMs, dynamic shared bytes a
+# block, the launch's grid, and whether it is persistent (the grid then the
+# SMs times the resident blocks; else a block per BLOCK lanes)
+LAUNCH_INFO = ("blocks_per_sm", "sms", "smem", "grid", "persistent")
+# its own error codes
+LAUNCH_ERRORS = {-1: "no block of the instantiation fits on an SM",
+                 -2: "the lanes and the grid overflow the 32-bit lane "
+                     "counter"}
+
+
+def launch_grid(info, n_lanes):
+    """The grid that a launch reporting ``info`` (LAUNCH_INFO) must have
+    had for ``n_lanes`` lanes."""
+    if info["persistent"]:
+        return info["sms"] * info["blocks_per_sm"]
+    return -(-n_lanes // BLOCK)
 
 
 def _check_tables(tables, cam):
@@ -1570,11 +1599,35 @@ def _check_tables(tables, cam):
                          "tables")
 
 
+def _path_args(tables, cam, seed, sample_base, spp_pass, width, height,
+               max_depth, rr_depth, out, counter) -> _PathArgs:
+    """The kernel's arguments: the tables, the camera row, the output
+    (3, n) and the lane counter as pointers, the pass as scalars."""
+    H, W = tables.env.shape[:2]
+    Hs, Ws = tables.env_pmf.shape
+    return _PathArgs(
+        *(t.data_ptr() for t in (
+            tables.woop, tables.fattr, tables.lights, tables.sph,
+            tables.sattr, tables.env, tables.env_marg, tables.env_cond,
+            tables.env_pmf, tables.env_rot, tables.spd, tables.bvh_nodes,
+            tables.bvh_woop, tables.bvh_prim, cam, out)),
+        tables.n_faces, tables.lights.shape[0], tables.n_spheres, W, H, Ws,
+        Hs, int(bool(tables.flags & HAS_ENV_ROT)), tables.p_env,
+        seed & 0xFFFFFFFF, sample_base & 0xFFFFFFFF, spp_pass, width,
+        height, max_depth, rr_depth, out.shape[1],
+        tables.flags & TEMPLATE_FLAGS, tables.nc,
+        *(t.data_ptr() for t in (tables.qd, tables.qattr, tables.tex)),
+        tables.n_quads, counter.data_ptr())
+
+
 def path_radiance(tables, cam, seed, sample_base, spp_pass, width, height,
                   max_depth, rr_depth):
     """Per-lane radiance (3, n): the CUDA kernel for tables on a CUDA
-    device, the plain version for tables on the CPU. A build or launch
-    failure raises."""
+    device, the plain version for tables on the CPU. The kernel runs
+    persistent blocks, as many as the card holds at once, whose threads
+    take lanes from a counter this function zeroes on the stream before
+    the launch (the BVH tier without the env: a thread a lane). A build or
+    launch failure raises."""
     dev = tables.device
     if dev.type == "cpu":
         return path_radiance_reference(tables, cam, seed, sample_base,
@@ -1587,37 +1640,34 @@ def path_radiance(tables, cam, seed, sample_base, spp_pass, width, height,
     if n >= 1 << 31:
         raise ValueError(f"{n} lanes overflow the kernel's int32 lane ids")
     flags = tables.flags & TEMPLATE_FLAGS
-    render = _path_render(tables.nc, bool(flags & HAS_LOBES))
+    render = _path_render(library_defines(tables.nc,
+                                          bool(flags & HAS_LOBES)))
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    H, W = tables.env.shape[:2]
-    Hs, Ws = tables.env_pmf.shape
-    args = _PathArgs(
-        *(t.data_ptr() for t in (
-            tables.woop, tables.fattr, tables.lights, tables.sph,
-            tables.sattr, tables.env, tables.env_marg, tables.env_cond,
-            tables.env_pmf, tables.env_rot, tables.spd, tables.bvh_nodes,
-            tables.bvh_woop, tables.bvh_prim, cam, out)),
-        tables.n_faces, tables.lights.shape[0], tables.n_spheres, W, H, Ws,
-        Hs, int(bool(tables.flags & HAS_ENV_ROT)), tables.p_env,
-        seed & 0xFFFFFFFF, sample_base & 0xFFFFFFFF, spp_pass, width,
-        height, max_depth, rr_depth, n, flags, tables.nc,
-        *(t.data_ptr() for t in (tables.qd, tables.qattr, tables.tex)),
-        tables.n_quads)
+    # the next lane to start, zeroed on the stream before the launch
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    args = _path_args(tables, cam, seed, sample_base, spp_pass, width,
+                      height, max_depth, rr_depth, out, counter)
+    info = (ctypes.c_int * len(LAUNCH_INFO))()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = render(ctypes.byref(args), stream)
+        err = render(ctypes.byref(args), stream, info)
     if err != 0:
-        raise RuntimeError(f"path_kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"path_kernel launch failed: "
+                           f"{LAUNCH_ERRORS.get(err, f'CUDA error {err}')}")
     path_radiance.launches += 1
     path_radiance.launches_by_kernel[(flags, tables.nc)] += 1
+    path_radiance.last_launch[(flags, tables.nc)] = dict(
+        zip(LAUNCH_INFO, info))
     return out
 
 
-# kernel launches in total and by instantiation ((TEMPLATE_FLAGS bits, nc))
+# kernel launches in total and by instantiation ((TEMPLATE_FLAGS bits, nc)),
+# and the last launch's LAUNCH_INFO by instantiation
 path_radiance.launches = 0
 path_radiance.launches_by_kernel = collections.Counter()
+path_radiance.last_launch = {}
 
 
 def reset_launch_counts():
@@ -1639,12 +1689,14 @@ def libraries():
             for lobes in (False, True)]
 
 
-def _path_render(nc, lobes):
-    """csrc/path_kernel.cu's C entry point for ``nc`` color channels, with
-    or without the lobes flag, built on first use."""
+def _path_render(defines):
+    """csrc/path_kernel.cu's C entry point in the library of ``defines``
+    (``library_defines``, and tools/loop_profile.py's), built on first
+    use."""
     from .build import load
-    fn = load("path_kernel", library_defines(nc, lobes)).path_render
-    fn.argtypes = [ctypes.POINTER(_PathArgs), ctypes.c_void_p]
+    fn = load("path_kernel", defines).path_render
+    fn.argtypes = [ctypes.POINTER(_PathArgs), ctypes.c_void_p,
+                   ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     return fn
 

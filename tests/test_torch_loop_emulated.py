@@ -1,0 +1,272 @@
+"""The path kernel's persistent loop, run on the CPU: csrc/path_kernel.cu
+compiled by the host C++ compiler against a small emulation of the CUDA
+features the loop uses (``EMU_HEADER`` below: one std::thread per CUDA
+thread, std::barrier for ``__syncthreads`` and for the warp collectives,
+a block's ``__shared__`` variables in its own context; every block of the
+grid runs at once, so blocks race for the lane counter as on the card),
+loaded through ctypes and called through the wrapper's own argument
+builder on CPU tensors. This holds what no other CPU test can see, the
+loop's scheduling: the warp refill, the lobes instantiations' block
+refill and regroup by kind, the lane counter running out mid-warp and
+while other blocks still take lanes. Each lane's output (prefilled with NaN, so that a
+lost lane shows) must agree with the plain version, and two runs must be
+bit-identical. The arithmetic is the host's (no fused multiply-adds), so
+the bar is PERF.md's §2 one of kernel against plain version."""
+
+import ctypes
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+import mitsuba2_tpu_torch as mt
+from mitsuba2_tpu_torch.ops import build
+from mitsuba2_tpu_torch.ops import path_kernel as pk
+from mitsuba2_tpu_torch.python.test.scenes import (cornell_box_dict,
+                                                   cornell_materials_dict,
+                                                   matpreview_dict)
+from tests.test_torch_path_kernel import (PIX_RTOL, PIX_SHARE, box_develop,
+                                          cpu_device_fixture, pixel_errors)
+
+_on_cpu = cpu_device_fixture()
+
+SEED, MAX_DEPTH, RR_DEPTH = 3, 5, 2
+# the emulated card: SMs and resident blocks of every instantiation
+SMS, BLOCKS_PER_SM = 3, 1
+
+EMU_HEADER = r"""
+#pragma once
+#include <algorithm>
+#include <barrier>
+#include <cmath>
+#include <cstddef>
+#include <cstdint>
+#include <cstring>
+#include <memory>
+#include <thread>
+#include <vector>
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+struct float4 { float x, y, z, w; };
+struct uint3 { unsigned x, y, z; };
+struct dim3 { unsigned x, y, z; };
+inline thread_local uint3 threadIdx, blockIdx;
+inline dim3 blockDim, gridDim;
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+template <class F> cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute,
+                                                    int) { return 0; }
+template <class F> cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int* b, F, int, size_t) { *b = EMU_BLOCKS; return 0; }
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+    *v = EMU_SMS; return 0; }
+inline cudaError_t cudaGetLastError() { return 0; }
+template <class T> T __ldg(const T* p) { return *p; }
+struct EmuBlock {
+    int n;
+    std::barrier<> block;
+    std::vector<std::barrier<>*> warps;
+    std::vector<uint64_t> xv;
+    std::vector<char> dyn;
+    // the kernel's __shared__ variables (emulated_source)
+    int s_count[32];
+    uint32_t s_base, s_fill;
+    EmuBlock(int n_, size_t smem)
+        : n(n_), block(n_), xv(n_), dyn(smem + 16) {
+        for (int w = 0; w < n / 32; ++w)
+            warps.push_back(new std::barrier<>(32));
+    }
+    ~EmuBlock() { for (auto* b : warps) delete b; }
+};
+inline thread_local EmuBlock* emu;
+inline int emu_t() { return threadIdx.x; }
+inline void __syncthreads() { emu->block.arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+    emu->warps[emu_t() / 32]->arrive_and_wait(); }
+inline int __syncthreads_count(int p) {
+    emu->xv[emu_t()] = p != 0; __syncthreads();
+    int r = 0; for (int i = 0; i < emu->n; ++i) r += (int)emu->xv[i];
+    __syncthreads(); return r; }
+inline int __syncthreads_or(int p) { return __syncthreads_count(p) > 0; }
+template <class T> uint64_t emu_bits(T v) {
+    uint64_t b = 0; std::memcpy(&b, &v, sizeof(T)); return b; }
+template <class T> T emu_from(uint64_t b) {
+    T v; std::memcpy(&v, &b, sizeof(T)); return v; }
+inline uint64_t* emu_wv() { return emu->xv.data() + emu_t() / 32 * 32; }
+inline unsigned __ballot_sync(unsigned, int p) {
+    emu_wv()[emu_t() % 32] = p != 0; __syncwarp();
+    unsigned r = 0;
+    for (int i = 0; i < 32; ++i) r |= (emu_wv()[i] ? 1u : 0u) << i;
+    __syncwarp(); return r; }
+inline int __any_sync(unsigned m, int p) { return __ballot_sync(m, p) != 0; }
+template <class T> T __shfl_sync(unsigned, T v, int src, int = 32) {
+    emu_wv()[emu_t() % 32] = emu_bits(v); __syncwarp();
+    T r = emu_from<T>(emu_wv()[src]); __syncwarp(); return r; }
+template <class T> T __shfl_up_sync(unsigned, T v, unsigned d, int = 32) {
+    const int l = emu_t() % 32;
+    emu_wv()[l] = emu_bits(v); __syncwarp();
+    T r = l >= (int)d ? emu_from<T>(emu_wv()[l - d]) : v;
+    __syncwarp(); return r; }
+inline unsigned __match_any_sync(unsigned, int v) {
+    emu_wv()[emu_t() % 32] = (uint32_t)v; __syncwarp();
+    unsigned r = 0;
+    for (int i = 0; i < 32; ++i)
+        r |= (emu_wv()[i] == (uint64_t)(uint32_t)v ? 1u : 0u) << i;
+    __syncwarp(); return r; }
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline int __ffs(int v) { return __builtin_ffs(v); }
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+    return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+inline unsigned long long atomicAdd(unsigned long long* p,
+                                    unsigned long long v) {
+    return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+inline long long clock64() { return 0; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __fsqrt_rn(float a) { return std::sqrt(a); }
+inline float rsqrtf(float a) { return 1.0f / std::sqrt(a); }
+inline float __int_as_float(int v) { return emu_from<float>(emu_bits(v)); }
+inline float __uint_as_float(unsigned v) {
+    return emu_from<float>(emu_bits(v)); }
+inline int __float_as_int(float v) { return emu_from<int>(emu_bits(v)); }
+inline unsigned __float_as_uint(float v) {
+    return emu_from<unsigned>(emu_bits(v)); }
+using std::max;
+using std::min;
+template <class K, class A>
+void emu_launch(K kernel, int grid, int block, size_t smem, void*,
+                const A& a) {
+    gridDim = dim3{(unsigned)grid, 1, 1};
+    blockDim = dim3{(unsigned)block, 1, 1};
+    std::vector<std::unique_ptr<EmuBlock>> ctx;
+    for (int b = 0; b < grid; ++b)
+        ctx.emplace_back(new EmuBlock(block, smem));
+    std::vector<std::thread> ts;
+    for (int b = 0; b < grid; ++b)
+        for (int t = 0; t < block; ++t)
+            ts.emplace_back([&, b, t] {
+                emu = ctx[b].get();
+                threadIdx = uint3{(unsigned)t, 0, 0};
+                blockIdx = uint3{(unsigned)b, 0, 0};
+                kernel(a);
+            });
+    for (auto& t : ts) t.join();
+}
+"""
+
+
+def emulated_source():
+    """csrc/path_kernel.cu with its launch and its shared memory rewritten
+    for the emulation: each ``__shared__`` variable in the block's context
+    (an unknown one fails the build)."""
+    src = (build.CSRC / "path_kernel.cu").read_text()
+    counts = []
+    for pattern, repl in (
+            (r"(path_kernel<FLAGS, NC>)<<<([^>]*)>>>\((\w+)\)",
+             r"emu_launch(\1, \2, \3)"),
+            (r"extern __shared__ float4 smem\[\];",
+             "float4* smem = (float4*)emu->dyn.data();"),
+            (r"__shared__ int s_count\[KEYS \* WARPS\];",
+             "int* s_count = emu->s_count;"),
+            (r"__shared__ uint32_t s_base, s_fill;",
+             "uint32_t &s_base = emu->s_base, &s_fill = emu->s_fill;")):
+        src, n = re.subn(pattern, repl, src)
+        counts.append(n)
+    assert counts == [1, 1, 1, 1], counts
+    return src
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """nc -> path_render of the emulated rgb or spectral library with
+    the lobes flag and without, built on first use."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.fail("the emulation needs g++ (the BVH builder's compiler)")
+    d = tmp_path_factory.mktemp("emulated_path_kernel")
+    (d / "cuda_runtime.h").write_text(EMU_HEADER)
+    (d / "path_kernel.cpp").write_text(emulated_source())
+    libs = {}
+
+    def get(nc, lobes):
+        key = (nc, lobes)
+        if key not in libs:
+            out = d / f"path_kernel_{nc}_{int(lobes)}.so"
+            subprocess.run(
+                [cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC",
+                 "-shared", "-pthread", "-w", f"-I{d}", f"-I{build.CSRC}",
+                 f"-DPK_NC={nc}", f"-DPK_LOBES={int(lobes)}",
+                 f"-DEMU_SMS={SMS}", f"-DEMU_BLOCKS={BLOCKS_PER_SM}",
+                 "-o", str(out), str(d / "path_kernel.cpp")],
+                check=True, capture_output=True)
+            fn = ctypes.CDLL(str(out)).path_render
+            fn.argtypes = [ctypes.POINTER(pk._PathArgs), ctypes.c_void_p,
+                           ctypes.POINTER(ctypes.c_int)]
+            fn.restype = ctypes.c_int
+            libs[key] = fn
+        return libs[key]
+    return get
+
+
+def run_emulated(fn, tables, cam, width, height, spp):
+    n = width * height * spp
+    out = torch.full((3, n), float("nan"))
+    counter = torch.zeros(1, dtype=torch.int32)
+    info = (ctypes.c_int * len(pk.LAUNCH_INFO))()
+    err = fn(ctypes.byref(pk._path_args(
+        tables, cam, SEED, 0, spp, width, height, MAX_DEPTH, RR_DEPTH, out,
+        counter)), None, info)
+    assert err == 0
+    info = dict(zip(pk.LAUNCH_INFO, info))
+    assert info["sms"] * info["blocks_per_sm"] == SMS * BLOCKS_PER_SM
+    assert info["grid"] == pk.launch_grid(info, n)
+    if info["persistent"]:
+        # every slot's last fetch passes n by less than a block
+        assert n <= int(counter[0]) < n + info["grid"] * pk.BLOCK
+    else:
+        assert int(counter[0]) == 0
+    return out
+
+
+@pytest.mark.parametrize("variant, make_dict, width, spp, force", [
+    ("scalar_rgb", cornell_box_dict, 8, 4, 0),           # warp refill
+    ("scalar_rgb", cornell_box_dict, 5, 3, pk.HAS_LOBES),  # regroup, 75
+    ("scalar_rgb", cornell_materials_dict, 12, 4, 0),    # regroup by kind
+    ("scalar_spectral", cornell_materials_dict, 8, 4, 0),  # SlotWl
+    ("scalar_rgb", matpreview_dict, 8, 4, 0),            # refill at 16
+    ("scalar_rgb", cornell_box_dict, 9, 3, pk.HAS_BVH),  # a thread a lane
+])
+def test_emulated_loop_matches_plain_version(emulated, variant, make_dict,
+                                             width, spp, force):
+    mt.set_variant(variant)
+    try:
+        scene = mt.load_dict(make_dict(width, width, spp, MAX_DEPTH))
+    finally:
+        mt.set_variant("scalar_rgb")
+    tables = (pk.with_bvh_tier(scene.tables) if force == pk.HAS_BVH
+              else scene.tables._replace(flags=scene.tables.flags | force))
+    cam = pk.camera_row(scene.sensors[0], scene.device)
+    fn = emulated(tables.nc, bool(tables.flags & pk.HAS_LOBES))
+    got = run_emulated(fn, tables, cam, width, width, spp)
+    assert not bool(torch.isnan(got).any()), "a lane was never written"
+    assert torch.equal(got, run_emulated(fn, tables, cam, width, width,
+                                         spp))
+    want = pk.path_radiance_reference(tables, cam, SEED, 0, spp, width,
+                                      width, MAX_DEPTH, RR_DEPTH)
+    lane_rel = ((got - want).abs() / want.abs().clamp(min=1e-3)).amax(0)
+    assert float((lane_rel > PIX_RTOL).float().mean()) <= 1 - PIX_SHARE
+    err = pixel_errors(box_develop(got, width, width, spp).numpy(),
+                       box_develop(want, width, width, spp).numpy())
+    assert (err <= PIX_RTOL).mean() >= PIX_SHARE, np.quantile(err, 0.99)
