@@ -33,22 +33,26 @@ materials scene's kernel is also held against its plain version under
 ``scalar_mono`` at the parity shape, and its first hits must show every new
 kind on at least 1% of camera rays. Each path kernel launch of the main
 run prints its grid, which must be the card's SMs times the blocks
-resident on each where the launch is persistent (every family but the BVH
-tier without the env, which runs a thread a lane; the lobes family
-always), its shared memory and ptxas's registers and spills, and two launches of each path kernel must give bit-identical
+resident on each (every family runs persistent blocks), its shared memory
+and ptxas's registers and spills, and two launches of each path kernel
+must give bit-identical
 outputs (lanes reach threads in no fixed order). It holds the BVH tier and
 the lobes flag, each forced on the Cornell box, against the flag-free
 kernel and times all three, and drives the scene's ray
 queries (``Scene.ray_intersect_preliminary`` and ``Scene.ray_test``, the
 intersection kernel's closest-hit and any-hit entries) on biggeo's
 2,097,152 camera rays and as many rays toward its light, against their
-plain twin on 65,536 of each. Last comes the measurement path: the
-face-test ceilings through ``tools/shape_ceiling.py`` (the sweep kernel's
-shared-memory and global instantiations at the tool's default shapes,
-beside ``torch.matmul`` of the same product), each instantiation's timed
-outputs against its plain version on the same inputs, each path kernel's
-face tests a second
-against the ceilings, and the per-depth utilization report and the
+plain twin on 65,536 of each, bit for bit. Both walk the scene's 4-wide
+BVH (csrc/bvh.cuh); their bounds count the tests of the binary walk over
+the same leaves, and the wide walk's counts are logged beside. Last comes
+the measurement path: the face-test and box-test ceilings through
+``tools/shape_ceiling.py`` (the sweep kernel's shared-memory and global
+face instantiations beside ``torch.matmul`` of the same product, and its
+two box instantiations over tables of the walk's 128-byte node lines),
+each instantiation's timed outputs against its plain version on the same
+inputs, each path kernel's face tests a second against the face ceilings
+and its wide walk's box tests against the L2 box ceiling, and the
+per-depth utilization report and the
 lane-occupancy count (``core/profiler.py``) of the Cornell box and of the
 materials box. Prints one JSON line of kernel results, the
 card's name and power limit, and as its last line ``{"ok": true,
@@ -68,8 +72,9 @@ import numpy as np
 import torch
 
 from mitsuba2_tpu_torch.core import profiler as prof
-# the path kernel's paths and their main shapes
-from mitsuba2_tpu_torch.tools.time_paths import PATHS
+# the path kernel's paths and their main shapes, and the ray queries'
+# light rays
+from mitsuba2_tpu_torch.tools.time_paths import PATHS, light_rays
 
 # the main shape of the volpath slab, of the Cornell box's forced flags
 # and of the per-depth reports
@@ -161,8 +166,12 @@ def bound(pk, tables, stats, n_stats, n_paths):
     if tables.flags & pk.HAS_BVH:
         log("  walk per path: " + ", ".join(
             f"{k} {v:.3f}" for k, v in sorted(per.items()) if "walk" in k)
-            + f"; per ray {per['walk_boxes'] / per['rays']:.2f} box and "
-            f"{per['walk_faces'] / per['rays']:.2f} face tests")
+            + "; per camera or bounce ray: " + "; ".join(
+                f"{what} {per[k + '_nodes'] / per['rays']:.2f} nodes, "
+                f"{per[k + '_boxes'] / per['rays']:.2f} box and "
+                f"{per[k + '_faces'] / per['rays']:.2f} face tests"
+                for what, k in (("binary walk (the bound's)", "walk"),
+                                ("wide walk (the kernel's)", "walk_wide"))))
     if tables.flags & pk.HAS_LOBES:
         log("  lobes per path: " + ", ".join(
             f"{k} {per.get(k, 0.0):.4f}" for k in (
@@ -269,8 +278,8 @@ def drive(mi, pk, name, make_dict, width, spp, max_depth, mean_band,
     max_depth) of one path -> (its entries of
     the kernels line: the path's kernel, and the splat's where the film
     filter is not the box; for the path kernel {name: (face tests a second
-    of its main run, the ceiling that bounds them, 'shared' or 'l2')},
-    else {})."""
+    of its main run, the ceiling that bounds them, 'shared' or 'l2', the
+    wide walk's box tests a second)}, else {})."""
     from mitsuba2_tpu_torch.models.rfilters import BoxFilter
     from mitsuba2_tpu_torch.ops import splat as sp
     t_path = time.perf_counter()
@@ -286,7 +295,11 @@ def drive(mi, pk, name, make_dict, width, spp, max_depth, mean_band,
     got = route.radiance(*p_args)
     torch.cuda.synchronize()
     stats = {}
+    t_plain = time.perf_counter()
     want = route.reference(*p_args, stats=stats)
+    torch.cuda.synchronize()
+    log(f"{name} parity plain version, with its counts: "
+        f"{time.perf_counter() - t_plain:.1f} s")
     lane_rel = ((got - want).abs() / want.abs().clamp(min=1e-3)).amax(0)
     beyond = float((lane_rel > PIX_RTOL).float().mean())
     log(f"{name} parity {pw}^2 x {pspp} spp, depth {max_depth}: lanes not "
@@ -368,8 +381,13 @@ def drive(mi, pk, name, make_dict, width, spp, max_depth, mean_band,
     face_rates = {}
     if route.radiance is pk.path_radiance:
         tests = prof.face_test_count(tables, stats, pw * pw * pspp, n_paths)
+        bvh = bool(tables.flags & pk.HAS_BVH)
+        # the box tests the card's wide walk ran, a second
+        boxes = n_paths * sum(stats.get(k, 0) for k in (
+            "walk_wide_boxes", "shadow_walk_wide_boxes")) / (pw * pw * pspp)
         face_rates[name] = (tests / (kernel_ms / 1e3),
-                            "l2" if tables.flags & pk.HAS_BVH else "shared")
+                            "l2" if bvh else "shared",
+                            boxes / (kernel_ms / 1e3))
         log(f"{name} face tests: {tests / n_paths:.2f} a path, "
             f"{face_rates[name][0] / 1e9:.3f} G/s")
     lane_rel = ((k_rad - p_rad).abs() / p_rad.abs().clamp(min=1e-3)).amax(0)
@@ -393,19 +411,16 @@ PTXAS = {}
 
 def log_launch(pk, name, route, n_lanes):
     """The main run's launch of the path kernel: its grid, which must be
-    the SMs times the blocks resident on each where it is persistent (the
-    lobes instantiations always), else a block per 128 of ``n_lanes``, its
-    shared memory and ptxas's registers and spills."""
+    the SMs times the blocks resident on each (persistent blocks, every
+    family), its shared memory and ptxas's registers and spills."""
     info = pk.path_radiance.last_launch[route.key]
-    log(f"{name} launch of {route.label}: "
-        f"{'persistent' if info['persistent'] else 'a thread a lane'}, "
-        f"grid {info['grid']}, {info['blocks_per_sm']} blocks of "
+    log(f"{name} launch of {route.label}: persistent, grid {info['grid']} "
+        f"for {n_lanes} lanes, {info['blocks_per_sm']} blocks of "
         f"{pk.BLOCK} resident an SM x {info['sms']} SMs, {info['smem']} B "
         f"dynamic shared a block; ptxas: {PTXAS.get(route.key, 'no report')}")
-    if info["grid"] != pk.launch_grid(info, n_lanes) or (
-            route.key[0] & pk.HAS_LOBES and not info["persistent"]):
+    if info["grid"] != info["sms"] * info["blocks_per_sm"]:
         raise SystemExit(f"{name}: the launch's grid {info['grid']} is "
-                         f"not its loop's ({info})")
+                         f"not the card's resident blocks ({info})")
 
 
 def run_path(mi, pk, scenes, path, flags, mean_band, **route):
@@ -465,30 +480,6 @@ def check_forced_on_cornell(mi, pk, cornell_box_dict):
         f"{times['lobes']:.3f} ms ({times['lobes'] / times['shared']:.3f}x)")
 
 
-def light_rays(scene, Ray, hits, ray, n, seed):
-    """``n`` rays from the hit points of ``ray`` (cycled) toward uniform
-    points of the scene's area-light triangles, on the reference's shadow
-    segment (mitsuba2_tpu/render/scene.py _shadow_ray: mint RayEpsilon
-    (1 + max |p|), maxt dist (1 - ShadowEpsilon), ShadowEpsilon being ten
-    RayEpsilon)."""
-    from mitsuba2_tpu_torch.core.math import RayEpsilon
-    dev = ray.o.device
-    g = torch.Generator(device=dev).manual_seed(seed + 1)
-    hit = torch.isfinite(hits.t).nonzero()[:, 0]
-    idx = hit[torch.arange(n, device=dev) % len(hit)]
-    p = ray.o[idx] + ray.d[idx] * hits.t[idx, None]
-    rows = scene.tables.lights[scene.tables.lights[:, 12] <= 1.0]
-    tri = rows[torch.randint(len(rows), (n,), generator=g, device=dev)]
-    s = torch.sqrt(torch.rand(n, generator=g, device=dev))[:, None]
-    b2 = torch.rand(n, generator=g, device=dev)[:, None] * s
-    q = tri[:, 0:3] + tri[:, 3:6] * (1.0 - s) + tri[:, 6:9] * b2
-    dl = q - p
-    dist = dl.norm(dim=1)
-    return Ray.make(p, dl / dist[:, None],
-                    mint=RayEpsilon * (1.0 + p.abs().max(dim=1).values),
-                    maxt=dist * (1.0 - 10.0 * RayEpsilon))
-
-
 def every_kth(ray, count):
     """``count`` rays spread over a ray batch (every k-th), as the
     (o, d, mint, maxt) arguments of the queries."""
@@ -498,13 +489,14 @@ def every_kth(ray, count):
 
 def isect_parity(name, got, want):
     """The intersection kernel's closest-hit or any-hit outputs against its
-    plain twin's -> the largest abs error (of t over the rays whose prims
-    agree, or of the 0/1 hits)."""
+    plain twin's, which must be bit-identical (the same unfused face test;
+    the share and tolerances are logged beside) -> the largest abs error
+    (of t over the rays whose prims agree, or of the 0/1 hits)."""
     if name == "isect_any":
         same = got == want
         share = float(same.float().mean())
         err = float((got.float() - want.float()).abs().max())
-        ok = share >= ISECT_PRIM_SHARE
+        ok = bool(same.all())
         detail = f"hits {float(want.float().mean()):.4f}"
     else:
         (t, uv, prim), (rt, ruv, rprim) = got, want
@@ -516,10 +508,15 @@ def isect_parity(name, got, want):
         uv_err = float((uv[both] - ruv[both]).abs().max())
         misses_agree = bool(torch.isinf(t[same & (rprim < 0)]).all())
         err = float((t[both] - rt[both]).abs().max())
+        # the kernel's face test is its twin's, unfused: bit for bit
+        bits = bool(torch.equal(prim, rprim)) and all(
+            torch.equal(x.view(torch.int32), y.view(torch.int32))
+            for x, y in ((t, rt), (uv, ruv)))
         ok = (share >= ISECT_PRIM_SHARE and t_err <= ISECT_ATOL
-              and uv_err <= ISECT_ATOL and misses_agree)
+              and uv_err <= ISECT_ATOL and misses_agree and bits)
         detail = (f"hits {float((rprim >= 0).float().mean()):.4f}, t rel "
-                  f"err {t_err:.3e}, uv err {uv_err:.3e}")
+                  f"err {t_err:.3e}, uv err {uv_err:.3e}, bit-identical "
+                  f"{bits}")
     log(f"    parity: equal on {share:.6f} of {len(same)} rays, {detail}")
     if not ok:
         raise SystemExit(f"{name}: kernel and plain twin disagree")
@@ -553,6 +550,22 @@ def sweep_parity(name, got, want):
     if share < ISECT_PRIM_SHARE or hits_share < ISECT_PRIM_SHARE:
         raise SystemExit(f"{name}: kernel and plain version disagree")
     return float(torch.where(both, (t - rt).abs(), 0.0).max())
+
+
+def box_parity(name, got, want):
+    """The box sweep's (near, hits) against its plain version's: the same
+    arithmetic, so bit for bit -> the largest abs error of near (0)."""
+    (near, hits), (rnear, rhits) = got, want
+    same = torch.equal(near.view(torch.int32), rnear.view(torch.int32)) \
+        and torch.equal(hits, rhits)
+    log(f"    parity: bit-identical {same}; hits a ray "
+        f"{float(rhits.float().mean()):.3f}, rays with a hit box "
+        f"{float(torch.isfinite(rnear).float().mean()):.4f}")
+    if not same:
+        raise SystemExit(f"{name}: kernel and plain version disagree")
+    both = torch.isfinite(rnear)
+    return float((near[both] - rnear[both]).abs().max()) if bool(
+        both.any()) else 0.0
 
 
 def run_isect(mi, pk, ik, isx, scenes, big):
@@ -605,6 +618,7 @@ def run_isect(mi, pk, ik, isx, scenes, big):
     # the plain twin's face-order Woop rows (the BVH tier's tables carry
     # only the tree-order rows)
     woop = pk.face_woop(tables)
+    trees = pk.walk_trees(tables)
     entries = []
     for name, fn, ref, main, out_bytes in (
             ("isect_closest", ik.isect_closest, isx.closest_hit_reference,
@@ -625,20 +639,32 @@ def run_isect(mi, pk, ik, isx, scenes, big):
         kernel_ms = timed(lambda: fn(tables, *main))[1]
         plain_ms = timed(lambda: ref(woop, *sub), repeats=1,
                          warm_up=False)[1]
-        walk = isx.traverse(tables.bvh_nodes, tables.bvh_woop,
-                            tables.bvh_prim,
-                            *every_kth(main, ISECT_COUNT_RAYS),
-                            any_hit=name == "isect_any", k2=True)
-        boxes = float(walk["boxes"].float().mean())
-        faces = float(walk["faces"].float().mean())
-        # the nodes and face rows the sample's walks read, once: a lower
-        # bound on what all the rays' walks read
-        read = isx.bytes_read(walk)
-        log(f"  {name} walk per ray: {boxes:.2f} box tests, {faces:.2f} "
-            f"face tests; the sample's walks read "
-            f"{int(walk['node_reads'].sum())} of {len(walk['node_reads'])} "
-            f"nodes and {int(walk['face_reads'][:, 0].sum())} of "
-            f"{len(walk['face_reads'])} faces, {read / 1e6:.3f} MB")
+        # the bound counts the binary walk's tests and reads over the same
+        # leaves; the wide walk the kernel runs is logged beside it (both
+        # walked on the host)
+        sample = [x.cpu() for x in every_kth(main, ISECT_COUNT_RAYS)]
+        for label, walk in (
+                ("binary walk (the bound's)", isx.traverse_pairs(
+                    trees.pairs, trees.woop, trees.prim, *sample,
+                    any_hit=name == "isect_any", k2=True)),
+                ("wide walk (the kernel's)", isx.traverse(
+                    trees.nodes, trees.woop, trees.prim, *sample,
+                    any_hit=name == "isect_any", k2=True))):
+            # the nodes and face rows the sample's walks read, once: a
+            # lower bound on what all the rays' walks read
+            log(f"  {name} {label} per ray: "
+                f"{float(walk['nodes'].float().mean()):.2f} nodes, "
+                f"{float(walk['boxes'].float().mean()):.2f} box tests, "
+                f"{float(walk['faces'].float().mean()):.2f} face tests; the "
+                f"sample's walks read {int(walk['node_reads'].sum())} of "
+                f"{len(walk['node_reads'])} nodes and "
+                f"{int(walk['face_reads'][:, 0].sum())} of "
+                f"{len(walk['face_reads'])} faces, "
+                f"{isx.bytes_read(walk) / 1e6:.3f} MB")
+            if label.startswith("binary"):
+                boxes = float(walk["boxes"].float().mean())
+                faces = float(walk["faces"].float().mean())
+                read = isx.bytes_read(walk)
         bound_ms, bound_by = roofline(
             prof.walk_flop_count(n, boxes, faces), read, n,
             out_bytes=out_bytes, in_bytes=32, what="ray")
@@ -722,13 +748,13 @@ def check_mono_materials(mi, pk, scenes, path):
 
 def run_ceiling(mi, pk, sk, cornell_box_dict, cornell_materials_dict,
                 face_rates):
-    """The measurement path: the face-test ceilings through
-    ``tools/shape_ceiling.py``'s entry point (both instantiations of the
-    sweep kernel at the tool's default shapes), each instantiation's last
-    timed outputs against its plain version on the same inputs, the
-    paths' face-test rates (``face_rates``, from ``drive``) against the
-    ceilings, and the Cornell box's per-depth utilization report -> the
-    two entries of the kernels line."""
+    """The measurement path: the face-test and box-test ceilings through
+    ``tools/shape_ceiling.py``'s entry point (the sweep kernel's four
+    instantiations at the tool's default shapes), each instantiation's
+    last timed outputs against its plain version on the same inputs, the
+    paths' face-test and box-test rates (``face_rates``, from ``drive``)
+    against the ceilings, and the Cornell box's per-depth utilization
+    report -> the four entries of the kernels line."""
     from mitsuba2_tpu_torch.tools import shape_ceiling as sc
     t_phase = time.perf_counter()
     sk.reset_launch_counts()
@@ -740,27 +766,31 @@ def run_ceiling(mi, pk, sk, cornell_box_dict, cornell_materials_dict,
             raise SystemExit(f"the ceiling missed {r['name']}: {launches}")
     entries = []
     for r in res.values():
-        woop, o, d = r["inputs"]
         got = r["outputs"]
-        want, plain_ms = timed(lambda: sk.sweep_reference(
-            woop, o, d, r["iters"]), repeats=1, warm_up=False)
+        want, plain_ms = timed(r["reference"], repeats=1, warm_up=False)
+        what = f"{r['faces']} faces" if "faces" in r else f"{r['boxes']} boxes"
         log(f"  {r['name']} against its plain version on the same inputs, "
-            f"{r['faces']} faces x {r['rays']} rays x {r['iters']} "
-            f"iterations (plain version {plain_ms:.3f} ms):")
-        err = sweep_parity(r["name"], got, want)
+            f"{what} x {r['rays']} rays x {r['iters']} iterations (plain "
+            f"version {plain_ms:.3f} ms):")
+        err = (sweep_parity if "faces" in r else box_parity)(r["name"], got,
+                                                            want)
         entries.append({
             "name": r["name"], "route": "cuda",
             "source": "mitsuba2_tpu_torch/csrc/sweep_kernel.cu",
-            "replaces": "benchmarks/mxu_shape_ceiling.py:44",
+            "replaces": r["replaces"],
             "launches": launches[r["name"]], "max_abs_err": err,
             "ms": r["ms"], "plain_ms": plain_ms, "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     ceilings = {"shared": res["shared"]["tests_per_s"],
                 "l2": res["global"]["tests_per_s"]}
-    for name, (rate, tier) in face_rates.items():
+    box_l2 = res["box_global"]["tests_per_s"]
+    for name, (rate, tier, box_rate) in face_rates.items():
         log(f"{name}: {rate / 1e9:.3f} G face tests/s, "
             f"{100 * rate / ceilings[tier]:.2f}% of the {tier} ceiling "
-            f"({ceilings[tier] / 1e9:.2f} G/s)")
+            f"({ceilings[tier] / 1e9:.2f} G/s)" + (
+                f"; the wide walk's {box_rate / 1e9:.3f} G box tests/s, "
+                f"{100 * box_rate / box_l2:.2f}% of the L2 box ceiling "
+                f"({box_l2 / 1e9:.2f} G/s)" if box_rate else ""))
     mi.set_variant("scalar_rgb")
     for name, make_dict in (("cornell", cornell_box_dict),
                             ("cornell_materials", cornell_materials_dict)):
@@ -854,14 +884,16 @@ def main():
               {(vk.HAS_HG,)}, lambda inst: vk.kernel_name(*inst))
     entry = None
     for line in build_log("intersect_kernel").splitlines():
-        m = re.search(r"(isect_\w+_kernel)", line)
-        entry = m.group(1) if m else entry
+        m = re.search(r"isect_kernelILb([01])E", line)
+        entry = ("isect_any" if m.group(1) == "1" else "isect_closest") \
+            if m else entry
         if entry and "Used" in line:
             log(f"  ptxas {entry}: {line.split(':', 1)[1].strip()}")
     entry = None
     for line in build_log("sweep_kernel").splitlines():
-        m = re.search(r"sweep_kernelILb([01])E", line)
-        entry = sk.kernel_name(m.group(1) == "1") if m else entry
+        m = re.search(r"(sweep|box)_kernelILb([01])E", line)
+        entry = sk.kernel_name(m.group(2) == "1", m.group(1) == "box") \
+            if m else entry
         if entry and "Used" in line:
             log(f"  ptxas {entry}: {line.split(':', 1)[1].strip()}")
 

@@ -192,8 +192,10 @@ PEAK_FACE_L2 = 291.52e9
 # and the TEA integer work are not counted, so the bound is a lower one.
 # In the BVH tier (csrc/bvh.cuh) a ray's face work is the walk's: per box
 # test of a child box six subtractions and six multiplications, per face
-# test the Woop t (FACE_FLOPS), with the walk's counts from ops/
-# intersect.py ``traverse`` over the plain version's rays.
+# test the Woop t (FACE_FLOPS), with the counts of the binary walk over the
+# same leaves (ops/intersect.py ``traverse_pairs``) over the plain
+# version's rays: the wide walk the kernels run tests more boxes, which
+# the bound does not count as work the function needs.
 PATH_FLOPS, SPECTRAL_PATH_FLOPS_PER_CHANNEL = 40, 60
 FACE_FLOPS, SPHERE_FLOPS, BOX_FLOPS = 12, 20, 12
 SHADE_FLOPS, SHADE_FLOPS_PER_CHANNEL = 200, 40
@@ -246,8 +248,10 @@ SWEEP_PAIR_FLOPS = FACE_FLOPS + UV_FLOPS
 # the card must do, so no bound counts it
 PRODUCT_PAIR_FLOPS = 48
 # bytes the sweep moves: a face's three Woop rows, a ray's o and d in and
-# its t, uv, prim and hit count out
+# its t, uv, prim and hit count out; the box sweep writes a ray's nearest
+# entry t and its hit count
 SWEEP_FACE_BYTES, SWEEP_RAY_IN_BYTES, SWEEP_RAY_OUT_BYTES = 48, 24, 20
+BOX_RAY_OUT_BYTES = 8
 
 
 def read_tables(tables):

@@ -11,13 +11,17 @@
 // device tables as the path kernel's BVH tier (ops/path_kernel.py
 // PathTables: bvh_nodes, bvh_woop, bvh_prim). It computes exactly the plain
 // version in ops/intersect.py (closest_hit_reference, any_hit_reference),
-// a linear sweep over every face, up to float rounding.
+// a linear sweep over every face, bit for bit (the face test unfused).
 //
-// What bounds it on the H100: per ray the box and face tests of its walk
-// (operations and dependent loads from L2); the bytes it must move are the
-// rays in (32 B each) and 16 B (closest) or 1 B (any) out. Rays of a warp
-// that diverge in the tree wait for each other; ray sorting and persistent
-// threads are later work.
+// What bounds it on the H100: the walk's chain of dependent reads from L2
+// (csrc/bvh.cuh: a node, then a leaf's face rows), not its operations; the
+// bytes it must move are the rays in (32 B each) and 16 B (closest) or 1 B
+// (any) out. The design: the 4-wide walk of csrc/bvh.cuh, which halves
+// the chain of node reads against the binary tree and reads a face's rows
+// at once; a thread a ray, a block per 128 rays. Persistent warps taking
+// 32 rays at a time from a counter (Aila and Laine, "Understanding the
+// efficiency of ray traversal on GPUs", HPG 2009) ran no faster on the
+// card (slower on camera rays; PERF.md §6).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -28,7 +32,7 @@
 
 // Field for field ops/intersect_kernel.py::_IsectArgs.
 struct IsectArgs {
-    const float4* nodes;      // (P, 4) pair nodes
+    const float4* nodes;      // (P, 8) wide nodes
     const float4* woop;       // (F, 3) Woop rows in the tree's face order
     const int* prim;          // (F,) face id of each tree position
     const float* o;           // (n, 3)
@@ -44,46 +48,49 @@ struct IsectArgs {
 
 namespace {
 
-__device__ __forceinline__ bvh::Ray load_ray(const IsectArgs& a, int i) {
-    return bvh::make_ray(a.o[3 * i], a.o[3 * i + 1], a.o[3 * i + 2],
-                         a.d[3 * i], a.d[3 * i + 1], a.d[3 * i + 2],
-                         a.mint[i]);
+// One ray's query.
+template <bool ANY>
+__device__ __forceinline__ void query(const IsectArgs& a,
+                                      const bvh::Tree& tree, int i) {
+    const bvh::Ray r = bvh::make_ray(a.o[3 * i], a.o[3 * i + 1],
+                                     a.o[3 * i + 2], a.d[3 * i],
+                                     a.d[3 * i + 1], a.d[3 * i + 2],
+                                     a.mint[i]);
+    if constexpr (ANY) {
+        a.hit[i] = bvh::any_hit<true>(tree, r, a.maxt[i]) ? 1 : 0;
+    } else {
+        float t, u, v;
+        const int f = bvh::closest_hit<true>(tree, r, a.maxt[i], t, u, v);
+        a.t[i] = f >= 0 ? t : __int_as_float(0x7f800000);
+        a.uv[2 * i] = f >= 0 ? u : 0.0f;
+        a.uv[2 * i + 1] = f >= 0 ? v : 0.0f;
+        a.prim_out[i] = f;
+    }
 }
 
-__global__ void __launch_bounds__(BLOCK) isect_closest_kernel(
-        const IsectArgs a) {
+template <bool ANY>
+__global__ void __launch_bounds__(BLOCK) isect_kernel(const IsectArgs a) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= a.n_rays) return;
-    const bvh::Tree tree{a.nodes, a.woop, a.prim};
-    float t, u, v;
-    const int f = bvh::closest_hit<true>(tree, load_ray(a, i), a.maxt[i],
-                                         t, u, v);
-    a.t[i] = f >= 0 ? t : __int_as_float(0x7f800000);
-    a.uv[2 * i] = f >= 0 ? u : 0.0f;
-    a.uv[2 * i + 1] = f >= 0 ? v : 0.0f;
-    a.prim_out[i] = f;
+    if (i < a.n_rays)
+        query<ANY>(a, bvh::Tree{a.nodes, a.woop, a.prim}, i);
 }
 
-__global__ void __launch_bounds__(BLOCK) isect_any_kernel(
-        const IsectArgs a) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= a.n_rays) return;
-    const bvh::Tree tree{a.nodes, a.woop, a.prim};
-    a.hit[i] = bvh::any_hit<true>(tree, load_ray(a, i), a.maxt[i]) ? 1 : 0;
+// Launches the query on `stream`, a thread a ray -> a CUDA error code.
+template <bool ANY>
+int launch(const IsectArgs& a, cudaStream_t stream) {
+    const int grid = (a.n_rays + BLOCK - 1) / BLOCK;
+    isect_kernel<ANY><<<grid, BLOCK, 0, stream>>>(a);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry points: one thread per ray on `stream`; each returns
-// cudaGetLastError() (0 when the launch was accepted).
+// C entry points on `stream`; each returns a CUDA error code (0 when the
+// launch was accepted).
 extern "C" int isect_closest(const IsectArgs* args, void* stream) {
-    const int grid = (args->n_rays + BLOCK - 1) / BLOCK;
-    isect_closest_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(*args);
-    return (int)cudaGetLastError();
+    return launch<false>(*args, (cudaStream_t)stream);
 }
 
 extern "C" int isect_any(const IsectArgs* args, void* stream) {
-    const int grid = (args->n_rays + BLOCK - 1) / BLOCK;
-    isect_any_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(*args);
-    return (int)cudaGetLastError();
+    return launch<true>(*args, (cudaStream_t)stream);
 }

@@ -48,9 +48,8 @@
 //   coherent). With one thread a lane, a warp ran until its longest path
 //   ended, its finished lanes idle (a third of the lane slots of Cornell's
 //   bounce loop; PERF.md §5).
-//   The registers of each family are capped, the warp's refill batched,
-//   and the BVH tier without the env keeps one thread a lane, as measured
-//   (min_blocks, refill_at, persistent below).
+//   The registers of each family are capped and the warp's refill
+//   batched, as measured (min_blocks, refill_at below).
 // - In the lobes instantiations the loop is block-synchronous and
 //   regroups live paths by the hit's kind between the closest hit and the
 //   shading: a block refills its empty slots with one atomicAdd, traces,
@@ -96,8 +95,9 @@
 //   quadratic is ill-conditioned, are the plain version's.
 // - Above 1024 faces (F_BVH) the Woop rows stay in global memory and every
 //   ray and shadow ray walks the scene's traversal tree instead of the
-//   loop (csrc/bvh.cuh: near child first, a stack per thread, ties to the
-//   lowest face id, the shadow walk ending at the first occluder). The
+//   loop (csrc/bvh.cuh: 4-wide nodes of one 128-byte line, children
+//   nearest first, a stack per thread, ties to the lowest face id, the
+//   shadow walk ending at the first occluder). The
 //   walk's barycentrics feed the checker and bitmap lookups. The sphere and
 //   quad loops stay.
 // - The env radiance is one float4 texel per 16 bytes (a bilinear fetch is
@@ -155,7 +155,7 @@ struct PathArgs {
     const float* env_pmf;     // (Hs, Ws)
     const float* env_rot;     // (18,) to_world 3x3, then its transpose
     const float4* spd;        // (96,) [D65, CMF x, y, z] (spectral)
-    const float4* bvh_nodes;  // (P, 4) traversal pair nodes (csrc/bvh.cuh)
+    const float4* bvh_nodes;  // (P, 8) traversal wide nodes (csrc/bvh.cuh)
     const float4* bvh_woop;   // (F, 3) Woop rows in the tree's face order
     const int* bvh_prim;      // (F,) face id of each tree position
     const float* cam;         // (16,)
@@ -1308,24 +1308,22 @@ __device__ __forceinline__ void finish(const PathArgs& a, const float4* s_spd,
     a.out[2 * n + p.lane] = out[2];
 }
 
-// Persistent blocks for every family but the BVH tier without the env
-// (biggeo), which ran faster on the card with one thread a lane and a
-// block per 128 lanes (PERF.md §6): there a refilled camera ray walks the
-// tree beside the warp's incoherent bounce rays, and the walk's warp-max
-// grows. The lobes family's loop is persistent by design.
-template <int FLAGS>
-__host__ __device__ constexpr bool persistent() {
-    return (FLAGS & F_LOBES) || !(FLAGS & F_BVH) || (FLAGS & F_ENV);
-}
-
+// Every family runs persistent blocks. The BVH tier without the env
+// (biggeo) ran a thread a lane while its walk was the binary one (a
+// refilled camera ray walked beside the warp's incoherent bounce rays and
+// the walk's warp-max grew); with the 4-wide walk it runs faster
+// persistent (PERF.md §6).
+//
 // Per family, from the card (PERF.md §6): the blocks of an instantiation
 // that must fit on an SM, which caps its registers (ptxas spills past the
 // cap: the loop is latency-bound, and 10 blocks at 48 registers with
 // spills beat 5-7 without; 8 at 64 in spectral mode, faster than 6 at 80
 // on both spectral paths, and for the BVH walk without the env, whose
-// stack spills), and how many slots of a warp must be empty before the warp loop
-// refills them (a refill runs the camera ray's set-up with the rest of the
-// warp idle; with the env or the BVH tier it pays to batch 16).
+// stack spills; with the 4-wide walk, 10 blocks for it and 8 for hero's
+// family ran within the spread of these caps), and how many slots of a
+// warp must be empty before the warp loop refills them (a refill runs the
+// camera ray's set-up with the rest of the warp idle; with the env or the
+// BVH tier it pays to batch 16).
 template <int FLAGS, int NC>
 __host__ __device__ constexpr int min_blocks() {
     return (FLAGS & F_LOBES) ? 5
@@ -1425,12 +1423,7 @@ __global__ void __launch_bounds__(BLOCK, (min_blocks<FLAGS, NC>()))
         // ---- warp-synchronous: an empty slot takes the next lane ----
         RegWl<NC> w;
         for (;;) {
-            if (!persistent<FLAGS>() && !spent) {
-                // one lane a thread, as many blocks as lanes need
-                spent = true;
-                const int lane = blockIdx.x * BLOCK + threadIdx.x;
-                if (lane < a.n_lanes) start_path(a, s_spd, lane, p, w);
-            } else if (!spent) {
+            if (!spent) {
                 __syncwarp();
                 const unsigned empty = __ballot_sync(FULL, p.lane < 0);
                 if (__popc(empty) >= refill_at<FLAGS>()) {
@@ -1642,9 +1635,9 @@ size_t smem_bytes(const PathArgs& a) {
 }
 
 // Sets the instantiation's dynamic shared memory, fills info (LAUNCH_INFO
-// ints: blocks resident an SM, SMs, dynamic shared bytes a block, grid,
-// whether the launch is persistent) and launches it on `stream`: one
-// persistent block per resident slot of the card, or a block per 128 lanes.
+// ints: blocks resident an SM, SMs, dynamic shared bytes a block, grid)
+// and launches it on `stream`: one persistent block per resident slot of
+// the card.
 // Returns a CUDA error code, or NO_BLOCK_FITS, or COUNTER_WRAPS.
 template <int FLAGS, int NC>
 int run(const PathArgs& a, cudaStream_t stream, int* info) {
@@ -1661,13 +1654,11 @@ int run(const PathArgs& a, cudaStream_t stream, int* info) {
                 &blocks, path_kernel<FLAGS, NC>, BLOCK, smem))
             != cudaSuccess)
         return (int)err;
-    const int grid = persistent<FLAGS>() ? sms * blocks
-                                         : (a.n_lanes + BLOCK - 1) / BLOCK;
+    const int grid = sms * blocks;
     info[0] = blocks;
     info[1] = sms;
     info[2] = (int)smem;
     info[3] = grid;
-    info[4] = persistent<FLAGS>();
     if (grid < 1) return NO_BLOCK_FITS;
     // each slot's last fetch may pass n_lanes by at most a block
     if ((uint64_t)a.n_lanes + (uint64_t)grid * BLOCK > 0xffffffffull)

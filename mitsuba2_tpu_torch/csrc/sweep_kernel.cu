@@ -29,6 +29,20 @@
 // three rows' [o,1] . w and [d,0] . w, 33, the division, u, v and
 // 1 - u - v) plus the range tests and the selects of the closest hit; the
 // table is read once per block and the rays once.
+//
+// The box-test ceiling beside it (box_kernel, two instantiations of the
+// same kind): every ray against every child box of a table of the walk's
+// 4-wide nodes (ops/bvh.py pack_traversal's 128-byte lines), each line
+// read and tested as the walk does (csrc/bvh.cuh test_line: eight float4,
+// four slab tests against [mint, inf)), `iters` times, iteration k with
+// mint = k * mint_step; each ray writes the nearest entry t of its last
+// iteration's hit boxes and its hit boxes summed over the iterations, so
+// every test is used. The plain version (ops/sweep_kernel.py
+// box_sweep_reference) runs the slab test with per-axis minima and maxima,
+// which pick the planes the kernel reads, so the two agree bit for bit
+// (for boxes whose entry t is finite). It prices a node visit of the
+// walk: 12 float32 operations a box test (six subtractions, six
+// multiplications) beside the maxima and minima, 32 B a box.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,6 +61,19 @@ struct SweepArgs {
     int* prim;                // (n,) last iteration: -1 on a miss
     int* hits;                // (n,) iterations with a hit
     int n_faces;
+    int n_rays;
+    int iters;
+    float mint_step;
+};
+
+// Field for field ops/sweep_kernel.py::_BoxArgs.
+struct BoxArgs {
+    const float4* lines;      // (L, 8) wide nodes
+    const float* o;           // (n, 3)
+    const float* d;           // (n, 3)
+    float* near;              // (n,) last iteration: inf where none is hit
+    int* hits;                // (n,) box hits over all iterations
+    int n_lines;
     int n_rays;
     int iters;
     float mint_step;
@@ -107,6 +134,59 @@ __global__ void __launch_bounds__(BLOCK) sweep_kernel(const SweepArgs a) {
 }
 
 template <bool SHARED>
+__global__ void __launch_bounds__(BLOCK) box_kernel(const BoxArgs a) {
+    extern __shared__ float4 s_lines[];
+    const int n_lines = a.n_lines;
+    if constexpr (SHARED) {
+        for (int i = threadIdx.x; i < 8 * n_lines; i += blockDim.x)
+            s_lines[i] = a.lines[i];
+        __syncthreads();
+    }
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= a.n_rays) return;
+    bvh::Ray r = bvh::make_ray(a.o[3 * i], a.o[3 * i + 1], a.o[3 * i + 2],
+                               a.d[3 * i], a.d[3 * i + 1], a.d[3 * i + 2],
+                               0.0f);
+    const float inf = __int_as_float(0x7f800000);
+    const bvh::Planes planes = bvh::near_planes(r);
+    int hits = 0;
+    float near = inf;
+    for (int it = 0; it < a.iters; ++it) {
+        r.mint = (float)it * a.mint_step;
+        near = inf;
+#pragma unroll 2
+        for (int l = 0; l < n_lines; ++l) {
+            // a shared line is read with plain loads, a global one
+            // through the read-only path, as the walk reads it
+            const bvh::Kids k = bvh::test_line<!SHARED>(
+                r, planes, (SHARED ? s_lines : a.lines) + 8 * l, inf);
+#pragma unroll
+            for (int c = 0; c < bvh::WIDTH; ++c) {
+                const bool hit = k.t[c] < inf;
+                hits += hit;
+                near = fminf(near, k.t[c]);
+            }
+        }
+    }
+    a.near[i] = near;
+    a.hits[i] = hits;
+}
+
+template <bool SHARED>
+int launch_boxes(const BoxArgs& a, cudaStream_t stream) {
+    const size_t smem = SHARED ? (size_t)a.n_lines * 8 * sizeof(float4) : 0;
+    if constexpr (SHARED) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            box_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    const int grid = (a.n_rays + BLOCK - 1) / BLOCK;
+    box_kernel<SHARED><<<grid, BLOCK, smem, stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+template <bool SHARED>
 int launch(const SweepArgs& a, cudaStream_t stream) {
     const size_t smem = SHARED ? (size_t)a.n_faces * 3 * sizeof(float4) : 0;
     if constexpr (SHARED) {
@@ -130,4 +210,12 @@ extern "C" int sweep_shared(const SweepArgs* args, void* stream) {
 
 extern "C" int sweep_global(const SweepArgs* args, void* stream) {
     return launch<false>(*args, (cudaStream_t)stream);
+}
+
+extern "C" int boxes_shared(const BoxArgs* args, void* stream) {
+    return launch_boxes<true>(*args, (cudaStream_t)stream);
+}
+
+extern "C" int boxes_global(const BoxArgs* args, void* stream) {
+    return launch_boxes<false>(*args, (cudaStream_t)stream);
 }

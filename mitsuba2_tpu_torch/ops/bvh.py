@@ -11,10 +11,19 @@ ctypes. It serves twice:
   array, as the reference does (mitsuba2_tpu/render/scene.py:253-275), so
   face ids, prim ids and exact ties are the reference's;
 - the traversal tree: a second build at ``TRAVERSAL_LEAF`` faces per leaf
-  over the already permuted faces, packed by ``pack_traversal`` into the
-  pair nodes that csrc/bvh.cuh walks per ray (the path kernel's BVH tier
-  and the scene's ray queries). Its leaves hold contiguous ranges of its
-  own ``order``, whose entries are the reference's face ids.
+  over the already permuted faces, collapsed by ``pack_traversal`` into
+  the 4-wide nodes that csrc/bvh.cuh walks per ray (the path kernel's BVH
+  tier and the scene's ray queries). Its leaves hold contiguous ranges of
+  its own ``order``, whose entries are the reference's face ids.
+
+What bounds the walk on the card is its chain of dependent node reads
+from L2, one per node visited, not its arithmetic: a 4-wide node (one
+128-byte line, eight independent loads, four slab tests side by side)
+about halves that chain against the binary tree's pair nodes, for about a
+third more box tests. The leaves stay the binary tree's, so the face
+order and the Woop rows in tree order do not change; ``pack_pairs`` keeps
+the binary tree's pair nodes, which no kernel reads, for the walk whose
+tests the kernels' bounds count (ops/intersect.py ``traverse_pairs``).
 
 There is no other builder: another builder gives another face order, so
 a failed native build raises instead of falling back.
@@ -33,9 +42,18 @@ _LO, _LEFT, _HI, _COUNT, _RIGHT = slice(0, 3), 3, slice(4, 7), 7, 8
 # faces per leaf of the traversal tree (the SAH builder may keep up to 4x
 # as many in a leaf when splitting costs more)
 TRAVERSAL_LEAF = 4
-# entries of the per-ray traversal stack (csrc/bvh.cuh BVH_STACK); a tree
-# whose pair-node depth exceeds it is refused on the host
-STACK_DEPTH = 64
+# children of a wide node, and its float32 slots: one 128-byte line
+WIDTH, WIDE_SLOTS = 4, 32
+# the walk's word for a leaf child (csrc/bvh.cuh test_line): ~(first <<
+# LEAF_BITS | count - 1), so a leaf holds at most 2^LEAF_BITS faces and
+# begins below 2^(31 - LEAF_BITS)
+LEAF_BITS = 5
+# entries of the per-ray traversal stack (csrc/bvh.cuh STACK); a tree
+# whose stack bound (``pack_traversal``) exceeds it is refused on the host
+# (ops/path_kernel.py ``check_tree``). WIDTH, LEAF_BITS and STACK_DEPTH
+# must equal csrc/bvh.cuh's constants: tests/test_torch_bvh.py reads them
+# there and holds them equal
+STACK_DEPTH = 48
 # pair-node float32 slots: per child [lo xyz, ref] [hi xyz, count]
 PAIR_SLOTS = 16
 # outward padding of every child box, relative to its coordinates, so that
@@ -127,28 +145,35 @@ def validate_bvh(bvh: BVH, v0, e1, e2) -> None:
                 assert (bvh.nodes[c, _HI] <= bvh.nodes[i, _HI] + 1e-4).all()
 
 
-def pack_traversal(bvh: BVH):
-    """The device layout of a traversal tree -> (pairs (P, 16) float32,
-    depth).
-
-    One pair node per interior node of ``bvh`` (a single-leaf tree gets
-    one pair whose second child is empty), in node order, so pair 0 is the
-    root. A pair holds both children, each as [lo xyz, ref] [hi xyz,
-    count] with ref and count int32 bits: an interior child has count 0 and
-    ref its pair index, a leaf has count > 0 and ref its first position in
-    ``bvh.order``, an empty child ref -1. Child boxes are padded outward by
-    ``BOX_PAD`` relative to their coordinates. ``depth`` is the number of
-    pair nodes on the longest root-to-leaf chain, which bounds the
-    traversal stack."""
+def _child_boxes(bvh: BVH):
+    """-> (interior mask, lo, hi (M, 3) float32 padded outward by
+    ``BOX_PAD`` relative to the box's coordinates) of every node."""
     ints = bvh._ints()
-    count = ints[:, _COUNT]
-    left, right = ints[:, _LEFT], ints[:, _RIGHT]
-    interior = (count == 0) & (right >= 0)
+    interior = (ints[:, _COUNT] == 0) & (ints[:, _RIGHT] >= 0)
     lo = bvh.nodes[:, _LO].astype(np.float64)
     hi = bvh.nodes[:, _HI].astype(np.float64)
     pad = BOX_PAD * (1.0 + np.maximum(np.abs(lo), np.abs(hi)).max(1))
-    lo = (lo - pad[:, None]).astype(np.float32)
-    hi = (hi + pad[:, None]).astype(np.float32)
+    return (interior, (lo - pad[:, None]).astype(np.float32),
+            (hi + pad[:, None]).astype(np.float32))
+
+
+def pack_pairs(bvh: BVH):
+    """The binary tree as pair nodes -> (pairs (P, 16) float32, depth).
+
+    No kernel reads this layout: it is the tree whose box and face tests
+    the kernels' bounds count (ops/intersect.py ``traverse_pairs``), so
+    that a bound does not grow with the wider walk's extra box tests. One
+    pair node per interior node of ``bvh`` (a single-leaf tree gets one
+    pair whose second child is empty), in node order, so pair 0 is the
+    root. A pair holds both children, each as [lo xyz, ref] [hi xyz,
+    count] with ref and count int32 bits: an interior child has count 0
+    and ref its pair index, a leaf has count > 0 and ref its first
+    position in ``bvh.order``, an empty child ref -1. ``depth`` is the
+    number of pair nodes on the longest root-to-leaf chain."""
+    ints = bvh._ints()
+    count = ints[:, _COUNT]
+    left, right = ints[:, _LEFT], ints[:, _RIGHT]
+    interior, lo, hi = _child_boxes(bvh)
     pair_id = np.cumsum(interior) - 1
 
     def child(c):
@@ -176,3 +201,90 @@ def pack_traversal(bvh: BVH):
         kids = np.concatenate([left[level], right[level]])
         level = kids[interior[kids]]
     return np.ascontiguousarray(pairs), depth
+
+
+def pack_traversal(bvh: BVH):
+    """The device layout of a traversal tree -> (nodes (P, 32) float32,
+    depth): the binary tree collapsed into 4-wide nodes of one 128-byte
+    line each.
+
+    Each wide node takes a binary interior node's two children and, while
+    it has fewer than ``WIDTH`` and one of them is interior, replaces the
+    interior child of the largest surface area by its two children. Every
+    interior child becomes a wide node of its own, level by level, so node
+    0 is the root (a single-leaf tree gets one node with one child). The
+    leaves are the binary tree's: ``order``, and with it the Woop rows and
+    face ids in tree order, do not change.
+
+    A line is structure of arrays over its four children: lo x, lo y, lo z,
+    hi x, hi y, hi z (float32, padded outward by ``BOX_PAD`` relative to
+    the box's coordinates), then the four refs and the four counts (int32
+    bits): an interior child has count 0 and ref its node index, a leaf has
+    count > 0 and ref its first position in ``bvh.order``, an empty slot
+    ref -1 and the box lo +inf, hi -inf, which every ray misses.
+    ``depth`` bounds the walk's stack: a node pushes at most its interior
+    children but one, so the most pushes on any root-to-node chain."""
+    ints = bvh._ints()
+    count = ints[:, _COUNT]
+    left, right = ints[:, _LEFT], ints[:, _RIGHT]
+    interior, lo, hi = _child_boxes(bvh)
+    ext = np.maximum(bvh.nodes[:, _HI] - bvh.nodes[:, _LO], 0.0).astype(
+        np.float64)
+    area = ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2] \
+        + ext[:, 2] * ext[:, 0]
+    if not interior[0]:
+        slots = np.array([[0, -1, -1, -1]])
+        levels, wide_of = [slots], np.zeros(1, np.int64)
+    else:
+        levels, wide_of = [], np.full(len(count), -1, np.int64)
+        frontier, n_wide = np.zeros(1, np.int64), 0
+        while len(frontier):
+            m = len(frontier)
+            wide_of[frontier] = np.arange(n_wide, n_wide + m)
+            n_wide += m
+            slots = np.full((m, WIDTH), -1, np.int64)
+            slots[:, 0], slots[:, 1] = left[frontier], right[frontier]
+            used = np.full(m, 2)
+            rows = np.arange(m)
+            for _ in range(WIDTH - 2):
+                safe = np.maximum(slots, 0)
+                split = (slots >= 0) & interior[safe]
+                k = np.where(split, area[safe], -1.0).argmax(1)
+                r = rows[split[rows, k]]
+                c = slots[r, k[r]]
+                slots[r, k[r]] = left[c]
+                slots[r, used[r]] = right[c]
+                used[r] += 1
+            levels.append(slots)
+            kids = slots[slots >= 0]
+            frontier = kids[interior[kids]]
+    slots = np.concatenate(levels)
+    n = len(slots)
+    nodes = np.zeros((n, WIDE_SLOTS), np.float32)
+    nodes[:, :3 * WIDTH] = np.inf
+    nodes[:, 3 * WIDTH:6 * WIDTH] = -np.inf
+    ref = nodes.view(np.int32)[:, 6 * WIDTH:7 * WIDTH]
+    cnt = nodes.view(np.int32)[:, 7 * WIDTH:]
+    ref[:] = -1
+    valid = slots >= 0
+    c = slots[valid]
+    leaf = ~interior[c]
+    if leaf.any() and (count[c[leaf]].max() > 1 << LEAF_BITS
+                       or left[c[leaf]].max() >= 1 << (31 - LEAF_BITS)):
+        raise ValueError(f"a leaf of more than {1 << LEAF_BITS} faces or "
+                         f"beyond face {1 << (31 - LEAF_BITS)}")
+    for axis in range(3):
+        nodes[:, axis * WIDTH:(axis + 1) * WIDTH][valid] = lo[c, axis]
+        nodes[:, (3 + axis) * WIDTH:(4 + axis) * WIDTH][valid] = hi[c, axis]
+    ref[valid] = np.where(leaf, left[c], wide_of[c])
+    cnt[valid] = np.where(leaf, count[c], 0)
+    # the stack bound: pushes accumulated from the root, level by level
+    # (a node's children come after it)
+    pushes = np.maximum((cnt == 0).sum(1) - (ref < 0).sum(1) - 1, 0)
+    held = pushes.copy()
+    parent = np.full(n, -1, np.int64)
+    inner = valid & (cnt == 0) & (ref >= 0)
+    parent[ref[inner]] = np.nonzero(inner)[0]
+    for i in range(1, n):
+        held[i] += held[parent[i]]
+    return nodes, int(held.max())

@@ -11,27 +11,35 @@ the lowest face id. The kernel gets the same answer from a BVH walk; the
 sweep is independent of the tree, which is what makes it the kernel's
 check.
 
-``traverse`` walks the device tree (ops/bvh.py ``pack_traversal``) step for
-step as csrc/bvh.cuh does, vectorised over rays: near child first, a stack
-of pair nodes, the box test against [mint, best t], leaves in order, ties
-to the lowest face id. It returns the hits, per ray the box tests and face
-tests the walk runs, and which nodes and face rows it reads, which is what
-the kernels' bounds count (``bytes_read``); the tests hold its hits against
-the sweep's.
+``traverse`` walks the device tree (ops/bvh.py ``pack_traversal``, 4-wide
+nodes) step for step as csrc/bvh.cuh does, vectorised over rays: the hit
+children sorted by entry t, leaves tested nearest first, the farther
+interior children pushed with their entry t, a pop beyond the best t
+dropped, boxes tested against [mint, best t], ties to the lowest face id.
+It returns the hits, per ray the nodes, box tests and face tests the walk
+runs, and which nodes and face rows it reads (``bytes_read``); the tests
+hold its hits against the sweep's. ``traverse_pairs`` is the binary walk
+over the same leaves (ops/bvh.py ``pack_pairs``), whose counts the kernels'
+bounds keep, and whose hits the wide walk's equal bit for bit.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .bvh import STACK_DEPTH
+from .bvh import PAIR_SLOTS, STACK_DEPTH, WIDE_SLOTS, WIDTH
 
 _BIG = 3.0e38
+_FLT_MAX = torch.finfo(torch.float32).max
 # rays x faces per sweep step
 _CHUNK_ELEMS = 1 << 24
-# bytes the device walk reads of one pair node (four float4), and of a
+# bytes the device walk reads of one wide node (one 128-byte line), of one
+# pair node of the binary tree the bounds count (four float4), and of a
 # face position's Z row, face id, and U and V rows (csrc/bvh.cuh ``walk``)
-NODE_BYTES, FACE_READ_BYTES = 64, (16, 4, 32)
+NODE_BYTES, PAIR_BYTES, FACE_READ_BYTES = 128, 64, (16, 4, 32)
+# entries of the binary walk's stack: the pair tree's depth (the builder's
+# trees stay far below)
+PAIR_STACK = 64
 
 
 def _woop_dots(W, o, d):
@@ -140,86 +148,222 @@ def _face_uv(w, t, o, d, k2):
 
 
 def _slab(lo, hi, o, inv, mint, cap):
-    """Box test of rays against one child box each -> (hit, entry t)."""
+    """Box test of rays against one child box each (or, with lo and hi
+    (n, k, 3), against k boxes each) -> (hit, entry t)."""
+    if lo.dim() == 3:
+        o, inv = o[:, None], inv[:, None]
+        mint, cap = mint[:, None], cap[:, None]
     a = (lo - o) * inv
     b = (hi - o) * inv
-    tn = torch.maximum(torch.minimum(a, b).max(1).values, mint)
-    tf = torch.minimum(torch.maximum(a, b).min(1).values, cap)
+    tn = torch.maximum(torch.minimum(a, b).max(-1).values, mint)
+    tf = torch.minimum(torch.maximum(a, b).min(-1).values, cap)
     return tn <= tf, tn
 
 
-def traverse(nodes, woop, prim, o, d, mint, maxt, any_hit=False, k2=False):
-    """The device walk of rays (o, d (n, 3), mint, maxt (n,)) over a packed
-    tree (``nodes`` (P, 16), ``woop`` (F, 12) and ``prim`` (F,) in the
-    tree's face order) -> dict of per-ray tensors: ``t``, ``u``, ``v``,
-    ``face`` (the reference face id, -1 on a miss) of the closest hit, or
-    ``hit`` for ``any_hit``; ``boxes`` and ``faces``, the box tests and the
-    face tests (t computed) the walk runs; ``node_reads`` (P,) and
-    ``face_reads`` (F, 3), bool over all rays, the pair nodes the walk
-    reads and, per face position, whether it reads the Z row (every face
-    tested), the face id (t in range) and the U and V rows (not dropped by
-    the tie rule), as csrc/bvh.cuh loads them. ``k2`` picks K2's face
-    test, else the path kernel's (t = -Z / DZ, min-form inside test)."""
-    n, dev = o.shape[0], o.device
-    P = nodes.reshape(-1, 16)
-    Pi = P.view(torch.int32)
-    inv = 1.0 / torch.where(d.abs() > 1e-12, d, 1e-12)
-    tb = maxt.clone()
-    best = torch.full((n,), -1, dtype=torch.int64, device=dev)
-    u_best = torch.zeros(n, device=dev)
-    v_best = torch.zeros(n, device=dev)
-    found = torch.zeros(n, dtype=torch.bool, device=dev)
-    boxes = torch.zeros(n, dtype=torch.int64, device=dev)
-    faces = torch.zeros(n, dtype=torch.int64, device=dev)
-    node = torch.zeros(n, dtype=torch.int64, device=dev)
-    stack = torch.zeros((n, STACK_DEPTH), dtype=torch.int64, device=dev)
-    sp = torch.zeros(n, dtype=torch.int64, device=dev)
-    alive = torch.full((n,), P.shape[0] > 0, dtype=torch.bool, device=dev)
-    node_reads = torch.zeros(P.shape[0], dtype=torch.bool, device=dev)
-    face_reads = torch.zeros((woop.shape[0], 3), dtype=torch.bool,
-                             device=dev)
-    prim = prim.long()
+class _Walk:
+    """The per-ray state of a walk and its leaf test (csrc/bvh.cuh
+    ``walk``'s ``leaf``), shared by ``traverse`` and ``traverse_pairs``."""
 
-    def leaf(rows, first, cnt):
+    def __init__(self, woop, prim, o, d, mint, maxt, any_hit, k2, n_nodes,
+                 rows_at_once=False):
+        n, dev = o.shape[0], o.device
+        self.woop, self.prim = woop, prim.long()
+        self.o, self.d, self.mint = o, d, mint
+        self.any_hit, self.k2 = any_hit, k2
+        # the wide walk reads a face's three rows at once, its face id only
+        # on a tie in t and for the final hit; the binary walk read the id
+        # of a face in range and the U and V rows of one not lost to a tie
+        self.rows_at_once = rows_at_once
+        # the tree position of each face id
+        self.pos_of = torch.argsort(self.prim)
+        self.inv = 1.0 / torch.where(d.abs() > 1e-12, d, 1e-12)
+        self.tb = maxt.clone()
+        self.best = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        self.u = torch.zeros(n, device=dev)
+        self.v = torch.zeros(n, device=dev)
+        self.found = torch.zeros(n, dtype=torch.bool, device=dev)
+        self.boxes = torch.zeros(n, dtype=torch.int64, device=dev)
+        self.faces = torch.zeros(n, dtype=torch.int64, device=dev)
+        self.nodes = torch.zeros(n, dtype=torch.int64, device=dev)
+        self.node_reads = torch.zeros(n_nodes, dtype=torch.bool, device=dev)
+        self.face_reads = torch.zeros((woop.shape[0], 3), dtype=torch.bool,
+                                      device=dev)
+
+    def leaf(self, rows, first, cnt):
         """Faces first .. first + cnt - 1 of rays ``rows``, in order."""
         for j in range(int(cnt.max()) if len(cnt) else 0):
-            live = (j < cnt) & ~found[rows] if any_hit else j < cnt
+            live = (j < cnt) & ~self.found[rows] if self.any_hit \
+                else j < cnt
             r = rows[live]
             pos = first[live] + j
-            w = woop[pos]
-            faces[r] += 1
-            face_reads[pos, 0] = True
-            tf = _face_t(w, o[r], d[r], k2)
-            ok = (tf >= mint[r]) & (tf <= tb[r])
-            face_reads[pos[ok], 1] = True
-            ident = prim[pos]
-            if not any_hit:
+            w = self.woop[pos]
+            self.faces[r] += 1
+            self.face_reads[pos, 0] = True
+            tf = _face_t(w, self.o[r], self.d[r], self.k2)
+            ok = (tf >= self.mint[r]) & (tf <= self.tb[r])
+            ident = self.prim[pos]
+            uu, vv, inside = _face_uv(w, tf, self.o[r], self.d[r], self.k2)
+            if self.rows_at_once:
+                self.face_reads[pos, 2] = True
+                ok &= inside
+            else:
+                self.face_reads[pos[ok], 1] = True
+            if not self.any_hit:
                 # equal t: only a lower face id replaces the best
-                ok &= ~((tf == tb[r]) & (ident >= torch.where(
-                    best[r] < 0, 1 << 62, best[r])))
-            face_reads[pos[ok], 2] = True
-            uu, vv, inside = _face_uv(w, tf, o[r], d[r], k2)
-            ok &= inside
+                tie = ok & (tf == self.tb[r]) & (self.best[r] >= 0)
+                if self.rows_at_once:
+                    # both ids: the face's and the best's
+                    self.face_reads[pos[tie], 1] = True
+                    self.face_reads[self.pos_of[self.best[r][tie]], 1] = True
+                ok &= ~(tie & (ident >= self.best[r]))
+            if not self.rows_at_once:
+                self.face_reads[pos[ok], 2] = True
+                ok &= inside
             r = r[ok]
-            if any_hit:
-                found[r] = True
+            if self.any_hit:
+                self.found[r] = True
                 continue
-            tb[r] = tf[ok]
-            best[r] = ident[ok]
-            u_best[r] = uu[ok]
-            v_best[r] = vv[ok]
+            self.tb[r] = tf[ok]
+            self.best[r] = ident[ok]
+            self.u[r] = uu[ok]
+            self.v[r] = vv[ok]
 
+    def result(self, node_bytes):
+        if self.rows_at_once and not self.any_hit:
+            # the hit's face id, read at the end
+            self.face_reads[self.pos_of[self.best[self.best >= 0]], 1] = True
+        out = {"boxes": self.boxes, "faces": self.faces,
+               "nodes": self.nodes, "node_reads": self.node_reads,
+               "face_reads": self.face_reads, "node_bytes": node_bytes}
+        if self.any_hit:
+            out["hit"] = self.found
+        else:
+            hit = self.best >= 0
+            out.update(t=torch.where(hit, self.tb, float("inf")),
+                       u=torch.where(hit, self.u, 0.0),
+                       v=torch.where(hit, self.v, 0.0), face=self.best)
+        return out
+
+
+def _sort_kids(t, ref, cnt):
+    """csrc/bvh.cuh ``sort_kids``: the children (m, 4) by entry t (+inf
+    where missed), nearest first, by the same five exchanges."""
+    t, ref, cnt = t.clone(), ref.clone(), cnt.clone()
+    for i, j in ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2)):
+        sw = t[:, j] < t[:, i]
+        for x in (t, ref, cnt):
+            xi, xj = x[:, i].clone(), x[:, j].clone()
+            x[:, i] = torch.where(sw, xj, xi)
+            x[:, j] = torch.where(sw, xi, xj)
+    return t, ref, cnt
+
+
+def traverse(nodes, woop, prim, o, d, mint, maxt, any_hit=False, k2=False):
+    """The device walk (csrc/bvh.cuh) of rays (o, d (n, 3), mint, maxt
+    (n,)) over a packed tree (``nodes`` (P, 32) wide nodes, ops/bvh.py
+    ``pack_traversal``; ``woop`` (F, 12) and ``prim`` (F,) in the tree's
+    face order) -> dict of per-ray tensors: ``t``, ``u``, ``v``, ``face``
+    (the reference face id, -1 on a miss) of the closest hit, or ``hit``
+    for ``any_hit``; ``nodes`` the nodes read, ``boxes`` the box tests (a
+    node's non-empty children) and ``faces`` the face tests (t computed)
+    the walk runs; ``node_reads`` (P,) and ``face_reads`` (F, 3), bool over
+    all rays, the nodes the walk reads and, per face position, whether it
+    reads the Z row (every face tested), the face id (t in range) and the
+    U and V rows (not dropped by the tie rule), as csrc/bvh.cuh loads them;
+    ``node_bytes`` NODE_BYTES. ``k2`` picks K2's face test, else the path
+    kernel's (t = -Z / DZ, min-form inside test)."""
+    n, dev = o.shape[0], o.device
+    P = nodes.reshape(-1, WIDE_SLOTS)
+    Pi = P.view(torch.int32)
+    # the best t within FLT_MAX, so that a missed child's +inf is never in
+    # range
+    maxt = torch.where(maxt > _FLT_MAX, _FLT_MAX, maxt)
+    w = _Walk(woop, prim, o, d, mint, maxt, any_hit, k2, P.shape[0],
+              rows_at_once=True)
+    node = torch.zeros(n, dtype=torch.int64, device=dev)
+    stack = torch.zeros((n, STACK_DEPTH), dtype=torch.int64, device=dev)
+    stack_t = torch.zeros((n, STACK_DEPTH), device=dev)
+    sp = torch.zeros(n, dtype=torch.int64, device=dev)
+    alive = torch.full((n,), P.shape[0] > 0, dtype=torch.bool, device=dev)
+    K = WIDTH
     while bool(alive.any()):
         idx = alive.nonzero()[:, 0]
-        node_reads[node[idx]] = True
+        m = len(idx)
+        w.node_reads[node[idx]] = True
+        w.nodes[idx] += 1
+        row, ri = P[node[idx]], Pi[node[idx]]
+        lo = row[:, 0:3 * K].reshape(m, 3, K).transpose(1, 2)
+        hi = row[:, 3 * K:6 * K].reshape(m, 3, K).transpose(1, 2)
+        ref, cnt = ri[:, 6 * K:7 * K].long(), ri[:, 7 * K:].long()
+        w.boxes[idx] += (ref >= 0).sum(1)
+        hit, tn = _slab(lo, hi, o[idx], w.inv[idx], mint[idx], w.tb[idx])
+        tn, ref, cnt = _sort_kids(
+            torch.where(hit & (ref >= 0), tn, float("inf")), ref, cnt)
+        # the hit leaves, nearest first
+        for c in range(K):
+            lf = (cnt[:, c] > 0) & (tn[:, c] <= w.tb[idx])
+            if any_hit:
+                lf &= ~w.found[idx]
+            w.leaf(idx[lf], ref[lf, c], cnt[lf, c])
+        # the interior children in range, farthest pushed first
+        nxt = torch.full((m,), -1, dtype=torch.int64, device=dev)
+        t_nxt = torch.zeros(m, device=dev)
+        stop = w.found[idx] if any_hit else torch.zeros_like(hit[:, 0])
+        for c in reversed(range(K)):
+            inner = (cnt[:, c] == 0) & (tn[:, c] <= w.tb[idx]) & ~stop
+            push = inner & (nxt >= 0)
+            r = idx[push]
+            stack[r, sp[r]] = nxt[push]
+            stack_t[r, sp[r]] = t_nxt[push]
+            sp[r] += 1
+            nxt = torch.where(inner, ref[:, c], nxt)
+            t_nxt = torch.where(inner, tn[:, c], t_nxt)
+        # else the nearest pending node whose box begins within the best t
+        while True:
+            pop = (nxt < 0) & (sp[idx] > 0) & ~stop
+            if not bool(pop.any()):
+                break
+            r = idx[pop]
+            sp[r] -= 1
+            e, te = stack[r, sp[r]], stack_t[r, sp[r]]
+            keep = torch.ones_like(pop[pop]) if any_hit else te <= w.tb[r]
+            nxt[pop] = torch.where(keep, e, -1)
+        node[idx] = nxt.clamp(min=0)
+        alive[idx[nxt < 0]] = False
+    return w.result(NODE_BYTES)
+
+
+def traverse_pairs(pairs, woop, prim, o, d, mint, maxt, any_hit=False,
+                   k2=False):
+    """The binary walk over pair nodes (ops/bvh.py ``pack_pairs``), as
+    csrc/bvh.cuh walked them before its wide nodes: near child first, a
+    stack of pair nodes, a far child's leaf tested at once. No kernel runs
+    it: its box and face tests, and the bytes it reads, are what the
+    kernels' bounds count (chip_smoke.py ``bound``, ``run_isect``), so
+    that a bound does not grow with the wide walk's extra box tests. Its
+    hits equal ``traverse``'s bit for bit. Arguments and result as
+    ``traverse``, ``node_bytes`` PAIR_BYTES."""
+    n, dev = o.shape[0], o.device
+    P = pairs.reshape(-1, PAIR_SLOTS)
+    Pi = P.view(torch.int32)
+    w = _Walk(woop, prim, o, d, mint, maxt, any_hit, k2, P.shape[0])
+    found, tb = w.found, w.tb
+    node = torch.zeros(n, dtype=torch.int64, device=dev)
+    stack = torch.zeros((n, PAIR_STACK), dtype=torch.int64, device=dev)
+    sp = torch.zeros(n, dtype=torch.int64, device=dev)
+    alive = torch.full((n,), P.shape[0] > 0, dtype=torch.bool, device=dev)
+    while bool(alive.any()):
+        idx = alive.nonzero()[:, 0]
+        w.node_reads[node[idx]] = True
+        w.nodes[idx] += 1
         row, ri = P[node[idx]], Pi[node[idx]]
         ra, ca, rb, cb = ri[:, 3].long(), ri[:, 7], ri[:, 11].long(), ri[:, 15]
-        oi, ii, mi = o[idx], inv[idx], mint[idx]
+        oi, ii, mi = o[idx], w.inv[idx], mint[idx]
         ha, ta = _slab(row[:, 0:3], row[:, 4:7], oi, ii, mi, tb[idx])
         hb, tbb = _slab(row[:, 8:11], row[:, 12:15], oi, ii, mi, tb[idx])
         ha &= ra >= 0
         hb &= rb >= 0
-        boxes[idx] += (ra >= 0).long() + (rb >= 0).long()
+        w.boxes[idx] += (ra >= 0).long() + (rb >= 0).long()
         # the nearer child first
         sw = ha & hb & (tbb < ta)
         ra, rb = torch.where(sw, rb, ra), torch.where(sw, ra, rb)
@@ -227,12 +371,12 @@ def traverse(nodes, woop, prim, o, d, mint, maxt, any_hit=False, k2=False):
         ta, tbb = torch.where(sw, tbb, ta), torch.where(sw, ta, tbb)
         nxt = torch.where(ha & (ca == 0), ra, -1)
         la = ha & (ca > 0)
-        leaf(idx[la], ra[la], ca[la])
+        w.leaf(idx[la], ra[la], ca[la])
         hb &= tbb <= tb[idx]
         if any_hit:
             hb &= ~found[idx]
         lb = hb & (cb > 0)
-        leaf(idx[lb], rb[lb], cb[lb])
+        w.leaf(idx[lb], rb[lb], cb[lb])
         ib = hb & (cb == 0)
         push = ib & (nxt >= 0)
         stack[idx[push], sp[idx[push]]] = rb[push]
@@ -247,22 +391,13 @@ def traverse(nodes, woop, prim, o, d, mint, maxt, any_hit=False, k2=False):
         nxt[pop] = stack[idx[pop], sp[idx[pop]]]
         node[idx] = nxt.clamp(min=0)
         alive[idx[done]] = False
-    out = {"boxes": boxes, "faces": faces, "node_reads": node_reads,
-           "face_reads": face_reads}
-    if any_hit:
-        out["hit"] = found
-    else:
-        hit = best >= 0
-        out.update(t=torch.where(hit, tb, float("inf")),
-                   u=torch.where(hit, u_best, 0.0),
-                   v=torch.where(hit, v_best, 0.0), face=best)
-    return out
+    return w.result(PAIR_BYTES)
 
 
 def bytes_read(walk) -> int:
-    """-> the bytes of the distinct pair nodes and face rows a ``traverse``
-    walk read over all its rays: a lower bound on what the device walk
-    moves for those rays (each read once)."""
-    return (NODE_BYTES * int(walk["node_reads"].sum())
+    """-> the bytes of the distinct nodes and face rows a ``traverse`` or
+    ``traverse_pairs`` walk read over all its rays: a lower bound on what
+    the device walk moves for those rays (each read once)."""
+    return (walk["node_bytes"] * int(walk["node_reads"].sum())
             + sum(b * int(walk["face_reads"][:, k].sum())
                   for k, b in enumerate(FACE_READ_BYTES)))

@@ -9,8 +9,8 @@ Counterpart of ``mitsuba2_tpu.ops.intersect_pallas.WoopIntersector``
 scene's path-kernel tables (``PathTables``: the traversal tree's pair
 nodes, Woop rows and face ids), which the scene builds once.
 
-For tables on a CUDA device each call launches the kernel, one thread per
-ray walking the tree (csrc/bvh.cuh); for tables on the CPU it runs the
+For tables on a CUDA device each call launches the kernel, each ray walking
+the tree's 4-wide nodes (csrc/bvh.cuh); for tables on the CPU it runs the
 plain version, ops/intersect.py's linear sweep over the Woop rows in face
 order. A build or launch failure raises.
 """
@@ -22,8 +22,7 @@ import ctypes
 import torch
 
 from . import intersect
-from .bvh import STACK_DEPTH
-from .path_kernel import face_woop
+from .path_kernel import check_tree, face_woop
 
 
 class _IsectArgs(ctypes.Structure):
@@ -55,9 +54,7 @@ def _check(tables, o, d, mint, maxt):
 
 def _launch(entry, tables, o, d, mint, maxt, t=None, uv=None, prim=None,
             hit=None):
-    if tables.bvh_depth > STACK_DEPTH:
-        raise ValueError(f"traversal tree depth {tables.bvh_depth} > the "
-                         f"kernel's stack of {STACK_DEPTH}")
+    check_tree(tables)
     args = _IsectArgs(*(0 if x is None else x.data_ptr() for x in (
         tables.bvh_nodes, tables.bvh_woop, tables.bvh_prim, o, d, mint,
         maxt, t, uv, prim, hit)), o.shape[0])

@@ -61,7 +61,7 @@ from ..core import spectrum as spec
 from ..core.rng import sample_tea_32, u32_to_float01
 from ..render.fresnel import fresnel_conductor
 from . import bvh as bvh_ops
-from .intersect import traverse
+from .intersect import traverse, traverse_pairs
 
 # Faces the kernel stages in shared memory and sweeps linearly (the
 # reference's unrolled tier, UNROLLED_CHUNKS * FACE_CHUNK, megakernel.py:
@@ -191,13 +191,17 @@ class PathTables(NamedTuple):
     spd      (96, 4) in spectral mode (``spd_table``), else (0, 4).
     tex      (T, 4): the bitmap textures' texels one after another, each
              row-major, [payload (3), 0] (the color mode's payload).
-    bvh_nodes (P, 16): the traversal tree's pair nodes (ops/bvh.py
-             ``pack_traversal``); bvh_woop (F, 12) the Woop rows and
-             bvh_prim (F,) int32 the face ids in the tree's face order;
-             empty without faces.
+    bvh_nodes (P, 32): the traversal tree's 4-wide nodes, one 128-byte line
+             each (ops/bvh.py ``pack_traversal``); bvh_woop (F, 12) the
+             Woop rows and bvh_prim (F,) int32 the face ids in the tree's
+             face order; empty without faces.
     flags    HAS_* bits; p_env the probability of the env NEE arm; nc the
-             color channels (``MODE_NC``); bvh_depth the tree's depth in
-             pair nodes.
+             color channels (``MODE_NC``); bvh_depth the bound of the
+             walk's stack (``pack_traversal``).
+    bvh_tree the traversal tree as the host builder gave it (ops/bvh.py
+             ``BVH``, binary), which no kernel reads: ``walk_trees``
+             packs its pair nodes for the walk whose tests the bounds
+             count, only where the plain version counts them.
     """
     woop: torch.Tensor
     fattr: torch.Tensor
@@ -220,6 +224,7 @@ class PathTables(NamedTuple):
     p_env: float = 0.0
     nc: int = 3
     bvh_depth: int = 0
+    bvh_tree: bvh_ops.BVH | None = None
 
     @property
     def n_faces(self) -> int:
@@ -319,7 +324,7 @@ def _make_tables(woop, fattr, lights, sph, sattr, env, env_rot, p_env,
         flags |= HAS_ENV_ROT
     spd = spd_table() if nc == MODE_NC["spectral"] \
         else np.zeros((0, 4), np.float32)
-    nodes = np.zeros((0, bvh_ops.PAIR_SLOTS), np.float32)
+    nodes = np.zeros((0, bvh_ops.WIDE_SLOTS), np.float32)
     order = np.zeros(0, np.int32)
     depth = 0
     if traversal is not None:
@@ -345,7 +350,7 @@ def _make_tables(woop, fattr, lights, sph, sattr, env, env_rot, p_env,
                       dev(spd), dev(tex), dev(nodes), dev(tree_woop),
                       torch.as_tensor(np.asarray(order, np.int32),
                                       device=device),
-                      flags, float(p_env), nc, depth)
+                      flags, float(p_env), nc, depth, traversal)
 
 
 def pack_tables(v0, e1, e2, fattr, lights, device, sph=None, sattr=None,
@@ -816,20 +821,59 @@ def _closest_hit(tables, o, d, maxt, first_hits=None):
     return t, A, bu, bv
 
 
-def _count_walk(tables, o, d, maxt, live, stats, key, any_hit):
-    """Adds the box tests and face tests that the BVH tier's walk
-    (csrc/bvh.cuh, emulated by ops/intersect.py ``traverse``) runs for the
-    ``live`` lanes' rays to ``stats[key + "_boxes"]`` and
-    ``stats[key + "_faces"]``."""
+class WalkTrees(NamedTuple):
+    """A traversal tree on the host for the plain walks that count tests:
+    ``pairs`` the binary pair nodes (ops/bvh.py ``pack_pairs``), ``nodes``
+    the wide nodes, ``woop`` and ``prim`` in the tree's face order."""
+    pairs: torch.Tensor
+    nodes: torch.Tensor
+    woop: torch.Tensor
+    prim: torch.Tensor
+
+
+def walk_trees(tables) -> WalkTrees:
+    """The tables' traversal tree on the host, its pair nodes packed from
+    ``bvh_tree``: the walks of ops/intersect.py are loops of small steps,
+    which the host runs faster than the card."""
+    if tables.bvh_tree is None:
+        raise ValueError("the tables carry no traversal tree")
+    return WalkTrees(torch.as_tensor(bvh_ops.pack_pairs(tables.bvh_tree)[0]),
+                     tables.bvh_nodes.cpu(), tables.bvh_woop.cpu(),
+                     tables.bvh_prim.cpu())
+
+
+def _queue_walk(walks, o, d, maxt, live, key):
+    """Queues the ``live`` lanes' rays on the host under ``key``
+    ("walk" for closest hits, "shadow_walk" for any hits) for
+    ``_count_walks``."""
     idx = live.nonzero()[:, 0]
-    walk = traverse(tables.bvh_nodes, tables.bvh_woop, tables.bvh_prim,
-                    torch.stack([x[idx] for x in o], 1),
-                    torch.stack([x[idx] for x in d], 1),
-                    torch.zeros(len(idx), device=idx.device), maxt[idx],
-                    any_hit=any_hit)
-    for part in ("boxes", "faces"):
-        stats[f"{key}_{part}"] = stats.get(f"{key}_{part}", 0) + int(
-            walk[part].sum())
+    walks.setdefault(key, []).append(
+        (torch.stack([x[idx] for x in o], 1).cpu(),
+         torch.stack([x[idx] for x in d], 1).cpu(), maxt[idx].cpu()))
+
+
+def _count_walks(tables, walks, stats):
+    """Adds the node reads, box tests and face tests of the queued rays'
+    walks: those of the binary walk over the tree's pair nodes
+    (ops/intersect.py ``traverse_pairs``), which the bounds count, to
+    ``stats[key + "_nodes"]``, ``[key + "_boxes"]`` and ``[key +
+    "_faces"]``, and those of the BVH tier's wide walk (csrc/bvh.cuh,
+    emulated by ``traverse``) to ``stats[key + "_wide_nodes"]`` and so on.
+    Each walk runs once a key over all its rays."""
+    if not walks:
+        return
+    trees = walk_trees(tables)
+    for key, rays in walks.items():
+        o, d, maxt = (torch.cat(x) for x in zip(*rays))
+        args = (trees.woop, trees.prim, o, d, torch.zeros(len(o)), maxt)
+        any_hit = key == "shadow_walk"
+        for tag, walk in (("", traverse_pairs(trees.pairs, *args,
+                                              any_hit=any_hit)),
+                          ("_wide", traverse(trees.nodes, *args,
+                                             any_hit=any_hit))):
+            for part in ("nodes", "boxes", "faces"):
+                name = f"{key}{tag}_{part}"
+                stats[name] = stats.get(name, 0) + int(walk[part].sum())
 
 
 def _first_or_all(hits):
@@ -841,12 +885,12 @@ def _first_or_all(hits):
     return (first.min(dim=1).values + 1).clamp(max=n)
 
 
-def _occluded(tables, o, d, maxt, stats=None, live=None):
+def _occluded(tables, o, d, maxt, stats=None, live=None, walks=None):
     """Shadow any-hit of every lane; ``stats`` (with the ``live`` lanes
     that trace the ray) sums the face, sphere and quad tests the kernel's
     loops, which stop at the first occluder, run ("shadow_faces",
-    "shadow_spheres", "shadow_quads"; in the BVH tier the walk's
-    "shadow_walk_boxes" and "shadow_walk_faces")."""
+    "shadow_spheres", "shadow_quads"); in the BVH tier ``walks`` queues
+    the rays, whose walks ``_count_walks`` counts."""
     occ = torch.zeros(o[0].shape[0], dtype=torch.bool, device=o[0].device)
 
     def count(name, hits):
@@ -856,9 +900,8 @@ def _occluded(tables, o, d, maxt, stats=None, live=None):
 
     if tables.n_faces:
         hits = _face_ok(*_woop_t_uv(face_woop(tables), o, d), maxt)
-        if stats is not None and tables.flags & HAS_BVH:
-            _count_walk(tables, o, d, maxt, live, stats, "shadow_walk",
-                        True)
+        if walks is not None:
+            _queue_walk(walks, o, d, maxt, live, "shadow_walk")
         else:
             count("shadow_faces", hits)
         occ = hits.any(1)
@@ -1030,20 +1073,21 @@ FIRST_HIT_KINDS = (("dielectric", KIND_DIELECTRIC),
 
 
 def _trace_lanes(tables, cam, key, pixel, width, height, max_depth,
-                 rr_depth, stats=None):
+                 rr_depth, stats=None, walks=None):
     """Radiance (3, n) linear sRGB of the lanes with TEA keys ``key`` at
     ``pixel``. ``stats``, if given, sums the lanes that trace a ray
     ("rays"), escape to the envmap ("escaped"), shade a bounce ("shaded",
     of them "ggx" on a conductor, "dielectric", "plastic" of which
     "roughplastic", "bitmap" fetches), sample the env NEE arm ("env_nee")
     and trace a shadow ray ("shadow"), the shadow rays' tests
-    (``_occluded``), in the BVH tier the walk's box and face tests of the
-    rays ("walk_boxes", "walk_faces"), and the camera rays whose first hit
+    (``_occluded``), and the camera rays whose first hit
     is a dielectric, plastic, roughplastic, bitmap, disk or cylinder
     ("first_<name>"). A list under ``stats["lane_masks"]`` receives, per
     depth, {"depth", "live": the lanes that trace a ray, "kind": the kind
     of the lanes that shade a bounce, -1 elsewhere (absent on the last
-    bounce)}; without that key nothing is recorded."""
+    bounce)}; without that key nothing is recorded. ``walks``, with
+    ``stats`` in the BVH tier, queues the rays that walk the tree for
+    ``_count_walks``."""
     dev = key.device
     f32 = torch.float32
     nc = tables.nc
@@ -1102,8 +1146,8 @@ def _trace_lanes(tables, cam, key, pixel, width, height, max_depth,
         count("rays", active)
         if masks is not None:
             masks.append({"depth": depth, "live": active})
-        if stats is not None and tables.flags & HAS_BVH:
-            _count_walk(tables, o, d, big, active, stats, "walk", False)
+        if walks is not None:
+            _queue_walk(walks, o, d, big, active, "walk")
         if stats is not None and tables.n_quads:
             stats["quad_tests"] = stats.get("quad_tests", 0) \
                 + tables.n_quads * int(active.sum())
@@ -1300,7 +1344,8 @@ def _trace_lanes(tables, cam, key, pixel, width, height, max_depth,
             count("env_nee", act & use_env)
         occluded = _occluded(
             tables, [p[k] + n_[k] * eps for k in range(3)], dl,
-            torch.where(nee_ok, dist * (1.0 - 1e-3), -big), stats, nee_ok)
+            torch.where(nee_ok, dist * (1.0 - 1e-3), -big), stats, nee_ok,
+            walks)
         # BSDF toward the light: f * cos and the BSDF's own pdf
         pdf_bsdf_l = torch.clamp(cos_s, min=0.0) / _PI
         fcos = [alb[c] * (cos_s / _PI) for c in range(nc)]
@@ -1475,8 +1520,11 @@ def path_radiance_reference(tables, cam, seed, sample_base, spp_pass,
     Vectorised over lanes with a Python loop over depth and brute-force
     (lanes x faces), (lanes x spheres) and (lanes x cdf entries) tests, in
     lane chunks that keep each such temporary within ``_CHUNK_ELEMS``
-    elements. ``stats``: see ``_trace_lanes``."""
+    elements. ``stats``: see ``_trace_lanes``; in the BVH tier also the
+    walk's node reads, box and face tests of every ray it traces
+    (``_count_walks``: "walk_boxes", "shadow_walk_faces" and so on)."""
     dev = tables.device
+    walks = {} if stats is not None and tables.flags & HAS_BVH else None
     if lanes is None:
         lanes = torch.arange(width * height * spp_pass, device=dev)
     out = torch.empty((3, len(lanes)), dtype=torch.float32, device=dev)
@@ -1488,7 +1536,9 @@ def path_radiance_reference(tables, cam, seed, sample_base, spp_pass,
         key, pixel = lane_keys(seed, sample_base, spp_pass, chunk)
         out[:, start:start + len(chunk)] = _trace_lanes(
             tables, cam, key, pixel, width, height, max_depth, rr_depth,
-            stats)
+            stats, walks)
+    if walks is not None:
+        _count_walks(tables, walks, stats)
     return out
 
 
@@ -1518,21 +1568,13 @@ class _PathArgs(ctypes.Structure):
 BLOCK = 128
 # what csrc/path_kernel.cu's entry point reports of a launch: blocks of
 # the instantiation resident an SM, the card's SMs, dynamic shared bytes a
-# block, the launch's grid, and whether it is persistent (the grid then the
-# SMs times the resident blocks; else a block per BLOCK lanes)
-LAUNCH_INFO = ("blocks_per_sm", "sms", "smem", "grid", "persistent")
+# block, and the launch's grid (persistent: the SMs times the resident
+# blocks)
+LAUNCH_INFO = ("blocks_per_sm", "sms", "smem", "grid")
 # its own error codes
 LAUNCH_ERRORS = {-1: "no block of the instantiation fits on an SM",
                  -2: "the lanes and the grid overflow the 32-bit lane "
                      "counter"}
-
-
-def launch_grid(info, n_lanes):
-    """The grid that a launch reporting ``info`` (LAUNCH_INFO) must have
-    had for ``n_lanes`` lanes."""
-    if info["persistent"]:
-        return info["sms"] * info["blocks_per_sm"]
-    return -(-n_lanes // BLOCK)
 
 
 def _check_tables(tables, cam):
@@ -1554,7 +1596,7 @@ def _check_tables(tables, cam):
               ("spd", tables.spd, (SPD_ROWS if tables.nc == 4 else 0, 4)),
               ("tex", tables.tex, (tables.tex.shape[0], 4)),
               ("bvh_nodes", tables.bvh_nodes, (tables.bvh_nodes.shape[0],
-                                               16)),
+                                               bvh_ops.WIDE_SLOTS)),
               ("bvh_woop", tables.bvh_woop, (tables.bvh_prim.shape[0], 12)),
               ("bvh_prim", tables.bvh_prim, (tables.bvh_prim.shape[0],)),
               ("cam", cam, (16,)))
@@ -1576,10 +1618,7 @@ def _check_tables(tables, cam):
                 or not tables.bvh_nodes.shape[0]:
             raise ValueError("the BVH tier needs the traversal tree of "
                              "every face")
-        if tables.bvh_depth > bvh_ops.STACK_DEPTH:
-            raise ValueError(f"traversal tree depth {tables.bvh_depth} > "
-                             f"the kernel's stack of "
-                             f"{bvh_ops.STACK_DEPTH}")
+        check_tree(tables)
     elif tables.n_faces > MAX_FACES_SHARED:
         raise ValueError(f"{tables.n_faces} faces > {MAX_FACES_SHARED} "
                          f"need the BVH tier")
@@ -1597,6 +1636,21 @@ def _check_tables(tables, cam):
                                    or min(tables.env_pmf.shape) < 1):
         raise ValueError("an envmap needs non-empty radiance and grid "
                          "tables")
+
+
+def check_tree(tables):
+    """Raises unless the tables' traversal tree is what csrc/bvh.cuh
+    walks: a stack bound within its stack, 128-byte nodes, on the card on
+    128-byte lines."""
+    if tables.bvh_depth > bvh_ops.STACK_DEPTH:
+        raise ValueError(f"the traversal tree's stack bound "
+                         f"{tables.bvh_depth} > the kernel's stack of "
+                         f"{bvh_ops.STACK_DEPTH}")
+    nodes = tables.bvh_nodes
+    if nodes.shape[1:] != (bvh_ops.WIDE_SLOTS,) \
+            or nodes.is_cuda and nodes.data_ptr() % 128:
+        raise ValueError("the traversal tree's nodes must be 128-byte "
+                         "lines, 128-byte aligned on the card")
 
 
 def _path_args(tables, cam, seed, sample_base, spp_pass, width, height,
@@ -1626,8 +1680,7 @@ def path_radiance(tables, cam, seed, sample_base, spp_pass, width, height,
     device, the plain version for tables on the CPU. The kernel runs
     persistent blocks, as many as the card holds at once, whose threads
     take lanes from a counter this function zeroes on the stream before
-    the launch (the BVH tier without the env: a thread a lane). A build or
-    launch failure raises."""
+    the launch. A build or launch failure raises."""
     dev = tables.device
     if dev.type == "cpu":
         return path_radiance_reference(tables, cam, seed, sample_base,

@@ -25,6 +25,17 @@ launch failure raises.
 
 ``sweep_product_reference`` is the TPU kernel's product in float32, and
 ``sweep_reference`` the closest hit computed from that product.
+
+The box-test ceiling beside it: ``box_sweep`` tests every ray against every
+child box of a table of the BVH walk's 4-wide nodes ``lines`` (L, 32)
+(ops/bvh.py ``pack_traversal``'s layout; refs >= 0), ``iters`` times,
+iteration k against [k * MINT_STEP, inf), and returns per ray the nearest
+entry t of the last iteration's hit boxes (inf where none) and its box
+hits summed over the iterations (int32). ``box_shared=True`` stages the
+lines in shared memory (at most MAX_SHARED_LINES), ``False`` reads them
+through the read-only path. Its plain version ``box_sweep_reference`` runs
+the slab test's arithmetic (ops/intersect.py ``_slab``), bit for bit the
+kernel's.
 """
 
 from __future__ import annotations
@@ -39,6 +50,8 @@ import torch
 MINT_STEP = 2.0 ** -10
 # 227 KB of dynamic shared memory a block, 48 B a face
 MAX_SHARED_FACES = 232448 // 48
+# 227 KB of dynamic shared memory a block, 128 B a line
+MAX_SHARED_LINES = 232448 // 128
 # faces x rays per step of the plain version
 _CHUNK_ELEMS = 1 << 23
 
@@ -51,8 +64,17 @@ class _SweepArgs(ctypes.Structure):
         + [("mint_step", ctypes.c_float)])
 
 
-def kernel_name(shared: bool) -> str:
-    return f"sweep_kernel[{'shared' if shared else 'global'}]"
+class _BoxArgs(ctypes.Structure):
+    """csrc/sweep_kernel.cu's BoxArgs, field for field."""
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "lines", "o", "d", "near", "hits")]
+        + [(name, ctypes.c_int) for name in ("n_lines", "n_rays", "iters")]
+        + [("mint_step", ctypes.c_float)])
+
+
+def kernel_name(shared: bool, boxes: bool = False) -> str:
+    return (f"sweep_kernel[{'boxes, ' if boxes else ''}"
+            f"{'shared' if shared else 'global'}]")
 
 
 def sweep_product_reference(W, odh):
@@ -121,6 +143,73 @@ def sweep_reference(woop, o, d, iters):
     return t_out, uv, prim, hits
 
 
+def box_sweep_reference(lines, o, d, iters):
+    """Plain PyTorch version of ``box_sweep`` -> (near (n,), hits (n,)
+    int32)."""
+    from .bvh import WIDTH
+    from .intersect import _slab
+    L, n, dev = lines.shape[0], o.shape[0], o.device
+    near = torch.full((n,), float("inf"), device=dev)
+    hits = torch.zeros((n,), dtype=torch.int32, device=dev)
+    if L == 0 or iters < 1:
+        return near, hits
+    lo = lines[:, :3 * WIDTH].reshape(L, 3, WIDTH).transpose(1, 2)
+    hi = lines[:, 3 * WIDTH:6 * WIDTH].reshape(L, 3, WIDTH).transpose(1, 2)
+    lo, hi = lo.reshape(1, -1, 3), hi.reshape(1, -1, 3)
+    B = lo.shape[1]
+    inv = 1.0 / torch.where(d.abs() > 1e-12, d, 1e-12)
+    step = max(1, _CHUNK_ELEMS // (3 * B))
+    for s in range(0, n, step):
+        sl = slice(s, s + step)
+        m = o[sl].shape[0]
+        inf = torch.full((m,), float("inf"), device=dev)
+        for k in range(iters):
+            hit, tn = _slab(lo.expand(m, -1, -1), hi.expand(m, -1, -1),
+                            o[sl], inv[sl], torch.full_like(inf,
+                                                            k * MINT_STEP),
+                            inf)
+            hits[sl] += hit.sum(1).to(torch.int32)
+        near[sl] = torch.where(hit, tn, float("inf")).min(1).values
+    return near, hits
+
+
+def box_sweep(lines, o, d, iters, shared=True):
+    """Every ray o, d (n, 3) against every child box of ``lines`` (L, 32),
+    ``iters`` times -> (near, hits), see the module."""
+    n = o.shape[0] if o.dim() == 2 else -1
+    L = lines.shape[0] if lines.dim() == 2 else -1
+    for name, x, shape in (("lines", lines, (L, 32)), ("o", o, (n, 3)),
+                           ("d", d, (n, 3))):
+        if x.dtype != torch.float32 or not x.is_contiguous() \
+                or tuple(x.shape) != shape or x.device != lines.device:
+            raise ValueError(f"{name} must be a contiguous float32 {shape} "
+                             f"tensor on {lines.device}")
+    if shared and L > MAX_SHARED_LINES:
+        raise ValueError(f"{L} lines > {MAX_SHARED_LINES}, the shared "
+                         f"instantiation's table")
+    if max(n, 4 * L * max(iters, 1)) >= 1 << 31 or iters < 0:
+        raise ValueError(f"{n} rays, {L} lines, {iters} iterations: out of "
+                         f"the kernel's int32 range")
+    if lines.device.type == "cpu" or n == 0 or L == 0 or iters == 0:
+        return box_sweep_reference(lines, o, d, iters)
+    if lines.device.type != "cuda":
+        raise ValueError(f"no box kernel for device {lines.device}")
+    dev = lines.device
+    near = torch.empty((n,), device=dev)
+    hits = torch.empty((n,), dtype=torch.int32, device=dev)
+    args = _BoxArgs(*(x.data_ptr() for x in (lines, o, d, near, hits)),
+                    L, n, iters, MINT_STEP)
+    fn = _entry("boxes_shared" if shared else "boxes_global", _BoxArgs)
+    with torch.cuda.device(dev):
+        err = fn(ctypes.byref(args),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel_name(shared, True)} launch failed: "
+                           f"CUDA error {err}")
+    sweep.launches_by_kernel[kernel_name(shared, True)] += 1
+    return near, hits
+
+
 def _check(woop, o, d, iters, shared):
     n = o.shape[0] if o.dim() == 2 else -1
     F = woop.shape[0] if woop.dim() == 2 else -1
@@ -169,7 +258,8 @@ def sweep(woop, o, d, iters, shared=True):
     return t, uv, prim, hits
 
 
-# kernel launches by instantiation (``kernel_name``)
+# kernel launches by instantiation (``kernel_name``), of ``sweep`` and
+# ``box_sweep``
 sweep.launches_by_kernel = collections.Counter()
 
 
@@ -182,10 +272,11 @@ def libraries():
     return [("sweep_kernel", {})]
 
 
-def _entry(name):
-    """csrc/sweep_kernel.cu's C entry point ``name``, built on first use."""
+def _entry(name, args=_SweepArgs):
+    """csrc/sweep_kernel.cu's C entry point ``name`` taking ``args``, built
+    on first use."""
     from .build import load
     fn = getattr(load("sweep_kernel"), name)
-    fn.argtypes = [ctypes.POINTER(_SweepArgs), ctypes.c_void_p]
+    fn.argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

@@ -9,13 +9,15 @@ on one CUDA device:
 - depth: the path kernel at max_depth 1, 2, 3 and 5: how time follows
   path length;
 - walk: for camera rays in the kernel's lane order (a warp is 32 samples
-  of one pixel), the box and face tests of each ray's walk
-  (ops/intersect.py ``traverse``, the device walk step for step, over 256
-  warps drawn at random from the image) and the share of a warp's lane slots
-  that do work when its lanes walk in lock-step (mean over max, per warp);
+  of one pixel), the node reads, box and face tests of each ray's walk
+  (ops/intersect.py ``traverse``, the device's wide walk step for step,
+  and ``traverse_pairs``, the binary walk over the same leaves that the
+  bounds count, over 256 warps drawn at random from the image) and the
+  share of a warp's lane slots that do work when its lanes walk in
+  lock-step (mean over max, per warp);
 - leaf: the traversal tree rebuilt at 2, 4, 8 and 16 faces per leaf (the
   builder may keep up to four times as many where splitting costs more):
-  the tree's pair nodes and depth, the path kernel at max_depth 5 and the
+  the tree's wide nodes and stack bound, the path kernel at max_depth 5 and the
   intersection kernel's closest hit on the 2,097,152 camera rays;
 - profile: ``torch.profiler`` over 5 back-to-back renders of each scene:
   device time by kernel and the device's busy share of the span from its
@@ -53,8 +55,9 @@ def path_ms(pk, scene, tables, max_depth):
 
 
 def walk(pk, isx, scene, tables):
-    """Per-ray box and face tests of the camera rays of WARPS warps, and
-    the lock-step share of lane slots."""
+    """Per-ray node reads, box and face tests of the camera rays of WARPS
+    warps, and the lock-step share of lane slots -> {walk: [(mean,
+    share)] for nodes, boxes, faces}, the wide walk and the binary one."""
     cam = pk.camera_row(scene.sensors[0], scene.device)
     o, d = pk.camera_rays(cam, WIDTH, WIDTH, SPP, SEED)
     g = torch.Generator(device=o.device).manual_seed(SEED)
@@ -62,14 +65,17 @@ def walk(pk, isx, scene, tables):
                            device=o.device)[:WARPS]
     idx = (warps[:, None] * 32 + torch.arange(32, device=o.device)).ravel()
     n = len(idx)
-    w = isx.traverse(tables.bvh_nodes, tables.bvh_woop, tables.bvh_prim,
-                     o[idx], d[idx], torch.zeros(n, device=o.device),
-                     torch.full((n,), 3.0e38, device=o.device))
-    out = []
-    for part in ("boxes", "faces"):
-        c = w[part].float().reshape(-1, 32)
-        out.append((float(c.mean()),
-                    float(c.sum() / (32 * c.max(dim=1).values.sum()))))
+    trees = pk.walk_trees(tables)
+    rays = (trees.woop, trees.prim, o[idx].cpu(), d[idx].cpu(),
+            torch.zeros(n), torch.full((n,), 3.0e38))
+    out = {}
+    for name, w in (("wide", isx.traverse(trees.nodes, *rays)),
+                    ("binary", isx.traverse_pairs(trees.pairs, *rays))):
+        out[name] = []
+        for part in ("nodes", "boxes", "faces"):
+            c = w[part].float().reshape(-1, 32)
+            out[name].append((float(c.mean()), float(
+                c.sum() / (32 * c.max(dim=1).values.sum()))))
     return out
 
 
@@ -82,7 +88,7 @@ def with_leaf(pk, bvh, scene, leaf):
     return tables._replace(
         bvh_nodes=torch.as_tensor(nodes, device=tables.device),
         bvh_woop=pk.face_woop(tables)[order.long()].contiguous(),
-        bvh_prim=order.to(torch.int32), bvh_depth=depth)
+        bvh_prim=order.to(torch.int32), bvh_depth=depth, bvh_tree=tree)
 
 
 def profile(scene, label):
@@ -115,16 +121,18 @@ def main():
         scene = mi.load_dict(make(MAX_DEPTH))
         tables = scene.tables
         print(f"{label}: {tables.n_faces} faces, "
-              f"{tables.bvh_nodes.shape[0]} pair nodes, depth "
+              f"{tables.bvh_nodes.shape[0]} wide nodes "
+              f"({len(bvh.pack_pairs(tables.bvh_tree)[0])} pair nodes), "
+              f"stack bound "
               f"{tables.bvh_depth}")
         for depth in (1, 2, 3, 5):
             print(f"  depth {depth}: path kernel "
                   f"{path_ms(pk, scene, tables, depth):.3f} ms")
-        (boxes, box_share), (faces, face_share) = walk(pk, isx, scene,
-                                                       tables)
-        print(f"  camera-ray walk: {boxes:.2f} box tests ({box_share:.4f} "
-              f"of lane slots busy in lock-step), {faces:.2f} face tests "
-              f"({face_share:.4f})")
+        for name, counts in walk(pk, isx, scene, tables).items():
+            print(f"  camera-ray {name} walk: " + ", ".join(
+                f"{mean:.2f} {part} ({share:.4f} of lane slots busy in "
+                f"lock-step)" for part, (mean, share) in zip(
+                    ("node reads", "box tests", "face tests"), counts)))
         cam = pk.camera_row(scene.sensors[0], scene.device)
         o, d = pk.camera_rays(cam, WIDTH, WIDTH, SPP, SEED)
         n = o.shape[0]
@@ -132,8 +140,12 @@ def main():
                 torch.full((n,), float("inf"), device=o.device))
         for leaf in (2, 4, 8, 16):
             t = with_leaf(pk, bvh, scene, leaf)
-            print(f"  leaf {leaf:2d}: {t.bvh_nodes.shape[0]} pair nodes, "
-                  f"depth {t.bvh_depth}; path kernel "
+            if t.bvh_depth > bvh.STACK_DEPTH:
+                print(f"  leaf {leaf:2d}: stack bound {t.bvh_depth} > the "
+                      f"kernel's {bvh.STACK_DEPTH}, not run")
+                continue
+            print(f"  leaf {leaf:2d}: {t.bvh_nodes.shape[0]} wide nodes, "
+                  f"stack bound {t.bvh_depth}; path kernel "
                   f"{path_ms(pk, scene, t, MAX_DEPTH):.3f} ms; closest hit "
                   f"on {n} camera rays "
                   f"{kernel_ms(lambda: ik.isect_closest(t, *rays)):.4f} ms")

@@ -1,4 +1,5 @@
-"""The card's face-test ceilings: what a Woop face test costs on it.
+"""The card's face-test and box-test ceilings: what a Woop face test and a
+slab test of the BVH walk cost on it.
 
     python -m mitsuba2_tpu_torch.tools.shape_ceiling [--chunks 16] \
         [--iters 64] [--tiles 64]
@@ -16,15 +17,28 @@ instantiations:
   through the read-only path from L2) against 32 x 2,048 rays (65,536),
   --global-iters times (1).
 
-Woop rows and rays are N(0,1) draws from a seeded numpy generator. For each
-it prints a CUDA-event median of ten runs after a warm-up as face tests per
-second per SM, as the logical product's FLOP/s counted as the TPU tool
-counts it (2 x 3C x 4 x 2R a chunk, 48 a pair) and as a share of the 67
-TFLOP/s fp32 peak; and the library call beside it: ``torch.matmul`` of the
-same (3 x 2,048, 4) @ (4, 2 x 2,048) product, one tile of 2,048 rays and
-2,048 faces a call, with TF32 off. The library computes the product only,
-not the closest hit. Prints the card's name and power limit first. Exits
-non-zero without a CUDA device.
+Beside them, the box-test ceilings: csrc/sweep_kernel.cu's box
+instantiations test every ray against every child box of a table of the
+BVH walk's 4-wide nodes, each 128-byte line read and tested as the walk
+does (csrc/bvh.cuh ``test_line``):
+
+- box shared: 1,024 lines (4,096 boxes, 128 KB in shared memory) against
+  64 x 2,048 rays, 16 iterations;
+- box global: 24,576 lines (98,304 boxes, 3 MB read from L2) against
+  32 x 2,048 rays, 1 iteration.
+
+They price a node visit of the walk in box tests per second; no PyTorch
+call computes a slab test, so they have no library call.
+
+Woop rows and rays are N(0,1) draws from a seeded numpy generator. For
+each face instantiation it prints a CUDA-event median of ten runs after a
+warm-up as face tests per second per SM, as the logical product's FLOP/s
+counted as the TPU tool counts it (2 x 3C x 4 x 2R a chunk, 48 a pair)
+and as a share of the 67 TFLOP/s fp32 peak; and the library call beside
+it: ``torch.matmul`` of the same (3 x 2,048, 4) @ (4, 2 x 2,048)
+product, one tile of 2,048 rays and 2,048 faces a call, with TF32 off.
+The library computes the product only, not the closest hit. Prints the
+card's name and power limit first. Exits non-zero without a CUDA device.
 """
 
 import argparse
@@ -44,6 +58,10 @@ GLOBAL_FACES, GLOBAL_TILES = 262_144, 32
 RUNS, SEED = 10, 0
 # faces of one library call: the shared instantiation's default table
 LIBRARY_FACES = 16 * C
+# the box ceilings: lines of the shared and the global table, ray tiles of
+# each, iterations of the shared one
+BOX_SHARED_LINES, BOX_GLOBAL_LINES = 1024, 24_576
+BOX_SHARED_TILES, BOX_GLOBAL_TILES, BOX_SHARED_ITERS = 64, 32, 16
 
 
 def inputs(n_faces, n_rays, device, seed=SEED):
@@ -53,6 +71,57 @@ def inputs(n_faces, n_rays, device, seed=SEED):
     rays = rng.standard_normal((2, n_rays, 3), dtype=np.float32)
     return tuple(torch.as_tensor(x, device=device)
                  for x in (woop, rays[0], rays[1]))
+
+
+def box_inputs(n_lines, n_rays, device, seed=SEED):
+    """-> (lines (L, 32), o (n, 3), d (n, 3)): boxes of N(0,1) centres and
+    |N(0, 0.3)| half-extents in the walk's line layout (refs 0, counts 1),
+    rays of ``inputs``."""
+    from ..ops.bvh import WIDTH
+    rng = np.random.default_rng(seed + 1)
+    centre = rng.standard_normal((n_lines, 3, WIDTH), dtype=np.float32)
+    half = np.abs(rng.standard_normal((n_lines, 3, WIDTH),
+                                      dtype=np.float32)) * 0.3
+    lines = np.zeros((n_lines, 8 * WIDTH), np.float32)
+    lines[:, :3 * WIDTH] = (centre - half).reshape(n_lines, -1)
+    lines[:, 3 * WIDTH:6 * WIDTH] = (centre + half).reshape(n_lines, -1)
+    lines.view(np.int32)[:, 7 * WIDTH:] = 1
+    _, o, d = inputs(0, n_rays, device, seed)
+    return torch.as_tensor(lines, device=device), o, d
+
+
+def measure_boxes(shared, n_lines, n_rays, iters, runs=RUNS, log=print):
+    """One box instantiation at one shape -> dict of its numbers, as
+    ``measure``'s."""
+    from ..ops.bvh import WIDTH
+    lines, o, d = box_inputs(n_lines, n_rays, "cuda")
+    out, times = prof.cuda_times(
+        lambda: sk.box_sweep(lines, o, d, iters, shared), runs)
+    ms = statistics.median(times)
+    tests = WIDTH * n_lines * n_rays * iters
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bound = prof.roofline(prof.BOX_FLOPS * tests,
+                          lines.numel() * lines.element_size(), n_rays,
+                          out_bytes=prof.BOX_RAY_OUT_BYTES,
+                          in_bytes=prof.SWEEP_RAY_IN_BYTES)
+    name = sk.kernel_name(shared, boxes=True)
+    # the TPU walk whose box tests it prices (the TPU repo has no box
+    # probe)
+    r = {"name": name, "boxes": WIDTH * n_lines, "rays": n_rays,
+         "replaces": "mitsuba2_tpu/ops/megakernel.py:570",
+         "iters": iters, "ms": ms, "tests_per_s": tests / (ms / 1e3),
+         "library_ms": None, "bound_ms": bound.ms, "bound_by": bound.by,
+         "outputs": out,
+         "reference": lambda: sk.box_sweep_reference(lines, o, d, iters)}
+    log(f"{name}: {WIDTH * n_lines} boxes ({n_lines} lines, "
+        f"{lines.numel() * 4 / 1e6:.3f} MB) x {n_rays} rays x {iters} "
+        f"iterations: {ms:.3f} ms median of {runs}; "
+        f"{r['tests_per_s'] / sms / 1e9:.4f} G box tests/s per SM "
+        f"({r['tests_per_s'] / 1e9:.2f} G/s on {sms} SMs); bound "
+        f"{bound.ms:.4f} ms ({bound.by}), {100 * bound.ms / ms:.2f}% of "
+        f"bound; boxes hit a ray and iteration "
+        f"{float(out[1].float().mean()) / iters:.2f}")
+    return r
 
 
 def library_ms(woop, o, d, iters, runs):
@@ -93,9 +162,10 @@ def measure(shared, n_faces, n_rays, iters, runs=RUNS, log=print):
                           in_bytes=prof.SWEEP_RAY_IN_BYTES)
     name = sk.kernel_name(shared)
     r = {"name": name, "faces": n_faces, "rays": n_rays, "iters": iters,
+         "replaces": "benchmarks/mxu_shape_ceiling.py:44",
          "ms": ms, "tests_per_s": pairs / (ms / 1e3), "library_ms": lib_ms,
-         "bound_ms": bound.ms, "bound_by": bound.by,
-         "inputs": (woop, o, d), "outputs": out}
+         "bound_ms": bound.ms, "bound_by": bound.by, "outputs": out,
+         "reference": lambda: sk.sweep_reference(woop, o, d, iters)}
     log(f"{name}: {n_faces} faces x {n_rays} rays x {iters} iterations: "
         f"{ms:.3f} ms median of {runs}; {r['tests_per_s'] / sms / 1e9:.4f} "
         f"G face tests/s per SM ({r['tests_per_s'] / 1e9:.2f} G/s on {sms} "
@@ -117,11 +187,17 @@ def measure(shared, n_faces, n_rays, iters, runs=RUNS, log=print):
 
 def run(chunks=16, iters=64, tiles=64, global_iters=1, runs=RUNS,
         log=print):
-    """Both instantiations at their shapes -> {'shared': numbers,
-    'global': numbers} (``measure``)."""
+    """The four instantiations at their shapes -> {'shared': numbers,
+    'global': numbers, 'box_shared': ..., 'box_global': ...}
+    (``measure``, ``measure_boxes``)."""
     return {"shared": measure(True, chunks * C, tiles * R, iters, runs, log),
             "global": measure(False, GLOBAL_FACES, GLOBAL_TILES * R,
-                              global_iters, runs, log)}
+                              global_iters, runs, log),
+            "box_shared": measure_boxes(True, BOX_SHARED_LINES,
+                                        BOX_SHARED_TILES * R,
+                                        BOX_SHARED_ITERS, runs, log),
+            "box_global": measure_boxes(False, BOX_GLOBAL_LINES,
+                                        BOX_GLOBAL_TILES * R, 1, runs, log)}
 
 
 def main(argv=None):

@@ -1,6 +1,8 @@
-"""The path kernel's time on each of its paths, chip_smoke.py's.
+"""The path kernel's time on each of its paths, chip_smoke.py's, and the
+ray queries' (K2).
 
     python mitsuba2_tpu_torch/tools/time_paths.py [--repeats 5] [--rounds 1]
+        [--paths biggeo,hero] [--isect]
 
 Loads each path scene of ``PATHS`` (the table chip_smoke.py drives) at
 its main shape (the Cornell box in rgb, spectral and mono mode, matpreview
@@ -9,7 +11,14 @@ spp, depth 5; the materials box in rgb and spectral at 64 spp, depth 6,
 and in mono at 64x64 at 16 spp) and prints the CUDA-event median of
 ``--repeats`` launches of ``ops/path_kernel.py path_radiance`` after a
 warm-up, ``--rounds`` times over the scenes, then one JSON line {"card":
-..., "ms": {path: [median of each round]}}. It imports the package
+..., "ms": {path: [median of each round]}, "ptxas": {path: registers and
+spills}}. ``--paths`` keeps the named paths only (and builds only their
+libraries). ``--isect`` adds the intersection kernel on biggeo at
+chip_smoke.py's shapes: ``isect_closest`` on the 2,097,152 camera rays of
+its 256x256x32 spp image, and ``isect_closest`` and ``isect_any`` on as
+many rays from their hits toward the light (``light_rays``), as
+"isect_closest[camera]", "isect_closest[light]" and "isect_any[light]".
+It imports the package
 ``mitsuba2_tpu_torch`` from the Python path, so that run as a file with
 ``PYTHONPATH`` set to another checkout it times that checkout's kernel on
 this file's ``PATHS`` (for a comparison of two commits within one run on
@@ -67,10 +76,62 @@ PATHS = (
 )
 
 
+def light_rays(scene, Ray, hits, ray, n, seed):
+    """``n`` rays from the hit points of ``ray`` (cycled) toward uniform
+    points of the scene's area-light triangles, on the reference's shadow
+    segment (mitsuba2_tpu/render/scene.py _shadow_ray: mint RayEpsilon
+    (1 + max |p|), maxt dist (1 - ShadowEpsilon), ShadowEpsilon being ten
+    RayEpsilon)."""
+    from mitsuba2_tpu_torch.core.math import RayEpsilon
+    dev = ray.o.device
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    hit = torch.isfinite(hits.t).nonzero()[:, 0]
+    idx = hit[torch.arange(n, device=dev) % len(hit)]
+    p = ray.o[idx] + ray.d[idx] * hits.t[idx, None]
+    rows = scene.tables.lights[scene.tables.lights[:, 12] <= 1.0]
+    tri = rows[torch.randint(len(rows), (n,), generator=g, device=dev)]
+    s = torch.sqrt(torch.rand(n, generator=g, device=dev))[:, None]
+    b2 = torch.rand(n, generator=g, device=dev)[:, None] * s
+    q = tri[:, 0:3] + tri[:, 3:6] * (1.0 - s) + tri[:, 6:9] * b2
+    dl = q - p
+    dist = dl.norm(dim=1)
+    return Ray.make(p, dl / dist[:, None],
+                    mint=RayEpsilon * (1.0 + p.abs().max(dim=1).values),
+                    maxt=dist * (1.0 - 10.0 * RayEpsilon))
+
+
+# the ray queries' rays: biggeo's camera rays and their seed
+ISECT_PATH, ISECT_SEED = "biggeo", 7
+
+
+def isect_calls(mi, scenes):
+    """The intersection kernel's timed calls on biggeo (``--isect``) ->
+    [(name, call)]."""
+    from mitsuba2_tpu_torch.core.ray import Ray
+    from mitsuba2_tpu_torch.ops import intersect_kernel as ik
+    from mitsuba2_tpu_torch.ops import path_kernel as pk
+    p = next(p for p in PATHS if p.name == ISECT_PATH)
+    mi.set_variant(p.variant)
+    scene = mi.load_dict(p.make(scenes)(p.width, p.width, p.spp,
+                                        p.max_depth))
+    cam = Ray.make(*pk.camera_rays(
+        pk.camera_row(scene.sensors[0], scene.device), p.width, p.width,
+        p.spp, ISECT_SEED))
+    hits = scene.ray_intersect_preliminary(cam)
+    light = light_rays(scene, Ray, hits, cam, cam.o.shape[0], ISECT_SEED)
+    t = scene.tables
+    return [("isect_closest[camera]", lambda: ik.isect_closest(t, *cam)),
+            ("isect_closest[light]", lambda: ik.isect_closest(t, *light)),
+            ("isect_any[light]", lambda: ik.isect_any(t, *light))]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--paths", default="",
+                    help="comma-separated PATHS names (default: all)")
+    ap.add_argument("--isect", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_paths: no CUDA device", file=sys.stderr)
@@ -84,24 +145,42 @@ def main(argv=None):
     from mitsuba2_tpu_torch.ops import build, path_kernel as pk
     from mitsuba2_tpu_torch.python.test import scenes
     print(f"{card}; {mi.__file__}", flush=True)
-    build.build_all(pk.libraries())
-    loaded = []
+    keep = set(filter(None, args.paths.split(",")))
+    loaded, insts = [], {}
     for p in PATHS:
+        if keep and p.name not in keep:
+            continue
         mi.set_variant(p.variant)
         scene = mi.load_dict(p.make(scenes)(p.width, p.width, p.spp,
                                             p.max_depth))
-        call = (scene.tables, pk.camera_row(scene.sensors[0], scene.device),
+        tables = scene.tables
+        call = (tables, pk.camera_row(scene.sensors[0], scene.device),
                 0, 0, p.spp, p.width, p.width, p.max_depth,
                 scene.integrator.rr_depth)
-        loaded.append((p.name, call))
+        loaded.append((p.name, lambda call=call: pk.path_radiance(*call)))
+        insts[p.name] = (tables.flags & pk.TEMPLATE_FLAGS, tables.nc)
+    jobs = [("path_kernel", pk.library_defines(nc, bool(f & pk.HAS_LOBES)))
+            for f, nc in set(insts.values())]
+    if args.isect:
+        from mitsuba2_tpu_torch.ops import intersect_kernel as ik
+        jobs += ik.libraries()
+    build.build_all(jobs)
+    ptxas = {}
+    for name, (f, nc) in insts.items():
+        log = build.library_path("path_kernel", pk.library_defines(
+            nc, bool(f & pk.HAS_LOBES))).with_suffix(".log")
+        ptxas[name] = build.ptxas_report(log.read_text()).get((f, nc)) \
+            if log.exists() else None
+        print(f"{name}: {pk.kernel_name(f, nc)}: {ptxas[name]}", flush=True)
+    if args.isect:
+        loaded += isect_calls(mi, scenes)
     ms = {name: [] for name, _ in loaded}
     for r in range(args.rounds):
         for name, call in loaded:
-            t = statistics.median(cuda_times(
-                lambda: pk.path_radiance(*call), args.repeats)[1])
+            t = statistics.median(cuda_times(call, args.repeats)[1])
             ms[name].append(t)
             print(f"round {r}: {name} {t:.4f} ms", flush=True)
-    print(json.dumps({"card": card, "ms": ms}))
+    print(json.dumps({"card": card, "ms": ms, "ptxas": ptxas}))
     return 0
 
 

@@ -19,7 +19,7 @@ import pytest
 import torch
 
 import mitsuba2_tpu_torch as mt
-from mitsuba2_tpu_torch.ops import path_kernel as pk
+from mitsuba2_tpu_torch.ops import bvh, path_kernel as pk
 from mitsuba2_tpu_torch.python.test.scenes import (bumpy_sphere_dict,
                                                    cornell_box_dict)
 from tests.test_torch_mesh_io import jax_bumpy_dict
@@ -117,7 +117,7 @@ def test_bench_configs_are_accepted_at_full_size():
         assert scene.tables.n_faces == faces
         assert integ._kernel_for(scene, scene.sensors[0]) is not None
         assert integ.engine_reason is None
-        assert scene.tables.bvh_depth <= 64
+        assert scene.tables.bvh_depth <= bvh.STACK_DEPTH
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(pk, "MAX_FACES_HBM", faces - 1)
             assert pk.path_kernel_ineligibility(scene) == \
@@ -136,6 +136,13 @@ def test_plain_version_counts_the_walk():
     assert 1.0 < stats["walk_faces"] / rays < 20.0
     assert 0 < stats["shadow_walk_faces"] < stats["walk_faces"]
     assert "shadow_faces" not in stats
+    # the binary walk, which the bound counts, beside the wide walk the
+    # kernel runs: fewer node reads, the same hits (as many at most more
+    # face tests)
+    for key in ("walk", "shadow_walk"):
+        assert 0 < stats[f"{key}_wide_nodes"] < 0.7 * stats[f"{key}_nodes"]
+        assert 0 < stats[f"{key}_wide_faces"] <= 1.2 * stats[
+            f"{key}_faces"]
 
 
 def test_plain_version_of_chosen_lanes():

@@ -10,12 +10,15 @@ principle flip; the bar is at least 99.9% equal face ids and t within
 1e-6 relative on the rest. Measured: every ray equal.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
 
 import mitsuba2_tpu_torch as mt
-from mitsuba2_tpu_torch.ops import bvh, intersect, path_kernel as pk
+from mitsuba2_tpu_torch.ops import build, bvh, intersect
+from mitsuba2_tpu_torch.ops import intersect_kernel as ik, path_kernel as pk
 from mitsuba2_tpu_torch.python.test import scenes as scenes_t
 from mitsuba2_tpu_torch.utils.io_obj import load_obj
 from tests.test_torch_mesh_io import (jax_bumpy_dict, jax_hero_dict,
@@ -141,14 +144,69 @@ def test_chunk_bounds_match_jax():
                                       bvh_j.chunk_bounds(*tris, chunk))
 
 
+def _stack_bound(ref, cnt, node=0):
+    """The most stack entries the wide walk can hold below ``node``: each
+    node pushes its interior children but one (recursive)."""
+    inner = [int(r) for r, c in zip(ref[node], cnt[node]) if r >= 0 and c == 0]
+    here = max(len(inner) - 1, 0)
+    return here + max([_stack_bound(ref, cnt, k) for k in inner],
+                      default=0)
+
+
 @pytest.mark.parametrize("n", [1, 3, 5000])
 def test_pack_traversal_covers_every_face_once(n):
+    """The 4-wide nodes: 128-byte lines whose leaves are the binary tree's
+    (every face in exactly one, each inside its padded child box), interior
+    refs pointing forward, the stack bound within the kernel's stack."""
     tris = random_triangles(n, 5)
     tree = bvh.build_bvh(*tris, leaf_size=bvh.TRAVERSAL_LEAF)
-    pairs, depth = bvh.pack_traversal(tree)
+    order = tree.order.copy()
+    nodes, depth = bvh.pack_traversal(tree)
+    np.testing.assert_array_equal(tree.order, order)
+    assert nodes.dtype == np.float32 and nodes.shape[1] * 4 == 128
+    assert bvh.WIDE_SLOTS == 8 * bvh.WIDTH == nodes.shape[1]
+    W = bvh.WIDTH
+    ints = nodes.view(np.int32)
+    ref, cnt = ints[:, 6 * W:7 * W], ints[:, 7 * W:]
+    lo = nodes[:, :3 * W].reshape(-1, 3, W)
+    hi = nodes[:, 3 * W:6 * W].reshape(-1, 3, W)
+    seen = np.zeros(n, int)
+    p = np.stack([tris[0], tris[0] + tris[1], tris[0] + tris[2]], 1)
+    wide_leaves = set()
+    for k, c in zip(*np.nonzero(cnt > 0)):
+        faces = tree.order[ref[k, c]:ref[k, c] + cnt[k, c]]
+        wide_leaves.add((int(ref[k, c]), int(cnt[k, c])))
+        seen[faces] += 1
+        pts = p[faces].reshape(-1, 3)
+        assert (pts >= lo[k, :, c]).all() and (pts <= hi[k, :, c]).all()
+    assert (seen == 1).all()
+    # the leaves are the binary tree's, unchanged
+    assert wide_leaves == {(first, count)
+                           for first, count, _, _ in tree.leaves()}
+    inner = (cnt == 0) & (ref >= 0)
+    rows = np.nonzero(inner)[0]
+    assert (ref[inner] > rows).all() and (ref[inner] < len(nodes)).all()
+    # every node but the root is one interior child's, once
+    assert sorted(ref[inner].tolist()) == list(range(1, len(nodes)))
+    assert 0 <= depth == _stack_bound(ref, cnt) <= bvh.STACK_DEPTH
+    if n <= bvh.TRAVERSAL_LEAF:
+        assert len(nodes) == 1 and (ref[0, 1:] == -1).all()
+    else:
+        # most nodes are full: the collapse takes four children where the
+        # binary tree has them
+        assert (ref >= 0).sum(1).mean() > 3.0
+
+
+@pytest.mark.parametrize("n", [1, 3, 5000])
+def test_pack_pairs_covers_every_face_once(n):
+    """The binary tree's pair nodes, which the bounds' walk counts: every
+    face in exactly one leaf, inside its padded child box."""
+    tris = random_triangles(n, 5)
+    tree = bvh.build_bvh(*tris, leaf_size=bvh.TRAVERSAL_LEAF)
+    pairs, depth = bvh.pack_pairs(tree)
     ints = pairs.view(np.int32)
     assert pairs.shape[1] == bvh.PAIR_SLOTS and 1 <= depth <= \
-        bvh.STACK_DEPTH
+        intersect.PAIR_STACK
     seen = np.zeros(n, int)
     p = np.stack([tris[0], tris[0] + tris[1], tris[0] + tris[2]], 1)
     for side in (0, 8):
@@ -165,6 +223,46 @@ def test_pack_traversal_covers_every_face_once(n):
     assert (seen == 1).all()
     if n <= bvh.TRAVERSAL_LEAF:
         assert len(pairs) == 1 and ints[0, 8 + 3] == -1
+
+
+@pytest.mark.parametrize("cuh_name,py_name", [
+    ("WIDTH", "WIDTH"), ("STACK", "STACK_DEPTH"), ("LEAF_BITS", "LEAF_BITS")])
+def test_walk_constants_equal_the_packing(cuh_name, py_name):
+    """csrc/bvh.cuh's node width, stack size and leaf word bits are the
+    ones ops/bvh.py packs and checks trees against."""
+    src = (build.CSRC / "bvh.cuh").read_text()
+    found = re.findall(rf"constexpr int {cuh_name} = (\d+);", src)
+    assert found == [str(getattr(bvh, py_name))]
+
+
+@pytest.mark.parametrize("entry", ["path_kernel", "isect_closest",
+                                   "isect_any"])
+def test_tree_deeper_than_the_stack_is_refused(entry):
+    """A tree whose stack bound exceeds the walk's stack is refused before
+    any launch, by the path kernel's checks and by K2's; one at the bound
+    passes."""
+    scene = mt.load_dict(scenes_t.bumpy_sphere_dict(4, 4, 1, 2, 48, 30))
+    tables = scene.tables
+    assert tables.flags & pk.HAS_BVH
+    assert 0 < tables.bvh_depth <= bvh.STACK_DEPTH
+    cam = pk.camera_row(scene.sensors[0], "cpu")
+    o = torch.zeros((4, 3))
+    d = torch.tensor([[0.0, 0.0, 1.0]]).repeat(4, 1)
+    mint, maxt = torch.zeros(4), torch.full((4,), float("inf"))
+
+    def check(depth):
+        t = tables._replace(bvh_depth=depth)
+        if entry == "path_kernel":
+            pk._check_tables(t, cam)
+        elif depth <= bvh.STACK_DEPTH:
+            # the check K2's launch runs first (a launch needs the card)
+            pk.check_tree(t)
+        else:
+            ik._launch(entry, t, o, d, mint, maxt)
+
+    check(bvh.STACK_DEPTH)
+    with pytest.raises(ValueError, match="stack"):
+        check(bvh.STACK_DEPTH + 1)
 
 
 def _jax_scene_and_port_scene(name):
@@ -220,9 +318,11 @@ def _rays(tris, n, seed):
             torch.tensor(d, dtype=torch.float32))
 
 
-def _tree(tris):
+def _tree(tris, pairs=False):
+    """-> (the wide nodes, or the binary pair nodes, Woop rows and face ids
+    in tree order, Woop rows in face order)."""
     tree = bvh.build_bvh(*tris, leaf_size=bvh.TRAVERSAL_LEAF)
-    nodes, _ = bvh.pack_traversal(tree)
+    nodes, _ = (bvh.pack_pairs if pairs else bvh.pack_traversal)(tree)
     woop = pk.build_woop(*tris)
     return (torch.tensor(nodes), torch.tensor(woop[tree.order]),
             torch.tensor(tree.order), torch.tensor(woop))
@@ -258,17 +358,20 @@ def test_walk_matches_linear_sweep(k2):
     assert (any_walk["hit"] == any_sweep).float().mean() >= 0.999
     # the walk tests a small part of the faces
     assert walk["faces"].float().mean() < 0.05 * len(woop)
-    assert (any_walk["boxes"] <= walk["boxes"] + 2 * 64).all()
-    # what it reads: the root, every hit face's rows, each row only of a
-    # face whose Z row it read, and less than the whole tree
+    assert (any_walk["nodes"] <= walk["nodes"] + 2 * bvh.STACK_DEPTH).all()
+    assert (walk["boxes"] <= bvh.WIDTH * walk["nodes"]).all()
+    # what it reads: the root, every hit face's rows, a face's three Woop
+    # rows together, a face id only of a face whose rows it read (on a tie
+    # in t, and the hit's), and less than the whole tree
     for w in (walk, any_walk):
         reads = w["face_reads"]
         assert w["node_reads"][0] and 0 < int(reads[:, 0].sum()) <= int(
             w["faces"].sum())
-        assert not (reads[:, 2] & ~reads[:, 1]).any()
+        assert torch.equal(reads[:, 2], reads[:, 0])
         assert not (reads[:, 1] & ~reads[:, 0]).any()
         assert 0 < intersect.bytes_read(w) < (
             nodes.numel() + twoop.numel() + prim.numel()) * 4
+    assert not any_walk["face_reads"][:, 1].any()
     pos = torch.argsort(prim)[walk["face"][walk["face"] >= 0]]
     assert walk["face_reads"][pos].all()
 
@@ -292,3 +395,33 @@ def test_walk_ties_go_to_the_lowest_face_id():
     _, _, face = intersect.closest_hit_reference(woop, o, d, mint, maxt)
     assert (face == 5).float().mean() > 0.9
     assert torch.equal(walk["face"].int(), face)
+
+
+@pytest.mark.parametrize("k2", [True, False])
+def test_wide_walk_equals_binary_walk_bit_for_bit(k2):
+    """The wide walk (4-wide nodes, children nearest first, pops beyond the
+    best t dropped) against the binary walk over the same leaves: face, t,
+    u and v of every ray bit for bit, the same occluded rays, about half
+    the node reads a ray."""
+    tris = bumpy_triangles(48, 30)
+    nodes, twoop, prim, _ = _tree(tris)
+    pairs = _tree(tris, pairs=True)[0]
+    o, d = _rays(tris, 2048, 12)
+    mint = torch.full((len(o),), 1e-4)
+    maxt = torch.full((len(o),), float("inf"))
+    maxt[1::3] = 2.0
+    args = (twoop, prim, o, d, mint, maxt)
+    wide = intersect.traverse(nodes, *args, k2=k2)
+    binary = intersect.traverse_pairs(pairs, *args, k2=k2)
+    assert torch.equal(wide["face"], binary["face"])
+    for key in ("t", "u", "v"):
+        assert torch.equal(wide[key].view(torch.int32),
+                           binary[key].view(torch.int32)), key
+    assert 0.2 < float((wide["face"] >= 0).float().mean()) < 0.9
+    assert float(wide["nodes"].float().mean()) < 0.6 * float(
+        binary["nodes"].float().mean())
+    assert (wide["node_bytes"], binary["node_bytes"]) == (128, 64)
+    wide_any = intersect.traverse(nodes, *args, any_hit=True, k2=k2)
+    binary_any = intersect.traverse_pairs(pairs, *args, any_hit=True, k2=k2)
+    assert torch.equal(wide_any["hit"], binary_any["hit"])
+    assert torch.equal(wide_any["hit"], wide["face"] >= 0)

@@ -8,10 +8,15 @@ loaded through ctypes and called through the wrapper's own argument
 builder on CPU tensors. This holds what no other CPU test can see, the
 loop's scheduling: the warp refill, the lobes instantiations' block
 refill and regroup by kind, the lane counter running out mid-warp and
-while other blocks still take lanes. Each lane's output (prefilled with NaN, so that a
-lost lane shows) must agree with the plain version, and two runs must be
-bit-identical. The arithmetic is the host's (no fused multiply-adds), so
-the bar is PERF.md's §2 one of kernel against plain version."""
+while other blocks still take lanes, and the BVH tier's 4-wide walk
+(csrc/bvh.cuh) on meshes above 1024 faces. Each lane's output (prefilled
+with NaN, so that a lost lane shows) must agree with the plain version,
+and two runs must be bit-identical. The arithmetic is the host's (no
+fused multiply-adds), so the bar is PERF.md's §2 one of kernel against
+plain version. The same emulation runs the scene's ray queries
+(csrc/intersect_kernel.cu, K2) and the box-test ceiling
+(csrc/sweep_kernel.cu), each held bit for bit against its plain
+version."""
 
 import ctypes
 import re
@@ -25,8 +30,11 @@ import torch
 import mitsuba2_tpu_torch as mt
 from mitsuba2_tpu_torch.ops import build
 from mitsuba2_tpu_torch.ops import path_kernel as pk
-from mitsuba2_tpu_torch.python.test.scenes import (cornell_box_dict,
+from mitsuba2_tpu_torch.ops import bvh, intersect, intersect_kernel as ik
+from mitsuba2_tpu_torch.python.test.scenes import (bumpy_sphere_dict,
+                                                   cornell_box_dict,
                                                    cornell_materials_dict,
+                                                   hero_serialized_dict,
                                                    matpreview_dict)
 from tests.test_torch_path_kernel import (PIX_RTOL, PIX_SHARE, box_develop,
                                           cpu_device_fixture, pixel_errors)
@@ -54,13 +62,18 @@ EMU_HEADER = r"""
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 struct float4 { float x, y, z, w; };
+struct int2 { int x, y; };
+inline float4 make_float4(float x, float y, float z, float w) {
+    return float4{x, y, z, w}; }
+inline int2 make_int2(int x, int y) { return int2{x, y}; }
 struct uint3 { unsigned x, y, z; };
 struct dim3 { unsigned x, y, z; };
 inline thread_local uint3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+       cudaErrorInvalidConfiguration = 9 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
 template <class F> cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute,
@@ -230,13 +243,10 @@ def run_emulated(fn, tables, cam, width, height, spp):
         counter)), None, info)
     assert err == 0
     info = dict(zip(pk.LAUNCH_INFO, info))
-    assert info["sms"] * info["blocks_per_sm"] == SMS * BLOCKS_PER_SM
-    assert info["grid"] == pk.launch_grid(info, n)
-    if info["persistent"]:
-        # every slot's last fetch passes n by less than a block
-        assert n <= int(counter[0]) < n + info["grid"] * pk.BLOCK
-    else:
-        assert int(counter[0]) == 0
+    assert info["grid"] == info["sms"] * info["blocks_per_sm"] \
+        == SMS * BLOCKS_PER_SM
+    # every slot's last fetch passes n by less than a block
+    assert n <= int(counter[0]) < n + info["grid"] * pk.BLOCK
     return out
 
 
@@ -246,7 +256,13 @@ def run_emulated(fn, tables, cam, width, height, spp):
     ("scalar_rgb", cornell_materials_dict, 12, 4, 0),    # regroup by kind
     ("scalar_spectral", cornell_materials_dict, 8, 4, 0),  # SlotWl
     ("scalar_rgb", matpreview_dict, 8, 4, 0),            # refill at 16
-    ("scalar_rgb", cornell_box_dict, 9, 3, pk.HAS_BVH),  # a thread a lane
+    ("scalar_rgb", cornell_box_dict, 9, 3, pk.HAS_BVH),  # BVH forced
+    # 1,216 and 1,218 faces: the BVH tier of biggeo's family and of
+    # hero's (with the env), on a real mesh
+    ("scalar_rgb", lambda w, h, spp, depth: bumpy_sphere_dict(
+        w, h, spp, depth, 32, 20), 6, 3, 0),
+    ("scalar_rgb", lambda w, h, spp, depth: hero_serialized_dict(
+        w, h, spp, depth, 32, 20), 6, 4, 0),
 ])
 def test_emulated_loop_matches_plain_version(emulated, variant, make_dict,
                                              width, spp, force):
@@ -257,6 +273,9 @@ def test_emulated_loop_matches_plain_version(emulated, variant, make_dict,
         mt.set_variant("scalar_rgb")
     tables = (pk.with_bvh_tier(scene.tables) if force == pk.HAS_BVH
               else scene.tables._replace(flags=scene.tables.flags | force))
+    if make_dict not in (cornell_box_dict, cornell_materials_dict,
+                         matpreview_dict):
+        assert tables.flags & pk.HAS_BVH and tables.n_faces > 1024
     cam = pk.camera_row(scene.sensors[0], scene.device)
     fn = emulated(tables.nc, bool(tables.flags & pk.HAS_LOBES))
     got = run_emulated(fn, tables, cam, width, width, spp)
@@ -270,3 +289,134 @@ def test_emulated_loop_matches_plain_version(emulated, variant, make_dict,
     err = pixel_errors(box_develop(got, width, width, spp).numpy(),
                        box_develop(want, width, width, spp).numpy())
     assert (err <= PIX_RTOL).mean() >= PIX_SHARE, np.quantile(err, 0.99)
+
+
+def emulated_isect_source():
+    """csrc/intersect_kernel.cu with its launch rewritten for the
+    emulation."""
+    src = (build.CSRC / "intersect_kernel.cu").read_text()
+    src, n = re.subn(r"(isect_kernel<ANY>)<<<([^>]*)>>>\((\w+)\)",
+                     r"emu_launch(\1, \2, \3)", src)
+    assert n == 1
+    return src
+
+
+@pytest.fixture(scope="module")
+def emulated_isect(tmp_path_factory):
+    """The emulated K2 library."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.fail("the emulation needs g++ (the BVH builder's compiler)")
+    d = tmp_path_factory.mktemp("emulated_isect_kernel")
+    (d / "cuda_runtime.h").write_text(EMU_HEADER)
+    (d / "intersect_kernel.cpp").write_text(emulated_isect_source())
+    out = d / "isect.so"
+    subprocess.run(
+        [cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
+         "-pthread", "-w", f"-I{d}", f"-I{build.CSRC}", f"-DEMU_SMS={SMS}",
+         f"-DEMU_BLOCKS={BLOCKS_PER_SM}", "-o", str(out),
+         str(d / "intersect_kernel.cpp")],
+        check=True, capture_output=True)
+    lib = ctypes.CDLL(str(out))
+    for name in ("isect_closest", "isect_any"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(ik._IsectArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@pytest.mark.parametrize("n_rays", [600, 257])
+def test_emulated_isect_kernel_matches_plain_version(emulated_isect,
+                                                     n_rays):
+    """K2 (csrc/intersect_kernel.cu) on a 1,216-face mesh against its plain
+    twin, the linear sweep: face ids, t and uv bit for bit and the same
+    occluded rays, every block of the grid at once, the last one ragged.
+    Outputs prefilled with NaN (and -2 and 2 for the integer ones), so that
+    a lost ray shows; two runs bit-identical."""
+    from tests.test_torch_bvh import _rays, bumpy_triangles
+    scene = mt.load_dict(bumpy_sphere_dict(4, 4, 1, 2, 32, 20))
+    tables = scene.tables
+    assert tables.n_faces > 1024 and tables.bvh_depth <= bvh.STACK_DEPTH
+    o, d = _rays(bumpy_triangles(), n_rays, 9)
+    n = o.shape[0]
+    mint = torch.full((n,), 1e-4)
+    maxt = torch.full((n,), float("inf"))
+    maxt[::4] = 2.5
+    t = torch.full((n,), float("nan"))
+    uv = torch.full((n, 2), float("nan"))
+    prim = torch.full((n,), -2, dtype=torch.int32)
+    hit = torch.full((n,), 2, dtype=torch.uint8)
+    runs = []
+    for _ in range(2):
+        for entry, outs in (("isect_closest", dict(t=t, uv=uv, prim=prim)),
+                            ("isect_any", dict(hit=hit))):
+            args = ik._IsectArgs(*(0 if x is None else x.data_ptr() for x in (
+                tables.bvh_nodes, tables.bvh_woop, tables.bvh_prim, o, d,
+                mint, maxt, outs.get("t"), outs.get("uv"), outs.get("prim"),
+                outs.get("hit"))), n)
+            assert getattr(emulated_isect, entry)(ctypes.byref(args),
+                                                  None) == 0
+        runs.append((t.view(torch.int32).clone(),
+                     uv.view(torch.int32).clone(), prim.clone(),
+                     hit.clone()))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    woop = pk.face_woop(tables)
+    rt, ruv, rprim = intersect.closest_hit_reference(woop, o, d, mint, maxt)
+    assert not bool(torch.isnan(t).any() or torch.isnan(uv).any())
+    assert torch.equal(prim, rprim)
+    assert 0.2 < float((rprim >= 0).float().mean()) < 0.9
+    assert torch.equal(t.view(torch.int32), rt.view(torch.int32))
+    assert torch.equal(uv.view(torch.int32), ruv.view(torch.int32))
+    assert hit.max() <= 1
+    assert torch.equal(hit.bool(), intersect.any_hit_reference(
+        woop, o, d, mint, maxt))
+
+
+def test_emulated_box_kernel_matches_plain_version(tmp_path):
+    """The box-test ceiling (csrc/sweep_kernel.cu box_kernel, the walk's
+    ``test_line``: each axis's near and far planes read by the ray's
+    direction) against its plain version (per-axis minima and maxima),
+    bit for bit, in both instantiations, with the ray count ragged."""
+    from mitsuba2_tpu_torch.ops import sweep_kernel as sk
+    from mitsuba2_tpu_torch.tools import shape_ceiling as sc
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.fail("the emulation needs g++ (the BVH builder's compiler)")
+    src = (build.CSRC / "sweep_kernel.cu").read_text()
+    counts = []
+    for pattern, repl in (
+            (r"((?:sweep|box)_kernel<SHARED>)<<<([^>]*)>>>\((\w+)\)",
+             r"emu_launch(\1, \2, \3)"),
+            (r"extern __shared__ float4 (s_\w+)\[\];",
+             r"float4* \1 = (float4*)emu->dyn.data();")):
+        src, n = re.subn(pattern, repl, src)
+        counts.append(n)
+    assert counts == [2, 2], counts
+    (tmp_path / "cuda_runtime.h").write_text(EMU_HEADER)
+    (tmp_path / "sweep_kernel.cpp").write_text(src)
+    out = tmp_path / "sweep.so"
+    subprocess.run(
+        [cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
+         "-pthread", "-w", f"-I{tmp_path}", f"-I{build.CSRC}",
+         f"-DEMU_SMS={SMS}", f"-DEMU_BLOCKS={BLOCKS_PER_SM}", "-o",
+         str(out), str(tmp_path / "sweep_kernel.cpp")],
+        check=True, capture_output=True)
+    lib = ctypes.CDLL(str(out))
+    lines, o, d = sc.box_inputs(24, 300, "cpu", seed=4)
+    # some rays along an axis: the guarded inverse on both signs
+    d[:8] = torch.tensor([[1.0, 0, 0], [-1.0, 0, 0], [0, 1.0, 0],
+                          [0, -1.0, 0], [0, 0, 1.0], [0, 0, -1.0],
+                          [-1e-13, 1.0, 0], [1e-13, 0, -1.0]])
+    want = sk.box_sweep_reference(lines, o, d, 3)
+    for entry in ("boxes_shared", "boxes_global"):
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.POINTER(sk._BoxArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        near = torch.full((300,), float("nan"))
+        hits = torch.full((300,), -1, dtype=torch.int32)
+        args = sk._BoxArgs(*(x.data_ptr() for x in (lines, o, d, near, hits)),
+                           24, 300, 3, sk.MINT_STEP)
+        assert fn(ctypes.byref(args), None) == 0
+        assert torch.equal(hits, want[1]), entry
+        assert torch.equal(near.view(torch.int32), want[0].view(torch.int32))
+    assert bool(torch.isfinite(want[0]).any()) and int(want[1].sum()) > 0

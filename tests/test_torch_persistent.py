@@ -1,8 +1,8 @@
 """The path kernel's launch contract: ``struct PathArgs`` in
 csrc/path_kernel.cu field for field against ``_PathArgs`` (CPU), and on the
 card the persistent launch (a grid of SMs x resident blocks, finished
-paths' slots refilled from a lane counter; the BVH tier without the env
-a thread a lane) against the plain version at lane counts that stress the
+paths' slots refilled from a lane counter, every family) against the
+plain version at lane counts that stress the
 refill: fewer lanes than one block, a count that is no multiple of the
 grid, a pass with a sample offset, and the lobes (regrouped by kind),
 spectral and BVH instantiations. The second launch of each check writes
@@ -91,9 +91,8 @@ def launch_into_nan(args):
 
 def check_launch(tables, cam, sample_base, spp, width, height):
     """Kernel against plain version at one pass; the launch's grid is the
-    card's SMs x the resident blocks where it is persistent (the lobes
-    instantiations always), and a second launch into an output of NaN is
-    bit-identical. -> the kernel's lanes."""
+    card's SMs x the resident blocks, and a second launch into an output of
+    NaN is bit-identical. -> the kernel's lanes."""
     args = (tables, cam, SEED, sample_base, spp, width, height, MAX_DEPTH,
             RR_DEPTH)
     got = pk.path_radiance(*args)
@@ -101,10 +100,7 @@ def check_launch(tables, cam, sample_base, spp, width, height):
     flags = tables.flags & pk.TEMPLATE_FLAGS
     info = pk.path_radiance.last_launch[(flags, tables.nc)]
     assert info["blocks_per_sm"] >= 1
-    assert info["persistent"] == int(
-        bool(flags & pk.HAS_LOBES or not flags & pk.HAS_BVH
-             or flags & pk.HAS_ENV))
-    assert info["grid"] == pk.launch_grid(info, got.shape[1])
+    assert info["grid"] == info["sms"] * info["blocks_per_sm"]
     again = launch_into_nan(args)
     assert not bool(torch.isnan(again).any()), "a lane was never written"
     assert torch.equal(got, again)

@@ -16,6 +16,11 @@ face test in the same order of operations, so it agrees bit for bit; the
 kernel on the card runs the path kernel's fused test and is held to K2's
 bar (equal face ids and hit counts on at least 99.9% of rays, t within
 1e-5 relative to max(1, |t|) and uv within 1e-5 on the rest).
+
+The box-test ceiling's plain version runs the slab test as the walk does;
+it is held bit for bit against a numpy slab test written out here (the
+same subtractions, products, minima and maxima), and the kernel on the
+card bit for bit against it.
 """
 
 import numpy as np
@@ -23,6 +28,7 @@ import pytest
 import torch
 
 from mitsuba2_tpu_torch.ops import intersect, sweep_kernel as sk
+from mitsuba2_tpu_torch.tools import shape_ceiling as sc
 
 C, R = 128, 2048
 ID_SHARE = 0.999
@@ -171,3 +177,79 @@ def test_cuda_sweep_matches_plain_version(shared):
                                rt[ok] / rt[ok].abs().clamp(min=1.0),
                                rtol=0, atol=1e-5)
     torch.testing.assert_close(uv[ok], ruv[ok], rtol=0, atol=1e-5)
+
+
+def numpy_box_sweep(lines, o, d, iters):
+    """Every ray against every child box of the lines (L, 32), in numpy
+    float32 -> (nearest entry t of the last iteration, hits summed)."""
+    W = 4
+    lo = lines[:, :3 * W].reshape(-1, 3, W).transpose(0, 2, 1).reshape(-1, 3)
+    hi = lines[:, 3 * W:6 * W].reshape(-1, 3, W).transpose(0, 2, 1).reshape(
+        -1, 3)
+    inv = (np.float32(1) / np.where(np.abs(d) > np.float32(1e-12), d,
+                                    np.float32(1e-12))).astype(np.float32)
+    a = (lo[None] - o[:, None]) * inv[:, None]
+    b = (hi[None] - o[:, None]) * inv[:, None]
+    near_in = np.minimum(a, b).max(-1)
+    far = np.maximum(a, b).min(-1)
+    hits = np.zeros(len(o), np.int32)
+    for k in range(iters):
+        tn = np.maximum(near_in, np.float32(k * sk.MINT_STEP))
+        hit = tn <= far
+        hits += hit.sum(1).astype(np.int32)
+    return np.where(hit, tn, np.inf).min(1).astype(np.float32), hits
+
+
+def test_box_sweep_reference_matches_numpy_slab():
+    """The box ceiling's plain version on 64 lines (256 boxes) x 300 rays,
+    4 iterations, against the numpy slab test, bit for bit; the
+    iterations differ (mint grows), and both hits and misses occur."""
+    lines, o, d = sc.box_inputs(64, 300, "cpu", seed=3)
+    near, hits = sk.box_sweep_reference(lines, o, d, 4)
+    want_near, want_hits = numpy_box_sweep(lines.numpy(), o.numpy(),
+                                           d.numpy(), 4)
+    np.testing.assert_array_equal(near.numpy(), want_near)
+    np.testing.assert_array_equal(hits.numpy(), want_hits)
+    assert bool(torch.isinf(near).any()) and bool(torch.isfinite(near).any())
+    assert len(set(hits.tolist())) > 10
+    # the iterations differ: some rays hit a box in some of them only
+    assert bool((hits % 4 != 0).any())
+
+
+def test_box_wrapper_runs_plain_version_on_cpu():
+    lines, o, d = sc.box_inputs(9, 33, "cpu")
+    sk.reset_launch_counts()
+    for shared in (True, False):
+        got = sk.box_sweep(lines, o, d, 3, shared)
+        want = sk.box_sweep_reference(lines, o, d, 3)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert sum(sk.sweep.launches_by_kernel.values()) == 0
+    with pytest.raises(ValueError, match="shared"):
+        sk.box_sweep(torch.zeros((sk.MAX_SHARED_LINES + 1, 32)), o, d, 1)
+    with pytest.raises(ValueError, match="float32"):
+        sk.box_sweep(lines.double(), o, d, 1)
+    assert sk.kernel_name(True, boxes=True) == "sweep_kernel[boxes, shared]"
+    # the ceiling's line layout is the walk's: boxes lo <= hi, refs 0
+    W = 4
+    ints = lines.view(torch.int32)
+    assert bool((lines[:, :3 * W] <= lines[:, 3 * W:6 * W]).all())
+    assert bool((ints[:, 6 * W:7 * W] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [True, False])
+def test_cuda_box_sweep_matches_plain_version(shared):
+    """Each box instantiation on the card against its plain version, bit
+    for bit, at a ragged ray count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    L, n, iters = (1024, 4099, 3) if shared else (8191, 1027, 1)
+    lines, o, d = sc.box_inputs(L, n, "cuda", seed=12)
+    name = sk.kernel_name(shared, boxes=True)
+    before = sk.sweep.launches_by_kernel[name]
+    near, hits = sk.box_sweep(lines, o, d, iters, shared)
+    torch.cuda.synchronize()
+    assert sk.sweep.launches_by_kernel[name] == before + 1
+    rnear, rhits = sk.box_sweep_reference(lines, o, d, iters)
+    assert torch.equal(hits, rhits)
+    assert torch.equal(near.view(torch.int32), rnear.view(torch.int32))
