@@ -110,6 +110,22 @@
 // - The closest-hit loop computes u and v only for a face whose t is in
 //   range and closer than the best so far; the shadow loops stop at the
 //   first occluder.
+// - In the shared-memory families without the lobes flag (the Cornell
+//   box, matpreview; fused() below) a bounce's shadow ray leaves from the
+//   next ray's origin, and the next direction does not depend on whether
+//   it is blocked. So the bounce queues it (direction, maxt and the
+//   radiance the path has if it is unoccluded) and the next iteration
+//   traces both rays in one sweep (trace()): each face's Woop rows are
+//   read from shared memory once, [o, 1] . w is computed once for both,
+//   and the shadow sweep leaves the shading, where it ran under the
+//   shading's divergence and at its register peak. A path that ends with
+//   a shadow ray queued keeps its slot for one more sweep. The queued
+//   radiance is the sum the bounce would have made, in its operations
+//   and order, so the outputs are those of a shadow test in the bounce,
+//   bit for bit. Each ray still pays a correctly rounded division a
+//   face: a test that skips it where a lane's face cannot win ran slower
+//   (PERF.md §6), since a warp divides whenever one of its lanes keeps
+//   the face.
 // Math is exact (atan2f, acosf, sinf, cosf, logf, expf; no fast-math).
 
 #include <cuda_runtime.h>
@@ -133,7 +149,9 @@
 #define BLOCK 128
 #define BIG 3.0e38f
 // PK_PROFILE=1 (tools/loop_profile.py) sums each warp's clock cycles by
-// phase of the loop into counter[2..11]; without it nothing is counted.
+// phase of the loop into counter[2..13] (refill, closest hit, regroup,
+// shade, the shadow sweep inside the shading, iterations); without it
+// nothing is counted.
 #ifndef PK_PROFILE
 #define PK_PROFILE 0
 #endif
@@ -182,6 +200,17 @@ namespace {
 // instantiation flags (ops/path_kernel.py HAS_*)
 constexpr int F_SPHERES = 1, F_ENV = 2, F_GGX = 4, F_CHECKER = 8;
 constexpr int F_BVH = 16, F_LOBES = 32;
+
+// The fused families: shared-memory faces and no lobes flag (flags within
+// spheres, env, ggx and checker: the Cornell box, matpreview). There a
+// bounce's shadow ray and its next ray leave the same point, so the
+// bounce queues the shadow ray and the next iteration traces both in one
+// sweep (trace below).
+template <int FLAGS>
+__host__ __device__ constexpr bool fused() {
+    return !(FLAGS & (F_BVH | F_LOBES));
+}
+
 // attribute float4s per face / sphere / quad (ops/path_kernel.py FA / 4)
 constexpr int FA4 = 12;
 // float4s of a disk or cylinder row (ops/path_kernel.py QD / 4)
@@ -238,6 +267,18 @@ __device__ __forceinline__ float sphere_t(float4 c, float ox, float oy,
     const float sq = sqrtf(disc);
     const float t0 = -b - sq;
     return t0 > 0.0f ? t0 : -b + sq;
+}
+
+// The face test of the fused sweep with [o, 1] . wu and [o, 1] . wv given
+// (shared by the sweep's two rays): inside() at parameter t, the same
+// operations.
+__device__ __forceinline__ bool inside_at(float4 wu, float4 wv, float ou,
+                                          float ov, float t, float dx,
+                                          float dy, float dz, float& u,
+                                          float& v) {
+    u = ou + t * dot_d(wu, dx, dy, dz);
+    v = ov + t * dot_d(wv, dx, dy, dz);
+    return u >= 0.0f && v >= 0.0f && 1.0f - u - v >= 0.0f;
 }
 
 // Products and sums rounded once each and never fused, in the plain
@@ -532,7 +573,11 @@ __device__ __forceinline__ void vndf_sample(float wix, float wiy, float wiz,
 // A path in flight: its lane (-1: the slot is empty), the bounce it is at,
 // its TEA key, its ray, throughput, radiance, the pdf of the lobe that
 // sampled the ray (0: camera ray or delta lobe, no MIS) and the relative
-// IOR crossed so far (roulette weighs by its square).
+// IOR crossed so far (roulette weighs by its square). In the fused
+// families (fused() below) also the shadow ray its last bounce queued
+// from the ray's origin (lmaxt > 0; 0: none), with the radiance the path
+// has if that ray is unoccluded, and whether the ray (o, d) is traced too
+// (false once the path has ended with its shadow ray still queued).
 template <int NC>
 struct Path {
     int lane, depth;
@@ -540,6 +585,12 @@ struct Path {
     float prev_pdf, eta_st;
     float ox, oy, oz, dx, dy, dz;
     float thr[NC], res[NC];
+    float ldx, ldy, ldz, lmaxt, lres[NC];
+    bool alive;
+#if PK_PROFILE
+    // this iteration's cycles in the shadow sweep of bounce()
+    long long shadow_clk;
+#endif
 };
 
 // The closest hit of a ray: t, the face, sphere or disk / cylinder hit
@@ -733,6 +784,85 @@ __device__ __forceinline__ Hit closest(const PathArgs& a, const Staged& st,
     return Hit{t, face, sphere, quad, hu, hv};
 }
 
+// The fused families' sweep (fused()): p's ray (o, d), while the path is
+// alive, for its closest hit as closest() finds it, and the shadow ray its
+// last bounce queued from the same origin, (o, l) on [0, lmaxt], for any
+// hit, in one pass over the staged faces and then the spheres. A face's
+// Woop rows are read once and [o, 1] . w serves both rays; the shadow
+// ray's tests stop at its first occluder. Then the queued radiance
+// replaces p.res if the shadow ray is unoccluded, as the bounce would have
+// added it.
+template <int FLAGS, int NC>
+__device__ __forceinline__ Hit trace(const PathArgs& a, const Staged& st,
+                                     Path<NC>& p) {
+    constexpr bool SPH = FLAGS & F_SPHERES;
+    const float ox = p.ox, oy = p.oy, oz = p.oz;
+    const float dx = p.dx, dy = p.dy, dz = p.dz;
+    const float lx = p.ldx, ly = p.ldy, lz = p.ldz, maxt = p.lmaxt;
+    const float4* s_woop = st.woop;
+    const float4* s_more = st.more;
+    // t = 0 takes no hit: the path has ended, its shadow ray is left
+    float t = p.alive ? BIG : 0.0f;
+    bool shadow = maxt > 0.0f, occluded = false;
+    int face = -1;
+    float hu = 0.0f, hv = 0.0f;
+    for (int f = 0; f < a.n_faces; ++f) {
+        const float4 wz = s_woop[3 * f + 2];
+        const float z = -dot_o(wz, ox, oy, oz);
+        const float dd = dot_d(wz, dx, dy, dz);
+        const float tf = z / dd;
+        // lanes without a shadow ray skip its division (a warp skips it
+        // when none of its lanes has one)
+        float ts = -1.0f;
+        if (shadow) ts = z / dot_d(wz, lx, ly, lz);
+        const bool near = tf >= 0.0f && tf <= BIG && tf < t;
+        const bool block = ts >= 0.0f && ts <= maxt;
+        if (near || block) {
+            const float4 wu = s_woop[3 * f], wv = s_woop[3 * f + 1];
+            const float ou = dot_o(wu, ox, oy, oz);
+            const float ov = dot_o(wv, ox, oy, oz);
+            float u, v;
+            if (near && inside_at(wu, wv, ou, ov, tf, dx, dy, dz, u, v)) {
+                t = tf;
+                face = f;
+                hu = u;
+                hv = v;
+            }
+            if (block && inside_at(wu, wv, ou, ov, ts, lx, ly, lz, u, v))
+                occluded = true, shadow = false;
+        }
+    }
+    int sphere = -1;
+    if constexpr (SPH) {
+        float ts_best = BIG;
+        for (int s = 0; s < a.n_spheres; ++s) {
+            const float ts = sphere_t(s_more[s], ox, oy, oz, dx, dy, dz);
+            if (ts > 0.0f && ts < BIG && ts < ts_best) {
+                ts_best = ts;
+                sphere = s;
+            }
+            if (shadow) {
+                const float tl = sphere_t(s_more[s], ox, oy, oz, lx, ly, lz);
+                if (tl > 0.0f && tl < maxt) occluded = true, shadow = false;
+            }
+        }
+        if (ts_best < t) {
+            t = ts_best;
+            face = -1;
+        } else {
+            sphere = -1;
+        }
+    }
+    if (maxt > 0.0f) {
+        if (!occluded) {
+#pragma unroll
+            for (int c = 0; c < NC; ++c) p.res[c] = p.lres[c];
+        }
+        p.lmaxt = 0.0f;
+    }
+    return Hit{t, face, sphere, -1, hu, hv};
+}
+
 // One bounce of p from its hit h: escape, emission, NEE, the BSDF sample
 // and roulette -> whether the path goes on (p then holds the next ray and
 // bounce); a path that ends leaves its radiance in p.res.
@@ -748,6 +878,7 @@ __device__ __forceinline__ bool bounce(const PathArgs& a, const Staged& st,
     constexpr bool BVH = FLAGS & F_BVH;
     constexpr bool LOBES = FLAGS & F_LOBES;
     constexpr bool QUADS = SPH && LOBES;
+    constexpr bool FUSED = fused<FLAGS>();
     // attributes from global memory, spheres in shared memory
     constexpr bool WIDE = FLAGS != 0;
     constexpr int STAGE = SPEC ? 4 : 3;
@@ -1059,32 +1190,41 @@ __device__ __forceinline__ bool bounce(const PathArgs& a, const Staged& st,
                     soz = pz + nz * eps;
         const float maxt = dist * 0.999f;
         bool occluded = false;
-        if constexpr (BVH) {
-            occluded = bvh::any_hit<false>(
-                tree, bvh::make_ray(sox, soy, soz, dlx, dly, dlz, 0.0f),
-                maxt);
-        } else {
-            for (int f = 0; f < n_faces && !occluded; ++f) {
-                const float4 wz = s_woop[3 * f + 2];
-                const float tf = -dot_o(wz, sox, soy, soz)
-                    / dot_d(wz, dlx, dly, dlz);
-                if (!(tf >= 0.0f && tf <= maxt)) continue;
-                float u, v;
-                occluded = inside(s_woop[3 * f], s_woop[3 * f + 1], tf,
-                                  sox, soy, soz, dlx, dly, dlz, u, v);
+        // the fused families trace the shadow ray in the next sweep
+        if constexpr (!FUSED) {
+#if PK_PROFILE
+            const long long t_sh = clock64();
+#endif
+            if constexpr (BVH) {
+                occluded = bvh::any_hit<false>(
+                    tree, bvh::make_ray(sox, soy, soz, dlx, dly, dlz, 0.0f),
+                    maxt);
+            } else {
+                for (int f = 0; f < n_faces && !occluded; ++f) {
+                    const float4 wz = s_woop[3 * f + 2];
+                    const float tf = -dot_o(wz, sox, soy, soz)
+                        / dot_d(wz, dlx, dly, dlz);
+                    if (!(tf >= 0.0f && tf <= maxt)) continue;
+                    float u, v;
+                    occluded = inside(s_woop[3 * f], s_woop[3 * f + 1], tf,
+                                      sox, soy, soz, dlx, dly, dlz, u, v);
+                }
             }
-        }
-        if constexpr (SPH) {
-            for (int k = 0; k < a.n_spheres && !occluded; ++k) {
-                const float ts = sphere_t(s_more[k], sox, soy, soz,
-                                          dlx, dly, dlz);
-                occluded = ts > 0.0f && ts < maxt;
+            if constexpr (SPH) {
+                for (int k = 0; k < a.n_spheres && !occluded; ++k) {
+                    const float ts = sphere_t(s_more[k], sox, soy, soz,
+                                              dlx, dly, dlz);
+                    occluded = ts > 0.0f && ts < maxt;
+                }
             }
-        }
-        if constexpr (QUADS) {
-            for (int q = 0; q < a.n_quads && !occluded; ++q)
-                occluded = quad_t(s_more + a.n_spheres + QD4 * q, sox,
-                                  soy, soz, dlx, dly, dlz, maxt) > 0.0f;
+            if constexpr (QUADS) {
+                for (int q = 0; q < a.n_quads && !occluded; ++q)
+                    occluded = quad_t(s_more + a.n_spheres + QD4 * q, sox,
+                                      soy, soz, dlx, dly, dlz, maxt) > 0.0f;
+            }
+#if PK_PROFILE
+            p.shadow_clk += clock64() - t_sh;
+#endif
         }
         if (!occluded) {
             // BSDF toward the light: f * cos (albedo included) and pdf
@@ -1135,8 +1275,19 @@ __device__ __forceinline__ bool bounce(const PathArgs& a, const Staged& st,
             }
             const float base = mis(pdf_l, pdf_bsdf) / fmaxf(pdf_l, 1e-20f);
 #pragma unroll
-            for (int c = 0; c < NC; ++c)
-                res[c] += thr_[c] * base * fcos[c] * lrad[c];
+            for (int c = 0; c < NC; ++c) {
+                // fused: the radiance if the queued shadow ray is clear
+                if constexpr (FUSED)
+                    p.lres[c] = res[c] + thr_[c] * base * fcos[c] * lrad[c];
+                else
+                    res[c] += thr_[c] * base * fcos[c] * lrad[c];
+            }
+            if constexpr (FUSED) {
+                p.ldx = dlx;
+                p.ldy = dly;
+                p.ldz = dlz;
+                p.lmaxt = maxt;
+            }
         }
     }
 
@@ -1248,7 +1399,20 @@ __device__ __forceinline__ bool bounce(const PathArgs& a, const Staged& st,
     float thr_sum = thr[0];
 #pragma unroll
     for (int c = 1; c < NC; ++c) thr_sum += thr[c];
-    if (!(ok_lobe && bsdf_pdf > 0.0f && thr_sum > 0.0f)) return false;
+    if constexpr (FUSED) {
+        p.alive = ok_lobe && bsdf_pdf > 0.0f && thr_sum > 0.0f;
+        if (!p.alive) {
+            // the path ends; a queued shadow ray is traced in one more
+            // sweep, from the origin the next ray would have had
+            if (!(p.lmaxt > 0.0f)) return false;
+            ox = px + nx * eps;
+            oy = py + ny * eps;
+            oz = pz + nz * eps;
+            return true;
+        }
+    } else if (!(ok_lobe && bsdf_pdf > 0.0f && thr_sum > 0.0f)) {
+        return false;
+    }
     dx = wx * txx + wy * tyx + wz * nx;
     dy = wx * txy + wy * tyy + wz * ny;
     dz = wx * txz + wy * tyz + wz * nz;
@@ -1367,6 +1531,7 @@ __global__ void __launch_bounds__(BLOCK, (min_blocks<FLAGS, NC>()))
     // compiles only into these instantiations
     constexpr bool LOBES = FLAGS & F_LOBES;
     constexpr bool QUADS = SPH && LOBES;
+    constexpr bool FUSED = fused<FLAGS>();
     constexpr bool WIDE = FLAGS != 0;
     // attribute float4s staged per face when !WIDE: [ng, lpdf_w]
     // [albedo, kind] [Le, alpha], and [eta, le_scale] in spectral mode
@@ -1407,14 +1572,24 @@ __global__ void __launch_bounds__(BLOCK, (min_blocks<FLAGS, NC>()))
     const unsigned lower = (1u << lane_w) - 1u;
     Path<NC> p;
     p.lane = -1;
+#if PK_PROFILE
+    p.shadow_clk = 0;
+#endif
     // whether the lane counter has passed n_lanes (uniform over the warp;
     // in the lobes instantiations, thread 0's)
     bool spent = false;
 #if PK_PROFILE
-    long long prof[5] = {0, 0, 0, 0, 0};
+    long long prof[6] = {0, 0, 0, 0, 0, 0};
     long long t_last = clock64();
+    // the shading's phase ends with the warp's longest shadow sweep moved
+    // to its own phase
 #define PROF(k) { __syncwarp(); const long long now = clock64(); \
-    prof[k] += now - t_last; t_last = now; if (k == 3) ++prof[4]; }
+    long long dt = now - t_last; t_last = now; \
+    if (k == 3) { \
+        const long long sh = (long long)__reduce_max_sync( \
+            FULL, (unsigned)p.shadow_clk); \
+        p.shadow_clk = 0; prof[4] += sh; dt -= sh; ++prof[5]; } \
+    prof[k] += dt; }
 #else
 #define PROF(k)
 #endif
@@ -1434,17 +1609,34 @@ __global__ void __launch_bounds__(BLOCK, (min_blocks<FLAGS, NC>()))
                     base = __shfl_sync(FULL, base, leader);
                     spent = (uint64_t)base + __popc(empty) >= n;
                     const uint32_t lane = base + __popc(empty & lower);
-                    if (p.lane < 0 && lane < n)
+                    if (p.lane < 0 && lane < n) {
                         start_path(a, s_spd, (int)lane, p, w);
+                        if constexpr (FUSED) {
+                            p.lmaxt = 0.0f;
+                            p.alive = true;
+                        }
+                    }
                 }
             }
             // refilled lanes of a warp are consecutive samples of a pixel
             if (!__any_sync(FULL, p.lane >= 0)) break;
             PROF(0);
             Hit h;
-            if (p.lane >= 0) h = closest<FLAGS, NC>(a, st, p);
+            if constexpr (FUSED) {
+                if (p.lane >= 0) h = trace<FLAGS, NC>(a, st, p);
+            } else {
+                if (p.lane >= 0) h = closest<FLAGS, NC>(a, st, p);
+            }
             PROF(1);
-            if (p.lane >= 0 && !bounce<FLAGS, NC>(a, st, p, h, w)) {
+            if constexpr (FUSED) {
+                // a path whose last bounce ended it with a shadow ray
+                // queued ends once the sweep has traced that ray
+                if (p.lane >= 0
+                    && !(p.alive && bounce<FLAGS, NC>(a, st, p, h, w))) {
+                    finish(a, s_spd, p, w);
+                    p.lane = -1;
+                }
+            } else if (p.lane >= 0 && !bounce<FLAGS, NC>(a, st, p, h, w)) {
                 finish(a, s_spd, p, w);
                 p.lane = -1;
             }
@@ -1608,7 +1800,7 @@ __global__ void __launch_bounds__(BLOCK, (min_blocks<FLAGS, NC>()))
     }
 #if PK_PROFILE
     if (lane_w == 0)
-        for (int k = 0; k < 5; ++k)
+        for (int k = 0; k < 6; ++k)
             atomicAdd((unsigned long long*)(a.counter + 2) + k,
                       (unsigned long long)prof[k]);
 #endif

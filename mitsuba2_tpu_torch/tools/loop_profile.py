@@ -2,17 +2,22 @@
 
     python -m mitsuba2_tpu_torch.tools.loop_profile [--scenes cornell,...]
 
-Builds csrc/path_kernel.cu's rgb and spectral libraries (without and with
-the lobes flag) a second time with ``-DPK_PROFILE=1``, under which each
-warp sums its clock cycles by phase of the loop (refill, which in the
-lobes loop includes the wait at its first barrier for the block's slowest
-warp; closest hit; regroup; shading) and counts its iterations, and runs
-that build once on each rgb and spectral path of ``tools/time_paths.py
-PATHS`` at its main shape (``--scenes`` picks some). The profiled output
-must equal the committed kernel's bit for bit. Prints the card's name and
-power limit, then per path the profiled build's registers and spills
-(ptxas) and each phase's share of the cycles, and one JSON line {path:
-{phase: share}}. Exits non-zero without a CUDA device.
+Builds csrc/path_kernel.cu's libraries of each path's color mode
+(without and with the lobes flag) a second time with ``-DPK_PROFILE=1``,
+under which each warp sums its clock cycles by phase of the loop (refill,
+which in the lobes loop includes the wait at its first barrier for the
+block's slowest warp; closest hit; regroup; shading; and the shadow ray's
+sweep or walk where the shading still runs it, the BVH and lobes
+families: the warp's longest such sweep, taken out of the shading's
+cycles) and counts its iterations, and runs that build once on each path
+of ``tools/time_paths.py PATHS`` at its main shape (``--scenes`` picks
+some). In the shared-memory families without the lobes flag the shadow
+ray is traced in the closest-hit sweep of the next iteration and counts
+as closest hit. The profiled output must equal the committed kernel's bit
+for bit. Prints the card's name and power limit, then per path the
+profiled build's registers and spills (ptxas) and each phase's share of
+the cycles, and one JSON line {path: {phase: share}}. Exits non-zero
+without a CUDA device.
 """
 
 import argparse
@@ -24,7 +29,7 @@ import sys
 import torch
 
 # the phases, in the order of their counters
-PHASES = ("refill", "closest_hit", "regroup", "shade")
+PHASES = ("refill", "closest_hit", "regroup", "shade", "shadow")
 
 
 def main(argv=None):
@@ -46,8 +51,7 @@ def main(argv=None):
 
     loaded = []
     for p in PATHS:
-        if p.name.endswith("_mono") or (
-                args.scenes and p.name not in args.scenes.split(",")):
+        if args.scenes and p.name not in args.scenes.split(","):
             continue
         mi.set_variant(p.variant)
         loaded.append((p, mi.load_dict(p.make(S)(p.width, p.width, p.spp,
@@ -65,8 +69,10 @@ def main(argv=None):
     def launch(d, tables, call):
         cam, spp, w, depth, rr = call
         out = torch.empty((3, w * w * spp), device="cuda")
-        # the lane counter, then (profiled) 5 64-bit phase counters
-        counter = torch.zeros(12, dtype=torch.int32, device="cuda")
+        # the lane counter, then (profiled) 64-bit counters: the phases'
+        # cycles, then the warp iterations
+        counter = torch.zeros(2 + 2 * (len(PHASES) + 1), dtype=torch.int32,
+                              device="cuda")
         info = (ctypes.c_int * len(pk.LAUNCH_INFO))()
         err = pk._path_render(d)(ctypes.byref(pk._path_args(
             tables, cam, 0, 0, spp, w, w, depth, rr, out, counter)),
@@ -88,7 +94,8 @@ def main(argv=None):
             raise SystemExit(f"{p.name}: the profiled output differs from "
                              f"the committed kernel's")
         c = counter[2:].cpu().numpy().view("uint64")
-        total = max(int(c[:4].sum()), 1)
+        n_ph = len(PHASES)
+        total = max(int(c[:n_ph].sum()), 1)
         res[p.name] = {ph: float(c[k]) / total
                        for k, ph in enumerate(PHASES)}
         report = build.ptxas_report(build.library_path(
@@ -96,8 +103,8 @@ def main(argv=None):
         print(f"{p.name}: {report.get((t.flags & pk.TEMPLATE_FLAGS, t.nc))}"
               f"; cycles " + ", ".join(
                   f"{ph} {v:.3f}" for ph, v in res[p.name].items())
-              + f"; {int(c[4])} warp iterations, "
-              f"{total / max(int(c[4]), 1):.0f} cycles each", flush=True)
+              + f"; {int(c[n_ph])} warp iterations, "
+              f"{total / max(int(c[n_ph]), 1):.0f} cycles each", flush=True)
     print(json.dumps(res))
     return 0
 

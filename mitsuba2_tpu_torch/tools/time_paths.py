@@ -2,7 +2,7 @@
 ray queries' (K2).
 
     python mitsuba2_tpu_torch/tools/time_paths.py [--repeats 5] [--rounds 1]
-        [--paths biggeo,hero] [--isect]
+        [--paths biggeo,hero] [--isect] [--save DIR] [--compare DIR]
 
 Loads each path scene of ``PATHS`` (the table chip_smoke.py drives) at
 its main shape (the Cornell box in rgb, spectral and mono mode, matpreview
@@ -22,8 +22,12 @@ It imports the package
 ``mitsuba2_tpu_torch`` from the Python path, so that run as a file with
 ``PYTHONPATH`` set to another checkout it times that checkout's kernel on
 this file's ``PATHS`` (for a comparison of two commits within one run on
-one card). Builds the path kernel's libraries first. Exits non-zero
-without a CUDA device.
+one card). ``--save DIR`` writes each path's output of one launch (seed 0)
+to ``DIR/<path>.pt``; ``--compare DIR`` holds each path's output against
+the one saved there (by another checkout) and prints whether it is
+bit-identical, the share of lanes that differ and the largest relative
+difference, and exits non-zero if any path differs. Builds the path
+kernel's libraries first. Exits non-zero without a CUDA device.
 """
 
 import argparse
@@ -31,6 +35,7 @@ import json
 import statistics
 import subprocess
 import sys
+from pathlib import Path
 from typing import NamedTuple
 
 import torch
@@ -132,6 +137,10 @@ def main(argv=None):
     ap.add_argument("--paths", default="",
                     help="comma-separated PATHS names (default: all)")
     ap.add_argument("--isect", action="store_true")
+    ap.add_argument("--save", default="",
+                    help="directory to write each path's output to")
+    ap.add_argument("--compare", default="",
+                    help="directory of outputs to hold each path against")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_paths: no CUDA device", file=sys.stderr)
@@ -159,6 +168,7 @@ def main(argv=None):
                 scene.integrator.rr_depth)
         loaded.append((p.name, lambda call=call: pk.path_radiance(*call)))
         insts[p.name] = (tables.flags & pk.TEMPLATE_FLAGS, tables.nc)
+    paths = dict(loaded)
     jobs = [("path_kernel", pk.library_defines(nc, bool(f & pk.HAS_LOBES)))
             for f, nc in set(insts.values())]
     if args.isect:
@@ -174,6 +184,7 @@ def main(argv=None):
         print(f"{name}: {pk.kernel_name(f, nc)}: {ptxas[name]}", flush=True)
     if args.isect:
         loaded += isect_calls(mi, scenes)
+    same = compare_outputs(paths, args.save, args.compare)
     ms = {name: [] for name, _ in loaded}
     for r in range(args.rounds):
         for name, call in loaded:
@@ -181,7 +192,33 @@ def main(argv=None):
             ms[name].append(t)
             print(f"round {r}: {name} {t:.4f} ms", flush=True)
     print(json.dumps({"card": card, "ms": ms, "ptxas": ptxas}))
-    return 0
+    return 0 if same else 1
+
+
+def compare_outputs(paths, save, against):
+    """Each path's output of one launch written to ``save`` and held
+    against the one in ``against`` -> whether every path held is
+    bit-identical."""
+    ok = True
+    if not (save or against):
+        return ok
+    for name, call in paths.items():
+        out = call()
+        torch.cuda.synchronize()
+        if save:
+            Path(save).mkdir(parents=True, exist_ok=True)
+            torch.save(out.cpu(), Path(save) / f"{name}.pt")
+        if against:
+            want = torch.load(Path(against) / f"{name}.pt").to(out.device)
+            differ = (out != want).any(0)
+            rel = float(((out - want).abs() / want.abs().clamp(min=1e-3))
+                        .max())
+            same = not bool(differ.any())
+            ok = ok and same
+            print(f"{name}: bit-identical to {against}: {same}; lanes "
+                  f"that differ {float(differ.float().mean()):.6f}, "
+                  f"largest relative difference {rel:.3e}", flush=True)
+    return ok
 
 
 if __name__ == "__main__":

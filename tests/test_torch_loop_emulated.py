@@ -13,7 +13,11 @@ while other blocks still take lanes, and the BVH tier's 4-wide walk
 with NaN, so that a lost lane shows) must agree with the plain version,
 and two runs must be bit-identical. The arithmetic is the host's (no
 fused multiply-adds), so the bar is PERF.md's §2 one of kernel against
-plain version. The same emulation runs the scene's ray queries
+plain version. The fused families (the shared-memory loops without the
+lobes flag, which trace each bounce's shadow ray in the next iteration's
+sweep) run in every color mode, at a depth whose last iteration traces a
+queued shadow ray, and with a black wall, on which paths end with their
+shadow ray still queued. The same emulation runs the scene's ray queries
 (csrc/intersect_kernel.cu, K2) and the box-test ceiling
 (csrc/sweep_kernel.cu), each held bit for bit against its plain
 version."""
@@ -233,13 +237,13 @@ def emulated(tmp_path_factory):
     return get
 
 
-def run_emulated(fn, tables, cam, width, height, spp):
+def run_emulated(fn, tables, cam, width, height, spp, max_depth=MAX_DEPTH):
     n = width * height * spp
     out = torch.full((3, n), float("nan"))
     counter = torch.zeros(1, dtype=torch.int32)
     info = (ctypes.c_int * len(pk.LAUNCH_INFO))()
     err = fn(ctypes.byref(pk._path_args(
-        tables, cam, SEED, 0, spp, width, height, MAX_DEPTH, RR_DEPTH, out,
+        tables, cam, SEED, 0, spp, width, height, max_depth, RR_DEPTH, out,
         counter)), None, info)
     assert err == 0
     info = dict(zip(pk.LAUNCH_INFO, info))
@@ -248,6 +252,24 @@ def run_emulated(fn, tables, cam, width, height, spp):
     # every slot's last fetch passes n by less than a block
     assert n <= int(counter[0]) < n + info["grid"] * pk.BLOCK
     return out
+
+
+def cornell_depth_2(width, height, spp, max_depth):
+    """The Cornell box at max_depth 2: the shadow ray of the first bounce
+    is traced in the last iteration, whose bounce adds emission only."""
+    return cornell_box_dict(width, height, spp, cornell_depth_2.max_depth)
+
+
+cornell_depth_2.max_depth = 2
+
+
+def cornell_black_wall(width, height, spp, max_depth):
+    """The Cornell box with a black left wall: a path that reaches it
+    queues its shadow ray and ends at the BSDF sample (throughput 0), so
+    its slot traces the shadow ray alone before it refills."""
+    d = cornell_box_dict(width, height, spp, max_depth)
+    d["left"]["bsdf"]["reflectance"]["value"] = [0.0, 0.0, 0.0]
+    return d
 
 
 @pytest.mark.parametrize("variant, make_dict, width, spp, force", [
@@ -263,27 +285,34 @@ def run_emulated(fn, tables, cam, width, height, spp):
         w, h, spp, depth, 32, 20), 6, 3, 0),
     ("scalar_rgb", lambda w, h, spp, depth: hero_serialized_dict(
         w, h, spp, depth, 32, 20), 6, 4, 0),
+    # the fused families' loop with 4 and 1 channels
+    ("scalar_spectral", cornell_box_dict, 8, 4, 0),
+    ("scalar_mono", cornell_box_dict, 8, 4, 0),
+    ("scalar_rgb", cornell_depth_2, 8, 4, 0),
+    ("scalar_rgb", cornell_black_wall, 8, 4, 0),
 ])
 def test_emulated_loop_matches_plain_version(emulated, variant, make_dict,
                                              width, spp, force):
+    depth = getattr(make_dict, "max_depth", MAX_DEPTH)
     mt.set_variant(variant)
     try:
-        scene = mt.load_dict(make_dict(width, width, spp, MAX_DEPTH))
+        scene = mt.load_dict(make_dict(width, width, spp, depth))
     finally:
         mt.set_variant("scalar_rgb")
     tables = (pk.with_bvh_tier(scene.tables) if force == pk.HAS_BVH
               else scene.tables._replace(flags=scene.tables.flags | force))
     if make_dict not in (cornell_box_dict, cornell_materials_dict,
-                         matpreview_dict):
+                         matpreview_dict, cornell_depth_2,
+                         cornell_black_wall):
         assert tables.flags & pk.HAS_BVH and tables.n_faces > 1024
     cam = pk.camera_row(scene.sensors[0], scene.device)
     fn = emulated(tables.nc, bool(tables.flags & pk.HAS_LOBES))
-    got = run_emulated(fn, tables, cam, width, width, spp)
+    got = run_emulated(fn, tables, cam, width, width, spp, depth)
     assert not bool(torch.isnan(got).any()), "a lane was never written"
     assert torch.equal(got, run_emulated(fn, tables, cam, width, width,
-                                         spp))
+                                         spp, depth))
     want = pk.path_radiance_reference(tables, cam, SEED, 0, spp, width,
-                                      width, MAX_DEPTH, RR_DEPTH)
+                                      width, depth, RR_DEPTH)
     lane_rel = ((got - want).abs() / want.abs().clamp(min=1e-3)).amax(0)
     assert float((lane_rel > PIX_RTOL).float().mean()) <= 1 - PIX_SHARE
     err = pixel_errors(box_develop(got, width, width, spp).numpy(),
