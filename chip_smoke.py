@@ -31,12 +31,12 @@ shape against the plain version's (for the big meshes, those of every 31st
 pixel) and the splat kernel's block against its plain version's. The
 materials scene's kernel is also held against its plain version under
 ``scalar_mono`` at the parity shape, and its first hits must show every new
-kind on at least 1% of camera rays. Each path kernel launch of the main
-run prints its grid, which must be the card's SMs times the blocks
-resident on each (every family runs persistent blocks), its shared memory
-and ptxas's registers and spills, and two launches of each path kernel
-must give bit-identical
-outputs (lanes reach threads in no fixed order). It holds the BVH tier and
+kind on at least 1% of camera rays. Each path kernel and volumetric
+kernel launch of the main run prints its grid, which must be the card's
+SMs times the blocks resident on each (every family of both runs
+persistent blocks), its shared memory and ptxas's registers and spills,
+and two launches of each must give bit-identical outputs (lanes reach
+threads in no fixed order). It holds the BVH tier and
 the lobes flag, each forced on the Cornell box, against the flag-free
 kernel and times all three, and drives the scene's ray
 queries (``Scene.ray_intersect_preliminary`` and ``Scene.ray_test``, the
@@ -228,6 +228,10 @@ class Route(NamedTuple):
     first_hits: bool = False
     # the bar of the image means at the main shape
     mean_rtol: float = MEAN_RTOL
+    # its key in PTXAS, if it is not ``key``
+    ptxas_key: object = None
+    # threads a block of its persistent launch
+    block: int = 128
 
 
 def check_first_hits(name, stats, n):
@@ -343,8 +347,8 @@ def drive(mi, pk, name, make_dict, width, spp, max_depth, mean_band,
     args = (tables, cam, 0, 0, spp, width, width, max_depth,
             integrator.rr_depth)
     k_rad, kernel_ms = timed(lambda: route.radiance(*args))
-    if route.radiance is pk.path_radiance:
-        log_launch(pk, name, route, n_paths)
+    if route.key in route.radiance.last_launch:
+        log_launch(name, route, n_paths)
         # lanes are handed to threads in no fixed order; a lane's result
         # depends on its key alone
         same = torch.equal(k_rad, route.radiance(*args))
@@ -409,15 +413,17 @@ def drive(mi, pk, name, make_dict, width, spp, max_depth, mean_band,
 PTXAS = {}
 
 
-def log_launch(pk, name, route, n_lanes):
-    """The main run's launch of the path kernel: its grid, which must be
-    the SMs times the blocks resident on each (persistent blocks, every
-    family), its shared memory and ptxas's registers and spills."""
-    info = pk.path_radiance.last_launch[route.key]
+def log_launch(name, route, n_lanes):
+    """The main run's launch of the path kernel or the volumetric kernel:
+    its grid, which must be the SMs times the blocks resident on each
+    (persistent blocks, every family), its shared memory and ptxas's
+    registers and spills."""
+    info = route.radiance.last_launch[route.key]
+    ptxas = PTXAS.get(route.ptxas_key or route.key, "no report")
     log(f"{name} launch of {route.label}: persistent, grid {info['grid']} "
         f"for {n_lanes} lanes, {info['blocks_per_sm']} blocks of "
-        f"{pk.BLOCK} resident an SM x {info['sms']} SMs, {info['smem']} B "
-        f"dynamic shared a block; ptxas: {PTXAS.get(route.key, 'no report')}")
+        f"{route.block} resident an SM x {info['sms']} SMs, {info['smem']} B "
+        f"dynamic shared a block; ptxas: {ptxas}")
     if info["grid"] != info["sms"] * info["blocks_per_sm"]:
         raise SystemExit(f"{name}: the launch's grid {info['grid']} is "
                          f"not the card's resident blocks ({info})")
@@ -446,7 +452,7 @@ def run_path(mi, pk, scenes, path, flags, mean_band, **route):
         pk.kernel_name(flags, nc), (flags, nc), pk.path_radiance,
         pk.path_radiance_reference, pk.reset_launch_counts, tables,
         lambda *a: bound(pk, *a), "mitsuba2_tpu_torch/csrc/path_kernel.cu",
-        **fields))
+        block=pk.BLOCK, **fields))
 
 
 def check_forced_on_cornell(mi, pk, cornell_box_dict):
@@ -702,7 +708,8 @@ def run_volpath(mi, pk, vk, volpath_slab_dict):
                      vk.volpath_radiance_reference, vk.reset_launch_counts,
                      tables, vol_bound,
                      "mitsuba2_tpu_torch/csrc/volpath_kernel.cu",
-                     "mitsuba2_tpu/ops/volmegakernel.py:186"))
+                     "mitsuba2_tpu/ops/volmegakernel.py:186",
+                     ptxas_key=("volpath", flags), block=vk.BLOCK))
 
 
 def check_mono_materials(mi, pk, scenes, path):
@@ -878,10 +885,11 @@ def main():
         fn = m.group(1) if m else fn
         if fn and "Used" in line:
             log(f"  ptxas {fn}: {line.split(':', 1)[1].strip()}")
-    log_ptxas("volpath_kernel",
-              build.ptxas_report(build_log("volpath_kernel"),
-                                 "volpath_kernel"),
-              {(vk.HAS_HG,)}, lambda inst: vk.kernel_name(*inst))
+    report = build.ptxas_report(build_log("volpath_kernel"),
+                                "volpath_kernel")
+    PTXAS.update({("volpath",) + k: v for k, v in report.items()})
+    log_ptxas("volpath_kernel", report, {(vk.HAS_HG,)},
+              lambda inst: vk.kernel_name(*inst))
     entry = None
     for line in build_log("intersect_kernel").splitlines():
         m = re.search(r"isect_kernelILb([01])E", line)

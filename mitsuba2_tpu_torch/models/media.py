@@ -61,7 +61,10 @@ class ConstantVolume(Volume):
 
 class Medium(Object):
     """Medium base (medium.h:11): the phase function is the nested
-    ``phase`` object, isotropic by default."""
+    ``phase`` object, isotropic by default; ``sample_emitters`` (default
+    true) is kept as ``use_emitter_sampling``, as the reference's medium
+    base keeps it (mitsuba2_tpu/models/media_impl.py:155), where nothing
+    reads it either: the volumetric kernel samples the emitters."""
 
     def __init__(self, props=None):
         super().__init__(props)
@@ -73,6 +76,8 @@ class Medium(Object):
         if self.phase_function is None:
             from .phase import IsotropicPhase
             self.phase_function = IsotropicPhase()
+        self.use_emitter_sampling = props.bool_("sample_emitters", True) \
+            if props is not None else True
 
 
 def as_volume(v) -> Volume:

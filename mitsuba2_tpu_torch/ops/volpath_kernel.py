@@ -51,8 +51,10 @@ import torch
 from ..core.rng import mix32
 from ..render.fresnel import fresnel, fresnel_conductor
 from . import path_kernel as pk
-from .path_kernel import (_BIG, _PI, _concentric, _dot3, _frame, _ggx_d,
-                          _ggx_g1, _mis, _rng2, _u01)
+# the entry point reports a launch and its own errors as the path
+# kernel's does
+from .path_kernel import (LAUNCH_ERRORS, LAUNCH_INFO, _BIG, _PI, _concentric,
+                          _dot3, _frame, _ggx_d, _ggx_g1, _mis, _rng2, _u01)
 
 # the reference kernel's caps (volmegakernel.py:64-74), so that the same
 # scenes are eligible
@@ -726,7 +728,16 @@ class _VolArgs(ctypes.Structure):
         + [("seed", ctypes.c_uint32), ("sample_base", ctypes.c_uint32)]
         + [(name, ctypes.c_int) for name in (
             "spp_pass", "width", "height", "max_depth", "rr_depth",
-            "n_lanes", "flags")])
+            "n_lanes", "flags")]
+        + [("counter", ctypes.c_void_p)])
+
+
+# the phases of the profiled build's cycle sums (csrc/volpath_kernel.cu
+# VK_PROFILE), in the order of their counters
+PHASES = ("camera", "hit", "delta", "event", "shadow", "ratio", "cont",
+          "idle", "empty")
+# threads a block (csrc/volpath_kernel.cu BLOCK)
+BLOCK = 128
 
 
 def _check_tables(tables, cam):
@@ -755,11 +766,53 @@ def _check_tables(tables, cam):
         raise ValueError(f"the majorant {tables.maj} is not positive")
 
 
+def _vol_args(tables, cam, seed, sample_base, spp_pass, width, height,
+              max_depth, rr_depth, mis, out, counter) -> _VolArgs:
+    """The kernel's arguments: the tables, the camera row, the output
+    (3, n) and the counter as pointers, the pass as scalars."""
+    D, H, W = tables.grid.shape
+    pc = phase_constants(tables.g)
+    return _VolArgs(
+        *(t.data_ptr() for t in (tables.woop, tables.fattr, tables.lights,
+                                 tables.grid, cam, out)),
+        tables.n_faces, tables.lights.shape[0], D, H, W,
+        (ctypes.c_float * 12)(*tables.med),
+        (ctypes.c_float * 3)(*tables.albedo),
+        _f32(1.0 / tables.maj), tables.scale, pc["hg_a"], pc["hg_b"],
+        pc["hg_c"], pc["hg_d"], pc["hg_e"], pc["inv4pi"],
+        seed & 0xFFFFFFFF, sample_base & 0xFFFFFFFF, spp_pass, width,
+        height, max_depth, rr_depth, out.shape[1],
+        tables.flags | (MIS if mis else 0), counter.data_ptr())
+
+
+def launch(tables, cam, seed, sample_base, spp_pass, width, height,
+           max_depth, rr_depth, mis, out, counter, defines=None) -> dict:
+    """One launch of the kernel's library of ``defines`` into ``out``
+    (3, n) with ``counter`` (int32, zeroed: the lane counter, then the
+    profiled build's 64-bit sums from its third word) on the current
+    stream -> its LAUNCH_INFO. Counts no launch: ``volpath_radiance``
+    does. A build or launch failure raises."""
+    render = _volpath_render(defines)
+    args = _vol_args(tables, cam, seed, sample_base, spp_pass, width,
+                     height, max_depth, rr_depth, mis, out, counter)
+    info = (ctypes.c_int * len(LAUNCH_INFO))()
+    dev = out.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = render(ctypes.byref(args), stream, info)
+    if err != 0:
+        raise RuntimeError(f"volpath_kernel launch failed: "
+                           f"{LAUNCH_ERRORS.get(err, f'CUDA error {err}')}")
+    return dict(zip(LAUNCH_INFO, info))
+
+
 def volpath_radiance(tables, cam, seed, sample_base, spp_pass, width,
                      height, max_depth, rr_depth, mis=False):
     """Per-lane radiance (3, n): the CUDA kernel for tables on a CUDA
-    device, the plain version for tables on the CPU. A build or launch
-    failure raises."""
+    device, the plain version for tables on the CPU. The kernel runs
+    persistent blocks, as many as the card holds at once, whose warps take
+    lanes from a counter this function zeroes on the stream before the
+    launch. A build or launch failure raises."""
     dev = tables.device
     if dev.type == "cpu":
         return volpath_radiance_reference(tables, cam, seed, sample_base,
@@ -771,36 +824,25 @@ def volpath_radiance(tables, cam, seed, sample_base, spp_pass, width,
     n = width * height * spp_pass
     if n >= 1 << 31:
         raise ValueError(f"{n} lanes overflow the kernel's int32 lane ids")
-    render = _volpath_render()
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
     if n == 0:
         return out
     flags = tables.flags | (MIS if mis else 0)
-    D, H, W = tables.grid.shape
-    pc = phase_constants(tables.g)
-    args = _VolArgs(
-        *(t.data_ptr() for t in (tables.woop, tables.fattr, tables.lights,
-                                 tables.grid, cam, out)),
-        tables.n_faces, tables.lights.shape[0], D, H, W,
-        (ctypes.c_float * 12)(*tables.med),
-        (ctypes.c_float * 3)(*tables.albedo),
-        _f32(1.0 / tables.maj), tables.scale, pc["hg_a"], pc["hg_b"],
-        pc["hg_c"], pc["hg_d"], pc["hg_e"], pc["inv4pi"],
-        seed & 0xFFFFFFFF, sample_base & 0xFFFFFFFF, spp_pass, width,
-        height, max_depth, rr_depth, n, flags)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = render(ctypes.byref(args), stream)
-    if err != 0:
-        raise RuntimeError(f"volpath_kernel launch failed: CUDA error {err}")
+    # the next lane to start, zeroed on the stream before the launch
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    info = launch(tables, cam, seed, sample_base, spp_pass, width, height,
+                  max_depth, rr_depth, mis, out, counter)
     volpath_radiance.launches += 1
     volpath_radiance.launches_by_kernel[flags] += 1
+    volpath_radiance.last_launch[flags] = info
     return out
 
 
-# kernel launches in total and by instantiation (flag bits)
+# kernel launches in total and by instantiation (flag bits), and the last
+# launch's LAUNCH_INFO by instantiation
 volpath_radiance.launches = 0
 volpath_radiance.launches_by_kernel = collections.Counter()
+volpath_radiance.last_launch = {}
 
 
 def reset_launch_counts():
@@ -814,11 +856,14 @@ def libraries():
     return [("volpath_kernel", {})]
 
 
-def _volpath_render():
-    """csrc/volpath_kernel.cu's C entry point, built on first use."""
+def _volpath_render(defines=None):
+    """csrc/volpath_kernel.cu's C entry point in the library of
+    ``defines`` (none, or tools/prof_volpath.py's ``VK_PROFILE``), built on
+    first use."""
     from .build import load
-    fn = load("volpath_kernel").volpath_render
-    fn.argtypes = [ctypes.POINTER(_VolArgs), ctypes.c_void_p]
+    fn = load("volpath_kernel", defines).volpath_render
+    fn.argtypes = [ctypes.POINTER(_VolArgs), ctypes.c_void_p,
+                   ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     return fn
 

@@ -1,9 +1,22 @@
 """Where the volumetric kernel's time goes on the card.
 
-    python -m mitsuba2_tpu_torch.tools.prof_volpath
+    python -m mitsuba2_tpu_torch.tools.prof_volpath [--phases]
 
 For bench.py's volpath slab (``volpath_slab_dict``: 256x256, 16 spp) on
 one CUDA device:
+
+- phases (``--phases``, first): csrc/volpath_kernel.cu built a second
+  time with ``-DVK_PROFILE=1``, under which every lane slot sums its
+  clock cycles by phase (``ops/volpath_kernel.py PHASES``: camera set-up;
+  closest hit and box interval; delta walk; scatter or surface event with
+  the NEE set-up; shadow sweep; ratio walk and the NEE term;
+  continuation and roulette; a live lane waiting for the others of its
+  warp at its round's end; a slot whose path has ended while its warp
+  runs on), run once at depth 16 on
+  the bench slab and on the dense slab (``scale`` 16), its output held bit
+  for bit against the committed build's; prints the profiled build's
+  registers and spills (ptxas), each phase's share of the lane slots'
+  cycles, and the lane-slot cycles a path;
 
 - depth: the kernel at max_depth 1, 2, 4, 8 and 16, beside the work per
   path the plain version counts at 64x64x16 spp of the same scene (rounds,
@@ -24,6 +37,7 @@ Kernel times are CUDA-event medians of 5 after a warm-up. Prints the
 card's name and power limit first. Exits non-zero without a CUDA device.
 """
 
+import argparse
 import subprocess
 import sys
 import tempfile
@@ -70,6 +84,46 @@ def describe(per):
             f"paths cut {per['cut_paths']:.6f}")
 
 
+def phases(mi, pk, vk, slab, scale):
+    """Prints the profiled build's cycles by phase at depth 16 with
+    sigma_t times ``scale``."""
+    from ..ops import build
+    d = slab(WIDTH, WIDTH, SPP, 16)
+    d["slab"]["interior"]["scale"] = scale
+    scene = mi.load_dict(d)
+    tables = vk.build_vol_tables(scene)
+    cam = pk.camera_row(scene.sensors[0], scene.device)
+    n = WIDTH * WIDTH * SPP
+    call = (tables, cam, 0, 0, SPP, WIDTH, WIDTH, 16,
+            scene.integrator.rr_depth, False)
+    outs = []
+    for defines in (None, PROFILED):
+        out = torch.empty((3, n), device="cuda")
+        counter = torch.zeros(2 + 2 * len(vk.PHASES), dtype=torch.int32,
+                              device="cuda")
+        vk.launch(*call, out, counter, defines)
+        torch.cuda.synchronize()
+        outs.append(out)
+    if not torch.equal(*outs):
+        raise SystemExit(f"scale {scale:g}: the profiled output differs "
+                         f"from the committed kernel's")
+    c = counter[2:].cpu().numpy().view("uint64")
+    total = max(int(c.sum()), 1)
+    shares = {ph: float(c[k]) / total for k, ph in enumerate(vk.PHASES)}
+    report = build.ptxas_report(build.library_path(
+        "volpath_kernel", PROFILED).with_suffix(".log").read_text(),
+        "volpath_kernel").get((tables.flags,))
+    print(f"phases, scale {scale:g}: {vk.kernel_name(tables.flags)} "
+          f"profiled, {report}; lane-slot cycles "
+          + ", ".join(f"{ph} {v:.4f}" for ph, v in shares.items())
+          + f"; {total / 32:.4g} warp cycles in all, "
+          f"{total / n:.0f} lane-slot cycles a path", flush=True)
+
+
+# the profiled build's defines
+PROFILED = {"VK_PROFILE": 1}
+
+
 def profile(mi, slab):
     scene = mi.load_dict(slab(WIDTH, WIDTH, SPP, 16))
     integ = scene.integrator
@@ -83,7 +137,11 @@ def profile(mi, slab):
     print("profile, 10 renders: " + device_op_summary(log_dir, top=6))
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", action="store_true",
+                    help="first the cycles by phase of the profiled build")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("prof_volpath: no CUDA device", file=sys.stderr)
         return 2
@@ -96,7 +154,11 @@ def main():
     from mitsuba2_tpu_torch.ops import volpath_kernel as vk
     from mitsuba2_tpu_torch.python.test.scenes import volpath_slab_dict
     mi.set_variant("scalar_rgb")
-    build.build_all(vk.libraries())
+    build.build_all(vk.libraries()
+                    + ([("volpath_kernel", PROFILED)] if args.phases else []))
+    if args.phases:
+        for scale in (1.0, 16.0):
+            phases(mi, pk, vk, volpath_slab_dict, scale)
 
     for max_depth in (1, 2, 4, 8, 16):
         ms, per = measure(mi, pk, vk, volpath_slab_dict, max_depth)

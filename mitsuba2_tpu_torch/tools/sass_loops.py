@@ -1,15 +1,19 @@
-"""The path kernel's loops in its machine code (SASS), on the card's
-toolkit.
+"""The path kernel's and the volumetric kernel's loops in their machine
+code (SASS), on the card's toolkit.
 
     python -m mitsuba2_tpu_torch.tools.sass_loops [--nc 3,4,1] [--lobes 0]
-        [--flags 0,15] [--against DIR]
+        [--flags 0,15] [--volpath 1] [--against DIR]
 
 Builds csrc/path_kernel.cu's library of each color mode of ``--nc`` with
-the lobes flag as ``--lobes`` says, disassembles it with ``cuobjdump
--sass`` and prints, for each instantiation of ``--flags``, every loop (a
-backward branch) of more than 20 instructions: its address range, its
-instructions, shared-memory loads (LDS) and division checks (FCHK, one a
-correctly rounded division). ``--against DIR`` (another checkout's
+the lobes flag as ``--lobes`` says (``--nc ''`` builds none), disassembles
+it with ``cuobjdump -sass`` and prints, for each instantiation of
+``--flags``, every loop (a backward branch) of more than 20 instructions:
+its address range, its instructions, shared-memory loads (LDS) and
+division checks (FCHK, one a correctly rounded division), and its
+instructions by kind (``KINDS``: float, integer, MUFU, loads, other).
+``--volpath`` does the same for the instantiations it names of
+csrc/volpath_kernel.cu's library (flag bits, ops/volpath_kernel.py;
+``--volpath ''`` none). ``--against DIR`` (another checkout's
 ``mitsuba2_tpu_torch/_build``, its libraries built) compares every
 instantiation of each library, addresses and encodings aside, with the
 same library there and prints which differ. Exits non-zero without
@@ -36,16 +40,33 @@ def cuobjdump():
     return next((str(c) for c in cands if c.is_file()), None)
 
 
-def functions(sass):
-    """cuobjdump -sass text -> {(flags, nc): [(address, instruction)]} of
-    the path_kernel instantiations (keyed by template arguments: the
-    mangled names carry a hash of the source file)."""
+# instruction kinds by opcode prefix (the first that matches)
+KINDS = (("mufu", ("MUFU",)),
+         ("load", ("LDG", "LDS", "LDL", "LDC", "LD.", "ULDC")),
+         ("float", ("FFMA", "FMUL", "FADD", "FMNMX", "FSETP", "FSEL",
+                    "FCHK", "FRND", "F2I", "I2F", "FSET")),
+         ("integer", ("IMAD", "IADD", "LOP", "SHF", "ISETP", "IMNMX",
+                      "LEA", "SEL", "PRMT", "IABS", "POPC", "FLO",
+                      "UIADD", "UIMAD", "ULOP", "USHF", "ISCADD", "IMUL")))
+
+
+def kind(text):
+    """The kind of one instruction (predicate aside), 'other' if none."""
+    op = re.sub(r"^@!?U?P\w+\s+", "", text).split(" ", 1)[0]
+    return next((k for k, ops in KINDS if op.startswith(ops)), "other")
+
+
+def functions(sass, kernel="path_kernel"):
+    """cuobjdump -sass text -> {template arguments: [(address,
+    instruction)]} of ``kernel``'s instantiations: (flags, nc) of the path
+    kernel, (flags,) of the volumetric one (keyed by template arguments:
+    the mangled names carry a hash of the source file)."""
     out = {}
     for part in re.split(r"\n\s*Function : ", sass)[1:]:
-        m = re.search(r"path_kernelILi(\d+)ELi(\d+)E",
+        m = re.search(kernel + r"ILi(\d+)E(?:Li(\d+)E)?",
                       part.split("\n", 1)[0])
         if m:
-            out[(int(m.group(1)), int(m.group(2)))] = [
+            out[tuple(int(g) for g in m.groups() if g is not None)] = [
                 (int(a.group(1), 16), a.group(2).strip())
                 for a in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);",
                                      part)]
@@ -53,8 +74,9 @@ def functions(sass):
 
 
 def loops(ins, least=20):
-    """[(start, end, instructions, LDS, FCHK)] of the backward branches
-    of one function spanning more than ``least`` instructions."""
+    """[(start, end, instructions, LDS, FCHK, {kind: count})] of the
+    backward branches of one function spanning more than ``least``
+    instructions."""
     out = []
     for addr, text in ins:
         m = re.search(r"BRA (?:!?U?P\d, )?(0x[0-9a-f]+)", text)
@@ -63,19 +85,44 @@ def loops(ins, least=20):
         start = int(m.group(1), 16)
         body = [t for a, t in ins if start <= a <= addr]
         if len(body) > least:
+            kinds = {k: 0 for k, _ in KINDS}
+            kinds["other"] = 0
+            for t in body:
+                kinds[kind(t)] += 1
             out.append((start, addr, len(body),
                         sum(t.startswith("LDS") or " LDS" in t
                             for t in body),
-                        sum("FCHK" in t for t in body)))
+                        sum("FCHK" in t for t in body), kinds))
     return out
 
 
-def library(build_dir, nc, lobes):
-    """The path kernel library of (nc, lobes) in ``build_dir`` (not a
-    profiled build), or None."""
-    libs = [p for p in Path(build_dir).glob(
-        f"path_kernel-pk_lobes{lobes}-pk_nc{nc}-*.so")
-        if "pk_profile" not in p.name and ".tmp." not in p.name]
+def print_loops(name, ins):
+    print(f"{name}: {len(ins)} instructions", flush=True)
+    for start, end, n, lds, fchk, kinds in loops(ins):
+        print(f"  loop {start:#x}-{end:#x}: {n} instructions, {lds} LDS, "
+              f"{fchk} FCHK; " + ", ".join(f"{k} {v}"
+                                           for k, v in kinds.items()))
+
+
+def differ(tool, funcs, other, name, kernel="path_kernel"):
+    """-> (instantiations, the names by ``name`` of those whose machine
+    code differs from library ``other``'s)."""
+    theirs = functions(subprocess.run(
+        [tool, "-sass", str(other)], capture_output=True, text=True,
+        check=True).stdout, kernel)
+    insts = sorted(set(funcs) | set(theirs))
+    return len(insts), [name(*i) for i in insts
+                        if [t for _, t in funcs.get(i, [])]
+                        != [t for _, t in theirs.get(i, [])]]
+
+
+def library(build_dir, nc=None, lobes=None):
+    """The path kernel library of (nc, lobes) in ``build_dir``, or without
+    them the volumetric kernel's (not a profiled build), or None."""
+    pattern = ("volpath_kernel-*.so" if nc is None
+               else f"path_kernel-pk_lobes{lobes}-pk_nc{nc}-*.so")
+    libs = [p for p in Path(build_dir).glob(pattern)
+            if "profile" not in p.name and ".tmp." not in p.name]
     return libs[0] if len(libs) == 1 else None
 
 
@@ -85,6 +132,8 @@ def main(argv=None):
     ap.add_argument("--lobes", default="0", help="0, 1 or 0,1")
     ap.add_argument("--flags", default="0,15",
                     help="instantiations whose loops to print")
+    ap.add_argument("--volpath", default="1",
+                    help="volumetric instantiations whose loops to print")
     ap.add_argument("--against", default="",
                     help="another checkout's _build directory")
     args = ap.parse_args(argv)
@@ -93,41 +142,47 @@ def main(argv=None):
         print("sass_loops: no cuobjdump", file=sys.stderr)
         return 2
     from ..ops import build, path_kernel as pk
-    ncs = [int(x) for x in args.nc.split(",")]
+    from ..ops import volpath_kernel as vk
+    ncs = [int(x) for x in args.nc.split(",") if x]
     lobes = [int(x) for x in args.lobes.split(",")]
     jobs = [("path_kernel", pk.library_defines(nc, bool(lb)))
             for nc in ncs for lb in lobes]
-    build.build_all(jobs)
+    vflags = {int(x) for x in args.volpath.split(",") if x}
+    build.build_all(jobs + (vk.libraries() if vflags else []))
     flags = {int(x) for x in args.flags.split(",") if x}
+
+    def sass(lib):
+        return subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, check=True).stdout
+
     for _, d in jobs:
         nc, lb = d["PK_NC"], d["PK_LOBES"]
-        lib = build.library_path("path_kernel", d)
-        funcs = functions(subprocess.run(
-            [tool, "-sass", str(lib)], capture_output=True, text=True,
-            check=True).stdout)
+        funcs = functions(sass(build.library_path("path_kernel", d)))
         for inst, ins in sorted(funcs.items()):
-            if (inst[0] & ~pk.HAS_LOBES) not in flags:
-                continue
-            print(f"{pk.kernel_name(*inst)}: {len(ins)} instructions",
-                  flush=True)
-            for start, end, n, lds, fchk in loops(ins):
-                print(f"  loop {start:#x}-{end:#x}: {n} instructions, "
-                      f"{lds} LDS, {fchk} FCHK")
+            if (inst[0] & ~pk.HAS_LOBES) in flags:
+                print_loops(pk.kernel_name(*inst), ins)
         if args.against:
             other = library(args.against, nc, lb)
             if other is None:
                 print(f"pk_nc{nc} lobes {lb}: no library in "
                       f"{args.against}")
                 continue
-            theirs = functions(subprocess.run(
-                [tool, "-sass", str(other)], capture_output=True,
-                text=True, check=True).stdout)
-            insts = sorted(set(funcs) | set(theirs))
-            changed = [pk.kernel_name(*i) for i in insts
-                       if [t for _, t in funcs.get(i, [])]
-                       != [t for _, t in theirs.get(i, [])]]
-            print(f"pk_nc{nc} lobes {lb}: {len(insts)} instantiations, "
+            n, changed = differ(tool, funcs, other, pk.kernel_name)
+            print(f"pk_nc{nc} lobes {lb}: {n} instantiations, "
                   f"{len(changed)} differ from {os.path.basename(other)}: "
+                  + (", ".join(changed) or "none"), flush=True)
+    if vflags:
+        funcs = functions(sass(build.library_path("volpath_kernel")),
+                          "volpath_kernel")
+        for inst, ins in sorted(funcs.items()):
+            if inst[0] in vflags:
+                print_loops(vk.kernel_name(*inst), ins)
+        other = args.against and library(args.against)
+        if other:
+            n, changed = differ(tool, funcs, other, vk.kernel_name,
+                                "volpath_kernel")
+            print(f"volpath_kernel: {n} instantiations, {len(changed)} "
+                  f"differ from {os.path.basename(other)}: "
                   + (", ".join(changed) or "none"), flush=True)
     return 0
 

@@ -1,5 +1,5 @@
-"""The path kernel's time on each of its paths, chip_smoke.py's, and the
-ray queries' (K2).
+"""The path kernel's time on each of its paths, chip_smoke.py's, the
+volumetric kernel's (K3) and the ray queries' (K2).
 
     python mitsuba2_tpu_torch/tools/time_paths.py [--repeats 5] [--rounds 1]
         [--paths biggeo,hero] [--isect] [--save DIR] [--compare DIR]
@@ -18,6 +18,13 @@ chip_smoke.py's shapes: ``isect_closest`` on the 2,097,152 camera rays of
 its 256x256x32 spp image, and ``isect_closest`` and ``isect_any`` on as
 many rays from their hits toward the light (``light_rays``), as
 "isect_closest[camera]", "isect_closest[light]" and "isect_any[light]".
+The volumetric kernel's paths (``VOL_PATHS``, all kept by the name
+"volpath"): the bench slab ("volpath", bench.py's volpath config at
+256x256, 16 spp, depth 16) and the dense slab ("volpath_dense", sigma_t
+16 times the bench's, where walks run out of their budgets) are timed;
+one small scene per instantiation ("volpath_f0" to "volpath_f15", as
+tests/test_torch_volpath.py ``cuda_scenes`` builds them) only enters
+``--save`` and ``--compare``.
 It imports the package
 ``mitsuba2_tpu_torch`` from the Python path, so that run as a file with
 ``PYTHONPATH`` set to another checkout it times that checkout's kernel on
@@ -26,7 +33,8 @@ one card). ``--save DIR`` writes each path's output of one launch (seed 0)
 to ``DIR/<path>.pt``; ``--compare DIR`` holds each path's output against
 the one saved there (by another checkout) and prints whether it is
 bit-identical, the share of lanes that differ and the largest relative
-difference, and exits non-zero if any path differs. Builds the path
+difference, and exits non-zero if any path differs; both launch each path
+a second time, which must give the same output bit for bit. Builds the path
 kernel's libraries first. Exits non-zero without a CUDA device.
 """
 
@@ -105,6 +113,72 @@ def light_rays(scene, Ray, hits, ray, n, seed):
                     maxt=dist * (1.0 - 10.0 * RayEpsilon))
 
 
+class VolScene(NamedTuple):
+    """One scene of the volumetric kernel (``vol_dict`` builds it)."""
+    name: str
+    width: int          # width = height
+    spp: int
+    max_depth: int
+    scale: float = 1.0  # of sigma_t
+    flags: int = -1     # the instantiation scene's flags, -1: the slab
+    timed: bool = True
+
+
+VOL_PATHS = (
+    VolScene("volpath", 256, 16, 16),
+    VolScene("volpath_dense", 256, 16, 16, scale=16.0),
+) + tuple(VolScene(f"volpath_f{f}", 16, 8, 8, flags=f, timed=False)
+          for f in range(16))
+
+
+def vol_dict(p, scenes, T, vk):
+    """The scene dict of a ``VOL_PATHS`` row: the bench slab with sigma_t
+    times ``scale``, or for an instantiation the slab with g 0.3 (HG) or 0,
+    a GGX aluminium floor and a glass pane as the flags say, rr_depth 2,
+    under volpath or volpathmis (tests/test_torch_volpath.py
+    ``cuda_scenes``)."""
+    if p.flags < 0:
+        d = scenes.volpath_slab_dict(p.width, p.width, p.spp, p.max_depth)
+        d["slab"]["interior"]["scale"] = p.scale
+        return d
+    extra = {}
+    if p.flags & vk.HAS_GGX:
+        extra["metal"] = {"type": "rectangle",
+                          "to_world": (T.translate([0, -2.5, 0])
+                                       @ T.rotate([1, 0, 0], -90)
+                                       @ T.scale(3.0)),
+                          "bsdf": {"type": "roughconductor", "alpha": 0.4,
+                                   "distribution": "ggx", "material": "Al"}}
+    if p.flags & vk.HAS_DIEL:
+        extra["glass"] = {"type": "rectangle",
+                          "to_world": T.translate([0, 0, 1.6]) @ T.scale(1.4),
+                          "bsdf": {"type": "dielectric"}}
+    d = scenes.volpath_slab_dict(p.width, p.width, p.spp, p.max_depth,
+                                 g=0.3 if p.flags & vk.HAS_HG else 0.0,
+                                 **extra)
+    d["integrator"]["rr_depth"] = 2
+    if p.flags & vk.MIS:
+        d["integrator"]["type"] = "volpathmis"
+    return d
+
+
+def vol_calls(mi, scenes):
+    """The volumetric kernel's calls -> [(name, call, timed)]."""
+    from mitsuba2_tpu_torch.ops import path_kernel as pk
+    from mitsuba2_tpu_torch.ops import volpath_kernel as vk
+    mi.set_variant("scalar_rgb")
+    out = []
+    for p in VOL_PATHS:
+        scene = mi.load_dict(vol_dict(p, scenes, mi.Transform, vk))
+        integ = scene.integrator
+        call = (vk.build_vol_tables(scene),
+                pk.camera_row(scene.sensors[0], scene.device), 0, 0, p.spp,
+                p.width, p.width, p.max_depth, integ.rr_depth)
+        out.append((p.name, lambda call=call, mis=integ.USE_MIS:
+                    vk.volpath_radiance(*call, mis=mis), p.timed))
+    return out
+
+
 # the ray queries' rays: biggeo's camera rays and their seed
 ISECT_PATH, ISECT_SEED = "biggeo", 7
 
@@ -135,7 +209,8 @@ def main(argv=None):
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--paths", default="",
-                    help="comma-separated PATHS names (default: all)")
+                    help="comma-separated PATHS names, or volpath for "
+                    "VOL_PATHS (default: all)")
     ap.add_argument("--isect", action="store_true")
     ap.add_argument("--save", default="",
                     help="directory to write each path's output to")
@@ -174,6 +249,10 @@ def main(argv=None):
     if args.isect:
         from mitsuba2_tpu_torch.ops import intersect_kernel as ik
         jobs += ik.libraries()
+    vol = not keep or "volpath" in keep
+    if vol:
+        from mitsuba2_tpu_torch.ops import volpath_kernel as vk
+        jobs += vk.libraries()
     build.build_all(jobs)
     ptxas = {}
     for name, (f, nc) in insts.items():
@@ -182,6 +261,16 @@ def main(argv=None):
         ptxas[name] = build.ptxas_report(log.read_text()).get((f, nc)) \
             if log.exists() else None
         print(f"{name}: {pk.kernel_name(f, nc)}: {ptxas[name]}", flush=True)
+    if vol:
+        calls = vol_calls(mi, scenes)
+        paths.update((name, call) for name, call, _ in calls)
+        loaded += [(name, call) for name, call, timed in calls if timed]
+        log = build.library_path("volpath_kernel").with_suffix(".log")
+        report = build.ptxas_report(log.read_text(), "volpath_kernel") \
+            if log.exists() else {}
+        ptxas["volpath"] = report.get((vk.HAS_HG,))
+        print(f"volpath: {vk.kernel_name(vk.HAS_HG)}: {ptxas['volpath']}",
+              flush=True)
     if args.isect:
         loaded += isect_calls(mi, scenes)
     same = compare_outputs(paths, args.save, args.compare)
@@ -204,7 +293,10 @@ def compare_outputs(paths, save, against):
         return ok
     for name, call in paths.items():
         out = call()
-        torch.cuda.synchronize()
+        # lanes reach threads in no fixed order: a relaunch must agree
+        again = torch.equal(out, call())
+        ok = ok and again
+        print(f"{name}: two launches bit-identical: {again}", flush=True)
         if save:
             Path(save).mkdir(parents=True, exist_ok=True)
             torch.save(out.cpu(), Path(save) / f"{name}.pt")

@@ -241,25 +241,20 @@ def test_wrapper_refuses_devices_without_a_kernel(reference):
 def cuda_scenes():
     """(flags, scene dict) of one small scene per instantiation: the slab
     with g 0.3 or 0 (isotropic), with or without the GGX floor and the
-    glass pane, under volpath or volpathmis."""
-    T = mt.Transform
-    out = []
-    for flags in range(16):
-        d = volpath_slab_dict(16, 16, 8, 8,
-                              g=0.3 if flags & vk.HAS_HG else 0.0,
-                              **surfaces(T, metal=bool(flags & vk.HAS_GGX),
-                                         glass=bool(flags & vk.HAS_DIEL)))
-        d["integrator"]["rr_depth"] = 2
-        if flags & vk.MIS:
-            d["integrator"]["type"] = "volpathmis"
-        out.append((flags, d))
-    return out
+    glass pane, under volpath or volpathmis (16x16 at 8 spp, depth 8,
+    rr_depth 2), as tools/time_paths.py builds them for ``--compare``."""
+    from mitsuba2_tpu_torch.python.test import scenes
+    from mitsuba2_tpu_torch.tools.time_paths import VOL_PATHS, vol_dict
+    return [(p.flags, vol_dict(p, scenes, mt.Transform, vk))
+            for p in VOL_PATHS if p.flags >= 0]
 
 
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version_in_every_instantiation():
     """Each of the 16 instantiations against the plain version on the
-    card, on the port's own tables; the render goes through the kernel."""
+    card, on the port's own tables, its persistent launch's grid and a
+    relaunch into an output of NaN bit-identical; the render goes through
+    the kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     mt.set_variant("scalar_rgb")
@@ -278,6 +273,17 @@ def test_cuda_kernel_matches_plain_version_in_every_instantiation():
             torch.cuda.synchronize()
             assert vk.volpath_radiance.launches_by_kernel[flags] \
                 == before + 1
+            # persistent: a grid of the SMs x the resident blocks; lanes
+            # reach threads in no fixed order, and a relaunch into an
+            # output of NaN must write every lane, bit for bit the same
+            info = vk.volpath_radiance.last_launch[flags]
+            assert info["blocks_per_sm"] >= 1
+            assert info["grid"] == info["sms"] * info["blocks_per_sm"]
+            again = torch.full_like(got, float("nan"))
+            vk.launch(*args, integ.USE_MIS, again,
+                      torch.zeros(1, dtype=torch.int32, device="cuda"))
+            torch.cuda.synchronize()
+            assert torch.equal(got, again)
             want = vk.volpath_radiance_reference(*args, mis=integ.USE_MIS)
             assert_images_agree(box_develop(got, 16, 16, 8).cpu().numpy(),
                                 box_develop(want, 16, 16, 8).cpu().numpy())
