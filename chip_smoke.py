@@ -72,9 +72,10 @@ import numpy as np
 import torch
 
 from mitsuba2_tpu_torch.core import profiler as prof
-# the path kernel's paths and their main shapes, and the ray queries'
-# light rays
-from mitsuba2_tpu_torch.tools.time_paths import PATHS, light_rays
+# the path kernel's paths and their main shapes, the ray queries' light
+# rays, and the splat library's ptxas report
+from mitsuba2_tpu_torch.tools.time_paths import (PATHS, light_rays,
+                                                 splat_ptxas)
 
 # the main shape of the volpath slab, of the Cornell box's forced flags
 # and of the per-depth reports
@@ -250,8 +251,15 @@ def check_splat(name, rad, width, spp, rfilter, launches):
     block pixel within 1e-5 relative or 1e-6 absolute -> its entry of the
     kernels line."""
     from mitsuba2_tpu_torch.ops import splat as sp
+    from mitsuba2_tpu_torch.tools.time_paths import batched_ms
     block, splat_ms = timed(lambda: sp.splat(rad, 0, 0, spp, width, width,
                                              rfilter))
+    # no atomics, a fixed order of sums: a relaunch gives the same bits
+    same = torch.equal(block, sp.splat(rad, 0, 0, spp, width, width,
+                                       rfilter))
+    log(f"{name} splat: two launches bit-identical: {same}")
+    if not same:
+        raise SystemExit(f"{name}: two launches of splat_kernel differ")
     want, plain_ms = timed(lambda: sp.splat_reference(
         rad, 0, 0, spp, width, width, rfilter), repeats=1, warm_up=False)
     err = (block - want).abs()
@@ -265,9 +273,12 @@ def check_splat(name, rad, width, spp, rfilter, launches):
     k = 2 * ((block.shape[0] - width) // 2) + 1
     bound_ms, bound_by = splat_bound(rad.shape[1], k,
                                      block.shape[0] * block.shape[1])
+    b2b_ms = batched_ms(lambda: sp.splat(rad, 0, 0, spp, width, width,
+                                         rfilter))
     log(f"{name} splat: kernel {splat_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}), {100 * bound_ms / splat_ms:.2f}% of bound; plain "
-        f"version {plain_ms:.3f} ms")
+        f"({bound_by}), {100 * bound_ms / splat_ms:.2f}% of bound; back to "
+        f"back {b2b_ms:.4f} ms a call ({100 * bound_ms / b2b_ms:.2f}%); "
+        f"plain version {plain_ms:.3f} ms")
     return {"name": f"splat_kernel[{name}]", "route": "cuda",
             "source": "mitsuba2_tpu_torch/csrc/splat_kernel.cu",
             "replaces": "mitsuba2_tpu/ops/megakernel.py:3041",
@@ -879,12 +890,10 @@ def main():
             log_ptxas(f"path_kernel, PK_NC={nc}, PK_LOBES={int(lobes)}",
                       report, {(f, nc) for f in on_paths},
                       lambda inst: pk.kernel_name(*inst))
-    fn = None
-    for line in build_log("splat_kernel").splitlines():
-        m = re.search(r"(splat_(?:taps|gather))E9SplatArgs", line)
-        fn = m.group(1) if m else fn
-        if fn and "Used" in line:
-            log(f"  ptxas {fn}: {line.split(':', 1)[1].strip()}")
+    for fn, report in sorted(splat_ptxas(build_log("splat_kernel"))
+                             .items()):
+        if fn.startswith("splat_bands") or fn.endswith(", 2>"):
+            log(f"  ptxas {fn}: {report}")
     report = build.ptxas_report(build_log("volpath_kernel"),
                                 "volpath_kernel")
     PTXAS.update({("volpath",) + k: v for k, v in report.items()})

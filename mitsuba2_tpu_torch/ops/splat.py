@@ -12,8 +12,10 @@ jy) into block pixel (b + px + ox, b + py + oy) of the (h + 2b, w + 2b, 4)
 block (imageblock.cpp:62 semantics; ``render/film.py ImageBlock.put`` is
 the general per-sample splat).
 
-``splat`` runs the hand-written kernel (csrc/splat_kernel.cu) for samples on
-a CUDA device and ``splat_reference`` -- the reference's tap loop in plain
+``splat`` runs the hand-written kernel (csrc/splat_kernel.cu: one pass over
+tiles of source pixels, each pixel's taps summed in registers, and a small
+pass that sums the bands neighbouring tiles share) for samples on a CUDA
+device and ``splat_reference`` -- the reference's tap loop in plain
 PyTorch -- for samples on the CPU.
 """
 
@@ -54,7 +56,7 @@ def splat_reference(rgb, seed, sample_base, spp, width, height, rfilter):
 
 class _SplatArgs(ctypes.Structure):
     """csrc/splat_kernel.cu's SplatArgs, field for field."""
-    _fields_ = ([(name, ctypes.c_void_p) for name in ("rgb", "taps", "out")]
+    _fields_ = ([(name, ctypes.c_void_p) for name in ("rgb", "bands", "out")]
                 + [("params", ctypes.c_float * MAX_PARAMS),
                    ("seed", ctypes.c_uint32),
                    ("sample_base", ctypes.c_uint32)]
@@ -84,18 +86,18 @@ def splat(rgb, seed, sample_base, spp, width, height, rfilter):
         raise ValueError(f"filter radius {rfilter.radius} needs "
                          f"{2 * b + 1} taps a row > {MAX_TAPS}")
     fid, params = rfilter.kernel_params()
-    k = 2 * b + 1
-    taps = torch.empty((width * height, k * k * 4), dtype=torch.float32,
-                       device=dev)
     out = torch.empty((height + 2 * b, width + 2 * b, 4),
                       dtype=torch.float32, device=dev)
     if n == 0:
         return out.zero_()
-    args = _SplatArgs(rgb.data_ptr(), taps.data_ptr(), out.data_ptr(),
+    fn, band_floats = _entry_points()
+    # per tile its footprint; only the bands that tiles share are written
+    bands = torch.empty(band_floats(b, width, height), dtype=torch.float32,
+                        device=dev)
+    args = _SplatArgs(rgb.data_ptr(), bands.data_ptr(), out.data_ptr(),
                       (ctypes.c_float * MAX_PARAMS)(*params),
                       seed & 0xFFFFFFFF, sample_base & 0xFFFFFFFF, fid, b,
                       spp, width, height)
-    fn = _splat_render()
     with torch.cuda.device(dev):
         err = fn(ctypes.byref(args), torch.cuda.current_stream(
             dev).cuda_stream)
@@ -105,7 +107,7 @@ def splat(rgb, seed, sample_base, spp, width, height, rfilter):
     return out
 
 
-# kernel launches (one per splat: its tap and gather passes)
+# kernel launches (one per splat: its tile and band passes)
 splat.launches = 0
 
 
@@ -118,10 +120,24 @@ def libraries():
     return [("splat_kernel", {})]
 
 
-def _splat_render():
-    """csrc/splat_kernel.cu's C entry point, built on first use."""
-    from .build import load
-    fn = load("splat_kernel").splat_render
+def _entry_points():
+    """csrc/splat_kernel.cu's C entry points, built and bound on first use
+    -> (splat_render, splat_band_floats)."""
+    if _entry_points.bound is None:
+        from .build import load
+        _entry_points.bound = bind(load("splat_kernel"))
+    return _entry_points.bound
+
+
+_entry_points.bound = None
+
+
+def bind(lib):
+    """-> (splat_render, splat_band_floats) of a loaded splat library,
+    their argument and result types set."""
+    fn, floats = lib.splat_render, lib.splat_band_floats
     fn.argtypes = [ctypes.POINTER(_SplatArgs), ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    floats.argtypes = [ctypes.c_int] * 3
+    floats.restype = ctypes.c_longlong
+    return fn, floats

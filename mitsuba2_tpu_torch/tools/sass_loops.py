@@ -2,7 +2,7 @@
 code (SASS), on the card's toolkit.
 
     python -m mitsuba2_tpu_torch.tools.sass_loops [--nc 3,4,1] [--lobes 0]
-        [--flags 0,15] [--volpath 1] [--against DIR]
+        [--flags 0,15] [--volpath 1] [--splat] [--against DIR]
 
 Builds csrc/path_kernel.cu's library of each color mode of ``--nc`` with
 the lobes flag as ``--lobes`` says (``--nc ''`` builds none), disassembles
@@ -13,10 +13,13 @@ division checks (FCHK, one a correctly rounded division), and its
 instructions by kind (``KINDS``: float, integer, MUFU, loads, other).
 ``--volpath`` does the same for the instantiations it names of
 csrc/volpath_kernel.cu's library (flag bits, ops/volpath_kernel.py;
-``--volpath ''`` none). ``--against DIR`` (another checkout's
-``mitsuba2_tpu_torch/_build``, its libraries built) compares every
-instantiation of each library, addresses and encodings aside, with the
-same library there and prints which differ. Exits non-zero without
+``--volpath ''`` none). ``--splat`` prints, for every kernel of
+csrc/splat_kernel.cu's library, its instructions by kind and its loops
+(a turn of the tile pass's sample loop: four samples, its integer
+instructions mostly their TEA rounds). ``--against DIR`` (another
+checkout's ``mitsuba2_tpu_torch/_build``, its libraries built) compares
+every instantiation of each library, addresses and encodings aside, with
+the same library there and prints which differ. Exits non-zero without
 cuobjdump.
 """
 
@@ -73,6 +76,15 @@ def functions(sass, kernel="path_kernel"):
     return out
 
 
+def count_kinds(texts):
+    """{kind: count} of instructions."""
+    kinds = {k: 0 for k, _ in KINDS}
+    kinds["other"] = 0
+    for t in texts:
+        kinds[kind(t)] += 1
+    return kinds
+
+
 def loops(ins, least=20):
     """[(start, end, instructions, LDS, FCHK, {kind: count})] of the
     backward branches of one function spanning more than ``least``
@@ -85,14 +97,28 @@ def loops(ins, least=20):
         start = int(m.group(1), 16)
         body = [t for a, t in ins if start <= a <= addr]
         if len(body) > least:
-            kinds = {k: 0 for k, _ in KINDS}
-            kinds["other"] = 0
-            for t in body:
-                kinds[kind(t)] += 1
+            kinds = count_kinds(body)
             out.append((start, addr, len(body),
                         sum(t.startswith("LDS") or " LDS" in t
                             for t in body),
                         sum("FCHK" in t for t in body), kinds))
+    return out
+
+
+def splat_functions(sass):
+    """cuobjdump -sass text -> {kernel: [(address, instruction)]} of the
+    splat library's kernels, named as ``time_paths.splat_ptxas`` names
+    them."""
+    out = {}
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        head = part.split("\n", 1)[0]
+        m = re.search(r"(splat_[a-z]+)((?:ILi\d+E(?:Li\d+E)*E)?)E", head)
+        if m:
+            args = re.findall(r"Li(\d+)E", m.group(2))
+            out[m.group(1) + (f"<{', '.join(args)}>" if args else "")] = [
+                (int(a.group(1), 16), a.group(2).strip())
+                for a in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);",
+                                     part)]
     return out
 
 
@@ -134,6 +160,8 @@ def main(argv=None):
                     help="instantiations whose loops to print")
     ap.add_argument("--volpath", default="1",
                     help="volumetric instantiations whose loops to print")
+    ap.add_argument("--splat", action="store_true",
+                    help="the splat kernel's instructions and loops")
     ap.add_argument("--against", default="",
                     help="another checkout's _build directory")
     args = ap.parse_args(argv)
@@ -148,7 +176,12 @@ def main(argv=None):
     jobs = [("path_kernel", pk.library_defines(nc, bool(lb)))
             for nc in ncs for lb in lobes]
     vflags = {int(x) for x in args.volpath.split(",") if x}
-    build.build_all(jobs + (vk.libraries() if vflags else []))
+    if args.splat:
+        from ..ops import splat as sp
+        jobs_splat = sp.libraries()
+    else:
+        jobs_splat = []
+    build.build_all(jobs + (vk.libraries() if vflags else []) + jobs_splat)
     flags = {int(x) for x in args.flags.split(",") if x}
 
     def sass(lib):
@@ -184,6 +217,13 @@ def main(argv=None):
             print(f"volpath_kernel: {n} instantiations, {len(changed)} "
                   f"differ from {os.path.basename(other)}: "
                   + (", ".join(changed) or "none"), flush=True)
+    if args.splat:
+        funcs = splat_functions(sass(build.library_path("splat_kernel")))
+        for name, ins in sorted(funcs.items()):
+            print_loops(name, ins)
+            print("  all: " + ", ".join(
+                f"{k} {v}" for k, v in count_kinds(t for _, t in ins).items()),
+                  flush=True)
     return 0
 
 

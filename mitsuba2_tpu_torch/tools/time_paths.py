@@ -2,7 +2,8 @@
 volumetric kernel's (K3) and the ray queries' (K2).
 
     python mitsuba2_tpu_torch/tools/time_paths.py [--repeats 5] [--rounds 1]
-        [--paths biggeo,hero] [--isect] [--save DIR] [--compare DIR]
+        [--paths biggeo,hero,volpath,splat] [--isect] [--save DIR]
+        [--compare DIR]
 
 Loads each path scene of ``PATHS`` (the table chip_smoke.py drives) at
 its main shape (the Cornell box in rgb, spectral and mono mode, matpreview
@@ -25,7 +26,20 @@ The volumetric kernel's paths (``VOL_PATHS``, all kept by the name
 one small scene per instantiation ("volpath_f0" to "volpath_f15", as
 tests/test_torch_volpath.py ``cuda_scenes`` builds them) only enters
 ``--save`` and ``--compare``.
-It imports the package
+The film splat's passes (``SPLAT_PASSES``, all kept by the name "splat"):
+the materials box's 256x256x64 spp pass under its gaussian film (its lanes
+from one launch of the path kernel, seed 0, as chip_smoke.py splats them)
+and 256x256x64 spp of random lanes (a seeded ``torch.Generator``) under a
+lanczos (K = 7), a tent (K = 3) and a wide gaussian (stddev 1.125, K = 9)
+film. Each is timed per call, as the others are, back to back (CUDA events
+around ``SPLAT_BATCH`` calls, over the count, so that the host's launch
+overhead hides behind the card) and by its host part alone
+(``host_ms``), beside the yardstick of its tap product alone: one
+``torch.bmm`` of the pass's filter values, (pixels, K, spp) @ (pixels,
+spp, 4K), precomputed ("bmm[<pass>]"). In ``--compare`` a splat's block
+is held against the other checkout's within the splat's bar
+(``splat_within_bar``), not bit for bit: two designs sum in another
+order. It imports the package
 ``mitsuba2_tpu_torch`` from the Python path, so that run as a file with
 ``PYTHONPATH`` set to another checkout it times that checkout's kernel on
 this file's ``PATHS`` (for a comparison of two commits within one run on
@@ -40,9 +54,11 @@ kernel's libraries first. Exits non-zero without a CUDA device.
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 from typing import NamedTuple
 
@@ -179,6 +195,139 @@ def vol_calls(mi, scenes):
     return out
 
 
+class SplatPass(NamedTuple):
+    """One pass of the film splat: its lanes and its film filter."""
+    name: str
+    rfilter: dict       # the filter's dict; {} for the scene's own
+    width: int          # width = height
+    spp: int
+    seed: int = -1      # of random lanes; -1: the materials box's pass
+
+
+SPLAT_PASSES = (
+    SplatPass("splat_gaussian", {}, 256, 64),
+    SplatPass("splat_lanczos", {"type": "lanczos"}, 256, 64, seed=3),
+    SplatPass("splat_tent", {"type": "tent"}, 256, 64, seed=4),
+    SplatPass("splat_gaussian_k9", {"type": "gaussian", "stddev": 1.125}, 256,
+              64, seed=5),
+)
+# calls of a back-to-back timing
+SPLAT_BATCH = 20
+
+
+def splat_calls(mi, scenes):
+    """The film splat's passes -> [(name, call, (rad, spp, width, rfilter))]
+    (the path kernel's lobes library built)."""
+    from mitsuba2_tpu_torch.ops import path_kernel as pk
+    from mitsuba2_tpu_torch.ops import splat as sp
+    mi.set_variant("scalar_rgb")
+    out = []
+    for p in SPLAT_PASSES:
+        if p.seed < 0:
+            scene = mi.load_dict(scenes.cornell_materials_dict(
+                p.width, p.width, p.spp, 6))
+            rad = pk.path_radiance(
+                scene.tables, pk.camera_row(scene.sensors[0], scene.device),
+                0, 0, p.spp, p.width, p.width, 6, scene.integrator.rr_depth)
+            rf = scene.sensors[0].film.rfilter
+        else:
+            g = torch.Generator(device="cuda").manual_seed(p.seed)
+            rad = torch.rand(3, p.width * p.width * p.spp, generator=g,
+                             device="cuda")
+            rf = mi.load_dict(p.rfilter)
+        arg = (rad, p.spp, p.width, rf)
+        out.append((p.name, lambda arg=arg: sp.splat(
+            arg[0], 0, 0, arg[1], arg[2], arg[2], arg[3]), arg))
+    return out
+
+
+def tap_operands(rad, spp, width, rfilter):
+    """-> (fy (P, K, spp), u (P, spp, 4K)) of a pass of P = width^2 pixels:
+    each sample's filter values along y, and its [r, g, b, 1] times its
+    filter values along x, so that ``torch.bmm(fy, u)`` is every pixel's
+    K x K x 4 tap sums (the yardstick of the tap product alone)."""
+    from mitsuba2_tpu_torch.ops import path_kernel as pk
+    from mitsuba2_tpu_torch.render.film import border
+    n, P = rad.shape[1], width * width
+    key, _ = pk.lane_keys(0, 0, spp, torch.arange(n, device=rad.device))
+    jx, jy = pk._rng2(key, 0)
+    b = border(rfilter)
+    offs = [(o + 0.5) for o in range(-b, b + 1)]
+    fy = torch.stack([rfilter.eval(o - jy) for o in offs])      # (K, n)
+    fx = torch.stack([rfilter.eval(o - jx) for o in offs])
+    vals4 = torch.cat([rad, torch.ones((1, n), device=rad.device)])
+    u = fx[:, None] * vals4[None]                                # (K, 4, n)
+    return (fy.reshape(len(offs), P, spp).permute(1, 0, 2).contiguous(),
+            u.reshape(len(offs), 4, P, spp).permute(2, 3, 0, 1)
+            .reshape(P, spp, 4 * len(offs)).contiguous())
+
+
+def batched_ms(call, batch=SPLAT_BATCH, runs=5):
+    """-> median over ``runs`` of the CUDA-event time of ``batch`` calls
+    back to back, over ``batch`` (after a warm-up)."""
+    call()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(batch):
+            call()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop) / batch)
+    return statistics.median(times)
+
+
+def host_ms(call, runs=5):
+    """-> median milliseconds of the host's part of a call (from its start
+    to its return, the card idle before it), after a warm-up."""
+    call()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        times.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+# the film filters whose weights change sign: their blocks are held against
+# the block's largest value (tests/test_torch_splat.py)
+SIGNED_FILTERS = ("MitchellFilter", "CatmullRomFilter", "LanczosFilter")
+
+
+def splat_within_bar(got, want, signed):
+    """-> the share of block pixel values within the splat's bar (PERF.md
+    section 2): 1e-5 relative or 1e-6 absolute, for a signed filter 1e-6 of
+    the block's largest value."""
+    err = (got - want).abs()
+    atol = 1e-6 * (float(want.abs().max()) if signed else 1.0)
+    return float(((err <= 1e-5 * want.abs()) | (err <= atol)).float()
+                 .mean())
+
+
+def splat_ptxas(build_log):
+    """-> {kernel: 'N registers; ... spill ...'} of the splat library's
+    kernels from its ``.log`` (template arguments as <b, filter>)."""
+    out, name = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"(splat_[a-z]+)((?:ILi\d+E(?:Li\d+E)*E)?)E", line)
+        if m and "entry function" in line:
+            args = re.findall(r"Li(\d+)E", m.group(2))
+            name = m.group(1) + (f"<{', '.join(args)}>" if args else "")
+        if name is None:
+            continue
+        if "spill" in line or "stack frame" in line:
+            out[name] = line.strip()
+        elif "Used" in line and "registers" in line:
+            out[name] = f"{line.split('Used', 1)[1].strip()}; " \
+                f"{out.get(name, '')}"
+    return out
+
+
 # the ray queries' rays: biggeo's camera rays and their seed
 ISECT_PATH, ISECT_SEED = "biggeo", 7
 
@@ -209,8 +358,8 @@ def main(argv=None):
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--paths", default="",
-                    help="comma-separated PATHS names, or volpath for "
-                    "VOL_PATHS (default: all)")
+                    help="comma-separated PATHS names, volpath for "
+                    "VOL_PATHS, splat for SPLAT_PASSES (default: all)")
     ap.add_argument("--isect", action="store_true")
     ap.add_argument("--save", default="",
                     help="directory to write each path's output to")
@@ -253,6 +402,12 @@ def main(argv=None):
     if vol:
         from mitsuba2_tpu_torch.ops import volpath_kernel as vk
         jobs += vk.libraries()
+    splat = not keep or "splat" in keep
+    if splat:
+        from mitsuba2_tpu_torch.ops import splat as sp
+        jobs += sp.libraries()
+        lobes = ("path_kernel", pk.library_defines(3, True))
+        jobs += [] if lobes in jobs else [lobes]
     build.build_all(jobs)
     ptxas = {}
     for name, (f, nc) in insts.items():
@@ -273,22 +428,49 @@ def main(argv=None):
               flush=True)
     if args.isect:
         loaded += isect_calls(mi, scenes)
-    same = compare_outputs(paths, args.save, args.compare)
+    batched, bars = {}, {}
+    if splat:
+        log = build.library_path("splat_kernel").with_suffix(".log")
+        ptxas["splat"] = splat_ptxas(log.read_text()) if log.exists() \
+            else None
+        print(f"splat_kernel: {ptxas['splat']}", flush=True)
+        for name, call, arg in splat_calls(mi, scenes):
+            paths[name] = call
+            loaded.append((name, call))
+            bars[name] = type(arg[3]).__name__ in SIGNED_FILTERS
+            fy, u = tap_operands(*arg)
+            loaded.append((f"bmm[{name}]", lambda fy=fy, u=u:
+                           torch.bmm(fy, u)))
+            batched[name] = call
+    same = compare_outputs(paths, args.save, args.compare, bars)
     ms = {name: [] for name, _ in loaded}
+    ms_batched = {name: [] for name in batched}
+    ms_host = {name: [] for name in batched}
     for r in range(args.rounds):
         for name, call in loaded:
             t = statistics.median(cuda_times(call, args.repeats)[1])
             ms[name].append(t)
             print(f"round {r}: {name} {t:.4f} ms", flush=True)
-    print(json.dumps({"card": card, "ms": ms, "ptxas": ptxas}))
+            if name in batched:
+                t = batched_ms(call, runs=args.repeats)
+                ms_batched[name].append(t)
+                print(f"round {r}: {name} back to back {t:.4f} ms a call",
+                      flush=True)
+                t = host_ms(call, runs=args.repeats)
+                ms_host[name].append(t)
+                print(f"round {r}: {name} host {t:.4f} ms a call",
+                      flush=True)
+    print(json.dumps({"card": card, "ms": ms, "ms_batched": ms_batched,
+                      "ms_host": ms_host, "ptxas": ptxas}))
     return 0 if same else 1
 
 
-def compare_outputs(paths, save, against):
+def compare_outputs(paths, save, against, bars=None):
     """Each path's output of one launch written to ``save`` and held
     against the one in ``against`` -> whether every path held is
-    bit-identical."""
-    ok = True
+    bit-identical, or for a name in ``bars`` ({splat pass: whether its
+    filter is signed}) within the splat's bar."""
+    ok, bars = True, bars or {}
     if not (save or against):
         return ok
     for name, call in paths.items():
@@ -306,7 +488,14 @@ def compare_outputs(paths, save, against):
             rel = float(((out - want).abs() / want.abs().clamp(min=1e-3))
                         .max())
             same = not bool(differ.any())
-            ok = ok and same
+            if name in bars:
+                share = splat_within_bar(out, want, bars[name])
+                ok = ok and share == 1.0
+                print(f"{name}: block values within the splat's bar of "
+                      f"{against}: {share:.6f}; bit-identical: {same}",
+                      flush=True)
+            else:
+                ok = ok and same
             print(f"{name}: bit-identical to {against}: {same}; lanes "
                   f"that differ {float(differ.float().mean()):.6f}, "
                   f"largest relative difference {rel:.3e}", flush=True)

@@ -38,7 +38,7 @@ C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float,
 
 def struct_fields(source, name):
     """(field, ctypes type) of a C struct of plain fields, in order:
-    pointers as c_void_p."""
+    pointers as c_void_p, a fixed array ``name[N]`` as its type times N."""
     body = re.search(r"struct " + name + r" \{(.*?)\n\};", source,
                      re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
@@ -47,7 +47,10 @@ def struct_fields(source, name):
         ctype, names = re.match(r"((?:const )?\w+\*?)\s+(.*)", decl,
                                 re.S).groups()
         t = ctypes.c_void_p if ctype.endswith("*") else C_TYPES[ctype]
-        fields += [(n.strip(), t) for n in names.split(",")]
+        for n in names.split(","):
+            field, count = re.fullmatch(r"\s*(\w+)(?:\[(\d+)\])?\s*",
+                                        n).groups()
+            fields.append((field, t * int(count) if count else t))
     return fields
 
 

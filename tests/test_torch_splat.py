@@ -120,15 +120,19 @@ def test_wrapper_runs_plain_version_on_cpu_and_refuses_other_devices():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(40, 24, 64), (37, 11, 3), (37, 11, 48)],
+                         ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("rfilter", FILTER_TYPES)
-def test_cuda_splat_matches_plain_version(rfilter):
-    """The splat kernel against its plain version on random lanes; signed
-    filters are held against the block's largest value."""
+def test_cuda_splat_matches_plain_version(rfilter, shape):
+    """The splat kernel against its plain version on random lanes, at a
+    shape of whole tiles and at an odd one whose spp is no multiple of the
+    kernel's four samples a turn; signed filters are held against the
+    block's largest value. A second launch gives the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     mt.set_variant("scalar_rgb")
     rf = mt.load_dict({"type": rfilter})
-    w, h, spp = 40, 24, 64
+    w, h, spp = shape
     g = torch.Generator(device="cuda").manual_seed(3)
     rad = torch.rand(3, w * h * spp, generator=g, device="cuda")
     before = sp.splat.launches
@@ -138,3 +142,4 @@ def test_cuda_splat_matches_plain_version(rfilter):
     want = sp.splat_reference(rad, 4, 64, spp, w, h, rf)
     torch.testing.assert_close(got, want, rtol=1e-5,
                                atol=1e-6 * float(want.abs().max()))
+    assert torch.equal(got, sp.splat(rad, 4, 64, spp, w, h, rf))
