@@ -44,7 +44,21 @@ intersection kernel's closest-hit and any-hit entries) on biggeo's
 2,097,152 camera rays and as many rays toward its light, against their
 plain twin on 65,536 of each, bit for bit. Both walk the scene's 4-wide
 BVH (csrc/bvh.cuh); their bounds count the tests of the binary walk over
-the same leaves, and the wide walk's counts are logged beside. Last comes
+the same leaves, and the wide walk's counts are logged beside. The
+wavefront phase then drives the general wavefront (``PathIntegrator.
+sample``, whose ray queries are K2's), which renders every scene the path
+kernel's gate refuses: matpreview with a Beckmann hero at 256x256, 64 spp,
+max_depth 6 (timed, with K2's launches and share, the spans of its layers,
+the host's waits for the card counted by torch's sync debug mode, and
+peak memory), K2 held bit for bit against its plain twin on 65,536 rays
+sampled from every one of its launches in that render (its two entries of
+the kernels line, ``isect_closest[wavefront]`` and
+``isect_any[wavefront]``, count the render's launches and time K2 on one
+bounce's rays), the card against the CPU at 32x32x4 spp with projected
+normal sampling and at 128x128x4 spp with visible normals
+(tools/wavefront_spread.py); the Cornell box forced onto it
+(``_disable_kernel``) within 2% of the kernel's means; the materials box,
+the mono Cornell box and spectral matpreview. Last comes
 the measurement path: the face-test and box-test ceilings through
 ``tools/shape_ceiling.py`` (the sweep kernel's shared-memory and global
 face instantiations beside ``torch.matmul`` of the same product, and its
@@ -61,11 +75,13 @@ without CUDA: nothing runs on the CPU instead.
 """
 
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -498,9 +514,10 @@ def check_forced_on_cornell(mi, pk, cornell_box_dict):
 
 
 def every_kth(ray, count):
-    """``count`` rays spread over a ray batch (every k-th), as the
-    (o, d, mint, maxt) arguments of the queries."""
-    k = max(1, ray.o.shape[0] // count)
+    """``count`` rays spread over a ray batch (a Ray or its (o, d, mint,
+    maxt) tuple; every k-th), as the (o, d, mint, maxt) arguments of the
+    queries."""
+    k = max(1, ray[0].shape[0] // count)
     return tuple(x[::k][:count].contiguous() for x in ray)
 
 
@@ -585,6 +602,56 @@ def box_parity(name, got, want):
         both.any()) else 0.0
 
 
+def k2_entry(isx, name, fn, ref, tables, woop, trees, main, out_bytes,
+             launches, max_abs_err):
+    """K2's entry ``name`` of the kernels line: the kernel timed on the ray
+    set ``main`` (o, d, mint, maxt), its plain twin on ISECT_PARITY_RAYS
+    of them, and the bound from the binary walk's tests and reads over a
+    sample of them (walked on the host; the wide walk the kernel runs is
+    logged beside)."""
+    n = main[0].shape[0]
+    sub = every_kth(main, ISECT_PARITY_RAYS)
+    kernel_ms = timed(lambda: fn(tables, *main))[1]
+    plain_ms = timed(lambda: ref(woop, *sub), repeats=1, warm_up=False)[1]
+    sample = [x.cpu() for x in every_kth(main, ISECT_COUNT_RAYS)]
+    for label, walk in (
+            ("binary walk (the bound's)", isx.traverse_pairs(
+                trees.pairs, trees.woop, trees.prim, *sample,
+                any_hit=name.startswith("isect_any"), k2=True)),
+            ("wide walk (the kernel's)", isx.traverse(
+                trees.nodes, trees.woop, trees.prim, *sample,
+                any_hit=name.startswith("isect_any"), k2=True))):
+        # the nodes and face rows the sample's walks read, once: a lower
+        # bound on what all the rays' walks read
+        log(f"  {name} {label} per ray: "
+            f"{float(walk['nodes'].float().mean()):.2f} nodes, "
+            f"{float(walk['boxes'].float().mean()):.2f} box tests, "
+            f"{float(walk['faces'].float().mean()):.2f} face tests; the "
+            f"sample's walks read {int(walk['node_reads'].sum())} of "
+            f"{len(walk['node_reads'])} nodes and "
+            f"{int(walk['face_reads'][:, 0].sum())} of "
+            f"{len(walk['face_reads'])} faces, "
+            f"{isx.bytes_read(walk) / 1e6:.3f} MB")
+        if label.startswith("binary"):
+            boxes = float(walk["boxes"].float().mean())
+            faces = float(walk["faces"].float().mean())
+            read = isx.bytes_read(walk)
+    bound_ms, bound_by = roofline(
+        prof.walk_flop_count(n, boxes, faces), read, n,
+        out_bytes=out_bytes, in_bytes=32, what="ray")
+    log(f"{name}: kernel {kernel_ms:.4f} ms on {n} rays, bound "
+        f"{bound_ms:.4f} ms ({bound_by}), "
+        f"{100 * bound_ms / kernel_ms:.2f}% of bound; plain twin "
+        f"{plain_ms:.3f} ms on {len(sub[0])} rays")
+    return {
+        "name": name, "route": "cuda",
+        "source": "mitsuba2_tpu_torch/csrc/intersect_kernel.cu",
+        "replaces": "mitsuba2_tpu/ops/intersect_pallas.py:81",
+        "launches": launches, "max_abs_err": max_abs_err,
+        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None}
+
+
 def run_isect(mi, pk, ik, isx, scenes, big):
     """The scene's ray queries on biggeo (``big``, its ``PATHS`` row)
     through the intersection kernel: ``Scene.ray_intersect_preliminary``
@@ -652,50 +719,9 @@ def run_isect(mi, pk, ik, isx, scenes, big):
             ms = timed(lambda: fn(tables, *ray))[1]
             log(f"    kernel on {n} rays: {ms:.4f} ms, "
                 f"{n / ms / 1e3:.3f} Mrays/s")
-        sub = every_kth(main, ISECT_PARITY_RAYS)
-        kernel_ms = timed(lambda: fn(tables, *main))[1]
-        plain_ms = timed(lambda: ref(woop, *sub), repeats=1,
-                         warm_up=False)[1]
-        # the bound counts the binary walk's tests and reads over the same
-        # leaves; the wide walk the kernel runs is logged beside it (both
-        # walked on the host)
-        sample = [x.cpu() for x in every_kth(main, ISECT_COUNT_RAYS)]
-        for label, walk in (
-                ("binary walk (the bound's)", isx.traverse_pairs(
-                    trees.pairs, trees.woop, trees.prim, *sample,
-                    any_hit=name == "isect_any", k2=True)),
-                ("wide walk (the kernel's)", isx.traverse(
-                    trees.nodes, trees.woop, trees.prim, *sample,
-                    any_hit=name == "isect_any", k2=True))):
-            # the nodes and face rows the sample's walks read, once: a
-            # lower bound on what all the rays' walks read
-            log(f"  {name} {label} per ray: "
-                f"{float(walk['nodes'].float().mean()):.2f} nodes, "
-                f"{float(walk['boxes'].float().mean()):.2f} box tests, "
-                f"{float(walk['faces'].float().mean()):.2f} face tests; the "
-                f"sample's walks read {int(walk['node_reads'].sum())} of "
-                f"{len(walk['node_reads'])} nodes and "
-                f"{int(walk['face_reads'][:, 0].sum())} of "
-                f"{len(walk['face_reads'])} faces, "
-                f"{isx.bytes_read(walk) / 1e6:.3f} MB")
-            if label.startswith("binary"):
-                boxes = float(walk["boxes"].float().mean())
-                faces = float(walk["faces"].float().mean())
-                read = isx.bytes_read(walk)
-        bound_ms, bound_by = roofline(
-            prof.walk_flop_count(n, boxes, faces), read, n,
-            out_bytes=out_bytes, in_bytes=32, what="ray")
-        log(f"{name}: kernel {kernel_ms:.4f} ms on {n} rays, bound "
-            f"{bound_ms:.4f} ms ({bound_by}), "
-            f"{100 * bound_ms / kernel_ms:.2f}% of bound; plain twin "
-            f"{plain_ms:.3f} ms on {ISECT_PARITY_RAYS} rays")
-        entries.append({
-            "name": name, "route": "cuda",
-            "source": "mitsuba2_tpu_torch/csrc/intersect_kernel.cu",
-            "replaces": "mitsuba2_tpu/ops/intersect_pallas.py:81",
-            "launches": launches[name], "max_abs_err": max(errs),
-            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None})
+        entries.append(k2_entry(isx, name, fn, ref, tables, woop, trees,
+                                tuple(main), out_bytes, launches[name],
+                                max(errs)))
     log(f"ray queries: {time.perf_counter() - t_phase:.1f} s")
     return entries
 
@@ -835,6 +861,371 @@ def run_ceiling(mi, pk, sk, cornell_box_dict, cornell_materials_dict,
     return entries
 
 
+# the wavefront phase: the slice's path (matpreview with a Beckmann hero,
+# which the path kernel's gate refuses, tools/wavefront_spread.py) at the
+# main shape; K2 held bit for bit against its plain twin on a sample of
+# the rays of every one of its launches in a render at that shape; the
+# card against the CPU with projected normal sampling at 32^2 x 4 spp (the
+# parity bar) and with visible normals at 128^2 x 4 spp (the solve's
+# one-ulp spread, tools/wavefront_spread.py ``spread``); the forced
+# Cornell box at the main shape within this share of the kernel's means;
+# the materials box (128^2 x 16) and mono Cornell (64^2 x 16) within this
+# share of the kernels'
+WF_CPU_WIDTH, WF_CPU_SPP = 32, 4
+WF_SPREAD_WIDTH, WF_SPREAD_SPP = 128, 4
+WF_CORNELL_RTOL, WF_SMALL_RTOL = 0.02, 0.03
+# a lane that took another branch on the card departs from the CPU's by
+# more than this; at most this many may (the count of smoke 2 on the
+# projected run, each logged with the call where card and CPU part)
+WF_DIVERGED, WF_MAX_DIVERGENT_LANES = 1e-3, 2
+# rays kept of each K2 launch of the wavefront's render for the parity
+WF_K2_SAMPLE = 4096
+
+
+class _Spans:
+    """CUDA-event spans of the wavefront's layers in one render: K2's two
+    entries (their launches), emitter sampling (its shadow ray's K2 any
+    launch included) and the BSDF dispatch (partition, eval and pdf,
+    sample), by wrapping the functions for the render's duration."""
+
+    def __init__(self, ik, scene_cls):
+        self.events = {}
+        # K2's launches by entry name, the scene's methods by their own
+        self.patches = [(ik, "_launch", self._wrap(ik._launch,
+                                                   lambda a: a[0]))]
+        for name in ("sample_emitter_direction", "bsdf_partition",
+                     "bsdf_eval_pdf", "bsdf_sample"):
+            self.patches.append((scene_cls, name, self._wrap(
+                getattr(scene_cls, name), lambda a, n=name: n)))
+
+    def _wrap(self, fn, label):
+        def timed_call(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            stop.record()
+            self.events.setdefault(label(args), []).append((start, stop))
+            return out
+        return timed_call
+
+    def __enter__(self):
+        self.saved = [(obj, name, getattr(obj, name))
+                      for obj, name, _ in self.patches]
+        for obj, name, fn in self.patches:
+            setattr(obj, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self.saved:
+            setattr(obj, name, fn)
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return {k: sum(a.elapsed_time(b) for a, b in v)
+                for k, v in self.events.items()}
+
+
+def wavefront_lanes(scene, seed, spp):
+    sensor = scene.sensors[0]
+    return scene.integrator.wavefront_lanes(scene, sensor, sensor.sampler,
+                                            seed, 0, spp)
+
+
+def counted_render(integ, scene):
+    """One render with its host waits counted twice: on the card by
+    torch's sync debug mode (a warning at each synchronizing call, its
+    site the innermost frame of this checkout's code that is not the
+    counting's own; a wait with no such frame, as the mode's own switch,
+    is logged and not counted), and by the calls core/profiler.py
+    ``HostTransfers`` sees -> (image, the card's count in the package's
+    code, {site: count} of all the card's, HostTransfers)."""
+    import traceback
+    root = os.path.dirname(os.path.abspath(__file__))
+    own = (os.path.abspath(__file__), os.path.abspath(prof.__file__))
+    sites = {}
+
+    def on_warning(message, category, filename, lineno, file=None,
+                   line=None):
+        if "synchroniz" not in str(message):
+            return
+        stack = traceback.extract_stack()[:-1]
+        while len(stack) > 1 and stack[-1].filename == warnings.__file__:
+            stack.pop()
+        ours = [f for f in stack if f.filename.startswith(root)
+                and f.filename not in own]
+        site = (f"{os.path.relpath(ours[-1].filename, root)}:"
+                f"{ours[-1].lineno}" if ours else "not the package's") \
+            + f" ({stack[-1].name} in {os.path.basename(stack[-1].filename)})"
+        sites[site] = sites.get(site, 0) + 1
+
+    with prof.HostTransfers() as host, warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = on_warning
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            img = integ.render(scene, seed=SEED, spp=SPP)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return img, sum(n for k, n in sites.items()
+                    if not k.startswith("not the package's")), sites, host
+
+
+def record_k2(ik, render):
+    """Runs render() with K2's launches recorded: WF_K2_SAMPLE rays (every
+    k-th) of each launch, and all the rays of each entry's second launch
+    (a bounce's) -> ({entry: [(o, d, mint, maxt) of each launch]},
+    {entry: (o, d, mint, maxt)})."""
+    samples = {"isect_closest": [], "isect_any": []}
+    full = {}
+    launch = ik._launch
+
+    def recording(entry, tables, o, d, mint, maxt, **out):
+        rays = (o, d, mint, maxt)
+        if len(samples[entry]) == 1:
+            full[entry] = tuple(x.clone() for x in rays)
+        samples[entry].append(tuple(
+            x.clone() for x in every_kth(rays, WF_K2_SAMPLE)))
+        return launch(entry, tables, o, d, mint, maxt, **out)
+
+    ik._launch = recording
+    try:
+        render()
+    finally:
+        ik._launch = launch
+    torch.cuda.synchronize()
+    return samples, full
+
+
+def hold_card_against_cpu(label, runs):
+    """The card's image against the CPU's at the parity bar on every pixel
+    no divergent lane reaches (the CPU tests' rule,
+    tests/test_torch_wavefront.py), at most WF_MAX_DIVERGENT_LANES
+    divergent lanes, each logged with the call where its card and CPU
+    traces part. ``runs`` maps the device to (scene, image, lanes)."""
+    from mitsuba2_tpu_torch.tools import wavefront_spread as ws
+    (sc_g, card, lanes_card), (sc_r, cpu, lanes_cpu) = runs["cuda"], \
+        runs["cpu"]
+    g = card.double().cpu().numpy()
+    r = cpu.double().cpu().numpy()
+    lc = lanes_card[1].double().cpu().numpy()
+    lr = lanes_cpu[1].double().cpu().numpy()
+    err_l = (np.abs(lc - lr) / np.maximum(np.abs(lr), 1e-3)).max(-1)
+    div = np.flatnonzero(err_l > WF_DIVERGED)
+    keep = np.ones(r.shape[:2], bool)
+    for x, y in np.floor(lanes_cpu[0][div].cpu().numpy()).astype(int):
+        keep[y, x] = False
+    err = ws.pixel_errors(g, r)
+    share = float((err[keep] <= PIX_RTOL).mean())
+    mean_rel = abs(g[keep].mean() - r[keep].mean()) / abs(r[keep].mean())
+    log(f"{label}: {len(div)} of {len(err_l)} lanes diverged (> "
+        f"{WF_DIVERGED:g}); on the {int(keep.sum())} pixels they do not "
+        f"reach: share within {PIX_RTOL:g} {share:.6f}, mean rel diff "
+        f"{mean_rel:.3e}; all pixels: share "
+        f"{float((err <= PIX_RTOL).mean()):.6f}, max {err.max():.3e}")
+    if len(div):
+        spp = lanes_card[1].shape[0] // (r.shape[0] * r.shape[1])
+        traces = [ws.lane_trace(sc, SEED, spp, div) for sc in (sc_g, sc_r)]
+        for k in div:
+            log(f"  lane {k} (departs by {err_l[k]:.3e}), card against "
+                f"CPU, first parting at "
+                f"{ws.first_parting(traces[0][k], traces[1][k])}")
+    if len(div) > WF_MAX_DIVERGENT_LANES or share < PIX_SHARE \
+            or mean_rel > MEAN_RTOL:
+        raise SystemExit(f"{label}: the card and the CPU disagree")
+    return float(np.abs(g - r).max())
+
+
+def run_wavefront(mi, ik, isx, pk, scenes):
+    """The general wavefront on the card: the slice's path at the main
+    shape (timed, its layers' spans, K2's launches and share, host syncs,
+    peak memory, image band), K2 against its plain twin on that render's
+    rays, the card against the CPU, the Cornell box forced onto the
+    wavefront against the path kernel, the materials box, spectral and
+    mono -> K2's two entries of the kernels line for the wavefront's
+    launches."""
+    from mitsuba2_tpu_torch.render.scene import Scene
+    from mitsuba2_tpu_torch.tools import wavefront_spread as ws
+    t_phase = time.perf_counter()
+    mi.set_variant("scalar_rgb")
+    n = WIDTH * WIDTH * SPP
+
+    # ---- the slice's path at the main shape ----
+    scene = mi.load_dict(ws.matpreview_beckmann(scenes, WIDTH, SPP,
+                                                MAX_DEPTH))
+    integ = scene.integrator
+    ik.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    img = integ.render(scene, seed=SEED, spp=SPP)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"isect_closest": ik.isect_closest.launches,
+                "isect_any": ik.isect_any.launches}
+    # the host's waits in a render after the first (which builds the
+    # wavefront's tables and copies them to the card)
+    _, syncs, sync_sites, host = counted_render(integ, scene)
+    if integ.last_engine != "wavefront" \
+            or integ.engine_reason != "unsupported BSDF RoughConductor":
+        raise SystemExit(f"matpreview_beckmann: engine {integ.last_engine} "
+                         f"({integ.engine_reason})")
+    if min(launches.values()) < 1:
+        raise SystemExit(f"the wavefront missed K2: {launches}")
+    mean = float(img.mean())
+    if not (bool(torch.isfinite(img).all()) and 0.2 < mean < 5.0):
+        raise SystemExit(f"matpreview_beckmann: implausible image, mean "
+                         f"{mean}")
+    passes = n // integ.MAX_WAVEFRONT
+    _, times = prof.cuda_times(
+        lambda: integ.render(scene, seed=SEED, spp=SPP), runs=3)
+    ms = statistics.median(times)
+    with _Spans(ik, Scene) as spans:
+        _, (total,) = prof.cuda_times(
+            lambda: integ.render(scene, seed=SEED, spp=SPP), runs=1,
+            warm_up=False)
+    parts = spans.ms()
+    k2 = parts.get("isect_closest", 0.0) + parts.get("isect_any", 0.0)
+    log(f"wavefront matpreview_beckmann {WIDTH}^2 x {SPP} spp, depth "
+        f"{MAX_DEPTH}: engine {integ.last_engine} (gate: "
+        f"{integ.engine_reason}); {passes} passes of "
+        f"{integ.MAX_WAVEFRONT} lanes; render {ms:.1f} ms (median of 3 "
+        f"after a warm-up: {', '.join(f'{t:.1f}' for t in times)}), "
+        f"{n / ms / 1e3:.3f} Mpaths/s; image mean {mean:.6f}")
+    log(f"  K2 launches in one render: {launches}; peak memory "
+        f"{peak / 2**20:.1f} MiB")
+    log(f"  host syncs in a second render: {syncs} in the package's code "
+        f"on the card (torch's sync debug mode; {syncs / passes:.1f} a "
+        f"pass), {host.total} counted by core/profiler.py HostTransfers; "
+        f"the card's by site: "
+        + ", ".join(f"{k} {v}" for k, v in sorted(sync_sites.items())))
+    for line in host.lines():
+        log(f"    {line}")
+    rest = total - parts.get("isect_closest", 0.0) \
+        - parts.get("sample_emitter_direction", 0.0) \
+        - sum(parts.get(k, 0.0) for k in ("bsdf_partition",
+                                          "bsdf_eval_pdf", "bsdf_sample"))
+    log(f"  spans of one instrumented render ({total:.1f} ms, CUDA events "
+        f"around each call): K2 closest {parts.get('isect_closest', 0):.1f} "
+        f"ms, K2 any {parts.get('isect_any', 0):.1f} ms (inside emitter "
+        f"sampling), emitter sampling "
+        f"{parts.get('sample_emitter_direction', 0):.1f} ms, "
+        f"BSDF partition {parts.get('bsdf_partition', 0):.1f} ms, BSDF "
+        f"eval+pdf {parts.get('bsdf_eval_pdf', 0):.1f} ms, BSDF sample "
+        f"{parts.get('bsdf_sample', 0):.1f} ms, the rest {rest:.1f} ms; K2 "
+        f"share {100 * k2 / total:.2f}%")
+
+    # ---- K2 on the wavefront's rays, against its plain twin ----
+    samples, full = record_k2(
+        ik, lambda: integ.render(scene, seed=SEED, spp=SPP))
+    tables = scene.tables
+    woop = pk.face_woop(tables)
+    trees = pk.walk_trees(tables)
+    entries = []
+    for name, fn, ref, out_bytes in (
+            ("isect_closest", ik.isect_closest, isx.closest_hit_reference,
+             16),
+            ("isect_any", ik.isect_any, isx.any_hit_reference, 1)):
+        every = tuple(torch.cat(xs) for xs in zip(*samples[name]))
+        sub = every_kth(every, ISECT_PARITY_RAYS)
+        got = fn(tables, *sub)
+        torch.cuda.synchronize()
+        active = float((sub[3] > sub[2]).float().mean())
+        log(f"  {name} on the wavefront's rays ({len(samples[name])} "
+            f"launches of one render, {WF_K2_SAMPLE} rays of each; "
+            f"{len(sub[0])} of those, {active:.4f} of them active):")
+        err = isect_parity(name, got, ref(woop, *sub))
+        entries.append(k2_entry(isx, f"{name}[wavefront]", fn, ref, tables,
+                                woop, trees, full[name], out_bytes,
+                                launches[name], err))
+    log(f"  main path: {time.perf_counter() - t_phase:.1f} s")
+    t_step = time.perf_counter()
+
+    # ---- the card against the CPU ----
+    w, spp = WF_CPU_WIDTH, WF_CPU_SPP
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        mi.set_device(dev)
+        try:
+            sc = mi.load_dict(ws.matpreview_beckmann(
+                scenes, w, spp, MAX_DEPTH, sample_visible=False))
+            runs[dev] = (sc, sc.integrator.render(sc, seed=SEED, spp=spp),
+                         wavefront_lanes(sc, SEED, spp))
+        finally:
+            mi.set_device("cuda")
+    hold_card_against_cpu(
+        f"wavefront matpreview beckmann (sample_visible=False) {w}^2 x "
+        f"{spp}, card against CPU", runs)
+    w, spp = WF_SPREAD_WIDTH, WF_SPREAD_SPP
+    card, _ = ws.render(mi, "cuda", w, spp, SEED)
+    cpu, _ = ws.render(mi, "cpu", w, spp, SEED)
+    moved, _ = ws.render(mi, "cpu", w, spp, SEED, move_up=True)
+    s = ws.spread(card, cpu, moved)
+    log(f"wavefront matpreview_beckmann {w}^2 x {spp}, card against CPU: "
+        f"{ws.describe(s)}; mean rel diff "
+        f"{abs(card.mean() - cpu.mean()) / cpu.mean():.3e}")
+    if not s["ok"]:
+        raise SystemExit("matpreview_beckmann: the card and the CPU "
+                         "disagree")
+    log(f"  card against CPU: {time.perf_counter() - t_step:.1f} s")
+    t_step = time.perf_counter()
+
+    # ---- Cornell forced onto the wavefront against the kernel ----
+    sc = mi.load_dict(scenes.cornell_box_dict(WIDTH, WIDTH, SPP, MAX_DEPTH))
+    kimg, kms = timed(lambda: sc.integrator.render(sc, seed=SEED, spp=SPP),
+                      repeats=3)
+    assert sc.integrator.last_engine == "kernel"
+    sc.integrator._disable_kernel = True
+    wimg, wms = timed(lambda: sc.integrator.render(sc, seed=SEED, spp=SPP),
+                      repeats=3)
+    assert sc.integrator.last_engine == "wavefront"
+    rel = [abs(float(wimg[..., c].mean()) / float(kimg[..., c].mean()) - 1)
+           for c in range(3)]
+    rel_all = abs(float(wimg.mean()) / float(kimg.mean()) - 1)
+    log(f"cornell {WIDTH}^2 x {SPP} spp: kernel {kms:.1f} ms, wavefront "
+        f"{wms:.1f} ms ({wms / kms:.1f}x); means {float(kimg.mean()):.6f} "
+        f"and {float(wimg.mean()):.6f} (rel {rel_all:.2e}), by channel "
+        f"{', '.join(f'{r:.2e}' for r in rel)}")
+    if max(rel + [rel_all]) > WF_CORNELL_RTOL:
+        raise SystemExit("cornell: the wavefront's mean leaves the "
+                         "kernel's")
+
+    log(f"  forced Cornell: {time.perf_counter() - t_step:.1f} s")
+
+    # ---- the materials box, spectral and mono ----
+    def forced_against_kernel(label, variant, make, width, spp):
+        mi.set_variant(variant)
+        sc = mi.load_dict(make(width, width, spp, MAX_DEPTH))
+        ki = sc.integrator.render(sc, seed=SEED, spp=spp)
+        sc.integrator._disable_kernel = True
+        t0 = time.perf_counter()
+        wi = sc.integrator.render(sc, seed=SEED, spp=spp)
+        torch.cuda.synchronize()
+        rel = abs(float(wi.mean()) / float(ki.mean()) - 1)
+        log(f"{label} {width}^2 x {spp} spp forced onto the wavefront: "
+            f"{time.perf_counter() - t0:.3f} s, mean {float(wi.mean()):.6f}"
+            f" against the kernel's {float(ki.mean()):.6f} (rel {rel:.2e})")
+        if not bool(torch.isfinite(wi).all()) or rel > WF_SMALL_RTOL:
+            raise SystemExit(f"{label}: the wavefront's mean leaves the "
+                             f"kernel's")
+
+    forced_against_kernel("cornell_materials (gaussian film)", "scalar_rgb",
+                          scenes.cornell_materials_dict, 128, 16)
+    forced_against_kernel("cornell mono", "scalar_mono",
+                          scenes.cornell_box_dict, 64, 16)
+    mi.set_variant("scalar_spectral")
+    sc = mi.load_dict(ws.matpreview_beckmann(scenes, 128, 16, MAX_DEPTH))
+    simg = sc.integrator.render(sc, seed=SEED, spp=16)
+    smean = float(simg.mean())
+    log(f"matpreview_beckmann spectral 128^2 x 16 spp: engine "
+        f"{sc.integrator.last_engine}, mean {smean:.6f}")
+    if sc.integrator.last_engine != "wavefront" or not (0.2 < smean < 5.0) \
+            or not bool(torch.isfinite(simg).all()):
+        raise SystemExit("matpreview_beckmann spectral: implausible")
+    mi.set_variant("scalar_rgb")
+    log(f"wavefront phase: {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -947,6 +1338,7 @@ def main():
     kernels += run_volpath(mi, pk, vk, volpath_slab_dict)[0]
     kernels += run_isect(mi, pk, ik, isx, scenes,
                          next(p for p in PATHS if p.name == "biggeo"))
+    kernels += run_wavefront(mi, ik, isx, pk, scenes)
     check_forced_on_cornell(mi, pk, cornell_box_dict)
     kernels += run_ceiling(mi, pk, sk, cornell_box_dict,
                            cornell_materials_dict, face_rates)

@@ -157,6 +157,68 @@ def kernel_ms(fn, runs=5):
     return statistics.median(cuda_times(fn, runs)[1])
 
 
+# tensor methods and functions that read a tensor's values on the host, or
+# size their output by its values: each one waits for the device's stream
+_READS = frozenset((
+    "__bool__", "__int__", "__float__", "__index__", "item", "tolist",
+    "numpy", "nonzero", "argwhere", "masked_select", "unique",
+    "unique_consecutive", "bincount", "repeat_interleave"))
+# functions that make a tensor from host data (a number, list or array):
+# on a device each is a copy from pageable memory, which waits likewise
+_FROM_HOST = frozenset(("tensor", "as_tensor", "asarray", "from_numpy"))
+
+
+class HostTransfers(torch.overrides.TorchFunctionMode):
+    """Counts the calls inside its ``with`` block that make the host wait
+    for the device (``_READS``, boolean-mask indexing, tensors made from
+    host data), by the op and the caller's ``file:line`` in this package,
+    on any device: the CPU runs the same calls the card would wait on.
+    ``counts`` maps (op, site) to a count; ``total`` sums them."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = {}
+
+    @property
+    def total(self):
+        return sum(self.counts.values())
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = getattr(func, "__name__", "")
+        if name in _READS and not (name == "repeat_interleave"
+                                   and "output_size" in kwargs):
+            self._count(name)
+        elif name in _FROM_HOST and args \
+                and not isinstance(args[0], torch.Tensor):
+            self._count(name)
+        elif name in ("__getitem__", "__setitem__", "index_put_") \
+                and _bool_index(args[1] if len(args) > 1 else None):
+            self._count(f"{name}[bool]")
+        return func(*args, **kwargs)
+
+    def _count(self, op):
+        import traceback
+        here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        site = "?"
+        for fr in reversed(traceback.extract_stack()[:-2]):
+            if fr.filename.startswith(here) and fr.filename != __file__:
+                site = f"{os.path.relpath(fr.filename, here)}:{fr.lineno}"
+                break
+        key = (op, site)
+        self.counts[key] = self.counts.get(key, 0) + 1
+
+    def lines(self):
+        return [f"{n:5d}  {op} at {site}" for (op, site), n in sorted(
+            self.counts.items(), key=lambda kv: -kv[1])]
+
+
+def _bool_index(index):
+    items = index if isinstance(index, (tuple, list)) else (index,)
+    return any(isinstance(x, torch.Tensor) and x.dtype == torch.bool
+               for x in items)
+
+
 # ---------------------------------------------------------------------------
 # the card's ceilings
 # ---------------------------------------------------------------------------

@@ -21,6 +21,9 @@ def _u32(x, like=None):
     if isinstance(x, torch.Tensor):
         return x.to(torch.int64) & MASK32
     dev = like.device if like is not None else None
+    if isinstance(x, int):
+        # a fill on the device: no copy from the host to wait for
+        return torch.full((), x & MASK32, dtype=torch.int64, device=dev)
     return torch.as_tensor(x, dtype=torch.int64, device=dev) & MASK32
 
 

@@ -143,6 +143,7 @@ _D65 = np.array([
 assert _D65.shape == (MTS_CIE_SAMPLES,)
 
 CIE_XYZ_TABLE = _CIE1931_XYZ
+_CIE_Y_TABLE = np.ascontiguousarray(CIE_XYZ_TABLE[:, 1])
 CIE_D65_TABLE = (_D65 / 100.0).astype(np.float32)
 
 # BT.709 / sRGB linear matrices (spectrum.h:220-236)
@@ -158,8 +159,19 @@ SRGB_TO_XYZ = np.array([
 LUMINANCE = SRGB_TO_XYZ[1]
 
 
+# the module's tables on each device, copied there once (a copy from the
+# host at every call would wait for the device's stream)
+_DEVICE_TABLES = {}
+
+
 def _table(table, like):
-    return torch.as_tensor(table, dtype=torch.float32, device=like.device)
+    """One of this module's constant tables as float32 on ``like``'s
+    device."""
+    key = (id(table), str(like.device))
+    if key not in _DEVICE_TABLES:
+        _DEVICE_TABLES[key] = (table, torch.as_tensor(
+            table, dtype=torch.float32, device=like.device))
+    return _DEVICE_TABLES[key][1]
 
 
 def _cie_interp(table, wavelength):
@@ -185,7 +197,7 @@ def cie1931_xyz(wavelength):
 
 
 def cie1931_y(wavelength):
-    return _cie_interp(CIE_XYZ_TABLE[:, 1], wavelength)
+    return _cie_interp(_CIE_Y_TABLE, wavelength)
 
 
 def cie_d65(wavelength):
@@ -225,10 +237,67 @@ def xyz_to_srgb(xyz):
     return xyz @ _table(XYZ_TO_SRGB, xyz).T
 
 
-def luminance(value):
-    """Luminance of linear rgb values (..., 3) -> (...)."""
+def luminance(value, wavelengths=None):
+    """Luminance of linear rgb values (..., 3) -> (...); with
+    ``wavelengths``, of hero-wavelength spectra (..., S): the mean of
+    value x ybar."""
+    if wavelengths is not None:
+        return (cie1931_y(wavelengths) * value).mean(-1)
     return (value[..., 0] * 0.212671 + value[..., 1] * 0.715160
             + value[..., 2] * 0.072169)
+
+
+def spectrum_to_xyz(value, wavelengths):
+    """Hero-wavelength spectra (..., S) -> XYZ (..., 3) (spectrum.h:209)."""
+    return (cie1931_xyz(wavelengths) * value[..., None]).mean(-2)
+
+
+def cie1931_xyz_rows(wavelength):
+    """The X, Y and Z responses at the wavelengths (n,), as three (n,)
+    tensors (the channel-major form of ``cie1931_xyz``)."""
+    xyz = cie1931_xyz(wavelength)
+    return [xyz[..., k] for k in range(3)]
+
+
+def spectrum_to_srgb_rows(vals_rows, wl_rows):
+    """Hero-wavelength spectra (S, n) at wavelengths (S, n) -> linear sRGB
+    rows (3, n): XYZ summed over the S wavelengths in order, over S, then
+    the XYZ -> sRGB matrix (spectrum.h:209; mitsuba2_tpu.core.spectrum.
+    spectrum_to_srgb_rows)."""
+    nc = vals_rows.shape[0]
+    xyz = [0.0, 0.0, 0.0]
+    for c in range(nc):
+        resp = cie1931_xyz_rows(wl_rows[c])
+        for k in range(3):
+            xyz[k] = xyz[k] + resp[k] * vals_rows[c]
+    xyz_rows = torch.stack(xyz, 0) / nc
+    return _table(XYZ_TO_SRGB, xyz_rows) @ xyz_rows
+
+
+def spectrum_to_rgb(wavelengths, values, bounded: bool = True):
+    """An (irregular) spectral curve integrated against the CIE matching
+    functions on 1000 nodes and converted to linear sRGB (libcore/
+    spectrum.cpp spectrum_to_rgb): host numpy, for scene loading."""
+    wl = np.linspace(MTS_CIE_MIN, MTS_CIE_MAX, 1000)
+    v = np.interp(wl, np.asarray(wavelengths), np.asarray(values),
+                  left=0.0, right=0.0)
+    cmf = cie1931_xyz(torch.as_tensor(wl, dtype=torch.float32)).numpy()
+    y = cmf * v[:, None]
+    xyz = (np.diff(wl)[:, None] * (y[1:] + y[:-1]) / 2.0).sum(0) \
+        * MTS_CIE_Y_NORMALIZATION
+    rgb = xyz @ XYZ_TO_SRGB.T
+    return np.clip(rgb, 0.0, 1.0) if bounded else np.maximum(rgb, 0.0)
+
+
+def sample_uniform_spectrum(sample):
+    """Wavelengths uniform over [360, 830] nm and their weights 1/pdf."""
+    return (sample * (MTS_CIE_MAX - MTS_CIE_MIN) + MTS_CIE_MIN,
+            torch.full_like(sample, MTS_CIE_MAX - MTS_CIE_MIN))
+
+
+def pdf_uniform_spectrum(wavelength):
+    return torch.full_like(wavelength,
+                           1.0 / (MTS_WAVELENGTH_MAX - MTS_WAVELENGTH_MIN))
 
 
 def sample_shifted(sample, n: int = 4):

@@ -11,7 +11,23 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import weakref
+
 import numpy as np
+
+# each matrix's copy on a device, made at its first use there (a copy from
+# the host at every call would wait for the device's stream); an entry
+# goes with its array
+_DEVICE_MATRICES = {}
+
+
+def _device_matrix(arr, device):
+    import torch
+    key = (id(arr), str(device))
+    if key not in _DEVICE_MATRICES:
+        _DEVICE_MATRICES[key] = torch.as_tensor(arr, device=device)
+        weakref.finalize(arr, _DEVICE_MATRICES.pop, key, None)
+    return _DEVICE_MATRICES[key]
 
 
 class Transform(NamedTuple):
@@ -79,6 +95,17 @@ class Transform(NamedTuple):
         mat[:3, 3] = origin
         return Transform.from_matrix(mat.astype(np.float32))
 
+    @staticmethod
+    def perspective(fov_deg, near, far) -> "Transform":
+        """Projection onto the z = 1 image plane (transform.h
+        perspective)."""
+        recip = 1.0 / (far - near)
+        cot = 1.0 / np.tan(np.deg2rad(float(fov_deg)) * 0.5)
+        mat = np.array([[cot, 0, 0, 0], [0, cot, 0, 0],
+                        [0, 0, far * recip, -near * far * recip],
+                        [0, 0, 1, 0]], dtype=np.float64)
+        return Transform.from_matrix(mat.astype(np.float32))
+
     # ---- application --------------------------------------------------------
     def __matmul__(self, other: "Transform") -> "Transform":
         return Transform(self.matrix @ other.matrix,
@@ -88,3 +115,13 @@ class Transform(NamedTuple):
         """Swaps the matrix and the transposed inverse (no arithmetic)."""
         return Transform(np.ascontiguousarray(self.inverse_transpose.T),
                          np.ascontiguousarray(self.matrix.T))
+
+    def transform_point(self, p):
+        """Points (..., 3), a torch tensor, through the matrix with the
+        homogeneous divide."""
+        mat = _device_matrix(self.matrix, p.device)
+        out = p @ mat[:3, :3].T + mat[:3, 3]
+        return out / (p @ mat[3, :3] + mat[3, 3])[..., None]
+
+    def transform_vector(self, v):
+        return v @ _device_matrix(self.matrix, v.device)[:3, :3].T

@@ -7,15 +7,57 @@ evaluates at its hero wavelengths:
   value(wl) = sigmoid(_coeff, wl) * d65(wl) * _d65_scale;
 - ``ConductorIORSpectrum``, a conductor's eta or k: a quadratic in the
   normalized wavelength, clamped to its fit span.
+
+The wavefront evaluates the emitter spectra as the JAX wavefront does
+(mitsuba2_tpu/models/spectra.py ``_CurveSpectrum``): as a tabulated curve,
+linear between its nodes, at the hero wavelengths; in rgb and mono
+variants as the curve's rgb (``spectrum_to_rgb``) or its luminance.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..core import spectrum as spec
 from ..core.object import register_plugin
 from ..render.texture import Texture
+from .textures import on_device
+
+
+class _CurveSpectrum(Texture):
+    """A spectral curve (nodes ``_wl``, values ``_vals``, float32)."""
+
+    def _setup(self, wl, vals):
+        self._wl = np.asarray(wl, np.float32)
+        self._vals = np.asarray(vals, np.float32)
+        self._rgb = spec.spectrum_to_rgb(self._wl, self._vals,
+                                         bounded=False)
+
+    def eval(self, si, active=True):
+        from ..variants import current
+        var = current()
+        dev = si.t.device
+        if var.is_spectral:
+            wl = on_device(self, "wl", self._wl, dev)
+            vals = on_device(self, "vals", self._vals, dev)
+            x = si.wavelengths
+            idx = (torch.searchsorted(wl, x.contiguous(), right=True)
+                   - 1).clamp(0, len(self._wl) - 2)
+            x0, x1 = wl[idx], wl[idx + 1]
+            w = (x - x0) / torch.clamp(x1 - x0, min=1e-8)
+            v = vals[idx] * (1 - w) + vals[idx + 1] * w
+            return torch.where((x >= wl[0]) & (x <= wl[-1]), v, 0.0)
+        n = si.t.shape[0]
+        if var.is_monochromatic:
+            return on_device(self, "mono", [spec.luminance(
+                torch.as_tensor(self._rgb, dtype=torch.float32))],
+                dev).expand(n, 1)
+        return on_device(self, "rgb", self._rgb, dev).expand(n, 3)
+
+    def mean(self):
+        return float(np.asarray(self._rgb, np.float64)
+                     @ spec.LUMINANCE.astype(np.float64))
 
 
 def _norm_x(wl_nm):
@@ -25,7 +67,7 @@ def _norm_x(wl_nm):
 
 
 @register_plugin("spectrum", "d65")
-class D65Spectrum(Texture):
+class D65Spectrum(_CurveSpectrum):
     """(d65.cpp) the CIE D65 illuminant normalized to luminance
     ``scale``."""
 
@@ -41,10 +83,11 @@ class D65Spectrum(Texture):
         # unit reflectance (the sigmoid saturates to 1) times d65
         self._coeff = np.asarray([0.0, 0.0, 1.0e5], np.float32)
         self._d65_scale = float(scale / norm)
+        self._setup(wl, spec.CIE_D65_TABLE * (scale / norm))
 
 
 @register_plugin("spectrum", "srgb_d65")
-class SRGBD65Spectrum(Texture):
+class SRGBD65Spectrum(_CurveSpectrum):
     """(srgb_d65.cpp) an sRGB color times the D65 illuminant: the emitter
     spectrum of rgb-specified lights. A color brighter than 1 is fitted
     at unit maximum and the excess goes into the scale."""
@@ -56,12 +99,19 @@ class SRGBD65Spectrum(Texture):
         color = np.asarray(color, np.float32)
         if color.ndim == 0:
             color = np.broadcast_to(color, (3,)).copy()
-        from ..render.srgb import srgb_model_fetch
+        from ..render.srgb import srgb_model_eval, srgb_model_fetch
         peak = max(color.max(), 1.0)
         self._coeff = np.asarray(
             srgb_model_fetch(np.clip(color / peak, 0, 1)),
             np.float32).reshape(3)
         self._d65_scale = float(float(peak) / spec.d65_y_normalization())
+        # the curve at 256 nodes: reflectance x d65 / (d65 . ybar) x peak
+        wl = np.linspace(spec.MTS_CIE_MIN, spec.MTS_CIE_MAX, 256)
+        wlt = torch.as_tensor(wl, dtype=torch.float32)
+        refl = srgb_model_eval(torch.as_tensor(self._coeff), wlt).numpy()
+        d65 = spec.cie_d65(wlt).numpy()
+        norm = spec.trapezoid(d65 * spec.cie1931_y(wlt).numpy(), wl)
+        self._setup(wl, refl * d65 / norm * float(peak))
 
 
 # anchor wavelengths of rgb-anchored conductor IOR curves (approximate
@@ -102,3 +152,13 @@ class ConductorIORSpectrum(Texture):
             lo, hi = min(IOR_ANCHORS_NM), max(IOR_ANCHORS_NM)
         self._x_lo = float(_norm_x(lo))
         self._x_hi = float(_norm_x(hi))
+        self._rgb_np = np.asarray(rgb, np.float32).reshape(3)
+
+    def eval(self, si, active=True):
+        """The quadratic at the lanes' hero wavelengths."""
+        x = torch.clamp(_norm_x(si.wavelengths), self._x_lo, self._x_hi)
+        a, b, c = (float(v) for v in self._coeff)
+        return (a * x + b) * x + c
+
+    def mean(self):
+        return float(self._rgb_np.mean())

@@ -5,7 +5,9 @@ values (xml.cpp:774-850, src/spectra/srgb.cpp), the uv checkerboard
 A constant color carries the payload of the variant it was loaded under
 (mitsuba2_tpu.models.textures._SpectrumData): linear rgb, the sigmoid
 model's coefficients in spectral variants (render/srgb.py), the luminance
-in mono variants.
+in mono variants. ``eval(si)`` gives the wavefront each lane's value in
+that variant: (n, 3) rgb, (n, 4) at the lane's hero wavelengths, or
+(n, 1); the payload moves to the lanes' device once and stays there.
 """
 
 from __future__ import annotations
@@ -19,6 +21,35 @@ from ..core.properties import Properties
 from ..render.texture import Texture
 
 _LUMINANCE = np.asarray([0.212671, 0.715160, 0.072169], np.float64)
+
+
+def on_device(obj, name, array, device):
+    """``array`` as a float32 tensor on ``device``, cached on ``obj`` under
+    ``name`` so that each device receives it once."""
+    cache = obj.__dict__.setdefault("_device_cache", {})
+    key = (name, str(device))
+    if key not in cache:
+        cache[key] = torch.as_tensor(np.asarray(array, np.float32),
+                                     device=device)
+    return cache[key]
+
+
+def bilinear_taps(uv, w, h):
+    """The four texels around each lane's uv on a (w, h) texture, repeat
+    wrap, texel centers at half-integers (bitmap.cpp): [(weight, flat
+    texel index)] in the order (u0, v0), (u1, v0), (u0, v1), (u1, v1)."""
+    u = uv[..., 0] * w - 0.5
+    v = uv[..., 1] * h - 0.5
+    u0, v0 = torch.floor(u), torch.floor(v)
+    fu, fv = u - u0, v - v0
+    iu0 = torch.remainder(u0.to(torch.int32), w).long()
+    iv0 = torch.remainder(v0.to(torch.int32), h).long()
+    iu1 = torch.remainder(iu0 + 1, w)
+    iv1 = torch.remainder(iv0 + 1, h)
+    return [((1 - fu) * (1 - fv), iv0 * w + iu0),
+            (fu * (1 - fv), iv0 * w + iu1),
+            ((1 - fu) * fv, iv1 * w + iu0),
+            (fu * fv, iv1 * w + iu1)]
 
 
 def mono_luminance(rgb):
@@ -64,6 +95,17 @@ class ConstantTexture(Texture):
     def mean(self):
         return float(np.asarray(self.rgb, np.float64) @ _LUMINANCE)
 
+    def eval(self, si, active=True):
+        """The color at every lane of ``si``, in the variant's channels."""
+        n, dev = si.t.shape[0], si.t.device
+        if self.coeff is not None:
+            from ..render.srgb import srgb_model_eval
+            return srgb_model_eval(on_device(self, "coeff", self.coeff, dev),
+                                   si.wavelengths)
+        if self.mono is not None:
+            return on_device(self, "mono", [self.mono], dev).expand(n, 1)
+        return on_device(self, "rgb", self.rgb, dev).expand(n, 3)
+
 
 @register_plugin("texture", "checkerboard")
 class CheckerboardTexture(Texture):
@@ -78,21 +120,30 @@ class CheckerboardTexture(Texture):
         self.to_uv = p.transform("to_uv") if p.has_property("to_uv") \
             else None
 
-    def eval(self, uv):
-        """(..., 2) uv tensor -> (..., 3) linear rgb (constant colors
-        only, the ones the path kernel takes)."""
+    def eval(self, si, active=True):
+        """The color at the lanes of ``si`` in the variant's channels; or,
+        given a (..., 2) uv tensor, (..., 3) linear rgb (constant colors,
+        the ones the path kernel takes)."""
+        if isinstance(si, torch.Tensor):
+            even = self._even(si)
+            c0 = on_device(self, "color0", self.color0.rgb, si.device)
+            c1 = on_device(self, "color1", self.color1.rgb, si.device)
+            return torch.where(even[..., None], c0, c1)
+        return torch.where(self._even(si.uv)[..., None],
+                           self.color0.eval(si, active),
+                           self.color1.eval(si, active))
+
+    def _even(self, uv):
+        """Where floor(u) + floor(v) is even, after ``to_uv``."""
         if self.to_uv is not None:
-            mat = torch.as_tensor(self.to_uv.matrix, dtype=uv.dtype,
-                                  device=uv.device)
+            mat = on_device(self, "to_uv", self.to_uv.matrix, uv.device)
             uvw = torch.cat([uv, torch.zeros_like(uv[..., :1])], -1)
             out = uvw @ mat[:3, :3].T + mat[:3, 3]
             w = uvw @ mat[3, :3] + mat[3, 3]
             uv = (out / w[..., None])[..., :2]
         par = (torch.floor(uv[..., 0]).to(torch.int64)
                + torch.floor(uv[..., 1]).to(torch.int64)) % 2
-        c0 = torch.as_tensor(self.color0.rgb, device=uv.device)
-        c1 = torch.as_tensor(self.color1.rgb, device=uv.device)
-        return torch.where((par == 0)[..., None], c0, c1)
+        return par == 0
 
     def mean(self):
         return 0.5 * (self.color0.mean() + self.color1.mean())
@@ -144,6 +195,26 @@ class BitmapTexture(Texture):
 
     def is_spatially_varying(self):
         return True
+
+    def eval(self, si, active=True):
+        """Bilinear lookup at the lanes' uv (``bilinear_taps``;
+        mitsuba2_tpu.models.textures.BitmapTexture._bilinear): rgb, mono
+        luminance, or in spectral variants the four texels' sigmoid
+        spectra at the hero wavelengths, blended."""
+        from ..variants import current
+        var = current()
+        flat = self.payload.reshape(-1, 3)
+        if var.is_monochromatic:
+            flat = flat[:, :1]
+        table = on_device(self, "payload", flat, si.t.device)
+        out = 0.0
+        for wt, idx in bilinear_taps(si.uv, *self.resolution):
+            val = table[idx]
+            if var.is_spectral:
+                from ..render.srgb import srgb_model_eval
+                val = srgb_model_eval(val, si.wavelengths)
+            out = out + wt[..., None] * val
+        return out
 
 
 def as_texture(v, within_emitter: bool = False) -> Texture:

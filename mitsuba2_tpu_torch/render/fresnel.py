@@ -17,8 +17,9 @@ def fresnel(cos_theta_i, eta):
     eta_ti): the reflectance, the transmitted cosine (signed, on the
     other side), the relative IOR seen by the incident ray and its
     inverse. ``eta`` is a number or a tensor."""
-    eta = torch.as_tensor(eta, dtype=cos_theta_i.dtype,
-                          device=cos_theta_i.device)
+    eta = eta.to(cos_theta_i.dtype) if isinstance(eta, torch.Tensor) \
+        else torch.full((), eta, dtype=cos_theta_i.dtype,
+                        device=cos_theta_i.device)
     outside = cos_theta_i >= 0
     rcp_eta = 1.0 / eta
     eta_it = torch.where(outside, eta, rcp_eta)
@@ -159,3 +160,18 @@ def lookup_conductor_curves(material: str):
     """-> (wavelengths, eta, k) full-range curves of a named conductor, or
     None where only its rgb triples exist."""
     return CONDUCTOR_IOR_CURVES.get(material)
+
+
+def reflect(wi, n=None):
+    """Mirror reflection about ``n``, or about the local +z axis
+    (fresnel.h reflect)."""
+    if n is None:
+        return torch.stack([-wi[..., 0], -wi[..., 1], wi[..., 2]], -1)
+    return 2.0 * m.dot(wi, n)[..., None] * n - wi
+
+
+def refract(wi, cos_theta_t, eta_ti):
+    """Refraction through the local +z interface with the transmitted
+    cosine and relative IOR from ``fresnel`` (fresnel.h refract)."""
+    return torch.stack([-wi[..., 0] * eta_ti, -wi[..., 1] * eta_ti,
+                        cos_theta_t], -1)

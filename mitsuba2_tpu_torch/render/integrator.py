@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import time
 
+import torch
+
 from ..core import logger as _log
 from ..core.object import Object
 from ..core import math as m
@@ -113,9 +115,57 @@ class SamplingIntegrator(Integrator):
 
     def render_wavefront(self, scene, sensor, sampler, seed, sample_base,
                          spp_pass, spp_total):
-        """One pass over w*h*spp_pass lanes -> the pass's image block."""
-        raise NotImplementedError(
-            f"{type(self).__name__}: the general wavefront is not ported")
+        """One pass of the general wavefront over w*h*spp_pass lanes ->
+        the pass's image block (mitsuba2_tpu/render/integrator.py:159-236):
+        ``wavefront_lanes``, then under a box filter the sum over each
+        pixel's samples, else the image block's ``put``."""
+        from ..models.rfilters import BoxFilter
+        w, h = sensor.film.crop_size
+        pos_px, value = self.wavefront_lanes(scene, sensor, sampler, seed,
+                                             sample_base, spp_pass)
+        block = ImageBlock((w, h), 3, sensor.film.rfilter, scene.device)
+        if isinstance(sensor.film.rfilter, BoxFilter) and block.border == 0:
+            # jittered samples stay in their pixel and lanes are
+            # pixel-major: the splat is a sum over each pixel's samples
+            vals_w = torch.cat([value, torch.ones_like(value[:, :1])], -1)
+            return vals_w.reshape(w * h, spp_pass, 4).sum(1) \
+                .reshape(h, w, 4)
+        return block.put(block.create(), pos_px, value)
+
+    def wavefront_lanes(self, scene, sensor, sampler, seed, sample_base,
+                        spp_pass):
+        """Each lane's film position (n, 2) in pixels and rgb (n, 3):
+        lanes pixel-major, a jittered film position and a camera ray per
+        lane, ``sample``'s radiance times the ray's weight, converted to
+        rgb (spectral: the hero wavelengths through the CIE curves; mono:
+        repeated)."""
+        from ..core import spectrum as spec
+        from ..models.textures import on_device
+        from ..variants import current
+        from .sampler import SamplerState
+        w, h = sensor.film.crop_size
+        n = w * h * spp_pass
+        dev = scene.device
+        var = current()
+        lane = torch.arange(n, dtype=torch.int64, device=dev)
+        pixel_id = lane // spp_pass
+        state = sampler.seed(seed, pixel_id, lane % spp_pass + sample_base)
+        jitter, state = sampler.next_2d(state)
+        pos_px = torch.stack([(pixel_id % w).float(),
+                              (pixel_id // w).float()], -1) + jitter
+        pos01 = pos_px / on_device(sensor.film, "crop_size", [w, h], dev)
+        # the aperture (2) and time (1) dimensions: a pinhole reads
+        # neither, and no shape moves
+        state = SamplerState(state.key, state.dim + 3)
+        wav_sample, state = sampler.next_1d(state)
+        ray, ray_weight, wavelengths = sensor.sample_ray(wav_sample, pos01)
+        value = self.sample(scene, sampler, state, ray, wavelengths) \
+            * ray_weight
+        if var.is_spectral:
+            value = spec.spectrum_to_srgb_rows(value.T, wavelengths.T).T
+        elif var.is_monochromatic:
+            value = value.repeat(1, 3)
+        return pos_px, value
 
 
 class MonteCarloIntegrator(SamplingIntegrator):

@@ -20,3 +20,53 @@ class PreliminaryIntersection(NamedTuple):
 
     def is_valid(self):
         return torch.isfinite(self.t)
+
+
+class PositionSample(NamedTuple):
+    """A sampled position on a surface, area measure (records.h:20)."""
+    p: torch.Tensor           # (n, 3)
+    n: torch.Tensor           # (n, 3)
+    uv: torch.Tensor          # (n, 2)
+    pdf: torch.Tensor         # (n,)
+    delta: torch.Tensor       # (n,) bool
+
+
+class DirectionSample(NamedTuple):
+    """A direction toward an endpoint, solid-angle measure (records.h:121);
+    the emitter is an index into the scene's emitters, -1 for none."""
+    p: torch.Tensor           # (n, 3)
+    n: torch.Tensor           # (n, 3)
+    uv: torch.Tensor          # (n, 2)
+    pdf: torch.Tensor         # (n,)
+    delta: torch.Tensor       # (n,) bool
+    d: torch.Tensor           # (n, 3) from the reference point
+    dist: torch.Tensor        # (n,)
+    emitter_idx: torch.Tensor  # (n,) int32
+
+
+class BSDFSample3(NamedTuple):
+    """The result of BSDF::sample (bsdf.h BSDFSample3f)."""
+    wo: torch.Tensor              # (n, 3) local frame
+    pdf: torch.Tensor             # (n,)
+    eta: torch.Tensor             # (n,) relative IOR across the event
+    sampled_type: torch.Tensor    # (n,) int32 BSDFFlags of the lobe
+    sampled_component: torch.Tensor  # (n,) int32
+
+
+def zero_direction_sample(n, device):
+    z3 = torch.zeros((n, 3), device=device)
+    z = torch.zeros((n,), device=device)
+    return DirectionSample(z3, z3, torch.zeros((n, 2), device=device), z,
+                           torch.zeros((n,), dtype=torch.bool, device=device),
+                           z3, z, torch.full((n,), -1, dtype=torch.int32,
+                                             device=device))
+
+
+def select(mask, a, b):
+    """Field by field, ``a`` where ``mask`` (n,) holds, else ``b``: records
+    of one type."""
+    out = []
+    for x, y in zip(a, b):
+        mk = mask.reshape(mask.shape + (1,) * (x.dim() - 1))
+        out.append(torch.where(mk, x, y))
+    return type(a)(*out)

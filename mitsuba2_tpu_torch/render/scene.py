@@ -30,11 +30,15 @@ kernel's BVH tier and the scene's ray queries (``ray_intersect_preliminary``,
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
+from ..core import math as m
 from ..core import spectrum as spec
 from ..core.object import Object
+from ..core.ray import Ray
 from ..ops import bvh as bvh_ops
 from ..ops import path_kernel as pk
 
@@ -90,8 +94,6 @@ class Scene(Object):
                 s.bsdf = SmoothDiffuse()
             if all(b is not s.bsdf for b in self.bsdfs):
                 self.bsdfs.append(s.bsdf)
-        for i, e in enumerate(self.emitters):
-            e._emitter_index = i
 
         v0s, e1s, e2s, ngs, uvss, face_shape = [], [], [], [], [], []
         spheres, quadrics = [], []
@@ -217,6 +219,13 @@ class Scene(Object):
             quads=(qd, qattr), tex=tex)
         # the light table and per-face emission on the host, for the same
         self.light_rows, self.le_face, self.lpdf_w = lights, le_face, lpdf_w
+        # the ray queries' shape ids and quad rows on the device, copied
+        # once (a copy from the host at each query waits for the stream)
+        self._face_shape_dev = torch.as_tensor(self.face_shape,
+                                               device=self.device)
+        self._sphere_shape_dev = torch.as_tensor(self.sphere_shape,
+                                                 device=self.device)
+        self._quad_dev = torch.as_tensor(self.quad_table, device=self.device)
 
         # media in first-seen shape order, interior before exterior
         # (mitsuba2_tpu/render/scene.py:293-312)
@@ -256,7 +265,7 @@ class Scene(Object):
         """Every ray against every disk and cylinder in its object frame,
         the reference's plain pass (mitsuba2_tpu/render/scene.py:564-611)
         -> (t (n,) inf on a miss, quad index (n,) or -1)."""
-        tab = torch.as_tensor(self.quad_table, device=o.device)
+        tab = self._quad_dev
         t_best = torch.full_like(mint, float("inf"))
         q_best = torch.full(mint.shape, -1, dtype=torch.int32,
                             device=o.device)
@@ -318,8 +327,8 @@ class Scene(Object):
         n_faces = self.tables.n_faces
         shape_idx = torch.full_like(prim, -1)
         if n_faces:
-            fs = torch.as_tensor(self.face_shape, device=prim.device)
-            shape_idx = fs[prim.clamp(0, n_faces - 1).long()]
+            shape_idx = self._face_shape_dev[prim.clamp(0, n_faces - 1)
+                                             .long()]
         if self.tables.n_spheres:
             ts, s_idx = self._sphere_closest_hit(ray.o, ray.d, ray.mint,
                                                  maxt)
@@ -327,7 +336,7 @@ class Scene(Object):
             t = torch.where(closer, ts, t)
             prim = torch.where(closer & (s_idx >= 0), n_faces + s_idx, prim)
             uv = torch.where(closer[:, None], 0.0, uv)
-            ss = torch.as_tensor(self.sphere_shape, device=prim.device)
+            ss = self._sphere_shape_dev
             shape_idx = torch.where(
                 prim >= n_faces,
                 ss[(prim - n_faces).clamp(0, len(ss) - 1).long()],
@@ -339,11 +348,9 @@ class Scene(Object):
             t = torch.where(closer, tq, t)
             prim = torch.where(closer & (q_idx >= 0), base + q_idx, prim)
             uv = torch.where(closer[:, None], 0.0, uv)
-            qs = torch.as_tensor(self.quad_table[:, 24].astype(np.int32),
-                                 device=prim.device)
-            shape_idx = torch.where(
-                prim >= base,
-                qs[(prim - base).clamp(0, len(qs) - 1).long()], shape_idx)
+            qs = self._quad_dev[(prim - base).clamp(
+                0, len(self.quad_table) - 1).long(), 24].to(torch.int32)
+            shape_idx = torch.where(prim >= base, qs, shape_idx)
         shape_idx = torch.where(prim >= 0, shape_idx, -1)
         return PreliminaryIntersection(t, uv, shape_idx.to(torch.int32),
                                        prim.to(torch.int32))
@@ -363,6 +370,240 @@ class Scene(Object):
             tq, _ = self._quad_closest_hit(ray.o, ray.d, ray.mint, maxt)
             hit = hit | torch.isfinite(tq)
         return hit
+
+    # ------------------------------------------------------------ wavefront
+    # The general wavefront's queries (mitsuba2_tpu/render/scene.py:722-
+    # 1099, :1179-1359): a full surface interaction at each closest hit,
+    # emitter evaluation and sampling with the shadow ray through
+    # ``ray_test``, and the BSDF dispatch. Its tables are built at its
+    # first render and rebuilt when the shapes, their BSDFs or the
+    # emitters change (tests edit a loaded scene).
+
+    def wavefront_tables(self):
+        """The wavefront's device tables (``WavefrontTables``)."""
+        key = (tuple(id(s) for s in self.shapes),
+               tuple(id(s.bsdf) for s in self.shapes),
+               tuple(id(e) for e in self.emitters))
+        cached = getattr(self, "_wavefront", None)
+        if cached is None or cached[0] != key:
+            cached = (key, _wavefront_tables(self))
+            self._wavefront = cached
+        return cached[1]
+
+    def compute_surface_interaction(self, ray, pi, wavelengths=None):
+        """The full record at each preliminary hit ``pi`` of ``ray``
+        (mitsuba2_tpu/render/scene.py:722-910): position, geometric
+        normal, shading frame (interpolated vertex normals, the uv
+        tangent dp_du made orthogonal to them), uv, wi in the frame, and
+        the shape's BSDF and emitter ids; spheres, disks and cylinders
+        analytically."""
+        from ..core.frame import Frame
+        from .interaction import SurfaceInteraction
+        wf = self.wavefront_tables()
+        valid = pi.is_valid()
+        F, S, Q = wf.n_faces, wf.n_spheres, wf.n_quads
+        f = pi.prim_idx.clamp(0, max(F - 1, 0)).long()
+        A = wf.face_attr[f]
+        ints = wf.face_ints[f]
+        v0, e1, e2 = A[:, 0:3], A[:, 3:6], A[:, 6:9]
+        ng = A[:, 9:12]
+        n0, n1, n2 = A[:, 12:15], A[:, 15:18], A[:, 18:21]
+        uv0, uv1, uv2 = A[:, 21:23], A[:, 23:25], A[:, 25:27]
+        dp_du, dp_dv = A[:, 27:30], A[:, 30:33]
+        shape_idx, bsdf_idx, emitter_idx = ints[:, 0], ints[:, 1], ints[:, 2]
+        w0 = (1.0 - pi.prim_uv[:, 0] - pi.prim_uv[:, 1])[:, None]
+        wu, wv = pi.prim_uv[:, 0:1], pi.prim_uv[:, 1:2]
+        p = v0 + e1 * wu + e2 * wv
+        ns = m.normalize(n0 * w0 + n1 * wu + n2 * wv)
+        uv = uv0 * w0 + uv1 * wu + uv2 * wv
+        if S:
+            # sphere.cpp compute_surface_interaction: the exact normal
+            # (flipped with flip_normals), spherical uv, analytic tangents
+            is_sph = (pi.prim_idx >= F) & (pi.prim_idx < F + S)
+            row = wf.sph[(pi.prim_idx - F).clamp(0, S - 1).long()]
+            c, r, flip = row[:, 0:3], row[:, 3:4], row[:, 9:10]
+            p_s = ray.o + pi.t[:, None] * ray.d
+            n_s = m.normalize(p_s - c) * flip
+            p_s = c + n_s * flip * r
+            phi = torch.atan2(n_s[:, 1], n_s[:, 0])
+            theta = torch.acos(torch.clamp(n_s[:, 2] * flip[:, 0], -1.0,
+                                           1.0))
+            uv_s = torch.stack([phi / (2 * m.Pi) + 0.5, theta / m.Pi], -1)
+            dpdu_s = torch.stack([-n_s[:, 1], n_s[:, 0],
+                                  torch.zeros_like(phi)], -1) \
+                * (2 * m.Pi * r)
+            sin_t = torch.sqrt(torch.clamp(
+                1.0 - (n_s[:, 2] * flip[:, 0]) ** 2, min=1e-12))
+            dpdv_s = torch.stack([
+                n_s[:, 2] * torch.cos(phi), n_s[:, 2] * torch.sin(phi),
+                -sin_t * flip[:, 0]], -1) * (m.Pi * r)
+            w = is_sph[:, None]
+            p = torch.where(w, p_s, p)
+            ng = torch.where(w, n_s, ng)
+            ns = torch.where(w, n_s, ns)
+            uv = torch.where(w, uv_s, uv)
+            dp_du = torch.where(w, dpdu_s, dp_du)
+            dp_dv = torch.where(w, dpdv_s, dp_dv)
+            ids = row[:, 4:7].to(torch.int32)
+            shape_idx = torch.where(is_sph, ids[:, 0], shape_idx)
+            bsdf_idx = torch.where(is_sph, ids[:, 1], bsdf_idx)
+            emitter_idx = torch.where(is_sph, ids[:, 2], emitter_idx)
+        if Q:
+            p, ng, ns, uv, dp_du, dp_dv, shape_idx, bsdf_idx, emitter_idx \
+                = _quad_interaction(wf, ray, pi, p, ng, ns, uv, dp_du,
+                                    dp_dv, shape_idx, bsdf_idx, emitter_idx)
+        # Gram-Schmidt of dp_du against the shading normal (mesh.cpp:463),
+        # a constructed tangent where it degenerates
+        s_axis = m.normalize(dp_du - ns * m.dot(ns, dp_du)[:, None])
+        deg = m.squared_norm(s_axis) < 0.5
+        fallback_s, _ = m.coordinate_system(ns)
+        s_axis = torch.where(deg[:, None], fallback_s, s_axis)
+        t_axis = m.normalize(m.cross(ns, s_axis))
+        frame = Frame(s_axis, t_axis, ns)
+        none = torch.full_like(shape_idx, -1)
+        return SurfaceInteraction(
+            t=torch.where(valid, pi.t, float("inf")), p=p, n=ng,
+            sh_frame=frame, uv=uv, wi=frame.to_local(-ray.d), dp_du=dp_du,
+            dp_dv=dp_dv, shape_idx=torch.where(valid, shape_idx, none),
+            prim_idx=pi.prim_idx, wavelengths=wavelengths,
+            bsdf_idx=torch.where(valid, bsdf_idx, none),
+            emitter_idx=torch.where(valid, emitter_idx, none),
+            prim_uv=pi.prim_uv)
+
+    def ray_intersect(self, ray, active=None, wavelengths=None):
+        """(scene.h:38) the closest hit as a full SurfaceInteraction."""
+        pi = self.ray_intersect_preliminary(ray, active)
+        return self.compute_surface_interaction(ray, pi, wavelengths)
+
+    def emitter_index_at(self, si):
+        """The emitter of each lane: its surface's, or the environment's
+        where the lane escaped, -1 for none."""
+        env = self.wavefront_tables().env_index
+        return torch.where(si.is_valid(), si.emitter_idx, env)
+
+    def eval_emitter(self, si, ray_d, active):
+        """Radiance of the emitter each lane sees (its surface's, or the
+        environment's along ``ray_d`` where it escaped), zero
+        otherwise."""
+        from ..models.emitters import env_lookup_si
+        from ..variants import current
+        out = torch.zeros((si.t.shape[0], current().n_channels),
+                          device=si.t.device)
+        em_idx = self.emitter_index_at(si)
+        for i, e in enumerate(self.emitters):
+            mask = active & (em_idx == i)
+            look = env_lookup_si(ray_d, si) if e.is_environment() else si
+            out = torch.where(mask[:, None], e.eval(look, mask), out)
+        return out
+
+    def sample_emitter_direction(self, si, sample, active):
+        """(scene.cpp:165-214) a uniformly picked emitter's direction
+        sample seen from each lane and its radiance over the pdf, zero
+        where the shadow ray (``ray_test``) is blocked."""
+        from ..variants import current
+        from .records import select, zero_direction_sample
+        n, dev = si.t.shape[0], si.t.device
+        n_em = len(self.emitters)
+        if n_em == 0:
+            return zero_direction_sample(n, dev), torch.zeros(
+                (n, current().n_channels), device=dev)
+        bsphere = self.wavefront_tables().bsphere
+
+        def sample_one(i, sample, mask):
+            ds, spec = self.emitters[i].sample_direction(si, sample, mask,
+                                                         bsphere)
+            return ds._replace(emitter_idx=torch.full_like(
+                ds.emitter_idx, i)), spec
+
+        if n_em == 1:
+            ds, spec = sample_one(0, sample, active)
+        else:
+            index = torch.clamp((sample[:, 0] * n_em).to(torch.int32),
+                                max=n_em - 1)
+            sample = torch.stack(
+                [sample[:, 0] * n_em - index.to(sample.dtype),
+                 sample[:, 1]], -1)
+            ds = zero_direction_sample(n, dev)
+            spec = torch.zeros((n, current().n_channels), device=dev)
+            for i in range(n_em):
+                mask = active & (index == i)
+                ds_i, spec_i = sample_one(i, sample, mask)
+                ds = select(mask, ds_i, ds)
+                spec = torch.where(mask[:, None], spec_i, spec)
+            ds = ds._replace(pdf=ds.pdf * (1.0 / n_em))
+            spec = spec * n_em
+        active = active & (ds.pdf != 0)
+        # the shadow ray: scene.cpp:204-206's offsets
+        mint = m.RayEpsilon * (1.0 + si.p.abs().amax(-1))
+        maxt = ds.dist * (1.0 - m.ShadowEpsilon)
+        occluded = self.ray_test(Ray(si.p.contiguous(), ds.d.contiguous(),
+                                     mint.contiguous(), maxt.contiguous()),
+                                 active)
+        return ds, torch.where((active & ~occluded)[:, None], spec, 0.0)
+
+    def pdf_emitter_direction(self, si, ds, active):
+        """(scene.cpp pdf_emitter_direction) the solid-angle density with
+        which ``sample_emitter_direction`` picks ``ds``."""
+        n_em = len(self.emitters)
+        pdf = torch.zeros_like(si.t)
+        for i, e in enumerate(self.emitters):
+            mask = active & (ds.emitter_idx == i)
+            pdf = torch.where(mask, e.pdf_direction(si, ds, mask), pdf)
+        return pdf * (1.0 / n_em) if n_em else pdf
+
+    def bsdf_flags_at(self, si):
+        """Each lane's BSDFFlags (int32), 0 where it has no BSDF."""
+        flags = self.wavefront_tables().bsdf_flags
+        return torch.where(si.bsdf_idx >= 0,
+                           flags[si.bsdf_idx.clamp(min=0).long()], 0)
+
+    def bsdf_partition(self, si, active):
+        """The lanes of each BSDF, by compaction: lanes with a BSDF and
+        ``active`` sorted by BSDF index (a stable sort, so each BSDF's
+        lanes stay in lane order) and cut at the lane counts, read on the
+        host: the dispatch's one host sync -> a list of (BSDF, int64 lane
+        indices)."""
+        bsdfs = self.wavefront_tables().bsdfs
+        nb = len(bsdfs)
+        key = torch.where(active & (si.bsdf_idx >= 0), si.bsdf_idx,
+                          nb).long()
+        sorted_key, order = torch.sort(key, stable=True)
+        # each BSDF's first place in the sorted keys (bincount would read
+        # the keys' maximum on the host first)
+        starts = torch.searchsorted(sorted_key, torch.arange(
+            nb + 1, device=key.device)).tolist()
+        return [(b, order[starts[i]:starts[i + 1]])
+                for i, b in enumerate(bsdfs) if starts[i + 1] > starts[i]]
+
+    def bsdf_eval_pdf(self, ctx, si, wo, active, parts):
+        """Each partition lane's BSDF value and pdf for ``wo``, evaluated
+        on its BSDF's lanes only and scattered back; zero elsewhere."""
+        from ..variants import current
+        val = torch.zeros((si.t.shape[0], current().n_channels),
+                          device=si.t.device)
+        pdf = torch.zeros_like(si.t)
+        for b, idx in parts:
+            sub, act = si.take(idx), active[idx]
+            val[idx] = b.eval(ctx, sub, wo[idx], act)
+            pdf[idx] = b.pdf(ctx, sub, wo[idx], act)
+        return val, pdf
+
+    def bsdf_sample(self, ctx, si, sample1, sample2, active, parts):
+        """Each partition lane's BSDF sample and weight (value / pdf),
+        evaluated on its BSDF's lanes only and scattered back; the zero
+        sample elsewhere."""
+        from ..variants import current
+        from .bsdf import zero_bsdf_sample
+        n, dev = si.t.shape[0], si.t.device
+        bs = zero_bsdf_sample(n, dev)
+        val = torch.zeros((n, current().n_channels), device=dev)
+        for b, idx in parts:
+            bs_i, val_i = b.sample(ctx, si.take(idx), sample1[idx],
+                                   sample2[idx], active[idx])
+            for dst, src in zip(bs, bs_i):
+                dst[idx] = src
+            val[idx] = val_i
+        return bs, val
 
 
 def _shape_columns(bsdf, mode, textures, offsets):
@@ -590,3 +831,179 @@ def env_sampling_tables(data):
     marg_cdf = np.cumsum(row_sum)
     cond_cdf = np.cumsum(pmf / np.maximum(row_sum[:, None], 1e-20), axis=1)
     return marg_cdf, cond_cdf, pmf
+
+
+class WavefrontTables(NamedTuple):
+    """The wavefront's tables on the scene's device: per face (in the
+    scene's face order) v0, e1, e2, ng, the corner normals, the corner
+    uvs and the uv tangents (F, 33) and the shape, BSDF and emitter ids
+    (F, 3); sphere rows (S, 10) [center, radius, shape, bsdf, emitter, -,
+    -, flip]; disk and cylinder rows (Q, 32) [prim_row (24), shape, bsdf,
+    emitter, -, -, flip, -, -] (the JAX scene's layouts); the BSDFs (in
+    the order of their ids) and their flags; the environment emitter's
+    index, -1 without one."""
+    n_faces: int
+    n_spheres: int
+    n_quads: int
+    face_attr: torch.Tensor
+    face_ints: torch.Tensor
+    sph: torch.Tensor
+    quad: torch.Tensor
+    bsdfs: list
+    bsdf_flags: torch.Tensor
+    env_index: int
+    # the scene's bounding sphere (center (3,), radius): the envmap's
+    # sample_direction places its points outside it
+    bsphere: tuple
+
+
+def _shading_arrays(s):
+    """Corner shading normals (f, 3, 3) and the uv tangents dp_du, dp_dv
+    (f, 3) of one mesh, as mitsuba2_tpu/render/scene.py _mesh_face_arrays
+    computes them: the vertex normals unless the mesh is flat, the
+    tangents of the uv parameterization (the edges where it
+    degenerates)."""
+    v0, e1, e2, ng, uvs = _mesh_face_arrays(s)
+    if s.normals is not None and not s.face_normals_only:
+        ns = s.normals[s.faces]
+    else:
+        ns = np.repeat(ng[:, None, :], 3, axis=1)
+    duv1 = uvs[:, 1] - uvs[:, 0]
+    duv2 = uvs[:, 2] - uvs[:, 0]
+    det = duv1[:, 0] * duv2[:, 1] - duv1[:, 1] * duv2[:, 0]
+    ok = np.abs(det) > 1e-9
+    inv = np.where(ok, 1.0 / np.where(det == 0, 1.0, det), 0.0)
+    dp_du = (duv2[:, 1:2] * e1 - duv1[:, 1:2] * e2) * inv[:, None]
+    dp_dv = (-duv2[:, 0:1] * e1 + duv1[:, 0:1] * e2) * inv[:, None]
+    dp_du = np.where(ok[:, None], dp_du, e1)
+    dp_dv = np.where(ok[:, None], dp_dv, e2)
+    return ns, dp_du, dp_dv
+
+
+def _wavefront_tables(scene):
+    shapes = scene.shapes
+    bsdfs = []
+    for s in shapes:
+        if all(b is not s.bsdf for b in bsdfs):
+            bsdfs.append(s.bsdf)
+    shape_bsdf = [next(i for i, b in enumerate(bsdfs) if b is s.bsdf)
+                  for s in shapes]
+    shape_emitter = [scene.emitters.index(s.emitter)
+                     if s.emitter is not None else -1 for s in shapes]
+    parts = [_shading_arrays(s) for s in shapes
+             if not s.is_analytic() and s.is_mesh()]
+    F = len(scene.face_shape)
+    attr = np.zeros((max(F, 1), 33), np.float32)
+    ints = np.full((max(F, 1), 3), -1, np.int32)
+    if F:
+        ns, dp_du, dp_dv = (np.concatenate([p[k] for p in parts])
+                            for k in range(3))
+        if scene.bvh is not None:
+            perm = scene.bvh.order
+            ns, dp_du, dp_dv = ns[perm], dp_du[perm], dp_dv[perm]
+        attr[:F] = np.concatenate([
+            scene.v0, scene.e1, scene.e2, scene.ng, ns[:, 0], ns[:, 1],
+            ns[:, 2], scene.uvs[:, 0], scene.uvs[:, 1], scene.uvs[:, 2],
+            dp_du, dp_dv], 1)
+        fs = scene.face_shape
+        ints[:F] = np.stack([fs, np.asarray(shape_bsdf)[fs],
+                             np.asarray(shape_emitter)[fs]], 1)
+    else:
+        # a face no ray hits, its normals +z (the JAX scene's dummy face)
+        attr[0, [11, 14, 17, 20]] = 1.0
+    S = len(scene.sphere_shape)
+    sph = np.zeros((max(S, 1), 10), np.float32)
+    sph_np = scene.tables.sph.cpu().numpy()
+    for i, si_idx in enumerate(scene.sphere_shape):
+        sph[i, :4] = sph_np[i]
+        sph[i, 4:7] = (si_idx, shape_bsdf[si_idx], shape_emitter[si_idx])
+        sph[i, 7:9] = -1.0
+        sph[i, 9] = -1.0 if shapes[si_idx].flip_normals else 1.0
+    Q = len(scene.quad_table)
+    quad = np.zeros((max(Q, 1), 32), np.float32)
+    for i, row in enumerate(scene.quad_table):
+        si_idx = int(row[24])
+        quad[i, :24] = row[:24]
+        quad[i, 24:27] = (si_idx, shape_bsdf[si_idx], shape_emitter[si_idx])
+        quad[i, 27:29] = -1.0
+        quad[i, 29] = row[25]
+    env = scene.environment_emitter
+    c, r = _bounding_sphere(scene)
+    dev = scene.device
+    return WavefrontTables(
+        F, S, Q, torch.as_tensor(attr, device=dev),
+        torch.as_tensor(ints, device=dev), torch.as_tensor(sph, device=dev),
+        torch.as_tensor(quad, device=dev), bsdfs,
+        torch.as_tensor([int(b.flags()) for b in bsdfs] or [0],
+                        dtype=torch.int32, device=dev),
+        scene.emitters.index(env) if env is not None else -1,
+        (torch.as_tensor(c, device=dev), r))
+
+
+def _bounding_sphere(scene):
+    """The scene's bounding sphere (center float32 (3,), radius) of its
+    bounding box (mitsuba2_tpu/render/scene.py bounding_sphere)."""
+    lo, hi = scene._bb_min, scene._bb_max
+    if not (np.all(np.isfinite(lo)) and np.all(np.isfinite(hi))):
+        return np.zeros(3, np.float32), 1.0
+    c = 0.5 * (lo + hi)
+    return c.astype(np.float32), max(float(np.linalg.norm(hi - c)), 1e-3)
+
+
+def _quad_interaction(wf, ray, pi, p, ng, ns, uv, dp_du, dp_dv, shape_idx,
+                      bsdf_idx, emitter_idx):
+    """Overlay the disk and cylinder lanes' analytic records (disk.cpp:
+    182-225 uv and tangents; cylinder.cpp:336-390 with its roundoff
+    re-projection along the normal) on the face records."""
+    F, S, Q = wf.n_faces, wf.n_spheres, wf.n_quads
+    is_q = (pi.prim_idx >= F + S) & (pi.prim_idx < F + S + Q)
+    row = wf.quad[(pi.prim_idx - F - S).clamp(0, Q - 1).long()]
+    A = row[:, 0:9].reshape(-1, 3, 3)
+    b = row[:, 9:12]
+    B = row[:, 12:21].reshape(-1, 3, 3)
+    r_c, len_c = row[:, 22], row[:, 23]
+    flip = row[:, 29:30]
+    p_q = ray.o + pi.t[:, None] * ray.d
+    local = torch.einsum("nij,nj->ni", A, p_q) + b
+    lx, ly, lz = local[:, 0], local[:, 1], local[:, 2]
+    is_disk = row[:, 21] < 1.5
+    zero = torch.zeros_like(lx)
+    # disk: uv = (r, phi / 2 pi), tangents rotating with phi
+    r_d = torch.sqrt(torch.clamp(lx * lx + ly * ly, min=0.0))
+    phi = torch.atan2(ly, lx)
+    v_d = phi / (2 * m.Pi)
+    v_d = torch.where(v_d < 0, v_d + 1.0, v_d)
+    inv_r = m.safe_div(torch.ones_like(r_d), r_d, 0.0)
+    cos_phi = torch.where(r_d > 0, lx * inv_r, 1.0)
+    sin_phi = torch.where(r_d > 0, ly * inv_r, 0.0)
+    uv_disk = torch.stack([r_d, v_d], -1)
+    dpdu_disk = torch.einsum("nij,nj->ni", B,
+                             torch.stack([cos_phi, sin_phi, zero], -1))
+    dpdv_disk = torch.einsum("nij,nj->ni", B,
+                             torch.stack([-sin_phi, cos_phi, zero], -1))
+    n_disk = m.normalize(A[:, 2, :]) * flip
+    # cylinder: uv = (phi / 2 pi, z / length), n from the tangents
+    phi_c = torch.where(phi < 0, phi + 2 * m.Pi, phi)
+    uv_cyl = torch.stack([phi_c / (2 * m.Pi), m.safe_div(lz, len_c, 0.0)],
+                         -1)
+    dpdu_cyl = torch.einsum("nij,nj->ni", B,
+                            torch.stack([-ly, lx, zero], -1)) * (2 * m.Pi)
+    dpdv_cyl = torch.einsum("nij,nj->ni", B,
+                            torch.stack([zero, zero, len_c], -1))
+    n_cyl = m.normalize(m.cross(dpdu_cyl, dpdv_cyl))
+    p_cyl = p_q + n_cyl * (r_c - r_d)[:, None]
+    n_cyl = n_cyl * flip
+    wd = is_disk[:, None]
+    w = is_q[:, None]
+    p = torch.where(w, torch.where(wd, p_q, p_cyl), p)
+    n_q = torch.where(wd, n_disk, n_cyl)
+    ng = torch.where(w, n_q, ng)
+    ns = torch.where(w, n_q, ns)
+    uv = torch.where(w, torch.where(wd, uv_disk, uv_cyl), uv)
+    dp_du = torch.where(w, torch.where(wd, dpdu_disk, dpdu_cyl), dp_du)
+    dp_dv = torch.where(w, torch.where(wd, dpdv_disk, dpdv_cyl), dp_dv)
+    ids = row[:, 24:27].to(torch.int32)
+    return (p, ng, ns, uv, dp_du, dp_dv,
+            torch.where(is_q, ids[:, 0], shape_idx),
+            torch.where(is_q, ids[:, 1], bsdf_idx),
+            torch.where(is_q, ids[:, 2], emitter_idx))

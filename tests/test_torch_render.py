@@ -155,34 +155,49 @@ def _out_of_scope():
                                 "distribution": "ggx",
                                 "eta": {"type": "d65"}, "k": [3.9, 2.4, 1.6]}
 
+    # (dict edit, scene edit, the kernel gate's reason, and for a scene
+    # the wavefront cannot render either, its reason)
     return {
         # the cap lowered to 1024 (the reference's is MAX_FACES_HBM)
-        "face count": (many_faces, None, "face count 1062 > 1024"),
-        "polarized variant": (None, None, "polarized variant"),
+        "face count": (many_faces, None, "face count 1062 > 1024", None),
+        "polarized variant": (None, None, "polarized variant",
+                              "polarized variant: the wavefront carries "
+                              "no Stokes vectors"),
         "double-precision variant": (None, None,
-                                     "double-precision variant"),
+                                     "double-precision variant",
+                                     "double-precision variant: the "
+                                     "wavefront is float32"),
         "conductor IOR curve spectrum": (
-            ior_curve, None, "conductor IOR curve spectra in spectral mode"),
+            ior_curve, None, "conductor IOR curve spectra in spectral mode",
+            None),
         "emitter without D65 payload": (
             None, plain_emitter,
-            "area emitter spectrum without srgb_d65 payload"),
-        "bsdf": (None, mirror, "unsupported BSDF Mirror"),
-        "shape": (None, quadric, "non-triangle shape Quadric"),
+            "area emitter spectrum without srgb_d65 payload", None),
+        "bsdf": (None, mirror, "unsupported BSDF Mirror",
+                 "BSDF Mirror has no wavefront sample/eval/pdf"),
+        "shape": (None, quadric, "non-triangle shape Quadric",
+                  "non-triangle shape Quadric"),
         "roughdielectric": (None, rough_dielectric,
-                            "unsupported BSDF RoughDielectric"),
+                            "unsupported BSDF RoughDielectric",
+                            "BSDF RoughDielectric has no wavefront "
+                            "sample/eval/pdf"),
         "beckmann roughplastic": (beckmann_plastic, None,
-                                  "unsupported BSDF RoughPlastic"),
+                                  "unsupported BSDF RoughPlastic", None),
         "bitmap wider than 1024": (None, wide_bitmap,
-                                   "bitmap 1025x2 beyond the kernel's 1024"),
-        "65 disks": (many_disks, None, "disk/cylinder count > 64"),
+                                   "bitmap 1025x2 beyond the kernel's 1024",
+                                   None),
+        "65 disks": (many_disks, None, "disk/cylinder count > 64", None),
         "disk in a volpath scene": (
-            disk_in_volpath, None, "analytic shapes/instances"),
+            disk_in_volpath, None, "analytic shapes/instances",
+            "VolumetricPathIntegrator: its wavefront is not ported"),
         "anisotropic roughconductor": (anisotropic, None,
-                                       "unsupported BSDF RoughConductor"),
-        "two envmaps": (None, two_envmaps, "multiple envmaps"),
+                                       "unsupported BSDF RoughConductor",
+                                       None),
+        "two envmaps": (None, two_envmaps, "multiple envmaps", None),
         "envmap wider than 256": (None, wide_envmap,
-                                  "envmap larger than 256"),
-        "flipped sphere": (flipped_sphere, None, "sphere with flip_normals"),
+                                  "envmap larger than 256", None),
+        "flipped sphere": (flipped_sphere, None, "sphere with flip_normals",
+                           None),
     }
 
 
@@ -201,8 +216,11 @@ _CASE_VARIANT = {"polarized variant": "scalar_rgb_polarized",
 
 @pytest.mark.parametrize("case", sorted(_out_of_scope()))
 def test_out_of_scope_scene_raises_with_reason(case, monkeypatch):
+    """A scene outside the path kernel's scope renders through the general
+    wavefront, with the gate's reason kept in ``engine_reason``; a scene
+    outside the wavefront's scope too raises with the missing piece."""
     from mitsuba2_tpu_torch.python.test.scenes import volpath_slab_dict
-    edit_dict, edit_scene, reason = _out_of_scope()[case]
+    edit_dict, edit_scene, reason, wavefront_reason = _out_of_scope()[case]
     if case == "face count":
         monkeypatch.setattr(pk, "MAX_FACES_HBM", 1024)
     mt.set_variant(_CASE_VARIANT.get(case, "scalar_rgb"))
@@ -214,10 +232,17 @@ def test_out_of_scope_scene_raises_with_reason(case, monkeypatch):
         scene = mt.load_dict(d)
         if edit_scene:
             edit_scene(scene)
-        with pytest.raises(NotImplementedError, match=reason):
-            scene.integrator.render(scene, seed=0, spp=1)
+        if wavefront_reason is None:
+            img = scene.integrator.render(scene, seed=0, spp=1)
+            assert img.shape == (4, 4, 3) and torch.isfinite(img).all()
+            assert scene.integrator.last_engine == "wavefront"
+        else:
+            with pytest.raises(NotImplementedError,
+                               match=wavefront_reason) as err:
+                scene.integrator.render(scene, seed=0, spp=1)
+            assert reason in str(err.value)
+            assert scene.integrator.last_engine is None
         assert scene.integrator.engine_reason.startswith(reason)
-        assert scene.integrator.last_engine is None
     finally:
         mt.set_variant("scalar_rgb")
 
