@@ -58,7 +58,19 @@ bounce's rays), the card against the CPU at 32x32x4 spp with projected
 normal sampling and at 128x128x4 spp with visible normals
 (tools/wavefront_spread.py); the Cornell box forced onto it
 (``_disable_kernel``) within 2% of the kernel's means; the materials box,
-the mono Cornell box and spectral matpreview. Last comes
+the mono Cornell box and spectral matpreview. The volpath wavefront phase
+drives ``VolumetricPathIntegrator.sample``, which renders every volpath
+scene K3's gate refuses: volpath_gaussian (the volpath slab under the
+film's default gaussian filter) at 256x256, 16 spp, max_depth 16 (timed,
+the trip counts of its loops, K2's launches and share, the spans of its
+layers, the host's waits against the design's count, peak memory), K2
+held bit for bit against its plain twin on 65,536 rays sampled from every
+closest-hit launch of that render (``isect_closest[volpath_wavefront]``
+in the kernels line), the card against the CPU on one pass's lanes at
+32x32x4 spp (the slab, spectral volpathmis, a homogeneous slab in mono:
+equal trip counts, then the parity bar), the box-film slab forced onto
+the wavefront against K3 (within 12% of its mean) and vacuum volpath on
+the Cornell box (K2's any hit) against the path kernel. Last comes
 the measurement path: the face-test and box-test ceilings through
 ``tools/shape_ceiling.py`` (the sweep kernel's shared-memory and global
 face instantiations beside ``torch.matmul`` of the same product, and its
@@ -883,29 +895,38 @@ WF_K2_SAMPLE = 4096
 
 
 class _Spans:
-    """CUDA-event spans of the wavefront's layers in one render: K2's two
-    entries (their launches), emitter sampling (its shadow ray's K2 any
-    launch included) and the BSDF dispatch (partition, eval and pdf,
-    sample), by wrapping the functions for the render's duration."""
+    """CUDA-event spans of the wavefront's layers in one render, by wrapping
+    functions for the render's duration: K2's launches by entry name
+    (``ik._launch``) and each of ``targets``, (object, attribute, label).
+    With ``nest`` a call made inside another wrapped call is labelled
+    "<label> in <outer label>", so that the top-level labels partition
+    the render."""
 
-    def __init__(self, ik, scene_cls):
+    def __init__(self, ik, targets, nest=False):
         self.events = {}
-        # K2's launches by entry name, the scene's methods by their own
+        self.stack = []
+        self.nest = nest
         self.patches = [(ik, "_launch", self._wrap(ik._launch,
                                                    lambda a: a[0]))]
-        for name in ("sample_emitter_direction", "bsdf_partition",
-                     "bsdf_eval_pdf", "bsdf_sample"):
-            self.patches.append((scene_cls, name, self._wrap(
-                getattr(scene_cls, name), lambda a, n=name: n)))
+        for obj, name, label in targets:
+            self.patches.append((obj, name, self._wrap(
+                getattr(obj, name), lambda a, n=label: n)))
 
     def _wrap(self, fn, label):
         def timed_call(*args, **kw):
+            name = label(args)
+            if self.nest and self.stack:
+                name = f"{name} in {self.stack[0]}"
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
+            self.stack.append(name)
             start.record()
-            out = fn(*args, **kw)
-            stop.record()
-            self.events.setdefault(label(args), []).append((start, stop))
+            try:
+                out = fn(*args, **kw)
+            finally:
+                stop.record()
+                self.stack.pop()
+            self.events.setdefault(name, []).append((start, stop))
             return out
         return timed_call
 
@@ -932,7 +953,7 @@ def wavefront_lanes(scene, seed, spp):
                                             seed, 0, spp)
 
 
-def counted_render(integ, scene):
+def counted_render(integ, scene, spp=SPP):
     """One render with its host waits counted twice: on the card by
     torch's sync debug mode (a warning at each synchronizing call, its
     site the innermost frame of this checkout's code that is not the
@@ -964,7 +985,7 @@ def counted_render(integ, scene):
         warnings.showwarning = on_warning
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            img = integ.render(scene, seed=SEED, spp=SPP)
+            img = integ.render(scene, seed=SEED, spp=spp)
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
@@ -972,21 +993,28 @@ def counted_render(integ, scene):
                     if not k.startswith("not the package's")), sites, host
 
 
-def record_k2(ik, render):
-    """Runs render() with K2's launches recorded: WF_K2_SAMPLE rays (every
-    k-th) of each launch, and all the rays of each entry's second launch
-    (a bounce's) -> ({entry: [(o, d, mint, maxt) of each launch]},
+def record_k2(ik, render, per_launch=WF_K2_SAMPLE, busiest=False):
+    """Runs render() with K2's launches recorded: ``per_launch`` rays
+    (every k-th) of each launch, and all the rays of each entry's second
+    launch (a bounce's), or with ``busiest`` of its launch with the most
+    active rays -> ({entry: [(o, d, mint, maxt) of each launch]},
     {entry: (o, d, mint, maxt)})."""
     samples = {"isect_closest": [], "isect_any": []}
-    full = {}
+    full, most = {}, {}
     launch = ik._launch
 
     def recording(entry, tables, o, d, mint, maxt, **out):
         rays = (o, d, mint, maxt)
-        if len(samples[entry]) == 1:
+        if busiest:
+            active = int((maxt > mint).sum())
+            keep = active > most.get(entry, -1)
+            most[entry] = max(active, most.get(entry, -1))
+        else:
+            keep = len(samples[entry]) == 1
+        if keep:
             full[entry] = tuple(x.clone() for x in rays)
         samples[entry].append(tuple(
-            x.clone() for x in every_kth(rays, WF_K2_SAMPLE)))
+            x.clone() for x in every_kth(rays, per_launch)))
         return launch(entry, tables, o, d, mint, maxt, **out)
 
     ik._launch = recording
@@ -1079,7 +1107,9 @@ def run_wavefront(mi, ik, isx, pk, scenes):
     _, times = prof.cuda_times(
         lambda: integ.render(scene, seed=SEED, spp=SPP), runs=3)
     ms = statistics.median(times)
-    with _Spans(ik, Scene) as spans:
+    with _Spans(ik, [(Scene, n, n) for n in (
+            "sample_emitter_direction", "bsdf_partition", "bsdf_eval_pdf",
+            "bsdf_sample")]) as spans:
         _, (total,) = prof.cuda_times(
             lambda: integ.render(scene, seed=SEED, spp=SPP), runs=1,
             warm_up=False)
@@ -1226,6 +1256,314 @@ def run_wavefront(mi, ik, isx, pk, scenes):
     return entries
 
 
+# the volpath wavefront phase: the slice's path, volpath_gaussian (the
+# bench slab with the default gaussian film, which K3's gate refuses) at
+# the volpath shape, 4 passes of 2^18 lanes; K2 held bit for bit against
+# its plain twin on rays sampled from every closest-hit launch of a render
+# (this many of each); the card against the CPU at 32^2 x 4 on the lanes
+# (the film's index_put_ accumulates in no fixed order); the bench slab's
+# K3 against the same scene forced onto the wavefront within the
+# reference's own kernel-against-wavefront tolerance
+# (tests/test_volmegakernel.py:163-180); vacuum volpath on Cornell at
+# 64^2 x 16 against the path kernel within WF_SMALL_RTOL
+VW_K2_SAMPLE = 64
+VW_CPU_WIDTH, VW_CPU_SPP = 32, 4
+VW_FORCED_RTOL = 0.12
+# a render slower than this is timed once after the warm-up
+VW_ONE_RUN_S = 20.0
+
+
+def slab_gaussian(scenes, width, spp, **kw):
+    """The bench slab under the film's default filter, the gaussian."""
+    d = scenes.volpath_slab_dict(width, width, spp, VOL_MAX_DEPTH, **kw)
+    del d["sensor"]["film"]["rfilter"]
+    return d
+
+
+def homogeneous_slab(scenes, width, spp):
+    """The bench slab filled with a chromatic homogeneous medium."""
+    d = scenes.volpath_slab_dict(width, width, spp, VOL_MAX_DEPTH)
+    d["slab"]["interior"] = {
+        "type": "homogeneous",
+        "sigma_t": {"type": "rgb", "value": [0.5, 0.9, 1.4]},
+        "albedo": {"type": "rgb", "value": [0.9, 0.7, 0.5]},
+        "phase": {"type": "hg", "g": -0.4}}
+    return d
+
+
+class _PassTrips:
+    """Collects the integrator's ``last_trips`` after each pass."""
+
+    def __init__(self, integ):
+        self.integ, self.passes = integ, []
+
+    def __enter__(self):
+        sample = type(self.integ).sample
+
+        def counted(*args, **kw):
+            out = sample(self.integ, *args, **kw)
+            self.passes.append(list(self.integ.last_trips))
+            return out
+        self.integ.sample = counted
+        return self
+
+    def __exit__(self, *exc):
+        del self.integ.sample
+
+    def designed_syncs(self):
+        """The host's waits the design allows: each loop's test at every
+        turn and at its end (none where it stopped at its cap), and the
+        BSDF partition's read at every turn of the main loop."""
+        integ = self.integ
+        total = 0
+        for trips in self.passes:
+            caps = [integ.nee_loop_cap] * (len(trips) - 1) + [integ.max_iters]
+            total += sum(t + (t < c) for t, c in zip(trips, caps))
+            total += trips[-1]
+        return total
+
+    def describe(self):
+        out = []
+        for k, trips in enumerate(self.passes):
+            walks = trips[:-1]
+            out.append(f"pass {k}: main loop {trips[-1]} turns, "
+                       f"{len(walks)} walks of {sum(walks)} turns (max "
+                       f"{max(walks, default=0)}, mean "
+                       f"{np.mean(walks) if walks else 0:.2f})")
+        return "; ".join(out)
+
+
+def hold_lanes_card_against_cpu(mi, label, variant, make, spp):
+    """One pass's lanes of ``make()`` on the card against the CPU's: equal
+    trip counts, then at most WF_MAX_DIVERGENT_LANES lanes beyond
+    WF_DIVERGED (each logged with the call where its card and CPU traces
+    part), the rest at the CPU tests' bar."""
+    from mitsuba2_tpu_torch.tools import wavefront_spread as ws
+    mi.set_variant(variant)
+    runs = {}
+    t0 = time.perf_counter()
+    for dev in ("cuda", "cpu"):
+        mi.set_device(dev)
+        try:
+            sc = mi.load_dict(make())
+            _, rgb = wavefront_lanes(sc, SEED, spp)
+            runs[dev] = (sc, rgb.double().cpu().numpy(),
+                         list(sc.integrator.last_trips))
+        finally:
+            mi.set_device("cuda")
+    (sc_g, g, trips_g), (sc_r, r, trips_r) = runs["cuda"], runs["cpu"]
+    err = (np.abs(g - r) / np.maximum(np.abs(r), 1e-3)).max(-1)
+    div = np.flatnonzero(err > WF_DIVERGED)
+    keep = np.ones(len(err), bool)
+    keep[div] = False
+    share = float((err[keep] <= PIX_RTOL).mean())
+    mean_rel = abs(g[keep].mean() - r[keep].mean()) / abs(r[keep].mean())
+    log(f"{label}: trip counts equal {trips_g == trips_r} ({len(trips_g)} "
+        f"loops, main {trips_g[-1]} turns on the card, {trips_r[-1]} on "
+        f"the CPU); {len(div)} of {len(err)} lanes diverged (> "
+        f"{WF_DIVERGED:g}); the others: share within {PIX_RTOL:g} "
+        f"{share:.6f}, mean rel diff {mean_rel:.3e}, max {err[keep].max():.3e}"
+        f" ({time.perf_counter() - t0:.1f} s)")
+    if len(div):
+        traces = [ws.lane_trace(sc, SEED, spp, div) for sc in (sc_g, sc_r)]
+        for k in div:
+            log(f"  lane {k} (departs by {err[k]:.3e}), card against CPU, "
+                f"first parting at "
+                f"{ws.first_parting(traces[0][k], traces[1][k])}")
+    mi.set_variant("scalar_rgb")
+    if trips_g != trips_r or len(div) > WF_MAX_DIVERGENT_LANES \
+            or share < PIX_SHARE or mean_rel > MEAN_RTOL:
+        raise SystemExit(f"{label}: the card and the CPU disagree")
+
+
+def run_volpath_wavefront(mi, ik, isx, pk, scenes):
+    """The volpath wavefront on the card: volpath_gaussian at the volpath
+    shape (timed, trip counts, K2's launches and share, host syncs, peak
+    memory, spans, image band), K2 against its plain twin on that render's
+    rays, the card against the CPU, K3 against the wavefront forced, and
+    vacuum volpath -> K2's kernels-line entry for the volpath wavefront's
+    launches."""
+    from mitsuba2_tpu_torch.models.integrators import \
+        VolumetricPathIntegrator
+    from mitsuba2_tpu_torch.render.film import ImageBlock
+    from mitsuba2_tpu_torch.render.scene import Scene
+    t_phase = time.perf_counter()
+    mi.set_variant("scalar_rgb")
+    spp = VOL_SPP
+    n = WIDTH * WIDTH * spp
+
+    # ---- the slice's path: volpath_gaussian ----
+    scene = mi.load_dict(slab_gaussian(scenes, WIDTH, spp))
+    integ = scene.integrator
+    ik.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _PassTrips(integ) as trips:
+        img = integ.render(scene, seed=SEED, spp=spp)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"isect_closest": ik.isect_closest.launches,
+                "isect_any": ik.isect_any.launches}
+    if integ.last_engine != "wavefront" \
+            or integ.engine_reason != "rfilter GaussianFilter":
+        raise SystemExit(f"volpath_gaussian: engine {integ.last_engine} "
+                         f"({integ.engine_reason})")
+    if launches["isect_closest"] < 1:
+        raise SystemExit(f"the volpath wavefront missed K2: {launches}")
+    mean = float(img.mean())
+    if not (bool(torch.isfinite(img).all()) and 0.5 < mean < 3.0):
+        raise SystemExit(f"volpath_gaussian: implausible image, mean {mean}")
+    passes = n // integ.MAX_WAVEFRONT
+    log(f"volpath wavefront volpath_gaussian {WIDTH}^2 x {spp} spp, depth "
+        f"{VOL_MAX_DEPTH}: engine {integ.last_engine} (gate: "
+        f"{integ.engine_reason}); {passes} passes of {integ.MAX_WAVEFRONT} "
+        f"lanes; first render {first_s:.2f} s; image mean {mean:.6f}")
+    log(f"  trip counts: {trips.describe()}")
+    log(f"  K2 launches in one render: {launches}; peak memory "
+        f"{peak / 2**20:.1f} MiB ({peak / (n // passes):.0f} B a lane)")
+    if first_s > VW_ONE_RUN_S:
+        _, times = prof.cuda_times(
+            lambda: integ.render(scene, seed=SEED, spp=spp), runs=1,
+            warm_up=False)
+        how = f"one run after the warm-up (the first took {first_s:.1f} s)"
+    else:
+        _, times = prof.cuda_times(
+            lambda: integ.render(scene, seed=SEED, spp=spp), runs=3,
+            warm_up=False)
+        how = "median of 3 after a warm-up"
+    ms = statistics.median(times)
+    log(f"  render {ms:.1f} ms ({how}: "
+        f"{', '.join(f'{t:.1f}' for t in times)}), {n / ms / 1e3:.4f} "
+        f"Mpaths/s")
+    with _PassTrips(integ) as trips:
+        _, syncs, sync_sites, host = counted_render(integ, scene, spp)
+    designed = trips.designed_syncs()
+    log(f"  host syncs in a second render: {syncs} in the package's code "
+        f"on the card (torch's sync debug mode), {host.total} counted by "
+        f"core/profiler.py HostTransfers; the design's count {designed} "
+        f"(each loop test, each partition read); the card's by site: "
+        + ", ".join(f"{k} {v}" for k, v in sorted(sync_sites.items())))
+    for line in host.lines():
+        log(f"    {line}")
+    # checked at the phase's end, after the measurements below
+    syncs_ok = syncs == designed and host.total == designed
+    targets = [(Scene, "medium_sample_interaction", "medium sampling"),
+               (VolumetricPathIntegrator, "_sample_emitter_attenuated",
+                "NEE walks"),
+               (Scene, "medium_phase_eval", "phase"),
+               (Scene, "medium_phase_sample", "phase"),
+               (ImageBlock, "put", "film put")] + [
+        (Scene, name, "BSDF") for name in (
+            "bsdf_partition", "bsdf_eval", "bsdf_pdf", "bsdf_sample")]
+    with _Spans(ik, targets, nest=True) as spans:
+        _, (total,) = prof.cuda_times(
+            lambda: integ.render(scene, seed=SEED, spp=spp), runs=1,
+            warm_up=False)
+    parts = spans.ms()
+    top = {k: v for k, v in parts.items() if " in " not in k}
+    k2 = sum(v for k, v in parts.items() if k.startswith("isect_"))
+    log(f"  spans of one instrumented render ({total:.1f} ms, CUDA events "
+        f"around each call; a call inside another is named 'in' it): "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(parts.items()))
+        + f"; the rest {total - sum(top.values()):.1f} ms; K2 share "
+        f"{100 * k2 / total:.2f}%")
+
+    # ---- K2 on the volpath wavefront's rays, against its plain twin ----
+    samples, full = record_k2(
+        ik, lambda: integ.render(scene, seed=SEED, spp=spp),
+        per_launch=VW_K2_SAMPLE, busiest=True)
+    tables = scene.tables
+    woop = pk.face_woop(tables)
+    trees = pk.walk_trees(tables)
+    every = tuple(torch.cat(xs) for xs in zip(*samples["isect_closest"]))
+    sub = every_kth(every, ISECT_PARITY_RAYS)
+    got = ik.isect_closest(tables, *sub)
+    torch.cuda.synchronize()
+    active = float((sub[3] > sub[2]).float().mean())
+    log(f"  isect_closest on the volpath wavefront's rays "
+        f"({len(samples['isect_closest'])} launches of one render, "
+        f"{VW_K2_SAMPLE} rays of each; {len(sub[0])} of those, "
+        f"{active:.4f} of them active; timed on the busiest launch, "
+        f"{int((full['isect_closest'][3] > full['isect_closest'][2]).sum())}"
+        f" of {len(full['isect_closest'][0])} rays active):")
+    err = isect_parity("isect_closest", got,
+                       isx.closest_hit_reference(woop, *sub))
+    entry = k2_entry(isx, "isect_closest[volpath_wavefront]",
+                     ik.isect_closest, isx.closest_hit_reference, tables,
+                     woop, trees, full["isect_closest"], 16,
+                     launches["isect_closest"], err)
+    log(f"  main path: {time.perf_counter() - t_phase:.1f} s")
+    t_step = time.perf_counter()
+
+    # ---- the card against the CPU, on the lanes ----
+    w, s = VW_CPU_WIDTH, VW_CPU_SPP
+    hold_lanes_card_against_cpu(
+        mi, f"volpath_gaussian {w}^2 x {s}", "scalar_rgb",
+        lambda: slab_gaussian(scenes, w, s), s)
+
+    def spectral_mis():
+        d = scenes.volpath_slab_dict(w, w, s, VOL_MAX_DEPTH)
+        d["integrator"]["type"] = "volpathmis"
+        return d
+
+    hold_lanes_card_against_cpu(mi, f"volpathmis spectral {w}^2 x {s}",
+                                "scalar_spectral", spectral_mis, s)
+    hold_lanes_card_against_cpu(mi, f"homogeneous slab mono {w}^2 x {s}",
+                                "scalar_mono",
+                                lambda: homogeneous_slab(scenes, w, s), s)
+    log(f"  card against CPU: {time.perf_counter() - t_step:.1f} s")
+    t_step = time.perf_counter()
+
+    # ---- K3 against the wavefront forced ----
+    mi.set_variant("scalar_rgb")
+    sc = mi.load_dict(scenes.volpath_slab_dict(WIDTH, WIDTH, spp,
+                                               VOL_MAX_DEPTH))
+    kimg, kms = timed(lambda: sc.integrator.render(sc, seed=SEED, spp=spp),
+                      repeats=3)
+    if sc.integrator.last_engine != "kernel":
+        raise SystemExit("volpath slab: K3 did not render it")
+    sc.integrator._disable_kernel = True
+    wimg, wms = timed(lambda: sc.integrator.render(sc, seed=SEED, spp=spp),
+                      repeats=1)
+    if sc.integrator.last_engine != "wavefront":
+        raise SystemExit("volpath slab: the forced render missed the "
+                         "wavefront")
+    rel = abs(float(wimg.mean()) / float(kimg.mean()) - 1)
+    log(f"volpath slab (box film) {WIDTH}^2 x {spp} spp: K3 {kms:.2f} ms, "
+        f"the wavefront forced {wms:.1f} ms (one run after a warm-up; "
+        f"{wms / kms:.0f}x); means {float(kimg.mean()):.6f} and "
+        f"{float(wimg.mean()):.6f} (rel {rel:.2e}, allowed "
+        f"{VW_FORCED_RTOL:g})")
+    if rel > VW_FORCED_RTOL or not bool(torch.isfinite(wimg).all()):
+        raise SystemExit("volpath slab: the wavefront's mean leaves K3's")
+
+    # ---- vacuum volpath against the path kernel ----
+    d = scenes.cornell_box_dict(64, 64, 16, MAX_DEPTH)
+    sc = mi.load_dict(d)
+    pimg = sc.integrator.render(sc, seed=SEED, spp=16)
+    d["integrator"] = {"type": "volpath", "max_depth": MAX_DEPTH}
+    sc = mi.load_dict(d)
+    before = ik.isect_any.launches
+    vimg = sc.integrator.render(sc, seed=SEED, spp=16)
+    torch.cuda.synchronize()
+    any_launches = ik.isect_any.launches - before
+    rel = abs(float(vimg.mean()) / float(pimg.mean()) - 1)
+    log(f"vacuum volpath cornell 64^2 x 16: engine "
+        f"{sc.integrator.last_engine} ({sc.integrator.engine_reason}), K2 "
+        f"any launches {any_launches}; mean {float(vimg.mean()):.6f} "
+        f"against the path kernel's {float(pimg.mean()):.6f} (rel "
+        f"{rel:.2e}, allowed {WF_SMALL_RTOL:g})")
+    if sc.integrator.last_engine != "wavefront" or any_launches < 1 \
+            or rel > WF_SMALL_RTOL:
+        raise SystemExit("vacuum volpath: wrong engine, no K2 any hit, or "
+                         "its mean leaves the path kernel's")
+    log(f"volpath wavefront phase: {time.perf_counter() - t_phase:.1f} s")
+    if not syncs_ok:
+        raise SystemExit("volpath_gaussian: host waits beside the design's")
+    return [entry]
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1339,6 +1677,7 @@ def main():
     kernels += run_isect(mi, pk, ik, isx, scenes,
                          next(p for p in PATHS if p.name == "biggeo"))
     kernels += run_wavefront(mi, ik, isx, pk, scenes)
+    kernels += run_volpath_wavefront(mi, ik, isx, pk, scenes)
     check_forced_on_cornell(mi, pk, cornell_box_dict)
     kernels += run_ceiling(mi, pk, sk, cornell_box_dict,
                            cornell_materials_dict, face_rates)

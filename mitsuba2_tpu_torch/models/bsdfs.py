@@ -229,6 +229,12 @@ class NullBSDF(BSDF):
     def pdf(self, ctx, si, wo, active):
         return torch.zeros_like(si.t)
 
+    def eval_null_transmission(self, si, active):
+        """Everything passes (null.cpp)."""
+        from ..variants import current
+        return torch.where(active[:, None], 1.0, torch.zeros(
+            (si.t.shape[0], current().n_channels), device=si.t.device))
+
 
 @register_plugin("bsdf", "dielectric")
 class SmoothDielectric(BSDF):

@@ -60,6 +60,13 @@ class BSDF(Object):
             return self.m_flags
         return self.m_components[component]
 
+    def eval_null_transmission(self, si, active):
+        """The spectrum a null lobe passes straight through (bsdf.h:408):
+        none, unless the BSDF has one -> (n, C)."""
+        from ..variants import current
+        return torch.zeros((si.t.shape[0], current().n_channels),
+                           device=si.t.device)
+
 
 class TransportMode(enum.IntEnum):
     Radiance = 0

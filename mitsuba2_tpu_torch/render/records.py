@@ -64,9 +64,15 @@ def zero_direction_sample(n, device):
 
 def select(mask, a, b):
     """Field by field, ``a`` where ``mask`` (n,) holds, else ``b``: records
-    of one type."""
+    of one type; a nested record (a frame) is selected field by field, a
+    field that is None in both stays None."""
     out = []
     for x, y in zip(a, b):
-        mk = mask.reshape(mask.shape + (1,) * (x.dim() - 1))
-        out.append(torch.where(mk, x, y))
+        if x is None and y is None:
+            out.append(None)
+        elif isinstance(x, tuple):
+            out.append(select(mask, x, y))
+        else:
+            mk = mask.reshape(mask.shape + (1,) * (x.dim() - 1))
+            out.append(torch.where(mk, x, y))
     return type(a)(*out)

@@ -188,8 +188,7 @@ def _out_of_scope():
                                    None),
         "65 disks": (many_disks, None, "disk/cylinder count > 64", None),
         "disk in a volpath scene": (
-            disk_in_volpath, None, "analytic shapes/instances",
-            "VolumetricPathIntegrator: its wavefront is not ported"),
+            disk_in_volpath, None, "analytic shapes/instances", None),
         "anisotropic roughconductor": (anisotropic, None,
                                        "unsupported BSDF RoughConductor",
                                        None),

@@ -3,8 +3,9 @@ render: the mix32 tracking RNG (bit-exact), the grid volume's trilinear
 lookup, the HG and isotropic phase functions, the dielectric Fresnel term
 and IOR names, loading media through ``load_dict``, the volumetric
 kernel's tables against the JAX kernel's own, and the gates (the
-volumetric kernel's refusals, with the reference's reasons, and the path
-kernel's refusal of media).
+volumetric kernel's refusals, with the reference's reasons, whose scenes
+the volpath wavefront renders, and the path kernel's refusal of media,
+whose scene the path wavefront renders as the reference's does).
 
 Tolerances: the RNG is compared bit for bit; the float functions at 1e-6
 (both sides compute them in float32 from the same inputs, in the same
@@ -276,7 +277,8 @@ def _refusal_cases():
 def test_refusals_give_the_reference_reasons(case):
     """The refusals of tests/test_volmegakernel.py:57-117, through the
     port's loader: the port's reason is the reference gate's on the same
-    scene, and ``render`` raises it. The grid cases exceed today's caps:
+    scene, and ``render`` renders it through the volpath wavefront, with
+    that reason kept. The grid cases exceed today's caps:
     the reference test's (128, 64, 16) grid has D * H = 8192, inside
     MAX_GRID_DH = 16384 since that cap was raised, so it no longer
     tests a refusal."""
@@ -296,10 +298,10 @@ def test_refusals_give_the_reference_reasons(case):
     reason = vk.vol_kernel_ineligibility(scene)
     assert reason is not None and substring in reason
     assert reason == want
-    with pytest.raises(NotImplementedError, match=substring):
-        scene.integrator.render(scene, seed=0, spp=2)
+    img = scene.integrator.render(scene, seed=0, spp=2)
+    assert img.shape == (8, 8, 3) and torch.isfinite(img).all()
     assert scene.integrator.engine_reason == reason
-    assert scene.integrator.last_engine is None
+    assert scene.integrator.last_engine == "wavefront"
 
 
 def test_isotropic_and_mis_scenes_stay_eligible():
@@ -316,27 +318,46 @@ def test_isotropic_and_mis_scenes_stay_eligible():
 
 
 def test_integrator_gate_refuses_deep_paths():
+    """The kernel's gate refuses max_depth 64, as the reference's does; the
+    wavefront renders the scene."""
     mt.set_variant("scalar_rgb")
     scene = mt.load_dict(volpath_slab_dict(8, 8, 2, 64))
-    with pytest.raises(NotImplementedError, match="max_depth >= 64"):
-        scene.integrator.render(scene, seed=0, spp=2)
+    img = scene.integrator.render(scene, seed=0, spp=2)
+    assert scene.integrator.engine_reason.startswith("max_depth >= 64")
+    assert scene.integrator.last_engine == "wavefront"
+    assert torch.isfinite(img).all()
 
 
 def test_path_integrator_refuses_media():
     """A diffuse-boundary slab under ``path``: the path kernel does not
-    see media, so it refuses the scene as the reference does
-    (megakernel.py:3110) rather than render it as if the medium were
-    absent."""
+    see media, so its gate refuses the scene as the reference's does
+    (megakernel.py:3110), and the scene renders through the path
+    wavefront, which passes the medium by as the reference's does: lane
+    by lane the JAX wavefront's at 8^2 x 2 (the bar of
+    tests/test_torch_wavefront.py, no divergent lane)."""
     from mitsuba2_tpu_torch.ops.path_kernel import path_kernel_ineligibility
+    from tests.test_torch_wavefront import (assert_wavefront_parity,
+                                            jax_lanes, port_lanes)
+    mj, _ = _jax()
     mt.set_variant("scalar_rgb")
-    d = volpath_slab_dict(8, 8, 2, 4)
-    d["slab"]["bsdf"] = {"type": "diffuse"}
-    d["integrator"] = {"type": "path", "max_depth": 4}
+
+    def edit(d):
+        d["slab"]["bsdf"] = {"type": "diffuse"}
+        d["integrator"] = {"type": "path", "max_depth": 4}
+        return d
+
+    d = edit(volpath_slab_dict(8, 8, 2, 4))
     scene = mt.load_dict(d)
     assert path_kernel_ineligibility(scene) == "participating media"
-    with pytest.raises(NotImplementedError, match="participating media"):
-        scene.integrator.render(scene, seed=0, spp=2)
-    # the same boundary without its medium renders
+    img = scene.integrator.render(scene, seed=3, spp=2)
+    assert scene.integrator.last_engine == "wavefront"
+    assert scene.integrator.engine_reason == "participating media"
+    sj = mj.load_dict(edit(jax_slab_dict(8, 8, 2, 4)))
+    ref = np.asarray(sj.integrator.render(sj, seed=3, spp=2))
+    assert sj.integrator.last_engine == "wavefront"
+    assert_wavefront_parity(img.numpy(), ref, port_lanes(scene, 3, 2),
+                            jax_lanes(sj, 3, 2), 0, ())
+    # the same boundary without its medium goes to the kernel
     del d["slab"]["interior"]
     scene = mt.load_dict(d)
     assert path_kernel_ineligibility(scene) is None
