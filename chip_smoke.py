@@ -70,7 +70,29 @@ in the kernels line), the card against the CPU on one pass's lanes at
 32x32x4 spp (the slab, spectral volpathmis, a homogeneous slab in mono:
 equal trip counts, then the parity bar), the box-film slab forced onto
 the wavefront against K3 (within 12% of its mean) and vacuum volpath on
-the Cornell box (K2's any hit) against the path kernel. Last comes
+the Cornell box (K2's any hit) against the path kernel. The surface
+wavefront phase renders the scenes users write, which both kernels' gates
+refuse, through ``load_dict`` and ``scene.integrator.render``:
+cornell_surfaces (twosided walls, a bump-mapped floor, a normal-mapped
+back wall, a rough glass box, a conductor-and-diffuse blend, a thin pane,
+a masked card and a conductor panel; each of those eight BSDFs the first
+hit of at least 1% of the camera rays) and cornell_lights (spot, point,
+projector, directional and constant emitters, blackbody, curve and
+regular spectra) at 256x256, 64 spp, max_depth 6 (timed, spans by layer
+with the BSDF wrappers and the delta and constant emitters apart, host
+syncs against the design's count, peak memory, K2 bit for bit on 65,536
+rays sampled from every launch of a render and timed on its busiest
+launch: the entries
+``isect_closest[cornell_surfaces]`` and so on of the kernels line), both
+card against CPU at 32x32x4 spp in rgb and spectral (the glass box stands
+on the floor, and the lanes that part where the card and the CPU break
+the tie of its base with the floor are traced, named and set apart), and
+fog_spot (a spot
+and a point light in a homogeneous fog with a masked card) under volpath
+and volpathmis, card against CPU on one pass's lanes; then the Cornell
+box and the volpath slab with their area lights written as uniform
+spectra, which stay on the path kernel and K3 and render bit for bit as
+the same lights written as colors. Last comes
 the measurement path: the face-test and box-test ceilings through
 ``tools/shape_ceiling.py`` (the sweep kernel's shared-memory and global
 face instantiations beside ``torch.matmul`` of the same product, and its
@@ -1026,12 +1048,16 @@ def record_k2(ik, render, per_launch=WF_K2_SAMPLE, busiest=False):
     return samples, full
 
 
-def hold_card_against_cpu(label, runs):
+def hold_card_against_cpu(label, runs, ties=False):
     """The card's image against the CPU's at the parity bar on every pixel
     no divergent lane reaches (the CPU tests' rule,
     tests/test_torch_wavefront.py), at most WF_MAX_DIVERGENT_LANES
     divergent lanes, each logged with the call where its card and CPU
-    traces part. ``runs`` maps the device to (scene, image, lanes)."""
+    traces part. With ``ties``, a lane whose traces first part at a tie of
+    two coplanar faces hit at one point (tools/wavefront_spread.py
+    ``tie_parting``: a glass box standing on the floor) is logged as such
+    and set apart from that count, up to MAX_TIE_SHARE of the lanes.
+    ``runs`` maps the device to (scene, image, lanes)."""
     from mitsuba2_tpu_torch.tools import wavefront_spread as ws
     (sc_g, card, lanes_card), (sc_r, cpu, lanes_cpu) = runs["cuda"], \
         runs["cpu"]
@@ -1052,15 +1078,28 @@ def hold_card_against_cpu(label, runs):
         f"reach: share within {PIX_RTOL:g} {share:.6f}, mean rel diff "
         f"{mean_rel:.3e}; all pixels: share "
         f"{float((err <= PIX_RTOL).mean()):.6f}, max {err.max():.3e}")
+    tied = []
     if len(div):
         spp = lanes_card[1].shape[0] // (r.shape[0] * r.shape[1])
         traces = [ws.lane_trace(sc, SEED, spp, div) for sc in (sc_g, sc_r)]
         for k in div:
+            tie = ws.tie_parting(sc_r, traces[0][k], traces[1][k]) \
+                if ties else None
+            if tie is not None:
+                tied.append(k)
             log(f"  lane {k} (departs by {err_l[k]:.3e}), card against "
                 f"CPU, first parting at "
-                f"{ws.first_parting(traces[0][k], traces[1][k])}")
-    if len(div) > WF_MAX_DIVERGENT_LANES or share < PIX_SHARE \
-            or mean_rel > MEAN_RTOL:
+                f"{ws.first_parting(traces[0][k], traces[1][k])}"
+                + (f"; a tie of coplanar faces, first other prim at {tie}"
+                   if tie is not None else ""))
+    if ties:
+        log(f"  {len(tied)} of the diverged lanes part at a tie of coplanar "
+            f"faces (at most {ws.MAX_TIE_SHARE:g} of {len(err_l)} lanes), "
+            f"{len(div) - len(tied)} otherwise (at most "
+            f"{WF_MAX_DIVERGENT_LANES})")
+    if len(div) - len(tied) > WF_MAX_DIVERGENT_LANES \
+            or len(tied) > ws.MAX_TIE_SHARE * len(err_l) \
+            or share < PIX_SHARE or mean_rel > MEAN_RTOL:
         raise SystemExit(f"{label}: the card and the CPU disagree")
     return float(np.abs(g - r).max())
 
@@ -1564,6 +1603,276 @@ def run_volpath_wavefront(mi, ik, isx, pk, scenes):
     return [entry]
 
 
+# the surface plugins' phase: cornell_surfaces and cornell_lights at the
+# main shape, each scene's first camera hits, the engine's reason, and
+# fog_spot (delta emitters and a masked card in fog) held card against CPU
+SURFACE_SCENES = (
+    ("cornell_surfaces", "cornell_surfaces_dict", "unsupported BSDF BumpMap",
+     (0.05, 1.0)),
+    ("cornell_lights", "cornell_lights_dict",
+     "unsupported BSDF SmoothDiffuse", (0.05, 2.0)))
+# the eight BSDFs of cornell_surfaces, each the first hit of at least
+# MIN_FIRST_HIT_SHARE of its camera rays
+SURFACE_KINDS = ("TwoSided", "BumpMap", "NormalMap", "RoughDielectric",
+                 "BlendBSDF", "ThinDielectric", "MaskBSDF", "SmoothConductor")
+
+
+class _PassPartitions:
+    """Counts the BSDF partitions of each pass of the path wavefront, from
+    which the host's designed waits follow."""
+
+    def __init__(self, integ):
+        self.integ, self.passes = integ, []
+
+    def __enter__(self):
+        from mitsuba2_tpu_torch.render.scene import Scene
+        sample = type(self.integ).sample
+        partition = Scene.bsdf_partition
+        counts = self.passes
+
+        def counted_partition(scene, *args, **kw):
+            counts[-1] += 1
+            return partition(scene, *args, **kw)
+
+        def counted(*args, **kw):
+            counts.append(0)
+            return sample(self.integ, *args, **kw)
+        self.saved = partition
+        Scene.bsdf_partition = counted_partition
+        self.integ.sample = counted
+        return self
+
+    def __exit__(self, *exc):
+        from mitsuba2_tpu_torch.render.scene import Scene
+        Scene.bsdf_partition = self.saved
+        del self.integ.sample
+
+    def designed_syncs(self):
+        """Each bounce's loop test and partition read, and the loop test
+        that ends a pass whose lanes all died before max_depth."""
+        last = self.integ.max_depth - 1
+        return sum(2 * p + (p < last) for p in self.passes)
+
+
+def check_surface_first_hits(mi, scene):
+    """The BSDF of each camera ray's first hit through the pixel centers
+    -> {BSDF class: share}; fails unless each of SURFACE_KINDS has at
+    least MIN_FIRST_HIT_SHARE."""
+    sensor = scene.sensors[0]
+    w, h = sensor.film.crop_size
+    dev = scene.device
+    ys, xs = torch.meshgrid((torch.arange(h, device=dev) + 0.5) / h,
+                            (torch.arange(w, device=dev) + 0.5) / w,
+                            indexing="ij")
+    ray, _, _ = sensor.sample_ray(torch.zeros(w * h, device=dev),
+                                  torch.stack([xs.reshape(-1),
+                                               ys.reshape(-1)], -1))
+    si = scene.ray_intersect(ray)
+    names = [type(b).__name__ for b in scene.wavefront_tables().bsdfs]
+    counts = {}
+    for i, c in zip(*np.unique(si.bsdf_idx.cpu().numpy(),
+                               return_counts=True)):
+        k = names[i] if i >= 0 else "none"
+        counts[k] = counts.get(k, 0) + int(c)
+    shares = {k: v / (w * h) for k, v in counts.items()}
+    log("  first hits of the camera rays: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in sorted(shares.items())))
+    low = [k for k in SURFACE_KINDS if shares.get(k, 0.0)
+           < MIN_FIRST_HIT_SHARE]
+    if low:
+        raise SystemExit(f"cornell_surfaces: {low} are the first hit of "
+                         f"less than {MIN_FIRST_HIT_SHARE} of camera rays")
+    return shares
+
+
+def run_surface_wavefronts(mi, ik, isx, pk, scenes):
+    """The surface plugins on the wavefronts: cornell_surfaces (the eight
+    BSDFs) and cornell_lights (the five emitters, the curve spectra) at
+    the main shape through the path wavefront (timed, spans by layer with
+    the BSDF wrappers and the delta and constant emitters split out, host
+    syncs against the design's count, peak memory, K2 bit for bit on
+    rays sampled from every launch of a render and timed on its busiest
+    launch), both scenes card against
+    CPU at 32^2 x 4 in rgb and spectral, and fog_spot under volpath and
+    volpathmis card against CPU on one pass's lanes, and the Cornell box
+    and the volpath slab with their lights written as uniform spectra on
+    the kernels -> K2's four entries of the kernels line for the two
+    scenes' launches."""
+    from mitsuba2_tpu_torch.models import bsdfs as bm, emitters as em
+    from mitsuba2_tpu_torch.render.scene import Scene
+    t_phase = time.perf_counter()
+    n = WIDTH * WIDTH * SPP
+    entries = []
+    wrappers = [(cls, name, "BSDF wrappers")
+                for cls in (bm.TwoSided, bm.MaskBSDF, bm.BlendBSDF,
+                            bm.NormalMap, bm.BumpMap)
+                for name in ("sample", "eval", "pdf")]
+    lights = [(cls, name, "delta and constant emitters")
+              for cls in (em.PointEmitter, em.SpotEmitter,
+                          em.DirectionalEmitter, em.ConstantEmitter,
+                          em.ProjectorEmitter)
+              for name in ("sample_direction", "eval", "pdf_direction")]
+    layers = [(Scene, "sample_emitter_direction", "emitter sampling"),
+              (Scene, "bsdf_partition", "BSDF partition"),
+              (Scene, "bsdf_eval_pdf", "BSDF eval+pdf"),
+              (Scene, "bsdf_sample", "BSDF sample")]
+    for label, make, reason, band in SURFACE_SCENES:
+        t_scene = time.perf_counter()
+        mi.set_variant("scalar_rgb")
+        scene = mi.load_dict(getattr(scenes, make)(WIDTH, WIDTH, SPP,
+                                                   MAX_DEPTH))
+        integ = scene.integrator
+        ik.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        img = integ.render(scene, seed=SEED, spp=SPP)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {"isect_closest": ik.isect_closest.launches,
+                    "isect_any": ik.isect_any.launches}
+        if integ.last_engine != "wavefront" or integ.engine_reason != reason:
+            raise SystemExit(f"{label}: engine {integ.last_engine} "
+                             f"({integ.engine_reason})")
+        if min(launches.values()) < 1:
+            raise SystemExit(f"{label}: the wavefront missed K2: {launches}")
+        mean = float(img.mean())
+        if not (bool(torch.isfinite(img).all()) and band[0] < mean < band[1]):
+            raise SystemExit(f"{label}: implausible image, mean {mean}")
+        passes = n // integ.MAX_WAVEFRONT
+        log(f"surface wavefront {label} {WIDTH}^2 x {SPP} spp, depth "
+            f"{MAX_DEPTH}: engine {integ.last_engine} (gate: "
+            f"{integ.engine_reason}); {passes} passes of "
+            f"{integ.MAX_WAVEFRONT} lanes; first render {first_s:.2f} s; "
+            f"image mean {mean:.6f}")
+        if label == "cornell_surfaces":
+            check_surface_first_hits(mi, scene)
+        runs = 1 if first_s > VW_ONE_RUN_S else 3
+        _, times = prof.cuda_times(
+            lambda: integ.render(scene, seed=SEED, spp=SPP), runs=runs,
+            warm_up=False)
+        ms = statistics.median(times)
+        how = ("median of 3 after a warm-up" if runs == 3 else
+               f"one run after the warm-up (the first took {first_s:.1f} s)")
+        log(f"  render {ms:.1f} ms ({how}: "
+            f"{', '.join(f'{t:.1f}' for t in times)}), "
+            f"{n / ms / 1e3:.4f} Mpaths/s; K2 launches in one render: "
+            f"{launches}; peak memory {peak / 2**20:.1f} MiB "
+            f"({peak / (n // passes):.0f} B a lane)")
+        with _PassPartitions(integ) as parts_count:
+            _, syncs, sync_sites, host = counted_render(integ, scene)
+        designed = parts_count.designed_syncs()
+        log(f"  host syncs in a second render: {syncs} in the package's "
+            f"code on the card (torch's sync debug mode), {host.total} "
+            f"counted by core/profiler.py HostTransfers; the design's count "
+            f"{designed} ({parts_count.passes} partitions a pass: each "
+            f"bounce's loop test and partition read); the card's by site: "
+            + ", ".join(f"{k} {v}" for k, v in sorted(sync_sites.items())))
+        for line in host.lines():
+            log(f"    {line}")
+        if syncs != designed or host.total != designed:
+            raise SystemExit(f"{label}: host waits beside the design's")
+        with _Spans(ik, layers + wrappers + lights, nest=True) as spans:
+            _, (total,) = prof.cuda_times(
+                lambda: integ.render(scene, seed=SEED, spp=SPP), runs=1,
+                warm_up=False)
+        parts = spans.ms()
+        top = {k: v for k, v in parts.items() if " in " not in k}
+        k2 = sum(v for k, v in parts.items() if k.startswith("isect_"))
+        log(f"  spans of one instrumented render ({total:.1f} ms, CUDA "
+            f"events around each call; a call inside another is named "
+            f"'in' it): " + ", ".join(
+                f"{k} {v:.1f} ms" for k, v in sorted(parts.items()))
+            + f"; the rest {total - sum(top.values()):.1f} ms; K2 share "
+            f"{100 * k2 / total:.2f}%")
+
+        # ---- K2 on the scene's rays, against its plain twin, timed on
+        # each entry's busiest launch ----
+        samples, full = record_k2(
+            ik, lambda: integ.render(scene, seed=SEED, spp=SPP),
+            busiest=True)
+        tables = scene.tables
+        woop = pk.face_woop(tables)
+        trees = pk.walk_trees(tables)
+        for name, fn, ref, out_bytes in (
+                ("isect_closest", ik.isect_closest,
+                 isx.closest_hit_reference, 16),
+                ("isect_any", ik.isect_any, isx.any_hit_reference, 1)):
+            every = tuple(torch.cat(xs) for xs in zip(*samples[name]))
+            sub = every_kth(every, ISECT_PARITY_RAYS)
+            got = fn(tables, *sub)
+            torch.cuda.synchronize()
+            active = float((sub[3] > sub[2]).float().mean())
+            busy = full[name]
+            log(f"  {name} on {label}'s rays ({len(samples[name])} launches "
+                f"of one render, {WF_K2_SAMPLE} rays of each; "
+                f"{len(sub[0])} of those, {active:.4f} of them active; "
+                f"timed on the busiest launch, "
+                f"{int((busy[3] > busy[2]).sum())} of {len(busy[0])} rays "
+                f"active):")
+            err = isect_parity(name, got, ref(woop, *sub))
+            entries.append(k2_entry(
+                isx, f"{name}[{label}]", fn, ref, tables, woop, trees,
+                full[name], out_bytes, launches[name], err))
+        log(f"  {label} at the main shape: "
+            f"{time.perf_counter() - t_scene:.1f} s")
+
+    # ---- the card against the CPU ----
+    t_step = time.perf_counter()
+    w, spp = WF_CPU_WIDTH, WF_CPU_SPP
+    for label, make, _, _ in SURFACE_SCENES:
+        for variant in ("scalar_rgb", "scalar_spectral"):
+            mi.set_variant(variant)
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                mi.set_device(dev)
+                try:
+                    sc = mi.load_dict(getattr(scenes, make)(w, w, spp,
+                                                            MAX_DEPTH))
+                    runs[dev] = (sc, sc.integrator.render(sc, seed=SEED,
+                                                          spp=spp),
+                                 wavefront_lanes(sc, SEED, spp))
+                finally:
+                    mi.set_device("cuda")
+            hold_card_against_cpu(f"{label} {variant} {w}^2 x {spp}, card "
+                                  f"against CPU", runs,
+                                  ties=label == "cornell_surfaces")
+    for integrator in ("volpath", "volpathmis"):
+        hold_lanes_card_against_cpu(
+            mi, f"fog_spot {integrator} {w}^2 x {spp}", "scalar_rgb",
+            lambda: scenes.fog_spot_dict(w, w, spp, MAX_DEPTH,
+                                         integrator=integrator), spp)
+    mi.set_variant("scalar_rgb")
+    log(f"  card against CPU: {time.perf_counter() - t_step:.1f} s")
+
+    # ---- an area light written as a uniform spectrum stays on the
+    # kernels, and renders as the same light written as a color ----
+    for label, make, spp, depth, value in (
+            ("cornell", scenes.cornell_box_dict, SPP, MAX_DEPTH, 15.0),
+            ("volpath slab", scenes.volpath_slab_dict, VOL_SPP,
+             VOL_MAX_DEPTH, 4.0)):
+        imgs = []
+        for radiance in ({"type": "rgb", "value": [value] * 3},
+                         {"type": "spectrum", "value": value}):
+            d = make(WIDTH, WIDTH, spp, depth)
+            d["light"]["emitter"]["radiance"] = radiance
+            sc = mi.load_dict(d)
+            imgs.append(sc.integrator.render(sc, seed=SEED, spp=spp))
+            if sc.integrator.last_engine != "kernel":
+                raise SystemExit(f"{label} with a {radiance['type']} light: "
+                                 f"engine {sc.integrator.last_engine} "
+                                 f"({sc.integrator.engine_reason})")
+        same = torch.equal(imgs[0], imgs[1])
+        log(f"{label} {WIDTH}^2 x {spp}, its light a uniform spectrum of "
+            f"{value:g}: engine kernel, the image bit for bit the rgb "
+            f"light's: {same} (mean {float(imgs[1].mean()):.6f})")
+        if not same:
+            raise SystemExit(f"{label}: the uniform spectrum light renders "
+                             f"apart from its color")
+    log(f"surface wavefront phase: {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1678,6 +1987,7 @@ def main():
                          next(p for p in PATHS if p.name == "biggeo"))
     kernels += run_wavefront(mi, ik, isx, pk, scenes)
     kernels += run_volpath_wavefront(mi, ik, isx, pk, scenes)
+    kernels += run_surface_wavefronts(mi, ik, isx, pk, scenes)
     check_forced_on_cornell(mi, pk, cornell_box_dict)
     kernels += run_ceiling(mi, pk, sk, cornell_box_dict,
                            cornell_materials_dict, face_rates)

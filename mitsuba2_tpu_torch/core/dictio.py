@@ -2,7 +2,8 @@
 
 Parity: mitsuba.core.xml.load_dict (src/libcore/python/xml_v.cpp:56,100-226):
 a nested dict with "type" keys instantiates plugins; "rgb" sub-dicts become
-colors and "spectrum" sub-dicts with a number uniform spectra; "id" +
+colors, "spectrum" sub-dicts with a number uniform spectra and with
+(wavelength, value) pairs curves (mitsuba2_tpu/core/dictio.py:68-78); "id" +
 {"type": "ref", "id": ...} are named references.
 """
 
@@ -32,7 +33,7 @@ class ColorValue:
     reflectance wrapping (xml.cpp:774-850)."""
 
     def __init__(self, kind, payload):
-        self.kind = kind        # 'rgb' | 'spectrum-uniform'
+        self.kind = kind        # 'rgb' | 'spectrum-uniform' | 'spectrum-curve'
         self.payload = payload
 
 
@@ -55,10 +56,14 @@ def _instantiate(d: dict, refs: dict):
     if type_name == "rgb":
         return ColorValue("rgb", np.asarray(d["value"], np.float32))
     if type_name == "spectrum":
-        if not isinstance(d["value"], (int, float)):
-            raise NotImplementedError(
-                "spectrum curves are not ported; only a uniform value")
-        return ColorValue("spectrum-uniform", float(d["value"]))
+        value = d["value"]
+        if isinstance(value, (int, float)):
+            return ColorValue("spectrum-uniform", float(value))
+        # (wavelength, value) pairs, or the string "400:0.1, 500:0.2"
+        if isinstance(value, str):
+            value = [p.split(":") for p in value.split(",")]
+        return ColorValue("spectrum-curve",
+                          [(float(a), float(b)) for a, b in value])
     if type_name == "ref":
         rid = d["id"]
         if rid not in refs:

@@ -86,3 +86,69 @@ class DiscreteDistribution(NamedTuple):
         cdf_lo = torch.where(idx > 0, self.cdf[(idx - 1).clamp(min=0)], 0.0)
         u2 = m.safe_div(u * self.sum - cdf_lo, self.eval_pmf(idx), 0.0)
         return idx, torch.clamp(u2, 0.0, 1.0 - m.Epsilon)
+
+
+class IrregularContinuousDistribution(NamedTuple):
+    """Piecewise-linear density over explicit nodes (distr_1d.h
+    IrregularContinuousDistribution; counterpart of
+    ``mitsuba2_tpu.core.distr_1d.IrregularContinuousDistribution``): the
+    curve spectra sample their wavelengths from it."""
+
+    nodes: torch.Tensor          # (n,)
+    pdf: torch.Tensor            # (n,) unnormalized density at the nodes
+    cdf: torch.Tensor            # (n - 1,) inclusive sums of the cells
+    integral: torch.Tensor       # ()
+    normalization: torch.Tensor  # () 1 / integral
+
+    @staticmethod
+    def create(nodes, pdf) -> "IrregularContinuousDistribution":
+        nodes = torch.as_tensor(nodes, dtype=torch.float32)
+        pdf = torch.as_tensor(pdf, dtype=torch.float32)
+        cell = 0.5 * (pdf[1:] + pdf[:-1]) * (nodes[1:] - nodes[:-1])
+        cdf = cumsum16(cell)
+        integral = cdf[-1]
+        return IrregularContinuousDistribution(
+            nodes, pdf, cdf, integral,
+            m.safe_div(torch.ones_like(integral), integral, 0.0))
+
+    def to(self, device) -> "IrregularContinuousDistribution":
+        return IrregularContinuousDistribution(*(x.to(device) for x in self))
+
+    @property
+    def size(self) -> int:
+        return self.pdf.shape[-1]
+
+    def eval_pdf(self, x):
+        idx = (torch.searchsorted(self.nodes, x.contiguous(), right=True)
+               - 1).clamp(0, self.size - 2)
+        x0, x1 = self.nodes[idx], self.nodes[idx + 1]
+        v = m.lerp(self.pdf[idx], self.pdf[idx + 1],
+                   m.safe_div(x - x0, x1 - x0, 0.0))
+        return torch.where((x >= self.nodes[0]) & (x <= self.nodes[-1]), v,
+                           0.0)
+
+    def eval_pdf_normalized(self, x):
+        return self.eval_pdf(x) * self.normalization
+
+    def sample(self, u):
+        """u in [0, 1) -> a position, inverting the cell's linear density
+        (the quadratic's root, the linear one where the cell is flat)."""
+        target = u * self.integral
+        idx = torch.searchsorted(self.cdf, target.contiguous(),
+                                 right=True).clamp(0, self.size - 2)
+        cdf_lo = torch.where(idx > 0, self.cdf[(idx - 1).clamp(min=0)], 0.0)
+        x0, x1 = self.nodes[idx], self.nodes[idx + 1]
+        h = x1 - x0
+        rem = m.safe_div(target - cdf_lo, h, 0.0)
+        p0, p1 = self.pdf[idx], self.pdf[idx + 1]
+        dp = p1 - p0
+        disc = m.safe_sqrt(p0 * p0 + 2.0 * dp * rem)
+        t_lin = m.safe_div(rem, p0, 0.0)
+        t_quad = m.safe_div(disc - p0, dp, t_lin)
+        t = torch.clamp(torch.where(dp.abs() > 1e-9 * (p0 + p1 + 1e-30),
+                                    t_quad, t_lin), 0.0, 1.0)
+        return x0 + t * h
+
+    def sample_pdf(self, u):
+        x = self.sample(u)
+        return x, self.eval_pdf_normalized(x)

@@ -73,6 +73,12 @@ class Properties:
             raise KeyError(f"property '{k}' missing")
         return str(v)
 
+    def vector3(self, k, default=None):
+        v = self.get(k, default)
+        if v is None:
+            raise KeyError(f"property '{k}' missing")
+        return np.asarray(v, np.float32).reshape(3)
+
     def transform(self, k, default=None):
         from .transform import Transform
         v = self.get(k, default)

@@ -237,6 +237,14 @@ def xyz_to_srgb(xyz):
     return xyz @ _table(XYZ_TO_SRGB, xyz).T
 
 
+def zeros(si):
+    """A zero spectrum in the current variant's channels at each lane of
+    ``si`` -> (n, C)."""
+    from ..variants import current
+    return torch.zeros((si.t.shape[0], current().n_channels),
+                       device=si.t.device)
+
+
 def luminance(value, wavelengths=None):
     """Luminance of linear rgb values (..., 3) -> (...); with
     ``wavelengths``, of hero-wavelength spectra (..., S): the mean of

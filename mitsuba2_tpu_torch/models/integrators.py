@@ -712,13 +712,15 @@ def _has(obj, *names):
 
 
 def _texture_ineligibility(obj):
-    """The first texture that ``obj`` holds (a checkerboard's colors in
-    turn) without an ``eval``, or None."""
+    """The first texture that ``obj`` holds (a checkerboard's colors, a
+    wrapper BSDF's children and their textures in turn) without an
+    ``eval`` of its own, or None."""
+    from ..render.bsdf import BSDF
     from ..render.texture import Texture
     for t in vars(obj).values():
-        if isinstance(t, Texture):
-            if not _has(t, "eval"):
-                return f"texture {type(t).__name__} has no wavefront eval"
+        if isinstance(t, Texture) and not _overrides(t, Texture, "eval"):
+            return f"texture {type(t).__name__} has no wavefront eval"
+        if isinstance(t, (Texture, BSDF)):
             reason = _texture_ineligibility(t)
             if reason is not None:
                 return reason

@@ -184,7 +184,7 @@ def as_volume(v) -> Volume:
     if isinstance(v, Volume):
         return v
     from ..core.dictio import ColorValue
-    if isinstance(v, ColorValue):
+    if isinstance(v, ColorValue) and v.kind != "spectrum-curve":
         return ConstantVolume(value=v.payload)
     if isinstance(v, (int, float, list, tuple, np.ndarray)):
         return ConstantVolume(value=v)

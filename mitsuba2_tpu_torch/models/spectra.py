@@ -1,17 +1,20 @@
-"""Spectrum plugins of the spectral variants (reference: src/spectra/
-{d65,srgb_d65}.cpp, roughconductor.cpp:306-430; counterpart of
-``mitsuba2_tpu.models.spectra``). Each holds the payload the path kernel
-evaluates at its hero wavelengths:
+"""Spectrum plugins (reference: src/spectra/{uniform,regular,irregular,
+blackbody,d65,srgb_d65}.cpp, roughconductor.cpp:306-430; counterpart of
+``mitsuba2_tpu.models.spectra``).
 
-- ``D65Spectrum`` and ``SRGBD65Spectrum``, emitter spectra:
-  value(wl) = sigmoid(_coeff, wl) * d65(wl) * _d65_scale;
+- ``_CurveSpectrum``: a tabulated curve, linear between its nodes, at the
+  hero wavelengths in spectral variants; its CIE-integrated rgb
+  (``spectrum_to_rgb``) in rgb variants and that rgb's luminance in mono
+  variants. ``regular``, ``irregular``, ``blackbody``, ``d65`` and
+  ``srgb_d65`` are curves; the dict's ``{"type": "spectrum", "value":
+  [(wavelength, value), ...]}`` loads as an ``irregular`` one
+  (models/textures.py ``as_texture``).
+- ``uniform``: one value in every channel.
+- ``D65Spectrum`` and ``SRGBD65Spectrum`` also hold the payload the path
+  kernel evaluates: value(wl) = sigmoid(_coeff, wl) * d65(wl) *
+  _d65_scale.
 - ``ConductorIORSpectrum``, a conductor's eta or k: a quadratic in the
   normalized wavelength, clamped to its fit span.
-
-The wavefront evaluates the emitter spectra as the JAX wavefront does
-(mitsuba2_tpu/models/spectra.py ``_CurveSpectrum``): as a tabulated curve,
-linear between its nodes, at the hero wavelengths; in rgb and mono
-variants as the curve's rgb (``spectrum_to_rgb``) or its luminance.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core import math as m
 from ..core import spectrum as spec
 from ..core.object import register_plugin
 from ..render.texture import Texture
@@ -26,38 +30,161 @@ from .textures import on_device
 
 
 class _CurveSpectrum(Texture):
-    """A spectral curve (nodes ``_wl``, values ``_vals``, float32)."""
+    """A spectral curve (nodes ``_wl``, values ``_vals``, float32): its
+    value at the hero wavelengths (linear between the nodes, zero outside
+    them) in spectral variants, its CIE-integrated rgb ``_rgb`` in rgb
+    variants and that rgb's luminance in mono variants; its wavelengths
+    sampled in proportion to the curve
+    (mitsuba2_tpu/models/spectra.py:22-84)."""
 
-    def _setup(self, wl, vals):
+    def _setup(self, wl, vals, bounded=False):
         self._wl = np.asarray(wl, np.float32)
         self._vals = np.asarray(vals, np.float32)
         self._rgb = spec.spectrum_to_rgb(self._wl, self._vals,
-                                         bounded=False)
+                                         bounded=bounded)
+        # float32 luminance of the rgb, the mono variants' value
+        self._mono = float(spec.luminance(
+            torch.as_tensor(self._rgb, dtype=torch.float32)))
+
+    def _eval_curve(self, x):
+        dev = x.device
+        wl = on_device(self, "wl", self._wl, dev)
+        vals = on_device(self, "vals", self._vals, dev)
+        idx = (torch.searchsorted(wl, x.contiguous(), right=True)
+               - 1).clamp(0, len(self._wl) - 2)
+        x0, x1 = wl[idx], wl[idx + 1]
+        w = (x - x0) / torch.clamp(x1 - x0, min=1e-8)
+        v = vals[idx] * (1 - w) + vals[idx + 1] * w
+        return torch.where((x >= wl[0]) & (x <= wl[-1]), v, 0.0)
+
+    def _distr(self, device):
+        from ..core.distr_1d import IrregularContinuousDistribution
+        cache = self.__dict__.setdefault("_device_cache", {})
+        key = ("distr", str(device))
+        if key not in cache:
+            cache[key] = IrregularContinuousDistribution.create(
+                self._wl, self._vals).to(device)
+        return cache[key]
 
     def eval(self, si, active=True):
         from ..variants import current
         var = current()
-        dev = si.t.device
         if var.is_spectral:
-            wl = on_device(self, "wl", self._wl, dev)
-            vals = on_device(self, "vals", self._vals, dev)
-            x = si.wavelengths
-            idx = (torch.searchsorted(wl, x.contiguous(), right=True)
-                   - 1).clamp(0, len(self._wl) - 2)
-            x0, x1 = wl[idx], wl[idx + 1]
-            w = (x - x0) / torch.clamp(x1 - x0, min=1e-8)
-            v = vals[idx] * (1 - w) + vals[idx + 1] * w
-            return torch.where((x >= wl[0]) & (x <= wl[-1]), v, 0.0)
-        n = si.t.shape[0]
+            return self._eval_curve(si.wavelengths)
+        n, dev = si.t.shape[0], si.t.device
         if var.is_monochromatic:
-            return on_device(self, "mono", [spec.luminance(
-                torch.as_tensor(self._rgb, dtype=torch.float32))],
-                dev).expand(n, 1)
+            return on_device(self, "mono", [self._mono], dev).expand(n, 1)
         return on_device(self, "rgb", self._rgb, dev).expand(n, 3)
 
+    def eval_1(self, si, active=True):
+        return torch.full_like(si.t, self._mono)
+
+    def eval_3(self, si, active=True):
+        return on_device(self, "rgb", self._rgb, si.t.device).expand(
+            si.t.shape[0], 3)
+
+    def sample_spectrum(self, si, sample, active=True):
+        """Wavelengths drawn in proportion to the curve and its value over
+        their pdf; outside spectral variants the lanes' own."""
+        from ..variants import current
+        if not current().is_spectral:
+            return si.wavelengths, self.eval(si, active)
+        distr = self._distr(sample.device)
+        wl = distr.sample(sample)
+        return wl, m.safe_div(self._eval_curve(wl),
+                              distr.eval_pdf_normalized(wl), 0.0)
+
+    def pdf_spectrum(self, si, active=True):
+        from ..variants import current
+        if not current().is_spectral:
+            return torch.zeros_like(si.wavelengths)
+        return self._distr(si.wavelengths.device).eval_pdf_normalized(
+            si.wavelengths)
+
     def mean(self):
-        return float(np.asarray(self._rgb, np.float64)
-                     @ spec.LUMINANCE.astype(np.float64))
+        return self._mono
+
+
+@register_plugin("spectrum", "uniform")
+class UniformSpectrum(Texture):
+    """(uniform.cpp) the same ``value`` at every wavelength: in rgb and
+    mono variants that value in every channel, not the E illuminant's
+    color (mitsuba2_tpu/models/spectra.py:86-113)."""
+
+    def __init__(self, props=None, value=None):
+        super().__init__(props)
+        self.value = float(props.float_("value", 1.0)) if props else \
+            float(value if value is not None else 1.0)
+
+    def eval(self, si, active=True):
+        from ..variants import current
+        return torch.full((si.t.shape[0], current().n_channels), self.value,
+                          device=si.t.device)
+
+    def eval_1(self, si, active=True):
+        return torch.full_like(si.t, self.value)
+
+    def eval_3(self, si, active=True):
+        return torch.full((si.t.shape[0], 3), self.value,
+                          device=si.t.device)
+
+    def mean(self):
+        return self.value
+
+
+def _numbers(v):
+    """A list of floats from a list or a "1, 2 3" string."""
+    if isinstance(v, str):
+        return [float(x) for x in v.replace(",", " ").split()]
+    return v
+
+
+@register_plugin("spectrum", "regular")
+class RegularSpectrum(_CurveSpectrum):
+    """(regular.cpp) ``values`` on a uniform grid over [``lambda_min``,
+    ``lambda_max``]."""
+
+    def __init__(self, props=None, lambda_min=None, lambda_max=None,
+                 values=None):
+        super().__init__(props)
+        if props is not None:
+            lambda_min = props.float_("lambda_min", spec.MTS_WAVELENGTH_MIN)
+            lambda_max = props.float_("lambda_max", spec.MTS_WAVELENGTH_MAX)
+            values = _numbers(props.get("values"))
+        values = np.asarray(values, np.float32)
+        self._setup(np.linspace(lambda_min, lambda_max, len(values)),
+                    values)
+
+
+@register_plugin("spectrum", "irregular")
+class IrregularSpectrum(_CurveSpectrum):
+    """(irregular.cpp) explicit ``wavelengths`` and ``values``."""
+
+    def __init__(self, props=None, wavelengths=None, values=None):
+        super().__init__(props)
+        if props is not None:
+            wavelengths = _numbers(props.get("wavelengths"))
+            values = _numbers(props.get("values"))
+        self._setup(np.asarray(wavelengths, np.float32),
+                    np.asarray(values, np.float32))
+
+
+@register_plugin("spectrum", "blackbody")
+class BlackbodySpectrum(_CurveSpectrum):
+    """(blackbody.cpp) Planck's spectral radiance at ``temperature`` K in
+    W / (m^2 sr nm), tabulated at 256 wavelengths over the CIE range."""
+
+    def __init__(self, props=None, temperature=None):
+        super().__init__(props)
+        if props is not None:
+            temperature = props.float_("temperature", 2856.0)
+        T = float(temperature)
+        wl = np.linspace(spec.MTS_CIE_MIN, spec.MTS_CIE_MAX, 256)
+        lam = wl * 1e-9
+        h, c, kb = 6.62607015e-34, 2.99792458e8, 1.380649e-23
+        L = (2 * h * c * c) / (lam ** 5) \
+            / (np.exp(h * c / (lam * kb * T)) - 1.0) * 1e-9
+        self._setup(wl, L.astype(np.float32))
 
 
 def _norm_x(wl_nm):
@@ -159,6 +286,14 @@ class ConductorIORSpectrum(Texture):
         x = torch.clamp(_norm_x(si.wavelengths), self._x_lo, self._x_hi)
         a, b, c = (float(v) for v in self._coeff)
         return (a * x + b) * x + c
+
+    def eval_3(self, si, active=True):
+        return on_device(self, "rgb", self._rgb_np, si.t.device).expand(
+            si.t.shape[0], 3)
+
+    def eval_1(self, si, active=True):
+        return torch.full_like(si.t, float(spec.luminance(
+            np.asarray(self._rgb_np, np.float64))))
 
     def mean(self):
         return float(self._rgb_np.mean())

@@ -106,6 +106,15 @@ class ConstantTexture(Texture):
             return on_device(self, "mono", [self.mono], dev).expand(n, 1)
         return on_device(self, "rgb", self.rgb, dev).expand(n, 3)
 
+    def eval_1(self, si, active=True):
+        """The color's luminance at every lane (n,), taken on the host."""
+        return torch.full_like(si.t, self.mean())
+
+    def eval_3(self, si, active=True):
+        """The linear rgb color at every lane (n, 3)."""
+        return on_device(self, "rgb", self.rgb, si.t.device).expand(
+            si.t.shape[0], 3)
+
 
 @register_plugin("texture", "checkerboard")
 class CheckerboardTexture(Texture):
@@ -132,6 +141,15 @@ class CheckerboardTexture(Texture):
         return torch.where(self._even(si.uv)[..., None],
                            self.color0.eval(si, active),
                            self.color1.eval(si, active))
+
+    def eval_1(self, si, active=True):
+        return torch.where(self._even(si.uv), self.color0.eval_1(si, active),
+                           self.color1.eval_1(si, active))
+
+    def eval_3(self, si, active=True):
+        return torch.where(self._even(si.uv)[..., None],
+                           self.color0.eval_3(si, active),
+                           self.color1.eval_3(si, active))
 
     def _even(self, uv):
         """Where floor(u) + floor(v) is even, after ``to_uv``."""
@@ -216,12 +234,30 @@ class BitmapTexture(Texture):
             out = out + wt[..., None] * val
         return out
 
+    def eval_3(self, si, active=True):
+        """Bilinear lookup of the linear rgb texels (n, 3), whatever the
+        variant (a ``raw`` normal map's channels)."""
+        table = on_device(self, "rgb", self.rgb.reshape(-1, 3), si.t.device)
+        taps = bilinear_taps(si.uv, *self.resolution)
+        out = taps[0][0][..., None] * table[taps[0][1]]
+        for wt, idx in taps[1:]:
+            out = out + wt[..., None] * table[idx]
+        return out
+
+    def eval_1(self, si, active=True):
+        """The luminance of ``eval_3`` (a height or opacity map)."""
+        return spec.luminance(self.eval_3(si, active))
+
 
 def as_texture(v, within_emitter: bool = False) -> Texture:
-    """Auto-wrap scalars and colors into textures (properties.h:281-343,
-    xml.cpp:774-850). With ``within_emitter`` in spectral variants an rgb
-    value becomes an ``SRGBD65Spectrum`` and a uniform spectrum a
-    ``D65Spectrum`` of that scale (xml.cpp:1100-1104)."""
+    """Auto-wrap scalars, colors and spectra into textures
+    (properties.h:281-343, xml.cpp:774-850;
+    mitsuba2_tpu.models.textures.as_texture). With ``within_emitter`` in
+    spectral variants an rgb value becomes an ``SRGBD65Spectrum``, a
+    uniform spectrum a ``D65Spectrum`` of that scale (xml.cpp:1100-1104)
+    and a curve's values are scaled to unit luminance (xml.cpp:
+    1113-1125). A uniform spectrum is otherwise a ``UniformSpectrum``, a
+    curve an ``IrregularSpectrum``."""
     from ..core.dictio import ColorValue
     from ..variants import current
     emitter_spectrum = within_emitter and current().is_spectral
@@ -232,9 +268,15 @@ def as_texture(v, within_emitter: bool = False) -> Texture:
             if emitter_spectrum:
                 from .spectra import D65Spectrum
                 return D65Spectrum(scale=v.payload)
-            if current().is_spectral:
-                raise NotImplementedError(
-                    "uniform reflectance spectra are not ported")
+            from .spectra import UniformSpectrum
+            return UniformSpectrum(value=v.payload)
+        if v.kind == "spectrum-curve":
+            from .spectra import IrregularSpectrum
+            wl = [a for a, _ in v.payload]
+            vals = [b for _, b in v.payload]
+            if emitter_spectrum:
+                vals = [x * spec.MTS_CIE_Y_NORMALIZATION for x in vals]
+            return IrregularSpectrum(wavelengths=wl, values=vals)
         v = v.payload
     if isinstance(v, (int, float, list, tuple, np.ndarray)):
         if emitter_spectrum:

@@ -1871,7 +1871,6 @@ def path_kernel_ineligibility(scene):
     from ..variants import current
     from ..models.emitters import AreaEmitter, EnvironmentMap
     from ..models.shapes import SphereShape, DiskShape, CylinderShape
-    from ..models.textures import ConstantTexture
     var = current()
     if var.polarized:
         return "polarized variant"
@@ -1926,6 +1925,6 @@ def path_kernel_ineligibility(scene):
             continue
         if type(e) is not AreaEmitter:
             return f"unsupported emitter {type(e).__name__}"
-        if mode != "spectral" and type(e.radiance) is not ConstantTexture:
+        if e.radiance.is_spatially_varying():
             return "textured area emitter"
     return None

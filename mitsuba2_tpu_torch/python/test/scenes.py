@@ -406,3 +406,176 @@ def hero_serialized_dict(width=256, height=256, spp=32, max_depth=5,
                      "rfilter": {"type": "box"}},
             "sampler": {"type": "independent", "sample_count": spp}},
     }
+
+
+def _surface_maps_path(kind):
+    """Synthesized 64x64 surface maps (cached in the temp directory under
+    this package's own name), written by this package's EXR writer:
+    ``height``, a bump height field of crossed sines in [0.25, 0.75]
+    (one channel, repeated); ``normal``, a tangent-space normal map of
+    tilts along u and v, encoded as (n + 1) / 2."""
+    import os
+    import tempfile
+    from ...utils.io_exr import write_exr
+    path = os.path.join(tempfile.gettempdir(),
+                        f"mitsuba2_tpu_torch_{kind}_map_v1.exr")
+
+    def write(tmp):
+        n = 64
+        u = (np.arange(n) + 0.5) / n
+        U, V = np.meshgrid(u, u)                  # U along the width
+        if kind == "height":
+            h = 0.5 + 0.25 * np.sin(2 * np.pi * 6 * U) \
+                * np.sin(2 * np.pi * 6 * V)
+            img = np.repeat(h[..., None], 3, -1)
+        else:
+            nrm = np.stack([0.35 * np.sin(2 * np.pi * 5 * U),
+                            0.35 * np.cos(2 * np.pi * 3 * V),
+                            np.ones_like(U)], -1)
+            nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+            img = 0.5 * nrm + 0.5
+        write_exr(tmp, img.astype(np.float32))
+
+    return _write_once(path, write)
+
+
+def cornell_surfaces_dict(width=256, height=256, spp=64, max_depth=6,
+                          base=None, T=Transform):
+    """The Cornell box with the surfaces users write (Mitsuba's own cbox
+    scene writes its walls ``twosided``): the ceiling and the side walls
+    ``twosided`` over ``diffuse``, the floor a ``bumpmap`` (a bitmap
+    height field) and the back wall a ``normalmap`` (a ``raw`` bitmap),
+    each over ``diffuse``; the tall box ``roughdielectric`` (GGX, alpha
+    0.1), standing on the floor as in the bench's box; the short box a
+    ``blendbsdf`` of a gold ``conductor`` and a ``diffuse`` by a
+    checkerboard weight; a ``thindielectric`` pane, a
+    ``mask`` card (a checkerboard opacity) and a copper ``conductor``
+    panel on the left wall; the area light as before. ``base`` is the
+    Cornell dict to edit (this package's ``cornell_box_dict`` by default)
+    and ``T`` its Transform, so the same edits apply to another package's
+    dict."""
+    d = base if base is not None else cornell_box_dict(
+        width, height, spp, max_depth)
+
+    def rgb(v):
+        return {"type": "rgb", "value": v}
+
+    def diffuse(v):
+        return {"type": "diffuse", "reflectance": rgb(v)}
+
+    def checker(c0, c1, n):
+        return {"type": "checkerboard", "color0": rgb(c0), "color1": rgb(c1),
+                "to_uv": T.scale([n, n, 1])}
+
+    for wall in ("ceiling", "left", "right"):
+        d[wall]["bsdf"] = {"type": "twosided", "material": d[wall]["bsdf"]}
+    d["floor"]["bsdf"] = {
+        "type": "bumpmap", "scale": 0.02,
+        "height": {"type": "bitmap", "raw": True,
+                   "filename": _surface_maps_path("height")},
+        "material": diffuse([0.725, 0.71, 0.68])}
+    d["back"]["bsdf"] = {
+        "type": "normalmap",
+        "normals": {"type": "bitmap", "raw": True,
+                    "filename": _surface_maps_path("normal")},
+        "material": diffuse([0.725, 0.71, 0.68])}
+    d["tallbox"]["bsdf"] = {"type": "roughdielectric",
+                            "distribution": "ggx", "alpha": 0.1}
+    d["shortbox"]["bsdf"] = {
+        "type": "blendbsdf", "weight": checker(0.85, 0.15, 4),
+        "bsdf_0": {"type": "conductor", "material": "Au"},
+        "bsdf_1": diffuse([0.2, 0.4, 0.7])}
+    d["pane"] = {"type": "rectangle",
+                 "to_world": (T.translate([0.45, 0.3, 0.55])
+                              @ T.rotate([0, 1, 0], -15) @ T.scale(0.22)),
+                 "bsdf": {"type": "thindielectric"}}
+    d["card"] = {"type": "rectangle",
+                 "to_world": (T.translate([-0.4, 0.3, 0.5])
+                              @ T.rotate([0, 1, 0], 20) @ T.scale(0.22)),
+                 "bsdf": {"type": "mask", "opacity": checker(1.0, 0.0, 4),
+                          "material": diffuse([0.8, 0.5, 0.1])}}
+    d["panel"] = {"type": "rectangle",
+                  "to_world": (T.translate([-0.98, 0.25, -0.35])
+                               @ T.rotate([0, 1, 0], 90)
+                               @ T.scale([0.4, 0.35, 1.0])),
+                  "bsdf": {"type": "conductor", "material": "Cu"}}
+    return d
+
+
+def cornell_lights_dict(width=256, height=256, spp=64, max_depth=6,
+                        base=None, T=Transform):
+    """The Cornell box's diffuse walls lit by the emitters users write
+    instead of its area light: a ``spot`` whose intensity is a 2000 K
+    ``blackbody``, a ``point`` whose intensity is an ``irregular`` curve in
+    the dict's list form, a ``projector`` throwing a bitmap onto the back
+    wall, a ``directional`` light in through the open front and a
+    ``constant`` environment of ``uniform`` radiance seen around the box;
+    the left wall's reflectance a ``regular`` spectrum. ``base`` and
+    ``T`` as ``cornell_surfaces_dict``."""
+    d = base if base is not None else cornell_box_dict(
+        width, height, spp, max_depth)
+    del d["light"]
+    d["left"]["bsdf"]["reflectance"] = {
+        "type": "regular", "lambda_min": 400.0, "lambda_max": 700.0,
+        "values": "0.05, 0.08, 0.3, 0.7"}
+    d["spot"] = {"type": "spot", "cutoff_angle": 40.0, "beam_width": 25.0,
+                 "to_world": T.look_at([0.0, 0.95, -0.1], [0.0, -1.0, -0.1],
+                                       [0, 0, 1]),
+                 "intensity": {"type": "blackbody", "temperature": 2000.0}}
+    d["point"] = {"type": "point", "position": [0.55, 0.55, 0.45],
+                  "intensity": {"type": "spectrum", "value": [
+                      (400.0, 0.4), (480.0, 1.2), (560.0, 2.0),
+                      (640.0, 2.6), (720.0, 1.0)]}}
+    d["projector"] = {"type": "projector", "fov": 45.0, "scale": 2.5,
+                      "to_world": T.look_at([0.0, 0.1, 0.95],
+                                            [0.0, 0.1, -1.0], [0, 1, 0]),
+                      "irradiance": {"type": "bitmap",
+                                     "filename": _materials_texture_path()}}
+    d["sun"] = {"type": "directional", "direction": [-0.3, -0.4, -1.0],
+                "irradiance": {"type": "rgb", "value": [1.2, 1.05, 0.8]}}
+    d["sky"] = {"type": "constant",
+                "radiance": {"type": "spectrum", "value": 0.35}}
+    return d
+
+
+def fog_spot_dict(width=32, height=32, spp=4, max_depth=8,
+                  integrator="volpath", T=Transform):
+    """Delta emitters in fog: a null cube bounding a chromatic
+    ``homogeneous`` medium (isotropic phase) with a ``spot`` and a
+    ``point`` inside it, a diffuse floor and a ``mask`` card (a
+    checkerboard opacity over diffuse) in the medium, seen through a
+    35-degree pinhole and a box filter, under ``integrator``."""
+    def rgb(v):
+        return {"type": "rgb", "value": v}
+
+    return {
+        "type": "scene",
+        "integrator": {"type": integrator, "max_depth": max_depth},
+        "fog": {"type": "cube", "bsdf": {"type": "null"},
+                "interior": {"type": "homogeneous", "sigma_t":
+                             rgb([0.35, 0.5, 0.7]), "albedo": rgb(0.8),
+                             "phase": {"type": "isotropic"}}},
+        "floor": {"type": "rectangle",
+                  "to_world": (T.translate([0, -0.9, 0])
+                               @ T.rotate([1, 0, 0], -90) @ T.scale(0.9)),
+                  "bsdf": {"type": "diffuse", "reflectance": rgb(0.6)}},
+        "card": {"type": "rectangle",
+                 "to_world": (T.translate([0.15, -0.2, 0.2])
+                              @ T.rotate([0, 1, 0], 25) @ T.scale(0.45)),
+                 "bsdf": {"type": "mask", "opacity": {
+                     "type": "checkerboard", "color0": rgb(1.0),
+                     "color1": rgb(0.0), "to_uv": T.scale([3, 3, 1])},
+                     "material": {"type": "diffuse",
+                                  "reflectance": rgb([0.8, 0.4, 0.1])}}},
+        "spot": {"type": "spot", "cutoff_angle": 30.0,
+                 "to_world": T.look_at([0.0, 0.8, 0.0], [0.0, -1.0, 0.0],
+                                       [0, 0, 1]),
+                 "intensity": rgb([4.0, 3.5, 3.0])},
+        "point": {"type": "point", "position": [-0.5, 0.3, 0.4],
+                  "intensity": rgb(1.5)},
+        "sensor": {"type": "perspective", "fov": 35.0,
+                   "to_world": T.look_at([0, 0, 4], [0, 0, 0], [0, 1, 0]),
+                   "film": {"type": "hdrfilm", "width": width,
+                            "height": height, "rfilter": {"type": "box"}},
+                   "sampler": {"type": "independent", "sample_count": spp}},
+    }

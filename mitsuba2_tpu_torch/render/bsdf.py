@@ -63,9 +63,8 @@ class BSDF(Object):
     def eval_null_transmission(self, si, active):
         """The spectrum a null lobe passes straight through (bsdf.h:408):
         none, unless the BSDF has one -> (n, C)."""
-        from ..variants import current
-        return torch.zeros((si.t.shape[0], current().n_channels),
-                           device=si.t.device)
+        from ..core import spectrum as spec
+        return spec.zeros(si)
 
 
 class TransportMode(enum.IntEnum):

@@ -170,8 +170,12 @@ def reflect(wi, n=None):
     return 2.0 * m.dot(wi, n)[..., None] * n - wi
 
 
-def refract(wi, cos_theta_t, eta_ti):
-    """Refraction through the local +z interface with the transmitted
-    cosine and relative IOR from ``fresnel`` (fresnel.h refract)."""
-    return torch.stack([-wi[..., 0] * eta_ti, -wi[..., 1] * eta_ti,
-                        cos_theta_t], -1)
+def refract(wi, cos_theta_t, eta_ti, n=None):
+    """Refraction through the local +z interface, or through the
+    interface of normal ``n``, with the transmitted cosine and relative
+    IOR from ``fresnel`` (fresnel.h refract)."""
+    if n is None:
+        return torch.stack([-wi[..., 0] * eta_ti, -wi[..., 1] * eta_ti,
+                            cos_theta_t], -1)
+    scale = m.dot(wi, n) * eta_ti + cos_theta_t
+    return n * scale[..., None] - wi * eta_ti[..., None]

@@ -30,6 +30,7 @@ kernel's BVH tier and the scene's ray queries (``ray_intersect_preliminary``,
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import numpy as np
@@ -147,7 +148,12 @@ class Scene(Object):
         for e in self.emitters:
             if hasattr(e, "prepare"):
                 e.prepare(self)
+        # the path kernel's environment: an envmap (its gate refuses any
+        # other environment emitter, which the wavefront renders)
+        from ..models.emitters import EnvironmentMap
         env = self.environment_emitter
+        if not isinstance(env, EnvironmentMap):
+            env = None
         mode = self.color_mode
         lights, le_face, le_scale, lpdf_w, p_env = _light_table(
             self.emitters, self.shapes, self.face_shape, env is not None,
@@ -801,20 +807,23 @@ def _pad8(x):
 
 def _emitter_payload(radiance, mode):
     """(3,) radiance payload and D65 scale of an area emitter's radiance:
-    linear rgb and 0, the luminance repeated and 0 (mono), or the sigmoid
-    coefficients and the D65 scale (spectral, srgb_d65.cpp). Zeros for a
-    radiance the path kernel refuses."""
-    from ..models.textures import ConstantTexture, mono_luminance
+    linear rgb and 0, the mono value repeated and 0, or the sigmoid
+    coefficients and the D65 scale (spectral, srgb_d65.cpp). In rgb and
+    mono any uniform radiance (a color, a uniform spectrum, a curve) packs
+    its value at one lane, as the wavefront evaluates it. Zeros for a
+    radiance the kernels refuse: a spatially varying one, or one without
+    the srgb_d65 payload in spectral mode."""
     if mode == "spectral":
         if not hasattr(radiance, "_d65_scale"):
             return np.zeros(3, np.float32), 0.0
         return np.asarray(radiance._coeff, np.float32), radiance._d65_scale
-    if type(radiance) is not ConstantTexture:
+    if radiance.is_spatially_varying():
         return np.zeros(3, np.float32), 0.0
-    rgb = np.asarray(radiance.rgb, np.float32).reshape(3)
-    if mode == "mono":
-        return np.full(3, mono_luminance(rgb), np.float32), 0.0
-    return rgb, 0.0
+    one = torch.zeros(1)
+    value = radiance.eval(SimpleNamespace(t=one, uv=torch.zeros(1, 2),
+                                          wavelengths=None))
+    return np.broadcast_to(value.reshape(-1).numpy().astype(np.float32),
+                           (3,)).copy(), 0.0
 
 
 def _light_table(emitters, shapes, face_shape, has_env, mode):

@@ -16,7 +16,10 @@ card's count to the moved CPU's plus three standard deviations of the
 difference of two such counts, 3 sqrt(D_card + D_moved), and the mean
 pixel difference to within 4 standard errors (the solve scatters lanes;
 it must not bias them). ``lane_trace`` records one lane's closest hits,
-bounce by bounce, to find where two runs of a lane part.
+bounce by bounce, to find where two runs of a lane part, and
+``tie_parting`` says whether they first part at a tie of two coplanar
+faces hit at one point (a glass box standing on a floor), which two
+intersection tests, or one on rays an ulp apart, may break apart.
 
     python -m mitsuba2_tpu_torch.tools.wavefront_spread [--width 128]
         [--spp 4] [--seeds 0 1 2 3]
@@ -46,6 +49,9 @@ import torch
 
 PIX_RTOL = 1e-4
 MAX_DEPTH = 6
+# the share of a run's lanes that may part at a tie of coplanar faces
+# (``tie_parting``) where a check sets such lanes apart
+MAX_TIE_SHARE = 0.01
 
 
 def matpreview_beckmann(scenes, width, spp, max_depth=MAX_DEPTH, **hero):
@@ -147,6 +153,36 @@ def first_parting(a, b):
                     f"{x[2]:.7f} against {y[2]:.7f}, prim {int(x[3])} against "
                     f"{int(y[3])}")
     return "no call differs"
+
+
+def coplanar(scene, a, b, tol=1e-5):
+    """Whether the faces ``a`` and ``b`` of ``scene`` (prim ids) are two
+    faces of one plane."""
+    n_faces = len(scene.face_shape)
+    if a == b or not (0 <= a < n_faces and 0 <= b < n_faces):
+        return False
+    na, nb = (scene.ng[k].astype(np.float64) for k in (a, b))
+    gap = scene.v0[b].astype(np.float64) - scene.v0[a]
+    return abs(abs(na @ nb) - 1.0) < tol and abs(na @ gap) < tol
+
+
+def tie_parting(scene, a, b, tol=1e-4):
+    """Where two traces of one lane first hit other prims, when that is a
+    tie: two coplanar faces of ``scene`` hit at one point (within ``tol``
+    of the scene's scale), which two intersection tests, or one test on
+    rays an ulp apart, may break apart -> a line, else None."""
+    for k, (x, y) in enumerate(zip(a, b)):
+        if int(x[3]) == int(y[3]):
+            continue
+        if not coplanar(scene, int(x[3]), int(y[3])):
+            return None
+        px, py = x[0] + x[2] * x[1], y[0] + y[2] * y[1]
+        gap = np.abs(px - py).max()
+        if not gap <= tol * (1.0 + np.abs(py).max()):
+            return None
+        return (f"call {k}: coplanar faces {int(x[3])} and {int(y[3])} hit "
+                f"{gap:.1e} apart, t {x[2]:.7f} against {y[2]:.7f}")
+    return None
 
 
 def time_render(mi, width, spp, seed=7, runs=3):

@@ -56,6 +56,43 @@ def test_render_matches_jax_kernel_per_pixel():
     assert_images_agree(img.numpy(), ref)
 
 
+@pytest.mark.parametrize("variant", ["scalar_rgb", "scalar_mono"])
+def test_uniform_spectrum_light_renders_on_the_kernel(variant):
+    """An area light written as ``{"type": "spectrum", "value": 15}`` (a
+    ``UniformSpectrum`` in both packages) passes the JAX gate and the
+    port's, and the port's path kernel renders it with 15 in every
+    channel, as the reference's wavefront evaluates it. The JAX kernel
+    cannot pack such a light (its light table reads a color's
+    ``_rgb_np``, so its build fails and it falls back to its wavefront):
+    the image is held per pixel against the JAX kernel's image of the same
+    light written as the rgb color 15."""
+    from mitsuba2_tpu.ops.megakernel import megakernel_ineligibility
+    mj.set_variant(variant)
+    mt.set_variant(variant)
+    try:
+        dj, dt = _dicts(16, 4, 3, 2)
+        uniform = {"type": "spectrum", "value": 15.0}
+        dj["light"]["emitter"]["radiance"] = {"type": "rgb",
+                                              "value": [15.0] * 3}
+        sj = mj.load_dict(dj)
+        sj.integrator._force_megakernel = True
+        ref = np.asarray(sj.integrator.render(sj, seed=5, spp=4))
+        assert sj.integrator.last_engine == "megakernel"
+        dj["light"]["emitter"]["radiance"] = dict(uniform)
+        assert megakernel_ineligibility(mj.load_dict(dj)) is None
+        dt["light"]["emitter"]["radiance"] = dict(uniform)
+        st = mt.load_dict(dt)
+        assert type(st.emitters[0].radiance).__name__ == "UniformSpectrum"
+        img = st.integrator.render(st, seed=5, spp=4)
+        assert st.integrator.last_engine == "kernel"
+        assert st.integrator.engine_reason is None
+        assert torch.isfinite(img).all() and float(img.mean()) > 0
+        assert_images_agree(img.numpy(), ref)
+    finally:
+        mj.set_variant("scalar_rgb")
+        mt.set_variant("scalar_rgb")
+
+
 def test_render_mean_matches_jax_wavefront():
     mj.set_variant("scalar_rgb")
     mt.set_variant("scalar_rgb")

@@ -177,6 +177,29 @@ def test_plain_version_and_render_match_jax_kernel(reference):
     check_against_reference(reference, vk.HAS_HG)
 
 
+def test_uniform_spectrum_light_renders_on_the_kernel(reference):
+    """The slab's light written as ``{"type": "spectrum", "value": 4}`` (a
+    ``UniformSpectrum`` in both packages) passes the JAX gate and the
+    port's, and the port's kernel renders it as the reference's image of
+    the light written as the rgb color 4. (The JAX kernel itself cannot
+    pack a uniform spectrum: its light table reads a color's ``_rgb_np``,
+    so its build fails and it falls back to its wavefront.)"""
+    import mitsuba2_tpu as mj
+    from mitsuba2_tpu.ops.volmegakernel import vol_megakernel_ineligibility
+
+    def light(T):
+        return {"light": {"type": "rectangle",
+                          "to_world": T.translate([0, 0, -2.5])
+                          @ T.scale(2.0),
+                          "emitter": {"type": "area",
+                                      "radiance": {"type": "spectrum",
+                                                   "value": 4.0}}}}
+    mj.set_variant("scalar_rgb")
+    assert vol_megakernel_ineligibility(
+        mj.load_dict(jax_slab_dict(extra=light))) is None
+    check_against_reference(reference, vk.HAS_HG, extra=light)
+
+
 def test_port_tables_render_like_reference_tables(reference):
     """The port's own tables give the reference's lanes."""
     _, tables, cam = reference

@@ -36,7 +36,8 @@ import torch
 
 import mitsuba2_tpu_torch as mt
 from tests.test_torch_path_kernel import cpu_device_fixture
-from tests.test_torch_wavefront import (assert_wavefront_parity, jax_lanes,
+from tests.test_torch_wavefront import (assert_coplanar_ties,
+                                        assert_wavefront_parity, jax_lanes,
                                         one_thread_fixture, port_lanes)
 
 _on_cpu = cpu_device_fixture()
@@ -128,13 +129,13 @@ def jax_image(scene, lanes, spp):
     return np.asarray(block.develop(state))
 
 
-def volpath_pair(trips, make, variant, spp, reason=None):
+def volpath_pair(trips, make, variant, spp, reason=None, traced=()):
     """The JAX and port wavefronts on the dicts ``make(package)`` at one
     pass of ``spp``: equal trip counts, then the parity bar, with no lane
-    allowed to part (none does in these scenes; a lane that came to part
-    would be named and traced before it is allowed); the port's engine is
-    the wavefront, with the volumetric kernel's gate's ``reason`` when
-    given -> (port scene, port image)."""
+    allowed to part but the ``traced`` ones, each at a tie of coplanar
+    faces (none parts in this file's scenes); the port's engine is the
+    wavefront, with the volumetric kernel's gate's ``reason`` when given
+    -> (port scene, port image)."""
     import mitsuba2_tpu as mj
     mj.set_variant(variant)
     mt.set_variant(variant)
@@ -157,7 +158,8 @@ def volpath_pair(trips, make, variant, spp, reason=None):
         border = 0 if type(st.sensors[0].film.rfilter).__name__ \
             == "BoxFilter" else GAUSSIAN_BORDER
         assert_wavefront_parity(img.numpy(), ref, lanes, ref_lanes, border,
-                                ())
+                                traced)
+        assert_coplanar_ties(st, sj, traced, spp)
         return st, img
     finally:
         mj.set_variant("scalar_rgb")

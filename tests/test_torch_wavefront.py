@@ -58,11 +58,10 @@ DIVERGED = 1e-3
 SEED = 3
 
 
-def jax_lanes(scene, seed, spp):
-    """The JAX wavefront's lanes of one pass of ``scene`` (its
-    render_wavefront up to the splat, mitsuba2_tpu/render/integrator.py:
-    176-219) -> (film positions (n, 2), rgb (n, 3)) as numpy."""
-    import jax
+def _jax_pass(scene, spp):
+    """The JAX wavefront's one pass of ``scene`` (its render_wavefront up
+    to the splat, mitsuba2_tpu/render/integrator.py:176-219) as a function
+    of the seed -> (film positions (n, 2), rgb (n, 3))."""
     import jax.numpy as jnp
     from mitsuba2_tpu.core import spectrum as spec_j
     from mitsuba2_tpu.variants import current
@@ -94,9 +93,63 @@ def jax_lanes(scene, seed, spp):
         elif var.is_monochromatic:
             spec = jnp.repeat(spec, 3, axis=-1)
         return pos_px, spec
+    return run
 
-    pos, rgb = jax.jit(run)(jnp.uint32(seed))
+
+def jax_lanes(scene, seed, spp):
+    """The JAX wavefront's lanes of one pass of ``scene`` -> (film
+    positions (n, 2), rgb (n, 3)) as numpy."""
+    import jax
+    import jax.numpy as jnp
+    pos, rgb = jax.jit(_jax_pass(scene, spp))(jnp.uint32(seed))
     return np.asarray(pos), np.asarray(rgb)
+
+
+def jax_lane_trace(scene, seed, spp, lanes):
+    """Each of ``lanes``' closest hits in one pass of the JAX wavefront,
+    call by call, as ``wavefront_spread.lane_trace`` records the port's
+    -> {lane: [(o, d, t, prim), ...]} as numpy."""
+    import jax
+    import jax.numpy as jnp
+    from mitsuba2_tpu.render.scene import Scene as SceneJ
+    order = sorted(int(k) for k in lanes)
+    idx = jnp.asarray(order)
+    calls = []
+    query = SceneJ.ray_intersect_preliminary
+
+    def recording(self, ray, active=None):
+        pi = query(self, ray, active)
+        jax.debug.callback(
+            lambda *rows: calls.append([np.asarray(r, np.float64)
+                                        for r in rows]),
+            ray.o[idx], ray.d[idx], pi.t[idx], pi.prim_idx[idx],
+            ordered=True)
+        return pi
+
+    SceneJ.ray_intersect_preliminary = recording
+    try:
+        jax.block_until_ready(jax.jit(_jax_pass(scene, spp))(
+            jnp.uint32(seed)))
+        jax.effects_barrier()
+    finally:
+        SceneJ.ray_intersect_preliminary = query
+    return {k: [tuple(r[j] for r in rows) for rows in calls]
+            for j, k in enumerate(order)}
+
+
+def assert_coplanar_ties(port_scene, jax_scene, lanes, spp):
+    """Each of ``lanes`` parts from the JAX lane where the two packages'
+    intersectors (K2's Woop test, the JAX CPU path's Moller-Trumbore)
+    break a tie between two coplanar faces hit at one point, and at no
+    earlier call (both traces recorded call by call)."""
+    from mitsuba2_tpu_torch.tools import wavefront_spread as ws
+    if not lanes:
+        return
+    ours = ws.lane_trace(port_scene, SEED, spp, lanes)
+    ref = jax_lane_trace(jax_scene, SEED, spp, lanes)
+    for k in lanes:
+        assert ws.tie_parting(port_scene, ours[k], ref[k]) is not None, \
+            (k, ws.first_parting(ours[k], ref[k]))
 
 
 def port_lanes(scene, seed, spp):
