@@ -109,6 +109,7 @@ without CUDA: nothing runs on the CPU instead.
 """
 
 import json
+import math
 import os
 import re
 import statistics
@@ -1618,11 +1619,12 @@ SURFACE_KINDS = ("TwoSided", "BumpMap", "NormalMap", "RoughDielectric",
 
 
 class _PassPartitions:
-    """Counts the BSDF partitions of each pass of the path wavefront, from
-    which the host's designed waits follow."""
+    """Counts the BSDF partitions of each pass of the path wavefront (or,
+    without ``loop``, of an integrator whose pass has no bounce loop),
+    from which the host's designed waits follow."""
 
-    def __init__(self, integ):
-        self.integ, self.passes = integ, []
+    def __init__(self, integ, loop=True):
+        self.integ, self.passes, self.loop = integ, [], loop
 
     def __enter__(self):
         from mitsuba2_tpu_torch.render.scene import Scene
@@ -1649,7 +1651,10 @@ class _PassPartitions:
 
     def designed_syncs(self):
         """Each bounce's loop test and partition read, and the loop test
-        that ends a pass whose lanes all died before max_depth."""
+        that ends a pass whose lanes all died before max_depth; without a
+        loop, the partition reads alone."""
+        if not self.loop:
+            return sum(self.passes)
         last = self.integ.max_depth - 1
         return sum(2 * p + (p < last) for p in self.passes)
 
@@ -1664,9 +1669,9 @@ def check_surface_first_hits(mi, scene):
     ys, xs = torch.meshgrid((torch.arange(h, device=dev) + 0.5) / h,
                             (torch.arange(w, device=dev) + 0.5) / w,
                             indexing="ij")
-    ray, _, _ = sensor.sample_ray(torch.zeros(w * h, device=dev),
+    ray, _, _ = sensor.sample_ray(0.0, torch.zeros(w * h, device=dev),
                                   torch.stack([xs.reshape(-1),
-                                               ys.reshape(-1)], -1))
+                                               ys.reshape(-1)], -1), None)
     si = scene.ray_intersect(ray)
     names = [type(b).__name__ for b in scene.wavefront_tables().bsdfs]
     counts = {}
@@ -1683,6 +1688,45 @@ def check_surface_first_hits(mi, scene):
         raise SystemExit(f"cornell_surfaces: {low} are the first hit of "
                          f"less than {MIN_FIRST_HIT_SHARE} of camera rays")
     return shares
+
+
+def wavefront_k2_entries(ik, isx, pk, label, scene, render, launches):
+    """K2 on the rays of one wavefront render of ``scene`` (``render()``):
+    each entry against its plain twin, bit for bit, on ISECT_PARITY_RAYS
+    rays sampled from every launch, and timed on its busiest launch ->
+    the two entries of the kernels line, named "<entry>[label]", with
+    ``launches``, the entries' launches in the main run (a render of
+    few launches gives each more rays, so that every entry has
+    ISECT_PARITY_RAYS)."""
+    per_launch = max(WF_K2_SAMPLE,
+                     -(-ISECT_PARITY_RAYS // min(launches.values())))
+    samples, full = record_k2(ik, render, per_launch=per_launch,
+                              busiest=True)
+    tables = scene.tables
+    woop = pk.face_woop(tables)
+    trees = pk.walk_trees(tables)
+    entries = []
+    for name, fn, ref, out_bytes in (
+            ("isect_closest", ik.isect_closest, isx.closest_hit_reference,
+             16),
+            ("isect_any", ik.isect_any, isx.any_hit_reference, 1)):
+        every = tuple(torch.cat(xs) for xs in zip(*samples[name]))
+        sub = every_kth(every, ISECT_PARITY_RAYS)
+        got = fn(tables, *sub)
+        torch.cuda.synchronize()
+        active = float((sub[3] > sub[2]).float().mean())
+        busy = full[name]
+        log(f"  {name} on {label}'s rays ({len(samples[name])} launches "
+            f"of one render, {per_launch} rays of each; "
+            f"{len(sub[0])} of those, {active:.4f} of them active; "
+            f"timed on the busiest launch, "
+            f"{int((busy[3] > busy[2]).sum())} of {len(busy[0])} rays "
+            f"active):")
+        err = isect_parity(name, got, ref(woop, *sub))
+        entries.append(k2_entry(
+            isx, f"{name}[{label}]", fn, ref, tables, woop, trees,
+            full[name], out_bytes, launches[name], err))
+    return entries
 
 
 def run_surface_wavefronts(mi, ik, isx, pk, scenes):
@@ -1786,34 +1830,9 @@ def run_surface_wavefronts(mi, ik, isx, pk, scenes):
             + f"; the rest {total - sum(top.values()):.1f} ms; K2 share "
             f"{100 * k2 / total:.2f}%")
 
-        # ---- K2 on the scene's rays, against its plain twin, timed on
-        # each entry's busiest launch ----
-        samples, full = record_k2(
-            ik, lambda: integ.render(scene, seed=SEED, spp=SPP),
-            busiest=True)
-        tables = scene.tables
-        woop = pk.face_woop(tables)
-        trees = pk.walk_trees(tables)
-        for name, fn, ref, out_bytes in (
-                ("isect_closest", ik.isect_closest,
-                 isx.closest_hit_reference, 16),
-                ("isect_any", ik.isect_any, isx.any_hit_reference, 1)):
-            every = tuple(torch.cat(xs) for xs in zip(*samples[name]))
-            sub = every_kth(every, ISECT_PARITY_RAYS)
-            got = fn(tables, *sub)
-            torch.cuda.synchronize()
-            active = float((sub[3] > sub[2]).float().mean())
-            busy = full[name]
-            log(f"  {name} on {label}'s rays ({len(samples[name])} launches "
-                f"of one render, {WF_K2_SAMPLE} rays of each; "
-                f"{len(sub[0])} of those, {active:.4f} of them active; "
-                f"timed on the busiest launch, "
-                f"{int((busy[3] > busy[2]).sum())} of {len(busy[0])} rays "
-                f"active):")
-            err = isect_parity(name, got, ref(woop, *sub))
-            entries.append(k2_entry(
-                isx, f"{name}[{label}]", fn, ref, tables, woop, trees,
-                full[name], out_bytes, launches[name], err))
+        entries += wavefront_k2_entries(
+            ik, isx, pk, label, scene,
+            lambda: integ.render(scene, seed=SEED, spp=SPP), launches)
         log(f"  {label} at the main shape: "
             f"{time.perf_counter() - t_scene:.1f} s")
 
@@ -1870,6 +1889,274 @@ def run_surface_wavefronts(mi, ik, isx, pk, scenes):
             raise SystemExit(f"{label}: the uniform spectrum light renders "
                              f"apart from its color")
     log(f"surface wavefront phase: {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
+# the sensors', samplers' and integrators' phase (every scene the Cornell
+# box at the main shape): (label, fixture, the kernels' gate's reason, the
+# image mean's band, whether the pass loops over bounces)
+SENSOR_SCENES = (
+    ("cornell_thinlens", "cornell_thinlens_dict", "sensor ThinLensCamera",
+     (0.05, 1.0), True),
+    ("cornell_direct", "cornell_direct_dict", "non-path integrator subclass",
+     (0.02, 1.0), False))
+AOV_SPP = 16
+# the meters' readings in constant environments of 0.8 and 1
+# (tests/test_rfilter_sensor_battery.py:118-152)
+METER_READINGS = (("radiancemeter", 0.8, 0.02),
+                  ("irradiancemeter", math.pi, 0.15))
+
+
+def time_wavefront(ik, label, scene, reason, band, loop):
+    """One wavefront render of ``scene`` at the main shape, K2's launch
+    counts zeroed before it and read after, checked (engine, the gate's
+    ``reason``, K2 reached, finite image within ``band``), then timed
+    (median of 3 after it), its host syncs against the design's count and
+    its spans by layer -> K2's launches by entry."""
+    from mitsuba2_tpu_torch.render.scene import Scene
+    integ = scene.integrator
+    n = WIDTH * WIDTH * SPP
+    ik.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    img = integ.render(scene, seed=SEED, spp=SPP)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {"isect_closest": ik.isect_closest.launches,
+                "isect_any": ik.isect_any.launches}
+    peak = torch.cuda.max_memory_allocated()
+    if integ.last_engine != "wavefront" or integ.engine_reason != reason:
+        raise SystemExit(f"{label}: engine {integ.last_engine} "
+                         f"({integ.engine_reason})")
+    if min(launches.values()) < 1:
+        raise SystemExit(f"{label}: the wavefront missed K2: {launches}")
+    mean = float(img.mean())
+    if not (bool(torch.isfinite(img).all()) and band[0] < mean < band[1]):
+        raise SystemExit(f"{label}: implausible image, mean {mean}")
+    passes = max(1, n // integ.MAX_WAVEFRONT)
+    _, times = prof.cuda_times(
+        lambda: integ.render(scene, seed=SEED, spp=SPP), runs=3,
+        warm_up=False)
+    ms = statistics.median(times)
+    log(f"{label} {WIDTH}^2 x {SPP} spp, depth {MAX_DEPTH}: engine "
+        f"{integ.last_engine} (gate: {integ.engine_reason}); {passes} passes "
+        f"of {integ.MAX_WAVEFRONT} lanes; first render {first_s:.2f} s; "
+        f"image mean {mean:.6f}; render {ms:.1f} ms (median of 3 after "
+        f"it: {', '.join(f'{t:.1f}' for t in times)}), "
+        f"{n / ms / 1e3:.4f} Mpaths/s; K2 launches in one render: "
+        f"{launches}; peak memory {peak / 2**20:.1f} MiB "
+        f"({peak / (n // passes):.0f} B a lane)")
+    with _PassPartitions(integ, loop) as parts_count:
+        _, syncs, sync_sites, host = counted_render(integ, scene)
+    designed = parts_count.designed_syncs()
+    log(f"  host syncs in a second render: {syncs} in the package's code "
+        f"on the card, {host.total} counted by HostTransfers; the "
+        f"design's count {designed} ({parts_count.passes} partitions a "
+        f"pass); by site: " + ", ".join(
+            f"{k} {v}" for k, v in sorted(sync_sites.items())))
+    if syncs != designed or host.total != designed:
+        raise SystemExit(f"{label}: host waits beside the design's")
+    layers = [(Scene, "sample_emitter_direction", "emitter sampling"),
+              (Scene, "bsdf_partition", "BSDF partition"),
+              (Scene, "bsdf_eval_pdf", "BSDF eval+pdf"),
+              (Scene, "bsdf_sample", "BSDF sample"),
+              (scene.sensors[0], "sample_ray", "camera rays")]
+    with _Spans(ik, layers, nest=True) as spans:
+        _, (total,) = prof.cuda_times(
+            lambda: integ.render(scene, seed=SEED, spp=SPP), runs=1,
+            warm_up=False)
+    parts = spans.ms()
+    top = {k: v for k, v in parts.items() if " in " not in k}
+    k2 = sum(v for k, v in parts.items() if k.startswith("isect_"))
+    log(f"  spans of one instrumented render ({total:.1f} ms): " + ", ".join(
+        f"{k} {v:.1f} ms" for k, v in sorted(parts.items()))
+        + f"; the rest {total - sum(top.values()):.1f} ms; K2 share "
+        f"{100 * k2 / total:.2f}%")
+    return launches
+
+
+def check_aov_and_moment(mi, scenes):
+    """cornell_aov (AOV_SPP) has 3 + 12 channels, its depth channel a
+    depth render's bit for bit; cornell_moment's second moments are at
+    least the squared means, pixel by pixel."""
+    d = scenes.cornell_aov_dict(WIDTH, WIDTH, AOV_SPP, MAX_DEPTH)
+    scene = mi.load_dict(d)
+    integ = scene.integrator
+    img = integ.render(scene, seed=SEED, spp=AOV_SPP)
+    t0 = time.perf_counter()
+    img = integ.render(scene, seed=SEED, spp=AOV_SPP)
+    torch.cuda.synchronize()
+    aov_s = time.perf_counter() - t0
+    d["integrator"] = {"type": "depth"}
+    sc = mi.load_dict(d)
+    depth = sc.integrator.render(sc, seed=SEED, spp=AOV_SPP)
+    same = torch.equal(img[..., 3], depth[..., 0])
+    log(f"cornell_aov {WIDTH}^2 x {AOV_SPP}: engine {integ.last_engine}; "
+        f"{img.shape[-1]} channels ({', '.join(integ.aov_names())} after "
+        f"rgb); render {1e3 * aov_s:.1f} ms; depth channel bit for bit the "
+        f"depth render's: {same}; color channels the nested path's: "
+        f"{torch.equal(img[..., :3], img[..., 12:])}")
+    if img.shape != (WIDTH, WIDTH, 15) or not same \
+            or not bool(torch.isfinite(img).all()) \
+            or integ.last_engine != "wavefront":
+        raise SystemExit("cornell_aov: wrong channels")
+    scene = mi.load_dict(scenes.cornell_moment_dict(WIDTH, WIDTH, SPP,
+                                                    MAX_DEPTH))
+    t0 = time.perf_counter()
+    img = scene.integrator.render(scene, seed=SEED, spp=SPP).double()
+    torch.cuda.synchronize()
+    mean, m2 = img[..., :3], img[..., 3:]
+    slack = float((m2 - mean * mean * (1 - 1e-5)).min())
+    log(f"cornell_moment {WIDTH}^2 x {SPP} (orthogonal, p = "
+        f"{scene.sensors[0].sampler.p}): {time.perf_counter() - t0:.2f} s; "
+        f"min of m2 - mean^2 (1 - 1e-5) {slack:.3e}, mean m2 "
+        f"{float(m2.mean()):.6f}, mean^2 {float((mean * mean).mean()):.6f}")
+    if slack < -1e-7 or img.shape[-1] != 6:
+        raise SystemExit("cornell_moment: a second moment below the square "
+                         "of its mean")
+
+
+def check_meters(mi):
+    """The radiancemeter and the irradiancemeter in constant environments
+    on the card: METER_READINGS."""
+    T = mi.Transform
+    film = {"type": "hdrfilm", "width": 1, "height": 1,
+            "rfilter": {"type": "box"}}
+    for kind, want, tol in METER_READINGS:
+        env = {"type": "constant",
+               "radiance": {"type": "rgb",
+                            "value": 0.8 if kind == "radiancemeter"
+                            else 1.0}}
+        sampler = {"type": "independent", "sample_count": 256}
+        d = {"type": "scene", "env": env,
+             "integrator": {"type": "path", "max_depth": 2}}
+        if kind == "radiancemeter":
+            d["sensor"] = {"type": kind, "film": film, "sampler": sampler,
+                           "to_world": T.look_at([0, 0, 1], [0, 0, 0],
+                                                 [0, 1, 0])}
+        else:
+            d["sphere"] = {"type": "sphere", "radius": 0.2, "sensor": {
+                "type": kind, "film": film, "sampler": sampler}}
+        scene = mi.load_dict(d)
+        got = float(scene.integrator.render(scene, seed=SEED, spp=256)
+                    .mean())
+        log(f"{kind} on the card: {got:.6f} (want {want:.4f} +- {tol}; "
+            f"engine {scene.integrator.last_engine}, gate: "
+            f"{scene.integrator.engine_reason})")
+        if abs(got - want) > tol:
+            raise SystemExit(f"{kind}: reads {got}")
+
+
+def run_sensor_integrator_wavefronts(mi, ik, isx, pk, scenes):
+    """The sensors, samplers and integrators without a kernel: cornell_thinlens
+    (a thin lens, ldsampler, path) and cornell_direct (direct, stratified)
+    at the main shape through the wavefront (``time_wavefront``; K2 bit
+    for bit against its twin on rays of every launch, timed on the
+    busiest), cornell_aov's channels against a depth render,
+    cornell_moment's second moments, the mesh-attribute box, thinlens,
+    direct and the mesh-attribute box card against CPU at 32^2 x 4, a
+    stratified Cornell box on the path kernel bit for bit the independent
+    one's, the Cornell box in scalar_rgb_double bit for bit the forced
+    scalar_rgb wavefront's, and the meters' readings -> K2's four entries
+    of the kernels line."""
+    t_phase = time.perf_counter()
+    mi.set_variant("scalar_rgb")
+    entries = []
+    for label, make, reason, band, loop in SENSOR_SCENES:
+        t_scene = time.perf_counter()
+        scene = mi.load_dict(getattr(scenes, make)(WIDTH, WIDTH, SPP,
+                                                   MAX_DEPTH))
+        launches = time_wavefront(ik, label, scene, reason, band, loop)
+        entries += wavefront_k2_entries(
+            ik, isx, pk, label, scene,
+            lambda: scene.integrator.render(scene, seed=SEED, spp=SPP),
+            launches)
+        log(f"  {label}: {time.perf_counter() - t_scene:.1f} s")
+    check_aov_and_moment(mi, scenes)
+
+    # ---- the mesh-attribute box ----
+    scene = mi.load_dict(scenes.cornell_mesh_attribute_dict(
+        WIDTH, WIDTH, SPP, MAX_DEPTH))
+    t0 = time.perf_counter()
+    img = scene.integrator.render(scene, seed=SEED, spp=SPP)
+    torch.cuda.synchronize()
+    log(f"cornell_mesh_attribute {WIDTH}^2 x {SPP}: engine "
+        f"{scene.integrator.last_engine} (gate: "
+        f"{scene.integrator.engine_reason}); first render "
+        f"{time.perf_counter() - t0:.2f} s; image mean "
+        f"{float(img.mean()):.6f}")
+    if scene.integrator.last_engine != "wavefront" \
+            or not bool(torch.isfinite(img).all()):
+        raise SystemExit("cornell_mesh_attribute: not rendered")
+
+    # ---- the card against the CPU ----
+    t_step = time.perf_counter()
+    w, spp = WF_CPU_WIDTH, WF_CPU_SPP
+    for make in ("cornell_thinlens_dict", "cornell_direct_dict",
+                 "cornell_mesh_attribute_dict"):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            mi.set_device(dev)
+            try:
+                sc = mi.load_dict(getattr(scenes, make)(w, w, spp,
+                                                        MAX_DEPTH))
+                runs[dev] = (sc, sc.integrator.render(sc, seed=SEED,
+                                                      spp=spp),
+                             wavefront_lanes(sc, SEED, spp))
+            finally:
+                mi.set_device("cuda")
+        hold_card_against_cpu(f"{make[:-5]} {w}^2 x {spp}, card against "
+                              f"CPU", runs, ties=True)
+    log(f"  card against CPU: {time.perf_counter() - t_step:.1f} s")
+
+    # ---- a structured sampler stays on the path kernel; _double renders
+    # on the wavefront as the float32 variant ----
+    imgs = {}
+    for sampler in ("independent", "stratified"):
+        d = scenes.cornell_box_dict(WIDTH, WIDTH, SPP, MAX_DEPTH)
+        d["sensor"]["sampler"]["type"] = sampler
+        sc = mi.load_dict(d)
+        pk.reset_launch_counts()
+        imgs[sampler] = sc.integrator.render(sc, seed=SEED, spp=SPP)
+        torch.cuda.synchronize()
+        if sc.integrator.last_engine != "kernel" \
+                or pk.path_radiance.launches < 1:
+            raise SystemExit(f"cornell with {sampler}: engine "
+                             f"{sc.integrator.last_engine} "
+                             f"({sc.integrator.engine_reason})")
+    same = torch.equal(imgs["independent"], imgs["stratified"])
+    log(f"cornell {WIDTH}^2 x {SPP} with stratified: engine kernel "
+        f"(path_kernel launches {pk.path_radiance.launches}), the image bit "
+        f"for bit the independent sampler's: {same}")
+    if not same:
+        raise SystemExit("stratified Cornell: the kernel's image moved")
+    for variant, force in (("scalar_rgb_double", False),
+                           ("scalar_rgb", True)):
+        mi.set_variant(variant)
+        sc = mi.load_dict(scenes.cornell_box_dict(WIDTH, WIDTH, SPP,
+                                                  MAX_DEPTH))
+        sc.integrator._disable_kernel = force
+        t0 = time.perf_counter()
+        imgs[variant] = sc.integrator.render(sc, seed=SEED, spp=SPP)
+        torch.cuda.synchronize()
+        log(f"cornell {variant} {WIDTH}^2 x {SPP}: engine "
+            f"{sc.integrator.last_engine} (gate: "
+            f"{sc.integrator.engine_reason}), "
+            f"{time.perf_counter() - t0:.2f} s, dtype "
+            f"{imgs[variant].dtype}")
+        if variant.endswith("double") and (
+                sc.integrator.last_engine != "wavefront"
+                or sc.integrator.engine_reason != "double-precision variant"):
+            raise SystemExit("cornell double: not on the wavefront")
+    mi.set_variant("scalar_rgb")
+    same = torch.equal(imgs["scalar_rgb_double"], imgs["scalar_rgb"])
+    log(f"  scalar_rgb_double bit for bit the forced scalar_rgb wavefront's: "
+        f"{same}")
+    if not same:
+        raise SystemExit("cornell double: apart from the float32 render")
+    check_meters(mi)
+    log(f"sensor and integrator wavefront phase: "
+        f"{time.perf_counter() - t_phase:.1f} s")
     return entries
 
 
@@ -1988,6 +2275,7 @@ def main():
     kernels += run_wavefront(mi, ik, isx, pk, scenes)
     kernels += run_volpath_wavefront(mi, ik, isx, pk, scenes)
     kernels += run_surface_wavefronts(mi, ik, isx, pk, scenes)
+    kernels += run_sensor_integrator_wavefronts(mi, ik, isx, pk, scenes)
     check_forced_on_cornell(mi, pk, cornell_box_dict)
     kernels += run_ceiling(mi, pk, sk, cornell_box_dict,
                            cornell_materials_dict, face_rates)

@@ -85,3 +85,20 @@ def uniform_float(key, dim):
     """The core primitive: U[0,1) for (lane key, dimension counter)."""
     v0, _ = sample_tea_32(key, dim, _SAMPLE_ROUNDS)
     return u32_to_float01(v0)
+
+
+def pcg_hash(x):
+    """PCG's output permutation of one LCG step: a fast one-word hash
+    (``pcg_hash`` of mitsuba2_tpu/core/rng.py:58-63), bit for bit."""
+    state = (_mul32(_u32(x), 747796405) + 2891336453) & MASK32
+    word = _mul32(((state >> ((state >> 28) + 4)) ^ state), 277803737)
+    return (word >> 22) ^ word
+
+
+def hash_combine(a, b):
+    """Two uint32 words mixed boost-style, then through ``pcg_hash``
+    (mitsuba2_tpu/core/rng.py:66-69)."""
+    a = _u32(a)
+    b = _u32(b, a)
+    return pcg_hash(a ^ (((b + 0x9E3779B9) & MASK32) + ((a << 6) & MASK32)
+                         + (a >> 2)) & MASK32)

@@ -1,5 +1,5 @@
-"""Integrator plugins (reference: src/integrators/path.cpp, volpath.cpp,
-volpathmis.cpp).
+"""Integrator plugins (reference: src/integrators/path.cpp, direct.cpp,
+depth.cpp, aov.cpp, moment.cpp, volpath.cpp, volpathmis.cpp).
 
 The path integrator renders every scene inside the path kernel's scope
 through that kernel (ops/path_kernel.py) and every other scene through
@@ -12,7 +12,9 @@ launch raises. A scene the wavefront cannot render either raises
 ``volpathmis`` do the same with the volumetric kernel
 (ops/volpath_kernel.py) and their own wavefront,
 ``VolumetricPathIntegrator.sample`` (mitsuba2_tpu/models/
-integrators.py:539-869).
+integrators.py:539-869). ``depth``, ``direct``, ``aov`` and ``moment``
+have no kernel and render through the general wavefront alone (the JAX
+package's route for any integrator but ``path``, :74-75).
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ from ..core import math as m
 from ..core.object import register_plugin
 from ..core.ray import Ray
 from ..render.bsdf import BSDFContext, BSDFFlags
-from ..render.integrator import MonteCarloIntegrator, mis_weight
+from ..render.integrator import (MonteCarloIntegrator, SamplingIntegrator,
+                                 mis_weight)
 from ..render.records import DirectionSample, select
 
 
@@ -204,6 +207,227 @@ class PathIntegrator(_KernelIntegrator):
             si = si_next
             depth += 1
         return result
+
+
+class _WavefrontIntegrator(SamplingIntegrator):
+    """An integrator that only the general wavefront renders: no kernel
+    takes it, for the kernels' gates' reason ("non-path integrator
+    subclass", ``engine_reason``); a scene the wavefront cannot render
+    (``wavefront_ineligibility``, and the nested integrators' own
+    refusals) raises ``NotImplementedError`` with the missing piece."""
+
+    def __init__(self, props=None):
+        super().__init__(props)
+        self.engine_reason = "non-path integrator subclass"
+        self.last_engine = None
+        self.nested = []
+        if props is not None:
+            for _, obj in props.objects():
+                if getattr(obj, "plugin_category", "") == "integrator":
+                    self.nested.append(obj)
+
+    def render_wavefront(self, scene, sensor, sampler, seed, sample_base,
+                         spp_pass, spp_total):
+        reason = wavefront_ineligibility(scene, sensor)
+        for nested in self.nested:
+            check = getattr(nested, "_wavefront_ineligibility", None)
+            reason = reason or (check(scene, sensor) if check else None)
+        if reason is not None:
+            self.last_engine = None
+            raise NotImplementedError(
+                f"{reason} (the kernel's gate: {self.engine_reason})")
+        self.last_engine = "wavefront"
+        return super().render_wavefront(scene, sensor, sampler, seed,
+                                        sample_base, spp_pass, spp_total)
+
+
+@register_plugin("integrator", "depth")
+class DepthIntegrator(_WavefrontIntegrator):
+    """(depth.cpp) the distance to the first hit, 0 on a miss, in every
+    channel (mitsuba2_tpu/models/integrators.py:207-216)."""
+
+    def sample(self, scene, sampler, state, ray, wavelengths):
+        from ..variants import current
+        si = scene.ray_intersect(ray, None, wavelengths)
+        depth = torch.where(si.is_valid(), si.t, 0.0)
+        return depth[:, None].expand(-1, current().n_channels)
+
+
+@register_plugin("integrator", "direct")
+class DirectIntegrator(_WavefrontIntegrator):
+    """(direct.cpp:1-226; mitsuba2_tpu/models/integrators.py:219-305)
+    direct illumination: the emission the camera ray hits, then
+    ``emitter_samples`` emitter samples and ``bsdf_samples`` BSDF samples
+    (both ``shading_samples`` when given), combined with the power-2
+    heuristic over the strategies' sample fractions. Shadow rays go
+    through ``ray_test`` (K2's any hit), the BSDF samples' rays through
+    ``ray_intersect`` (K2's closest hit)."""
+
+    def __init__(self, props=None):
+        super().__init__(props)
+        p = props
+        if p is not None and p.has_property("shading_samples"):
+            self.emitter_samples = self.bsdf_samples = \
+                p.int_("shading_samples")
+        else:
+            self.emitter_samples = p.int_("emitter_samples", 1) if p else 1
+            self.bsdf_samples = p.int_("bsdf_samples", 1) if p else 1
+        self.weight_em = 1.0 / max(self.emitter_samples, 1)
+        self.weight_bsdf = 1.0 / max(self.bsdf_samples, 1)
+        self.frac_bsdf = self.bsdf_samples / max(
+            self.emitter_samples + self.bsdf_samples, 1)
+        self.frac_lum = 1.0 - self.frac_bsdf
+
+    def sample(self, scene, sampler, state, ray, wavelengths):
+        n = ray.o.shape[0]
+        ctx = BSDFContext()
+        si = scene.ray_intersect(ray, None, wavelengths)
+        active = torch.ones((n,), dtype=torch.bool, device=ray.o.device)
+        result = scene.eval_emitter(si, ray.d, active)
+        active = si.is_valid()
+        parts = scene.bsdf_partition(si, active)
+        smooth = (scene.bsdf_flags_at(si) & int(BSDFFlags.Smooth)) != 0
+        for _ in range(self.emitter_samples):
+            em_sample, state = sampler.next_2d(state)
+            active_e = active & smooth
+            ds, emitter_val = scene.sample_emitter_direction(si, em_sample,
+                                                             active_e)
+            active_e = active_e & (ds.pdf != 0)
+            bsdf_val, bsdf_pdf = scene.bsdf_eval_pdf(
+                ctx, si, si.to_local(ds.d), active_e, parts)
+            mis = torch.where(ds.delta, 1.0,
+                              mis_weight(ds.pdf * self.frac_lum,
+                                         bsdf_pdf * self.frac_bsdf))
+            result = result + torch.where(
+                active_e[:, None], mis[:, None] * bsdf_val * emitter_val
+                * self.weight_em, 0.0)
+        for _ in range(self.bsdf_samples):
+            b1, state = sampler.next_1d(state)
+            b2, state = sampler.next_2d(state)
+            bs, bsdf_weight = scene.bsdf_sample(ctx, si, b1, b2, active,
+                                                parts)
+            active_b = active & (bsdf_weight != 0).any(-1)
+            new_ray = si.spawn_ray(si.to_world(bs.wo))
+            si_next = scene.ray_intersect(new_ray, active_b, wavelengths)
+            emitted = scene.eval_emitter(si_next, new_ray.d, active_b)
+            ds = DirectionSample(
+                si_next.p, si_next.n, si_next.uv, torch.zeros_like(si.t),
+                torch.zeros_like(active), new_ray.d,
+                torch.where(si_next.is_valid(), si_next.t, float("inf")),
+                scene.emitter_index_at(si_next))
+            delta_lobe = (bs.sampled_type & int(BSDFFlags.Delta)) != 0
+            emitter_pdf = torch.where(
+                (ds.emitter_idx >= 0) & ~delta_lobe,
+                scene.pdf_emitter_direction(si, ds, active_b), 0.0)
+            mis = torch.where(delta_lobe, 1.0,
+                              mis_weight(bs.pdf * self.frac_bsdf,
+                                         emitter_pdf * self.frac_lum))
+            result = result + torch.where(
+                active_b[:, None], mis[:, None] * bsdf_weight * emitted
+                * self.weight_bsdf, 0.0)
+        return result
+
+
+@register_plugin("integrator", "aov")
+class AOVIntegrator(_WavefrontIntegrator):
+    """(aov.cpp; mitsuba2_tpu/models/integrators.py:314-391) arbitrary
+    output variables of the first hit, and nested integrators' outputs.
+    ``aovs`` lists "name:type" pairs, a type one of ``TYPES``; each
+    nested integrator adds its rgb (its first three channels, or its one
+    channel three times) and its own AOVs, and the color channels are
+    the nested integrators' mean radiance."""
+
+    TYPES = ("depth", "position", "uv", "geo_normal", "sh_normal",
+             "dp_du", "dp_dv", "prim_index", "shape_index")
+    # channels of each type, three for the rest
+    _WIDTH = {"depth": 1, "uv": 2, "prim_index": 1, "shape_index": 1}
+
+    def __init__(self, props=None):
+        super().__init__(props)
+        self.outputs = []       # (name, type)
+        spec = props.string("aovs", "") if props is not None else ""
+        for item in (x for x in spec.split(",") if x.strip()):
+            name, _, typ = item.partition(":")
+            typ = typ.strip()
+            if typ not in self.TYPES:
+                raise ValueError(f"unknown AOV type {typ!r}; "
+                                 f"supported: {self.TYPES}")
+            self.outputs.append((name.strip(), typ))
+
+    def aov_names(self):
+        names = []
+        for name, typ in self.outputs:
+            k = self._WIDTH.get(typ, 3)
+            names.extend([name] if k == 1
+                         else [f"{name}.{c}" for c in "xyz"[:k]])
+        for i, nested in enumerate(self.nested):
+            names.extend([f"nested_{i}.{c}" for c in "rgb"]
+                         + nested.aov_names())
+        return names
+
+    def sample(self, scene, sampler, state, ray, wavelengths):
+        return self.sample_aovs(scene, sampler, state, ray, wavelengths)[0]
+
+    def sample_aovs(self, scene, sampler, state, ray, wavelengths):
+        from ..variants import current
+        si = scene.ray_intersect(ray, None, wavelengths)
+        fields = {"position": si.p, "uv": si.uv, "geo_normal": si.n,
+                  "sh_normal": si.sh_frame.n, "dp_du": si.dp_du,
+                  "dp_dv": si.dp_dv}
+        aovs = []
+        for _, typ in self.outputs:
+            if typ == "depth":
+                aovs.append(torch.where(si.is_valid(), si.t, 0.0))
+            elif typ == "prim_index":
+                aovs.append(si.prim_idx.to(si.t.dtype))
+            elif typ == "shape_index":
+                aovs.append(si.shape_idx.to(si.t.dtype))
+            else:
+                aovs.extend(fields[typ].unbind(-1))
+        result = torch.zeros((ray.o.shape[0], current().n_channels),
+                             device=ray.o.device)
+        for nested in self.nested:
+            r, sub_aovs = nested.sample_aovs(scene, sampler, state, ray,
+                                             wavelengths)
+            result = result + r
+            aovs.extend(r[:, i] for i in range(min(3, r.shape[1])))
+            aovs.extend([r[:, 0]] * (3 - r.shape[1]))
+            aovs.extend(sub_aovs)
+        if self.nested:
+            result = result / len(self.nested)
+        return result, aovs
+
+
+@register_plugin("integrator", "moment")
+class MomentIntegrator(_WavefrontIntegrator):
+    """(moment.cpp; mitsuba2_tpu/models/integrators.py:394-430) the
+    nested integrators' mean radiance, and each one's second moment: the
+    square of its rgb (its first channel three times unless it has
+    three), three AOV channels each."""
+
+    def __init__(self, props=None):
+        super().__init__(props)
+        if not self.nested:
+            raise RuntimeError("moment integrator needs nested integrators")
+
+    def aov_names(self):
+        return [f"m2_{i}.{c}" for i in range(len(self.nested))
+                for c in "rgb"]
+
+    def sample(self, scene, sampler, state, ray, wavelengths):
+        return self.sample_aovs(scene, sampler, state, ray, wavelengths)[0]
+
+    def sample_aovs(self, scene, sampler, state, ray, wavelengths):
+        from ..variants import current
+        result = torch.zeros((ray.o.shape[0], current().n_channels),
+                             device=ray.o.device)
+        aovs = []
+        for nested in self.nested:
+            r = nested.sample(scene, sampler, state, ray, wavelengths)
+            result = result + r
+            r3 = r if r.shape[1] == 3 else r[:, :1].expand(-1, 3)
+            aovs.extend((r3 * r3).unbind(-1))
+        return result / len(self.nested), aovs
 
 
 def _index_spectrum(vec, channel):
@@ -641,22 +865,21 @@ class VolumetricMISPathIntegrator(VolumetricPathIntegrator):
 
 def wavefront_ineligibility(scene, sensor):
     """-> None if the general wavefront renders the scene, else the
-    missing piece: another variant than float32 unpolarized, another
-    sensor than the pinhole, a shape that is not a mesh, sphere, disk or
-    cylinder, or a BSDF, emitter or texture without the methods the
-    wavefront calls. The path wavefront passes media by, as the
-    reference's does (a null boundary lets its rays through); the volpath
-    wavefront also asks ``_media_ineligibility``."""
+    missing piece: a polarized variant, a sensor without ``sample_ray``,
+    a shape that is not a mesh, sphere, disk or cylinder, or a BSDF,
+    emitter or texture without the methods the wavefront calls. A
+    ``_double`` variant renders in float32, as the reference's wavefront
+    does (nothing there enables 64-bit floats). The path wavefront passes
+    media by, as the reference's does (a null boundary lets its rays
+    through); the volpath wavefront also asks ``_media_ineligibility``."""
     from ..variants import current
-    from ..models.sensors import PerspectiveCamera
+    from ..render.sensor import Sensor
     from ..models.shapes import CylinderShape, DiskShape, SphereShape
     var = current()
     if var.polarized:
         return "polarized variant: the wavefront carries no Stokes vectors"
-    if var.double_precision:
-        return "double-precision variant: the wavefront is float32"
-    if type(sensor) is not PerspectiveCamera:
-        return f"sensor {type(sensor).__name__}"
+    if not _overrides(sensor, Sensor, "sample_ray"):
+        return f"sensor {type(sensor).__name__} has no sample_ray"
     for sh in scene.shapes:
         if not sh.is_mesh() and type(sh) not in (SphereShape, DiskShape,
                                                  CylinderShape):

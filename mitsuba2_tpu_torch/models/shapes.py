@@ -116,6 +116,21 @@ def _sphere_mesh(radius=1.0, center=(0, 0, 0), n_theta=32, n_phi=64):
             pts.astype(np.float32), uv.astype(np.float32))
 
 
+def _attach(shape, mesh):
+    """``mesh``, the tessellation of ``shape``, with its BSDF, emitter,
+    sensor and media, the emitter and sensor re-pointed at it."""
+    mesh.bsdf = shape.bsdf
+    mesh.emitter = shape.emitter
+    mesh.sensor = shape.sensor
+    mesh.interior_medium = shape.interior_medium
+    mesh.exterior_medium = shape.exterior_medium
+    if shape.emitter is not None:
+        shape.emitter.set_shape(mesh)
+    if shape.sensor is not None and hasattr(shape.sensor, "set_shape"):
+        shape.sensor.set_shape(mesh)
+    return mesh
+
+
 @register_plugin("shape", "sphere")
 class SphereShape(Shape):
     """(sphere.cpp) analytic sphere: ``center``, ``radius``, ``to_world``
@@ -145,7 +160,8 @@ class SphereShape(Shape):
         return True
 
     def expand(self):
-        if self.emitter is not None or not self._uniform:
+        if self.emitter is not None or self.sensor is not None \
+                or not self._uniform:
             return [self._tessellate()]
         return [self]
 
@@ -158,13 +174,7 @@ class SphereShape(Shape):
         if self.flip_normals:
             mesh.faces = mesh.faces[:, ::-1].copy()
             mesh.normals = -mesh.normals
-        mesh.bsdf = self.bsdf
-        mesh.emitter = self.emitter
-        mesh.interior_medium = self.interior_medium
-        mesh.exterior_medium = self.exterior_medium
-        if self.emitter is not None:
-            self.emitter.set_shape(mesh)
-        return mesh
+        return _attach(self, mesh)
 
     def bbox(self):
         return self.center - self.radius, self.center + self.radius
@@ -189,18 +199,10 @@ class _AnalyticQuadric(Shape):
         return True
 
     def expand(self):
-        if self.emitter is not None:
+        # an emitter or a sensor samples the shape's triangle tables
+        if self.emitter is not None or self.sensor is not None:
             return [self._tessellate()]
         return [self]
-
-    def _finish_tessellation(self, mesh):
-        mesh.bsdf = self.bsdf
-        mesh.emitter = self.emitter
-        mesh.interior_medium = self.interior_medium
-        mesh.exterior_medium = self.exterior_medium
-        if self.emitter is not None:
-            self.emitter.set_shape(mesh)
-        return mesh
 
     def prim_row(self) -> np.ndarray:
         """24 float32: [A rows 0:9 | b 9:12 | B rows 12:21 | kind 21 |
@@ -249,7 +251,7 @@ class DiskShape(_AnalyticQuadric):
         mesh = Mesh(None, vertices=v, faces=f, normals=n,
                     uvs=0.5 * (v[:, :2] + 1.0), name="disk")
         mesh.apply_transform(self._to_world)
-        return self._finish_tessellation(mesh)
+        return _attach(self, mesh)
 
 
 @register_plugin("shape", "cylinder")
@@ -328,7 +330,7 @@ class CylinderShape(_AnalyticQuadric):
         mesh = Mesh(None, vertices=v, faces=np.asarray(faces, np.int32),
                     normals=n, uvs=uv, name="cylinder")
         mesh.apply_transform(self._to_world_rigid)
-        return self._finish_tessellation(mesh)
+        return _attach(self, mesh)
 
 
 @register_plugin("shape", "obj")

@@ -1,6 +1,7 @@
 """Texture plugins: the constant color the scene loaders create for rgb
 values (xml.cpp:774-850, src/spectra/srgb.cpp), the uv checkerboard
-(checkerboard.cpp) and the bilinear image texture (bitmap.cpp).
+(checkerboard.cpp), the bilinear image texture (bitmap.cpp) and the mesh
+attribute (mesh_attribute.cpp).
 
 A constant color carries the payload of the variant it was loaded under
 (mitsuba2_tpu.models.textures._SpectrumData): linear rgb, the sigmoid
@@ -247,6 +248,90 @@ class BitmapTexture(Texture):
     def eval_1(self, si, active=True):
         """The luminance of ``eval_3`` (a height or opacity map)."""
         return spec.luminance(self.eval_3(si, active))
+
+
+@register_plugin("texture", "mesh_attribute")
+class MeshAttributeTexture(Texture):
+    """(mesh_attribute.cpp; mitsuba2_tpu/models/textures.py:240-327) a
+    named per-vertex or per-face mesh attribute (``vertex_*``/``face_*``,
+    ``Mesh.add_attribute``), times ``scale``. The scene wires in its
+    (F, 3k) corner table; ``eval`` gathers each lane's face row and
+    interpolates the corners with the hit's barycentrics. A 3-channel
+    attribute is a linear rgb color: in spectral variants each corner is
+    upsampled through the sRGB model, then the spectra are interpolated;
+    in mono variants its luminance. A 1-channel attribute repeats over
+    the variant's channels."""
+
+    def __init__(self, props=None, name=None, scale=1.0):
+        super().__init__(props)
+        if props is not None:
+            name = props.string("name")
+            scale = props.float_("scale", 1.0)
+        self.name = name or "vertex_color"
+        self.scale = scale
+        self._k = None
+        self._table = None     # (F, 3k) float32 on the host
+        self._coeff = None     # (F, 9) sigmoid coefficients a corner
+
+    def wire(self, scene):
+        if self.name not in scene.mesh_attr_tables:
+            raise RuntimeError(
+                f"mesh_attribute '{self.name}': no mesh in the scene "
+                f"carries this attribute")
+        self._k, self._table = scene.mesh_attr_tables[self.name]
+        self.__dict__.pop("_device_cache", None)
+        self._coeff = None
+        from ..variants import current
+        if self._k == 3 and current().is_spectral:
+            from ..render.srgb import srgb_model_fetch
+            self._coeff = np.asarray(srgb_model_fetch(
+                self._table.reshape(-1, 3)), np.float32).reshape(-1, 9)
+
+    def _interp_raw(self, si):
+        """The attribute at each lane (n, k)."""
+        from ..render.scene import corner_lerp
+        if self._k is None:
+            raise RuntimeError("mesh_attribute texture was never wired "
+                               "into a scene")
+        table = on_device(self, "table", self._table, si.t.device)
+        return corner_lerp(table, si, self._k)
+
+    def eval(self, si, active=True):
+        from ..variants import current
+        var = current()
+        if self._coeff is not None:
+            from ..render.scene import corner_lerp
+            from ..render.srgb import srgb_model_eval
+            coeff = on_device(self, "coeff", self._coeff, si.t.device)
+            return corner_lerp(coeff, si, 3, lambda c: srgb_model_eval(
+                c, si.wavelengths)) * self.scale
+        v = self._interp_raw(si)
+        if self._k == 3 and var.is_monochromatic:
+            v = spec.luminance(v)[..., None]
+        elif self._k == 1:
+            v = v.expand(-1, var.n_channels)
+        return v * self.scale
+
+    def eval_1(self, si, active=True):
+        v = self._interp_raw(si)
+        if self._k == 3:
+            return spec.luminance(v) * self.scale
+        return v[..., 0] * self.scale
+
+    def eval_3(self, si, active=True):
+        v = self._interp_raw(si)
+        if self._k == 1:
+            v = v.expand(-1, 3)
+        return v * self.scale
+
+    def mean(self):
+        if self._k == 3:
+            rgb = self._table.reshape(-1, 3).mean(0)
+            return float(rgb @ _LUMINANCE) * self.scale
+        return float(np.mean(self._table)) * self.scale
+
+    def is_spatially_varying(self):
+        return True
 
 
 def as_texture(v, within_emitter: bool = False) -> Texture:

@@ -579,3 +579,84 @@ def fog_spot_dict(width=32, height=32, spp=4, max_depth=8,
                             "height": height, "rfilter": {"type": "box"}},
                    "sampler": {"type": "independent", "sample_count": spp}},
     }
+
+
+def cornell_thinlens_dict(width=256, height=256, spp=64, max_depth=6,
+                          base=None, T=Transform):
+    """The Cornell box through a ``thinlens`` camera (aperture radius
+    0.05, focused at 3.9, the camera's distance to the box's centre) and
+    an ``ldsampler``. ``base`` and ``T`` as ``cornell_surfaces_dict``."""
+    d = base if base is not None else cornell_box_dict(
+        width, height, spp, max_depth)
+    d["sensor"]["type"] = "thinlens"
+    d["sensor"]["aperture_radius"] = 0.05
+    d["sensor"]["focus_distance"] = 3.9
+    d["sensor"]["sampler"]["type"] = "ldsampler"
+    return d
+
+
+def cornell_direct_dict(width=256, height=256, spp=64, max_depth=6,
+                        base=None, T=Transform):
+    """The Cornell box under the ``direct`` integrator (one emitter and
+    one BSDF sample) and a ``stratified`` sampler."""
+    d = base if base is not None else cornell_box_dict(
+        width, height, spp, max_depth)
+    d["integrator"] = {"type": "direct"}
+    d["sensor"]["sampler"]["type"] = "stratified"
+    return d
+
+
+# the AOVs of cornell_aov_dict: 1 + 3 + 3 + 2 channels, then the nested
+# path's rgb
+CORNELL_AOVS = "dd:depth,nn:sh_normal,pp:position,uv:uv"
+
+
+def cornell_aov_dict(width=256, height=256, spp=16, max_depth=6,
+                     base=None, T=Transform):
+    """The Cornell box under ``aov`` (``CORNELL_AOVS`` over a nested
+    ``path``) and a ``multijitter`` sampler."""
+    d = base if base is not None else cornell_box_dict(
+        width, height, spp, max_depth)
+    d["integrator"] = {"type": "aov", "aovs": CORNELL_AOVS,
+                       "image": {"type": "path", "max_depth": max_depth}}
+    d["sensor"]["sampler"]["type"] = "multijitter"
+    return d
+
+
+def cornell_moment_dict(width=256, height=256, spp=64, max_depth=6,
+                        base=None, T=Transform):
+    """The Cornell box under ``moment`` over a nested ``path`` and an
+    ``orthogonal`` sampler (p = 8 at 64 spp)."""
+    d = base if base is not None else cornell_box_dict(
+        width, height, spp, max_depth)
+    d["integrator"] = {"type": "moment",
+                       "image": {"type": "path", "max_depth": max_depth}}
+    d["sensor"]["sampler"]["type"] = "orthogonal"
+    return d
+
+
+# the back wall's corner colors in cornell_mesh_attribute_dict
+BACK_WALL_COLORS = np.asarray([[0.85, 0.2, 0.2], [0.2, 0.85, 0.2],
+                               [0.2, 0.2, 0.85], [0.85, 0.85, 0.2]],
+                              np.float32)
+
+
+def cornell_mesh_attribute_dict(width=256, height=256, spp=64, max_depth=6,
+                                base=None, T=Transform, load_dict=None):
+    """The Cornell box whose back wall's reflectance is a
+    ``mesh_attribute`` texture of its ``vertex_color`` attribute, set
+    with ``add_attribute`` (``BACK_WALL_COLORS`` at its four corners): the
+    wall is loaded on its own through ``load_dict`` (this package's by
+    default; another package's for its dict ``base``) and put in the dict
+    as a shape object."""
+    if load_dict is None:
+        from ... import load_dict
+    d = base if base is not None else cornell_box_dict(
+        width, height, spp, max_depth)
+    back = dict(d["back"])
+    back["bsdf"] = {"type": "diffuse", "reflectance": {
+        "type": "mesh_attribute", "name": "vertex_color"}}
+    mesh = load_dict(back).expand()[0]
+    mesh.add_attribute("vertex_color", 3, BACK_WALL_COLORS)
+    d["back"] = mesh
+    return d

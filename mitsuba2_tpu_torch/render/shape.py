@@ -14,14 +14,17 @@ from ..core.properties import Properties
 
 
 class Shape(Object):
-    """Base shape: carries its BSDF, an optional attached emitter and the
-    media inside and outside it (a nested medium under the key
-    ``exterior`` is the outside one, any other the inside one)."""
+    """Base shape: carries its BSDF, an optional attached emitter, an
+    optional attached sensor (an ``irradiancemeter``, wired with
+    ``set_shape``) and the media inside and outside it (a nested medium
+    under the key ``exterior`` is the outside one, any other the inside
+    one)."""
 
     def __init__(self, props: Properties | None = None):
         super().__init__(props)
         self.bsdf = None
         self.emitter = None
+        self.sensor = None
         self.interior_medium = None
         self.exterior_medium = None
         if props is not None:
@@ -32,6 +35,10 @@ class Shape(Object):
                 elif kind == "emitter":
                     self.emitter = obj
                     obj.set_shape(self)
+                elif kind == "sensor":
+                    self.sensor = obj
+                    if hasattr(obj, "set_shape"):
+                        obj.set_shape(self)
                 elif kind == "medium":
                     if key == "exterior":
                         self.exterior_medium = obj
@@ -64,6 +71,28 @@ class Mesh(Shape):
                                                                np.float32)
         self.uvs = None if uvs is None else np.asarray(uvs, np.float32)
         self.face_normals_only = self.normals is None
+        # named attributes (mesh.cpp add_attribute): "vertex_*" rows a
+        # vertex, "face_*" rows a face -> (size, (rows, size) float32)
+        self.attributes: dict = {}
+
+    def add_attribute(self, name: str, size: int, data):
+        """(mesh.cpp:300 add_attribute) a named per-vertex or per-face
+        attribute of ``size`` values a row, which ``mesh_attribute``
+        textures read (mitsuba2_tpu/render/shape.py:89-105)."""
+        data = np.asarray(data, np.float32).reshape(-1, size)
+        if not (name.startswith("vertex_") or name.startswith("face_")):
+            raise ValueError(
+                f"attribute '{name}' must start with vertex_ or face_")
+        n = self.vertex_count if name.startswith("vertex_") \
+            else self.face_count
+        if len(data) != n:
+            raise ValueError(
+                f"attribute '{name}': expected {n} rows, got {len(data)}")
+        self.attributes[name] = (size, data)
+
+    @property
+    def vertex_count(self):
+        return len(self.vertices)
 
     @property
     def face_count(self):

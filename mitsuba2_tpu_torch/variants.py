@@ -3,8 +3,9 @@
 A variant is a runtime configuration: color representation, polarization
 and precision (reference: resources/mitsuba.conf.template:95-278). Names
 parse as in ``mitsuba2_tpu.variants``; the rgb, spectral and mono color
-modes render, and the path integrator refuses polarized and double
-precision variants at render time.
+modes render, in float32 with or without ``_double`` (as the reference's
+wavefront), and the integrators refuse polarized variants at render
+time.
 
 The torch device every scene table and buffer lives on is ``cuda`` unless
 the caller names another with ``set_device`` (the CPU tests ask for
@@ -44,7 +45,11 @@ class Variant:
 
     @property
     def dtype(self):
-        return torch.float64 if self.double_precision else torch.float32
+        """The float type renders run in: float32 in every variant. The
+        reference's ``_double`` variants render in float32 too, since
+        nothing there enables 64-bit floats (mitsuba2_tpu/variants.py:49);
+        the kernels' gates refuse them, the wavefronts render them."""
+        return torch.float32
 
     @property
     def n_channels(self) -> int:

@@ -200,10 +200,9 @@ def _out_of_scope():
         "polarized variant": (None, None, "polarized variant",
                               "polarized variant: the wavefront carries "
                               "no Stokes vectors"),
+        # the wavefront renders it in float32, as the reference's does
         "double-precision variant": (None, None,
-                                     "double-precision variant",
-                                     "double-precision variant: the "
-                                     "wavefront is float32"),
+                                     "double-precision variant", None),
         "conductor IOR curve spectrum": (
             ior_curve, None, "conductor IOR curve spectra in spectral mode",
             None),

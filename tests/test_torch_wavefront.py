@@ -61,7 +61,8 @@ SEED = 3
 def _jax_pass(scene, spp):
     """The JAX wavefront's one pass of ``scene`` (its render_wavefront up
     to the splat, mitsuba2_tpu/render/integrator.py:176-219) as a function
-    of the seed -> (film positions (n, 2), rgb (n, 3))."""
+    of the seed -> (film positions (n, 2), rgb and the integrator's AOVs
+    (n, 3 + AOVs))."""
     import jax.numpy as jnp
     from mitsuba2_tpu.core import spectrum as spec_j
     from mitsuba2_tpu.variants import current
@@ -81,17 +82,21 @@ def _jax_pass(scene, spp):
                            -1) + jitter
         pos01 = pos_px / jnp.asarray([w, h], jnp.float32)
         ap, state = sampler.next_2d(state)
-        _, state = sampler.next_1d(state)
+        time, state = sampler.next_1d(state)
         wav, state = sampler.next_1d(state)
-        ray, weight = sensor.sample_ray(sensor.shutter_open, wav, pos01, ap,
-                                        True)
-        spec, _, _ = scene.integrator.sample(scene, sampler, state, ray)
+        time = sensor.shutter_open + time * (sensor.shutter_close
+                                             - sensor.shutter_open)
+        ray, weight = sensor.sample_ray(time, wav, pos01, ap, True)
+        spec, _, aovs = scene.integrator.sample(scene, sampler, state, ray)
         spec = spec * weight
         if var.is_spectral:
             spec = spec_j.spectrum_to_srgb_rows(spec.T,
                                                 ray.wavelengths.T).T
         elif var.is_monochromatic:
             spec = jnp.repeat(spec, 3, axis=-1)
+        if aovs:
+            spec = jnp.concatenate([spec] + [a[..., None] for a in aovs],
+                                   -1)
         return pos_px, spec
     return run
 
@@ -196,12 +201,16 @@ def render_pair(make, variant, width, spp, force=True, border=0, traced=()):
     try:
         sj = mj.load_dict(make(mj))
         ref = np.asarray(sj.integrator.render(sj, seed=SEED, spp=spp))
-        assert sj.integrator.last_engine == "wavefront"
+        # the JAX integrators but path and volpath have no other engine
+        assert getattr(sj.integrator, "last_engine",
+                       "wavefront") == "wavefront"
         st = mt.load_dict(make(mt))
         st.integrator._disable_kernel = force
         img = st.integrator.render(st, seed=SEED, spp=spp)
         assert st.integrator.last_engine == "wavefront"
-        assert img.shape == (width, width, 3) and torch.isfinite(img).all()
+        channels = 3 + len(st.integrator.aov_names())
+        assert img.shape == (width, width, channels) \
+            and torch.isfinite(img).all()
         assert_wavefront_parity(img.numpy(), ref, port_lanes(st, SEED, spp),
                                 jax_lanes(sj, SEED, spp), border, traced)
         return st, img
