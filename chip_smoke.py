@@ -92,7 +92,21 @@ and a point light in a homogeneous fog with a masked card) under volpath
 and volpathmis, card against CPU on one pass's lanes; then the Cornell
 box and the volpath slab with their area lights written as uniform
 spectra, which stay on the path kernel and K3 and render bit for bit as
-the same lights written as colors. Last comes
+the same lights written as colors. The scene-file and instancing phase
+(after the sensor and integrator phase) loads the Cornell box from an XML
+file (``load_file``) onto the path kernel, its tables within the writer's
+rounding of the dict scene's; biggeo's mesh from a PLY file, its image bit
+for bit the OBJ scene's, both loads timed; 8 instances of a 4,096-face
+group (materialized) on the BVH tier, held against the plain version on
+every 31st pixel; 8 instances of biggeo's 262,144-face group (shared: one
+packed group, a transform row an instance) on the path wavefront, timed
+with its host syncs, spans and peak memory (and at 2 instances), K2's
+instance entries bit for bit against their plain version on rays of four
+of the render's launches (``isect_closest_inst[instanced_shared]`` and
+``isect_any_inst[instanced_shared]`` in the kernels line), the small
+shared scene card against CPU, shared against materialized image means;
+``python -m mitsuba2_tpu_torch`` on the XML file, its EXR the in-process
+render's; and a Blender quad from numpy buffers. Last comes
 the measurement path: the face-test and box-test ceilings through
 ``tools/shape_ceiling.py`` (the sweep kernel's shared-memory and global
 face instantiations beside ``torch.matmul`` of the same product, and its
@@ -284,6 +298,8 @@ class Route(NamedTuple):
     ptxas_key: object = None
     # threads a block of its persistent launch
     block: int = 128
+    # the entry's name in the kernels line, if it is not ``label``
+    entry_name: str = None
 
 
 def check_first_hits(name, stats, n):
@@ -339,20 +355,22 @@ def check_splat(name, rad, width, spp, rfilter, launches):
 
 
 def drive(mi, pk, name, make_dict, width, spp, max_depth, mean_band,
-          route):
+          route, load=None):
     """Parity, and render and timing at the main shape (width^2 x spp,
     max_depth) of one path -> (its entries of
     the kernels line: the path's kernel, and the splat's where the film
     filter is not the box; for the path kernel {name: (face tests a second
     of its main run, the ceiling that bounds them, 'shared' or 'l2', the
-    wide walk's box tests a second)}, else {})."""
+    wide walk's box tests a second)}, else {}). ``make_dict`` gives what
+    ``load`` (``mi.load_dict`` unless given) loads."""
     from mitsuba2_tpu_torch.models.rfilters import BoxFilter
     from mitsuba2_tpu_torch.ops import splat as sp
     t_path = time.perf_counter()
+    load = load or mi.load_dict
 
     # ---- parity: kernel against its plain version on the same tables ----
     pw, pspp = route.parity
-    scene = mi.load_dict(make_dict(pw, pw, pspp, max_depth))
+    scene = load(make_dict(pw, pw, pspp, max_depth))
     if scene.device.type != "cuda":
         raise SystemExit(f"{name}: the default device is {scene.device}")
     cam = pk.camera_row(scene.sensors[0], scene.device)
@@ -364,8 +382,9 @@ def drive(mi, pk, name, make_dict, width, spp, max_depth, mean_band,
     t_plain = time.perf_counter()
     want = route.reference(*p_args, stats=stats)
     torch.cuda.synchronize()
+    parity_plain_ms = 1e3 * (time.perf_counter() - t_plain)
     log(f"{name} parity plain version, with its counts: "
-        f"{time.perf_counter() - t_plain:.1f} s")
+        f"{parity_plain_ms / 1e3:.1f} s")
     lane_rel = ((got - want).abs() / want.abs().clamp(min=1e-3)).amax(0)
     beyond = float((lane_rel > PIX_RTOL).float().mean())
     log(f"{name} parity {pw}^2 x {pspp} spp, depth {max_depth}: lanes not "
@@ -377,7 +396,7 @@ def drive(mi, pk, name, make_dict, width, spp, max_depth, mean_band,
         check_first_hits(name, stats, pw * pw * pspp)
 
     # ---- the path itself, through the user's entry points ----
-    scene = mi.load_dict(make_dict(width, width, spp, max_depth))
+    scene = load(make_dict(width, width, spp, max_depth))
     integrator = scene.integrator
     rfilter = scene.sensors[0].film.rfilter
     route.reset()
@@ -464,7 +483,8 @@ def drive(mi, pk, name, make_dict, width, spp, max_depth, mean_band,
         develop(k_rad, n_pix, spp, 1), develop(p_rad, n_pix, spp, 1),
         f"{name} main-path shape", route.mean_rtol))
     log(f"{name}: {time.perf_counter() - t_path:.1f} s")
-    return [{"name": route.label, "route": "cuda", "source": route.source,
+    return [{"name": route.entry_name or route.label, "route": "cuda",
+             "source": route.source,
              "replaces": route.replaces, "launches": launches,
              "max_abs_err": max_abs_err, "ms": kernel_ms,
              "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1028,6 +1048,7 @@ def record_k2(ik, render, per_launch=WF_K2_SAMPLE, busiest=False):
 
     def recording(entry, tables, o, d, mint, maxt, **out):
         rays = (o, d, mint, maxt)
+        samples.setdefault(entry, [])
         if busiest:
             active = int((maxt > mint).sum())
             keep = active > most.get(entry, -1)
@@ -1907,12 +1928,14 @@ METER_READINGS = (("radiancemeter", 0.8, 0.02),
                   ("irradiancemeter", math.pi, 0.15))
 
 
-def time_wavefront(ik, label, scene, reason, band, loop):
+def time_wavefront(ik, label, scene, reason, band, loop,
+                   entries=("isect_closest", "isect_any")):
     """One wavefront render of ``scene`` at the main shape, K2's launch
     counts zeroed before it and read after, checked (engine, the gate's
-    ``reason``, K2 reached, finite image within ``band``), then timed
-    (median of 3 after it), its host syncs against the design's count and
-    its spans by layer -> K2's launches by entry."""
+    ``reason``, each of K2's ``entries`` reached, finite image within
+    ``band``), then timed (median of 3 after it), its host syncs against
+    the design's count and its spans by layer -> (K2's launches by entry,
+    render ms, peak bytes)."""
     from mitsuba2_tpu_torch.render.scene import Scene
     integ = scene.integrator
     n = WIDTH * WIDTH * SPP
@@ -1922,8 +1945,8 @@ def time_wavefront(ik, label, scene, reason, band, loop):
     img = integ.render(scene, seed=SEED, spp=SPP)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {"isect_closest": ik.isect_closest.launches,
-                "isect_any": ik.isect_any.launches}
+    launches = {fn.__name__: fn.launches for fn in ik.ENTRIES
+                if fn.__name__ in entries}
     peak = torch.cuda.max_memory_allocated()
     if integ.last_engine != "wavefront" or integ.engine_reason != reason:
         raise SystemExit(f"{label}: engine {integ.last_engine} "
@@ -1972,7 +1995,7 @@ def time_wavefront(ik, label, scene, reason, band, loop):
         f"{k} {v:.1f} ms" for k, v in sorted(parts.items()))
         + f"; the rest {total - sum(top.values()):.1f} ms; K2 share "
         f"{100 * k2 / total:.2f}%")
-    return launches
+    return launches, ms, peak
 
 
 def check_aov_and_moment(mi, scenes):
@@ -2066,7 +2089,7 @@ def run_sensor_integrator_wavefronts(mi, ik, isx, pk, scenes):
         t_scene = time.perf_counter()
         scene = mi.load_dict(getattr(scenes, make)(WIDTH, WIDTH, SPP,
                                                    MAX_DEPTH))
-        launches = time_wavefront(ik, label, scene, reason, band, loop)
+        launches = time_wavefront(ik, label, scene, reason, band, loop)[0]
         entries += wavefront_k2_entries(
             ik, isx, pk, label, scene,
             lambda: scene.integrator.render(scene, seed=SEED, spp=SPP),
@@ -2160,6 +2183,434 @@ def run_sensor_integrator_wavefronts(mi, ik, isx, pk, scenes):
     return entries
 
 
+# ---- the scene-file and instancing phase -----------------------------------
+# the groups of the instancing scenes: 8 instances of biggeo's 262,144-face
+# sphere (shared by policy) and of a 4,096-face one (materialized)
+INST_COUNT = 8
+INST_BIG, INST_SMALL = (512, 257), (64, 33)
+SHARED_REASON = "shared-geometry instances (wavefront path only)"
+# the instance entries' bound: a ray's move into a group's frame, 18
+# products and 15 sums
+INST_TRANSFORM_FLOPS = 33
+# the instance entries' parity sample: rays from four launches of a render
+INST_PARITY_RAYS, INST_LAUNCHES = 8192, 4
+# the rays of the busiest launch whose walks the bound counts on the host
+INST_COUNT_RAYS = 2048
+# the JAX test's bar of shared against materialized image means
+SHARED_MEAN_RTOL = 0.02
+
+
+def blender_quad_dict(shapes):
+    """A two-triangle quad in Blender's memory layout (the buffers of
+    tests/test_blender.py, smooth, with uvs and a color layer) -> (its
+    ``blender`` shape dict, the buffers to keep alive while it loads)."""
+    verts = np.zeros(4, shapes._M_VERT)
+    verts["co"] = [[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0]]
+    verts["no"] = [[0, 0, 32767]] * 4
+    loops = np.zeros(6, shapes._ML_LOOP)
+    loops["v"] = [0, 1, 2, 0, 2, 3]
+    tris = np.zeros(2, shapes._ML_LOOPTRI)
+    tris["tri"] = [[0, 1, 2], [3, 4, 5]]
+    tris["poly"] = [0, 1]
+    polys = np.zeros(2, shapes._M_POLY)
+    polys["loopstart"] = [0, 3]
+    polys["totloop"] = [3, 3]
+    polys["flag"] = 1
+    uvs = np.zeros(6, shapes._ML_LOOPUV)
+    uvs["uv"] = [[0, 1], [1, 1], [1, 0], [0, 1], [1, 0], [0, 0]]
+    cols = np.zeros(6, shapes._ML_LOOPCOL)
+    for k in "rgb":
+        cols[k] = [255, 0, 0, 255, 0, 128]
+    keep = (verts, loops, tris, polys, uvs, cols)
+    return {"type": "blender", "name": "quad", "mat_nr": 0, "vert_count": 4,
+            "loop_count": 6, "loop_tri_count": 2,
+            "loops": loops.ctypes.data, "loop_tris": tris.ctypes.data,
+            "polys": polys.ctypes.data, "verts": verts.ctypes.data,
+            "uvs": uvs.ctypes.data, "vertex_Col": cols.ctypes.data,
+            "bsdf": {"type": "diffuse"}}, keep
+
+
+def scene_path_route(pk, name, flags, **fields):
+    """The path kernel's Route of a scene of this phase (rgb; the entry
+    ``path_kernel[name]`` in the kernels line)."""
+    def tables(scene):
+        if (scene.tables.flags & pk.TEMPLATE_FLAGS, scene.tables.nc) \
+                != (flags, 3):
+            raise SystemExit(f"{name}: scene tables carry flags "
+                             f"{scene.tables.flags}, nc {scene.tables.nc}")
+        return scene.tables
+
+    return Route(pk.kernel_name(flags, 3), (flags, 3), pk.path_radiance,
+                 pk.path_radiance_reference, pk.reset_launch_counts, tables,
+                 lambda *a: bound(pk, *a),
+                 "mitsuba2_tpu_torch/csrc/path_kernel.cu",
+                 "mitsuba2_tpu/ops/megakernel.py:365", block=pk.BLOCK,
+                 entry_name=f"path_kernel[{name}]", **fields)
+
+
+def inst_walk_bound(isx, inst, sample, any_hit):
+    """-> (ms, 'operations' or 'bytes') of the instance entry on the rays
+    ``sample`` (o, d, mint, maxt on the host), per ray scaled to ``n``
+    rays by the caller: the binary walks' box and face tests over every
+    instance, each walk's maxt the best t so far (for any hit, the rays
+    not yet occluded), the moves into a group's frame the kernel makes
+    (every instance for closest hit; for any hit, up to the first that
+    occludes), and the distinct nodes and face rows each group's walks
+    read -> (boxes a ray, faces a ray, moves a ray, bytes read)."""
+    from mitsuba2_tpu_torch.ops import bvh as bvh_ops
+    o, d, mint, maxt = sample
+    tb = maxt.clone()
+    found = torch.zeros(len(o), dtype=torch.bool)
+    boxes = faces = moves = 0.0
+    start = inst.group_face.tolist() + [inst.woop.shape[0]]
+    pairs = [torch.as_tensor(bvh_ops.pack_pairs(t)[0]) for t in inst.trees]
+    woop, prim = inst.woop.cpu(), inst.prim.cpu()
+    reads = {}
+    for row in inst.rows.cpu():
+        g = int(row[21])
+        o_l, d_l = isx.to_group(row, o, d)
+        live = ~found if any_hit else torch.ones_like(found)
+        moves += float(live.sum())
+        walk = isx.traverse_pairs(
+            pairs[g], woop[start[g]:start[g + 1]],
+            prim[start[g]:start[g + 1]], o_l[live], d_l[live], mint[live],
+            tb[live], any_hit=any_hit, k2=True)
+        boxes += float(walk["boxes"].sum())
+        faces += float(walk["faces"].sum())
+        if any_hit:
+            idx = live.nonzero()[:, 0]
+            found[idx[walk["hit"]]] = True
+        else:
+            t = tb.clone()
+            t[live] = walk["t"]
+            tb = torch.minimum(tb, t)
+        nr, fr = reads.get(g, (None, None))
+        reads[g] = (walk["node_reads"] if nr is None
+                    else nr | walk["node_reads"],
+                    walk["face_reads"] if fr is None
+                    else fr | walk["face_reads"])
+    read = sum(isx.bytes_read({"node_bytes": isx.PAIR_BYTES,
+                               "node_reads": nr, "face_reads": fr})
+               for nr, fr in reads.values())
+    return (boxes / len(o), faces / len(o), moves / len(o),
+            read + inst.rows.numel() * 4)
+
+
+def inst_k2_entries(ik, isx, scene, render, launches):
+    """K2's instance entries on the rays of one render of ``scene``:
+    bit for bit against their plain version on INST_PARITY_RAYS rays
+    sampled from INST_LAUNCHES launches of each, timed on the busiest
+    launch, the bound from the binary walks over every instance -> the two
+    entries of the kernels line."""
+    samples, full = record_k2(ik, render, per_launch=INST_PARITY_RAYS,
+                              busiest=True)
+    inst = scene.inst_tables
+    woops = ik.group_woops(inst)
+    entries = []
+    for name, fn, ref, out_bytes in (
+            ("isect_closest_inst", ik.isect_closest_inst,
+             lambda *a: isx.closest_hit_instanced_reference(
+                 woops, inst.rows, inst.g_max, *a), 16),
+            ("isect_any_inst", ik.isect_any_inst,
+             lambda *a: isx.any_hit_instanced_reference(
+                 woops, inst.rows, *a), 1)):
+        runs = samples[name]
+        at = [k * (len(runs) - 1) // max(INST_LAUNCHES - 1, 1)
+              for k in range(INST_LAUNCHES)]
+        pick = [runs[k] for k in at]
+        every = tuple(torch.cat(xs) for xs in zip(*pick))
+        sub = every_kth(every, INST_PARITY_RAYS)
+        got = fn(inst, *sub)
+        torch.cuda.synchronize()
+        want, plain_ms = timed(lambda: ref(*sub), repeats=1, warm_up=False)
+        busy = full[name]
+        n = len(busy[0])
+        log(f"  {name} on instanced_shared's rays ({len(runs)} launches "
+            f"of one render; {len(sub[0])} rays from launches "
+            f"{at}, "
+            f"{float((sub[3] > sub[2]).float().mean()):.4f} active):")
+        err = isect_parity(name.replace("_inst", ""), got, want)
+        kernel_ms = timed(lambda: fn(inst, *busy))[1]
+        sample = [x.cpu() for x in every_kth(busy, INST_COUNT_RAYS)]
+        t0 = time.perf_counter()
+        boxes, faces, moves, read = inst_walk_bound(
+            isx, inst, sample, name.startswith("isect_any"))
+        flops = prof.walk_flop_count(n, boxes, faces) \
+            + n * moves * INST_TRANSFORM_FLOPS
+        log(f"  {name} binary walks (the bound's) per ray, summed over "
+            f"{inst.n_instances} instances: {boxes:.2f} box tests, "
+            f"{faces:.2f} face tests, {moves:.2f} moves into a group's "
+            f"frame; the sample's walks read "
+            f"{read / 1e6:.3f} MB ({time.perf_counter() - t0:.1f} s on "
+            f"the host)")
+        bound_ms, bound_by = roofline(flops, int(read), n,
+                                      out_bytes=out_bytes, in_bytes=32,
+                                      what="ray")
+        log(f"{name}[instanced_shared]: kernel {kernel_ms:.4f} ms on the "
+            f"busiest launch, {int((busy[3] > busy[2]).sum())} of {n} rays "
+            f"active, {n / kernel_ms / 1e3:.3f} Mrays/s; bound "
+            f"{bound_ms:.4f} ms ({bound_by}), "
+            f"{100 * bound_ms / kernel_ms:.2f}% of bound; plain version "
+            f"{plain_ms:.3f} ms on {len(sub[0])} rays")
+        entries.append({
+            "name": f"{name}[instanced_shared]", "route": "cuda",
+            "source": "mitsuba2_tpu_torch/csrc/intersect_kernel.cu",
+            "replaces": "mitsuba2_tpu/ops/intersect_pallas.py:81",
+            "launches": launches[name], "max_abs_err": err,
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None})
+    return entries
+
+
+def run_scene_files(mi, ik, isx, pk, scenes, biggeo):
+    """Scene files and instancing: the Cornell box through ``load_file``
+    (an XML file written by ``dict_to_xml``) on the path kernel, its
+    tables within the writer's rounding of the dict scene's; biggeo's
+    mesh as a PLY file, its image bit for bit the OBJ's, load times beside
+    each other; 8 instances of a 4,096-face group (materialized by policy)
+    on the path kernel's BVH tier; 8 instances of biggeo's 262,144-face
+    group (shared by policy) on the path wavefront with K2's instance
+    entries (timed, host syncs, spans, peak memory beside 2 instances,
+    the entries bit for bit against their plain version), the small shared
+    scene card against CPU, shared against materialized means; the command
+    line on the XML file; a Blender quad -> the kernels line's entries.
+    ``biggeo`` is biggeo's entry of the kernels line, this run's."""
+    from mitsuba2_tpu_torch.models import shapes as shapes_mod
+    from mitsuba2_tpu_torch.utils.io_image import read_image
+    t_phase = time.perf_counter()
+    mi.set_variant("scalar_rgb")
+    kernels = []
+
+    # ---- cornell_xml: load_file onto the path kernel (K1a) ----
+    xml = scenes.cornell_xml_path(WIDTH, WIDTH, SPP, MAX_DEPTH)
+    sx = mi.load_file(xml)
+    sd = mi.load_dict(scenes.cornell_box_dict(WIDTH, WIDTH, SPP, MAX_DEPTH))
+    errs = {}
+    for k in ("v0", "e1", "e2"):
+        errs[k] = float(np.abs(getattr(sx, k) - getattr(sd, k)).max())
+    fa, fb = sx.tables.fattr, sd.tables.fattr
+    errs["fattr"] = float(((fa - fb).abs() / fb.abs().clamp(min=1.0))
+                          .max())
+    log(f"cornell_xml: {sx.tables.n_faces} faces from {xml}; against the "
+        f"dict scene (the writer's %.6g): " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs.items()))
+    if max(errs.values()) > 1e-6 or not np.array_equal(sx.face_shape,
+                                                       sd.face_shape):
+        raise SystemExit("cornell_xml: tables beyond 1e-6 of the dict's")
+    del sx, sd
+    entries, _ = drive(mi, pk, "cornell_xml", scenes.cornell_xml_path,
+                       WIDTH, SPP, MAX_DEPTH, (0.05, 1.0),
+                       scene_path_route(pk, "cornell_xml", 0),
+                       load=mi.load_file)
+    kernels += entries
+
+    # ---- biggeo_ply: the 262,144-face sphere from a PLY file (K1f) ----
+    big = next(p for p in PATHS if p.name == "biggeo")
+    nu, nv = INST_BIG
+    t0 = time.perf_counter()
+    ply = scenes.bumpy_sphere_ply_path(nu, nv)
+    log(f"biggeo_ply: {ply} written in {time.perf_counter() - t0:.1f} s")
+
+    def biggeo_ply(w, h, spp, depth):
+        d = scenes.bumpy_sphere_dict(w, h, spp, depth, nu, nv)
+        d["hero"]["type"] = "ply"
+        d["hero"]["filename"] = ply
+        return d
+
+    loads = {}
+    for label, make in (("obj", scenes.bumpy_sphere_dict),
+                        ("ply", biggeo_ply)):
+        d = make(big.width, big.width, big.spp, big.max_depth) \
+            if label == "ply" else make(big.width, big.width, big.spp,
+                                        big.max_depth, nu, nv)
+        t0 = time.perf_counter()
+        sc = mi.load_dict(d)
+        torch.cuda.synchronize()
+        loads[label] = (sc, time.perf_counter() - t0)
+        if (sc.tables.flags & pk.TEMPLATE_FLAGS, sc.tables.nc) \
+                != (pk.HAS_BVH, 3):
+            raise SystemExit(f"biggeo_ply: the {label} scene's tables "
+                             f"carry flags {sc.tables.flags}")
+    # the PLY scene's render is the main path's; the OBJ's is its reference
+    sc = loads["ply"][0]
+    pk.reset_launch_counts()
+    img = sc.integrator.render(sc, seed=0, spp=big.spp)
+    torch.cuda.synchronize()
+    launches = pk.path_radiance.launches_by_kernel[(pk.HAS_BVH, 3)]
+    engine = sc.integrator.last_engine
+    sc = loads["obj"][0]
+    same = torch.equal(img, sc.integrator.render(sc, seed=0, spp=big.spp))
+    log(f"biggeo_ply: load {loads['ply'][1]:.2f} s against the OBJ's "
+        f"{loads['obj'][1]:.2f} s ({loads['ply'][0].tables.n_faces} faces, "
+        f"file, tables, both traversal trees); engine {engine}, "
+        f"{launches} launch(es) of {pk.kernel_name(pk.HAS_BVH, 3)}; image "
+        f"bit for bit the OBJ's: {same}")
+    if not same or engine != "kernel" or launches < 1:
+        raise SystemExit("biggeo_ply: not the OBJ's image on the kernel")
+    # one launch on each scene's tables: the same lanes, so biggeo's entry
+    # (its plain version, error and bound, this run) is the PLY's reference
+    rad, ms = {}, {}
+    for label, (sc, _) in loads.items():
+        cam = pk.camera_row(sc.sensors[0], sc.device)
+        args = (sc.tables, cam, 0, 0, big.spp, big.width, big.width,
+                big.max_depth, sc.integrator.rr_depth)
+        rad[label], ms[label] = timed(lambda: pk.path_radiance(*args))
+    same = torch.equal(rad["ply"], rad["obj"])
+    log(f"path_kernel[biggeo_ply]: kernel {ms['ply']:.3f} ms (the OBJ "
+        f"tables' {ms['obj']:.3f} ms); its "
+        f"{rad['ply'].shape[1]} lanes bit for bit the OBJ tables' "
+        f"launch's: {same}; plain version, error and bound biggeo's "
+        f"({biggeo['plain_ms']:.3f} ms, {biggeo['max_abs_err']:.3e}, "
+        f"{biggeo['bound_ms']:.4f} ms {biggeo['bound_by']})")
+    if not same:
+        raise SystemExit("biggeo_ply: the kernel's lanes are not the OBJ's")
+    kernels.append(dict(biggeo, name="path_kernel[biggeo_ply]",
+                        launches=launches, ms=ms["ply"]))
+    # the 262,144-face tables stay out of the instanced scenes' peaks
+    del loads, img, rad, args, cam, sc
+
+    # ---- instanced_materialized: 8 x 4,096 faces, by policy (K1f) ----
+    nu, nv = INST_SMALL
+
+    def materialized(w, h, spp, depth):
+        return scenes.instanced_spheres_dict(INST_COUNT, None, nu, nv, w, h,
+                                             spp, depth)
+
+    sc = mi.load_dict(materialized(8, 8, 1, 1))
+    log(f"instanced_materialized: {INST_COUNT} instances of a "
+        f"{2 * nu * (nv - 1)}-face group, by policy: n_instances "
+        f"{sc.n_instances}, {sc.tables.n_faces} faces")
+    if sc.n_instances:
+        raise SystemExit("instanced_materialized: not materialized")
+    entries, _ = drive(mi, pk, "instanced_materialized", materialized,
+                       WIDTH, SPP, MAX_DEPTH, (0.02, 1.0), scene_path_route(
+                           pk, "instanced_materialized", pk.HAS_BVH,
+                           parity=(BIG_PARITY_WIDTH, BIG_PARITY_SPP),
+                           plain_stride=BIG_PLAIN_STRIDE))
+    kernels += entries
+    # the same instances shared, on the wavefront: the JAX test's bar of
+    # the image means
+    means = {}
+    for mat in (None, False):
+        sc = mi.load_dict(scenes.instanced_spheres_dict(
+            INST_COUNT, mat, nu, nv, WIDTH, WIDTH, SPP, MAX_DEPTH))
+        means[mat] = float(sc.integrator.render(sc, seed=SEED,
+                                                spp=SPP).mean())
+        log(f"  instanced {'shared' if mat is False else 'materialized'}: "
+            f"engine {sc.integrator.last_engine}, image mean "
+            f"{means[mat]:.6f}")
+    rel = abs(means[False] - means[None]) / means[None]
+    log(f"  shared against materialized image means: {rel:.3e} (bar "
+        f"{SHARED_MEAN_RTOL:g})")
+    if rel > SHARED_MEAN_RTOL:
+        raise SystemExit("instanced: shared and materialized disagree")
+
+    # ---- instanced_shared: 8 x 262,144 faces, by policy (K2 instances) ----
+    nu, nv = INST_BIG
+    t0 = time.perf_counter()
+    scene = mi.load_dict(scenes.instanced_spheres_dict(
+        INST_COUNT, None, nu, nv, WIDTH, WIDTH, SPP, MAX_DEPTH))
+    torch.cuda.synchronize()
+    inst = scene.inst_tables
+    inst_bytes = sum(x.numel() * x.element_size() for x in (
+        inst.nodes, inst.woop, inst.prim, inst.rows))
+    wf_bytes = sum(x.numel() * x.element_size() for x in (
+        scene.wavefront_tables().inst_attr,
+        scene.wavefront_tables().inst_ints))
+    log(f"instanced_shared: load {time.perf_counter() - t0:.2f} s; "
+        f"n_instances {scene.n_instances}, {scene.tables.n_faces} faces in "
+        f"the face tables, one group of {inst.n_faces[0]} faces: its tree "
+        f"and Woop rows {inst_bytes / 2**20:.1f} MiB, its wavefront rows "
+        f"{wf_bytes / 2**20:.1f} MiB, {inst.n_instances} instance rows "
+        f"of 24 floats; stack bound {inst.depth}")
+    if scene.n_instances != INST_COUNT:
+        raise SystemExit("instanced_shared: not shared")
+    launches, ms, peak = time_wavefront(
+        ik, "instanced_shared", scene, SHARED_REASON, (0.02, 1.0), True,
+        entries=("isect_closest", "isect_any", "isect_closest_inst",
+                 "isect_any_inst"))
+    kernels += inst_k2_entries(
+        ik, isx, scene,
+        lambda: scene.integrator.render(scene, seed=SEED, spp=SPP),
+        launches)
+    del scene
+    torch.cuda.empty_cache()
+    two = mi.load_dict(scenes.instanced_spheres_dict(
+        2, None, nu, nv, WIDTH, WIDTH, SPP, MAX_DEPTH))
+    torch.cuda.reset_peak_memory_stats()
+    two.integrator.render(two, seed=SEED, spp=SPP)
+    torch.cuda.synchronize()
+    peak2 = torch.cuda.max_memory_allocated()
+    log(f"  peak memory: {peak / 2**20:.1f} MiB at {INST_COUNT} instances, "
+        f"{peak2 / 2**20:.1f} MiB at 2 (the group's tables once)")
+    del two
+
+    # ---- the small shared scene, card against CPU ----
+    runs = {}
+    w, spp = WF_CPU_WIDTH, WF_CPU_SPP
+    for dev in ("cuda", "cpu"):
+        mi.set_device(dev)
+        try:
+            sc = mi.load_dict(scenes.instanced_spheres_dict(
+                3, False, 40, 20, w, w, spp, MAX_DEPTH))
+            runs[dev] = (sc, sc.integrator.render(sc, seed=SEED, spp=spp),
+                         wavefront_lanes(sc, SEED, spp))
+        finally:
+            mi.set_device("cuda")
+    hold_card_against_cpu(f"instanced_spheres (3 shared) {w}^2 x {spp}, "
+                          f"card against CPU", runs)
+
+    # ---- the command line on the XML file, on the card ----
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        exr = os.path.join(tmp, "cornell_xml.exr")
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "mitsuba2_tpu_torch", xml, "-o", exr,
+             "-s", str(SPP), "--seed", "0"], capture_output=True, text=True,
+            timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+        cli_s = time.perf_counter() - t0
+        if out.returncode != 0:
+            raise SystemExit(f"the command line failed: {out.stderr}")
+        got = read_image(exr)
+    sc = mi.load_file(xml)
+    want = sc.integrator.render(sc, seed=0, spp=SPP).cpu().numpy()
+    same = np.array_equal(got, want.astype(np.float16).astype(np.float32))
+    log(f"python -m mitsuba2_tpu_torch {os.path.basename(xml)} -o "
+        f"<tmp>.exr -s {SPP} --seed 0: exit 0 in {cli_s:.1f} s; "
+        + "; ".join(line.split(": ", 1)[-1] for line in
+                    out.stderr.splitlines() if "Rendered" in line)
+        + f"; its EXR the in-process "
+        f"render's (half floats) bit for bit: {same}")
+    if not same:
+        raise SystemExit("the command line's image is not the render's")
+
+    # ---- a Blender quad onto the card ----
+    quad, keep = blender_quad_dict(shapes_mod)
+    sc = mi.load_dict({
+        "type": "scene", "integrator": {"type": "path", "max_depth": 2},
+        "light": {"type": "constant"}, "quad": quad,
+        "sensor": {"type": "perspective",
+                   "to_world": mi.Transform.look_at([0.5, 0.5, 3],
+                                                    [0.5, 0.5, 0],
+                                                    [0, 1, 0]),
+                   "film": {"type": "hdrfilm", "width": 64, "height": 64,
+                            "rfilter": {"type": "box"}},
+                   "sampler": {"type": "independent", "sample_count": 8}}})
+    img = sc.integrator.render(sc, seed=0)
+    del keep
+    log(f"blender quad: {sc.tables.n_faces} faces on {sc.tables.device}, "
+        f"{len(sc.shapes[0].attributes)} vertex-color layer; engine "
+        f"{sc.integrator.last_engine}, image {tuple(img.shape)} on "
+        f"{img.device}, mean {float(img.mean()):.6f}")
+    if img.device.type != "cuda" or not bool(torch.isfinite(img).all()) \
+            or float(img.max()) <= 0:
+        raise SystemExit("blender quad: not rendered on the card")
+    log(f"scene-file and instancing phase: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return kernels
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2226,9 +2677,9 @@ def main():
               lambda inst: vk.kernel_name(*inst))
     entry = None
     for line in build_log("intersect_kernel").splitlines():
-        m = re.search(r"isect_kernelILb([01])E", line)
-        entry = ("isect_any" if m.group(1) == "1" else "isect_closest") \
-            if m else entry
+        m = re.search(r"isect_(inst_)?kernelILb([01])E", line)
+        entry = ("isect_any" if m.group(2) == "1" else "isect_closest") \
+            + ("_inst" if m.group(1) else "") if m else entry
         if entry and "Used" in line:
             log(f"  ptxas {entry}: {line.split(':', 1)[1].strip()}")
     entry = None
@@ -2276,6 +2727,8 @@ def main():
     kernels += run_volpath_wavefront(mi, ik, isx, pk, scenes)
     kernels += run_surface_wavefronts(mi, ik, isx, pk, scenes)
     kernels += run_sensor_integrator_wavefronts(mi, ik, isx, pk, scenes)
+    kernels += run_scene_files(mi, ik, isx, pk, scenes, next(
+        e for e in kernels if e["name"] == pk.kernel_name(pk.HAS_BVH, 3)))
     check_forced_on_cornell(mi, pk, cornell_box_dict)
     kernels += run_ceiling(mi, pk, sk, cornell_box_dict,
                            cornell_materials_dict, face_rates)

@@ -1,6 +1,7 @@
 """mitsuba2_tpu_torch — the PyTorch/CUDA port of mitsuba2_tpu.
 
-Same surface as the JAX package: ``set_variant``, ``load_dict`` and
+Same surface as the JAX package: ``set_variant``, ``load_dict``,
+``load_file`` and ``load_string`` (Mitsuba XML) and
 ``scene.integrator.render(scene, seed=, spp=)``, plus ``set_device``, which
 names the torch device every scene table and buffer lives on: ``cuda``
 unless the caller asks for another (``set_device("cpu")``, as the tests
@@ -17,7 +18,8 @@ from .core.transform import Transform
 __version__ = "0.1.0"
 
 __all__ = ["set_variant", "variant", "variants", "variant_config", "Variant",
-           "set_device", "device", "load_dict", "Transform"]
+           "set_device", "device", "load_file", "load_string", "load_dict",
+           "Transform"]
 
 
 def load_dict(d):
@@ -25,3 +27,16 @@ def load_dict(d):
     mitsuba.core.xml.load_dict, src/libcore/python/xml_v.cpp:56)."""
     from .core.dictio import load_dict as _ld
     return _ld(d)
+
+
+def load_file(path, **kwargs):
+    """Load a Mitsuba XML scene file (parity: xml.load_file, xml.h:33)."""
+    from .core.xmlio import load_file as _lf
+    return _lf(path, **kwargs)
+
+
+def load_string(s, **kwargs):
+    """Load a scene from an XML string (parity: xml.load_string,
+    xml.h:39)."""
+    from .core.xmlio import load_string as _ls
+    return _ls(s, **kwargs)

@@ -67,6 +67,18 @@ class Properties:
             raise KeyError(f"property '{k}' missing")
         return float(v)
 
+    def long_(self, k, default=None):
+        """64-bit integer (properties.h int64; the Blender bridge passes raw
+        pointers so, blender.cpp:105-107)."""
+        v = self.get(k, default)
+        if v is None:
+            raise KeyError(f"property '{k}' missing")
+        return int(v)
+
+    def property_names(self):
+        """Every property's name, queried or not, in insertion order."""
+        return list(self._values.keys())
+
     def string(self, k, default=None):
         v = self.get(k, default)
         if v is None:

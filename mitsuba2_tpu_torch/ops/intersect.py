@@ -11,6 +11,13 @@ the lowest face id. The kernel gets the same answer from a BVH walk; the
 sweep is independent of the tree, which is what makes it the kernel's
 check.
 
+``closest_hit_instanced_reference`` and ``any_hit_instanced_reference``
+are the plain version of K2's instance entries: each ray moves into each
+instance's group frame (``to_group``, the kernel's unfused sums in its
+order) and sweeps that group's faces, instance after instance, the sweep's
+maxt the best t so far; a later instance replaces the best only at a
+strictly smaller t (mitsuba2_tpu/render/scene.py:613-634).
+
 ``traverse`` walks the device tree (ops/bvh.py ``pack_traversal``, 4-wide
 nodes) step for step as csrc/bvh.cuh does, vectorised over rays: the hit
 children sorted by entry t, leaves tested nearest first, the farther
@@ -110,6 +117,54 @@ def any_hit_reference(woop, o, d, mint, maxt):
     for s in starts:
         sl = slice(s, s + step)
         hit[sl] = woop_test(woop, o[sl], d[sl], mint[sl], maxt[sl])[3].any(1)
+    return hit
+
+
+def to_group(row, o, d):
+    """Rays o, d (n, 3) in the frame of an instance's group: o A^T + b and
+    d A^T, with A = row[0:9] row-major and b = row[9:12], each product and
+    sum rounded on its own, left to right (csrc/intersect_kernel.cu
+    ``to_group``) -> (o_l, d_l)."""
+    A, b = row[0:9], row[9:12]
+
+    def lin(x, k):
+        return x[:, 0] * A[3 * k] + x[:, 1] * A[3 * k + 1] \
+            + x[:, 2] * A[3 * k + 2]
+
+    o_l = torch.stack([lin(o, k) + b[k] for k in range(3)], 1)
+    d_l = torch.stack([lin(d, k) for k in range(3)], 1)
+    return o_l, d_l
+
+
+def closest_hit_instanced_reference(woops, rows, g_max, o, d, mint, maxt):
+    """Closest hit of rays o, d (n, 3), mint, maxt (n,) among the faces of
+    the instances ``rows`` (I, 24) [A | b | B | group | ...], each
+    instance's group ``woops[group]`` (F_g, 12) Woop rows in the group's
+    face order -> (t (n,) inf on a miss, uv (n, 2) 0 on a miss, prim (n,)
+    int32: instance * g_max + the group's face id, -1 on a miss)."""
+    n = o.shape[0]
+    tb = maxt.clone()
+    uv = torch.zeros((n, 2), device=o.device)
+    prim = torch.full((n,), -1, dtype=torch.int32, device=o.device)
+    for i, row in enumerate(rows.cpu()):
+        o_l, d_l = to_group(row.to(o.device), o, d)
+        t, uv_i, f = closest_hit_reference(woops[int(row[21])], o_l, d_l,
+                                           mint, tb)
+        closer = (f >= 0) & ((prim < 0) | (t < tb))
+        tb = torch.where(closer, t, tb)
+        uv = torch.where(closer[:, None], uv_i, uv)
+        prim = torch.where(closer, i * g_max + f, prim).to(torch.int32)
+    return torch.where(prim >= 0, tb, float("inf")), uv, prim
+
+
+def any_hit_instanced_reference(woops, rows, o, d, mint, maxt):
+    """Whether each ray hits a face of any instance (``rows``, ``woops`` as
+    ``closest_hit_instanced_reference``) with t in [mint, maxt] -> (n,)
+    bool."""
+    hit = torch.zeros((o.shape[0],), dtype=torch.bool, device=o.device)
+    for row in rows.cpu():
+        o_l, d_l = to_group(row.to(o.device), o, d)
+        hit |= any_hit_reference(woops[int(row[21])], o_l, d_l, mint, maxt)
     return hit
 
 

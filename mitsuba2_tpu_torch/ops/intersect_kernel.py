@@ -9,6 +9,12 @@ Counterpart of ``mitsuba2_tpu.ops.intersect_pallas.WoopIntersector``
 scene's path-kernel tables (``PathTables``: the traversal tree's pair
 nodes, Woop rows and face ids), which the scene builds once.
 
+``isect_closest_inst`` and ``isect_any_inst`` are the same queries
+against a scene's shared-geometry instances (``InstanceTables``, built by
+``instance_tables``: each group's own traversal tree, once, and a
+transform row an instance); a closest hit's prim is instance * g_max + the
+group's face id.
+
 For tables on a CUDA device each call launches the kernel, each ray walking
 the tree's 4-wide nodes (csrc/bvh.cuh); for tables on the CPU it runs the
 plain version, ops/intersect.py's linear sweep over the Woop rows in face
@@ -18,11 +24,14 @@ order. A build or launch failure raises.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from . import bvh as bvh_ops
 from . import intersect
-from .path_kernel import check_tree, face_woop
+from .path_kernel import build_woop, check_tree, face_woop
 
 
 class _IsectArgs(ctypes.Structure):
@@ -30,6 +39,101 @@ class _IsectArgs(ctypes.Structure):
     _fields_ = ([(name, ctypes.c_void_p) for name in (
         "nodes", "woop", "prim", "o", "d", "mint", "maxt", "t", "uv",
         "prim_out", "hit")] + [("n_rays", ctypes.c_int)])
+
+
+class _InstArgs(ctypes.Structure):
+    """csrc/intersect_kernel.cu's InstArgs, field for field."""
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "nodes", "woop", "prim", "group_node", "group_face", "rows")]
+        + [("n_instances", ctypes.c_int), ("g_max", ctypes.c_int)])
+
+
+class InstanceTables(NamedTuple):
+    """A scene's shared-geometry instances on one device: every group's
+    traversal tree one after another (``nodes`` (P, 32) wide nodes,
+    ``woop`` (F, 12) Woop rows and ``prim`` (F,) int32 the group's face
+    ids, both in the tree's face order), each group's first node and first
+    tree position (``group_node``, ``group_face`` (G,) int32), and a row
+    an instance (``rows`` (I, 24) float32: to-group A (9, row-major), b
+    (3), to-world B (9), group, shape, 0; mitsuba2_tpu/render/scene.py:
+    400-409). ``g_max`` is the largest group's face count, the stride of
+    an instance's prim ids; ``depth`` the deepest tree's stack bound;
+    ``trees`` the groups' host trees (ops/bvh.py BVH) and ``n_faces`` their
+    face counts."""
+    nodes: torch.Tensor
+    woop: torch.Tensor
+    prim: torch.Tensor
+    group_node: torch.Tensor
+    group_face: torch.Tensor
+    rows: torch.Tensor
+    g_max: int
+    depth: int
+    trees: tuple
+    n_faces: tuple
+
+    @property
+    def device(self):
+        return self.rows.device
+
+    @property
+    def n_instances(self):
+        return self.rows.shape[0]
+
+
+def instance_tables(groups, rows, device) -> InstanceTables:
+    """``groups``: each group's faces in its own frame, (v0, e1, e2) (F_g,
+    3) float32 in the group's face order; ``rows`` (I, 24) float32 ->
+    InstanceTables on ``device``, a traversal tree built once a group."""
+    nodes, woop, prim, trees = [], [], [], []
+    group_node, group_face = [0], [0]
+    depth = 0
+    for v0, e1, e2 in groups:
+        tree = bvh_ops.build_bvh(v0, e1, e2, leaf_size=bvh_ops.TRAVERSAL_LEAF)
+        n, dep = bvh_ops.pack_traversal(tree)
+        nodes.append(n)
+        woop.append(build_woop(v0, e1, e2)[tree.order])
+        prim.append(np.asarray(tree.order, np.int32))
+        trees.append(tree)
+        group_node.append(group_node[-1] + len(n))
+        group_face.append(group_face[-1] + len(v0))
+        depth = max(depth, dep)
+
+    def dev(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+
+    return InstanceTables(
+        dev(np.concatenate(nodes)), dev(np.concatenate(woop)),
+        dev(np.concatenate(prim), torch.int32),
+        dev(np.asarray(group_node[:-1], np.int32), torch.int32),
+        dev(np.asarray(group_face[:-1], np.int32), torch.int32),
+        dev(np.asarray(rows, np.float32)),
+        max(len(g[0]) for g in groups), depth, tuple(trees),
+        tuple(len(g[0]) for g in groups))
+
+
+def group_woops(inst):
+    """Each group's Woop rows in its face order (the plain version's), from
+    the tree-order rows."""
+    out = []
+    start = inst.group_face.tolist() + [inst.woop.shape[0]]
+    for g in range(len(inst.n_faces)):
+        rows = inst.woop[start[g]:start[g + 1]]
+        w = torch.empty_like(rows)
+        w[inst.prim[start[g]:start[g + 1]].long()] = rows
+        out.append(w)
+    return out
+
+
+def _check_inst(inst):
+    if inst.depth > bvh_ops.STACK_DEPTH:
+        raise ValueError(f"a group's stack bound {inst.depth} > the "
+                         f"kernel's stack of {bvh_ops.STACK_DEPTH}")
+    if inst.nodes.is_cuda and inst.nodes.data_ptr() % 128:
+        raise ValueError("the groups' nodes must be 128-byte aligned on "
+                         "the card")
+    if inst.n_instances * inst.g_max >= 1 << 31:
+        raise ValueError("the instances' prim ids overflow int32")
 
 
 def _check(tables, o, d, mint, maxt):
@@ -47,20 +151,33 @@ def _check(tables, o, d, mint, maxt):
                          f"{tables.device}")
     if n >= 1 << 31:
         raise ValueError(f"{n} rays overflow the kernel's int32 ray ids")
-    if tables.bvh_prim.shape[0] != tables.n_faces:
+    if not isinstance(tables, InstanceTables) \
+            and tables.bvh_prim.shape[0] != tables.n_faces:
         raise ValueError("the tables carry no traversal tree of every face")
     return n
 
 
 def _launch(entry, tables, o, d, mint, maxt, t=None, uv=None, prim=None,
             hit=None):
-    check_tree(tables)
+    """Launches ``entry`` on the rays; ``tables`` are PathTables, or for
+    the instance entries (``*_inst``) InstanceTables."""
+    inst = entry.endswith("_inst")
+    if inst:
+        _check_inst(tables)
+        tree = (None, None, None)
+        extra = (ctypes.byref(_InstArgs(*(x.data_ptr() for x in (
+            tables.nodes, tables.woop, tables.prim, tables.group_node,
+            tables.group_face, tables.rows)), tables.n_instances,
+            tables.g_max)),)
+    else:
+        check_tree(tables)
+        tree = (tables.bvh_nodes, tables.bvh_woop, tables.bvh_prim)
+        extra = ()
     args = _IsectArgs(*(0 if x is None else x.data_ptr() for x in (
-        tables.bvh_nodes, tables.bvh_woop, tables.bvh_prim, o, d, mint,
-        maxt, t, uv, prim, hit)), o.shape[0])
+        *tree, o, d, mint, maxt, t, uv, prim, hit)), o.shape[0])
     fn = _entry(entry)
     with torch.cuda.device(tables.device):
-        err = fn(ctypes.byref(args),
+        err = fn(ctypes.byref(args), *extra,
                  torch.cuda.current_stream(tables.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
@@ -99,14 +216,50 @@ def isect_any(tables, o, d, mint, maxt):
     return hit
 
 
-# kernel launches of each entry point
-isect_closest.launches = 0
-isect_any.launches = 0
+def isect_closest_inst(inst, o, d, mint, maxt):
+    """Closest hit of rays o, d (n, 3), mint, maxt (n,) among the instances
+    ``inst`` (InstanceTables) on their device -> (t (n,), uv (n, 2), prim
+    (n,) int32: instance * g_max + the group's face id, -1 on a miss)."""
+    n = _check(inst, o, d, mint, maxt)
+    if inst.device.type == "cpu":
+        return intersect.closest_hit_instanced_reference(
+            group_woops(inst), inst.rows, inst.g_max, o, d, mint, maxt)
+    t = torch.full((n,), float("inf"), device=o.device)
+    uv = torch.zeros((n, 2), device=o.device)
+    prim = torch.full((n,), -1, dtype=torch.int32, device=o.device)
+    if n == 0:
+        return t, uv, prim
+    _launch("isect_closest_inst", inst, o, d, mint, maxt, t=t, uv=uv,
+            prim=prim)
+    isect_closest_inst.launches += 1
+    return t, uv, prim
+
+
+def isect_any_inst(inst, o, d, mint, maxt):
+    """Whether each ray o, d (n, 3) hits a face of any of the instances
+    ``inst`` with t in [mint, maxt] -> (n,) bool on their device."""
+    n = _check(inst, o, d, mint, maxt)
+    if inst.device.type == "cpu":
+        return intersect.any_hit_instanced_reference(
+            group_woops(inst), inst.rows, o, d, mint, maxt)
+    hit = torch.zeros((n,), dtype=torch.bool, device=o.device)
+    if n == 0:
+        return hit
+    _launch("isect_any_inst", inst, o, d, mint, maxt, hit=hit)
+    isect_any_inst.launches += 1
+    return hit
+
+
+ENTRIES = (isect_closest, isect_any, isect_closest_inst, isect_any_inst)
 
 
 def reset_launch_counts():
-    isect_closest.launches = 0
-    isect_any.launches = 0
+    """Sets every entry point's count of kernel launches to 0."""
+    for fn in ENTRIES:
+        fn.launches = 0
+
+
+reset_launch_counts()
 
 
 def libraries():
@@ -119,6 +272,8 @@ def _entry(name):
     use."""
     from .build import load
     fn = getattr(load("intersect_kernel"), name)
-    fn.argtypes = [ctypes.POINTER(_IsectArgs), ctypes.c_void_p]
+    fn.argtypes = [ctypes.POINTER(_IsectArgs)] + (
+        [ctypes.POINTER(_InstArgs)] if name.endswith("_inst") else []) \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

@@ -1891,6 +1891,9 @@ def path_kernel_ineligibility(scene):
         return "participating media"
     if not scene.shapes:
         return "no shapes"
+    # before the shape test: an instance is a mesh with no faces of its own
+    if scene.n_instances:
+        return "shared-geometry instances (wavefront path only)"
     for sh in scene.shapes:
         if not sh.is_mesh() and type(sh) not in (SphereShape, DiskShape,
                                                  CylinderShape):

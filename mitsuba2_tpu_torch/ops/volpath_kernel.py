@@ -951,7 +951,7 @@ def vol_kernel_ineligibility(scene):
             return "sigma_t volume with its own to_world"
     elif not isinstance(vol, ConstantVolume):
         return f"sigma_t volume {type(vol).__name__}"
-    if any(not s.is_mesh() for s in scene.shapes):
+    if any(not s.is_mesh() for s in scene.shapes) or scene.n_instances:
         return "analytic shapes/instances (mesh-only kernel)"
     if scene.environment_emitter is not None:
         return "environment emitter"

@@ -660,3 +660,109 @@ def cornell_mesh_attribute_dict(width=256, height=256, spp=64, max_depth=6,
     mesh.add_attribute("vertex_color", 3, BACK_WALL_COLORS)
     d["back"] = mesh
     return d
+
+
+def cornell_xml_path(width=256, height=256, spp=64, max_depth=6):
+    """``cornell_box_dict`` written as Mitsuba XML by this package's
+    ``dict_to_xml`` (cached in the temp directory under this package's own
+    name) -> its path, for ``load_file``. The writer rounds floats to
+    ``%.6g``, so the file's scene is the dict's within that rounding."""
+    import os
+    import tempfile
+    from ..xml import dict_to_xml
+    path = os.path.join(
+        tempfile.gettempdir(), f"mitsuba2_tpu_torch_cornell_{width}x"
+        f"{height}_{spp}spp_d{max_depth}_v1.xml")
+    return _write_once(path, lambda tmp: dict_to_xml(
+        cornell_box_dict(width, height, spp, max_depth), tmp))
+
+
+def bumpy_sphere_ply_path(nu=64, nv=48):
+    """The bumpy sphere of ``_bumpy_sphere_obj_path(nu, nv)`` as a binary
+    little-endian PLY file (cached in the temp directory): the vertices
+    and faces this package's OBJ loader reads from that file, written as
+    float32 and int32, so the PLY's mesh is the OBJ's bit for bit, and a
+    ``vertex_color`` attribute (uchar red, green, blue of the vertex's
+    position)."""
+    import os
+    import tempfile
+    from ...utils.io_obj import load_obj
+    path = os.path.join(tempfile.gettempdir(),
+                        f"mitsuba2_tpu_torch_bumpy_{nu}x{nv}_v1.ply")
+
+    def write(tmp):
+        v, f, _, _ = load_obj(_bumpy_sphere_obj_path(nu, nv))
+        rgb = np.clip((v + 1.2) / 2.4 * 255.0 + 0.5, 0, 255).astype(np.uint8)
+        vert = np.zeros(len(v), np.dtype(
+            [("x", "<f4"), ("y", "<f4"), ("z", "<f4"), ("red", "u1"),
+             ("green", "u1"), ("blue", "u1")]))
+        for k, name in enumerate("xyz"):
+            vert[name] = v[:, k]
+        for k, name in enumerate(("red", "green", "blue")):
+            vert[name] = rgb[:, k]
+        face = np.zeros(len(f), np.dtype([("n", "u1"), ("i", "<i4", 3)]))
+        face["n"] = 3
+        face["i"] = f
+        with open(tmp, "wb") as out:
+            out.write(
+                b"ply\nformat binary_little_endian 1.0\n"
+                b"comment mitsuba2_tpu_torch bumpy sphere\n"
+                + f"element vertex {len(v)}\n".encode()
+                + b"property float x\nproperty float y\nproperty float z\n"
+                b"property uchar red\nproperty uchar green\n"
+                b"property uchar blue\n"
+                + f"element face {len(f)}\n".encode()
+                + b"property list uchar int vertex_indices\nend_header\n")
+            out.write(vert.tobytes())
+            out.write(face.tobytes())
+
+    return _write_once(path, write)
+
+
+def instanced_spheres_dict(n_inst=3, materialize=None, nu=40, nv=20,
+                           width=24, height=24, spp=32, max_depth=3,
+                           T=Transform, filename=None):
+    """The instancing scene of the JAX tests (tests/test_instancing.py:
+    13-50): a floor and a rectangular area light, and ``n_inst`` instances
+    of one shapegroup, a bumpy sphere (``_bumpy_sphere_obj_path(nu, nv)``,
+    2 nu (nv - 1) faces) scaled by 0.45 in diffuse terracotta, in a row
+    along x; ``materialize`` is each instance's property (None: absent,
+    the group's size decides). ``T`` is the Transform and ``filename`` the
+    OBJ file of the package the dict is for (this package's by
+    default)."""
+    group = {"type": "shapegroup", "id": "grp",
+             "m": {"type": "obj",
+                   "filename": filename or _bumpy_sphere_obj_path(nu, nv),
+                   "to_world": T.scale(0.45),
+                   "bsdf": {"type": "diffuse",
+                            "reflectance": {"type": "rgb",
+                                            "value": [0.6, 0.4, 0.3]}}}}
+    d = {"type": "scene",
+         "integrator": {"type": "path", "max_depth": max_depth},
+         "grp": group,
+         "light": {"type": "rectangle",
+                   "to_world": (T.translate([0, 3, 1]) @ T.scale(1.5)
+                                @ T.rotate([1, 0, 0], 90)),
+                   "emitter": {"type": "area",
+                               "radiance": {"type": "rgb", "value": 10.0}}},
+         "floor": {"type": "rectangle",
+                   "to_world": (T.translate([0, -1, 0])
+                                @ T.rotate([1, 0, 0], -90) @ T.scale(4)),
+                   "bsdf": {"type": "diffuse",
+                            "reflectance": {"type": "rgb", "value": 0.5}}},
+         "sensor": {"type": "perspective", "fov": 50,
+                    "to_world": T.look_at([0, 0.8, 4.5], [0, 0, 0],
+                                          [0, 1, 0]),
+                    "film": {"type": "hdrfilm", "width": width,
+                             "height": height, "rfilter": {"type": "box"}},
+                    "sampler": {"type": "independent",
+                                "sample_count": spp}}}
+    for i in range(n_inst):
+        x = -1.4 + 2.8 * i / max(n_inst - 1, 1)
+        inst = {"type": "instance",
+                "shapegroup": {"type": "ref", "id": "grp"},
+                "to_world": T.translate([x, 0, 0])}
+        if materialize is not None:
+            inst["materialize"] = materialize
+        d[f"i{i}"] = inst
+    return d

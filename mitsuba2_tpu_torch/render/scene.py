@@ -26,6 +26,14 @@ ties are the reference's. A second build at ``bvh.TRAVERSAL_LEAF`` faces
 per leaf over the permuted faces gives the traversal tree that the path
 kernel's BVH tier and the scene's ray queries (``ray_intersect_preliminary``,
 ``ray_test``, through ops/intersect_kernel.py) walk per ray.
+
+Shared-geometry instances (``instance`` shapes that ``expand`` kept;
+mitsuba2_tpu/render/scene.py:133-157, :353-409) stay out of the face
+tables: each group's meshes are packed once, in the group's frame, with a
+traversal tree of their own (ops/intersect_kernel.py ``InstanceTables``),
+and each instance is one transform row; the group's meshes join
+``shapes`` for their BSDFs. An instance hit has prim id F + S + Q +
+instance * g_max + the group's face id.
 """
 
 from __future__ import annotations
@@ -93,7 +101,33 @@ class Scene(Object):
                 self.environment_emitter = e
         self._compile()
 
+    def _register_group_children(self):
+        """The meshes of each shared instance's group join ``shapes`` once
+        (their BSDFs dispatch as any shape's), marked to stay out of the
+        face tables (their ids in ``_group_children``); an emitter in such
+        a group raises (mitsuba2_tpu/render/scene.py:133-157)."""
+        from ..models.shapes import Instance
+        self._group_children = set()
+        groups = []
+        for s in list(self.shapes):
+            if not isinstance(s, Instance) \
+                    or any(g is s.group for g in groups):
+                continue
+            groups.append(s.group)
+            for child in s.group.children:
+                if child.emitter is not None:
+                    raise NotImplementedError(
+                        "emitters inside instanced shapegroups are not "
+                        "supported (shapegroup.cpp forbids them)")
+                if not child.is_mesh():
+                    continue
+                self._group_children.add(id(child))
+                if all(child is not x for x in self.shapes):
+                    self.shapes.append(child)
+
     def _compile(self):
+        from ..models.shapes import Instance
+        self._register_group_children()
         self.bsdfs = []
         for s in self.shapes:
             if s.bsdf is None:
@@ -103,10 +137,23 @@ class Scene(Object):
                 self.bsdfs.append(s.bsdf)
 
         v0s, e1s, e2s, ngs, uvss, face_shape = [], [], [], [], [], []
-        spheres, quadrics = [], []
+        spheres, quadrics, instanced = [], [], []
         bb_min = np.full(3, np.inf)
         bb_max = np.full(3, -np.inf)
         for si_idx, s in enumerate(self.shapes):
+            if isinstance(s, Instance):
+                # the scene's bounds hold the group's placed vertices
+                # (mitsuba2_tpu/render/scene.py:180-188)
+                instanced.append((si_idx, s))
+                M = np.asarray(s.to_world.matrix, np.float64)
+                for child in s.group.children:
+                    if child.is_mesh() and len(child.vertices):
+                        vw = child.vertices @ M[:3, :3].T + M[:3, 3]
+                        bb_min = np.minimum(bb_min, vw.min(0))
+                        bb_max = np.maximum(bb_max, vw.max(0))
+                continue
+            if id(s) in self._group_children:
+                continue     # packed once in its group's tables
             if s.is_analytic():
                 (quadrics if hasattr(s, "prim_row") else spheres).append(
                     (si_idx, s))
@@ -239,6 +286,7 @@ class Scene(Object):
                                                  device=self.device)
         self._quad_dev = torch.as_tensor(self.quad_table, device=self.device)
 
+        self._pack_instances(instanced)
         self._pack_mesh_attributes(perm if self.bvh is not None else None)
 
         # media in first-seen shape order, interior before exterior
@@ -252,14 +300,49 @@ class Scene(Object):
         self.has_media = bool(self.media)
         self._wire_mesh_attr_textures()
 
+    def _pack_instances(self, instanced):
+        """The shared instances' tables (``inst_tables``, None without
+        any): each group's meshes once, in the group's frame and face order
+        (its children's faces one child after another), and each
+        instance's row [to-group A (9) | b (3) | to-world B (9) | group |
+        shape | 0] (mitsuba2_tpu/render/scene.py:353-409);
+        ``inst_face_shape`` each group face's shape index."""
+        from ..ops.intersect_kernel import instance_tables
+        self.n_instances = len(instanced)
+        self.inst_tables = None
+        self._inst_children = []
+        if not instanced:
+            return
+        slot, groups, rows = {}, [], []
+        for si_idx, inst in instanced:
+            if id(inst.group) not in slot:
+                slot[id(inst.group)] = len(groups)
+                meshes = [c for c in inst.group.children if c.is_mesh()]
+                if not sum(len(c.faces) for c in meshes):
+                    raise ValueError("an instanced shapegroup without "
+                                     "triangles")
+                parts = [_mesh_face_arrays(c) for c in meshes]
+                groups.append(tuple(np.concatenate([p[k] for p in parts])
+                                    .astype(np.float32) for k in range(3)))
+                self._inst_children.append(meshes)
+            rows.append(np.concatenate([
+                inst._A.reshape(9), inst._b.reshape(3), inst._B.reshape(9),
+                [slot[id(inst.group)], si_idx, 0.0]]).astype(np.float32))
+        self.inst_tables = instance_tables(groups, np.stack(rows),
+                                           self.device)
+        self.inst_face_shape = np.concatenate([
+            np.full(len(c.faces), self.shapes.index(c), np.int32)
+            for meshes in self._inst_children for c in meshes])
+        self._inst_face_shape_dev = torch.as_tensor(self.inst_face_shape,
+                                                    device=self.device)
+
     def _pack_mesh_attributes(self, perm):
         """``mesh_attr_tables``: for each attribute name any mesh carries
         (``Mesh.add_attribute``), its size k and an (F, 3k) float32 host
         table of each face's three corner values in the scene's face order
         (``perm``), zeros on meshes without it
         (mitsuba2_tpu/render/scene.py:430-458)."""
-        meshes = [s for s in self.shapes
-                  if s.is_mesh() and not s.is_analytic()]
+        meshes = [s for s in self.shapes if _in_face_tables(self, s)]
         sizes = {}
         for s in meshes:
             for name, (k, _) in s.attributes.items():
@@ -378,6 +461,17 @@ class Scene(Object):
             q_best = torch.where(closer, q, q_best)
         return t_best, q_best
 
+    def _inst_face(self, rel):
+        """-> (the instance, the row of a group-face table, the groups'
+        faces in their order) of the instance prim ids ``rel`` (prim id -
+        F - S - Q), clamped into range."""
+        inst = self.inst_tables
+        rel = rel.clamp(min=0).long()
+        k = (rel // inst.g_max).clamp(max=inst.n_instances - 1)
+        g = inst.rows[k, 21].long()
+        return k, (inst.group_face[g].long() + rel % inst.g_max).clamp(
+            max=len(self.inst_face_shape) - 1)
+
     def _segment_ends(self, ray, active):
         if active is None:
             return ray.maxt
@@ -390,9 +484,12 @@ class Scene(Object):
         (ops/intersect_kernel.py), the analytic spheres through the
         reference's plain pass, and so do the disks and cylinders after
         them; a sphere hit has prim id F + its index, a disk or cylinder
-        hit F + S + its index, and uv 0. Rays with ``active`` False
+        hit F + S + its index, and uv 0; the shared instances go through
+        K2's instance entry, a hit's prim id F + S + Q + instance * g_max +
+        the group's face id. Ties go to faces, then spheres, then disks and
+        cylinders, then instances in order. Rays with ``active`` False
         miss."""
-        from ..ops.intersect_kernel import isect_closest
+        from ..ops.intersect_kernel import isect_closest, isect_closest_inst
         from .records import PreliminaryIntersection
         maxt = self._segment_ends(ray, active)
         t, uv, prim = isect_closest(self.tables, ray.o, ray.d, ray.mint,
@@ -424,6 +521,20 @@ class Scene(Object):
             qs = self._quad_dev[(prim - base).clamp(
                 0, len(self.quad_table) - 1).long(), 24].to(torch.int32)
             shape_idx = torch.where(prim >= base, qs, shape_idx)
+        if self.n_instances:
+            base = n_faces + self.tables.n_spheres + len(self.quad_table)
+            ti, uvi, pi_ = isect_closest_inst(self.inst_tables, ray.o,
+                                              ray.d, ray.mint, maxt)
+            closer = ti < t
+            t = torch.where(closer, ti, t)
+            prim = torch.where(closer & (pi_ >= 0), base + pi_, prim)
+            uv = torch.where(closer[:, None], uvi, uv)
+            # the shape from the group face's column
+            # (mitsuba2_tpu/render/scene.py:702-713)
+            shape_idx = torch.where(
+                prim >= base,
+                self._inst_face_shape_dev[self._inst_face(prim - base)[1]],
+                shape_idx)
         shape_idx = torch.where(prim >= 0, shape_idx, -1)
         return PreliminaryIntersection(t, uv, shape_idx.to(torch.int32),
                                        prim.to(torch.int32))
@@ -431,11 +542,15 @@ class Scene(Object):
     def ray_test(self, ray, active=None):
         """Whether each ray is occluded within its [mint, maxt] (scene.h
         ray_test; mitsuba2_tpu/render/scene.py:965-989): mesh faces through
-        K2's any-hit entry, spheres, disks and cylinders through the plain
-        passes -> (n,) bool."""
-        from ..ops.intersect_kernel import isect_any
+        K2's any-hit entry, the shared instances through its instance
+        entry, spheres, disks and cylinders through the plain passes ->
+        (n,) bool."""
+        from ..ops.intersect_kernel import isect_any, isect_any_inst
         maxt = self._segment_ends(ray, active)
         hit = isect_any(self.tables, ray.o, ray.d, ray.mint, maxt)
+        if self.n_instances:
+            hit = hit | isect_any_inst(self.inst_tables, ray.o, ray.d,
+                                       ray.mint, maxt)
         if self.tables.n_spheres:
             ts, _ = self._sphere_closest_hit(ray.o, ray.d, ray.mint, maxt)
             hit = hit | torch.isfinite(ts)
@@ -469,7 +584,8 @@ class Scene(Object):
         normal, shading frame (interpolated vertex normals, the uv
         tangent dp_du made orthogonal to them), uv, wi in the frame, and
         the shape's BSDF and emitter ids; spheres, disks and cylinders
-        analytically."""
+        analytically; a shared instance's hit from its group face's rows,
+        placed by the instance's transform, with no emitter."""
         from ..core.frame import Frame
         from .interaction import SurfaceInteraction
         wf = self.wavefront_tables()
@@ -525,6 +641,33 @@ class Scene(Object):
             p, ng, ns, uv, dp_du, dp_dv, shape_idx, bsdf_idx, emitter_idx \
                 = _quad_interaction(wf, ray, pi, p, ng, ns, uv, dp_du,
                                     dp_dv, shape_idx, bsdf_idx, emitter_idx)
+        if self.n_instances:
+            # the group face's rows in its frame, placed by the instance:
+            # normals through A^T, tangents through B, the position on the
+            # ray (mitsuba2_tpu/render/scene.py:849-880)
+            base = F + S + Q
+            is_i = pi.prim_idx >= base
+            k, f_l = self._inst_face(pi.prim_idx - base)
+            row = self.inst_tables.rows[k]
+            Ar, ints_i = wf.inst_attr[f_l], wf.inst_ints[f_l]
+            A_t = row[:, 0:9].reshape(-1, 3, 3)
+            B_t = row[:, 12:21].reshape(-1, 3, 3)
+            ns_l = Ar[:, 12:15] * w0 + Ar[:, 15:18] * wu + Ar[:, 18:21] * wv
+            uv_l = Ar[:, 21:23] * w0 + Ar[:, 23:25] * wu + Ar[:, 25:27] * wv
+            w = is_i[:, None]
+            p = torch.where(w, ray.o + pi.t[:, None] * ray.d, p)
+            ng = torch.where(w, m.normalize(torch.einsum(
+                "ni,nij->nj", Ar[:, 9:12], A_t)), ng)
+            ns = torch.where(w, m.normalize(torch.einsum(
+                "ni,nij->nj", ns_l, A_t)), ns)
+            uv = torch.where(w, uv_l, uv)
+            dp_du = torch.where(w, torch.einsum("nij,nj->ni", B_t,
+                                                Ar[:, 27:30]), dp_du)
+            dp_dv = torch.where(w, torch.einsum("nij,nj->ni", B_t,
+                                                Ar[:, 30:33]), dp_dv)
+            shape_idx = torch.where(is_i, ints_i[:, 0], shape_idx)
+            bsdf_idx = torch.where(is_i, ints_i[:, 1], bsdf_idx)
+            emitter_idx = torch.where(is_i, -1, emitter_idx)
         # Gram-Schmidt of dp_du against the shading normal (mesh.cpp:463),
         # a constructed tangent where it degenerates
         s_axis = m.normalize(dp_du - ns * m.dot(ns, dp_du)[:, None])
@@ -771,12 +914,17 @@ class Scene(Object):
         where the shape bounds no medium. The media are the hit shape's
         own, for every kind of primitive (the reference reads the face
         or sphere columns at a disk's or cylinder's prim id: ROADMAP
-        queue 3)."""
+        queue 3); a shared instance's faces bound none."""
         sm = self.wavefront_tables().shape_media[
             si.shape_idx.clamp(min=0).long()]
         has_int, has_ext = sm[:, 0], sm[:, 1]
         crossing = active & (si.shape_idx >= 0) & ((has_int >= 0)
                                                    | (has_ext >= 0))
+        if self.n_instances:
+            # an instance's faces bound no medium (their columns hold -1,
+            # mitsuba2_tpu/render/scene.py:382-384)
+            wf = self.wavefront_tables()
+            crossing &= si.prim_idx < wf.n_faces + wf.n_spheres + wf.n_quads
         target = torch.where(m.dot(d, si.n) < 0, has_int, has_ext)
         return torch.where(crossing, target, medium_idx)
 
@@ -1052,6 +1200,11 @@ class WavefrontTables(NamedTuple):
     # into scene.media, -1 for none: every primitive's media through its
     # shape id, faces, spheres, disks and cylinders alike
     shape_media: torch.Tensor
+    # the shared instances' group faces in the groups' frames and face
+    # order, as face_attr (Fg, 33) and face_ints (Fg, 3) (emitter -1);
+    # empty without instances
+    inst_attr: torch.Tensor
+    inst_ints: torch.Tensor
 
 
 def _shading_arrays(s):
@@ -1088,7 +1241,7 @@ def _wavefront_tables(scene):
     shape_emitter = [scene.emitters.index(s.emitter)
                      if s.emitter is not None else -1 for s in shapes]
     parts = [_shading_arrays(s) for s in shapes
-             if not s.is_analytic() and s.is_mesh()]
+             if _in_face_tables(scene, s)]
     F = len(scene.face_shape)
     attr = np.zeros((max(F, 1), 33), np.float32)
     ints = np.full((max(F, 1), 3), -1, np.int32)
@@ -1098,10 +1251,8 @@ def _wavefront_tables(scene):
         if scene.bvh is not None:
             perm = scene.bvh.order
             ns, dp_du, dp_dv = ns[perm], dp_du[perm], dp_dv[perm]
-        attr[:F] = np.concatenate([
-            scene.v0, scene.e1, scene.e2, scene.ng, ns[:, 0], ns[:, 1],
-            ns[:, 2], scene.uvs[:, 0], scene.uvs[:, 1], scene.uvs[:, 2],
-            dp_du, dp_dv], 1)
+        attr[:F] = _attr_rows(scene.v0, scene.e1, scene.e2, scene.ng, ns,
+                              scene.uvs, dp_du, dp_dv)
         fs = scene.face_shape
         ints[:F] = np.stack([fs, np.asarray(shape_bsdf)[fs],
                              np.asarray(shape_emitter)[fs]], 1)
@@ -1129,6 +1280,18 @@ def _wavefront_tables(scene):
 
     media = [[medium_index(s.interior_medium), medium_index(s.exterior_medium)]
              for s in shapes] or [[-1, -1]]
+    inst_attr = np.zeros((0, 33), np.float32)
+    inst_ints = np.zeros((0, 3), np.int32)
+    if scene.n_instances:
+        rows = []
+        for c in (c for meshes in scene._inst_children for c in meshes):
+            v0, e1, e2, ng, uvs = _mesh_face_arrays(c)
+            ns, dp_du, dp_dv = _shading_arrays(c)
+            rows.append(_attr_rows(v0, e1, e2, ng, ns, uvs, dp_du, dp_dv))
+        inst_attr = np.concatenate(rows)
+        fs = scene.inst_face_shape
+        inst_ints = np.stack([fs, np.asarray(shape_bsdf)[fs],
+                              np.full(len(fs), -1)], 1).astype(np.int32)
     env = scene.environment_emitter
     c, r = _bounding_sphere(scene)
     dev = scene.device
@@ -1140,7 +1303,27 @@ def _wavefront_tables(scene):
                         dtype=torch.int32, device=dev),
         scene.emitters.index(env) if env is not None else -1,
         (torch.as_tensor(c, device=dev), r),
-        torch.as_tensor(media, dtype=torch.int32, device=dev))
+        torch.as_tensor(media, dtype=torch.int32, device=dev),
+        torch.as_tensor(inst_attr, device=dev),
+        torch.as_tensor(inst_ints, device=dev))
+
+
+def _attr_rows(v0, e1, e2, ng, ns, uvs, dp_du, dp_dv):
+    """Per-face wavefront rows (f, 33): v0, e1, e2, ng, the three corner
+    normals, the three corner uvs, dp_du, dp_dv."""
+    return np.concatenate([v0, e1, e2, ng, ns[:, 0], ns[:, 1], ns[:, 2],
+                           uvs[:, 0], uvs[:, 1], uvs[:, 2], dp_du, dp_dv],
+                          1).astype(np.float32)
+
+
+def _in_face_tables(scene, s):
+    """Whether ``scene``'s face tables hold the triangles of ``s``: a mesh
+    that is neither a shared instance nor a mesh of an instanced
+    group."""
+    from ..models.shapes import Instance
+    return (s.is_mesh() and not s.is_analytic()
+            and not isinstance(s, Instance)
+            and id(s) not in scene._group_children)
 
 
 def _bounding_sphere(scene):

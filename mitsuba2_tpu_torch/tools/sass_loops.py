@@ -2,7 +2,7 @@
 code (SASS), on the card's toolkit.
 
     python -m mitsuba2_tpu_torch.tools.sass_loops [--nc 3,4,1] [--lobes 0]
-        [--flags 0,15] [--volpath 1] [--splat] [--against DIR]
+        [--flags 0,15] [--volpath 1] [--splat] [--isect] [--against DIR]
 
 Builds csrc/path_kernel.cu's library of each color mode of ``--nc`` with
 the lobes flag as ``--lobes`` says (``--nc ''`` builds none), disassembles
@@ -16,7 +16,10 @@ csrc/volpath_kernel.cu's library (flag bits, ops/volpath_kernel.py;
 ``--volpath ''`` none). ``--splat`` prints, for every kernel of
 csrc/splat_kernel.cu's library, its instructions by kind and its loops
 (a turn of the tile pass's sample loop: four samples, its integer
-instructions mostly their TEA rounds). ``--against DIR`` (another
+instructions mostly their TEA rounds). ``--isect`` does the same for the
+entries of csrc/intersect_kernel.cu's library (K2: the scene's faces and
+the shared instances), and with ``--against`` names the entries the other
+build lacks. ``--against DIR`` (another
 checkout's ``mitsuba2_tpu_torch/_build``, its libraries built) compares
 every instantiation of each library, addresses and encodings aside, with
 the same library there and prints which differ. Exits non-zero without
@@ -122,6 +125,27 @@ def splat_functions(sass):
     return out
 
 
+ISECT_ENTRIES = {("isect_kernel", "0"): "isect_closest",
+                 ("isect_kernel", "1"): "isect_any",
+                 ("isect_inst_kernel", "0"): "isect_closest_inst",
+                 ("isect_inst_kernel", "1"): "isect_any_inst"}
+
+
+def isect_functions(sass):
+    """cuobjdump -sass text -> {entry: [(address, instruction)]} of the
+    intersection library's kernels, by entry point (``ISECT_ENTRIES``)."""
+    out = {}
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        m = re.search(r"(isect_(?:inst_)?kernel)ILb([01])E",
+                      part.split("\n", 1)[0])
+        if m:
+            out[ISECT_ENTRIES[m.groups()]] = [
+                (int(a.group(1), 16), a.group(2).strip())
+                for a in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);",
+                                     part)]
+    return out
+
+
 def print_loops(name, ins):
     print(f"{name}: {len(ins)} instructions", flush=True)
     for start, end, n, lds, fchk, kinds in loops(ins):
@@ -162,6 +186,8 @@ def main(argv=None):
                     help="volumetric instantiations whose loops to print")
     ap.add_argument("--splat", action="store_true",
                     help="the splat kernel's instructions and loops")
+    ap.add_argument("--isect", action="store_true",
+                    help="the intersection kernel's entries")
     ap.add_argument("--against", default="",
                     help="another checkout's _build directory")
     args = ap.parse_args(argv)
@@ -181,7 +207,9 @@ def main(argv=None):
         jobs_splat = sp.libraries()
     else:
         jobs_splat = []
-    build.build_all(jobs + (vk.libraries() if vflags else []) + jobs_splat)
+    jobs_isect = [("intersect_kernel", {})] if args.isect else []
+    build.build_all(jobs + (vk.libraries() if vflags else []) + jobs_splat
+                    + jobs_isect)
     flags = {int(x) for x in args.flags.split(",") if x}
 
     def sass(lib):
@@ -224,6 +252,29 @@ def main(argv=None):
             print("  all: " + ", ".join(
                 f"{k} {v}" for k, v in count_kinds(t for _, t in ins).items()),
                   flush=True)
+    if args.isect:
+        funcs = isect_functions(sass(build.library_path("intersect_kernel")))
+        for name, ins in sorted(funcs.items()):
+            print_loops(name, ins)
+            print("  all: " + ", ".join(
+                f"{k} {v}" for k, v in count_kinds(t for _, t in ins).items()),
+                  flush=True)
+        others = list(Path(args.against).glob("intersect_kernel-*.so")) \
+            if args.against else []
+        others = [p for p in others if ".tmp." not in p.name]
+        if len(others) == 1:
+            theirs = isect_functions(sass(others[0]))
+            for name, ins in sorted(funcs.items()):
+                if name not in theirs:
+                    state = "new (not in the other build)"
+                elif [t for _, t in ins] == [t for _, t in theirs[name]]:
+                    state = "the same machine code"
+                else:
+                    state = "differs"
+                print(f"{name}: {state} against {others[0].name}",
+                      flush=True)
+        elif args.against:
+            print(f"intersect_kernel: no library in {args.against}")
     return 0
 
 

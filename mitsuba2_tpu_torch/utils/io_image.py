@@ -2,7 +2,9 @@
 bitmap.cpp:21-60; counterpart of ``mitsuba2_tpu.utils.io_image``): OpenEXR
 through utils/io_exr.py, PFM and Radiance RGBE in numpy, and the 8-bit
 formats (PNG, JPEG, ...) through PIL where it imports, decoded from sRGB to
-linear. Without PIL an 8-bit image raises an error that names it."""
+linear; and writing by extension (``write_image``): EXR, PFM, and the
+8-bit formats through PIL, encoded to sRGB. Without PIL an 8-bit image
+raises an error that names it."""
 
 from __future__ import annotations
 
@@ -75,6 +77,49 @@ def srgb_to_linear(x):
     x = np.maximum(x, 0.0)
     return np.where(x <= 0.04045, x / 12.92,
                     np.power((x + 0.055) / 1.055, 2.4)).astype(np.float32)
+
+
+def linear_to_srgb(x):
+    """The sRGB transfer curve, on values clamped below at 0."""
+    x = np.maximum(x, 0.0)
+    return np.where(x <= 0.0031308, x * 12.92,
+                    1.055 * np.power(np.maximum(x, 1e-12), 1.0 / 2.4)
+                    - 0.055).astype(np.float32)
+
+
+def write_png(filename: str, image) -> None:
+    """An LDR image through PIL: values clamped to [0, 1], encoded by the
+    sRGB curve, rounded to 8 bits."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            f"writing {filename!r} needs the PIL package (Pillow), which is "
+            "not installed; EXR and PFM write without it") from e
+    img = linear_to_srgb(np.clip(np.asarray(image, np.float32), 0.0, 1.0))
+    arr = (np.clip(img, 0, 1) * 255 + 0.5).astype(np.uint8)
+    if arr.ndim == 3 and arr.shape[-1] == 1:
+        arr = arr[..., 0]
+    Image.fromarray(arr).save(filename)
+
+
+def write_image(filename: str, image, channel_names=None) -> None:
+    """An image (numpy or a torch tensor on any device) to a file by its
+    extension (Bitmap::write; ``mitsuba2_tpu.utils.io_image.write_image``):
+    OpenEXR, PFM, or an 8-bit format through PIL."""
+    if hasattr(image, "detach"):
+        image = image.detach().cpu().numpy()
+    image = np.asarray(image)
+    ext = os.path.splitext(filename)[1].lower()
+    if ext == ".exr":
+        from .io_exr import write_exr
+        write_exr(filename, image, channel_names)
+    elif ext == ".pfm":
+        write_pfm(filename, image)
+    elif ext in (".png", ".jpg", ".jpeg", ".bmp", ".tga", ".ppm"):
+        write_png(filename, image)
+    else:
+        raise ValueError(f"unsupported image format {ext}")
 
 
 def read_image(filename: str) -> np.ndarray:

@@ -162,9 +162,9 @@ inline unsigned __float_as_uint(float v) {
     return emu_from<unsigned>(emu_bits(v)); }
 using std::max;
 using std::min;
-template <class K, class A>
+template <class K, class... A>
 void emu_launch(K kernel, int grid, int block, size_t smem, void*,
-                const A& a) {
+                const A&... a) {
     gridDim = dim3{(unsigned)grid, 1, 1};
     blockDim = dim3{(unsigned)block, 1, 1};
     std::vector<std::unique_ptr<EmuBlock>> ctx;
@@ -177,7 +177,7 @@ void emu_launch(K kernel, int grid, int block, size_t smem, void*,
                 emu = ctx[b].get();
                 threadIdx = uint3{(unsigned)t, 0, 0};
                 blockIdx = uint3{(unsigned)b, 0, 0};
-                kernel(a);
+                kernel(a...);
             });
     for (auto& t : ts) t.join();
 }
@@ -321,12 +321,12 @@ def test_emulated_loop_matches_plain_version(emulated, variant, make_dict,
 
 
 def emulated_isect_source():
-    """csrc/intersect_kernel.cu with its launch rewritten for the
-    emulation."""
+    """csrc/intersect_kernel.cu with its two launches (the scene's faces,
+    the shared instances) rewritten for the emulation."""
     src = (build.CSRC / "intersect_kernel.cu").read_text()
-    src, n = re.subn(r"(isect_kernel<ANY>)<<<([^>]*)>>>\((\w+)\)",
+    src, n = re.subn(r"(isect_(?:inst_)?kernel<ANY>)<<<([^>]*)>>>\(([^)]*)\)",
                      r"emu_launch(\1, \2, \3)", src)
-    assert n == 1
+    assert n == 2
     return src
 
 
@@ -347,9 +347,12 @@ def emulated_isect(tmp_path_factory):
          str(d / "intersect_kernel.cpp")],
         check=True, capture_output=True)
     lib = ctypes.CDLL(str(out))
-    for name in ("isect_closest", "isect_any"):
+    for name in ("isect_closest", "isect_any", "isect_closest_inst",
+                 "isect_any_inst"):
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.POINTER(ik._IsectArgs), ctypes.c_void_p]
+        fn.argtypes = [ctypes.POINTER(ik._IsectArgs)] + (
+            [ctypes.POINTER(ik._InstArgs)] if name.endswith("_inst")
+            else []) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -399,6 +402,100 @@ def test_emulated_isect_kernel_matches_plain_version(emulated_isect,
     assert hit.max() <= 1
     assert torch.equal(hit.bool(), intersect.any_hit_reference(
         woop, o, d, mint, maxt))
+
+
+def instanced_groups():
+    """Two groups in their own frames -- the 1,216-face bumpy sphere and a
+    10-face fan -- and five instances: the fan twice under one transform
+    (every ray that hits one ties with the other), the sphere three times
+    (one of them rotated and scaled) -> InstanceTables on the CPU."""
+    from tests.test_torch_bvh import bumpy_triangles
+    from mitsuba2_tpu_torch.core.transform import Transform as T
+    ang = np.linspace(0, 2 * np.pi, 11)
+    rim = np.stack([np.cos(ang), np.sin(ang), np.zeros_like(ang)], 1)
+    fan = (np.zeros((10, 3), np.float32), rim[:-1].astype(np.float32),
+           rim[1:].astype(np.float32))
+    fan = (fan[0], fan[1] - fan[0], fan[2] - fan[0])
+    groups = [tuple(np.asarray(x, np.float32) for x in bumpy_triangles()),
+              fan]
+    rows = []
+    for g, trafo in ((1, T.translate([0.2, 0.1, 1.5])),
+                     (0, T.translate([-1.0, 0.0, 0.0])),
+                     (1, T.translate([0.2, 0.1, 1.5])),
+                     (0, T.translate([1.2, 0.3, -0.5])
+                      @ T.rotate([0, 1, 1], 30) @ T.scale([0.6, 0.8, 0.7])),
+                     (0, T.translate([0.0, -1.5, 0.2]) @ T.scale(0.5))):
+        M = np.asarray(trafo.matrix, np.float64)
+        A = np.linalg.inv(M[:3, :3])
+        rows.append(np.concatenate([A.reshape(9), -A @ M[:3, 3],
+                                    M[:3, :3].reshape(9), [g, 0, 0]]))
+    return ik.instance_tables(groups, np.stack(rows).astype(np.float32),
+                              "cpu")
+
+
+@pytest.mark.parametrize("n_rays", [600, 257])
+def test_emulated_isect_instance_entries_match_plain_version(emulated_isect,
+                                                             n_rays):
+    """K2's instance entries (csrc/intersect_kernel.cu) on 2 groups and 5
+    instances against their plain version: t, uv and prims bit for bit,
+    the same occluded rays; rays through the two coincident fan instances
+    keep the first (a later instance replaces the best only at a smaller
+    t). Outputs prefilled with NaN, -2 and 2; two runs bit-identical."""
+    from tests.test_torch_bvh import _rays, bumpy_triangles
+    inst = instanced_groups()
+    o, d = _rays(bumpy_triangles(), n_rays, 11)
+    n = o.shape[0]
+    # a third of the rays straight down through the fan instances
+    o[::3] = torch.tensor([0.2, 0.1, 4.0]) + 0.4 * torch.rand(
+        (len(o[::3]), 3), generator=torch.Generator().manual_seed(5)) - 0.2
+    d[::3] = torch.tensor([0.0, 0.0, -1.0])
+    mint = torch.full((n,), 1e-4)
+    maxt = torch.full((n,), float("inf"))
+    maxt[1::4] = 3.0
+    t = torch.full((n,), float("nan"))
+    uv = torch.full((n, 2), float("nan"))
+    prim = torch.full((n,), -2, dtype=torch.int32)
+    hit = torch.full((n,), 2, dtype=torch.uint8)
+    iargs = ik._InstArgs(*(x.data_ptr() for x in (
+        inst.nodes, inst.woop, inst.prim, inst.group_node, inst.group_face,
+        inst.rows)), inst.n_instances, inst.g_max)
+    runs = []
+    for _ in range(2):
+        for entry, outs in (("isect_closest_inst",
+                             dict(t=t, uv=uv, prim=prim)),
+                            ("isect_any_inst", dict(hit=hit))):
+            args = ik._IsectArgs(*(0 if x is None else x.data_ptr() for x in (
+                None, None, None, o, d, mint, maxt, outs.get("t"),
+                outs.get("uv"), outs.get("prim"), outs.get("hit"))), n)
+            assert getattr(emulated_isect, entry)(
+                ctypes.byref(args), ctypes.byref(iargs), None) == 0
+        runs.append((t.view(torch.int32).clone(),
+                     uv.view(torch.int32).clone(), prim.clone(),
+                     hit.clone()))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    woops = ik.group_woops(inst)
+    rt, ruv, rprim = intersect.closest_hit_instanced_reference(
+        woops, inst.rows, inst.g_max, o, d, mint, maxt)
+    assert not bool(torch.isnan(t).any() or torch.isnan(uv).any())
+    assert torch.equal(prim, rprim)
+    assert torch.equal(t.view(torch.int32), rt.view(torch.int32))
+    assert torch.equal(uv.view(torch.int32), ruv.view(torch.int32))
+    assert torch.equal(hit.bool(), intersect.any_hit_instanced_reference(
+        woops, inst.rows, o, d, mint, maxt))
+    # every instance is hit, the fans only through the first of the two
+    hit_inst = set((rprim[rprim >= 0] // inst.g_max).tolist())
+    assert hit_inst == {0, 1, 3, 4}, hit_inst
+    assert 0.2 < float((rprim >= 0).float().mean()) < 0.95
+
+
+def test_inst_args_match_the_kernel_struct():
+    """``struct InstArgs`` and ``struct IsectArgs`` of
+    csrc/intersect_kernel.cu field for field against ``_InstArgs`` and
+    ``_IsectArgs``."""
+    from tests.test_torch_persistent import struct_fields
+    src = (build.CSRC / "intersect_kernel.cu").read_text()
+    assert struct_fields(src, "InstArgs") == ik._InstArgs._fields_
+    assert struct_fields(src, "IsectArgs") == ik._IsectArgs._fields_
 
 
 def test_emulated_box_kernel_matches_plain_version(tmp_path):

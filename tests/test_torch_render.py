@@ -367,7 +367,10 @@ def test_package_imports_no_jax():
         "import mitsuba2_tpu_torch as mi\n"
         "from mitsuba2_tpu_torch.python.test.scenes import cornell_box_dict\n"
         "from mitsuba2_tpu_torch.ops import bvh, intersect, intersect_kernel\n"
-        "from mitsuba2_tpu_torch.utils import io_obj, serialized\n"
+        "from mitsuba2_tpu_torch.utils import io_obj, io_ply, serialized\n"
+        "from mitsuba2_tpu_torch import cli\n"
+        "from mitsuba2_tpu_torch.python import xml\n"
+        "from mitsuba2_tpu_torch.core import xml_impl, xmlio\n"
         "from mitsuba2_tpu_torch.core import fresolver, ray\n"
         "from mitsuba2_tpu_torch.render import records\n"
         "mi.set_variant('scalar_rgb')\n"
