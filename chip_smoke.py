@@ -106,7 +106,23 @@ of the render's launches (``isect_closest_inst[instanced_shared]`` and
 ``isect_any_inst[instanced_shared]`` in the kernels line), the small
 shared scene card against CPU, shared against materialized image means;
 ``python -m mitsuba2_tpu_torch`` on the XML file, its EXR the in-process
-render's; and a Blender quad from numpy buffers. Last comes
+render's; and a Blender quad from numpy buffers. The polarized and
+measured phase renders at 256x256, 64 spp, max_depth 6 on the wavefronts
+(timed, with host syncs, spans with the Mueller rotations and the
+polarized BSDF calls apart, peak memory): the Cornell box in
+``scalar_rgb_polarized`` and ``scalar_spectral_polarized`` (gate:
+"polarized variant"), bit for bit the unpolarized box forced onto the
+path wavefront; cornell_stokes (a polarizer pane under the light, a
+retarder and a circular polarizer before the boxes, a pplastic tall box)
+under ``stokes`` in rgb and ``scalar_spectral_polarized``, its S0 and
+S1-S3 means logged and each of S1-S3 non-zero somewhere; cornell_measured
+(a ``measured`` and a ``measured_polarized`` box, synthesized tensor
+files) under ``path`` in rgb and spectral and under ``stokes``; K2 bit for
+bit against its twin on rays of every launch of cornell_stokes and
+cornell_measured (``isect_closest[cornell_stokes]`` and so on in the
+kernels line); five of those card against CPU at 32x32x4 spp; and the
+plain box under ``stokes``, S1-S3 zero and S0 the path wavefront's image
+within four standard errors of the mean difference. Last comes
 the measurement path: the face-test and box-test ceilings through
 ``tools/shape_ceiling.py`` (the sweep kernel's shared-memory and global
 face instantiations beside ``torch.matmul`` of the same product, and its
@@ -1642,14 +1658,17 @@ SURFACE_KINDS = ("TwoSided", "BumpMap", "NormalMap", "RoughDielectric",
 class _PassPartitions:
     """Counts the BSDF partitions of each pass of the path wavefront (or,
     without ``loop``, of an integrator whose pass has no bounce loop),
-    from which the host's designed waits follow."""
+    from which the host's designed waits follow. A pass is a call of the
+    integrator's ``sample_aovs``, the drive's entry (``wavefront_lanes``),
+    which reaches ``sample`` where the integrator has no AOVs of its
+    own."""
 
     def __init__(self, integ, loop=True):
         self.integ, self.passes, self.loop = integ, [], loop
 
     def __enter__(self):
         from mitsuba2_tpu_torch.render.scene import Scene
-        sample = type(self.integ).sample
+        sample = type(self.integ).sample_aovs
         partition = Scene.bsdf_partition
         counts = self.passes
 
@@ -1662,13 +1681,13 @@ class _PassPartitions:
             return sample(self.integ, *args, **kw)
         self.saved = partition
         Scene.bsdf_partition = counted_partition
-        self.integ.sample = counted
+        self.integ.sample_aovs = counted
         return self
 
     def __exit__(self, *exc):
         from mitsuba2_tpu_torch.render.scene import Scene
         Scene.bsdf_partition = self.saved
-        del self.integ.sample
+        del self.integ.sample_aovs
 
     def designed_syncs(self):
         """Each bounce's loop test and partition read, and the loop test
@@ -1929,13 +1948,14 @@ METER_READINGS = (("radiancemeter", 0.8, 0.02),
 
 
 def time_wavefront(ik, label, scene, reason, band, loop,
-                   entries=("isect_closest", "isect_any")):
+                   entries=("isect_closest", "isect_any"), layers=()):
     """One wavefront render of ``scene`` at the main shape, K2's launch
     counts zeroed before it and read after, checked (engine, the gate's
     ``reason``, each of K2's ``entries`` reached, finite image within
     ``band``), then timed (median of 3 after it), its host syncs against
-    the design's count and its spans by layer -> (K2's launches by entry,
-    render ms, peak bytes)."""
+    the design's count and its spans by layer (``layers``, (object,
+    attribute, label), beside the common ones) -> (K2's launches by
+    entry, render ms, peak bytes, the first render's image)."""
     from mitsuba2_tpu_torch.render.scene import Scene
     integ = scene.integrator
     n = WIDTH * WIDTH * SPP
@@ -1983,7 +2003,7 @@ def time_wavefront(ik, label, scene, reason, band, loop,
               (Scene, "bsdf_partition", "BSDF partition"),
               (Scene, "bsdf_eval_pdf", "BSDF eval+pdf"),
               (Scene, "bsdf_sample", "BSDF sample"),
-              (scene.sensors[0], "sample_ray", "camera rays")]
+              (scene.sensors[0], "sample_ray", "camera rays")] + list(layers)
     with _Spans(ik, layers, nest=True) as spans:
         _, (total,) = prof.cuda_times(
             lambda: integ.render(scene, seed=SEED, spp=SPP), runs=1,
@@ -1995,7 +2015,7 @@ def time_wavefront(ik, label, scene, reason, band, loop,
         f"{k} {v:.1f} ms" for k, v in sorted(parts.items()))
         + f"; the rest {total - sum(top.values()):.1f} ms; K2 share "
         f"{100 * k2 / total:.2f}%")
-    return launches, ms, peak
+    return launches, ms, peak, img
 
 
 def check_aov_and_moment(mi, scenes):
@@ -2525,7 +2545,7 @@ def run_scene_files(mi, ik, isx, pk, scenes, biggeo):
         f"of 24 floats; stack bound {inst.depth}")
     if scene.n_instances != INST_COUNT:
         raise SystemExit("instanced_shared: not shared")
-    launches, ms, peak = time_wavefront(
+    launches, ms, peak, _ = time_wavefront(
         ik, "instanced_shared", scene, SHARED_REASON, (0.02, 1.0), True,
         entries=("isect_closest", "isect_any", "isect_closest_inst",
                  "isect_any_inst"))
@@ -2609,6 +2629,169 @@ def run_scene_files(mi, ik, isx, pk, scenes, biggeo):
     log(f"scene-file and instancing phase: "
         f"{time.perf_counter() - t_phase:.1f} s")
     return kernels
+
+
+# ---- the polarized and measured phase ---------------------------------------
+STOKES_REASON = "non-path integrator subclass"
+MEASURED_REASON = "unsupported BSDF MeasuredBSDF"
+# (label, fixture, variant, the kernels' gate's reason, the image mean's
+# band, the integrator put in place of the fixture's or None); a stokes
+# image's mean counts its nine S1-S3 channels beside S0's three
+POL_SCENES = (
+    ("cornell_polarized", "cornell_box_dict", "scalar_rgb_polarized",
+     "polarized variant", (0.05, 1.0), None),
+    ("cornell_polarized_spectral", "cornell_box_dict",
+     "scalar_spectral_polarized", "polarized variant", (0.05, 1.0), None),
+    ("cornell_stokes", "cornell_stokes_dict", "scalar_rgb", STOKES_REASON,
+     (0.01, 1.0), None),
+    ("cornell_stokes_spectral", "cornell_stokes_dict",
+     "scalar_spectral_polarized", STOKES_REASON, (0.01, 1.0), None),
+    ("cornell_measured", "cornell_measured_dict", "scalar_rgb",
+     MEASURED_REASON, (0.05, 1.0), None),
+    ("cornell_measured_spectral", "cornell_measured_dict",
+     "scalar_spectral", MEASURED_REASON, (0.05, 1.0), None),
+    ("cornell_measured_stokes", "cornell_measured_dict",
+     "scalar_spectral_polarized", STOKES_REASON, (0.01, 1.0), "stokes"))
+# the scenes whose K2 traffic the kernels line times, and the scenes held
+# card against CPU at WF_CPU_WIDTH^2 x WF_CPU_SPP
+POL_K2 = ("cornell_stokes", "cornell_measured")
+POL_CARD_CPU = ("cornell_polarized", "cornell_stokes",
+                "cornell_stokes_spectral", "cornell_measured",
+                "cornell_measured_spectral")
+# the plain box under stokes against the path wavefront: the mean pixel
+# difference within this many standard errors (tools/wavefront_spread.py
+# ``spread``'s rule)
+POL_MAX_Z = 4.0
+
+
+def pol_scene(mi, scenes, fixture, integrator, width, spp):
+    d = getattr(scenes, fixture)(width, width, spp, MAX_DEPTH)
+    if integrator is not None:
+        d["integrator"] = {"type": integrator, "max_depth": MAX_DEPTH}
+    return mi.load_dict(d)
+
+
+def stokes_means(img):
+    """The means of S0 and of S1, S2 and S3 (three channels each) of a
+    stokes image, and the largest |S_k| of each."""
+    comps = [img[..., 3 * k:3 * k + 3] for k in range(4)]
+    return ([float(c.mean()) for c in comps],
+            [float(c.abs().max()) for c in comps])
+
+
+def run_polarized_measured(mi, ik, isx, pk, scenes):
+    """Polarized rendering and the measured BSDFs on the wavefronts at
+    the main shape (``time_wavefront``: engine, the kernels' reason,
+    render time, host syncs, spans with the Mueller rotations and the
+    polarized BSDF calls apart): the Cornell box in ``scalar_rgb_polarized``
+    and ``scalar_spectral_polarized`` on the path wavefront, bit for bit
+    the unpolarized box forced onto it; cornell_stokes (a polarizer, a
+    retarder, a circular polarizer, a pplastic box) under ``stokes`` in
+    rgb and ``scalar_spectral_polarized``, its S0 and S1-S3 means logged,
+    each of S1-S3 non-zero; cornell_measured (a ``measured`` and a
+    ``measured_polarized`` box) under ``path`` in rgb and spectral and
+    under ``stokes`` in ``scalar_spectral_polarized``; K2 bit for bit
+    against its twin on rays of every launch of cornell_stokes and
+    cornell_measured, timed on the busiest; five of those card against
+    CPU at 32^2 x 4; the plain box under ``stokes``: S1-S3 zero, S0 the
+    path wavefront's image within POL_MAX_Z standard errors -> K2's four
+    entries of the kernels line."""
+    from mitsuba2_tpu_torch.render import mueller
+    from mitsuba2_tpu_torch.render.scene import Scene
+    t_phase = time.perf_counter()
+    layers = [(Scene, "bsdf_eval_pol", "BSDF eval_pol"),
+              (Scene, "bsdf_sample_pol", "BSDF sample_pol"),
+              (Scene, "bsdf_pdf", "BSDF pdf"),
+              (mueller, "to_world_mueller", "Mueller rotation")]
+    entries = []
+    try:
+        for label, fixture, variant, reason, band, integrator in POL_SCENES:
+            t_scene = time.perf_counter()
+            mi.set_variant(variant)
+            scene = pol_scene(mi, scenes, fixture, integrator, WIDTH, SPP)
+            log(f"{label} ({variant}):")
+            launches, _, _, img = time_wavefront(
+                ik, label, scene, reason, band, True, layers=layers)
+            if img.shape[-1] == 12:
+                means, peaks = stokes_means(img)
+                log(f"  S0 mean {means[0]:.6f}; S1, S2, S3 means "
+                    f"{means[1]:.6e}, {means[2]:.6e}, {means[3]:.6e}; "
+                    f"largest |S1|, |S2|, |S3| {peaks[1]:.4f}, "
+                    f"{peaks[2]:.4f}, {peaks[3]:.4f}")
+                if fixture == "cornell_stokes_dict" and min(peaks[1:]) < 1e-3:
+                    raise SystemExit(f"{label}: a Stokes component is zero "
+                                     f"everywhere: {peaks}")
+            if fixture == "cornell_box_dict":
+                # the unpolarized variant's box forced onto the wavefront
+                mi.set_variant(variant.replace("_polarized", ""))
+                plain = pol_scene(mi, scenes, fixture, None, WIDTH, SPP)
+                plain.integrator._disable_kernel = True
+                ref = plain.integrator.render(plain, seed=SEED, spp=SPP)
+                same = torch.equal(img, ref)
+                log(f"  bit for bit the {variant[:-10]} box forced onto "
+                    f"the wavefront: {same}")
+                if not same:
+                    raise SystemExit(f"{label}: apart from the unpolarized "
+                                     f"wavefront's image")
+            if label in POL_K2:
+                entries += wavefront_k2_entries(
+                    ik, isx, pk, label, scene,
+                    lambda: scene.integrator.render(scene, seed=SEED,
+                                                    spp=SPP), launches)
+            del scene
+            torch.cuda.empty_cache()
+            log(f"  {label}: {time.perf_counter() - t_scene:.1f} s")
+
+        # ---- the card against the CPU ----
+        t_step = time.perf_counter()
+        w, spp = WF_CPU_WIDTH, WF_CPU_SPP
+        for label, fixture, variant, _, _, integrator in POL_SCENES:
+            if label not in POL_CARD_CPU:
+                continue
+            mi.set_variant(variant)
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                mi.set_device(dev)
+                try:
+                    sc = pol_scene(mi, scenes, fixture, integrator, w, spp)
+                    runs[dev] = (sc, sc.integrator.render(sc, seed=SEED,
+                                                          spp=spp),
+                                 wavefront_lanes(sc, SEED, spp))
+                finally:
+                    mi.set_device("cuda")
+            hold_card_against_cpu(f"{label} {w}^2 x {spp}, card against "
+                                  f"CPU", runs, ties=True)
+        log(f"  card against CPU: {time.perf_counter() - t_step:.1f} s")
+
+        # ---- the plain box under stokes: unpolarized, the path's image --
+        mi.set_variant("scalar_rgb")
+        d = scenes.cornell_box_dict(WIDTH, WIDTH, SPP, MAX_DEPTH)
+        path = mi.load_dict(d)
+        path.integrator._disable_kernel = True
+        ref = path.integrator.render(path, seed=SEED, spp=SPP).double()
+        d["integrator"] = {"type": "stokes", "max_depth": MAX_DEPTH}
+        plain = mi.load_dict(d)
+        t0 = time.perf_counter()
+        img = plain.integrator.render(plain, seed=SEED, spp=SPP).double()
+        torch.cuda.synchronize()
+        render_s = time.perf_counter() - t0
+        means, peaks = stokes_means(img)
+        diff = (img[..., :3] - ref).reshape(-1)
+        z = abs(float(diff.mean())) / max(
+            float(diff.std()) / math.sqrt(diff.numel()), 1e-30)
+        log(f"plain cornell under stokes {WIDTH}^2 x {SPP}: "
+            f"{render_s:.2f} s; S0 mean {means[0]:.6f} against the path "
+            f"wavefront's {float(ref.mean()):.6f}, mean difference {z:.2f} "
+            f"standard errors (at most {POL_MAX_Z:g}); largest |S1|, |S2|, "
+            f"|S3| {peaks[1]:g}, {peaks[2]:g}, {peaks[3]:g} (must be 0)")
+        if z > POL_MAX_Z or max(peaks[1:]) != 0.0:
+            raise SystemExit("plain cornell under stokes: not the path "
+                             "wavefront's unpolarized image")
+    finally:
+        mi.set_variant("scalar_rgb")
+    log(f"polarized and measured phase: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return entries
 
 
 def main():
@@ -2729,6 +2912,7 @@ def main():
     kernels += run_sensor_integrator_wavefronts(mi, ik, isx, pk, scenes)
     kernels += run_scene_files(mi, ik, isx, pk, scenes, next(
         e for e in kernels if e["name"] == pk.kernel_name(pk.HAS_BVH, 3)))
+    kernels += run_polarized_measured(mi, ik, isx, pk, scenes)
     check_forced_on_cornell(mi, pk, cornell_box_dict)
     kernels += run_ceiling(mi, pk, sk, cornell_box_dict,
                            cornell_materials_dict, face_rates)

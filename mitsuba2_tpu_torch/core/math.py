@@ -43,6 +43,10 @@ def safe_acos(x):
     return torch.acos(torch.clamp(x, -1.0, 1.0))
 
 
+def safe_asin(x):
+    return torch.asin(torch.clamp(x, -1.0, 1.0))
+
+
 def sqr(x):
     return x * x
 

@@ -7,7 +7,10 @@ kernels also shade themselves from the scene's per-face columns
 gates refuse. The wavefront calls each plugin's ``sample``, ``eval`` and
 ``pdf`` on the lanes whose surface carries it, a wrapper its children on
 those same lanes under masks (mitsuba2_tpu/models/bsdfs.py:21-1271, in
-rgb, spectral and mono)."""
+rgb, spectral and mono). The polarizing elements ``polarizer``,
+``retarder`` and ``circular`` and the polarized plastic ``pplastic``
+(:1275-1435) give the ``stokes`` integrator their Mueller matrices
+(``sample_pol``) and every other integrator their (0, 0) entry."""
 
 from __future__ import annotations
 
@@ -17,7 +20,8 @@ from ..core import math as m
 from ..core import spectrum as spec
 from ..core import warp
 from ..core.object import register_plugin
-from ..render.bsdf import BSDF, BSDFFlags, zero_bsdf_sample
+from ..render.bsdf import (BSDF, BSDFFlags, depolarize_value,
+                           zero_bsdf_sample)
 from ..render.fresnel import (fresnel, fresnel_conductor,
                               fresnel_diffuse_reflectance,
                               lookup_conductor_curves, lookup_conductor_ior,
@@ -1049,3 +1053,144 @@ class BumpMap(_FrameMapBSDF):
         n_world = m.normalize(m.cross(tu, tv))
         n_world = m.mulsign(n_world, m.dot(n_world, n)[..., None])
         return _tangent_frame(n_world, si.dp_du)
+
+
+# =============================================================================
+# Polarized optical elements (polarizer.cpp, retarder.cpp, circular.cpp)
+# and polarized plastic (pplastic.cpp); mitsuba2_tpu/models/bsdfs.py:
+# 1275-1435
+# =============================================================================
+
+class _PolarizedElement(BSDF):
+    """A null-direction filter with a Mueller matrix: ``sample`` passes
+    the ray straight through (a Null lobe, pdf 1) with the matrix's (0, 0)
+    component as its weight, as the reference's elements do in
+    unpolarized variants; ``sample_pol`` with the whole matrix, rotated
+    into the transport bases. ``theta`` (degrees) turns the element."""
+
+    def __init__(self, props=None):
+        super().__init__(props)
+        from .textures import ConstantTexture
+        self.theta_tex = props.texture("theta", 0.0) if props \
+            else ConstantTexture(color=0.0)
+        self.m_components = [BSDFFlags.Null | BSDFFlags.FrontSide
+                             | BSDFFlags.BackSide]
+        self.m_flags = self.m_components[0]
+
+    def _mueller(self, si, active, forward):
+        """The element's (n, 4, 4) matrix; ``forward`` the local
+        propagation direction."""
+        raise NotImplementedError
+
+    def _scalar(self, si, active, forward):
+        return self._mueller(si, active, forward)[..., 0, 0]
+
+    def _null_sample(self, ctx, si, active):
+        ok = active & ctx.is_enabled(BSDFFlags.Null)
+        return ok, _sample(-si.wi, torch.where(ok, 1.0, 0.0),
+                           torch.ones_like(si.t), int(BSDFFlags.Null), 0)
+
+    def sample(self, ctx, si, sample1, sample2, active):
+        ok, bs = self._null_sample(ctx, si, active)
+        value = self._scalar(si, active, -si.wi)[..., None] \
+            * torch.ones_like(spec.zeros(si))
+        return bs, torch.where(ok[..., None], value, 0.0)
+
+    def sample_pol(self, ctx, si, sample1, sample2, active):
+        from ..render import mueller as mu
+        ok, bs = self._null_sample(ctx, si, active)
+        wo = -si.wi
+        M = mu.to_world_mueller(si, self._mueller(si, active, wo), -wo,
+                                si.wi)
+        value = M[:, None].expand(-1, spec.zeros(si).shape[1], 4, 4)
+        return bs, torch.where(ok[..., None, None, None], value, 0.0)
+
+    def eval(self, ctx, si, wo, active):
+        return spec.zeros(si)
+
+    def pdf(self, ctx, si, wo, active):
+        return torch.zeros_like(si.t)
+
+    def eval_null_transmission(self, si, active):
+        v = self._scalar(si, active, -si.wi)
+        return torch.where(active[..., None], v[..., None]
+                           * torch.ones_like(spec.zeros(si)), 0.0)
+
+
+@register_plugin("bsdf", "polarizer")
+class PolarizerBSDF(_PolarizedElement):
+    """(polarizer.cpp) an ideal linear polarizer of ``transmittance``,
+    its axis turned by ``theta`` degrees."""
+
+    def __init__(self, props=None):
+        super().__init__(props)
+        from .textures import ConstantTexture
+        self.transmittance = props.texture("transmittance", 1.0) if props \
+            else ConstantTexture(color=1.0)
+
+    def _mueller(self, si, active, forward):
+        from ..render import mueller as mu
+        theta = torch.deg2rad(self.theta_tex.eval_1(si, active))
+        t = self.transmittance.eval_1(si, active)
+        return mu.rotated_element(theta, mu.linear_polarizer(t))
+
+
+@register_plugin("bsdf", "retarder")
+class RetarderBSDF(_PolarizedElement):
+    """(retarder.cpp) a linear retarder of phase ``delta`` degrees (90: a
+    quarter-wave plate, the default; 180: a half-wave plate), its fast
+    axis turned by ``theta``."""
+
+    def __init__(self, props=None):
+        super().__init__(props)
+        from .textures import ConstantTexture
+        self.delta_tex = props.texture("delta", 90.0) if props \
+            else ConstantTexture(color=90.0)
+
+    def _mueller(self, si, active, forward):
+        from ..render import mueller as mu
+        theta = torch.deg2rad(self.theta_tex.eval_1(si, active))
+        delta = torch.deg2rad(self.delta_tex.eval_1(si, active))
+        return mu.rotated_element(theta, mu.linear_retarder(delta))
+
+
+@register_plugin("bsdf", "circular")
+class CircularPolarizerBSDF(_PolarizedElement):
+    """(circular.cpp) a right circular polarizer, or a left one with
+    ``left_handed``."""
+
+    def __init__(self, props=None):
+        super().__init__(props)
+        from ..render import mueller as mu
+        self.left_handed = props.bool_("left_handed", False) if props \
+            else False
+        self.matrix = (mu.left_circular_polarizer() if self.left_handed
+                       else mu.right_circular_polarizer()).numpy()
+
+    def _mueller(self, si, active, forward):
+        from .textures import on_device
+        return on_device(self, "matrix", self.matrix, si.t.device) \
+            .expand(si.t.shape[0], 4, 4)
+
+
+@register_plugin("bsdf", "pplastic")
+class PolarizedPlastic(SmoothPlastic):
+    """(pplastic.cpp) the smooth plastic whose specular lobe carries the
+    polarized Fresnel matrix, rescaled so that its (0, 0) entry is the
+    scalar lobe's value and rotated into the transport bases; the diffuse
+    base depolarizes."""
+
+    def sample_pol(self, ctx, si, sample1, sample2, active):
+        from ..render import mueller as mu
+        bs, value = self.sample(ctx, si, sample1, sample2, active)
+        sel_spec = (bs.sampled_type & int(BSDFFlags.DeltaReflection)) != 0
+        Msp = mu.specular_reflection(torch.clamp(si.wi[..., 2], min=1e-6),
+                                     self.eta)
+        # sample() divided by the lobe's probability: the (0, 0) entry
+        # takes the scalar value of its first channel
+        scale = m.safe_div(value[..., 0],
+                           torch.clamp(Msp[..., 0, 0], min=1e-12), 0.0)
+        Mspec = mu.to_world_mueller(
+            si, Msp[:, None] * scale[..., None, None, None], -bs.wo, si.wi)
+        return bs, torch.where(sel_spec[..., None, None, None], Mspec,
+                               depolarize_value(value))

@@ -1,5 +1,5 @@
 """Integrator plugins (reference: src/integrators/path.cpp, direct.cpp,
-depth.cpp, aov.cpp, moment.cpp, volpath.cpp, volpathmis.cpp).
+depth.cpp, aov.cpp, moment.cpp, stokes.cpp, volpath.cpp, volpathmis.cpp).
 
 The path integrator renders every scene inside the path kernel's scope
 through that kernel (ops/path_kernel.py) and every other scene through
@@ -12,9 +12,9 @@ launch raises. A scene the wavefront cannot render either raises
 ``volpathmis`` do the same with the volumetric kernel
 (ops/volpath_kernel.py) and their own wavefront,
 ``VolumetricPathIntegrator.sample`` (mitsuba2_tpu/models/
-integrators.py:539-869). ``depth``, ``direct``, ``aov`` and ``moment``
-have no kernel and render through the general wavefront alone (the JAX
-package's route for any integrator but ``path``, :74-75).
+integrators.py:539-869). ``depth``, ``direct``, ``aov``, ``moment`` and
+``stokes`` have no kernel and render through the general wavefront alone
+(the JAX package's route for any integrator but ``path``, :74-75).
 """
 
 from __future__ import annotations
@@ -428,6 +428,110 @@ class MomentIntegrator(_WavefrontIntegrator):
             r3 = r if r.shape[1] == 3 else r[:, :1].expand(-1, 3)
             aovs.extend((r3 * r3).unbind(-1))
         return result / len(self.nested), aovs
+
+
+@register_plugin("integrator", "stokes")
+class StokesIntegrator(_WavefrontIntegrator):
+    """(stokes.cpp; mitsuba2_tpu/models/integrators.py:1023-1177) the
+    full Stokes vector of each camera ray: S0 the image, S1, S2 and S3 its
+    AOVs (``S1.r`` ... ``S3.b``), spectra on S0's scale
+    (``SPECTRAL_AOVS``). A Mueller path trace in any variant: the
+    throughput is (n, C, 4, 4), each BSDF contributes its ``eval_pol`` and
+    ``sample_pol`` matrices (a depolarizer unless it polarizes), rotated
+    into the canonical bases of the path's directions
+    (``mueller.to_world_mueller``). Emission is unpolarized; NEE runs at
+    BSDFs with a smooth lobe, emitter hits take power-2 MIS against it,
+    and no Russian roulette. ``max_depth`` (6; below 0 means 16) is a
+    nested integrator's where one is given. Ray queries go through
+    ``ray_intersect`` and ``ray_test`` (K2's entries on the card)."""
+
+    SPECTRAL_AOVS = True
+
+    def __init__(self, props=None):
+        super().__init__(props)
+        self.max_depth = int(props.int_("max_depth", 6)) if props else 6
+        if self.max_depth < 0:
+            self.max_depth = 16
+        for nested in self.nested:
+            self.max_depth = getattr(nested, "max_depth", self.max_depth)
+
+    def aov_names(self):
+        return [f"S{i}.{c}" for i in (1, 2, 3) for c in "rgb"]
+
+    def sample(self, scene, sampler, state, ray, wavelengths):
+        return self.sample_aovs(scene, sampler, state, ray, wavelengths)[0]
+
+    def sample_aovs(self, scene, sampler, state, ray, wavelengths):
+        """-> (S0 (n, C), [S1, S2, S3] (n, C) each). Per bounce the
+        draws of the JAX package: ``next_2d`` for NEE, then ``next_1d``
+        and ``next_2d`` for the BSDF. The loop and the partition read the
+        host as the path wavefront's do. Emission is unpolarized, so a
+        matrix meets a Stokes vector through its first column alone."""
+        from ..render import mueller as mu
+        from ..variants import current
+        n, dev = ray.o.shape[0], ray.o.device
+        nch = current().n_channels
+        ctx = BSDFContext()
+        smooth = int(BSDFFlags.Smooth)
+        delta_null = int(BSDFFlags.Delta | BSDFFlags.Null)
+
+        def add(stokes, T, L, mask):
+            """stokes + T (L, 0, 0, 0) where ``mask``."""
+            return stokes + torch.where(mask[:, None, None],
+                                        T[..., 0] * L[..., None], 0.0)
+
+        si = scene.ray_intersect(ray, None, wavelengths)
+        active = torch.ones((n,), dtype=torch.bool, device=dev)
+        T = torch.eye(4, device=dev).repeat(n, nch, 1, 1)
+        stokes = add(torch.zeros((n, nch, 4), device=dev), T,
+                     scene.eval_emitter(si, ray.d, active), active)
+        active = si.is_valid()
+        depth = 1
+        while depth < self.max_depth:
+            if not bool(active.any()):
+                break
+            parts = scene.bsdf_partition(si, active)
+            # NEE: a depolarized emitter through the BSDF's matrix
+            active_e = active & ((scene.bsdf_flags_at(si) & smooth) != 0)
+            em_u, state = sampler.next_2d(state)
+            ds, emitter_val = scene.sample_emitter_direction(si, em_u,
+                                                             active_e)
+            active_e = active_e & (ds.pdf != 0)
+            wo = si.to_local(ds.d)
+            bsdf_M = mu.to_world_mueller(
+                si, scene.bsdf_eval_pol(ctx, si, wo, active_e, parts), -wo,
+                si.wi)
+            bsdf_pdf = scene.bsdf_pdf(ctx, si, wo, active_e, parts)
+            mis = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, bsdf_pdf))
+            col = (T @ bsdf_M[..., :1])[..., 0]
+            stokes = stokes + torch.where(
+                active_e[:, None, None],
+                mis[:, None, None] * (col * emitter_val[..., None]), 0.0)
+            # BSDF sampling
+            b1, state = sampler.next_1d(state)
+            b2, state = sampler.next_2d(state)
+            bs, M = scene.bsdf_sample_pol(ctx, si, b1, b2, active, parts)
+            M = mu.to_world_mueller(si, M, -bs.wo, si.wi)
+            T = torch.where(active[:, None, None, None], T @ M, T)
+            active = active & (bs.pdf > 0)
+            new_ray = si.spawn_ray(si.to_world(bs.wo))
+            si_next = scene.ray_intersect(new_ray, active, wavelengths)
+            ds_next = DirectionSample(
+                si_next.p, si_next.n, si_next.uv, torch.zeros_like(si.t),
+                torch.zeros_like(active), new_ray.d,
+                torch.where(si_next.is_valid(), si_next.t, float("inf")),
+                scene.emitter_index_at(si_next))
+            delta_lobe = (bs.sampled_type & delta_null) != 0
+            emitter_pdf = torch.where(
+                (ds_next.emitter_idx >= 0) & ~delta_lobe,
+                scene.pdf_emitter_direction(si, ds_next, active), 0.0)
+            emitted = scene.eval_emitter(si_next, new_ray.d, active) \
+                * mis_weight(bs.pdf, emitter_pdf)[:, None]
+            stokes = add(stokes, T, emitted, active)
+            active = active & si_next.is_valid()
+            si = si_next
+            depth += 1
+        return stokes[..., 0], [stokes[..., k] for k in (1, 2, 3)]
 
 
 def _index_spectrum(vec, channel):
@@ -865,19 +969,17 @@ class VolumetricMISPathIntegrator(VolumetricPathIntegrator):
 
 def wavefront_ineligibility(scene, sensor):
     """-> None if the general wavefront renders the scene, else the
-    missing piece: a polarized variant, a sensor without ``sample_ray``,
-    a shape that is not a mesh, sphere, disk or cylinder, or a BSDF,
-    emitter or texture without the methods the wavefront calls. A
-    ``_double`` variant renders in float32, as the reference's wavefront
-    does (nothing there enables 64-bit floats). The path wavefront passes
-    media by, as the reference's does (a null boundary lets its rays
-    through); the volpath wavefront also asks ``_media_ineligibility``."""
-    from ..variants import current
+    missing piece: a sensor without ``sample_ray``, a shape that is not a
+    mesh, sphere, disk or cylinder, or a BSDF, emitter or texture without
+    the methods the wavefront calls. A ``_double`` variant renders in
+    float32 and a ``_polarized`` one as the unpolarized variant, as the
+    reference's wavefronts do (nothing there enables 64-bit floats or
+    reads the polarized flag; the ``stokes`` integrator carries Stokes
+    vectors in any variant). The path wavefront passes media by, as the
+    reference's does (a null boundary lets its rays through); the volpath
+    wavefront also asks ``_media_ineligibility``."""
     from ..render.sensor import Sensor
     from ..models.shapes import CylinderShape, DiskShape, SphereShape
-    var = current()
-    if var.polarized:
-        return "polarized variant: the wavefront carries no Stokes vectors"
     if not _overrides(sensor, Sensor, "sample_ray"):
         return f"sensor {type(sensor).__name__} has no sample_ray"
     for sh in scene.shapes:

@@ -766,3 +766,143 @@ def instanced_spheres_dict(n_inst=3, materialize=None, nu=40, nv=20,
             inst["materialize"] = materialize
         d[f"i{i}"] = inst
     return d
+
+
+def measured_ggx_path(alpha=0.4, res=48, n_theta=16):
+    """An RGL-layout tensor file of an analytic GGX material (the JAX
+    tests' synthesized file, tests/test_measured.py:12-72; cached in the
+    temp directory): ``res``^2 tables over ``n_theta`` incident angles, the
+    NDF, its projected area sigma, the visible-NDF warp with the square's
+    jacobian, a uniform luminance warp and flat unit spectra over four
+    wavelengths -> its path, for the ``measured`` BSDF."""
+    import os
+    import tempfile
+    from ...utils.tensorfile import write_tensor_file
+    path = os.path.join(tempfile.gettempdir(), f"mitsuba2_tpu_torch_ggx_"
+                        f"a{alpha}_{res}_{n_theta}_v1.bsdf")
+
+    def write(tmp):
+        theta_i = np.linspace(0, np.pi / 2 * 0.98, n_theta).astype(np.float32)
+        uu = np.linspace(0, 1, res)
+        tm = uu ** 2 * (np.pi / 2)
+        pm = (2 * np.linspace(0, 1, res) - 1) * np.pi
+        ct = np.cos(tm)
+        a2 = alpha * alpha
+        D = a2 / (np.pi * ((ct ** 2) * (a2 - 1) + 1) ** 2)
+        ndf = np.tile(D[None, :], (res, 1)).astype(np.float32)
+        tg, pg = np.meshgrid(tm, pm, indexing="ij")
+        mx = np.sin(tg) * np.cos(pg)
+        my = np.sin(tg) * np.sin(pg)
+        mz = np.cos(tg)
+        Dg = a2 / (np.pi * ((mz ** 2) * (a2 - 1) + 1) ** 2)
+        dA = np.gradient(tm)[:, None] * np.gradient(pm)[None, :] * np.sin(tg)
+        sigma = np.zeros((res, res), np.float32)
+        for i, th in enumerate(tm):
+            w = np.asarray([np.sin(th), 0, np.cos(th)])
+            proj = np.maximum(0.0, mx * w[0] + my * w[1] + mz * w[2])
+            sigma[:, i] = (Dg * proj * dA).sum()
+        vndf = np.zeros((1, n_theta, res, res), np.float32)
+        lum = np.ones((1, n_theta, res, res), np.float32)
+        jac_u = (np.pi * uu)[None, :] * np.sin(tg) * 2 * np.pi
+        for k, th in enumerate(theta_i):
+            w = np.asarray([np.sin(th), 0, np.cos(th)])
+            proj = np.maximum(0.0, mx * w[0] + my * w[1] + mz * w[2])
+            vndf[0, k] = (Dg * proj * jac_u).astype(np.float32)
+        wav = np.linspace(400, 700, 4).astype(np.float32)
+        write_tensor_file(tmp, {
+            "theta_i": theta_i, "phi_i": np.asarray([0.0], np.float32),
+            "ndf": ndf, "sigma": sigma, "vndf": vndf, "luminance": lum,
+            "spectra": np.ones((1, n_theta, 4, res, res), np.float32),
+            "wavelengths": wav,
+            "description": np.frombuffer(b"synthetic ggx", np.uint8),
+            "jacobian": np.asarray([1], np.uint8)})
+
+    return _write_once(path, write)
+
+
+def kaist_pbrdf_path(eta=1.5, alpha=0.25, diffuse=0.2):
+    """A KAIST-layout pBRDF tensor file (cached in the temp directory):
+    Mueller matrices M (9, 8, 8, 5, 4, 4) over phi_d, theta_d, theta_h
+    and five wavelength bands (450-650 nm), a depolarizing diffuse part
+    ``diffuse`` / pi (reddening with the wavelength) plus the polarized
+    Fresnel reflection of a dielectric of IOR ``eta`` at theta_d
+    (``render/mueller.py specular_reflection``) under a GGX lobe of
+    ``alpha`` in theta_h, so that S1 and S2 of reflected light are not
+    zero -> its path, for ``measured_polarized``."""
+    import os
+    import tempfile
+    import torch
+    from ...render import mueller as mu
+    from ...utils.tensorfile import write_tensor_file
+    path = os.path.join(tempfile.gettempdir(), f"mitsuba2_tpu_torch_kaist_"
+                        f"e{eta}_a{alpha}_d{diffuse}_v1.bsdf")
+
+    def write(tmp):
+        P, D, H = 9, 8, 8
+        phi_d = np.linspace(0, 2 * np.pi, P, dtype=np.float32)
+        theta_d = np.linspace(0, np.pi / 2, D, dtype=np.float32)
+        theta_h = np.linspace(0, np.pi / 2, H, dtype=np.float32)
+        wvls = np.array([450, 500, 550, 600, 650], np.uint16)
+        F = mu.specular_reflection(torch.as_tensor(np.cos(theta_d)),
+                                   eta).numpy()                 # (D, 4, 4)
+        a2 = alpha * alpha
+        ggx = a2 / (np.pi * ((np.cos(theta_h) ** 2) * (a2 - 1) + 1) ** 2)
+        M = np.zeros((P, D, H, len(wvls), 4, 4), np.float32)
+        for iw, w in enumerate(wvls):
+            rho = diffuse * (0.5 + (float(w) - 450.0) / 400.0)
+            M[:, :, :, iw] = (F[None, :, None] * (0.25 * ggx)[None, None, :,
+                                                              None, None])
+            M[:, :, :, iw, 0, 0] += rho / np.pi
+        write_tensor_file(tmp, {
+            "phi_d": phi_d.reshape(1, -1), "theta_d": theta_d.reshape(1, -1),
+            "theta_h": theta_h.reshape(1, -1), "wvls": wvls, "M": M})
+
+    return _write_once(path, write)
+
+
+def cornell_stokes_dict(width=256, height=256, spp=64, max_depth=6,
+                        base=None, T=Transform):
+    """The Cornell box under the ``stokes`` integrator with the four
+    polarizing BSDFs: a ``polarizer`` pane (theta 0) just under the
+    ceiling light, a ``retarder`` pane (delta 90, theta 45) before the
+    short box, a left-handed ``circular`` pane before the tall box, and
+    the tall box in ``pplastic``; so S1, S2 and S3 are each non-zero
+    somewhere in the image. ``base`` and ``T`` as
+    ``cornell_surfaces_dict``."""
+    d = base if base is not None else cornell_box_dict(
+        width, height, spp, max_depth)
+    d["integrator"] = {"type": "stokes", "max_depth": max_depth}
+    d["polarizer"] = {"type": "rectangle",
+                      "to_world": (T.translate([0, 0.9, 0])
+                                   @ T.rotate([1, 0, 0], 90) @ T.scale(0.3)),
+                      "bsdf": {"type": "polarizer", "theta": 0.0}}
+    d["retarder"] = {"type": "rectangle",
+                     "to_world": (T.translate([0.4, -0.65, 0.6])
+                                  @ T.scale([0.3, 0.35, 1.0])),
+                     "bsdf": {"type": "retarder", "theta": 45.0,
+                              "delta": 90.0}}
+    d["circular"] = {"type": "rectangle",
+                     "to_world": (T.translate([-0.35, -0.4, 0.05])
+                                  @ T.scale([0.3, 0.6, 1.0])),
+                     "bsdf": {"type": "circular", "left_handed": True}}
+    d["tallbox"]["bsdf"] = {
+        "type": "pplastic",
+        "diffuse_reflectance": {"type": "rgb", "value": [0.2, 0.3, 0.6]}}
+    return d
+
+
+def cornell_measured_dict(width=256, height=256, spp=64, max_depth=6,
+                          base=None, T=Transform):
+    """The Cornell box under ``path`` with the tall box ``measured`` (the
+    GGX file of ``measured_ggx_path``) and the short box
+    ``measured_polarized`` (``kaist_pbrdf_path``; its ``wavelength``, 550
+    nm, is read outside spectral variants). ``base`` and ``T`` as
+    ``cornell_surfaces_dict``."""
+    d = base if base is not None else cornell_box_dict(
+        width, height, spp, max_depth)
+    d["tallbox"]["bsdf"] = {"type": "measured",
+                            "filename": measured_ggx_path()}
+    d["shortbox"]["bsdf"] = {"type": "measured_polarized",
+                             "filename": kaist_pbrdf_path(),
+                             "wavelength": 550.0}
+    return d

@@ -66,6 +66,17 @@ class BSDF(Object):
         from ..core import spectrum as spec
         return spec.zeros(si)
 
+    def eval_pol(self, ctx, si, wo, active):
+        """``eval`` as Mueller matrices (n, C, 4, 4) in the local frame's
+        Stokes bases: a depolarizer (the reference's
+        ``unpolarized<Spectrum>()`` wrapper) unless the BSDF polarizes."""
+        return depolarize_value(self.eval(ctx, si, wo, active))
+
+    def sample_pol(self, ctx, si, sample1, sample2, active):
+        """``sample`` with its weight as Mueller matrices (n, C, 4, 4)."""
+        bs, value = self.sample(ctx, si, sample1, sample2, active)
+        return bs, depolarize_value(value)
+
 
 class TransportMode(enum.IntEnum):
     Radiance = 0
@@ -82,6 +93,15 @@ class BSDFContext(NamedTuple):
     def is_enabled(self, flags: BSDFFlags, component: int = 0) -> bool:
         return ((self.type_mask & int(flags)) == int(flags)
                 and (self.component == -1 or self.component == component))
+
+
+def depolarize_value(value):
+    """(n, C) spectra -> (n, C, 4, 4) depolarizers (the value in the
+    matrix's (0, 0) entry)."""
+    out = torch.zeros(value.shape + (4, 4), dtype=value.dtype,
+                      device=value.device)
+    out[..., 0, 0] = value
+    return out
 
 
 def zero_bsdf_sample(n, device) -> BSDFSample3:

@@ -72,6 +72,8 @@ class SamplingIntegrator(Integrator):
 
     # lanes per pass of the general wavefront
     MAX_WAVEFRONT = 1 << 20
+    # whether ``sample_aovs``' AOVs are spectra on the radiance's scale
+    SPECTRAL_AOVS = False
 
     def aov_names(self):
         return []
@@ -154,7 +156,10 @@ class SamplingIntegrator(Integrator):
         order (mitsuba2_tpu/render/integrator.py:176-191) and a camera ray
         per lane, ``sample_aovs``' radiance times the ray's weight,
         converted to rgb (spectral: the hero wavelengths through the CIE
-        curves; mono: repeated), then the AOV channels as they come."""
+        curves; mono: repeated), then the AOV channels as they come, or,
+        with ``SPECTRAL_AOVS``, each AOV spectrum (n, C) converted as the
+        radiance is, three channels each
+        (mitsuba2_tpu/render/integrator.py:210-217)."""
         from ..core import spectrum as spec
         from ..models.textures import on_device
         from ..variants import current
@@ -180,11 +185,20 @@ class SamplingIntegrator(Integrator):
             time, wav_sample, pos01, ap_sample)
         value, aovs = self.sample_aovs(scene, sampler, state, ray,
                                        wavelengths)
-        value = value * ray_weight
-        if var.is_spectral:
-            value = spec.spectrum_to_srgb_rows(value.T, wavelengths.T).T
-        elif var.is_monochromatic:
-            value = value.repeat(1, 3)
+
+        def to_rgb(s):
+            if var.is_spectral:
+                return spec.spectrum_to_srgb_rows(s.T, wavelengths.T).T
+            if var.is_monochromatic:
+                return s.repeat(1, 3)
+            return s
+
+        value = to_rgb(value * ray_weight)
+        if aovs and self.SPECTRAL_AOVS:
+            # spectra on the radiance's scale (Stokes components): the
+            # ray's weight and the color conversion of the radiance
+            aovs = [c for a in aovs for c in to_rgb(a * ray_weight)
+                    .unbind(-1)]
         if aovs:
             value = torch.cat([value] + [a[:, None] for a in aovs], -1)
         return pos_px, value

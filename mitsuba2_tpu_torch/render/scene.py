@@ -855,6 +855,34 @@ class Scene(Object):
             val[idx] = val_i
         return bs, val
 
+    def bsdf_eval_pol(self, ctx, si, wo, active, parts):
+        """``bsdf_eval``'s value as Mueller matrices (n, C, 4, 4), each
+        BSDF's ``eval_pol`` on its partition lanes; zero elsewhere."""
+        from ..variants import current
+        val = torch.zeros((si.t.shape[0], current().n_channels, 4, 4),
+                          device=si.t.device)
+        for b, idx in parts:
+            act = active[idx]
+            val[idx] = torch.where(act[:, None, None, None], b.eval_pol(
+                ctx, si.take(idx), wo[idx], act), 0.0)
+        return val
+
+    def bsdf_sample_pol(self, ctx, si, sample1, sample2, active, parts):
+        """``bsdf_sample`` with the weights as Mueller matrices (n, C, 4,
+        4), each BSDF's ``sample_pol`` on its partition lanes."""
+        from ..variants import current
+        from .bsdf import zero_bsdf_sample
+        n, dev = si.t.shape[0], si.t.device
+        bs = zero_bsdf_sample(n, dev)
+        val = torch.zeros((n, current().n_channels, 4, 4), device=dev)
+        for b, idx in parts:
+            bs_i, val_i = b.sample_pol(ctx, si.take(idx), sample1[idx],
+                                       sample2[idx], active[idx])
+            for dst, src in zip(bs, bs_i):
+                dst[idx] = src
+            val[idx] = val_i
+        return bs, val
+
     # ------------------------------------------------------------ media
     # The volpath wavefront's medium queries (mitsuba2_tpu/render/
     # scene.py:1097-1178): each medium's method on the lanes inside it,

@@ -3,9 +3,10 @@
 A variant is a runtime configuration: color representation, polarization
 and precision (reference: resources/mitsuba.conf.template:95-278). Names
 parse as in ``mitsuba2_tpu.variants``; the rgb, spectral and mono color
-modes render, in float32 with or without ``_double`` (as the reference's
-wavefront), and the integrators refuse polarized variants at render
-time.
+modes render, in float32 with or without ``_double``, and with or without
+``_polarized`` as the unpolarized variant, as the reference's wavefronts
+do (the kernels' gates refuse both flags; the ``stokes`` integrator
+carries Stokes vectors in any variant).
 
 The torch device every scene table and buffer lives on is ``cuda`` unless
 the caller names another with ``set_device`` (the CPU tests ask for

@@ -111,15 +111,20 @@ def test_refusals():
         mt.load_dict({"type": "aov", "aovs": "x:albedo"})
     with pytest.raises(RuntimeError, match="needs nested integrators"):
         mt.load_dict({"type": "moment"})
-    mt.set_variant("scalar_rgb_polarized")
-    try:
-        scene = mt.load_dict(scenes_t.cornell_direct_dict(4, 4, 1, 2))
-        with pytest.raises(NotImplementedError, match="polarized") as err:
-            scene.integrator.render(scene, seed=0, spp=1)
-        assert REASON in str(err.value)
-        assert scene.integrator.last_engine is None
-    finally:
-        mt.set_variant("scalar_rgb")
+    # a polarized variant renders on the wavefront as the unpolarized one
+    # (the reference's wavefronts read no polarized flag)
+    imgs = {}
+    for variant in ("scalar_rgb_polarized", "scalar_rgb"):
+        mt.set_variant(variant)
+        try:
+            scene = mt.load_dict(scenes_t.cornell_direct_dict(8, 8, 4, 2))
+            imgs[variant] = scene.integrator.render(scene, seed=0, spp=4)
+            assert scene.integrator.engine_reason == REASON
+            assert scene.integrator.last_engine == "wavefront"
+        finally:
+            mt.set_variant("scalar_rgb")
+    assert torch.equal(imgs["scalar_rgb_polarized"], imgs["scalar_rgb"])
+    assert float(imgs["scalar_rgb"].mean()) > 0.0
 
 
 @pytest.mark.cuda

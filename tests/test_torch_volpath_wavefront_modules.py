@@ -304,12 +304,27 @@ def _unrenderable():
     def bare_phase(scene):
         scene.media[0].phase_function = Cloudy()
 
-    return {"polarized": ("scalar_rgb_polarized", None,
-                          "polarized variant"),
-            "medium": ("scalar_rgb", bare_medium,
+    return {"medium": ("scalar_rgb", bare_medium,
                        "medium Bare has no wavefront sampling"),
             "phase": ("scalar_rgb", bare_phase,
                       "phase Cloudy has no wavefront sample/eval")}
+
+
+def test_polarized_slab_renders_as_the_unpolarized_one():
+    """The slab in ``scalar_rgb_polarized`` renders on the volpath
+    wavefront, bit for bit the ``scalar_rgb`` image (the reference's
+    wavefronts read no polarized flag; K3's gate refuses the variant)."""
+    imgs = {}
+    for variant in ("scalar_rgb_polarized", "scalar_rgb"):
+        mt.set_variant(variant)
+        try:
+            scene = mt.load_dict(slab(mt, 4, 2))
+            imgs[variant] = scene.integrator.render(scene, seed=SEED, spp=2)
+            assert scene.integrator.last_engine == "wavefront"
+        finally:
+            mt.set_variant("scalar_rgb")
+    assert torch.equal(imgs["scalar_rgb_polarized"], imgs["scalar_rgb"])
+    assert float(imgs["scalar_rgb"].mean()) > 0.0
 
 
 @pytest.mark.parametrize("case", sorted(_unrenderable()))

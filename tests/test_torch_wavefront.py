@@ -88,12 +88,20 @@ def _jax_pass(scene, spp):
                                              - sensor.shutter_open)
         ray, weight = sensor.sample_ray(time, wav, pos01, ap, True)
         spec, _, aovs = scene.integrator.sample(scene, sampler, state, ray)
-        spec = spec * weight
-        if var.is_spectral:
-            spec = spec_j.spectrum_to_srgb_rows(spec.T,
-                                                ray.wavelengths.T).T
-        elif var.is_monochromatic:
-            spec = jnp.repeat(spec, 3, axis=-1)
+
+        def to_rgb(s):
+            if var.is_spectral:
+                return spec_j.spectrum_to_srgb_rows(s.T,
+                                                    ray.wavelengths.T).T
+            if var.is_monochromatic:
+                return jnp.repeat(s, 3, axis=-1)
+            return s
+
+        spec = to_rgb(spec * weight)
+        if aovs and getattr(scene.integrator, "SPECTRAL_AOVS", False):
+            # spectra on the radiance's scale (the Stokes components),
+            # integrator.py:210-217
+            aovs = [c for a in aovs for c in to_rgb(a * weight).T]
         if aovs:
             spec = jnp.concatenate([spec] + [a[..., None] for a in aovs],
                                    -1)
