@@ -122,7 +122,20 @@ bit against its twin on rays of every launch of cornell_stokes and
 cornell_measured (``isect_closest[cornell_stokes]`` and so on in the
 kernels line); five of those card against CPU at 32x32x4 spp; and the
 plain box under ``stokes``, S1-S3 zero and S0 the path wavefront's image
-within four standard errors of the mean difference. Last comes
+within four standard errors of the mean difference. The differentiable
+rendering phase (``run_autodiff``) updates the Cornell box's red wall
+and light and the volpath slab's sigma_t grid through
+``params.update()`` and holds each kernel render (K1a, K3) bit for bit
+against a fresh load's; runs a taped ``render_loss`` of the red wall's
+albedo at 256x256, 16 spp, depth 6 on the path wavefront (engine and
+gate, render and backward times, peak memory, at 64 spp too, K2's share;
+its image the forced wavefront's bit for bit), the card's gradient
+against the CPU's at 32x32x4 spp, ``render_loss_rb`` at 16 and 64 spp
+(ms a step, peak memory flat in spp, the gradient the tape's within 0.35
+of the scale), eight Adam steps through rb that recover the wall's
+albedo, and K2 bit for bit against its twin on the rays of a taped
+render (``isect_closest[autodiff]``, ``isect_any[autodiff]``). Last
+comes
 the measurement path: the face-test and box-test ceilings through
 ``tools/shape_ceiling.py`` (the sweep kernel's shared-memory and global
 face instantiations beside ``torch.matmul`` of the same product, and its
@@ -2794,6 +2807,267 @@ def run_polarized_measured(mi, ik, isx, pk, scenes):
     return entries
 
 
+# the differentiable-rendering phase: the Cornell box at the main width and
+# depth, the taped render at AD_TAPED_SPP, rb at each of AD_RB_SPP, the
+# red wall's albedo (and the light's radiance where named)
+AD_LEFT = "left.bsdf.reflectance.value"
+AD_LIGHT = "light.emitter.radiance.value"
+AD_TAPED_SPP, AD_RB_SPP, AD_REPACK_SPP = 16, (16, 64), 16
+# rb against the tape: the JAX test's bar for two independent estimators
+# (tests/test_rb.py:54-57); rb's peak memory at 64 spp within this factor
+# of its peak at 16 (one pass of lanes at a time)
+AD_RB_TOL, AD_RB_FLAT = 0.35, 1.25
+# the card's gradient against the CPU's at 32^2 x 4, relative to its
+# largest component (the two sum in different orders)
+AD_CARD_CPU_TOL = 1e-3
+# the recovery: Adam steps through rb from a grey wall, and the share of
+# the starting mean error that must remain at most (tests/test_rb.py:83-84)
+AD_STEPS, AD_LR, AD_START, AD_RECOVER = 8, 0.05, 0.5, 0.6
+
+
+def ad_l2(target):
+    return lambda im: ((im - target) ** 2).mean()
+
+
+def ad_repack(mi, label, make, edit, root, key, value, spp, max_depth):
+    """A kernel render, ``params.update()`` of ``key`` (in the map of
+    ``root(scene)``) to ``value``, a second kernel render, and the kernel
+    render of the scene loaded with ``edit(dict, value)``: the second must
+    be the fresh load's bit for bit, and not the first's."""
+    def kernel_render(scene):
+        img = scene.integrator.render(scene, seed=SEED, spp=spp)
+        torch.cuda.synchronize()
+        if scene.integrator.last_engine != "kernel":
+            raise SystemExit(f"{label}: engine {scene.integrator.last_engine}"
+                             f" ({scene.integrator.engine_reason})")
+        return img
+
+    scene = mi.load_dict(make())
+    before = kernel_render(scene)
+    params = mi.traverse(root(scene))
+    params[key] = torch.as_tensor(np.asarray(value, np.float32))
+    t0 = time.perf_counter()
+    params.update()
+    after = kernel_render(scene)
+    update_s = time.perf_counter() - t0
+    fresh = kernel_render(mi.load_dict(edit(make(), value)))
+    same, moved = torch.equal(after, fresh), not torch.equal(before, after)
+    log(f"  repack, {label}: params.update() of {key} and the kernel "
+        f"render {update_s:.3f} s; image moved: {moved}; bit for bit a "
+        f"fresh load's: {same}; means {float(before.mean()):.6f} -> "
+        f"{float(after.mean()):.6f}")
+    if not (same and moved):
+        raise SystemExit(f"{label}: a kernel render after params.update() "
+                         f"is not a fresh load's")
+
+
+def run_autodiff(mi, ik, isx, pk, scenes):
+    """Differentiable rendering of the Cornell box at WIDTH^2, depth
+    MAX_DEPTH (python/autodiff.py, models/rb.py): the kernels' tables
+    re-packed after ``params.update()`` (K1a, and K3 on the volpath slab),
+    bit for bit a fresh load's; the taped ``render_loss`` of the red
+    wall's albedo against a target render at AD_TAPED_SPP (engine and
+    gate, render and backward times, peak memory, K2's launches and share;
+    its image the forced wavefront's); the card's gradient against the
+    CPU's at 32^2 x 4; ``render_loss_rb`` at each of AD_RB_SPP (ms a step,
+    peak memory flat in spp, its gradient the tape's within AD_RB_TOL of
+    the scale); AD_STEPS Adam steps through rb recovering the wall's
+    albedo; and K2 bit for bit against its twin on the rays of a taped
+    render -> K2's two entries of the kernels line,
+    ``isect_closest[autodiff]`` and ``isect_any[autodiff]``."""
+    from mitsuba2_tpu_torch.python.autodiff import (Adam, render_loss,
+                                                    render_loss_rb)
+    t_phase = time.perf_counter()
+    mi.set_variant("scalar_rgb")
+    w, depth = WIDTH, MAX_DEPTH
+
+    def cornell(spp, albedo=None):
+        d = scenes.cornell_box_dict(w, w, spp, depth)
+        if albedo is not None:
+            d["left"]["bsdf"]["reflectance"]["value"] = list(albedo)
+        return d
+
+    # ---- the kernels' tables after params.update() ----
+    def edit_light(d, v):
+        d["light"]["emitter"]["radiance"]["value"] = list(v)
+        return d
+
+    grid = np.random.default_rng(0).uniform(0.2, 2.0, (16, 16, 16)) \
+        .astype(np.float32) * 1.5
+    ad_repack(mi, "K1a, the red wall's albedo",
+              lambda: cornell(AD_REPACK_SPP),
+              lambda d, v: cornell(AD_REPACK_SPP, v), lambda s: s, AD_LEFT,
+              [0.2, 0.5, 0.7], AD_REPACK_SPP, depth)
+    ad_repack(mi, "K1a, the light's radiance",
+              lambda: cornell(AD_REPACK_SPP), edit_light, lambda s: s,
+              AD_LIGHT, [9.0, 14.0, 20.0], AD_REPACK_SPP, depth)
+    ad_repack(mi, "K3, the slab's sigma_t grid",
+              lambda: scenes.volpath_slab_dict(w, w, VOL_SPP, VOL_MAX_DEPTH),
+              lambda d, v: scenes.volpath_slab_dict(
+                  w, w, VOL_SPP, VOL_MAX_DEPTH, grid=np.asarray(v)[..., 0]),
+              lambda s: s.media[0], "sigma_t.data", grid[..., None],
+              VOL_SPP, VOL_MAX_DEPTH)
+
+    # ---- the target: the true red wall on the path kernel ----
+    true_red = scenes.cornell_box_dict(1, 1, 1, 1)["left"]["bsdf"][
+        "reflectance"]["value"]
+    ref_scene = mi.load_dict(cornell(AD_RB_SPP[-1]))
+    target = ref_scene.integrator.render(ref_scene, seed=SEED + 1)
+    del ref_scene
+    start = [AD_START] * 3
+    scene = mi.load_dict(cornell(AD_TAPED_SPP, start))
+    params = mi.traverse(scene).keep([AD_LEFT])
+    loss_fn = ad_l2(target)
+
+    # ---- the taped render: the main run, K2's launches counted ----
+    torch.cuda.empty_cache()
+    ik.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, g_tape, img = render_loss(scene, params, loss_fn,
+                                    spp=AD_TAPED_SPP, seed=SEED)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    taped_peak = torch.cuda.max_memory_allocated()
+    launches = {fn.__name__: fn.launches for fn in ik.ENTRIES
+                if fn.__name__ in ("isect_closest", "isect_any")}
+    integ = scene.integrator
+    log(f"autodiff, cornell {w}^2 x {AD_TAPED_SPP} spp, depth {depth}, "
+        f"taped render_loss of {AD_LEFT}: engine {integ.last_engine} "
+        f"(gate: {integ.engine_reason}); loss {float(loss):.6e}; gradient "
+        f"{g_tape[AD_LEFT].tolist()}; step {step_s:.2f} s; peak memory "
+        f"{taped_peak / 2**20:.1f} MiB "
+        f"({taped_peak / (w * w * AD_TAPED_SPP):.0f} B a lane); K2 "
+        f"launches {launches}")
+    if integ.last_engine != "wavefront" or integ.engine_reason != \
+            "differentiable render (wavefront only)":
+        raise SystemExit("autodiff: the taped render left the wavefront")
+    if min(launches.values()) < 1:
+        raise SystemExit(f"autodiff: the taped render missed K2: {launches}")
+    if not bool(torch.isfinite(g_tape[AD_LEFT]).all()) \
+            or float(g_tape[AD_LEFT].abs().max()) == 0.0:
+        raise SystemExit(f"autodiff: taped gradient {g_tape[AD_LEFT]}")
+    # the render and the backward pass apart, K2's share of the render
+    from mitsuba2_tpu_torch.python.autodiff import render
+    values = {k: v.detach().clone().requires_grad_(True)
+              for k, v in params.items()}
+    with _Spans(ik, [], nest=True) as spans:
+        (img2,), (render_ms,) = prof.cuda_times(
+            lambda: (render(scene, spp=AD_TAPED_SPP, seed=SEED,
+                            params=params, values=values),), runs=1,
+            warm_up=False)
+    k2_ms = sum(v for k, v in spans.ms().items() if k.startswith("isect_"))
+    _, (backward_ms,) = prof.cuda_times(
+        lambda: torch.autograd.grad(loss_fn(img2), [values[AD_LEFT]]),
+        runs=1, warm_up=False)
+    log(f"  taped render {render_ms:.1f} ms (K2 {k2_ms:.1f} ms, share "
+        f"{100 * k2_ms / render_ms:.2f}%), backward pass "
+        f"{backward_ms:.1f} ms")
+    del img2, values
+    # the tape's growth with spp: the graph of every pass is kept until
+    # the backward pass
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    render_loss(scene, params, loss_fn, spp=AD_RB_SPP[-1], seed=SEED)
+    torch.cuda.synchronize()
+    taped_peak_hi = torch.cuda.max_memory_allocated()
+    log(f"  taped render_loss at {AD_RB_SPP[-1]} spp: peak memory "
+        f"{taped_peak_hi / 2**20:.1f} MiB, {taped_peak_hi / taped_peak:.2f}x"
+        f" the {AD_TAPED_SPP}-spp peak")
+    # its image against the forward wavefront's at the same seed
+    integ._disable_kernel = True
+    fwd = integ.render(scene, seed=SEED, spp=AD_TAPED_SPP)
+    integ._disable_kernel = False
+    log(f"  taped image bit for bit the forced wavefront's: "
+        f"{torch.equal(img, fwd)}")
+    compare(img, fwd, "  taped image against the forced wavefront's")
+
+    # ---- the card against the CPU at 32^2 x 4 ----
+    cw, cspp = WF_CPU_WIDTH, WF_CPU_SPP
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        mi.set_device(dev)
+        try:
+            sc = mi.load_dict(scenes.cornell_box_dict(cw, cw, cspp, depth))
+            p = mi.traverse(sc).keep([AD_LEFT, AD_LIGHT])
+            grads[dev] = render_loss(sc, p, ad_l2(0.1), spp=cspp,
+                                     seed=SEED)[1]
+        finally:
+            mi.set_device("cuda")
+    for k in (AD_LEFT, AD_LIGHT):
+        ref = grads["cpu"][k].double()
+        err = float((grads["cuda"][k].double().cpu() - ref).abs().max())
+        scale = float(ref.abs().max())
+        log(f"  {k} at {cw}^2 x {cspp}: card {grads['cuda'][k].tolist()}, "
+            f"CPU {grads['cpu'][k].tolist()}; max diff {err:.3e} = "
+            f"{err / scale:.3e} of the scale (at most {AD_CARD_CPU_TOL:g})")
+        if not err <= AD_CARD_CPU_TOL * scale:
+            raise SystemExit(f"autodiff: card and CPU gradients of {k} "
+                             f"disagree")
+
+    # ---- rb: ms a step and peak memory, flat in spp ----
+    peaks = {}
+    g_tape_np = g_tape[AD_LEFT].double().cpu()
+    for spp in AD_RB_SPP:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        render_loss_rb(scene, params, loss_fn, spp=spp, seed=SEED)
+        torch.cuda.synchronize()
+        peaks[spp] = torch.cuda.max_memory_allocated()
+        (_, g_rb, _), (ms,) = prof.cuda_times(
+            lambda: render_loss_rb(scene, params, loss_fn, spp=spp,
+                                   seed=SEED), runs=1, warm_up=False)
+        g = g_rb[AD_LEFT].double().cpu()
+        scale = float(g_tape_np.abs().max())
+        err = float((g - g_tape_np).abs().max())
+        log(f"  rb {w}^2 x {spp} spp: {ms:.1f} ms a step; peak memory "
+            f"{peaks[spp] / 2**20:.1f} MiB; gradient {g.tolist()}, the "
+            f"tape's within {err / scale:.3f} of the scale (at most "
+            f"{AD_RB_TOL:g})")
+        if not (bool(torch.isfinite(g).all()) and err <= AD_RB_TOL * scale):
+            raise SystemExit("autodiff: rb and the tape disagree")
+    lo, hi = peaks[AD_RB_SPP[0]], peaks[AD_RB_SPP[-1]]
+    log(f"  rb peak memory {AD_RB_SPP[-1]} against {AD_RB_SPP[0]} spp: "
+        f"{hi / lo:.3f}x (at most {AD_RB_FLAT:g}); the tape's "
+        f"{taped_peak / lo:.2f}x rb's at {AD_TAPED_SPP} spp and "
+        f"{taped_peak_hi / hi:.2f}x at {AD_RB_SPP[-1]}")
+    if hi > AD_RB_FLAT * lo:
+        raise SystemExit("autodiff: rb's memory grows with spp")
+
+    # ---- the recovery: Adam through rb ----
+    true = torch.tensor(true_red, dtype=torch.float32)
+    err0 = float((params[AD_LEFT].cpu() - true).abs().mean())
+    opt = Adam(params, lr=AD_LR)
+    losses, times = [], []
+    for it in range(AD_STEPS):
+        t0 = time.perf_counter()
+        loss, g_rb, _ = render_loss_rb(scene, params, loss_fn,
+                                       spp=AD_RB_SPP[0], seed=SEED + it)
+        opt.step(g_rb)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(loss))
+    err1 = float((params[AD_LEFT].cpu() - true).abs().mean())
+    log(f"  recovery, {AD_STEPS} Adam steps (lr {AD_LR:g}) through rb at "
+        f"{AD_RB_SPP[0]} spp from {start} toward {list(true_red)}: losses "
+        f"{', '.join(f'{x:.4e}' for x in losses)}; albedo "
+        f"{params[AD_LEFT].tolist()}; mean error {err0:.4f} -> {err1:.4f} "
+        f"({err1 / err0:.3f} of the start, at most {AD_RECOVER:g}); "
+        f"{statistics.median(times):.1f} ms a step (median)")
+    if not err1 < AD_RECOVER * err0:
+        raise SystemExit("autodiff: the recovery did not converge")
+
+    # ---- K2 on the rays of a taped render ----
+    entries = wavefront_k2_entries(
+        ik, isx, pk, "autodiff", scene,
+        lambda: render_loss(scene, params, loss_fn, spp=AD_TAPED_SPP,
+                            seed=SEED), launches)
+    del scene
+    torch.cuda.empty_cache()
+    log(f"autodiff phase: {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2913,6 +3187,7 @@ def main():
     kernels += run_scene_files(mi, ik, isx, pk, scenes, next(
         e for e in kernels if e["name"] == pk.kernel_name(pk.HAS_BVH, 3)))
     kernels += run_polarized_measured(mi, ik, isx, pk, scenes)
+    kernels += run_autodiff(mi, ik, isx, pk, scenes)
     check_forced_on_cornell(mi, pk, cornell_box_dict)
     kernels += run_ceiling(mi, pk, sk, cornell_box_dict,
                            cornell_materials_dict, face_rates)

@@ -1,11 +1,12 @@
 """mitsuba2_tpu_torch — the PyTorch/CUDA port of mitsuba2_tpu.
 
 Same surface as the JAX package: ``set_variant``, ``load_dict``,
-``load_file`` and ``load_string`` (Mitsuba XML) and
-``scene.integrator.render(scene, seed=, spp=)``, plus ``set_device``, which
-names the torch device every scene table and buffer lives on: ``cuda``
-unless the caller asks for another (``set_device("cpu")``, as the tests
-do). Kernels are hand-written CUDA (``csrc/``), built with nvcc at first
+``load_file`` and ``load_string`` (Mitsuba XML),
+``scene.integrator.render(scene, seed=, spp=)``, ``traverse`` and
+``python.autodiff`` (inverse rendering on torch.autograd), plus
+``set_device``, which names the torch device every scene table and
+buffer lives on: ``cuda`` unless the caller asks for another
+(``set_device("cpu")``, as the tests do). Kernels are hand-written CUDA (``csrc/``), built with nvcc at first
 use; each has a plain PyTorch version beside it, which is what runs for
 tables on the CPU.
 This package never imports ``jax`` or ``mitsuba2_tpu``.
@@ -19,7 +20,7 @@ __version__ = "0.1.0"
 
 __all__ = ["set_variant", "variant", "variants", "variant_config", "Variant",
            "set_device", "device", "load_file", "load_string", "load_dict",
-           "Transform"]
+           "traverse", "Transform"]
 
 
 def load_dict(d):
@@ -40,3 +41,10 @@ def load_string(s, **kwargs):
     xml.h:39)."""
     from .core.xmlio import load_string as _ls
     return _ls(s, **kwargs)
+
+
+def traverse(obj):
+    """The differentiable parameters of a scene or plugin, as a
+    ``python.util.ParameterMap`` (parity: mitsuba.python.util.traverse)."""
+    from .python.util import traverse as _traverse
+    return _traverse(obj)

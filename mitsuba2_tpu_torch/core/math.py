@@ -31,20 +31,37 @@ def safe_div(a, b, fallback=0.0):
                        fallback)
 
 
+# The safe functions below give the same values whether or not their
+# argument is traced; a traced one (a differentiable render's) takes its
+# derivative only where it is finite, zero at the domain's edge, where an
+# unguarded sqrt or acos would turn a masked lane's zero gradient into NaN.
+
 def safe_sqrt(x):
-    return torch.sqrt(torch.clamp(x, min=0.0))
+    if not x.requires_grad:
+        return torch.sqrt(torch.clamp(x, min=0.0))
+    ok = x > 0
+    return torch.where(ok, torch.sqrt(torch.where(ok, x, 1.0)), 0.0)
 
 
 def safe_rsqrt(x):
     return torch.rsqrt(torch.clamp(x, min=torch.finfo(x.dtype).tiny))
 
 
+def _inside(f, x):
+    """f(clamp(x, -1, 1)), its derivative zero where |x| >= 1."""
+    c = torch.clamp(x, -1.0, 1.0)
+    if not x.requires_grad:
+        return f(c)
+    ok = c.abs() < 1.0
+    return torch.where(ok, f(torch.where(ok, c, 0.0)), f(c.detach()))
+
+
 def safe_acos(x):
-    return torch.acos(torch.clamp(x, -1.0, 1.0))
+    return _inside(torch.acos, x)
 
 
 def safe_asin(x):
-    return torch.asin(torch.clamp(x, -1.0, 1.0))
+    return _inside(torch.asin, x)
 
 
 def sqr(x):

@@ -2,8 +2,8 @@
 
 from . import (textures, spectra, rfilters, bsdfs, emitters, sensors, films,
                samplers, shapes, integrators, media, media_impl, phase,
-               measured)
+               measured, rb)
 
 ALL_PLUGIN_MODULES = [textures, spectra, rfilters, bsdfs, emitters, sensors,
                       films, samplers, shapes, integrators, media, media_impl,
-                      phase, measured]
+                      phase, measured, rb]

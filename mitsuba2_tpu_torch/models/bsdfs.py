@@ -124,6 +124,9 @@ class SmoothDiffuse(BSDF):
                              | BSDFFlags.FrontSide]
         self.m_flags = self.m_components[0]
 
+    def traverse(self, cb):
+        cb.put_object("reflectance", self.reflectance)
+
     def sample(self, ctx, si, sample1, sample2, active):
         active = active & (si.wi[..., 2] > 0)
         wo = warp.square_to_cosine_hemisphere(sample2)
@@ -175,6 +178,12 @@ class RoughConductor(BSDF):
             flags |= BSDFFlags.Anisotropic
         self.m_components = [flags]
         self.m_flags = flags
+
+    def traverse(self, cb):
+        cb.put_parameter("alpha_u", self.alpha_u)
+        cb.put_parameter("alpha_v", self.alpha_v)
+        cb.put_object("eta", self.eta_tex)
+        cb.put_object("k", self.k_tex)
 
     def _distr(self):
         return MicrofacetDistribution(self.alpha_u, self.alpha_v,
@@ -288,6 +297,11 @@ class SmoothDielectric(BSDF):
             | BSDFFlags.BackSide | BSDFFlags.NonSymmetric]
         self.m_flags = self.m_components[0] | self.m_components[1]
 
+    def traverse(self, cb):
+        cb.put_parameter("eta", self.eta)
+        cb.put_object("specular_reflectance", self.specular_reflectance)
+        cb.put_object("specular_transmittance", self.specular_transmittance)
+
     def sample(self, ctx, si, sample1, sample2, active):
         n = si.t.shape[0]
         F, cos_t, eta_it, eta_ti = fresnel(si.wi[..., 2], self.eta)
@@ -351,6 +365,17 @@ class _Plastic(BSDF):
         self.specular_sampling_weight = s_mean / (d_mean + s_mean)
         self.fdr_int = float(fresnel_diffuse_reflectance(1.0 / self.eta))
         self.inv_eta_2 = 1.0 / (self.eta * self.eta)
+
+    def traverse(self, cb):
+        cb.put_object("diffuse_reflectance", self.diffuse_reflectance)
+        cb.put_object("specular_reflectance", self.specular_reflectance)
+
+    def parameters_changed(self, keys=None):
+        """The coat's sampling weight follows its textures' means, as a
+        fresh load computes it."""
+        d_mean = self.diffuse_reflectance.mean()
+        s_mean = self.specular_reflectance.mean()
+        self.specular_sampling_weight = s_mean / (d_mean + s_mean)
 
     def _probs(self, F_i, has_spec, has_diff):
         """The coat's share of the samples at incident Fresnel F_i."""
@@ -448,6 +473,18 @@ class RoughPlastic(_Plastic):
             BSDFFlags.GlossyReflection | BSDFFlags.FrontSide,
             BSDFFlags.DiffuseReflection | BSDFFlags.FrontSide]
         self.m_flags = self.m_components[0] | self.m_components[1]
+
+    def traverse(self, cb):
+        super().traverse(cb)
+        cb.put_parameter("alpha", self.alpha_u)
+
+    # an isotropic coat: ``alpha`` writes both roughnesses
+    PARAM_ATTRS = {"alpha": "alpha_u"}
+
+    def set_parameter(self, name, value):
+        super().set_parameter(name, value)
+        if name == "alpha":
+            self.alpha_v = self.alpha_u
 
     def _distr(self):
         return MicrofacetDistribution(self.alpha_u, self.alpha_v,
@@ -586,6 +623,11 @@ class SmoothConductor(BSDF):
             ConstantTexture(color=1.0)
         self.m_components = [BSDFFlags.DeltaReflection | BSDFFlags.FrontSide]
         self.m_flags = self.m_components[0]
+
+    def traverse(self, cb):
+        cb.put_object("eta", self.eta_tex)
+        cb.put_object("k", self.k_tex)
+        cb.put_object("specular_reflectance", self.specular_reflectance)
 
     def sample(self, ctx, si, sample1, sample2, active):
         n = si.t.shape[0]
@@ -799,6 +841,11 @@ class TwoSided(BSDF):
         self.m_components = [f]
         self.m_flags = f
 
+    def traverse(self, cb):
+        cb.put_object("brdf_front", self.brdf_front)
+        if self.brdf_back is not self.brdf_front:
+            cb.put_object("brdf_back", self.brdf_back)
+
     def sample(self, ctx, si, sample1, sample2, active):
         front = si.wi[..., 2] > 0
         bs_f, val_f = self.brdf_front.sample(ctx, si, sample1, sample2,
@@ -848,6 +895,10 @@ class MaskBSDF(BSDF):
 
     def _opacity(self, si, active):
         return torch.clamp(self.opacity.eval_1(si, active), 0.0, 1.0)
+
+    def traverse(self, cb):
+        cb.put_object("opacity", self.opacity)
+        cb.put_object("nested", self.nested)
 
     def sample(self, ctx, si, sample1, sample2, active):
         n = si.t.shape[0]
@@ -909,6 +960,11 @@ class BlendBSDF(BSDF):
     def _w(self, si, active):
         return torch.clamp(self.weight.eval_1(si, active), 0.0, 1.0)
 
+    def traverse(self, cb):
+        cb.put_object("weight", self.weight)
+        cb.put_object("bsdf_0", self.bsdf0)
+        cb.put_object("bsdf_1", self.bsdf1)
+
     def sample(self, ctx, si, sample1, sample2, active):
         w = self._w(si, active)
         sel1 = sample1 < w
@@ -961,6 +1017,9 @@ class _FrameMapBSDF(BSDF):
     def _to_perturbed(self, si, active):
         frame = self._perturbed_frame(si, active)
         return si._replace(wi=frame.to_local(si.to_world(si.wi))), frame
+
+    def traverse(self, cb):
+        cb.put_object("nested", self.nested)
 
     def sample(self, ctx, si, sample1, sample2, active):
         si_p, frame = self._to_perturbed(si, active)
@@ -1089,6 +1148,9 @@ class _PolarizedElement(BSDF):
         ok = active & ctx.is_enabled(BSDFFlags.Null)
         return ok, _sample(-si.wi, torch.where(ok, 1.0, 0.0),
                            torch.ones_like(si.t), int(BSDFFlags.Null), 0)
+
+    def traverse(self, cb):
+        cb.put_object("theta", self.theta_tex)
 
     def sample(self, ctx, si, sample1, sample2, active):
         ok, bs = self._null_sample(ctx, si, active)

@@ -128,6 +128,9 @@ class AreaEmitter(Emitter):
                 self.face_areas).to(device)
         return cache[key]
 
+    def traverse(self, cb):
+        cb.put_object("radiance", self.radiance)
+
     def eval(self, si, active):
         """Radiance leaving the front side toward ``si.wi``."""
         ok = active & (si.wi[..., 2] > 0)
@@ -171,7 +174,10 @@ class AreaEmitter(Emitter):
 
     def pdf_direction(self, it, ds, active):
         cos_em = m.dot(-ds.d, ds.n)
-        pdf = m.safe_div(ds.dist * ds.dist, cos_em * self.total_area, 0.0)
+        # the distance of inactive lanes (inf on a miss) kept out of the
+        # quotient, whose gradient would be NaN there
+        dist = torch.where(active, ds.dist, 0.0)
+        pdf = m.safe_div(dist * dist, cos_em * self.total_area, 0.0)
         return torch.where(active & (cos_em > 0), pdf, 0.0)
 
     def sample_ray(self, sample1, sample2, sample3, active, bsphere):
@@ -217,19 +223,42 @@ class EnvironmentMap(Emitter):
             data = data[..., None]
         if data.shape[-1] == 1:
             data = np.repeat(data, 3, -1)
-        self.data = data[..., :3] * scale
-        self.res = (self.data.shape[1], self.data.shape[0])
+        self._data = data[..., :3] * scale
+        self.res = (self._data.shape[1], self._data.shape[0])
         self.m_flags = EmitterFlags.Infinite | EmitterFlags.SpatiallyVarying
         self._bitmap = None
+
+    @property
+    def bitmap(self):
+        """The radiance as a bitmap texture, made at first use: the eval
+        of rgb and mono variants, and traverse()'s ``data``."""
+        if self._bitmap is None:
+            from .textures import BitmapTexture
+            self._bitmap = BitmapTexture(data=self._data)
+        return self._bitmap
+
+    @property
+    def data(self):
+        """The (h, w, 3) radiance, the bitmap's texels once it exists
+        (a parameter write reaches it there)."""
+        return self._data if self._bitmap is None else self._bitmap.rgb
+
+    def traverse(self, cb):
+        cb.put_object("data", self.bitmap)
+
+    def _cache_key(self, name, device):
+        # the derived tables follow the bitmap's parameter writes
+        return (name, str(device), getattr(self._bitmap, "_version", 0))
 
     def _warp(self, device):
         """Hierarchical2D over the texels' luminance x sin(theta) at row
         centers (envmap.cpp:67; the JAX envmap's weights)."""
         from ..core.distr_2d import Hierarchical2D
         cache = self.__dict__.setdefault("_device_cache", {})
-        key = ("warp", str(device))
+        key = self._cache_key("warp", device)
         if key not in cache:
-            data = self.data
+            from .textures import host_value
+            data = host_value(self.data)
             h = data.shape[0]
             lum = (0.212671 * data[..., 0] + 0.715160 * data[..., 1]
                    + 0.072169 * data[..., 2])
@@ -263,10 +292,7 @@ class EnvironmentMap(Emitter):
         from ..variants import current
         if current().is_spectral:
             return self._radiance_spectral(uv, it.wavelengths)
-        if self._bitmap is None:
-            from .textures import BitmapTexture
-            self._bitmap = BitmapTexture(data=self.data)
-        return self._bitmap.eval(_lookup(it, uv))
+        return self.bitmap.eval(_lookup(it, uv))
 
     def _radiance_spectral(self, uv, wavelengths):
         """Radiance at the hero wavelengths: the four texels' sigmoid
@@ -277,10 +303,12 @@ class EnvironmentMap(Emitter):
         from ..render.srgb import srgb_model_eval
         w, h = self.res
         cache = self.__dict__.setdefault("_device_cache", {})
-        key = ("texels", str(uv.device))
+        key = self._cache_key("texels", uv.device)
         if key not in cache:
+            from .textures import host_value
             cache[key] = torch.as_tensor(env_texels(
-                self.data, "spectral").reshape(h * w, 4), device=uv.device)
+                host_value(self.data), "spectral").reshape(h * w, 4),
+                device=uv.device)
         texels = cache[key]
         out, scl = 0.0, 0.0
         for wgt, idx in bilinear_taps(uv, w, h):
@@ -331,7 +359,6 @@ class EnvironmentMap(Emitter):
         or None). The weight reads the texels as a bitmap, as the JAX
         emitter's does."""
         from ..core.ray import Ray
-        from .textures import BitmapTexture
         center, radius = bsphere
         uv, pdf_uv = self._warp(sample2.device).sample(sample2)
         d_to_env, st = self._uv_to_dir(uv)
@@ -342,9 +369,7 @@ class EnvironmentMap(Emitter):
         perp = frame.s * offset[..., 0:1] + frame.t * offset[..., 1:2]
         p = center + (perp - d) * radius
         wav, wav_weight = _emitted_wavelengths(sample1)
-        if self._bitmap is None:
-            self._bitmap = BitmapTexture(data=self.data)
-        weight = self._bitmap.eval(_ray_lookup(uv, wav), active) \
+        weight = self.bitmap.eval(_ray_lookup(uv, wav), active) \
             * wav_weight * m.safe_div(m.Pi * radius * radius, pdf_dir,
                                       0.0)[..., None]
         ok = active & (pdf_dir > 0)
@@ -382,6 +407,9 @@ class PointEmitter(Emitter):
             pos = np.asarray(p.transform("to_world").matrix)[:3, 3]
         self.position = np.asarray(pos, np.float32)
         self.m_flags = EmitterFlags.DeltaPosition
+
+    def traverse(self, cb):
+        cb.put_object("intensity", self.intensity)
 
     def eval(self, si, active):
         return spec.zeros(si)
@@ -428,6 +456,9 @@ class ConstantEmitter(Emitter):
             from .textures import ConstantTexture
             self.radiance = ConstantTexture(color=1.0)
         self.m_flags = EmitterFlags.Infinite
+
+    def traverse(self, cb):
+        cb.put_object("radiance", self.radiance)
 
     def eval(self, si, active):
         return torch.where(active[..., None], self.radiance.eval(si, active),
@@ -485,6 +516,9 @@ class DirectionalEmitter(Emitter):
             self.irradiance = ConstantTexture(color=irradiance)
         self.direction = np.asarray(d / np.linalg.norm(d), np.float32)
         self.m_flags = EmitterFlags.Infinite | EmitterFlags.DeltaDirection
+
+    def traverse(self, cb):
+        cb.put_object("irradiance", self.irradiance)
 
     def eval(self, si, active):
         return spec.zeros(si)
@@ -573,6 +607,9 @@ class SpotEmitter(Emitter):
             0.5 + 0.5 * m.safe_div(local[..., 1], local[..., 2], 0.0)], -1)
         return falloff[..., None] * self.texture.eval(
             _ray_lookup(uv, wavelengths), active)
+
+    def traverse(self, cb):
+        cb.put_object("intensity", self.intensity)
 
     def eval(self, si, active):
         return spec.zeros(si)

@@ -52,8 +52,15 @@ class _KernelIntegrator(MonteCarloIntegrator):
         # reference's _disable_megakernel, integrators.py:38-39); for tests
         # and chip_smoke.py, not a user option
         self._disable_kernel = False
+        # set by python/autodiff.py around a differentiable render: the
+        # kernels have no autograd, so the pass rides the wavefront
+        # (mitsuba2_tpu/models/integrators.py:36-52, :466-485)
+        self._differentiable = False
 
     def _kernel(self, scene, sensor):
+        if self._differentiable:
+            self.engine_reason = "differentiable render (wavefront only)"
+            return None
         if self._disable_kernel:
             self.engine_reason = "kernel disabled (_disable_kernel)"
             return None
@@ -80,19 +87,27 @@ class _KernelIntegrator(MonteCarloIntegrator):
                                         sample_base, spp_pass, spp_total)
 
     def _kernel_for(self, scene, sensor):
-        """The scene's kernel object, or None with ``engine_reason`` set."""
+        """The scene's kernel object, or None with ``engine_reason`` set;
+        cached by scene, sensor and parameter epoch: after a parameter
+        write the scene re-packs its tables and the kernel object is built
+        anew from them (the JAX package keys its kernel cache on the scene
+        and sensor alone, mitsuba2_tpu/models/integrators.py:57-63, and
+        renders stale tables after an update; ROADMAP queue 3)."""
+        from ..core.object import param_epoch
         cached = self._kernel_cache
-        if cached is not None and cached[0] is scene and cached[1] is sensor:
-            return cached[2]
+        if cached is not None and cached[0] is scene \
+                and cached[1] is sensor and cached[2] == param_epoch():
+            return cached[3]
         reason = self._ineligibility(scene, sensor)
         mk = None
         if reason is None:
+            scene.refresh_tables()
             mk = self._make_kernel(scene, sensor)
         else:
             _log.Log(_log.Debug, f"{type(self).__name__}: outside the "
                      f"kernel's scope ({reason})")
         self.engine_reason = reason
-        self._kernel_cache = (scene, sensor, mk)
+        self._kernel_cache = (scene, sensor, param_epoch(), mk)
         return mk
 
 
@@ -142,7 +157,9 @@ class PathIntegrator(_KernelIntegrator):
         when no lane is active: that test reads one value on the host a
         bounce, and the BSDF dispatch's partition reads its lane counts
         (``scene.bsdf_partition``); nothing else in a pass waits for the
-        device (core/profiler.py ``HostTransfers`` counts them)."""
+        device (core/profiler.py ``HostTransfers`` counts them). A
+        differentiable render takes at most 32 bounces, the length of the
+        JAX package's scan (mitsuba2_tpu/models/integrators.py:192-200)."""
         n = ray.o.shape[0]
         ctx = BSDFContext()
         si = scene.ray_intersect(ray, None, wavelengths)
@@ -155,7 +172,9 @@ class PathIntegrator(_KernelIntegrator):
         smooth = int(BSDFFlags.Smooth)
         delta = int(BSDFFlags.Delta)
         depth = 1
-        while depth < self.max_depth:
+        last = self.max_depth if not self._differentiable \
+            else min(self.max_depth, 33)
+        while depth < last:
             if not bool(active.any()):
                 break
             # Russian roulette (path.cpp:133-141)

@@ -73,6 +73,15 @@ class Grid3DVolume(Volume):
             self.to_local = to_world.inverse()
             self.identity_transform = False
 
+    def traverse(self, cb):
+        cb.put_parameter("data", self.data)
+
+    def set_parameter(self, name, value):
+        super().set_parameter(name, value)
+        if name == "data":
+            from .textures import host_value
+            self._max = float(host_value(self.data).max())
+
     def _interp(self, p):
         """Every channel (..., C) at world points p (..., 3), 0 outside
         the grid: the reference's gather lerp, along x, then y, then z
@@ -157,6 +166,10 @@ class HomogeneousMedium(Medium):
         self.albedo_tex = as_texture(albedo)
         self.scale = float(scale)
 
+    def traverse(self, cb):
+        cb.put_object("sigma_t", self.sigma_t_tex)
+        cb.put_object("albedo", self.albedo_tex)
+
     def intersect_aabb(self, ray):
         n, dev = ray.o.shape[0], ray.o.device
         return (torch.ones((n,), dtype=torch.bool, device=dev),
@@ -201,7 +214,15 @@ class HeterogeneousMedium(Medium):
         for vol in (self.sigma_t_vol, self.albedo_vol):
             if vol.identity_transform:
                 vol.to_local = self.to_local
-        self.majorant = self.sigma_t_vol.max() * self.scale
+
+    @property
+    def majorant(self):
+        """max(sigma_t) * scale, from the volume's current values."""
+        return self.sigma_t_vol.max() * self.scale
+
+    def traverse(self, cb):
+        cb.put_object("sigma_t", self.sigma_t_vol)
+        cb.put_object("albedo", self.albedo_vol)
 
     def intersect_aabb(self, ray):
         """The ray against the unit cube in the medium's frame; the near

@@ -79,6 +79,10 @@ class PerspectiveCamera(ProjectiveCamera):
                             @ camera_to_sample)
         self.sample_to_camera = camera_to_sample.inverse()
 
+
+    def traverse(self, cb):
+        super().traverse(cb)
+        cb.put_parameter("x_fov", self.x_fov)
     def sample_ray(self, time, wavelength_sample, position_sample,
                    aperture_sample=None, active=True):
         """Rays through film positions (n, 2) in [0, 1]^2 -> (Ray, its

@@ -118,18 +118,22 @@ class UniformSpectrum(Texture):
 
     def eval(self, si, active=True):
         from ..variants import current
-        return torch.full((si.t.shape[0], current().n_channels), self.value,
-                          device=si.t.device)
+        # added to zeros, not filled: a bound value keeps its graph
+        return torch.zeros((si.t.shape[0], current().n_channels),
+                           device=si.t.device) + self.value
 
     def eval_1(self, si, active=True):
-        return torch.full_like(si.t, self.value)
+        return torch.zeros_like(si.t) + self.value
 
     def eval_3(self, si, active=True):
-        return torch.full((si.t.shape[0], 3), self.value,
-                          device=si.t.device)
+        return torch.zeros((si.t.shape[0], 3), device=si.t.device) \
+            + self.value
 
     def mean(self):
-        return self.value
+        return float(self.value)
+
+    def traverse(self, cb):
+        cb.put_parameter("value", self.value)
 
 
 def _numbers(v):

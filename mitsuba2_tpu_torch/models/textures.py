@@ -26,13 +26,33 @@ _LUMINANCE = np.asarray([0.212671, 0.715160, 0.072169], np.float64)
 
 def on_device(obj, name, array, device):
     """``array`` as a float32 tensor on ``device``, cached on ``obj`` under
-    ``name`` so that each device receives it once."""
+    ``name`` so that each device receives it once. A tensor (a value a
+    differentiable render bound, python/util.py ``ParameterMap.bind``)
+    passes through uncached, its autograd graph kept."""
+    if isinstance(array, torch.Tensor):
+        return array.to(device=device, dtype=torch.float32)
     cache = obj.__dict__.setdefault("_device_cache", {})
     key = (name, str(device))
     if key not in cache:
         cache[key] = torch.as_tensor(np.asarray(array, np.float32),
                                      device=device)
     return cache[key]
+
+
+def is_traced(value):
+    """Whether ``value`` is a tensor a differentiable render traces (it
+    requires grad): such a value is installed as it is, and the payloads
+    derived from a value on the host keep their old contents, as the JAX
+    package keeps them for a tracer (mitsuba2_tpu/models/
+    textures.py:104-110, :228-238)."""
+    return isinstance(value, torch.Tensor) and value.requires_grad
+
+
+def host_value(value):
+    """``value`` as a host numpy array (a tensor detached and copied)."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    return np.asarray(value)
 
 
 def bilinear_taps(uv, w, h):
@@ -69,10 +89,13 @@ class ConstantTexture(Texture):
 
     def __init__(self, props=None, color=None):
         super().__init__(props)
-        from ..variants import current
         if color is None:
             color = props.get("color", props.get("value", 0.5))
-        color = np.asarray(color, np.float32)
+        self._set_color(color)
+
+    def _set_color(self, color):
+        from ..variants import current
+        color = np.asarray(host_value(color), np.float32)
         if color.ndim == 0:
             color = np.broadcast_to(color, (3,)).copy()
         self.rgb = color
@@ -84,6 +107,19 @@ class ConstantTexture(Texture):
         elif var.is_monochromatic:
             self.mono = mono_luminance(color)
 
+    def traverse(self, cb):
+        cb.put_parameter("value", self.rgb)
+
+    # the differentiable leaf is the rgb value: a traced value reaches
+    # eval in rgb variants only, the spectral and mono payloads keep the
+    # last concrete value's (mitsuba2_tpu/models/textures.py:97-110)
+    PARAM_ATTRS = {"value": "rgb"}
+
+    def set_parameter(self, name, value):
+        super().set_parameter(name, value)
+        if name == "value" and not is_traced(value):
+            self._set_color(value)
+
     def payload(self) -> np.ndarray:
         """(3,) float32 the path kernel reads: rgb, the spectral
         coefficients, or the luminance repeated."""
@@ -94,7 +130,8 @@ class ConstantTexture(Texture):
         return self.rgb
 
     def mean(self):
-        return float(np.asarray(self.rgb, np.float64) @ _LUMINANCE)
+        return float(np.asarray(host_value(self.rgb), np.float64)
+                     @ _LUMINANCE)
 
     def eval(self, si, active=True):
         """The color at every lane of ``si``, in the variant's channels."""
@@ -196,9 +233,13 @@ class BitmapTexture(Texture):
             data = data[..., None]
         if data.shape[-1] == 1:
             data = np.repeat(data, 3, axis=-1)
-        self.rgb = np.ascontiguousarray(data[..., :3])
-        self.resolution = (self.rgb.shape[1], self.rgb.shape[0])
+        self.resolution = (data.shape[1], data.shape[0])
         self.raw = bool(raw)
+        self._set_texels(data)
+
+    def _set_texels(self, data):
+        from ..variants import current
+        self.rgb = np.ascontiguousarray(data[..., :3])
         var = current()
         if var.is_spectral:
             from ..render.srgb import srgb_model_fetch
@@ -209,8 +250,35 @@ class BitmapTexture(Texture):
         else:
             self.payload = self.rgb
 
+    def traverse(self, cb):
+        cb.put_parameter("data", self.rgb.reshape(-1, 3))
+
+    def get_parameter(self, name):
+        if name == "data":
+            return self.rgb.reshape(-1, 3)
+        return super().get_parameter(name)
+
+    def set_parameter(self, name, value):
+        """``data`` is the (h * w, 3) texels, row-major (the JAX bitmap's
+        ``_rgb_flat``): a concrete value re-derives the variant payload,
+        a traced one replaces rgb and, in rgb variants, the payload
+        (mitsuba2_tpu/models/textures.py:223-238)."""
+        if name != "data":
+            return super().set_parameter(name, value)
+        from ..variants import current
+        w, h = self.resolution
+        if is_traced(value):
+            super().set_parameter("rgb", value.reshape(h, w, 3))
+            if current().is_rgb:
+                self.payload = self.rgb
+        else:
+            super().set_parameter("rgb", np.asarray(
+                host_value(value), np.float32).reshape(h, w, 3))
+            self._set_texels(self.rgb)
+        self._version = getattr(self, "_version", 0) + 1
+
     def mean(self):
-        return float(np.mean(mono_luminance(self.rgb)))
+        return float(np.mean(mono_luminance(host_value(self.rgb))))
 
     def is_spatially_varying(self):
         return True

@@ -82,6 +82,36 @@ def cornell_box_dict(width=256, height=256, spp=64, max_depth=6,
     }
 
 
+def furnace_dict(albedo=0.6, env_radiance=1.0, width=32, height=32, spp=64,
+                 max_depth=-1):
+    """A diffuse plane under a uniform environment: every camera ray that
+    hits the plane returns albedo * env_radiance plus its share of the
+    environment, an analytic white-furnace check
+    (mitsuba2_tpu/python/test/scenes.py:84-111)."""
+    T = Transform
+    return {
+        "type": "scene",
+        "integrator": {"type": "path", "max_depth": max_depth},
+        "sensor": {
+            "type": "perspective",
+            "fov": 45.0,
+            "to_world": T.look_at([0, 2, 0.01], [0, 0, 0], [0, 1, 0]),
+            "film": {"type": "hdrfilm", "width": width, "height": height,
+                     "rfilter": {"type": "box"}},
+            "sampler": {"type": "independent", "sample_count": spp},
+        },
+        "plane": {
+            "type": "rectangle",
+            "to_world": T.rotate([1, 0, 0], -90) @ T.scale(100.0),
+            "bsdf": {"type": "diffuse",
+                     "reflectance": {"type": "rgb",
+                                     "value": [albedo] * 3}},
+        },
+        "env": {"type": "constant",
+                "radiance": {"type": "rgb", "value": [env_radiance] * 3}},
+    }
+
+
 def _write_once(path, write):
     """``path``, written by ``write(tmp)`` first if it does not exist: the
     file is written beside and renamed, so a concurrent reader (another

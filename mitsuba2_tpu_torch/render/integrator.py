@@ -13,6 +13,7 @@ develops what it has.
 from __future__ import annotations
 
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -151,57 +152,77 @@ class SamplingIntegrator(Integrator):
     def wavefront_lanes(self, scene, sensor, sampler, seed, sample_base,
                         spp_pass):
         """Each lane's film position (n, 2) in pixels and values (n, 3 +
-        len(aov_names())): lanes pixel-major, a jittered film position, an
-        aperture sample, a time and a wavelength sample drawn in that
-        order (mitsuba2_tpu/render/integrator.py:176-191) and a camera ray
-        per lane, ``sample_aovs``' radiance times the ray's weight,
-        converted to rgb (spectral: the hero wavelengths through the CIE
-        curves; mono: repeated), then the AOV channels as they come, or,
-        with ``SPECTRAL_AOVS``, each AOV spectrum (n, C) converted as the
+        len(aov_names())): the camera lanes (``camera_lanes``),
+        ``sample_aovs``' radiance times the ray's weight, converted to rgb
+        (``lanes_to_rgb``), then the AOV channels as they come, or, with
+        ``SPECTRAL_AOVS``, each AOV spectrum (n, C) converted as the
         radiance is, three channels each
         (mitsuba2_tpu/render/integrator.py:210-217)."""
-        from ..core import spectrum as spec
-        from ..models.textures import on_device
-        from ..variants import current
-        w, h = sensor.film.crop_size
-        n = w * h * spp_pass
-        dev = scene.device
-        var = current()
-        lane = torch.arange(n, dtype=torch.int64, device=dev)
-        pixel_id = lane // spp_pass
-        state = sampler.seed(seed, pixel_id, lane % spp_pass + sample_base)
-        jitter, state = sampler.next_2d(state)
-        pos_px = torch.stack([(pixel_id % w).float(),
-                              (pixel_id // w).float()], -1) + jitter
-        pos01 = pos_px / on_device(sensor.film, "crop_size", [w, h], dev)
-        ap_sample, state = sampler.next_2d(state)
-        time_sample, state = sampler.next_1d(state)
-        wav_sample, state = sampler.next_1d(state)
-        time = sensor.shutter_open
-        if sensor.shutter_close != sensor.shutter_open:
-            time = sensor.shutter_open + time_sample \
-                * (sensor.shutter_close - sensor.shutter_open)
-        ray, ray_weight, wavelengths = sensor.sample_ray(
-            time, wav_sample, pos01, ap_sample)
-        value, aovs = self.sample_aovs(scene, sampler, state, ray,
-                                       wavelengths)
-
-        def to_rgb(s):
-            if var.is_spectral:
-                return spec.spectrum_to_srgb_rows(s.T, wavelengths.T).T
-            if var.is_monochromatic:
-                return s.repeat(1, 3)
-            return s
-
-        value = to_rgb(value * ray_weight)
+        lanes = camera_lanes(scene, sensor, sampler, seed, sample_base,
+                             spp_pass)
+        value, aovs = self.sample_aovs(scene, sampler, lanes.state,
+                                       lanes.ray, lanes.wavelengths)
+        value = lanes_to_rgb(value * lanes.ray_weight, lanes.wavelengths)
         if aovs and self.SPECTRAL_AOVS:
             # spectra on the radiance's scale (Stokes components): the
             # ray's weight and the color conversion of the radiance
-            aovs = [c for a in aovs for c in to_rgb(a * ray_weight)
-                    .unbind(-1)]
+            aovs = [c for a in aovs for c in lanes_to_rgb(
+                a * lanes.ray_weight, lanes.wavelengths).unbind(-1)]
         if aovs:
             value = torch.cat([value] + [a[:, None] for a in aovs], -1)
-        return pos_px, value
+        return lanes.pos_px, value
+
+
+class CameraLanes(NamedTuple):
+    pos_px: torch.Tensor        # (n, 2) film position in pixels
+    pixel_id: torch.Tensor      # (n,) int64, pixel-major lanes
+    state: object               # the sampler state after the camera draws
+    ray: object
+    ray_weight: torch.Tensor
+    wavelengths: object         # (n, 4) hero wavelengths, or None
+
+
+def camera_lanes(scene, sensor, sampler, seed, sample_base, spp_pass):
+    """The camera rays of a pass of w * h * spp_pass lanes, pixel-major,
+    each lane's stream seeded by (seed, pixel, sample_base + its sample
+    index), then a jittered film position, an aperture sample, a time and
+    a wavelength sample drawn in that order
+    (mitsuba2_tpu/render/integrator.py:176-191)."""
+    from ..models.textures import on_device
+    w, h = sensor.film.crop_size
+    n = w * h * spp_pass
+    dev = scene.device
+    lane = torch.arange(n, dtype=torch.int64, device=dev)
+    pixel_id = lane // spp_pass
+    state = sampler.seed(seed, pixel_id, lane % spp_pass + sample_base)
+    jitter, state = sampler.next_2d(state)
+    pos_px = torch.stack([(pixel_id % w).float(),
+                          (pixel_id // w).float()], -1) + jitter
+    pos01 = pos_px / on_device(sensor.film, "crop_size", [w, h], dev)
+    ap_sample, state = sampler.next_2d(state)
+    time_sample, state = sampler.next_1d(state)
+    wav_sample, state = sampler.next_1d(state)
+    time = sensor.shutter_open
+    if sensor.shutter_close != sensor.shutter_open:
+        time = sensor.shutter_open + time_sample \
+            * (sensor.shutter_close - sensor.shutter_open)
+    ray, ray_weight, wavelengths = sensor.sample_ray(
+        time, wav_sample, pos01, ap_sample)
+    return CameraLanes(pos_px, pixel_id, state, ray, ray_weight,
+                       wavelengths)
+
+
+def lanes_to_rgb(s, wavelengths):
+    """Lane spectra (n, C) -> rgb (n, 3): spectral through the hero
+    wavelengths and the CIE curves, mono repeated, rgb as it is."""
+    from ..core import spectrum as spec
+    from ..variants import current
+    var = current()
+    if var.is_spectral:
+        return spec.spectrum_to_srgb_rows(s.T, wavelengths.T).T
+    if var.is_monochromatic:
+        return s.repeat(1, 3)
+    return s
 
 
 def box_sum(value, w, h, spp):

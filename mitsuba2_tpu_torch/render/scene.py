@@ -201,13 +201,53 @@ class Scene(Object):
         for e in self.emitters:
             if hasattr(e, "prepare"):
                 e.prepare(self)
+        self._spheres, self._quadrics = spheres, quadrics
+        self.tables = None
+        self._pack_values()
+        # the ray queries' shape ids and quad rows on the device, copied
+        # once (a copy from the host at each query waits for the stream)
+        self._face_shape_dev = torch.as_tensor(self.face_shape,
+                                               device=self.device)
+        self._sphere_shape_dev = torch.as_tensor(self.sphere_shape,
+                                                 device=self.device)
+        self._quad_dev = torch.as_tensor(self.quad_table, device=self.device)
+
+        self._pack_instances(instanced)
+        self._pack_mesh_attributes(perm if self.bvh is not None else None)
+
+        # media in first-seen shape order, interior before exterior
+        # (mitsuba2_tpu/render/scene.py:293-312)
+        self.media = []
+        for s in self.shapes:
+            for med in (s.interior_medium, s.exterior_medium):
+                if med is not None and all(med is not x
+                                           for x in self.media):
+                    self.media.append(med)
+        self.has_media = bool(self.media)
+        self._wire_mesh_attr_textures()
+
+    # plugin values in the kernels' tables
+    _VALUE_FIELDS = ("fattr", "lights", "sph", "sattr", "qd", "qattr", "env",
+                     "env_marg", "env_cond", "env_pmf", "env_rot", "tex")
+
+    def _pack_values(self):
+        """Packs what the kernels' tables hold of the plugins' values: the
+        per-face attribute rows (BSDF columns, emission, light pdf), the
+        light table, the sphere and quad rows, the bitmap texels and the
+        envmap's texels and sampling grid; at load the whole table set,
+        after a parameter write (``refresh_tables``) these fields of it,
+        the geometry kept. The same code packs both, so an updated scene's
+        tables are a fresh load's bit for bit."""
         # the path kernel's environment: an envmap (its gate refuses any
         # other environment emitter, which the wavefront renders)
         from ..models.emitters import EnvironmentMap
+        from ..core.object import param_epoch
         env = self.environment_emitter
         if not isinstance(env, EnvironmentMap):
             env = None
         mode = self.color_mode
+        spheres, quadrics = self._spheres, self._quadrics
+        uvs = self.uvs
         lights, le_face, le_scale, lpdf_w, p_env = _light_table(
             self.emitters, self.shapes, self.face_shape, env is not None,
             mode)
@@ -271,34 +311,34 @@ class Scene(Object):
             env_t = (env_texels(env.data, mode),) \
                 + env_sampling_tables(env.data)
             env_rot = np.asarray(env.to_world.matrix, np.float32)[:3, :3]
-        self.tables = pk.pack_tables(
-            self.v0, self.e1, self.e2, fattr, lights,
-            self.device, sph=sph, sattr=sattr, env=env_t, env_rot=env_rot,
-            p_env=p_env, nc=pk.MODE_NC[mode], traversal=self.traversal,
-            quads=(qd, qattr), tex=tex)
-        # the light table and per-face emission on the host, for the same
+        if self.tables is None:
+            self.tables = pk.pack_tables(
+                self.v0, self.e1, self.e2, fattr, lights,
+                self.device, sph=sph, sattr=sattr, env=env_t,
+                env_rot=env_rot, p_env=p_env, nc=pk.MODE_NC[mode],
+                traversal=self.traversal, quads=(qd, qattr), tex=tex)
+        else:
+            vals = pk.pack_tables(
+                np.zeros((0, 3), np.float32), np.zeros((0, 3), np.float32),
+                np.zeros((0, 3), np.float32), fattr, lights, self.device,
+                sph=sph, sattr=sattr, env=env_t, env_rot=env_rot,
+                p_env=p_env, nc=pk.MODE_NC[mode], quads=(qd, qattr),
+                tex=tex)
+            self.tables = self.tables._replace(
+                **{f: getattr(vals, f) for f in self._VALUE_FIELDS})
+        # the light table and per-face emission on the host, for the
+        # volumetric kernel's tables (ops/volpath_kernel.py)
         self.light_rows, self.le_face, self.lpdf_w = lights, le_face, lpdf_w
-        # the ray queries' shape ids and quad rows on the device, copied
-        # once (a copy from the host at each query waits for the stream)
-        self._face_shape_dev = torch.as_tensor(self.face_shape,
-                                               device=self.device)
-        self._sphere_shape_dev = torch.as_tensor(self.sphere_shape,
-                                                 device=self.device)
-        self._quad_dev = torch.as_tensor(self.quad_table, device=self.device)
+        self._values_epoch = param_epoch()
 
-        self._pack_instances(instanced)
-        self._pack_mesh_attributes(perm if self.bvh is not None else None)
-
-        # media in first-seen shape order, interior before exterior
-        # (mitsuba2_tpu/render/scene.py:293-312)
-        self.media = []
-        for s in self.shapes:
-            for med in (s.interior_medium, s.exterior_medium):
-                if med is not None and all(med is not x
-                                           for x in self.media):
-                    self.media.append(med)
-        self.has_media = bool(self.media)
-        self._wire_mesh_attr_textures()
+    def refresh_tables(self):
+        """Re-packs the plugin values into the kernels' tables when a
+        parameter was written since they were packed
+        (``core.object.param_epoch``); the kernel integrators call it
+        before they build a kernel object."""
+        from ..core.object import param_epoch
+        if self._values_epoch != param_epoch():
+            self._pack_values()
 
     def _pack_instances(self, instanced):
         """The shared instances' tables (``inst_tables``, None without
@@ -396,6 +436,18 @@ class Scene(Object):
     def bbox(self):
         return self._bb_min, self._bb_max
 
+    def traverse(self, cb):
+        """Shapes under their ids (``shape_{i}`` without one), emitters
+        not attached to a shape (area lights are reached through their
+        shape), sensors (mitsuba2_tpu/render/scene.py:1360-1366)."""
+        for i, s in enumerate(self.shapes):
+            cb.put_object(s.id or f"shape_{i}", s)
+        for i, e in enumerate(self.emitters):
+            if e.shape is None:
+                cb.put_object(e.id or f"emitter_{i}", e)
+        for i, s in enumerate(self.sensors):
+            cb.put_object(s.id or f"sensor_{i}", s)
+
     # ------------------------------------------------------------ ray queries
     def _sphere_closest_hit(self, o, d, mint, maxt):
         """Every ray against every analytic sphere, the reference's plain
@@ -477,6 +529,7 @@ class Scene(Object):
             return ray.maxt
         return torch.where(active, ray.maxt, float("-inf")).contiguous()
 
+    @torch.no_grad()
     def ray_intersect_preliminary(self, ray, active=None):
         """Closest hit of a batch of rays (core/ray.py Ray on the scene's
         device) -> render/records.py PreliminaryIntersection (scene.h;
@@ -539,6 +592,7 @@ class Scene(Object):
         return PreliminaryIntersection(t, uv, shape_idx.to(torch.int32),
                                        prim.to(torch.int32))
 
+    @torch.no_grad()
     def ray_test(self, ray, active=None):
         """Whether each ray is occluded within its [mint, maxt] (scene.h
         ray_test; mitsuba2_tpu/render/scene.py:965-989): mesh faces through
@@ -600,6 +654,10 @@ class Scene(Object):
         uv0, uv1, uv2 = A[:, 21:23], A[:, 23:25], A[:, 25:27]
         dp_du, dp_dv = A[:, 27:30], A[:, 30:33]
         shape_idx, bsdf_idx, emitter_idx = ints[:, 0], ints[:, 1], ints[:, 2]
+        # a miss's t (inf) kept out of the products with the ray, whose
+        # direction a differentiable render may trace: inf times a zero
+        # gradient would be NaN
+        t_hit = torch.where(valid, pi.t, 0.0)[:, None]
         w0 = (1.0 - pi.prim_uv[:, 0] - pi.prim_uv[:, 1])[:, None]
         wu, wv = pi.prim_uv[:, 0:1], pi.prim_uv[:, 1:2]
         p = v0 + e1 * wu + e2 * wv
@@ -611,7 +669,7 @@ class Scene(Object):
             is_sph = (pi.prim_idx >= F) & (pi.prim_idx < F + S)
             row = wf.sph[(pi.prim_idx - F).clamp(0, S - 1).long()]
             c, r, flip = row[:, 0:3], row[:, 3:4], row[:, 9:10]
-            p_s = ray.o + pi.t[:, None] * ray.d
+            p_s = ray.o + t_hit * ray.d
             n_s = m.normalize(p_s - c) * flip
             p_s = c + n_s * flip * r
             phi = torch.atan2(n_s[:, 1], n_s[:, 0])
@@ -655,7 +713,7 @@ class Scene(Object):
             ns_l = Ar[:, 12:15] * w0 + Ar[:, 15:18] * wu + Ar[:, 18:21] * wv
             uv_l = Ar[:, 21:23] * w0 + Ar[:, 23:25] * wu + Ar[:, 25:27] * wv
             w = is_i[:, None]
-            p = torch.where(w, ray.o + pi.t[:, None] * ray.d, p)
+            p = torch.where(w, ray.o + t_hit * ray.d, p)
             ng = torch.where(w, m.normalize(torch.einsum(
                 "ni,nij->nj", Ar[:, 9:12], A_t)), ng)
             ns = torch.where(w, m.normalize(torch.einsum(
@@ -1377,7 +1435,7 @@ def _quad_interaction(wf, ray, pi, p, ng, ns, uv, dp_du, dp_dv, shape_idx,
     B = row[:, 12:21].reshape(-1, 3, 3)
     r_c, len_c = row[:, 22], row[:, 23]
     flip = row[:, 29:30]
-    p_q = ray.o + pi.t[:, None] * ray.d
+    p_q = ray.o + torch.where(pi.is_valid(), pi.t, 0.0)[:, None] * ray.d
     local = torch.einsum("nij,nj->ni", A, p_q) + b
     lx, ly, lz = local[:, 0], local[:, 1], local[:, 2]
     is_disk = row[:, 21] < 1.5

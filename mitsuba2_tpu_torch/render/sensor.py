@@ -33,6 +33,9 @@ class Sensor(Object):
         self.shutter_close = props.float_("shutter_close", 0.0) \
             if props else 0.0
 
+    def traverse(self, cb):
+        cb.put_object("film", self.film)
+
     def sample_ray(self, time, wavelength_sample, position_sample,
                    aperture_sample, active=True):
         """Rays for film positions (n, 2) in [0, 1]^2 over the crop

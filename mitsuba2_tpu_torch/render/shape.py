@@ -45,6 +45,12 @@ class Shape(Object):
                     else:
                         self.interior_medium = obj
 
+    def traverse(self, cb):
+        if self.bsdf is not None:
+            cb.put_object("bsdf", self.bsdf)
+        if self.emitter is not None:
+            cb.put_object("emitter", self.emitter)
+
     def is_mesh(self):
         return isinstance(self, Mesh)
 
@@ -75,6 +81,17 @@ class Mesh(Shape):
         # vertex, "face_*" rows a face -> (size, (rows, size) float32)
         self.attributes: dict = {}
 
+
+    def traverse(self, cb):
+        super().traverse(cb)
+        cb.put_parameter("vertex_positions", self.vertices)
+        if self.normals is not None:
+            cb.put_parameter("vertex_normals", self.normals)
+
+    # a write reaches the wavefront's and the kernels' tables only at the
+    # next load, as in the JAX package (no refit, no geometry gradients)
+    PARAM_ATTRS = {"vertex_positions": "vertices",
+                   "vertex_normals": "normals"}
     def add_attribute(self, name: str, size: int, data):
         """(mesh.cpp:300 add_attribute) a named per-vertex or per-face
         attribute of ``size`` values a row, which ``mesh_attribute``
