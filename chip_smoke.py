@@ -134,8 +134,18 @@ against the CPU's at 32x32x4 spp, ``render_loss_rb`` at 16 and 64 spp
 (ms a step, peak memory flat in spp, the gradient the tape's within 0.35
 of the scale), eight Adam steps through rb that recover the wall's
 albedo, and K2 bit for bit against its twin on the rays of a taped
-render (``isect_closest[autodiff]``, ``isect_any[autodiff]``). Last
-comes
+render (``isect_closest[autodiff]``, ``isect_any[autodiff]``). The
+multichip phase (``run_multichip``) renders through
+``parallel/mesh.py`` over every card present, or two shards on one card:
+the Cornell box at 256x256, 64 spp, depth 6 sample-sharded (within 2e-5
+of the single-device render) and banded (bit for bit), the materials box
+banded (the lobes family and the splat, within 2e-5), the volpath slab
+sample-sharded on K3; a ``[cuda:0, cpu]`` mesh (the CPU shard on the
+plain versions) against the card alone at 64x64x16 spp, and the forced
+wavefront there at 32x32x4; and the band launches of K1 and the splat
+against their plain versions (``path_kernel[cornell_bands]``,
+``path_kernel[materials_bands]`` and ``splat_kernel[materials_bands]``
+in the kernels line). Last comes
 the measurement path: the face-test and box-test ceilings through
 ``tools/shape_ceiling.py`` (the sweep kernel's shared-memory and global
 face instantiations beside ``torch.matmul`` of the same product, and its
@@ -3068,6 +3078,222 @@ def run_autodiff(mi, ik, isx, pk, scenes):
     return entries
 
 
+# the multichip phase: a sample-sharded render's bar against the
+# single-device render (tests/test_parallel.py, the JAX package's), the
+# [cuda:0, cpu] mesh's shape, and the forced wavefront's there (32^2 x 4)
+SHARD_ATOL = 2e-5
+MIXED_WIDTH, MIXED_SPP = 64, 16
+# card against CPU on the forced wavefront: a lane the two devices part
+# (PERF.md §2) moves the image mean by up to about 1e-4 of it
+MIXED_WF_MEAN_RTOL = 1e-3
+
+
+def held_to_single(label, img, single, exact=False):
+    """A sharded render against the single-device render: within
+    SHARD_ATOL, or bit for bit with ``exact``."""
+    err = float((img - single).abs().max()) if img.shape == single.shape \
+        else math.inf
+    same = img.shape == single.shape and torch.equal(img, single)
+    log(f"{label}: max abs diff {err:.3e} against the single-device "
+        f"render, bit-identical: {same}")
+    if not bool(torch.isfinite(img).all()) or err > SHARD_ATOL \
+            or exact and not same:
+        raise SystemExit(f"{label}: differs from the single-device render")
+
+
+def band_kernel_entry(pk, name, scene, launches, mean_rtol):
+    """The path kernel's band launch (``row0``, ``n_rows``) against its
+    plain version: at the parity shape the middle half of the rows, lane
+    for lane, and bit for bit those rows of a whole-film launch; at the
+    main shape the middle half timed beside the plain version, both
+    image means within ``mean_rtol`` -> (its entry of the kernels line,
+    the main band's lanes, its rows)."""
+    tables, rr = scene.tables, scene.integrator.rr_depth
+    cam = pk.camera_row(scene.sensors[0], scene.device)
+    pw, pspp = PARITY_WIDTH, PARITY_SPP
+    r0, nr = pw // 4, pw // 2
+    p_args = (tables, cam, SEED, 0, pspp, pw, pw, MAX_DEPTH, rr)
+    got = pk.path_radiance(*p_args, row0=r0, n_rows=nr)
+    full = pk.path_radiance(*p_args)
+    same = torch.equal(got, full[:, r0 * pw * pspp:(r0 + nr) * pw * pspp])
+    log(f"{name}: band launch bit for bit those rows of the film's: {same}")
+    if not same:
+        raise SystemExit(f"{name}: a band's lanes differ from the film's")
+    stats, n_stats = {}, pw * nr * pspp
+    want = pk.path_radiance_reference(*p_args, stats=stats, row0=r0,
+                                      n_rows=nr)
+    max_abs_err = compare(develop(got, pw, pspp, nr),
+                          develop(want, pw, pspp, nr), f"{name} parity",
+                          mean_rtol)
+    r0, nr = WIDTH // 4, WIDTH // 2
+    args = (tables, cam, 0, 0, SPP, WIDTH, WIDTH, MAX_DEPTH, rr)
+    k_rad, kernel_ms = timed(lambda: pk.path_radiance(*args, row0=r0,
+                                                      n_rows=nr))
+    p_rad, plain_ms = timed(lambda: pk.path_radiance_reference(
+        *args, row0=r0, n_rows=nr), repeats=1, warm_up=False)
+    max_abs_err = max(max_abs_err, compare(
+        develop(k_rad, WIDTH, SPP, nr), develop(p_rad, WIDTH, SPP, nr),
+        f"{name} main band", mean_rtol))
+    n_paths = WIDTH * nr * SPP
+    bound_ms, bound_by = bound(pk, tables, stats, n_stats, n_paths)
+    log(f"{name}: band of {nr} rows, {n_paths} paths: kernel "
+        f"{kernel_ms:.3f} ms, {100 * bound_ms / kernel_ms:.2f}% of bound; "
+        f"plain version {plain_ms:.3f} ms")
+    return {"name": name, "route": "cuda",
+            "source": "mitsuba2_tpu_torch/csrc/path_kernel.cu",
+            "replaces": "mitsuba2_tpu/ops/megakernel.py:365",
+            "launches": launches, "max_abs_err": max_abs_err,
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}, k_rad, (r0, nr)
+
+
+def splat_band_entry(name, rad, rows, rfilter, launches):
+    """The splat kernel on a band's lanes (``row0``, ``n_rows``) against
+    its plain version: every block pixel within 1e-5 relative or 1e-6
+    absolute -> its entry of the kernels line."""
+    from mitsuba2_tpu_torch.ops import splat as sp
+    r0, nr = rows
+    kw = dict(row0=r0, n_rows=nr)
+    block, splat_ms = timed(lambda: sp.splat(rad, 0, 0, SPP, WIDTH, WIDTH,
+                                             rfilter, **kw))
+    want, plain_ms = timed(lambda: sp.splat_reference(
+        rad, 0, 0, SPP, WIDTH, WIDTH, rfilter, **kw), repeats=1,
+        warm_up=False)
+    err = (block - want).abs()
+    ok = (err <= 1e-5 * want.abs()) | (err <= 1e-6)
+    log(f"{name}: block {tuple(block.shape)}, block pixels within 1e-5 or "
+        f"1e-6 {float(ok.float().mean()):.6f}")
+    if not bool(ok.all()):
+        raise SystemExit(f"{name}: splat kernel and plain version disagree")
+    k = 2 * ((block.shape[1] - WIDTH) // 2) + 1
+    bound_ms, bound_by = splat_bound(rad.shape[1], k,
+                                     block.shape[0] * block.shape[1])
+    log(f"{name}: kernel {splat_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}); plain version {plain_ms:.3f} ms")
+    return {"name": name, "route": "cuda",
+            "source": "mitsuba2_tpu_torch/csrc/splat_kernel.cu",
+            "replaces": "mitsuba2_tpu/ops/megakernel.py:3041",
+            "launches": launches, "max_abs_err": float(err.max()),
+            "ms": splat_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def run_multichip(mi, pk, vk, scenes):
+    """Multi-device rendering (parallel/mesh.py) over every card present,
+    or two shards on the one card: the Cornell box (256^2 x 64, K1a)
+    sample-sharded and banded, the materials box banded (K1's lobes family
+    and the splat, its gaussian border overlap-added), the volpath slab
+    sample-sharded (K3), each against the single-device render; a [cuda:0,
+    cpu] mesh at 64^2 x 16 (placement and the cross-device reduce: the
+    CPU shard on the plain versions) against the card alone, and the
+    forced wavefront there at 32^2 x 4; the band launches of K1 and the
+    splat against their plain versions -> the entries of the kernels
+    line."""
+    from mitsuba2_tpu_torch.ops import splat as sp
+    from mitsuba2_tpu_torch.parallel.mesh import (
+        default_mesh, render_multichip, render_multichip_pixel_sharded)
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    mesh = default_mesh() if n_cards > 1 else default_mesh(["cuda:0"] * 2)
+    log(f"multichip: {mesh}")
+    mi.set_variant("scalar_rgb")
+    entries = []
+
+    def sharded(label, scene, spp, mesh, band=False):
+        """One render of the mesh, then its median time of 3."""
+        fn = render_multichip_pixel_sharded if band else render_multichip
+        img = fn(scene, seed=0, spp=spp, mesh=mesh)
+        torch.cuda.synchronize()
+        engine = scene.integrator.last_engine
+        _, ms = timed(lambda: fn(scene, seed=0, spp=spp, mesh=mesh),
+                      repeats=3)
+        log(f"{label}: {engine}, {ms:.3f} ms median of 3")
+        return img
+
+    def single(label, scene, spp):
+        img, ms = timed(lambda: scene.integrator.render(scene, seed=0,
+                                                        spp=spp), repeats=3)
+        if scene.integrator.last_engine != "kernel":
+            raise SystemExit(f"{label} left the kernel: "
+                             f"{scene.integrator.engine_reason}")
+        log(f"{label} single device: {ms:.3f} ms median of 3")
+        return img
+
+    # ---- the Cornell box: samples, then bands ----
+    scene = mi.load_dict(scenes.cornell_box_dict(WIDTH, WIDTH, SPP,
+                                                 MAX_DEPTH))
+    one = single("cornell", scene, SPP)
+    held_to_single("cornell sample-sharded", sharded(
+        "cornell sample-sharded", scene, SPP, mesh), one)
+    pk.reset_launch_counts()
+    img = render_multichip_pixel_sharded(scene, seed=0, spp=SPP, mesh=mesh)
+    torch.cuda.synchronize()
+    launches = pk.path_radiance.launches_by_kernel[(0, 3)]
+    if launches < 1:
+        raise SystemExit("cornell bands launched no path kernel")
+    held_to_single("cornell banded", img, one, exact=True)
+    sharded("cornell banded", scene, SPP, mesh, band=True)
+    entry, _, _ = band_kernel_entry(pk, "path_kernel[cornell_bands]", scene,
+                                    launches, MEAN_RTOL)
+    entries.append(entry)
+
+    # ---- the materials box banded: the lobes family and the splat ----
+    flags = pk.HAS_SPHERES | pk.HAS_LOBES
+    scene = mi.load_dict(scenes.cornell_materials_dict(WIDTH, WIDTH, SPP,
+                                                       MAX_DEPTH))
+    one = single("cornell_materials", scene, SPP)
+    pk.reset_launch_counts()
+    sp.reset_launch_counts()
+    img = render_multichip_pixel_sharded(scene, seed=0, spp=SPP, mesh=mesh)
+    torch.cuda.synchronize()
+    launches = pk.path_radiance.launches_by_kernel[(flags, 3)]
+    splats = sp.splat.launches
+    if launches < 1 or splats < 1:
+        raise SystemExit("materials bands launched no path kernel or splat")
+    held_to_single("cornell_materials banded", img, one)
+    sharded("cornell_materials banded", scene, SPP, mesh, band=True)
+    entry, rad, rows = band_kernel_entry(
+        pk, "path_kernel[materials_bands]", scene, launches,
+        CAUSTIC_MEAN_RTOL)
+    entries.append(entry)
+    entries.append(splat_band_entry("splat_kernel[materials_bands]", rad,
+                                    rows, scene.sensors[0].film.rfilter,
+                                    splats))
+
+    # ---- the volpath slab sample-sharded on K3 ----
+    scene = mi.load_dict(scenes.volpath_slab_dict(WIDTH, WIDTH, VOL_SPP,
+                                                  VOL_MAX_DEPTH))
+    one = single("volpath", scene, VOL_SPP)
+    vk.reset_launch_counts()
+    img = sharded("volpath sample-sharded", scene, VOL_SPP, mesh)
+    if vk.volpath_radiance.launches < 1:
+        raise SystemExit("volpath shards launched no volumetric kernel")
+    held_to_single("volpath sample-sharded", img, one)
+
+    # ---- a [cuda:0, cpu] mesh: placement and the cross-device reduce ----
+    mixed = default_mesh(["cuda:0", "cpu"])
+    scene = mi.load_dict(scenes.cornell_box_dict(MIXED_WIDTH, MIXED_WIDTH,
+                                                 MIXED_SPP, MAX_DEPTH))
+    one = single("cornell 64^2 x 16", scene, MIXED_SPP)
+    for band in (False, True):
+        label = f"cornell on {mixed}, {'banded' if band else 'sampled'}"
+        img = sharded(label, scene, MIXED_SPP, mixed, band)
+        if img.device != mixed.devices[0]:
+            raise SystemExit(f"{label}: the image is on {img.device}")
+        compare(img, one, f"{label}, against the card alone")
+    scene = mi.load_dict(scenes.cornell_box_dict(32, 32, 4, MAX_DEPTH))
+    scene.integrator._disable_kernel = True
+    one = scene.integrator.render(scene, seed=0, spp=4)
+    img = sharded(f"cornell forced onto the wavefront on {mixed}", scene, 4,
+                  mixed)
+    if scene.integrator.last_engine != "wavefront":
+        raise SystemExit("the forced Cornell box left the wavefront")
+    compare(img, one, "forced wavefront on the mixed mesh, against the card "
+            "alone", MIXED_WF_MEAN_RTOL)
+    log(f"multichip phase: {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3188,6 +3414,7 @@ def main():
         e for e in kernels if e["name"] == pk.kernel_name(pk.HAS_BVH, 3)))
     kernels += run_polarized_measured(mi, ik, isx, pk, scenes)
     kernels += run_autodiff(mi, ik, isx, pk, scenes)
+    kernels += run_multichip(mi, pk, vk, scenes)
     check_forced_on_cornell(mi, pk, cornell_box_dict)
     kernels += run_ceiling(mi, pk, sk, cornell_box_dict,
                            cornell_materials_dict, face_rates)

@@ -6,10 +6,12 @@ Usage:
 
 Flags as the reference's: -m variant, -o output, -D key=value parameter
 substitution, -s spp override, --seed, --sensor, -t threads (accepted and
-advisory), -a search paths, -v verbose, --timeout seconds. The render runs
-on the card unless --cpu asks for the CPU. SIGHUP writes the passes
-finished so far (``develop_partial``); the first SIGINT cancels the render
-after its current pass (``cancel``), a second one interrupts.
+advisory), -a search paths, -v verbose, --timeout seconds, --multichip
+(samples sharded over every device: parallel/mesh.py ``render_multichip``
+over ``default_mesh()``, every CUDA device, or with --cpu the CPU alone).
+The render runs on the card unless --cpu asks for the CPU. SIGHUP writes
+the passes finished so far (``develop_partial``); the first SIGINT cancels
+the render after its current pass (``cancel``), a second one interrupts.
 """
 
 from __future__ import annotations
@@ -44,6 +46,9 @@ def build_parser():
     p.add_argument("-a", "--append-path", action="append", default=[],
                    help="add a file resolver search path")
     p.add_argument("-v", "--verbose", action="count", default=0)
+    p.add_argument("--multichip", action="store_true",
+                   help="shard samples over every device (every CUDA "
+                        "device; with --cpu the CPU alone)")
     p.add_argument("--cpu", action="store_true",
                    help="render on the CPU (the plain versions of the "
                         "kernels)")
@@ -128,8 +133,17 @@ def main(argv=None):
         sensor.film.crop_size[0], sensor.film.crop_size[1], spp,
         type(integrator).__name__)
     t0 = time.time()
-    img = integrator.render(scene, sensor=args.sensor, seed=args.seed,
-                            spp=spp)
+    if args.multichip:
+        from mitsuba2_tpu_torch.parallel.mesh import (default_mesh,
+                                                      render_multichip)
+        mesh = default_mesh()
+        Log(Info, "Sharding samples over %d device(s): %s", mesh.size,
+            ", ".join(str(d) for d in mesh.devices))
+        img = render_multichip(scene, sensor=args.sensor, seed=args.seed,
+                               spp=spp, mesh=mesh)
+    else:
+        img = integrator.render(scene, sensor=args.sensor, seed=args.seed,
+                                spp=spp)
     img = img.cpu().numpy()
     dt = time.time() - t0
     n_paths = sensor.film.crop_size[0] * sensor.film.crop_size[1] * spp

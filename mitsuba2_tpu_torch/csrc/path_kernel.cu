@@ -193,6 +193,10 @@ struct PathArgs {
     int n_quads;
     // the next lane to start: zeroed by the caller before each launch
     uint32_t* counter;
+    // the global id of the pass's first pixel: a band of rows starting at
+    // row r passes r * width (ops/path_kernel.py path_radiance); appended
+    // last so that every field above keeps its offset
+    uint32_t pixel_base;
 };
 
 namespace {
@@ -656,7 +660,8 @@ __device__ __forceinline__ void start_path(const PathArgs& a,
                                            const float4* s_spd, int lane,
                                            Path<NC>& p, W& w) {
     const int width = a.width, height = a.height;
-    const int pixel = lane / a.spp_pass;
+    // the film's pixel: a band's lanes count from its first row
+    const int pixel = lane / a.spp_pass + (int)a.pixel_base;
     uint32_t ka = (uint32_t)pixel;
     uint32_t kb = (uint32_t)(lane % a.spp_pass) + a.sample_base;
     tea(ka, kb, 4);

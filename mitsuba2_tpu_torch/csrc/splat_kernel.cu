@@ -59,6 +59,10 @@ struct SplatArgs {
     float params[8];      // the filter's float32 constants (rfilters.py)
     uint32_t seed, sample_base;
     int filter, border, spp, width, height;
+    // the global id of the pass's first pixel: a band of rows starting at
+    // row r passes r * width, and `height` is the band's rows (ops/splat.py
+    // splat); appended last so that every field above keeps its offset
+    uint32_t pixel_base;
 };
 
 namespace {
@@ -126,7 +130,7 @@ __device__ __forceinline__ void filter_row(const float* p, float j,
         f[k] = filter_eval<F>(p, (float)(k - B) + 0.5f - j);
 }
 
-// The film jitter of sample s of a pixel: the lane key of
+// The film jitter of sample s of the film's pixel `pixel`: the lane key of
 // megakernel.py:1316-1329, then sampler dimension 0.
 __device__ __forceinline__ void jitter(const SplatArgs& a, uint32_t pixel,
                                        int s, float& jx, float& jy) {
@@ -176,6 +180,9 @@ splat_tile(const SplatArgs a) {
     const uint32_t pixel = (uint32_t)((y0 + ly) * W + x0 + lx);
     const size_t n = (size_t)W * H * spp;
     const float* src = a.rgb + (size_t)pixel * spp;
+    // the film's pixel id, which keys the jitter (a band's rows count from
+    // its first)
+    const uint32_t film_pixel = pixel + a.pixel_base;
     // four samples of a channel as one float4
     const bool vec = spp % 4 == 0 && ((uintptr_t)a.rgb & 15) == 0;
     float prm[8];
@@ -198,7 +205,7 @@ splat_tile(const SplatArgs a) {
     float jx[4], jy[4];
     if constexpr (G == 1) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) jitter(a, pixel, i, jx[i], jy[i]);
+        for (int i = 0; i < 4; ++i) jitter(a, film_pixel, i, jx[i], jy[i]);
     }
     for (int s0 = 0; s0 < spp; s0 += 4) {
         float v[3][4];
@@ -226,7 +233,7 @@ splat_tile(const SplatArgs a) {
             float nx[4], ny[4];
 #pragma unroll
             for (int i = 0; i < 4; ++i)
-                jitter(a, pixel, s0 + 4 + i, nx[i], ny[i]);
+                jitter(a, film_pixel, s0 + 4 + i, nx[i], ny[i]);
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
                 float fx[K], fy[K];
@@ -249,7 +256,7 @@ splat_tile(const SplatArgs a) {
 #pragma unroll
             for (int q = 0; q < 4 / G; ++q) {
                 float ox, oy;
-                jitter(a, pixel, s0 + q * G + g, ox, oy);
+                jitter(a, film_pixel, s0 + q * G + g, ox, oy);
                 float fxm[K], fym[K];
                 filter_row<F, B>(prm, ox, fxm);
                 filter_row<F, B>(prm, oy, fym);

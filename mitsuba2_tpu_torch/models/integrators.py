@@ -57,26 +57,37 @@ class _KernelIntegrator(MonteCarloIntegrator):
         # (mitsuba2_tpu/models/integrators.py:36-52, :466-485)
         self._differentiable = False
 
-    def _kernel(self, scene, sensor):
+    def _kernel(self, scene, sensor, banded=False):
+        """The kernel object of a pass, None for the wavefront. A scene's
+        replica on another device (``Scene.replica``, parallel/mesh.py)
+        takes its scene's kernel object moved there (``to``); a band of
+        film rows (``banded``) only a kernel that renders bands (the path
+        kernel's; the volumetric kernel's passes are whole films)."""
         if self._differentiable:
             self.engine_reason = "differentiable render (wavefront only)"
             return None
         if self._disable_kernel:
             self.engine_reason = "kernel disabled (_disable_kernel)"
             return None
-        return self._kernel_for(scene, sensor)
+        home = getattr(scene, "replica_of", scene)
+        mk = self._kernel_for(home, sensor)
+        if mk is None or banded and not mk.BANDS:
+            return None
+        return mk if home is scene else mk.to(scene.device)
 
-    def wavefront_cap(self, scene, sensor):
-        if self._kernel(scene, sensor) is not None:
+    def wavefront_cap(self, scene, sensor, banded=False):
+        if self._kernel(scene, sensor, banded) is not None:
             return self.MAX_WAVEFRONT_KERNEL
         return self.MAX_WAVEFRONT
 
     def render_wavefront(self, scene, sensor, sampler, seed, sample_base,
-                         spp_pass, spp_total):
-        mk = self._kernel(scene, sensor)
+                         spp_pass, spp_total, row0=0, n_rows=None):
+        mk = self._kernel(scene, sensor, n_rows is not None)
         if mk is not None:
             self.last_engine = "kernel"
-            return mk.render_pass(seed, sample_base, spp_pass)
+            if n_rows is None:
+                return mk.render_pass(seed, sample_base, spp_pass)
+            return mk.render_pass(seed, sample_base, spp_pass, row0, n_rows)
         reason = self._wavefront_ineligibility(scene, sensor)
         if reason is not None:
             self.last_engine = None
@@ -84,7 +95,8 @@ class _KernelIntegrator(MonteCarloIntegrator):
                 f"{reason} (the kernel's gate: {self.engine_reason})")
         self.last_engine = "wavefront"
         return super().render_wavefront(scene, sensor, sampler, seed,
-                                        sample_base, spp_pass, spp_total)
+                                        sample_base, spp_pass, spp_total,
+                                        row0, n_rows)
 
     def _kernel_for(self, scene, sensor):
         """The scene's kernel object, or None with ``engine_reason`` set;
@@ -246,7 +258,7 @@ class _WavefrontIntegrator(SamplingIntegrator):
                     self.nested.append(obj)
 
     def render_wavefront(self, scene, sensor, sampler, seed, sample_base,
-                         spp_pass, spp_total):
+                         spp_pass, spp_total, row0=0, n_rows=None):
         reason = wavefront_ineligibility(scene, sensor)
         for nested in self.nested:
             check = getattr(nested, "_wavefront_ineligibility", None)
@@ -257,7 +269,8 @@ class _WavefrontIntegrator(SamplingIntegrator):
                 f"{reason} (the kernel's gate: {self.engine_reason})")
         self.last_engine = "wavefront"
         return super().render_wavefront(scene, sensor, sampler, seed,
-                                        sample_base, spp_pass, spp_total)
+                                        sample_base, spp_pass, spp_total,
+                                        row0, n_rows)
 
 
 @register_plugin("integrator", "depth")

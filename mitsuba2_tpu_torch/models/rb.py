@@ -137,8 +137,7 @@ class RBIntegrator(PathIntegrator):
         are pixel-major and seeded by (seed, pixel, sample), as the
         forward drive's (render/integrator.py ``camera_lanes``), with the
         image's gradient spread over each pixel's samples."""
-        from ..python.autodiff import pass_spp
-        from ..render.integrator import camera_lanes, lanes_to_rgb
+        from ..render.integrator import camera_lanes, lanes_to_rgb, pass_spp
         sensor = scene.sensors[sensor_index] \
             if isinstance(sensor_index, int) else sensor_index
         sampler = sensor.sampler

@@ -51,6 +51,7 @@ function in plain PyTorch, a linear sweep over every face in either tier
 from __future__ import annotations
 
 import collections
+import copy
 import ctypes
 from typing import NamedTuple
 
@@ -1499,10 +1500,11 @@ def _trace_lanes(tables, cam, key, pixel, width, height, max_depth,
     return torch.stack(res)
 
 
-def lane_keys(seed, sample_base, spp_pass, lanes):
+def lane_keys(seed, sample_base, spp_pass, lanes, pixel_base=0):
     """-> (TEA lane keys, pixel ids) of int64 lane indices
-    (megakernel.py:1316-1329)."""
-    pixel = lanes // spp_pass
+    (megakernel.py:1316-1329); a band's lanes count from its first pixel,
+    global id ``pixel_base``."""
+    pixel = lanes // spp_pass + pixel_base
     samp = lanes % spp_pass + sample_base
     mixed, _ = _tea(pixel, samp, 4)
     key, _ = _tea(torch.full_like(mixed, seed & 0xFFFFFFFF), mixed, 4)
@@ -1511,11 +1513,14 @@ def lane_keys(seed, sample_base, spp_pass, lanes):
 
 def path_radiance_reference(tables, cam, seed, sample_base, spp_pass,
                             width, height, max_depth, rr_depth, stats=None,
-                            lanes=None):
+                            lanes=None, row0=0, n_rows=None):
     """Plain PyTorch version of the path kernel -> (3, n) float32 per-lane
     linear sRGB radiance, n = width * height * spp_pass, on the tables'
     device; or of the int64 lane indices ``lanes`` only (3, len(lanes)),
-    the same values as those columns of the whole.
+    the same values as those columns of the whole. With ``n_rows``, the
+    band of film rows ``row0 .. row0 + n_rows`` only: n = width * n_rows
+    * spp_pass lanes keyed on their global pixels (megakernel.py:
+    2779-2841), the matching rows of the whole film's lanes.
 
     Vectorised over lanes with a Python loop over depth and brute-force
     (lanes x faces), (lanes x spheres) and (lanes x cdf entries) tests, in
@@ -1525,15 +1530,17 @@ def path_radiance_reference(tables, cam, seed, sample_base, spp_pass,
     (``_count_walks``: "walk_boxes", "shadow_walk_faces" and so on)."""
     dev = tables.device
     walks = {} if stats is not None and tables.flags & HAS_BVH else None
+    rows = height if n_rows is None else n_rows
     if lanes is None:
-        lanes = torch.arange(width * height * spp_pass, device=dev)
+        lanes = torch.arange(width * rows * spp_pass, device=dev)
     out = torch.empty((3, len(lanes)), dtype=torch.float32, device=dev)
     widest = max(tables.n_faces + tables.n_spheres + tables.n_quads,
                  tables.lights.shape[0], *tables.env_cond.shape, 1)
     step = max(1, _CHUNK_ELEMS // widest)
     for start in range(0, len(lanes), step):
         chunk = lanes[start:start + step]
-        key, pixel = lane_keys(seed, sample_base, spp_pass, chunk)
+        key, pixel = lane_keys(seed, sample_base, spp_pass, chunk,
+                               row0 * width)
         out[:, start:start + len(chunk)] = _trace_lanes(
             tables, cam, key, pixel, width, height, max_depth, rr_depth,
             stats, walks)
@@ -1561,7 +1568,8 @@ class _PathArgs(ctypes.Structure):
             "spp_pass", "width", "height", "max_depth", "rr_depth",
             "n_lanes", "flags", "nc")]
         + [(name, ctypes.c_void_p) for name in ("qd", "qattr", "tex")]
-        + [("n_quads", ctypes.c_int), ("counter", ctypes.c_void_p)])
+        + [("n_quads", ctypes.c_int), ("counter", ctypes.c_void_p),
+           ("pixel_base", ctypes.c_uint32)])
 
 
 # threads a block (csrc/path_kernel.cu BLOCK)
@@ -1654,9 +1662,11 @@ def check_tree(tables):
 
 
 def _path_args(tables, cam, seed, sample_base, spp_pass, width, height,
-               max_depth, rr_depth, out, counter) -> _PathArgs:
+               max_depth, rr_depth, out, counter,
+               pixel_base=0) -> _PathArgs:
     """The kernel's arguments: the tables, the camera row, the output
-    (3, n) and the lane counter as pointers, the pass as scalars."""
+    (3, n) and the lane counter as pointers, the pass as scalars (a band's
+    first pixel ``pixel_base``)."""
     H, W = tables.env.shape[:2]
     Hs, Ws = tables.env_pmf.shape
     return _PathArgs(
@@ -1671,25 +1681,30 @@ def _path_args(tables, cam, seed, sample_base, spp_pass, width, height,
         height, max_depth, rr_depth, out.shape[1],
         tables.flags & TEMPLATE_FLAGS, tables.nc,
         *(t.data_ptr() for t in (tables.qd, tables.qattr, tables.tex)),
-        tables.n_quads, counter.data_ptr())
+        tables.n_quads, counter.data_ptr(), pixel_base)
 
 
 def path_radiance(tables, cam, seed, sample_base, spp_pass, width, height,
-                  max_depth, rr_depth):
+                  max_depth, rr_depth, row0=0, n_rows=None):
     """Per-lane radiance (3, n): the CUDA kernel for tables on a CUDA
-    device, the plain version for tables on the CPU. The kernel runs
-    persistent blocks, as many as the card holds at once, whose threads
-    take lanes from a counter this function zeroes on the stream before
-    the launch. A build or launch failure raises."""
+    device, the plain version for tables on the CPU; with ``n_rows`` the
+    band of film rows from ``row0`` (``path_radiance_reference``). The
+    kernel runs persistent blocks, as many as the card holds at once,
+    whose threads take lanes from a counter this function zeroes on the
+    stream before the launch. A build or launch failure raises."""
     dev = tables.device
     if dev.type == "cpu":
         return path_radiance_reference(tables, cam, seed, sample_base,
                                        spp_pass, width, height, max_depth,
-                                       rr_depth)
+                                       rr_depth, row0=row0, n_rows=n_rows)
     if dev.type != "cuda":
         raise ValueError(f"no path kernel for device {dev}")
     _check_tables(tables, cam)
-    n = width * height * spp_pass
+    rows = height if n_rows is None else n_rows
+    if not 0 <= row0 <= row0 + rows <= height:
+        raise ValueError(f"rows {row0}..{row0 + rows} outside the film's "
+                         f"{height}")
+    n = width * rows * spp_pass
     if n >= 1 << 31:
         raise ValueError(f"{n} lanes overflow the kernel's int32 lane ids")
     flags = tables.flags & TEMPLATE_FLAGS
@@ -1701,7 +1716,8 @@ def path_radiance(tables, cam, seed, sample_base, spp_pass, width, height,
     # the next lane to start, zeroed on the stream before the launch
     counter = torch.zeros(1, dtype=torch.int32, device=dev)
     args = _path_args(tables, cam, seed, sample_base, spp_pass, width,
-                      height, max_depth, rr_depth, out, counter)
+                      height, max_depth, rr_depth, out, counter,
+                      row0 * width)
     info = (ctypes.c_int * len(LAUNCH_INFO))()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -1760,7 +1776,11 @@ def _path_render(defines):
 
 class PathKernel:
     """Renders passes of one scene's tables through one sensor
-    (DiffusePathMegakernel's role, megakernel.py:2779)."""
+    (DiffusePathMegakernel's role, megakernel.py:2779), on the film or on
+    a band of its rows."""
+
+    # render_pass takes a band of film rows
+    BANDS = True
 
     def __init__(self, scene, sensor, max_depth, rr_depth):
         self.tables = scene.tables
@@ -1771,23 +1791,54 @@ class PathKernel:
         self.cam = camera_row(sensor, self.tables.device)
         self.max_depth = max_depth
         self.rr_depth = rr_depth
+        self._replicas = {}
 
-    def render_pass(self, seed, sample_base, spp_pass):
+    def to(self, device):
+        """This kernel object with its tables and camera row on
+        ``device``: itself there, else a copy made once per device."""
+        return replica(self, device, "tables", "cam")
+
+    def render_pass(self, seed, sample_base, spp_pass, row0=0, n_rows=None):
         """-> the pass's image block: under the box filter (h, w, 4)
         per-pixel radiance sums and the sample count as weight; under any
         other filter the (h + 2b, w + 2b, 4) block of the samples splatted
-        through it (ops/splat.py; megakernel.py:3032-3073)."""
+        through it (ops/splat.py; megakernel.py:3032-3073). With
+        ``n_rows``, the band of film rows from ``row0``: its lanes keyed on
+        their global pixels, so that the bands of a film are its pass
+        sample for sample, and the band's (n_rows, w, 4) block, or (n_rows
+        + 2b, w + 2b, 4) with its filter border (megakernel.py:
+        2779-2841, :3048-3073)."""
         from ..models.rfilters import BoxFilter
         from .splat import splat
         w, h = self.size
+        rows = h if n_rows is None else n_rows
+        band = {} if n_rows is None else dict(row0=row0, n_rows=n_rows)
         rgb = path_radiance(self.tables, self.cam, seed, sample_base,
-                            spp_pass, w, h, self.max_depth, self.rr_depth)
+                            spp_pass, w, h, self.max_depth, self.rr_depth,
+                            **band)
         if isinstance(self.rfilter, BoxFilter):
-            rgb = rgb.reshape(3, w * h, spp_pass).sum(dim=2)
-            img = torch.cat([rgb, torch.full((1, w * h), float(spp_pass),
+            rgb = rgb.reshape(3, w * rows, spp_pass).sum(dim=2)
+            img = torch.cat([rgb, torch.full((1, w * rows), float(spp_pass),
                                              device=rgb.device)])
-            return img.T.reshape(h, w, 4)
-        return splat(rgb, seed, sample_base, spp_pass, w, h, self.rfilter)
+            return img.T.reshape(rows, w, 4)
+        return splat(rgb, seed, sample_base, spp_pass, w, h, self.rfilter,
+                     **band)
+
+
+def replica(obj, device, *fields):
+    """``obj`` if its ``fields`` (tables and tensors with ``.to``) are on
+    ``device``, else its shallow copy with them moved there, made once per
+    device and kept in ``obj._replicas``."""
+    from ..variants import resolve_device
+    device = resolve_device(device)
+    copies = obj._replicas
+    copies.setdefault(str(getattr(obj, fields[0]).device), obj)
+    if str(device) not in copies:
+        other = copy.copy(obj)
+        for f in fields:
+            setattr(other, f, getattr(obj, f).to(device))
+        copies[str(device)] = other
+    return copies[str(device)]
 
 
 def _constant(*textures):

@@ -10,7 +10,10 @@ the path kernel drew it. Tap (ox, oy), each in [-b, b] with b = ceil(radius
 - 1/2), puts the sample's [r, g, b, 1] times f(ox + 1/2 - jx) f(oy + 1/2 -
 jy) into block pixel (b + px + ox, b + py + oy) of the (h + 2b, w + 2b, 4)
 block (imageblock.cpp:62 semantics; ``render/film.py ImageBlock.put`` is
-the general per-sample splat).
+the general per-sample splat). A band of film rows ``row0 .. row0 +
+n_rows`` splats its own lanes into its (n_rows + 2b, w + 2b, 4) block,
+each jitter derived from the lane's global pixel id (megakernel.py:
+3048-3051); the bands' blocks, added at their rows, are the film's.
 
 ``splat`` runs the hand-written kernel (csrc/splat_kernel.cu: one pass over
 tiles of source pixels, each pixel's taps summed in registers, and a small
@@ -32,13 +35,18 @@ from .path_kernel import _rng2, lane_keys
 MAX_PARAMS, MAX_TAPS = 8, 9
 
 
-def splat_reference(rgb, seed, sample_base, spp, width, height, rfilter):
+def splat_reference(rgb, seed, sample_base, spp, width, height, rfilter,
+                    row0=0, n_rows=None):
     """(3, n) per-lane radiance of a pass, n = width * height * spp ->
     the (height + 2b, width + 2b, 4) block: per tap, the samples weighted
-    by the filter summed per pixel, then added at the tap's offset."""
+    by the filter summed per pixel, then added at the tap's offset. With
+    ``n_rows``, the lanes of the band of film rows from ``row0`` (n =
+    width * n_rows * spp) -> its (n_rows + 2b, width + 2b, 4) block."""
     dev = rgb.device
+    height = height if n_rows is None else n_rows
     n = width * height * spp
-    key, _ = lane_keys(seed, sample_base, spp, torch.arange(n, device=dev))
+    key, _ = lane_keys(seed, sample_base, spp, torch.arange(n, device=dev),
+                       row0 * width)
     jx, jy = _rng2(key, 0)
     b = border(rfilter)
     fx = [rfilter.eval((o + 0.5) - jx) for o in range(-b, b + 1)]
@@ -61,19 +69,27 @@ class _SplatArgs(ctypes.Structure):
                    ("seed", ctypes.c_uint32),
                    ("sample_base", ctypes.c_uint32)]
                 + [(name, ctypes.c_int) for name in (
-                    "filter", "border", "spp", "width", "height")])
+                    "filter", "border", "spp", "width", "height")]
+                + [("pixel_base", ctypes.c_uint32)])
 
 
-def splat(rgb, seed, sample_base, spp, width, height, rfilter):
-    """The pass's image block (see ``splat_reference``): the CUDA kernel
-    for samples on a CUDA device, the plain version for samples on the
-    CPU. A build or launch failure raises."""
+def splat(rgb, seed, sample_base, spp, width, height, rfilter, row0=0,
+          n_rows=None):
+    """The pass's image block, or with ``n_rows`` the band's (see
+    ``splat_reference``): the CUDA kernel for samples on a CUDA device,
+    the plain version for samples on the CPU. A build or launch failure
+    raises."""
     dev = rgb.device
     if dev.type == "cpu":
         return splat_reference(rgb, seed, sample_base, spp, width, height,
-                               rfilter)
+                               rfilter, row0, n_rows)
     if dev.type != "cuda":
         raise ValueError(f"no splat kernel for device {dev}")
+    rows = height if n_rows is None else n_rows
+    if not 0 <= row0 <= row0 + rows <= height:
+        raise ValueError(f"rows {row0}..{row0 + rows} outside the film's "
+                         f"{height}")
+    height = rows
     n = width * height * spp
     if rgb.dtype != torch.float32 or not rgb.is_contiguous() \
             or tuple(rgb.shape) != (3, n):
@@ -97,7 +113,7 @@ def splat(rgb, seed, sample_base, spp, width, height, rfilter):
     args = _SplatArgs(rgb.data_ptr(), bands.data_ptr(), out.data_ptr(),
                       (ctypes.c_float * MAX_PARAMS)(*params),
                       seed & 0xFFFFFFFF, sample_base & 0xFFFFFFFF, fid, b,
-                      spp, width, height)
+                      spp, width, height, row0 * width)
     with torch.cuda.device(dev):
         err = fn(ctypes.byref(args), torch.cuda.current_stream(
             dev).cuda_stream)

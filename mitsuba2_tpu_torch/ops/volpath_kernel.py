@@ -874,7 +874,10 @@ def _volpath_render(defines=None):
 
 class VolPathKernel:
     """Renders passes of one scene's volumetric tables through one sensor
-    (VolPathMegakernel's role, volmegakernel.py:883)."""
+    (VolPathMegakernel's role, volmegakernel.py:883). Its passes are
+    whole films: a band of rows renders on the volpath wavefront."""
+
+    BANDS = False
 
     def __init__(self, scene, sensor, max_depth, rr_depth, mis=False):
         self.tables = build_vol_tables(scene)
@@ -883,6 +886,12 @@ class VolPathKernel:
         self.max_depth = max_depth
         self.rr_depth = rr_depth
         self.mis = mis
+        self._replicas = {}
+
+    def to(self, device):
+        """This kernel object with its tables and camera row on
+        ``device`` (``path_kernel.replica``)."""
+        return pk.replica(self, device, "tables", "cam")
 
     def render_pass(self, seed, sample_base, spp_pass):
         """-> (h, w, 4) box-filtered block: per-pixel radiance sums over

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from ..render.integrator import pass_spp
 from .util import traverse, ParameterMap  # noqa: F401 (re-export)
 
 
@@ -80,16 +81,6 @@ def _render_passes(scene, sensor, seed, spp, spp_per_pass):
     finally:
         integrator._differentiable = False
     return block.develop(data)
-
-
-def pass_spp(integrator, scene, sensor, spp):
-    """The samples a pixel takes in one pass: the most that keep the
-    pass within the integrator's wavefront cap and divide ``spp``."""
-    w, h = sensor.film.crop_size
-    k = max(1, min(spp, integrator.wavefront_cap(scene, sensor) // (w * h)))
-    while spp % k:
-        k -= 1
-    return k
 
 
 def render_loss(scene, params: ParameterMap, loss_fn, spp=4, seed=0,

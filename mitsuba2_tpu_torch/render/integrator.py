@@ -87,9 +87,10 @@ class SamplingIntegrator(Integrator):
         """-> (radiance (n, C), list of (n,) AOV channels)."""
         return self.sample(scene, sampler, state, ray, wavelengths), []
 
-    def wavefront_cap(self, scene, sensor):
-        """Max lanes per pass; engines with a smaller per-lane footprint
-        (the path kernel) override this upward."""
+    def wavefront_cap(self, scene, sensor, banded=False):
+        """Max lanes per pass (of a band of film rows with ``banded``);
+        engines with a smaller per-lane footprint (the path kernel)
+        override this upward."""
         return self.MAX_WAVEFRONT
 
     def render(self, scene, sensor=0, seed=0, spp=None, develop=True):
@@ -109,10 +110,7 @@ class SamplingIntegrator(Integrator):
         w, h = film.crop_size
         if spp is None:
             spp = sampler.sample_count
-        cap = self.wavefront_cap(scene, sensor)
-        spp_per_pass = max(1, min(spp, cap // (w * h)))
-        while spp % spp_per_pass != 0:
-            spp_per_pass -= 1
+        spp_per_pass = pass_spp(self, scene, sensor, spp)
         n_passes = spp // spp_per_pass
 
         block = ImageBlock((w, h), 3 + len(self.aov_names()), film.rfilter,
@@ -134,32 +132,41 @@ class SamplingIntegrator(Integrator):
         return block.develop(data) if develop else data
 
     def render_wavefront(self, scene, sensor, sampler, seed, sample_base,
-                         spp_pass, spp_total):
+                         spp_pass, spp_total, row0=0, n_rows=None):
         """One pass of the general wavefront over w*h*spp_pass lanes ->
         the pass's image block (mitsuba2_tpu/render/integrator.py:159-236):
         ``wavefront_lanes``, then under a box filter the sum over each
-        pixel's samples, else the image block's ``put``."""
+        pixel's samples, else the image block's ``put``. With ``n_rows``,
+        the band of film rows from ``row0`` (w * n_rows * spp_pass lanes)
+        -> the band's block, (n_rows + 2b, w + 2b, C + 1), its lanes
+        positioned relative to the band (mitsuba2_tpu/parallel/mesh.py
+        ``_render_band``)."""
         from ..models.rfilters import BoxFilter
         w, h = sensor.film.crop_size
+        rows = h if n_rows is None else n_rows
         pos_px, value = self.wavefront_lanes(scene, sensor, sampler, seed,
-                                             sample_base, spp_pass)
-        block = ImageBlock((w, h), value.shape[1], sensor.film.rfilter,
+                                             sample_base, spp_pass, row0,
+                                             rows)
+        block = ImageBlock((w, rows), value.shape[1], sensor.film.rfilter,
                            scene.device)
         if isinstance(sensor.film.rfilter, BoxFilter) and block.border == 0:
-            return box_sum(value, w, h, spp_pass)
+            return box_sum(value, w, rows, spp_pass)
+        if row0:
+            pos_px = pos_px - pos_px.new_tensor([0.0, float(row0)])
         return block.put(block.create(), pos_px, value)
 
     def wavefront_lanes(self, scene, sensor, sampler, seed, sample_base,
-                        spp_pass):
+                        spp_pass, row0=0, n_rows=None):
         """Each lane's film position (n, 2) in pixels and values (n, 3 +
         len(aov_names())): the camera lanes (``camera_lanes``),
         ``sample_aovs``' radiance times the ray's weight, converted to rgb
         (``lanes_to_rgb``), then the AOV channels as they come, or, with
         ``SPECTRAL_AOVS``, each AOV spectrum (n, C) converted as the
         radiance is, three channels each
-        (mitsuba2_tpu/render/integrator.py:210-217)."""
+        (mitsuba2_tpu/render/integrator.py:210-217); with ``n_rows``, of
+        the lanes of the band of film rows from ``row0``."""
         lanes = camera_lanes(scene, sensor, sampler, seed, sample_base,
-                             spp_pass)
+                             spp_pass, row0, n_rows)
         value, aovs = self.sample_aovs(scene, sampler, lanes.state,
                                        lanes.ray, lanes.wavelengths)
         value = lanes_to_rgb(value * lanes.ray_weight, lanes.wavelengths)
@@ -182,18 +189,22 @@ class CameraLanes(NamedTuple):
     wavelengths: object         # (n, 4) hero wavelengths, or None
 
 
-def camera_lanes(scene, sensor, sampler, seed, sample_base, spp_pass):
+def camera_lanes(scene, sensor, sampler, seed, sample_base, spp_pass,
+                 row0=0, n_rows=None):
     """The camera rays of a pass of w * h * spp_pass lanes, pixel-major,
     each lane's stream seeded by (seed, pixel, sample_base + its sample
     index), then a jittered film position, an aperture sample, a time and
     a wavelength sample drawn in that order
-    (mitsuba2_tpu/render/integrator.py:176-191)."""
+    (mitsuba2_tpu/render/integrator.py:176-191). With ``n_rows``, the w *
+    n_rows * spp_pass lanes of the film rows from ``row0``, each the lane
+    of its global pixel (mitsuba2_tpu/parallel/mesh.py:199-212)."""
     from ..models.textures import on_device
     w, h = sensor.film.crop_size
-    n = w * h * spp_pass
+    rows = h if n_rows is None else n_rows
+    n = w * rows * spp_pass
     dev = scene.device
     lane = torch.arange(n, dtype=torch.int64, device=dev)
-    pixel_id = lane // spp_pass
+    pixel_id = lane // spp_pass + row0 * w
     state = sampler.seed(seed, pixel_id, lane % spp_pass + sample_base)
     jitter, state = sampler.next_2d(state)
     pos_px = torch.stack([(pixel_id % w).float(),
@@ -210,6 +221,18 @@ def camera_lanes(scene, sensor, sampler, seed, sample_base, spp_pass):
         time, wav_sample, pos01, ap_sample)
     return CameraLanes(pos_px, pixel_id, state, ray, ray_weight,
                        wavelengths)
+
+
+def pass_spp(integrator, scene, sensor, spp, rows=None, banded=False):
+    """The samples a pixel takes in one pass: the most that keep a pass
+    over the film (or ``rows`` of it, a band with ``banded``) within the
+    integrator's wavefront cap and divide ``spp``."""
+    w, h = sensor.film.crop_size
+    cap = integrator.wavefront_cap(scene, sensor, banded=banded)
+    k = max(1, min(spp, cap // (w * (h if rows is None else rows))))
+    while spp % k:
+        k -= 1
+    return k
 
 
 def lanes_to_rgb(s, wavelengths):

@@ -38,6 +38,7 @@ instance * g_max + the group's face id.
 
 from __future__ import annotations
 
+import copy
 from types import SimpleNamespace
 from typing import NamedTuple
 
@@ -339,6 +340,42 @@ class Scene(Object):
         from ..core.object import param_epoch
         if self._values_epoch != param_epoch():
             self._pack_values()
+
+    def replica(self, device):
+        """This scene with its packed tensors on ``device``, for a shard of
+        a multi-device render (parallel/mesh.py): the scene itself on its
+        own device, else a shallow copy, made once per device and
+        parameter epoch, that shares the plugins (each keeps its values
+        per device, models/textures.py ``on_device``) and holds its own
+        kernel tables, ray-query shape ids and quad rows and instance
+        tables; it builds its wavefront tables at first use, and its
+        kernel objects are its scene's moved there (``replica_of``,
+        models/integrators.py ``_kernel``)."""
+        from ..variants import resolve_device
+        device = resolve_device(device)
+        if device == self.tables.device:
+            return self
+        self.refresh_tables()
+        key = (str(device), self._values_epoch)
+        copies = self.__dict__.setdefault("_replicas", {})
+        if key not in copies:
+            r = copy.copy(self)
+            r.__dict__.pop("_wavefront", None)
+            r.__dict__.pop("_replicas", None)
+            r.device = device
+            r.replica_of = self
+            r.tables = self.tables.to(device)
+            for name in ("_face_shape_dev", "_sphere_shape_dev", "_quad_dev",
+                         "_inst_face_shape_dev"):
+                if name in self.__dict__:
+                    setattr(r, name, getattr(self, name).to(device))
+            if self.inst_tables is not None:
+                r.inst_tables = self.inst_tables._replace(**{
+                    k: v.to(device) for k, v in
+                    self.inst_tables._asdict().items()
+                    if isinstance(v, torch.Tensor)})
+            copies[key] = r
+        return copies[key]
 
     def _pack_instances(self, instanced):
         """The shared instances' tables (``inst_tables``, None without

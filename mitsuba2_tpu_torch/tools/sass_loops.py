@@ -22,11 +22,15 @@ the shared instances), and with ``--against`` names the entries the other
 build lacks. ``--against DIR`` (another
 checkout's ``mitsuba2_tpu_torch/_build``, its libraries built) compares
 every instantiation of each library, addresses and encodings aside, with
-the same library there and prints which differ. Exits non-zero without
-cuobjdump.
+the same library there and prints which differ; for the instantiations
+``--flags`` names, and with ``--splat`` for every splat kernel, it prints
+the instructions that differ (``canonical``: registers, addresses and the
+choice among integer adds aside) in the function and in each of its loops
+of more than 20 instructions. Exits non-zero without cuobjdump.
 """
 
 import argparse
+import difflib
 import os
 import re
 import shutil
@@ -166,6 +170,55 @@ def differ(tool, funcs, other, name, kernel="path_kernel"):
                         != [t for _, t in theirs.get(i, [])]]
 
 
+# the integer adds the compiler picks among by register pressure
+ADDS = ("VIADD", "IADD3", "IMAD.IADD")
+
+
+def canonical(text):
+    """One instruction with its registers, predicates and barriers
+    renamed (R, UR, P, B), branch and call targets dropped, and the
+    integer adds one opcode, so that a change of the register allocation
+    or of the code's addresses leaves it as it was."""
+    text = re.sub(r"\b(U?R|U?P|B)\d+\b", r"\1", text)
+    pred = re.match(r"@!?U?P\s+", text)
+    pred = pred.group(0) if pred else ""
+    op = text[len(pred):].split(" ", 1)[0]
+    if op.startswith(("BRA", "BSSY", "CALL", "JMP", "BRX")):
+        text = re.sub(r"0x[0-9a-f]+", "<target>", text)
+    if op.startswith(ADDS):
+        text = pred + "ADD"
+    return text
+
+
+def print_diff(name, ins, theirs):
+    """The instructions of one function that differ from ``theirs`` (the
+    same function of another build), each ``canonical``, and for each loop
+    of more than 20 instructions those that differ inside it, the loops
+    paired in address order."""
+    mine = [canonical(t) for _, t in ins]
+    other = [canonical(t) for _, t in theirs]
+    ops = [op for op in difflib.SequenceMatcher(
+        None, other, mine, autojunk=False).get_opcodes() if op[0] != "equal"]
+    added = sum(j2 - j1 for _, _, _, j1, j2 in ops)
+    removed = sum(i2 - i1 for _, i1, i2, _, _ in ops)
+    print(f"{name}: {len(mine)} instructions, {added} added and {removed} "
+          f"removed against the other build's {len(other)}", flush=True)
+    for _, i1, i2, j1, j2 in ops[:12]:
+        for t in other[i1:i2]:
+            print(f"  - {t}")
+        for t in mine[j1:j2]:
+            print(f"  + {t}")
+    for (s0, e0, n0, *_), (s1, e1, n1, *_) in zip(loops(ins),
+                                                  loops(theirs)):
+        a = [canonical(t) for x, t in ins if s0 <= x <= e0]
+        b = [canonical(t) for x, t in theirs if s1 <= x <= e1]
+        moved = sum(max(i2 - i1, j2 - j1) for tag, i1, i2, j1, j2 in
+                    difflib.SequenceMatcher(None, b, a, autojunk=False)
+                    .get_opcodes() if tag != "equal")
+        print(f"  loop {s0:#x}-{e0:#x} ({n0} instructions, the other's "
+              f"{n1}): {moved} differ")
+
+
 def library(build_dir, nc=None, lobes=None):
     """The path kernel library of (nc, lobes) in ``build_dir``, or without
     them the volumetric kernel's (not a profiled build), or None."""
@@ -232,6 +285,10 @@ def main(argv=None):
             print(f"pk_nc{nc} lobes {lb}: {n} instantiations, "
                   f"{len(changed)} differ from {os.path.basename(other)}: "
                   + (", ".join(changed) or "none"), flush=True)
+            theirs = functions(sass(other))
+            for inst, ins in sorted(funcs.items()):
+                if (inst[0] & ~pk.HAS_LOBES) in flags and inst in theirs:
+                    print_diff(pk.kernel_name(*inst), ins, theirs[inst])
     if vflags:
         funcs = functions(sass(build.library_path("volpath_kernel")),
                           "volpath_kernel")
@@ -247,11 +304,17 @@ def main(argv=None):
                   + (", ".join(changed) or "none"), flush=True)
     if args.splat:
         funcs = splat_functions(sass(build.library_path("splat_kernel")))
+        others = [p for p in Path(args.against).glob("splat_kernel-*.so")
+                  if ".tmp." not in p.name] if args.against else []
+        theirs = splat_functions(sass(others[0])) if len(others) == 1 \
+            else {}
         for name, ins in sorted(funcs.items()):
             print_loops(name, ins)
             print("  all: " + ", ".join(
                 f"{k} {v}" for k, v in count_kinds(t for _, t in ins).items()),
                   flush=True)
+            if name in theirs:
+                print_diff(name, ins, theirs[name])
     if args.isect:
         funcs = isect_functions(sass(build.library_path("intersect_kernel")))
         for name, ins in sorted(funcs.items()):

@@ -152,3 +152,12 @@ def set_device(dev) -> None:
 def device() -> torch.device:
     """The device scenes load onto in this thread."""
     return _state.device
+
+
+def resolve_device(dev) -> torch.device:
+    """``dev`` as the torch device a tensor placed there reports: ``cuda``
+    without an index is the current CUDA device."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

@@ -84,9 +84,24 @@ def test_cli_renders_json_scene(tmp_path):
 
 def test_cli_rejects_unknown_flags():
     out = subprocess.run([sys.executable, "-m", "mitsuba2_tpu_torch",
-                          "--multichip", "x.xml"], cwd=REPO,
+                          "--no-such-flag", "x.xml"], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
-    assert out.returncode == 2 and "--multichip" in out.stderr
+    assert out.returncode == 2 and "--no-such-flag" in out.stderr
+
+
+def test_cli_multichip_renders_xml(tmp_path):
+    """``--cpu --multichip``: the samples sharded over the default mesh,
+    the CPU alone; the XML Cornell box's EXR is the in-process render's
+    at the same seed and spp."""
+    path = cornell_xml_path(8, 8, 4, 3)
+    exr = tmp_path / "mc.exr"
+    out = run_cli(path, "--multichip", "-o", str(exr), "--seed", "2")
+    assert "Sharding samples over 1 device(s): cpu" in out.stderr
+    mt.set_variant("scalar_rgb")
+    scene = mt.load_file(path)
+    want = scene.integrator.render(scene, seed=2, spp=4).numpy()
+    np.testing.assert_array_equal(read_image(str(exr)),
+                                  want.astype(np.float16).astype(np.float32))
 
 
 @pytest.mark.cuda

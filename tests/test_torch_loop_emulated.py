@@ -320,6 +320,32 @@ def test_emulated_loop_matches_plain_version(emulated, variant, make_dict,
     assert (err <= PIX_RTOL).mean() >= PIX_SHARE, np.quantile(err, 0.99)
 
 
+@pytest.mark.parametrize("variant, make_dict", [
+    ("scalar_rgb", cornell_box_dict), ("scalar_rgb", cornell_materials_dict)])
+def test_emulated_band_is_the_films_rows(emulated, variant, make_dict):
+    """A band of film rows (``pixel_base``, parallel/mesh.py's pixel axis):
+    its lanes are those rows of the whole film's launch, bit for bit, in
+    the shared-memory and the lobes families."""
+    width, spp, row0, n_rows = 8, 3, 3, 4
+    mt.set_variant(variant)
+    try:
+        scene = mt.load_dict(make_dict(width, width, spp, MAX_DEPTH))
+    finally:
+        mt.set_variant("scalar_rgb")
+    tables = scene.tables
+    cam = pk.camera_row(scene.sensors[0], scene.device)
+    fn = emulated(tables.nc, bool(tables.flags & pk.HAS_LOBES))
+    full = run_emulated(fn, tables, cam, width, width, spp)
+    band = torch.full((3, width * n_rows * spp), float("nan"))
+    counter = torch.zeros(1, dtype=torch.int32)
+    info = (ctypes.c_int * len(pk.LAUNCH_INFO))()
+    assert fn(ctypes.byref(pk._path_args(
+        tables, cam, SEED, 0, spp, width, width, MAX_DEPTH, RR_DEPTH, band,
+        counter, row0 * width)), None, info) == 0
+    lanes = slice(row0 * width * spp, (row0 + n_rows) * width * spp)
+    assert torch.equal(band, full[:, lanes])
+
+
 def emulated_isect_source():
     """csrc/intersect_kernel.cu with its two launches (the scene's faces,
     the shared instances) rewritten for the emulation."""

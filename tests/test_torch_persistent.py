@@ -58,8 +58,10 @@ def test_path_args_match_the_kernel_struct():
     src = (Path(pk.__file__).resolve().parent.parent / "csrc"
            / "path_kernel.cu").read_text()
     assert struct_fields(src, "PathArgs") == pk._PathArgs._fields_
-    # the lane counter comes last, after the lobes flag's tables
-    assert pk._PathArgs._fields_[-1] == ("counter", ctypes.c_void_p)
+    # the lane counter comes after the lobes flag's tables, and the band's
+    # first pixel last, so that every earlier field keeps its offset
+    assert pk._PathArgs._fields_[-2:] == [("counter", ctypes.c_void_p),
+                                          ("pixel_base", ctypes.c_uint32)]
 
 
 def card_scene(make_dict, variant, width, height, spp):

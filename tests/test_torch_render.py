@@ -377,7 +377,13 @@ def test_package_imports_no_jax():
         "from mitsuba2_tpu_torch.core import spline, quad\n"
         "from mitsuba2_tpu_torch.models import measured, rb\n"
         "from mitsuba2_tpu_torch.python import util, autodiff\n"
-        "from mitsuba2_tpu_torch.parallel import checkpoint\n"
+        "from mitsuba2_tpu_torch.parallel import checkpoint, mesh\n"
+        "from mitsuba2_tpu_torch import viewer\n"
+        "from mitsuba2_tpu_torch.utils import bitmap\n"
+        "from mitsuba2_tpu_torch.python import chi2\n"
+        "from mitsuba2_tpu_torch.render import testutil, spiral\n"
+        "from mitsuba2_tpu_torch.core import stream\n"
+        "from mitsuba2_tpu_torch.tools import plugin_docs\n"
         "mi.set_variant('scalar_rgb')\n"
         "mi.set_device('cpu')\n"
         "s = mi.load_dict(cornell_box_dict(width=4, height=4, spp=2))\n"

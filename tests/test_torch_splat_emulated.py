@@ -191,8 +191,9 @@ def emulated(tmp_path_factory):
     return sp.bind(ctypes.CDLL(str(out)))
 
 
-def run_emulated(fns, rgb, spp, width, height, rfilter):
-    """The emulated kernel's block, block and bands prefilled with NaN."""
+def run_emulated(fns, rgb, spp, width, height, rfilter, pixel_base=0):
+    """The emulated kernel's block, block and bands prefilled with NaN;
+    ``height`` rows whose first is the film's pixel ``pixel_base``."""
     render, band_floats = fns
     b = border(rfilter)
     fid, params = rfilter.kernel_params()
@@ -200,7 +201,8 @@ def run_emulated(fns, rgb, spp, width, height, rfilter):
     bands = torch.full((band_floats(b, width, height),), float("nan"))
     args = sp._SplatArgs(rgb.data_ptr(), bands.data_ptr(), out.data_ptr(),
                          (ctypes.c_float * sp.MAX_PARAMS)(*params), SEED,
-                         SAMPLE_BASE, fid, b, spp, width, height)
+                         SAMPLE_BASE, fid, b, spp, width, height,
+                         pixel_base)
     assert render(ctypes.byref(args), None) == 0
     return out
 
@@ -232,6 +234,21 @@ def test_emulated_kernel_at_tile_edges(emulated, fdict, k, shape):
                       fdict["type"] in SIGNED)
     assert_within_bar(tiled_order(rgb, SEED, SAMPLE_BASE, spp, w, h, rf),
                       want, fdict["type"] in SIGNED)
+
+
+@pytest.mark.parametrize("fdict, k", [FILTERS[0], FILTERS[2], FILTERS[5]],
+                         ids=[FILTER_IDS[0], FILTER_IDS[2], FILTER_IDS[5]])
+def test_emulated_band_matches_plain_version(emulated, fdict, k):
+    """A band of film rows (``pixel_base``, parallel/mesh.py's pixel
+    axis): its lanes' jitter keyed on their film pixels, its block the
+    plain version's band block."""
+    rf = filter_of(fdict)
+    w, h, spp, row0, n_rows = 19, 13, 4, 5, 6
+    rgb = lanes(w, n_rows, spp)
+    got = run_emulated(emulated, rgb, spp, w, n_rows, rf, row0 * w)
+    want = sp.splat_reference(rgb, SEED, SAMPLE_BASE, spp, w, h, rf,
+                              row0=row0, n_rows=n_rows)
+    assert_within_bar(got, want, fdict["type"] in SIGNED)
 
 
 def test_band_scratch_is_a_footprint_a_tile(emulated):
