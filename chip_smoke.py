@@ -27,7 +27,7 @@ port's default device, checks that the render went through the path's
 kernel instantiation (and the splat kernel, under a film filter other than
 the box) and that the image is sane, times render, kernel, splat and plain
 version beside the kernel's bound, and holds the kernel's lanes at the main
-shape against the plain version's (for the big meshes, those of every 31st
+shape against the plain version's (for the big meshes, those of every 93rd
 pixel) and the splat kernel's block against its plain version's. The
 materials scene's kernel is also held against its plain version under
 ``scalar_mono`` at the parity shape, and its first hits must show every new
@@ -61,7 +61,7 @@ normal sampling and at 128x128x4 spp with visible normals
 the mono Cornell box and spectral matpreview. The volpath wavefront phase
 drives ``VolumetricPathIntegrator.sample``, which renders every volpath
 scene K3's gate refuses: volpath_gaussian (the volpath slab under the
-film's default gaussian filter) at 256x256, 16 spp, max_depth 16 (timed,
+film's default gaussian filter) at 256x256, 8 spp, max_depth 16 (timed,
 the trip counts of its loops, K2's launches and share, the spans of its
 layers, the host's waits against the design's count, peak memory), K2
 held bit for bit against its plain twin on 65,536 rays sampled from every
@@ -98,7 +98,7 @@ file (``load_file``) onto the path kernel, its tables within the writer's
 rounding of the dict scene's; biggeo's mesh from a PLY file, its image bit
 for bit the OBJ scene's, both loads timed; 8 instances of a 4,096-face
 group (materialized) on the BVH tier, held against the plain version on
-every 31st pixel; 8 instances of biggeo's 262,144-face group (shared: one
+every 93rd pixel; 8 instances of biggeo's 262,144-face group (shared: one
 packed group, a transform row an instance) on the path wavefront, timed
 with its host syncs, spans and peak memory (and at 2 instances), K2's
 instance entries bit for bit against their plain version on rays of four
@@ -145,7 +145,19 @@ plain versions) against the card alone at 64x64x16 spp, and the forced
 wavefront there at 32x32x4; and the band launches of K1 and the splat
 against their plain versions (``path_kernel[cornell_bands]``,
 ``path_kernel[materials_bands]`` and ``splat_kernel[materials_bands]``
-in the kernels line). Last comes
+in the kernels line). The crop and surface phase
+(``run_crop_and_surface``) renders the Cornell box with a 128x96 crop
+at (64, 80) of its 256x256 film (16 spp) and the volpath slab with a
+128x128 crop at (64, 64) (4 spp): each leaves K1 or K3 with
+"crop window" for the wavefront, its K2 launches counted from zero and
+held bit for bit against the twin (``isect_closest[crop_cornell]`` and
+so on), its row means within four standard errors of the full film's
+same rows; ``set_crop_window`` on the loaded Cornell box takes it from
+K1 to the wavefront and back, each render bit for bit a fresh load's;
+volpathmis leaves K3 the same way on a 32x32 crop; then the 16 new
+warps,
+ray differentials, uv partials and normal derivatives on the card
+against the CPU within 1e-5. Last comes
 the measurement path: the face-test and box-test ceilings through
 ``tools/shape_ceiling.py`` (the sweep kernel's shared-memory and global
 face instantiations beside ``torch.matmul`` of the same product, and its
@@ -188,9 +200,9 @@ PARITY_WIDTH, PARITY_SPP, SEED = 64, 16, 7
 # the big-mesh paths (bench.py biggeo, hero): parity and the plain
 # version's time at 32x32x4 spp
 BIG_PARITY_WIDTH, BIG_PARITY_SPP = 32, 4
-# the plain version at the main shape on every 31st pixel (2,115 pixels,
+# the plain version at the main shape on every 93rd pixel (705 pixels,
 # all their samples)
-BIG_PLAIN_STRIDE = 31
+BIG_PLAIN_STRIDE = 93
 # the ray queries: kernel against plain twin on this many rays of each
 # set, the bound's walk counts from this many
 ISECT_PARITY_RAYS, ISECT_COUNT_RAYS = 65536, 8192
@@ -1369,8 +1381,10 @@ def run_wavefront(mi, ik, isx, pk, scenes):
 VW_K2_SAMPLE = 64
 VW_CPU_WIDTH, VW_CPU_SPP = 32, 4
 VW_FORCED_RTOL = 0.12
-# a render slower than this is timed once after the warm-up
-VW_ONE_RUN_S = 20.0
+# volpath_gaussian's samples a pixel in this phase: two passes of 2^18
+# lanes (the volpath path's 16, four passes, took half the smoke's time
+# in renders of the same code)
+VW_SPP = 8
 
 
 def slab_gaussian(scenes, width, spp, **kw):
@@ -1489,7 +1503,7 @@ def run_volpath_wavefront(mi, ik, isx, pk, scenes):
     from mitsuba2_tpu_torch.render.scene import Scene
     t_phase = time.perf_counter()
     mi.set_variant("scalar_rgb")
-    spp = VOL_SPP
+    spp = VW_SPP
     n = WIDTH * WIDTH * spp
 
     # ---- the slice's path: volpath_gaussian ----
@@ -1522,20 +1536,11 @@ def run_volpath_wavefront(mi, ik, isx, pk, scenes):
     log(f"  trip counts: {trips.describe()}")
     log(f"  K2 launches in one render: {launches}; peak memory "
         f"{peak / 2**20:.1f} MiB ({peak / (n // passes):.0f} B a lane)")
-    if first_s > VW_ONE_RUN_S:
-        _, times = prof.cuda_times(
-            lambda: integ.render(scene, seed=SEED, spp=spp), runs=1,
-            warm_up=False)
-        how = f"one run after the warm-up (the first took {first_s:.1f} s)"
-    else:
-        _, times = prof.cuda_times(
-            lambda: integ.render(scene, seed=SEED, spp=spp), runs=3,
-            warm_up=False)
-        how = "median of 3 after a warm-up"
-    ms = statistics.median(times)
-    log(f"  render {ms:.1f} ms ({how}: "
-        f"{', '.join(f'{t:.1f}' for t in times)}), {n / ms / 1e3:.4f} "
-        f"Mpaths/s")
+    _, (ms,) = prof.cuda_times(
+        lambda: integ.render(scene, seed=SEED, spp=spp), runs=1,
+        warm_up=False)
+    log(f"  render {ms:.1f} ms (one run after the first), "
+        f"{n / ms / 1e3:.4f} Mpaths/s")
     with _PassTrips(integ) as trips:
         _, syncs, sync_sites, host = counted_render(integ, scene, spp)
     designed = trips.designed_syncs()
@@ -1624,14 +1629,15 @@ def run_volpath_wavefront(mi, ik, isx, pk, scenes):
     if sc.integrator.last_engine != "kernel":
         raise SystemExit("volpath slab: K3 did not render it")
     sc.integrator._disable_kernel = True
+    # the volpath wavefront ran above: one run, no warm-up
     wimg, wms = timed(lambda: sc.integrator.render(sc, seed=SEED, spp=spp),
-                      repeats=1)
+                      repeats=1, warm_up=False)
     if sc.integrator.last_engine != "wavefront":
         raise SystemExit("volpath slab: the forced render missed the "
                          "wavefront")
     rel = abs(float(wimg.mean()) / float(kimg.mean()) - 1)
     log(f"volpath slab (box film) {WIDTH}^2 x {spp} spp: K3 {kms:.2f} ms, "
-        f"the wavefront forced {wms:.1f} ms (one run after a warm-up; "
+        f"the wavefront forced {wms:.1f} ms (one run; "
         f"{wms / kms:.0f}x); means {float(kimg.mean()):.6f} and "
         f"{float(wimg.mean()):.6f} (rel {rel:.2e}, allowed "
         f"{VW_FORCED_RTOL:g})")
@@ -1757,10 +1763,11 @@ def wavefront_k2_entries(ik, isx, pk, label, scene, render, launches):
     """K2 on the rays of one wavefront render of ``scene`` (``render()``):
     each entry against its plain twin, bit for bit, on ISECT_PARITY_RAYS
     rays sampled from every launch, and timed on its busiest launch ->
-    the two entries of the kernels line, named "<entry>[label]", with
+    the entries of the kernels line, named "<entry>[label]", with
     ``launches``, the entries' launches in the main run (a render of
     few launches gives each more rays, so that every entry has
-    ISECT_PARITY_RAYS)."""
+    ISECT_PARITY_RAYS), for each entry the render launched."""
+    launches = {k: v for k, v in launches.items() if v}
     per_launch = max(WF_K2_SAMPLE,
                      -(-ISECT_PARITY_RAYS // min(launches.values())))
     samples, full = record_k2(ik, render, per_launch=per_launch,
@@ -1773,6 +1780,8 @@ def wavefront_k2_entries(ik, isx, pk, label, scene, render, launches):
             ("isect_closest", ik.isect_closest, isx.closest_hit_reference,
              16),
             ("isect_any", ik.isect_any, isx.any_hit_reference, 1)):
+        if name not in launches:
+            continue
         every = tuple(torch.cat(xs) for xs in zip(*samples[name]))
         sub = every_kth(every, ISECT_PARITY_RAYS)
         got = fn(tables, *sub)
@@ -1854,15 +1863,10 @@ def run_surface_wavefronts(mi, ik, isx, pk, scenes):
             f"image mean {mean:.6f}")
         if label == "cornell_surfaces":
             check_surface_first_hits(mi, scene)
-        runs = 1 if first_s > VW_ONE_RUN_S else 3
-        _, times = prof.cuda_times(
-            lambda: integ.render(scene, seed=SEED, spp=SPP), runs=runs,
+        _, (ms,) = prof.cuda_times(
+            lambda: integ.render(scene, seed=SEED, spp=SPP), runs=1,
             warm_up=False)
-        ms = statistics.median(times)
-        how = ("median of 3 after a warm-up" if runs == 3 else
-               f"one run after the warm-up (the first took {first_s:.1f} s)")
-        log(f"  render {ms:.1f} ms ({how}: "
-            f"{', '.join(f'{t:.1f}' for t in times)}), "
+        log(f"  render {ms:.1f} ms (one run after the first), "
             f"{n / ms / 1e3:.4f} Mpaths/s; K2 launches in one render: "
             f"{launches}; peak memory {peak / 2**20:.1f} MiB "
             f"({peak / (n // passes):.0f} B a lane)")
@@ -1975,7 +1979,7 @@ def time_wavefront(ik, label, scene, reason, band, loop,
     """One wavefront render of ``scene`` at the main shape, K2's launch
     counts zeroed before it and read after, checked (engine, the gate's
     ``reason``, each of K2's ``entries`` reached, finite image within
-    ``band``), then timed (median of 3 after it), its host syncs against
+    ``band``), then timed (one run after it), its host syncs against
     the design's count and its spans by layer (``layers``, (object,
     attribute, label), beside the common ones) -> (K2's launches by
     entry, render ms, peak bytes, the first render's image)."""
@@ -2000,15 +2004,13 @@ def time_wavefront(ik, label, scene, reason, band, loop,
     if not (bool(torch.isfinite(img).all()) and band[0] < mean < band[1]):
         raise SystemExit(f"{label}: implausible image, mean {mean}")
     passes = max(1, n // integ.MAX_WAVEFRONT)
-    _, times = prof.cuda_times(
-        lambda: integ.render(scene, seed=SEED, spp=SPP), runs=3,
+    _, (ms,) = prof.cuda_times(
+        lambda: integ.render(scene, seed=SEED, spp=SPP), runs=1,
         warm_up=False)
-    ms = statistics.median(times)
     log(f"{label} {WIDTH}^2 x {SPP} spp, depth {MAX_DEPTH}: engine "
         f"{integ.last_engine} (gate: {integ.engine_reason}); {passes} passes "
         f"of {integ.MAX_WAVEFRONT} lanes; first render {first_s:.2f} s; "
-        f"image mean {mean:.6f}; render {ms:.1f} ms (median of 3 after "
-        f"it: {', '.join(f'{t:.1f}' for t in times)}), "
+        f"image mean {mean:.6f}; render {ms:.1f} ms (one run after it), "
         f"{n / ms / 1e3:.4f} Mpaths/s; K2 launches in one render: "
         f"{launches}; peak memory {peak / 2**20:.1f} MiB "
         f"({peak / (n // passes):.0f} B a lane)")
@@ -3078,6 +3080,304 @@ def run_autodiff(mi, ik, isx, pk, scenes):
     return entries
 
 
+# the crop and surface phase: a film crop window refuses both kernels
+# ("crop window": they draw the whole field of view) and renders on the
+# wavefronts, whose K2 launches are counted and held bit for bit against
+# the plain twin on a sample of their rays; each crop's rows against the
+# same rows of the full film (the wavefront's band of them) within
+# CROP_N_SE standard errors of the row means' difference (the CPU test's
+# bar, tests/test_torch_crop.py); then the core's new surface on CUDA
+# tensors against the same calls on the CPU within CROP_ATOL (the warps at
+# the CPU test's bars where one ulp of a transcendental is amplified,
+# tests/test_torch_warp.py): the 16 warps, ray differentials, uv partials
+# and normal derivatives (their hits through K2)
+CROP_N_SE, CROP_ATOL = 4.0, 1e-5
+# Cornell at the main width with a crop of another aspect than the film's
+# (x, y, w, h), and the slab with a square one
+CROP_CORNELL, CROP_CORNELL_SPP = (64, 80, 128, 96), 16
+CROP_SLAB, CROP_SLAB_SPP = (64, 64, 128, 128), 4
+ULP4 = 2.0 ** -21
+
+
+def crop_rows(integ, scene, sensor, crop, spp):
+    """Per row of the crop's window, the mean luminance of its pixels'
+    lanes and that mean's variance, from the lanes of ``sensor``'s film
+    (the crop's film, or the full film's band of the window's rows)."""
+    x0, y0, w, h = crop
+    fw = sensor.film.crop_size[0]
+    full = fw != w
+    _, rgb = integ.wavefront_lanes(scene, sensor, sensor.sampler, SEED, 0,
+                                   spp, y0 if full else 0,
+                                   h if full else None)
+    y = rgb.double().mean(-1).reshape(h, fw, spp)
+    if full:
+        y = y[:, x0:x0 + w]
+    m, v = y.mean(-1), y.var(-1) / spp
+    return m.mean(1).cpu().numpy(), (v.sum(1) / w ** 2).cpu().numpy()
+
+
+def hold_crop(mi, ik, isx, pk, label, make, crop, spp, band):
+    """The cropped scene ``make(crop)`` renders on the wavefront with
+    "crop window", its K2 launches counted from zero and its closest and
+    any hits held bit for bit against the plain twin on a sample of them
+    (wavefront_k2_entries); its rows against the full film's -> (K2's
+    entries of the kernels line, "<entry>[label]"; the crop's image)."""
+    x0, y0, w, h = crop
+    sc = mi.load_dict(make(dict(crop_offset_x=x0, crop_offset_y=y0,
+                                crop_width=w, crop_height=h)))
+    integ = sc.integrator
+    ik.reset_launch_counts()
+    t0 = time.perf_counter()
+    img = integ.render(sc, seed=SEED, spp=spp)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = {fn.__name__: fn.launches for fn in ik.ENTRIES
+                if fn.launches}
+    mean = float(img.mean())
+    log(f"{label}: crop {w}x{h} at ({x0}, {y0}) of the {WIDTH}^2 film, "
+        f"{spp} spp: engine {integ.last_engine} (gate: "
+        f"{integ.engine_reason}), {ms:.1f} ms, image {tuple(img.shape)} "
+        f"mean {mean:.6f}; K2 launches {launches}")
+    if integ.last_engine != "wavefront" \
+            or integ.engine_reason != "crop window" \
+            or launches.get("isect_closest", 0) < 1 \
+            or img.shape[:2] != (h, w) \
+            or not bool(torch.isfinite(img).all()) \
+            or not band[0] < mean < band[1]:
+        raise SystemExit(f"{label}: the crop missed the wavefront or K2, "
+                         f"or its image is wrong")
+    # K2 recorded on the crop's lanes, whose rows are kept
+    rows = []
+    entries = wavefront_k2_entries(
+        ik, isx, pk, label, sc, lambda: rows.extend(crop_rows(
+            integ, sc, sc.sensors[0], crop, spp)), launches)
+    m_c, v_c = rows
+    full = mi.load_dict(make({}))
+    m_f, v_f = crop_rows(full.integrator, full, full.sensors[0], crop, spp)
+    z = np.abs(m_c - m_f) / np.sqrt(v_c + v_f)
+    log(f"  rows against the full film's window: max |diff| / SE "
+        f"{z.max():.2f} (bar {CROP_N_SE:g}), row means {m_f.min():.4f}.."
+        f"{m_f.max():.4f}")
+    if z.max() > CROP_N_SE:
+        raise SystemExit(f"{label}: the crop's window leaves the full "
+                         f"film's")
+    return entries, img
+
+
+def warp_pairs(warp, u_g, u_c):
+    """Each new warp on the card and on the CPU -> [(label, card, CPU,
+    bar)], the bar "sphere" (a unit direction near a pole) or the
+    relative tolerance beside CROP_ATOL, a number or one a lane."""
+    wi, tangent = [0.5 / 1.25 ** 0.5, 0.0, 1.0 / 1.25 ** 0.5], [1.0, 0, 0]
+    rel = CROP_ATOL
+    out = [("interval_to_tent", warp.interval_to_tent(u_g[:, 0]),
+            warp.interval_to_tent(u_c[:, 0]), rel),
+           ("interval_to_nonuniform_tent",
+            warp.interval_to_nonuniform_tent(-1.0, 0.3, 2.0, u_g[:, 0]),
+            warp.interval_to_nonuniform_tent(-1.0, 0.3, 2.0, u_c[:, 0]),
+            rel)]
+    for name in ("square_to_uniform_disk", "square_to_std_normal",
+                 "square_to_tent", "square_to_uniform_hemisphere",
+                 "square_to_uniform_square_concentric"):
+        fn = getattr(warp, name)
+        g, c = fn(u_g), fn(u_c)
+        out.append((name, g, c, rel))
+        pdf = getattr(warp, name + "_pdf", None)
+        if pdf is not None:
+            out.append((name + "_pdf", pdf(c.to(u_g.device)), pdf(c), rel))
+    p = warp.square_to_uniform_disk_concentric(u_c)
+    out.append(("uniform_disk_to_square_concentric",
+                warp.uniform_disk_to_square_concentric(p.to(u_g.device)),
+                warp.uniform_disk_to_square_concentric(p), rel))
+    for kappa in (0.5, 10.0, 100.0, 1e4):
+        g = warp.square_to_von_mises_fisher(u_g, kappa)
+        c = warp.square_to_von_mises_fisher(u_c, kappa)
+        out.append((f"square_to_von_mises_fisher[{kappa:g}]", g, c,
+                    "sphere"))
+        out.append((f"square_to_von_mises_fisher_pdf[{kappa:g}]",
+                    warp.square_to_von_mises_fisher_pdf(c.to(u_g.device),
+                                                        kappa),
+                    warp.square_to_von_mises_fisher_pdf(c, kappa), rel))
+    # the fiber's construction on the CPU's micro-normals
+    n_c = warp.square_to_von_mises_fisher(u_c, 30.0)
+    vmf = warp.square_to_von_mises_fisher
+    try:
+        warp.square_to_von_mises_fisher = lambda s, k: n_c.to(s.device)
+        g = warp.square_to_rough_fiber(u_g, wi, tangent, 30.0)
+        c = warp.square_to_rough_fiber(u_c, wi, tangent, 30.0)
+    finally:
+        warp.square_to_von_mises_fisher = vmf
+    out.append(("square_to_rough_fiber", g, c, rel))
+    # the fiber's density through the half vector of wo and wi, which
+    # cancels where wo nears -wi: each lane's bar also holds four times
+    # the CPU's own float32 error against float64 there
+    p_c = warp.square_to_rough_fiber_pdf(c, wi, tangent, 30.0)
+    p_64 = warp.square_to_rough_fiber_pdf(c.double(), wi, tangent, 30.0)
+    out.append(("square_to_rough_fiber_pdf",
+                warp.square_to_rough_fiber_pdf(c.to(u_g.device), wi, tangent,
+                                               30.0), p_c,
+                rel + 30.0 * ULP4 + 4.0 * (p_c.double() - p_64).abs()
+                / p_c.double().abs().clamp(min=1e-30)))
+    return out
+
+
+def held(label, g, c, bar):
+    """The card's ``g`` against the CPU's ``c`` at ``bar`` (warp_pairs)
+    -> the largest abs error; exits where it leaves the bar."""
+    g, c = g.double().cpu(), c.double()
+    err = float((g - c).abs().max())
+    if bar == "sphere":
+        r_g, r_c = g[:, :2].norm(dim=1), c[:, :2].norm(dim=1)
+        bar = CROP_ATOL + ULP4 * c[:, 2].abs() / r_c.clamp(min=1e-12)
+        wide = r_c > 1e-3
+        ok = bool(((g[:, 2] - c[:, 2]).abs() <= CROP_ATOL).all()) \
+            and bool(((r_g - r_c).abs() <= bar).all()) \
+            and bool(((g[wide, :2] / r_g[wide, None]
+                       - c[wide, :2] / r_c[wide, None]).abs()
+                      <= CROP_ATOL).all())
+    else:
+        ok = bool(((g - c).abs() <= CROP_ATOL + bar * c.abs()).all())
+    if not ok:
+        raise SystemExit(f"{label}: the card and the CPU disagree "
+                         f"({err:.3e})")
+    return err
+
+
+def surface_calls(mi, device):
+    """The JAX tests' differential calls (tests/test_core_math.py:243-329)
+    on ``device``: a 64^2 camera's ray differentials, the uv partials of
+    their hits on a rectangle, and the normal derivatives of hits on a
+    rectangle, a sphere, a tessellated sphere, a cylinder and a disk side
+    by side -> {label: tensor}."""
+    from mitsuba2_tpu_torch.core.ray import Ray
+    from mitsuba2_tpu_torch.render.scene import Scene
+    mi.set_device(device)
+    try:
+        T = mi.Transform
+        cam = mi.load_dict({
+            "type": "perspective", "fov": 45.0,
+            "to_world": T.look_at([0, 0, 3], [0, 0, 0], [0, 1, 0]),
+            "film": {"type": "hdrfilm", "width": 64, "height": 64,
+                     "rfilter": {"type": "box"}}})
+        g = torch.Generator().manual_seed(SEED)
+        pos = (0.3 + 0.4 * torch.rand((4096, 2), generator=g)).to(device)
+        rd, _, _ = cam.sample_ray_differential(
+            0.0, torch.zeros(4096, device=device), pos,
+            torch.zeros((4096, 2), device=device))
+        rect = Scene(shapes=[mi.load_dict({"type": "rectangle"})])
+        si = rect.ray_intersect(rd.ray).compute_uv_partials(rd)
+        shapes = [mi.load_dict(d).expand()[0] for d in (
+            {"type": "rectangle"},
+            {"type": "sphere", "radius": 2.0, "center": [10.0, 0, 0]},
+            {"type": "sphere", "radius": 1.0, "resolution_hint": 64,
+             "center": [20.0, 0, 0], "emitter": {
+                 "type": "area", "radiance": {"type": "rgb", "value": 0.0}}},
+            {"type": "cylinder", "radius": 0.5, "p0": [30.0, -1, 0],
+             "p1": [30.0, 1, 0]},
+            {"type": "disk", "to_world": T.translate([40.0, 0, 0])})]
+        sc = Scene(shapes=shapes)
+        # rays down onto each shape, off its silhouette (where a hit's
+        # place, and so its derivatives, hang on the last bit of t) and
+        # off the analytic sphere's pole (where its uv's azimuth does)
+        k = torch.arange(4096) % 5
+        half = torch.tensor([[0.9, 0.9], [1.2, 1.2], [0.6, 0.6],
+                             [0.3, 0.9], [0.6, 0.6]])[k]
+        xy = (2.0 * torch.rand((4096, 2), generator=g) - 1.0) * half
+        r = xy.norm(dim=1, keepdim=True)
+        xy = torch.where((k[:, None] == 1) & (r < 0.4),
+                         xy / r.clamp(min=1e-6) * 0.4, xy)
+        o = torch.cat([xy + torch.stack([k * 10.0, torch.zeros(4096)], -1),
+                       torch.full((4096, 1), 5.0)], -1).to(device)
+        d = torch.tensor([0.0, 0.0, -1.0], device=device).expand(4096, 3)
+        hit = sc.ray_intersect(Ray.make(o, d, mint=1e-4))
+        du, dv = sc.normal_derivative(hit)
+        return {"sample_ray_differential o_x": rd.o_x,
+                "sample_ray_differential d_y": rd.d_y,
+                "compute_uv_partials duv_dx": si.duv_dx,
+                "compute_uv_partials duv_dy": si.duv_dy,
+                "normal_derivative dn_du": du,
+                "normal_derivative dn_dv": dv,
+                "normal_derivative hits": hit.is_valid().float()}
+    finally:
+        mi.set_device("cuda")
+
+
+def run_crop_and_surface(mi, ik, isx, pk, scenes):
+    """Cropped Cornell and a cropped slab on the wavefronts, K2 on their
+    rays, their windows against the full films'; the new warps, ray
+    differentials, uv partials and normal derivatives on the card against
+    the CPU -> K2's entries of the kernels line for the crops' launches."""
+    from mitsuba2_tpu_torch.core import warp
+    t_phase = time.perf_counter()
+    mi.set_variant("scalar_rgb")
+
+    def cornell(crop):
+        d = scenes.cornell_box_dict(WIDTH, WIDTH, CROP_CORNELL_SPP,
+                                    MAX_DEPTH)
+        d["sensor"]["film"].update(crop)
+        return d
+
+    def slab(crop, integrator="volpath"):
+        d = scenes.volpath_slab_dict(WIDTH, WIDTH, CROP_SLAB_SPP,
+                                     VOL_MAX_DEPTH)
+        d["integrator"]["type"] = integrator
+        d["sensor"]["film"].update(crop)
+        return d
+
+    entries, crop_img = hold_crop(mi, ik, isx, pk, "crop_cornell", cornell,
+                                  CROP_CORNELL, CROP_CORNELL_SPP,
+                                  (0.03, 1.0))
+    # set_crop_window on a loaded scene: K1, the crop on the wavefront
+    # (the fresh cropped load's image), K1 again, each bit for bit
+    sc = mi.load_dict(cornell({}))
+    first = sc.integrator.render(sc, seed=SEED, spp=CROP_CORNELL_SPP)
+    engines, same = [sc.integrator.last_engine], []
+    for window, want in ((CROP_CORNELL, crop_img),
+                         ((0, 0, WIDTH, WIDTH), first)):
+        sc.sensors[0].film.set_crop_window(window[:2], window[2:])
+        img = sc.integrator.render(sc, seed=SEED, spp=CROP_CORNELL_SPP)
+        engines.append(sc.integrator.last_engine)
+        same.append(torch.equal(img, want))
+    log(f"set_crop_window on a loaded cornell: engines "
+        f"{', '.join(engines)}; the crop the fresh load's and the whole "
+        f"film the first render's bit for bit: {same}")
+    if engines != ["kernel", "wavefront", "kernel"] or not all(same):
+        raise SystemExit("set_crop_window: a render left the fresh load's")
+    entries += hold_crop(mi, ik, isx, pk, "crop_slab", slab, CROP_SLAB,
+                         CROP_SLAB_SPP, (0.2, 5.0))[0]
+    # volpathmis shares K3's gate: a small crop of one sample a pixel
+    x0, y0, w, h = CROP_SLAB
+    sc = mi.load_dict(slab(dict(crop_offset_x=x0, crop_offset_y=y0,
+                                crop_width=w // 4, crop_height=h // 4),
+                           "volpathmis"))
+    img = sc.integrator.render(sc, seed=SEED, spp=1)
+    log(f"crop_slab (volpathmis) {w // 4}x{h // 4}: engine "
+        f"{sc.integrator.last_engine} (gate: {sc.integrator.engine_reason})"
+        f", image mean {float(img.mean()):.6f}")
+    if sc.integrator.last_engine != "wavefront" \
+            or sc.integrator.engine_reason != "crop window" \
+            or not bool(torch.isfinite(img).all()):
+        raise SystemExit("crop_slab (volpathmis): the crop missed the "
+                         "wavefront")
+    log(f"  crops: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- the new surface on CUDA tensors against the CPU ----
+    g = torch.Generator().manual_seed(SEED)
+    u_c = torch.rand((65536, 2), generator=g)
+    worst = {}
+    for label, gv, cv, kind in warp_pairs(warp, u_c.cuda(), u_c):
+        worst[label] = held(label, gv, cv, kind)
+    card, cpu = surface_calls(mi, "cuda"), surface_calls(mi, "cpu")
+    for label in card:
+        worst[label] = held(label, card[label], cpu[label], CROP_ATOL)
+    if float(card["normal_derivative hits"].mean()) != 1.0:
+        raise SystemExit("normal_derivative: a ray missed its shape")
+    log(f"  {len(worst)} calls on the card against the CPU, largest abs "
+        f"errors: " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    log(f"crop and surface phase: {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
 # the multichip phase: a sample-sharded render's bar against the
 # single-device render (tests/test_parallel.py, the JAX package's), the
 # [cuda:0, cpu] mesh's shape, and the forced wavefront's there (32^2 x 4)
@@ -3383,7 +3683,7 @@ def main():
         "matpreview_spectral": (full, (0.2, 5.0), {}),
         "cornell_mono": (0, (0.05, 1.0), {}),
         # the big meshes: the BVH tier, parity and the walk counts at
-        # 32^2 x 4 spp, the plain version on every 31st pixel
+        # 32^2 x 4 spp, the plain version on every 93rd pixel
         "biggeo": (pk.HAS_BVH, (0.03, 0.5), big),
         "hero": ((full & ~pk.HAS_SPHERES) | pk.HAS_BVH, (0.2, 5.0), big),
         # the materials scene: the lobes flag's instantiation and the splat
@@ -3415,6 +3715,7 @@ def main():
     kernels += run_polarized_measured(mi, ik, isx, pk, scenes)
     kernels += run_autodiff(mi, ik, isx, pk, scenes)
     kernels += run_multichip(mi, pk, vk, scenes)
+    kernels += run_crop_and_surface(mi, ik, isx, pk, scenes)
     check_forced_on_cornell(mi, pk, cornell_box_dict)
     kernels += run_ceiling(mi, pk, sk, cornell_box_dict,
                            cornell_materials_dict, face_rates)

@@ -73,6 +73,13 @@ class DiscreteDistribution2D(NamedTuple):
                                torch.clamp(uy2, 0.0, 1.0 - m.Epsilon)], -1)
         return torch.stack([x, y], -1), pmf_norm, u_reuse
 
+    def eval(self, pos):
+        """The normalized pmf at integer texels (..., 2) (x, y)."""
+        return m.safe_div(self.pmf[pos[..., 1], pos[..., 0]], self.sum, 0.0)
+
+    def pdf(self, pos):
+        return self.eval(pos)
+
 
 def _bilinear(data, pos):
     """Bilinear interpolation of vertex values ``data`` (h, w) at
@@ -118,6 +125,10 @@ class Hierarchical2D(NamedTuple):
             self.data.to(device),
             DiscreteDistribution2D(*(x.to(device) for x in self.cell)),
             self.normalization.to(device))
+
+    @property
+    def res(self):
+        return tuple(self.data.shape)
 
     def sample(self, u2):
         """(n, 2) -> (positions in [0, 1]^2, pdf)."""

@@ -1,6 +1,5 @@
 """Scalar constants and tensor helpers (reference: include/mitsuba/core/
-math.h, constants.h, vector.h; counterpart of ``mitsuba2_tpu.core.math``).
-Only what the ported slice calls."""
+math.h, constants.h, vector.h; counterpart of ``mitsuba2_tpu.core.math``)."""
 
 from __future__ import annotations
 
@@ -8,11 +7,15 @@ import torch
 
 Pi = 3.141592653589793
 TwoPi = 2.0 * Pi
+FourPi = 4.0 * Pi
 InvPi = 1.0 / Pi
 InvTwoPi = 1.0 / TwoPi
-InvFourPi = 1.0 / (4.0 * Pi)
+InvFourPi = 1.0 / FourPi
 SqrtPi = 1.7724538509055160
+SqrtTwo = 1.4142135623730951
 InvSqrtPi = 1.0 / SqrtPi
+InvSqrtTwo = 1.0 / SqrtTwo
+Infinity = float("inf")
 # Ray-offset epsilons (include/mitsuba/render/fwd.h: float32 machine
 # epsilon times 1500, and ten times that for shadow rays, as
 # mitsuba2_tpu.core.math has them): a ray's default mint and the shadow
@@ -68,6 +71,18 @@ def sqr(x):
     return x * x
 
 
+def rcp(x):
+    return 1.0 / x
+
+
+def clamp(x, lo, hi):
+    return torch.clamp(x, lo, hi)
+
+
+def fmadd(a, b, c):
+    return a * b + c
+
+
 def lerp(a, b, t):
     return a + (b - a) * t
 
@@ -85,6 +100,11 @@ def sign(x):
 def dot(a, b):
     """Dot product over the last axis of (..., 3) tensors."""
     return (a * b).sum(-1)
+
+
+def abs_dot(a, b, keepdims: bool = False):
+    d = (a * b).sum(-1, keepdim=keepdims)
+    return d.abs()
 
 
 def cross(a, b):
@@ -111,6 +131,19 @@ def vec3(x, y, z):
     return torch.stack(torch.broadcast_tensors(x, y, z), -1)
 
 
+def vec2(x, y):
+    """(..., 2) vector of two tensors (or a number beside a tensor)."""
+    like = x if isinstance(x, torch.Tensor) else y
+    x, y = (c if isinstance(c, torch.Tensor) else torch.full_like(like, c)
+            for c in (x, y))
+    return torch.stack(torch.broadcast_tensors(x, y), -1)
+
+
+def unstack(v):
+    """The trailing axis's components as a tuple of tensors."""
+    return tuple(v[..., i] for i in range(v.shape[-1]))
+
+
 def coordinate_system(n):
     """Orthonormal tangents (s, t) of unit normals n (..., 3): Duff et
     al. 2017's branchless construction (vector.h coordinate_system)."""
@@ -122,3 +155,59 @@ def coordinate_system(n):
                mulsign(-nx, nz))
     s_y = vec3(b, s + ny * ny * a, -ny)
     return s_x, s_y
+
+
+def spherical_direction(theta, phi):
+    """Unit directions from spherical angles (z up)."""
+    st, ct = torch.sin(theta), torch.cos(theta)
+    return vec3(st * torch.cos(phi), st * torch.sin(phi), ct)
+
+
+def spherical_coordinates(d):
+    """(theta, phi) of unit directions (..., 3)."""
+    return safe_acos(d[..., 2]), torch.atan2(d[..., 1], d[..., 0])
+
+
+def linear_to_srgb(x):
+    """Linear RGB -> the sRGB transfer curve (math.h linear_to_srgb)."""
+    x = torch.clamp(x, min=0.0)
+    return torch.where(x <= 0.0031308, x * 12.92,
+                       1.055 * torch.pow(torch.clamp(x, min=1e-12),
+                                         1.0 / 2.4) - 0.055)
+
+
+def srgb_to_linear(x):
+    x = torch.clamp(x, min=0.0)
+    return torch.where(x <= 0.04045, x / 12.92,
+                       torch.pow((x + 0.055) / 1.055, 2.4))
+
+
+def find_interval(size, pred):
+    """Mitsuba's math::find_interval: the JAX package leaves it to
+    ``searchsorted`` (mitsuba2_tpu/core/math.py find_interval), and so
+    does the port."""
+    raise NotImplementedError("use torch.searchsorted")
+
+
+def legendre_p(order: int, x):
+    """The Legendre polynomial P_n(x) by its recurrence (math.h
+    legendre_p)."""
+    if order == 0:
+        return torch.ones_like(x)
+    p_prev, p = torch.ones_like(x), x
+    for n in range(1, order):
+        p_prev, p = p, ((2 * n + 1) * x * p - n * p_prev) / (n + 1)
+    return p
+
+
+def legendre_pd(order: int, x):
+    """(P_n(x), P_n'(x)), as Gauss-Legendre node finding uses them."""
+    if order == 0:
+        return torch.ones_like(x), torch.zeros_like(x)
+    p_prev, p = torch.ones_like(x), x
+    d_prev, d = torch.zeros_like(x), torch.ones_like(x)
+    for n in range(1, order):
+        p_next = ((2 * n + 1) * x * p - n * p_prev) / (n + 1)
+        d_next = d_prev + (2 * n + 1) * p
+        p_prev, p, d_prev, d = p, p_next, d, d_next
+    return p, d

@@ -52,8 +52,7 @@ class Object:
         the owning object cached from its old value
         (models/textures.py ``on_device``) and bumps the parameter
         epoch."""
-        global _PARAM_EPOCH
-        _PARAM_EPOCH += 1
+        bump_param_epoch()
         obj, leaf = self._resolve_attr(self.PARAM_ATTRS.get(name, name))
         setattr(obj, leaf, _host_like(getattr(obj, leaf, None), value))
         obj.__dict__.pop("_device_cache", None)
@@ -100,6 +99,11 @@ _PARAM_EPOCH = 0
 
 def param_epoch() -> int:
     return _PARAM_EPOCH
+
+
+def bump_param_epoch() -> None:
+    global _PARAM_EPOCH
+    _PARAM_EPOCH += 1
 
 
 _REGISTRY: dict[tuple[str, str], type] = {}

@@ -12,6 +12,10 @@ from typing import Any
 import numpy as np
 
 
+class NamedReference(str):
+    """A reference to another scene object by its id (properties.h:41)."""
+
+
 class Properties:
     def __init__(self, plugin_name: str = "", values: dict | None = None):
         self.plugin_name = plugin_name
@@ -42,6 +46,9 @@ class Properties:
 
     def items(self):
         return self._values.items()
+
+    def mark_queried(self, k):
+        self._queried.add(k)
 
     def unqueried(self) -> list[str]:
         return [k for k in self._values if k not in self._queried]

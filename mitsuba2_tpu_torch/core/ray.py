@@ -1,7 +1,7 @@
 """Rays as tuples of tensors (reference: include/mitsuba/core/ray.h and
-``mitsuba2_tpu.core.ray``), as far as the scene's ray queries need them:
-origin and direction (n, 3) and the [mint, maxt] segment (n,), on one
-device, float32."""
+``mitsuba2_tpu.core.ray``): origin and direction (n, 3) and the [mint,
+maxt] segment (n,), on one device, float32; a ray differential adds the
+origins and directions of the rays one pixel over in x and in y."""
 
 from __future__ import annotations
 
@@ -42,3 +42,34 @@ class Ray(NamedTuple):
     def __call__(self, t):
         """Points along the rays: o + t d."""
         return self.o + self.d * t[..., None]
+
+    def replace(self, **kw) -> "Ray":
+        return self._replace(**kw)
+
+
+class RayDifferential(NamedTuple):
+    """A ray and its neighbours one pixel over (ray.h RayDifferential):
+    their origins ``o_x``, ``o_y`` and directions ``d_x``, ``d_y`` (n,
+    3); ``has_differentials`` is a host flag."""
+    ray: Ray
+    o_x: torch.Tensor
+    o_y: torch.Tensor
+    d_x: torch.Tensor
+    d_y: torch.Tensor
+    has_differentials: bool
+
+    @staticmethod
+    def from_ray(ray: Ray) -> "RayDifferential":
+        z = torch.zeros_like(ray.o)
+        return RayDifferential(ray, z, z, z, z, False)
+
+    def scale_differential(self, amount) -> "RayDifferential":
+        """The neighbours moved toward the ray by ``amount`` (ray.h
+        scale_differential: 1 / sqrt(spp) where a pixel takes spp
+        samples)."""
+        r = self.ray
+        return RayDifferential(
+            r, (self.o_x - r.o) * amount + r.o,
+            (self.o_y - r.o) * amount + r.o,
+            (self.d_x - r.d) * amount + r.d,
+            (self.d_y - r.d) * amount + r.d, self.has_differentials)

@@ -14,6 +14,8 @@ from __future__ import annotations
 import torch
 
 MASK32 = 0xFFFFFFFF
+# the dtype that carries uint32 words (``jnp.uint32`` in the JAX package)
+U32 = torch.int64
 
 
 def _u32(x, like=None):
@@ -40,6 +42,12 @@ def sample_tea_32(v0, v1, rounds: int = 4):
         v1 = (v1 + (((v0 << 4) + 0xAD90777D) ^ (v0 + s)
                     ^ ((v0 >> 5) + 0x7E95761E))) & MASK32
     return v0, v1
+
+
+def sample_tea_64(v0, v1, rounds: int = 4):
+    """64 mixed bits as a (hi, lo) pair of uint32 words."""
+    a, b = sample_tea_32(v0, v1, rounds)
+    return b, a
 
 
 def _mul32(a, c: int):
@@ -72,6 +80,15 @@ def u32_to_float01(bits):
     return f - 1.0
 
 
+def sample_tea_float32(v0, v1, rounds: int = 4):
+    """A uniform float in [0, 1) from two seeds (random.h
+    sample_tea_float32)."""
+    return u32_to_float01(sample_tea_32(v0, v1, rounds)[0])
+
+
+sample_tea_float = sample_tea_float32
+
+
 def lane_key(seed, index):
     """Per-lane decorrelated key from a global seed and lane index."""
     return sample_tea_32(seed, index)[0]
@@ -85,6 +102,15 @@ def uniform_float(key, dim):
     """The core primitive: U[0,1) for (lane key, dimension counter)."""
     v0, _ = sample_tea_32(key, dim, _SAMPLE_ROUNDS)
     return u32_to_float01(v0)
+
+
+def uniform_float2(key, dim):
+    v0, v1 = sample_tea_32(key, dim, _SAMPLE_ROUNDS)
+    return u32_to_float01(v0), u32_to_float01(v1)
+
+
+def uniform_uint32(key, dim):
+    return sample_tea_32(key, dim, _SAMPLE_ROUNDS)[0]
 
 
 def pcg_hash(x):
@@ -102,3 +128,37 @@ def hash_combine(a, b):
     b = _u32(b, a)
     return pcg_hash(a ^ (((b + 0x9E3779B9) & MASK32) + ((a << 6) & MASK32)
                          + (a >> 2)) & MASK32)
+
+
+# ----------------------------------------------------------------------------
+# PCG32 (host-side scalar Python, the reference's exact stream)
+# ----------------------------------------------------------------------------
+
+PCG32_DEFAULT_STATE = 0x853C49E6748FEA9B
+PCG32_DEFAULT_STREAM = 0xDA3E39CB94B95BDB
+PCG32_MULT = 0x5851F42D4C957F2D
+_MASK64 = (1 << 64) - 1
+
+
+class PCG32:
+    """Melissa O'Neill's PCG32 in scalar Python (random.h:75), for host
+    tooling and tests; the device draws from the TEA streams above."""
+
+    def __init__(self, initstate=PCG32_DEFAULT_STATE,
+                 initseq=PCG32_DEFAULT_STREAM):
+        self.state = 0
+        self.inc = ((initseq << 1) | 1) & _MASK64
+        self.next_uint32()
+        self.state = (self.state + initstate) & _MASK64
+        self.next_uint32()
+
+    def next_uint32(self) -> int:
+        old = self.state
+        self.state = (old * PCG32_MULT + self.inc) & _MASK64
+        xorshifted = (((old >> 18) ^ old) >> 27) & MASK32
+        rot = old >> 59
+        return ((xorshifted >> rot) | (xorshifted << ((-rot) & 31))) \
+            & MASK32
+
+    def next_float32(self) -> float:
+        return (self.next_uint32() >> 9) * (1.0 / (1 << 23))

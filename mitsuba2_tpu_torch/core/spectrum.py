@@ -13,11 +13,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..variants import MTS_WAVELENGTH_MAX, MTS_WAVELENGTH_MIN  # noqa: F401
+
 MTS_CIE_MIN = 360.0
 MTS_CIE_MAX = 830.0
 MTS_CIE_SAMPLES = 95
-MTS_WAVELENGTH_MIN = 360.0
-MTS_WAVELENGTH_MAX = 830.0
 # chosen so a unit-valued spectrum integrates to luminance 1 (spectrum.h:133)
 MTS_CIE_Y_NORMALIZATION = 1.0 / 106.7502593994140625
 

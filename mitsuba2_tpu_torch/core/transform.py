@@ -5,6 +5,10 @@ arrays on the host. The factories build them in float64 and round once, as
 the JAX package does; ``@`` composes in float32. Scene loading bakes
 transforms into vertex positions and camera rows on the host, so no
 transform ever has to live on the device.
+
+``AnimatedTransform`` (transform.h:240+) decomposes its keyframes on the
+host into scale, rotation quaternion and translation and interpolates
+them at ``eval``, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -106,6 +110,11 @@ class Transform(NamedTuple):
                         [0, 0, 1, 0]], dtype=np.float64)
         return Transform.from_matrix(mat.astype(np.float32))
 
+    @staticmethod
+    def orthographic(near, far) -> "Transform":
+        return (Transform.scale([1.0, 1.0, 1.0 / (far - near)])
+                @ Transform.translate([0.0, 0.0, -near]))
+
     # ---- application --------------------------------------------------------
     def __matmul__(self, other: "Transform") -> "Transform":
         return Transform(self.matrix @ other.matrix,
@@ -125,3 +134,121 @@ class Transform(NamedTuple):
 
     def transform_vector(self, v):
         return v @ _device_matrix(self.matrix, v.device)[:3, :3].T
+
+    def transform_normal(self, n):
+        """Normals (..., 3) through the inverse transpose."""
+        return n @ _device_matrix(self.inverse_transpose, n.device)[:3, :3].T
+
+    def transform_ray(self, o, d):
+        return self.transform_point(o), self.transform_vector(d)
+
+    @property
+    def translation(self):
+        return self.matrix[:3, 3]
+
+    def has_scale(self) -> bool:
+        lin = self.matrix[:3, :3]
+        return not np.allclose(lin @ lin.T, np.eye(3), atol=1e-5)
+
+
+def _quat_from_matrix(R: np.ndarray) -> np.ndarray:
+    """Rotation matrix -> quaternion (w, x, y, z)."""
+    t = np.trace(R)
+    if t > 0:
+        s = np.sqrt(t + 1.0) * 2
+        return np.array([0.25 * s, (R[2, 1] - R[1, 2]) / s,
+                         (R[0, 2] - R[2, 0]) / s, (R[1, 0] - R[0, 1]) / s])
+    i = int(np.argmax(np.diag(R)))
+    j, k = (i + 1) % 3, (i + 2) % 3
+    s = np.sqrt(R[i, i] - R[j, j] - R[k, k] + 1.0) * 2
+    q = np.empty(4)
+    q[0] = (R[k, j] - R[j, k]) / s
+    q[1 + i] = 0.25 * s
+    q[1 + j] = (R[j, i] + R[i, j]) / s
+    q[1 + k] = (R[k, i] + R[i, k]) / s
+    return q
+
+
+def _host_time(time) -> float:
+    """A keyframe time from a number, or a one-element array or tensor."""
+    if hasattr(time, "cpu"):
+        time = time.detach().cpu()
+    return float(np.asarray(time, np.float64).reshape(-1)[0])
+
+
+class AnimatedTransform:
+    """A keyframed transform (transform.h:240+): each keyframe decomposed
+    on the host (float64, numpy) into a symmetric scale, a rotation
+    quaternion and a translation by polar decomposition; ``eval(t)``
+    lerps the scales and translations and slerps the quaternions between
+    the two keyframes around ``t`` -> a Transform."""
+
+    def __init__(self, base: Transform | None = None):
+        self._base = base if base is not None else Transform.identity()
+        self._times: list[float] = []
+        self._scales: list[np.ndarray] = []
+        self._quats: list[np.ndarray] = []
+        self._trans: list[np.ndarray] = []
+
+    def append(self, time: float, trafo: Transform) -> None:
+        mat = np.asarray(trafo.matrix, np.float64)
+        # polar decomposition A = R S
+        U, s, Vt = np.linalg.svd(mat[:3, :3])
+        R = U @ Vt
+        if np.linalg.det(R) < 0:
+            U[:, -1] *= -1
+            s = s.copy()
+            s[-1] *= -1
+            R = U @ Vt
+        self._times.append(float(time))
+        self._scales.append(Vt.T @ np.diag(s) @ Vt)
+        self._quats.append(_quat_from_matrix(R))
+        self._trans.append(mat[:3, 3])
+
+    @property
+    def is_static(self) -> bool:
+        return len(self._times) <= 1
+
+    def eval(self, time) -> Transform:
+        if not self._times:
+            return self._base
+        time = _host_time(time)
+        times = np.asarray(self._times)
+        if len(times) == 1 or time <= times[0]:
+            idx0 = idx1 = 0
+            t = 0.0
+        elif time >= times[-1]:
+            idx0 = idx1 = len(times) - 1
+            t = 0.0
+        else:
+            idx1 = int(np.searchsorted(times, time, side="right"))
+            idx0 = idx1 - 1
+            t = (time - times[idx0]) / (times[idx1] - times[idx0])
+        S = (1 - t) * self._scales[idx0] + t * self._scales[idx1]
+        T = (1 - t) * self._trans[idx0] + t * self._trans[idx1]
+        q0, q1 = self._quats[idx0], self._quats[idx1]
+        d = float(np.dot(q0, q1))
+        if d < 0:
+            q1, d = -q1, -d
+        if d > 0.9995:
+            q = (1 - t) * q0 + t * q1
+        else:
+            th = np.arccos(np.clip(d, -1, 1))
+            q = (np.sin((1 - t) * th) * q0 + np.sin(t * th) * q1) \
+                / np.sin(th)
+        w, x, y, z = q / np.linalg.norm(q)
+        R = np.array([
+            [1 - 2 * (y * y + z * z), 2 * (x * y - z * w),
+             2 * (x * z + y * w)],
+            [2 * (x * y + z * w), 1 - 2 * (x * x + z * z),
+             2 * (y * z - x * w)],
+            [2 * (x * z - y * w), 2 * (y * z + x * w),
+             1 - 2 * (x * x + y * y)]])
+        mat = np.eye(4)
+        mat[:3, :3] = R @ S
+        mat[:3, 3] = T
+        return Transform.from_matrix(mat.astype(np.float32))
+
+    def translation_bounds(self):
+        pts = np.asarray(self._trans) if self._trans else np.zeros((1, 3))
+        return pts.min(axis=0), pts.max(axis=0)

@@ -124,14 +124,22 @@ class _KernelIntegrator(MonteCarloIntegrator):
 
 
 def _sensor_ineligibility(sensor, box_only=False):
-    """The kernels' camera scope: a perspective pinhole and no motion
-    blur; with ``box_only`` (the volumetric kernel, as the reference's
-    gate at mitsuba2_tpu/models/integrators.py:510-511) a box filter. The
-    path kernel splats through any filter (ops/splat.py)."""
+    """The kernels' camera scope: a perspective pinhole over the whole
+    film and no motion blur; with ``box_only`` (the volumetric kernel, as
+    the reference's gate at mitsuba2_tpu/models/integrators.py:510-511) a
+    box filter. The path kernel splats through any filter (ops/splat.py).
+    Both kernels build their rays from the field of view alone
+    (ops/path_kernel.py camera_row), so a crop window rides the
+    wavefronts, which place it (the JAX kernels draw the whole field of
+    view into the crop's pixels)."""
     from ..models.rfilters import BoxFilter
     from ..models.sensors import PerspectiveCamera
     if type(sensor) is not PerspectiveCamera:
         return f"sensor {type(sensor).__name__}"
+    film = sensor.film
+    if tuple(film.crop_size) != tuple(film.size) \
+            or tuple(film.crop_offset) != (0, 0):
+        return "crop window"
     if box_only and not isinstance(sensor.film.rfilter, BoxFilter):
         return f"rfilter {type(sensor.film.rfilter).__name__}"
     if sensor.shutter_open != sensor.shutter_close:
@@ -1010,6 +1018,8 @@ def wavefront_ineligibility(scene, sensor):
     vectors in any variant). The path wavefront passes media by, as the
     reference's does (a null boundary lets its rays through); the volpath
     wavefront also asks ``_media_ineligibility``."""
+    from ..render.bsdf import BSDF
+    from ..render.emitter import Emitter
     from ..render.sensor import Sensor
     from ..models.shapes import CylinderShape, DiskShape, SphereShape
     if not _overrides(sensor, Sensor, "sample_ray"):
@@ -1018,14 +1028,15 @@ def wavefront_ineligibility(scene, sensor):
         if not sh.is_mesh() and type(sh) not in (SphereShape, DiskShape,
                                                  CylinderShape):
             return f"non-triangle shape {type(sh).__name__}"
-        if not _has(sh.bsdf, "sample", "eval", "pdf"):
+        if not _overrides(sh.bsdf, BSDF, "sample", "eval", "pdf"):
             return (f"BSDF {type(sh.bsdf).__name__} has no wavefront "
                     f"sample/eval/pdf")
         reason = _texture_ineligibility(sh.bsdf)
         if reason is not None:
             return reason
     for e in scene.emitters:
-        if not _has(e, "eval", "sample_direction", "pdf_direction"):
+        if not _overrides(e, Emitter, "eval", "sample_direction",
+                          "pdf_direction"):
             return (f"emitter {type(e).__name__} has no wavefront "
                     f"eval/sample_direction/pdf_direction")
         reason = _texture_ineligibility(e)
@@ -1062,10 +1073,6 @@ def _overrides(obj, base, *names):
     """Whether ``obj``'s class gives its own ``names`` over ``base``'s."""
     return all(getattr(type(obj), n, None) not in (None, getattr(base, n))
                for n in names)
-
-
-def _has(obj, *names):
-    return all(callable(getattr(obj, n, None)) for n in names)
 
 
 def _texture_ineligibility(obj):

@@ -214,6 +214,9 @@ class MeasuredBSDF(BSDF):
         self.m_components = [BSDFFlags.GlossyReflection | BSDFFlags.FrontSide]
         self.m_flags = self.m_components[0]
 
+    def to_string(self):
+        return f"MeasuredBSDF[{self.n_theta} incident angles]"
+
     def _tab(self, name, dev):
         return on_device(self, name, getattr(self, name), dev)
 

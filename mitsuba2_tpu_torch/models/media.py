@@ -110,6 +110,11 @@ class Medium(Object):
         self.use_emitter_sampling = props.bool_("sample_emitters", True) \
             if props is not None else True
 
+    is_homogeneous = False
+
+    def has_spectral_extinction(self) -> bool:
+        return True
+
     def intersect_aabb(self, ray):
         """-> (hit, mint, maxt) (n,) of the medium's bounds along ray."""
         raise NotImplementedError

@@ -155,6 +155,8 @@ class HomogeneousMedium(Medium):
     lanes' wavelengths in spectral variants) and ``scale``; the majorant
     is sigma_t itself, so no collision is null."""
 
+    is_homogeneous = True
+
     def __init__(self, props=None, sigma_t=1.0, albedo=0.75, scale=1.0):
         super().__init__(props)
         if props is not None:
@@ -214,6 +216,9 @@ class HeterogeneousMedium(Medium):
         for vol in (self.sigma_t_vol, self.albedo_vol):
             if vol.identity_transform:
                 vol.to_local = self.to_local
+
+    def has_spectral_extinction(self):
+        return False
 
     @property
     def majorant(self):

@@ -58,17 +58,24 @@ class PerspectiveCamera(ProjectiveCamera):
     its rays from the camera row (ops/path_kernel.py camera_row): the
     to_world basis, the origin and tan(x_fov / 2); the wavefront through
     ``sample_ray`` and the sample-to-camera transform, as the JAX
-    camera's (mitsuba2_tpu/models/sensors.py:69-120)."""
+    camera's (mitsuba2_tpu/models/sensors.py:69-120). The aspect, of the
+    field of view and of the image plane, is the film's, as
+    perspective.cpp's; the JAX camera takes the crop window's."""
 
     def __init__(self, props=None):
         super().__init__(props)
-        w, h = self.film.crop_size
-        self.x_fov = _parse_fov(props, w / h)
-        # (perspective.cpp update_camera_transforms): the image plane at
-        # z = 1 maps to [0, 1]^2, then the crop window to [0, 1]^2
-        aspect = w / h
         fw, fh = self.film.size
+        self.x_fov = _parse_fov(props, fw / fh)
+        self.film_changed()
+
+    def film_changed(self):
+        """(perspective.cpp update_camera_transforms): the image plane at
+        z = 1 maps to [0, 1]^2 over the whole film, then the crop window
+        to [0, 1]^2."""
+        fw, fh = self.film.size
+        w, h = self.film.crop_size
         cx, cy = self.film.crop_offset
+        aspect = fw / fh
         camera_to_sample = (
             Transform.scale([-0.5, -0.5 * aspect, 1.0])
             @ Transform.translate([-1.0, -1.0 / aspect, 0.0])
@@ -79,10 +86,10 @@ class PerspectiveCamera(ProjectiveCamera):
                             @ camera_to_sample)
         self.sample_to_camera = camera_to_sample.inverse()
 
-
     def traverse(self, cb):
         super().traverse(cb)
         cb.put_parameter("x_fov", self.x_fov)
+
     def sample_ray(self, time, wavelength_sample, position_sample,
                    aperture_sample=None, active=True):
         """Rays through film positions (n, 2) in [0, 1]^2 -> (Ray, its

@@ -182,6 +182,9 @@ class SphereShape(Shape):
             mesh.normals = -mesh.normals
         return _attach(self, mesh)
 
+    def surface_area(self) -> float:
+        return 4.0 * np.pi * self.radius ** 2
+
     def bbox(self):
         return self.center - self.radius, self.center + self.radius
 
@@ -238,6 +241,17 @@ class DiskShape(_AnalyticQuadric):
         self._A = A.astype(np.float32)
         self._b = (-A @ M[:3, 3]).astype(np.float32)
         self._to_world = tw
+
+    def surface_area(self) -> float:
+        """The ellipse's area pi |dp_du| h, h the height of dp_dv over
+        dp_du's axis (disk.cpp:85-110)."""
+        M = np.asarray(self._to_world.matrix, np.float64)
+        du = float(np.linalg.norm(M[:3, 0]))
+        dv = float(np.linalg.norm(M[:3, 1]))
+        s_axis = self._B[:, 0] / max(du, 1e-20)
+        h = np.sqrt(max(dv ** 2 - float(np.dot(self._B[:, 1], s_axis)) ** 2,
+                        0.0))
+        return float(np.pi * du * h)
 
     def bbox(self):
         M = np.asarray(self._to_world.matrix, np.float64)
@@ -303,6 +317,9 @@ class CylinderShape(_AnalyticQuadric):
         Mw[:3, :3] = R
         Mw[:3, 3] = M[:3, 3]
         self._to_world_rigid = Transform.from_matrix(Mw.astype(np.float32))
+
+    def surface_area(self) -> float:
+        return float(2.0 * np.pi * self.radius * self.length)
 
     def bbox(self):
         B = self._B.astype(np.float64)

@@ -60,6 +60,24 @@ class BSDF(Object):
             return self.m_flags
         return self.m_components[component]
 
+    def component_count(self) -> int:
+        return len(self.m_components)
+
+    def needs_differentials(self) -> bool:
+        return bool(self.m_flags & BSDFFlags.NeedsDifferentials)
+
+    # the wavefront's interface (bsdf.h:353-404): every lane's local
+    # directions, (BSDFSample3, value) from ``sample``, values (n, C) from
+    # ``eval``, densities (n,) from ``pdf``
+    def sample(self, ctx, si, sample1, sample2, active):
+        raise NotImplementedError
+
+    def eval(self, ctx, si, wo, active):
+        raise NotImplementedError
+
+    def pdf(self, ctx, si, wo, active):
+        raise NotImplementedError
+
     def eval_null_transmission(self, si, active):
         """The spectrum a null lobe passes straight through (bsdf.h:408):
         none, unless the BSDF has one -> (n, C)."""
@@ -89,6 +107,10 @@ class BSDFContext(NamedTuple):
     mode: int = TransportMode.Radiance
     type_mask: int = int(BSDFFlags.All)
     component: int = -1
+
+    def reverse(self) -> "BSDFContext":
+        """The context of the adjoint transport mode."""
+        return self._replace(mode=1 - self.mode)
 
     def is_enabled(self, flags: BSDFFlags, component: int = 0) -> bool:
         return ((self.type_mask & int(flags)) == int(flags)

@@ -28,9 +28,16 @@ class Emitter(Object):
         super().__init__(props)
         self.m_flags = EmitterFlags.Empty
         self.shape = None          # set when attached to a shape
+        self._scene_bsphere = None  # set by set_scene
 
     def set_shape(self, shape):
         self.shape = shape
+
+    def set_scene(self, scene):
+        """Keeps the scene's bounding sphere (envmap.cpp set_scene); the
+        port's environment emitters read it from the wavefront's tables
+        (render/scene.py WavefrontTables.bsphere)."""
+        self._scene_bsphere = scene.bounding_sphere()
 
     def is_environment(self) -> bool:
         return bool(self.m_flags & EmitterFlags.Infinite) and \
@@ -38,3 +45,19 @@ class Emitter(Object):
 
     def flags(self):
         return self.m_flags
+
+    # the endpoint interface (endpoint.h:86-163)
+    def sample_ray(self, time, sample1, sample2, sample3, active):
+        """An emitted ray (position, direction and wavelengths)."""
+        raise NotImplementedError
+
+    def sample_direction(self, it, sample, active):
+        """-> (DirectionSample, spectrum / pdf)."""
+        raise NotImplementedError
+
+    def pdf_direction(self, it, ds, active):
+        raise NotImplementedError
+
+    def eval(self, si, active):
+        """The radiance emitted at ``si`` toward ``si.wi``."""
+        raise NotImplementedError

@@ -11,10 +11,12 @@ arrive already splatted (ops/splat.py).
 
 from __future__ import annotations
 
+import weakref
+
 import numpy as np
 import torch
 
-from ..core.object import Object
+from ..core.object import Object, bump_param_epoch
 
 
 def border(rfilter) -> int:
@@ -94,6 +96,8 @@ class Film(Object):
         cy = p.int_("crop_offset_y", 0) if p else 0
         self.crop_size = (int(cw), int(ch))
         self.crop_offset = (int(cx), int(cy))
+        # the sensors that expose this film (render/sensor.py)
+        self._sensors = weakref.WeakSet()
         self.rfilter = None
         if p is not None:
             for _, obj in p.objects():
@@ -102,3 +106,17 @@ class Film(Object):
         if self.rfilter is None:
             from ..models.rfilters import GaussianFilter
             self.rfilter = GaussianFilter()
+
+    def set_crop_window(self, offset, size):
+        """Renders from now on cover the window of ``size`` pixels at
+        ``offset``; each camera of this film rebuilds its sample-to-camera
+        transform for it, and the parameter epoch moves, so that the
+        integrators re-gate their kernels (a render is a fresh load's with
+        these crop properties; the JAX package's camera keeps the old
+        window, mitsuba2_tpu/render/film.py:111)."""
+        self.crop_offset = tuple(int(x) for x in offset)
+        self.crop_size = tuple(int(x) for x in size)
+        self.__dict__.pop("_device_cache", None)
+        bump_param_epoch()
+        for sensor in list(self._sensors):
+            sensor.film_changed()

@@ -2,7 +2,8 @@
 render/interaction.h:83-131, :368; counterpart of
 ``mitsuba2_tpu.render.interaction``). Object pointers become integer ids
 into the scene's tables; a miss, or no collision, is t == inf. Records
-of one type merge lane by lane with ``render/records.py select``."""
+of one type merge lane by lane with ``render/records.py select``.
+``PreliminaryIntersection`` is render/records.py's."""
 
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 from ..core import math as m
 from ..core.frame import Frame
 from ..core.ray import Ray
+from .records import PreliminaryIntersection  # noqa: F401
 
 
 class SurfaceInteraction(NamedTuple):
@@ -30,9 +32,74 @@ class SurfaceInteraction(NamedTuple):
     bsdf_idx: torch.Tensor       # (n,) int32, -1 where none
     emitter_idx: torch.Tensor    # (n,) int32, -1 where none
     prim_uv: torch.Tensor        # (n, 2) barycentrics of a face hit
+    # (n, 2) uv footprint of a pixel, set by compute_uv_partials
+    duv_dx: Optional[torch.Tensor] = None
+    duv_dy: Optional[torch.Tensor] = None
 
     def is_valid(self):
         return torch.isfinite(self.t)
+
+    def compute_uv_partials(self, rd) -> "SurfaceInteraction":
+        """The uv footprint of a RayDifferential's pixel (interaction.h:
+        217-249): the neighbour rays met with the tangent plane, their
+        offsets projected onto (dp_du, dp_dv) by least squares, a 2 x 2
+        solve a lane. A neighbour parallel to the plane, a degenerate
+        parameterization or a value that overflows gives a zero footprint
+        (the JAX package's guards), and no division by zero is taken, so
+        no NaN reaches a gradient."""
+        if not rd.has_differentials:
+            return self
+        n = self.n
+        dist = m.dot(n, self.p)
+        den_x, den_y = m.dot(n, rd.d_x), m.dot(n, rd.d_y)
+        t_x = m.safe_div(dist - m.dot(n, rd.o_x), den_x, 0.0)
+        t_y = m.safe_div(dist - m.dot(n, rd.o_y), den_y, 0.0)
+        dp_dx = rd.o_x + rd.d_x * t_x[..., None] - self.p
+        dp_dy = rd.o_y + rd.d_y * t_y[..., None] - self.p
+        a00 = m.dot(self.dp_du, self.dp_du)
+        a01 = m.dot(self.dp_du, self.dp_dv)
+        a11 = m.dot(self.dp_dv, self.dp_dv)
+        det = a00 * a11 - a01 * a01
+        ok = det.abs() > 1e-20
+        inv_det = torch.where(ok, 1.0 / torch.where(ok, det, 1.0), 0.0)
+        inv_det = torch.where(torch.isfinite(inv_det), inv_det, 0.0)
+
+        def solve(dp, den):
+            b0, b1 = m.dot(self.dp_du, dp), m.dot(self.dp_dv, dp)
+            duv = torch.stack([(a11 * b0 - a01 * b1) * inv_det,
+                               (a00 * b1 - a01 * b0) * inv_det], -1)
+            keep = (den != 0)[..., None] & torch.isfinite(duv)
+            return torch.where(keep, duv, 0.0)
+
+        return self._replace(duv_dx=solve(dp_dx, den_x),
+                             duv_dy=solve(dp_dy, den_y))
+
+    def has_uv_partials(self):
+        return self.duv_dx is not None
+
+    @staticmethod
+    def invalid(n_lanes: int, n_channels: int = 0, dtype=torch.float32,
+                device=None) -> "SurfaceInteraction":
+        """The record of ``n_lanes`` misses: t inf, the identity frame,
+        every id -1; hero wavelengths (n, n_channels) where n_channels is
+        not 0."""
+        z3 = torch.zeros((n_lanes, 3), dtype=dtype, device=device)
+        ex, ey, ez = (z3.clone() for _ in range(3))
+        ex[:, 0] = 1.0
+        ey[:, 1] = 1.0
+        ez[:, 2] = 1.0
+        none = torch.full((n_lanes,), -1, dtype=torch.int32, device=device)
+        z2 = torch.zeros((n_lanes, 2), dtype=dtype, device=device)
+        return SurfaceInteraction(
+            t=torch.full((n_lanes,), float("inf"), dtype=dtype,
+                         device=device),
+            p=z3, n=ez, sh_frame=Frame(ex, ey, ez), uv=z2, wi=ez,
+            dp_du=z3, dp_dv=z3, shape_idx=none,
+            prim_idx=torch.zeros((n_lanes,), dtype=torch.int32,
+                                 device=device),
+            wavelengths=torch.zeros((n_lanes, n_channels), dtype=dtype,
+                                    device=device) if n_channels else None,
+            bsdf_idx=none, emitter_idx=none, prim_uv=z2)
 
     def to_local(self, v):
         return self.sh_frame.to_local(v)
@@ -97,6 +164,15 @@ class MediumInteraction(NamedTuple):
     combined_extinction: torch.Tensor
     mint: torch.Tensor
     wavelengths: Optional[torch.Tensor]
+
+    def is_valid(self):
+        return torch.isfinite(self.t)
+
+    def to_local(self, v):
+        return self.sh_frame.to_local(v)
+
+    def to_world(self, v):
+        return self.sh_frame.to_world(v)
 
 
 def zero_mi(n, nch, device, wavelengths=None):

@@ -33,6 +33,13 @@ class MicrofacetDistribution(NamedTuple):
     type: str = GGX
     sample_visible: bool = True
 
+    def is_isotropic(self):
+        return self.alpha_u is self.alpha_v
+
+    def scale_alpha(self, s):
+        return self._replace(alpha_u=self.alpha_u * s,
+                             alpha_v=self.alpha_v * s)
+
     def eval(self, mh):
         """Normal density D(m) (microfacet.h eval)."""
         au, av = self.alpha_u, self.alpha_v

@@ -53,6 +53,10 @@ class BSDFSample3(NamedTuple):
     sampled_component: torch.Tensor  # (n,) int32
 
 
+# the JAX package's name of the record (mitsuba2_tpu/render/records.py)
+BSDFSample = BSDFSample3
+
+
 def zero_direction_sample(n, device):
     z3 = torch.zeros((n, 3), device=device)
     z = torch.zeros((n,), device=device)

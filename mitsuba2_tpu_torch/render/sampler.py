@@ -14,6 +14,8 @@ replaces ``_draw``, the one hook both draws go through, and may replace
 
 from __future__ import annotations
 
+import copy
+
 from typing import NamedTuple
 
 import torch
@@ -61,6 +63,13 @@ class Sampler(Object):
         return (torch.stack([self._draw(state, 0), self._draw(state, 1)],
                             -1),
                 state._replace(dim=state.dim + 2))
+
+    def clone(self):
+        """An independent sampler of the same kind, sample count and seed
+        (sampler.h clone)."""
+        other = copy.copy(self)
+        other.__dict__.pop("_device_cache", None)
+        return other
 
     def _draw(self, state: SamplerState, offset: int):
         """Each lane's number in [0, 1) of dimension ``state.dim +

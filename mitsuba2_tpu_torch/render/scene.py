@@ -473,6 +473,13 @@ class Scene(Object):
     def bbox(self):
         return self._bb_min, self._bb_max
 
+    def bounding_sphere(self):
+        """The bounding box's sphere: (center (3,) float32 on the scene's
+        device, radius), the unit sphere at the origin for an empty scene
+        (mitsuba2_tpu/render/scene.py:529-535)."""
+        c, r = _bounding_sphere(self)
+        return torch.as_tensor(c, device=self.device), r
+
     def traverse(self, cb):
         """Shapes under their ids (``shape_{i}`` without one), emitters
         not attached to a shape (area lights are reached through their
@@ -781,6 +788,51 @@ class Scene(Object):
             emitter_idx=torch.where(valid, emitter_idx, none),
             prim_uv=pi.prim_uv)
 
+    def normal_derivative(self, si, active=True):
+        """The derivatives of the shading normal along the hit's
+        parameterization -> (dn_du, dn_dv), each (n, 3), zero where a lane
+        missed or is not ``active``: a face's interpolated corner normals
+        along its barycentrics, projected off the normal (mesh.cpp:
+        521-539; zero on a flat face), a sphere's dp / r (sphere.cpp:399),
+        a cylinder's dp_du / (r flip) and 0 (cylinder.cpp:384-387), a
+        disk's and a shared instance's zero
+        (mitsuba2_tpu/render/scene.py:911-958)."""
+        wf = self.wavefront_tables()
+        F, S, Q = wf.n_faces, wf.n_spheres, wf.n_quads
+        prim = si.prim_idx
+        A = wf.face_attr[prim.clamp(0, max(F - 1, 0)).long()]
+        n0, n1, n2 = A[:, 12:15], A[:, 15:18], A[:, 18:21]
+        bu, bv = si.prim_uv[:, 0:1], si.prim_uv[:, 1:2]
+        N = bu * n1 + bv * n2 + (1.0 - bu - bv) * n0
+        il = 1.0 / torch.clamp(m.norm(N), min=1e-20)[:, None]
+        N = N * il
+        dn_du = (n1 - n0) * il
+        dn_dv = (n2 - n0) * il
+        dn_du = dn_du - N * m.dot(N, dn_du)[:, None]
+        dn_dv = dn_dv - N * m.dot(N, dn_dv)[:, None]
+        if S:
+            is_sph = ((prim >= F) & (prim < F + S))[:, None]
+            r = wf.sph[(prim - F).clamp(0, S - 1).long(), 3:4]
+            inv_r = 1.0 / torch.clamp(r, min=1e-20)
+            dn_du = torch.where(is_sph, si.dp_du * inv_r, dn_du)
+            dn_dv = torch.where(is_sph, si.dp_dv * inv_r, dn_dv)
+        if self.n_instances:
+            is_i = (prim >= F + S + Q)[:, None]
+            dn_du = torch.where(is_i, 0.0, dn_du)
+            dn_dv = torch.where(is_i, 0.0, dn_dv)
+        if Q:
+            is_q = ((prim >= F + S) & (prim < F + S + Q))[:, None]
+            row = wf.quad[(prim - F - S).clamp(0, Q - 1).long()]
+            is_cyl = row[:, 21:22] > 1.5
+            dn_du_c = si.dp_du * m.safe_div(1.0, row[:, 22:23]
+                                            * row[:, 29:30], 0.0)
+            dn_du = torch.where(is_q, torch.where(is_cyl, dn_du_c, 0.0),
+                                dn_du)
+            dn_dv = torch.where(is_q, 0.0, dn_dv)
+        ok = (torch.as_tensor(active, device=prim.device)
+              & si.is_valid())[:, None]
+        return torch.where(ok, dn_du, 0.0), torch.where(ok, dn_dv, 0.0)
+
     def ray_intersect(self, ray, active=None, wavelengths=None):
         """(scene.h:38) the closest hit as a full SurfaceInteraction."""
         pi = self.ray_intersect_preliminary(ray, active)
@@ -1029,6 +1081,15 @@ class Scene(Object):
             out = torch.where(mask, med.phase_function.eval(mi, wo, mask),
                               out)
         return out
+
+    def medium_is_homogeneous(self, medium_idx):
+        """Whether each lane's medium (an index into ``media``, -1 for
+        none) is homogeneous -> (n,) bool."""
+        flags = torch.as_tensor([bool(med.is_homogeneous)
+                                 for med in self.media] or [False],
+                                device=medium_idx.device)
+        return torch.where(medium_idx >= 0,
+                           flags[medium_idx.clamp(min=0).long()], False)
 
     def medium_transition(self, si, d, medium_idx, active):
         """Each lane's medium after it crosses its hit's surface along d

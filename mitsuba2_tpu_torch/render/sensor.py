@@ -5,6 +5,7 @@ sensor.h:155 ProjectiveCamera; counterpart of
 from __future__ import annotations
 
 from ..core.object import Object
+from ..core.ray import RayDifferential
 
 
 class Sensor(Object):
@@ -28,6 +29,8 @@ class Sensor(Object):
             sampler = Sampler()
         self.film = film
         self.sampler = sampler
+        # set_crop_window rebuilds the cameras that expose this film
+        film._sensors.add(self)
         self.shutter_open = props.float_("shutter_open", 0.0) \
             if props else 0.0
         self.shutter_close = props.float_("shutter_close", 0.0) \
@@ -45,8 +48,34 @@ class Sensor(Object):
         lens or a direction (sensor.h sample_ray)."""
         raise NotImplementedError
 
+    def sample_ray_differential(self, time, wavelength_sample,
+                                position_sample, aperture_sample,
+                                active=True):
+        """``sample_ray`` with finite-difference neighbours one crop pixel
+        over in x and in y (sensor.cpp sample_ray_differential) -> (a
+        RayDifferential, the spectral weight, the wavelengths), as
+        ``sample_ray`` returns its ray's."""
+        ray, weight, wav = self.sample_ray(time, wavelength_sample,
+                                           position_sample, aperture_sample,
+                                           active)
+        w, h = self.film.crop_size
+        ray_x = self.sample_ray(time, wavelength_sample,
+                                position_sample
+                                + position_sample.new_tensor([1.0 / w, 0.0]),
+                                aperture_sample, active)[0]
+        ray_y = self.sample_ray(time, wavelength_sample,
+                                position_sample
+                                + position_sample.new_tensor([0.0, 1.0 / h]),
+                                aperture_sample, active)[0]
+        return RayDifferential(ray, ray_x.o, ray_y.o, ray_x.d, ray_y.d,
+                               True), weight, wav
+
     def needs_aperture_sample(self) -> bool:
         return False
+
+    def film_changed(self):
+        """Called by ``Film.set_crop_window``: a camera rebuilds what it
+        derived from the film's window."""
 
 
 class ProjectiveCamera(Sensor):

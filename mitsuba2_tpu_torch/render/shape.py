@@ -51,6 +51,9 @@ class Shape(Object):
         if self.emitter is not None:
             cb.put_object("emitter", self.emitter)
 
+    def is_emitter(self):
+        return self.emitter is not None
+
     def is_mesh(self):
         return isinstance(self, Mesh)
 
@@ -58,6 +61,9 @@ class Shape(Object):
         """True for exactly intersected quadrics (the scene packs them into
         their own table, not into the triangle tables)."""
         return False
+
+    def surface_area(self) -> float:
+        raise NotImplementedError
 
     def bbox(self):
         raise NotImplementedError
@@ -115,8 +121,28 @@ class Mesh(Shape):
     def face_count(self):
         return len(self.faces)
 
+    def face_areas(self) -> np.ndarray:
+        p = self.vertices[self.faces]
+        return 0.5 * np.linalg.norm(np.cross(p[:, 1] - p[:, 0],
+                                             p[:, 2] - p[:, 0]), axis=-1)
+
+    def surface_area(self) -> float:
+        return float(self.face_areas().sum())
+
     def bbox(self):
         return self.vertices.min(0), self.vertices.max(0)
+
+    def recompute_vertex_normals(self):
+        """Each vertex's normal the normalized sum of its faces' area-
+        weighted normals; the mesh is then smooth-shaded."""
+        n = np.zeros_like(self.vertices)
+        p = self.vertices[self.faces]
+        fn = np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
+        for k in range(3):
+            np.add.at(n, self.faces[:, k], fn)
+        self.normals = n / np.maximum(np.linalg.norm(n, axis=-1,
+                                                     keepdims=True), 1e-20)
+        self.face_normals_only = False
 
     def apply_transform(self, trafo):
         mat = np.asarray(trafo.matrix, np.float64)

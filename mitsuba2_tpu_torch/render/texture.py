@@ -14,6 +14,24 @@ import torch
 from ..core.object import Object
 
 
+def rgb_to_variant_spectrum(rgb, wavelengths):
+    """Linear sRGB (n, 3) in the active variant's channels: as it is in
+    rgb, its luminance (n, 1) in mono, the rgb2spec model's reflectance
+    at the hero wavelengths (n, 4) in spectral variants (srgb.cpp:14-37;
+    the model's fit runs on the host)."""
+    from ..core import spectrum as spec
+    from ..variants import current
+    from .srgb import srgb_model_eval, srgb_model_fetch
+    var = current()
+    if var.is_rgb:
+        return rgb
+    if var.is_monochromatic:
+        return spec.luminance(rgb)[..., None]
+    coeff = srgb_model_fetch(rgb.detach().cpu().numpy())
+    return srgb_model_eval(torch.as_tensor(coeff, device=rgb.device)
+                           .reshape(rgb.shape), wavelengths)
+
+
 class Texture(Object):
     def eval(self, si, active=True):
         """The value at each lane of ``si`` in the variant's channels."""

@@ -30,6 +30,9 @@ __all__ = [
 _COLOR_MODES = ("mono", "rgb", "spectral")
 # Hero-wavelength count in spectral mode (spectrum.h:15).
 SPECTRUM_SAMPLES = 4
+# Visible range sampled by the spectral variants (spectrum.h:18-20).
+MTS_WAVELENGTH_MIN = 360.0
+MTS_WAVELENGTH_MAX = 830.0
 
 
 @dataclasses.dataclass(frozen=True)
