@@ -103,8 +103,14 @@ packed group, a transform row an instance) on the path wavefront, timed
 with its host syncs, spans and peak memory (and at 2 instances), K2's
 instance entries bit for bit against their plain version on rays of four
 of the render's launches (``isect_closest_inst[instanced_shared]`` and
-``isect_any_inst[instanced_shared]`` in the kernels line), the small
-shared scene card against CPU, shared against materialized image means;
+``isect_any_inst[instanced_shared]`` in the kernels line), with their
+registers, stack frame and spills and the moves a ray of their two-level
+walk beside the bound's; the instance forest (a synthetic probe of how
+the entries scale with the instance count: 1,024 instances of the
+4,096-face group, 1,048,576 pinhole rays and their shadow rays; the same
+two entries as ``[instanced_forest]``), bit for bit on 2,048 rays; the
+small shared scene card against CPU, shared against materialized image
+means;
 ``python -m mitsuba2_tpu_torch`` on the XML file, its EXR the in-process
 render's; and a Blender quad from numpy buffers. The polarized and
 measured phase renders at 256x256, 64 spp, max_depth 6 on the wavefronts
@@ -189,8 +195,8 @@ import torch
 
 from mitsuba2_tpu_torch.core import profiler as prof
 # the path kernel's paths and their main shapes, the ray queries' light
-# rays, and the splat library's ptxas report
-from mitsuba2_tpu_torch.tools.time_paths import (PATHS, light_rays,
+# rays, the instance forest and the splat library's ptxas report
+from mitsuba2_tpu_torch.tools.time_paths import (PATHS, forest, light_rays,
                                                  splat_ptxas)
 
 # the main shape of the volpath slab, of the Cornell box's forced flags
@@ -544,6 +550,28 @@ def drive(mi, pk, name, make_dict, width, spp, max_depth, mean_band,
 
 # ptxas's report of each path kernel instantiation, by (flags, nc)
 PTXAS = {}
+# ptxas's registers, stack frame and spills of each of K2's entries
+ISECT_PTXAS = {}
+
+
+def isect_ptxas(build_log):
+    """-> {K2 entry: 'N registers, S bytes stack frame, ... spill ...'}
+    from the compiler's -Xptxas=-v output of its library (its ``.log``)."""
+    out, entry = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"isect_(inst_)?kernelILb([01])E", line)
+        if "Function properties" in line or "entry function" in line:
+            entry = None
+        if m:
+            entry = ("isect_any" if m.group(2) == "1" else "isect_closest") \
+                + ("_inst" if m.group(1) else "")
+        if entry and "stack frame" in line:
+            out[entry] = line.strip()
+        elif entry and "Used" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out[entry] = f"{regs} registers, " \
+                f"{out.get(entry, 'no stack line')}"
+    return out
 
 
 def log_launch(name, route, n_lanes):
@@ -2239,8 +2267,10 @@ SHARED_REASON = "shared-geometry instances (wavefront path only)"
 INST_TRANSFORM_FLOPS = 33
 # the instance entries' parity sample: rays from four launches of a render
 INST_PARITY_RAYS, INST_LAUNCHES = 8192, 4
-# the rays of the busiest launch whose walks the bound counts on the host
+# the rays of the busiest launch whose walks the bound counts
 INST_COUNT_RAYS = 2048
+# the instance forest's rays held against the plain version
+FOREST_PARITY_RAYS = 2048
 # the JAX test's bar of shared against materialized image means
 SHARED_MEAN_RTOL = 0.02
 
@@ -2293,117 +2323,176 @@ def scene_path_route(pk, name, flags, **fields):
                  entry_name=f"path_kernel[{name}]", **fields)
 
 
-def inst_walk_bound(isx, inst, sample, any_hit):
-    """-> (ms, 'operations' or 'bytes') of the instance entry on the rays
-    ``sample`` (o, d, mint, maxt on the host), per ray scaled to ``n``
-    rays by the caller: the binary walks' box and face tests over every
-    instance, each walk's maxt the best t so far (for any hit, the rays
-    not yet occluded), the moves into a group's frame the kernel makes
-    (every instance for closest hit; for any hit, up to the first that
-    occludes), and the distinct nodes and face rows each group's walks
-    read -> (boxes a ray, faces a ray, moves a ray, bytes read)."""
+def inst_two_level_bound(ik, isx, inst, sample, own, any_hit):
+    """The instance entry's bound on the rays ``sample`` (o, d, mint,
+    maxt), per ray scaled by the caller: the binary two-level walk, the
+    kernel's design before its trees' 4-wide packing -- the top tree's
+    binary walk over the instances' world boxes
+    (``isx.traverse_instance_pairs``), each instance it reaches a move
+    into the group's frame and that group's binary walk, its maxt the best
+    t so far (for any hit, until the first occluder) -- and the distinct
+    top pair nodes, instance rows, group nodes and face rows those walks
+    read. ``own``: each instance's own hits on the sample -> (boxes a
+    ray, faces a ray, moves a ray, bytes read)."""
     from mitsuba2_tpu_torch.ops import bvh as bvh_ops
     o, d, mint, maxt = sample
-    tb = maxt.clone()
-    found = torch.zeros(len(o), dtype=torch.bool)
-    boxes = faces = moves = 0.0
+    rows = inst.rows
+    top = ik.top_bvh(*ik.instance_boxes(inst.trees, rows.cpu().numpy()))
+    walk = isx.traverse_instance_pairs(
+        torch.as_tensor(bvh_ops.pack_pairs(top)[0], device=o.device),
+        torch.as_tensor(top.order, device=o.device).long(), own,
+        inst.g_max, o, d, mint, maxt, any_hit=any_hit)
+    ray, k, cap = walk["visits"]
+    boxes, faces = float(walk["boxes"].sum()), 0.0
+    read = isx.PAIR_BYTES * int(walk["node_reads"].sum()) \
+        + rows.shape[1] * 4 * len(torch.unique(k))
     start = inst.group_face.tolist() + [inst.woop.shape[0]]
-    pairs = [torch.as_tensor(bvh_ops.pack_pairs(t)[0]) for t in inst.trees]
-    woop, prim = inst.woop.cpu(), inst.prim.cpu()
-    reads = {}
-    for row in inst.rows.cpu():
-        g = int(row[21])
-        o_l, d_l = isx.to_group(row, o, d)
-        live = ~found if any_hit else torch.ones_like(found)
-        moves += float(live.sum())
-        walk = isx.traverse_pairs(
-            pairs[g], woop[start[g]:start[g + 1]],
-            prim[start[g]:start[g + 1]], o_l[live], d_l[live], mint[live],
-            tb[live], any_hit=any_hit, k2=True)
-        boxes += float(walk["boxes"].sum())
-        faces += float(walk["faces"].sum())
-        if any_hit:
-            idx = live.nonzero()[:, 0]
-            found[idx[walk["hit"]]] = True
-        else:
-            t = tb.clone()
-            t[live] = walk["t"]
-            tb = torch.minimum(tb, t)
-        nr, fr = reads.get(g, (None, None))
-        reads[g] = (walk["node_reads"] if nr is None
-                    else nr | walk["node_reads"],
-                    walk["face_reads"] if fr is None
-                    else fr | walk["face_reads"])
-    read = sum(isx.bytes_read({"node_bytes": isx.PAIR_BYTES,
-                               "node_reads": nr, "face_reads": fr})
-               for nr, fr in reads.values())
-    return (boxes / len(o), faces / len(o), moves / len(o),
-            read + inst.rows.numel() * 4)
+    group = rows[:, 21].long()
+    for g, tree in enumerate(inst.trees):
+        moved = []
+        for kk in torch.unique(k[group[k] == g]).tolist():
+            r = ray[k == kk]
+            moved.append((*isx.to_group(rows[kk], o[r], d[r]), mint[r],
+                          cap[k == kk]))
+        if not moved:
+            continue
+        o_l, d_l, m, c = (torch.cat(x) for x in zip(*moved))
+        gw = isx.traverse_pairs(
+            torch.as_tensor(bvh_ops.pack_pairs(tree)[0], device=o.device),
+            inst.woop[start[g]:start[g + 1]],
+            inst.prim[start[g]:start[g + 1]], o_l, d_l, m, c,
+            any_hit=any_hit, k2=True)
+        boxes += float(gw["boxes"].sum())
+        faces += float(gw["faces"].sum())
+        read += isx.bytes_read(gw)
+    n = len(o)
+    return boxes / n, faces / n, len(ray) / n, read
+
+
+def inst_entry(ik, isx, name, fn, inst, runs, full, plain, out_bytes,
+               label, launches, note):
+    """One instance entry of the kernels line: bit for bit against its
+    plain version on ``runs`` (o, d, mint, maxt; every ray of it), timed
+    on ``full``, its bound from the binary two-level walk
+    (``inst_two_level_bound``, on INST_COUNT_RAYS of ``full``), and the
+    moves a ray of the kernel's two-level walk
+    (``isx.traverse_instances``) beside the bound's -> the entry."""
+    any_hit = name.startswith("isect_any")
+    got = fn(inst, *runs)
+    torch.cuda.synchronize()
+    want, plain_ms = timed(lambda: plain(*runs), repeats=1, warm_up=False)
+    n = len(full[0])
+    log(f"  {name} on {label}'s rays ({note}; {len(runs[0])} held, "
+        f"{float((runs[3] >= runs[2]).float().mean()):.4f} active):")
+    err = isect_parity(name.replace("_inst", ""), got, want)
+    kernel_ms = timed(lambda: fn(inst, *full))[1]
+    sample = every_kth(full, INST_COUNT_RAYS)
+    t0 = time.perf_counter()
+    own = isx.instance_hits(ik.group_woops(inst), inst.rows, *sample,
+                            any_hit=any_hit)
+    walk = isx.traverse_instances(inst.top, own, inst.g_max, *sample,
+                                  any_hit=any_hit)
+    mine = walk["hit"] if any_hit else walk["prim"]
+    ref = fn(inst, *sample)
+    ref = ref if any_hit else ref[2]
+    if not torch.equal(mine, ref):
+        raise SystemExit(f"{name}[{label}]: the step-for-step two-level "
+                         f"walk disagrees with the kernel")
+    moves = float(walk["moves"].float().mean())
+    top_nodes = float(walk["nodes"].float().mean())
+    boxes, faces, bound_moves, read = inst_two_level_bound(
+        ik, isx, inst, sample, own, any_hit)
+    log(f"  {name} binary two-level walks per ray: {boxes:.2f} box "
+        f"tests, {faces:.2f} face tests, {bound_moves:.2f} moves into a "
+        f"group's frame; the sample's walks read {read / 1e6:.3f} MB")
+    log(f"  {name}: the kernel's walk {moves:.2f} moves a ray, "
+        f"{top_nodes:.2f} top nodes read ({inst.top.shape[0]} nodes, "
+        f"stack bound {inst.top_depth}); {time.perf_counter() - t0:.1f} s "
+        f"to count")
+    flops = (prof.walk_flop_count(n, boxes, faces)
+             + n * bound_moves * INST_TRANSFORM_FLOPS)
+    bound_ms, bound_by = roofline(int(flops), int(read), n,
+                                  out_bytes=out_bytes, in_bytes=32,
+                                  what="ray")
+    log(f"{name}[{label}]: kernel {kernel_ms:.4f} ms, "
+        f"{int((full[3] >= full[2]).sum())} of {n} rays active, "
+        f"{n / kernel_ms / 1e3:.3f} Mrays/s; bound {bound_ms:.4f} ms "
+        f"({bound_by}), {100 * bound_ms / kernel_ms:.2f}% of bound; "
+        f"{moves:.2f} moves a ray; plain version {plain_ms:.3f} ms on "
+        f"{len(runs[0])} rays; ptxas "
+        f"{ISECT_PTXAS.get(name, 'no report')}")
+    return {"name": f"{name}[{label}]", "route": "cuda",
+            "source": "mitsuba2_tpu_torch/csrc/intersect_kernel.cu",
+            "replaces": "mitsuba2_tpu/ops/intersect_pallas.py:81",
+            "launches": launches[name], "max_abs_err": err,
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def inst_entries(ik, isx, inst):
+    """(name, entry, plain version, output bytes) of K2's two instance
+    entries on ``inst``."""
+    woops = ik.group_woops(inst)
+    return (("isect_closest_inst", ik.isect_closest_inst,
+             lambda *a: isx.closest_hit_instanced_reference(
+                 woops, inst.rows, inst.g_max, *a), 16),
+            ("isect_any_inst", ik.isect_any_inst,
+             lambda *a: isx.any_hit_instanced_reference(
+                 woops, inst.rows, *a), 1))
 
 
 def inst_k2_entries(ik, isx, scene, render, launches):
     """K2's instance entries on the rays of one render of ``scene``:
     bit for bit against their plain version on INST_PARITY_RAYS rays
     sampled from INST_LAUNCHES launches of each, timed on the busiest
-    launch, the bound from the binary walks over every instance -> the two
-    entries of the kernels line."""
+    launch -> the two entries of the kernels line."""
     samples, full = record_k2(ik, render, per_launch=INST_PARITY_RAYS,
                               busiest=True)
     inst = scene.inst_tables
-    woops = ik.group_woops(inst)
     entries = []
-    for name, fn, ref, out_bytes in (
-            ("isect_closest_inst", ik.isect_closest_inst,
-             lambda *a: isx.closest_hit_instanced_reference(
-                 woops, inst.rows, inst.g_max, *a), 16),
-            ("isect_any_inst", ik.isect_any_inst,
-             lambda *a: isx.any_hit_instanced_reference(
-                 woops, inst.rows, *a), 1)):
+    for name, fn, ref, out_bytes in inst_entries(ik, isx, inst):
         runs = samples[name]
         at = [k * (len(runs) - 1) // max(INST_LAUNCHES - 1, 1)
               for k in range(INST_LAUNCHES)]
-        pick = [runs[k] for k in at]
-        every = tuple(torch.cat(xs) for xs in zip(*pick))
-        sub = every_kth(every, INST_PARITY_RAYS)
-        got = fn(inst, *sub)
-        torch.cuda.synchronize()
-        want, plain_ms = timed(lambda: ref(*sub), repeats=1, warm_up=False)
-        busy = full[name]
-        n = len(busy[0])
-        log(f"  {name} on instanced_shared's rays ({len(runs)} launches "
-            f"of one render; {len(sub[0])} rays from launches "
-            f"{at}, "
-            f"{float((sub[3] > sub[2]).float().mean()):.4f} active):")
-        err = isect_parity(name.replace("_inst", ""), got, want)
-        kernel_ms = timed(lambda: fn(inst, *busy))[1]
-        sample = [x.cpu() for x in every_kth(busy, INST_COUNT_RAYS)]
-        t0 = time.perf_counter()
-        boxes, faces, moves, read = inst_walk_bound(
-            isx, inst, sample, name.startswith("isect_any"))
-        flops = prof.walk_flop_count(n, boxes, faces) \
-            + n * moves * INST_TRANSFORM_FLOPS
-        log(f"  {name} binary walks (the bound's) per ray, summed over "
-            f"{inst.n_instances} instances: {boxes:.2f} box tests, "
-            f"{faces:.2f} face tests, {moves:.2f} moves into a group's "
-            f"frame; the sample's walks read "
-            f"{read / 1e6:.3f} MB ({time.perf_counter() - t0:.1f} s on "
-            f"the host)")
-        bound_ms, bound_by = roofline(flops, int(read), n,
-                                      out_bytes=out_bytes, in_bytes=32,
-                                      what="ray")
-        log(f"{name}[instanced_shared]: kernel {kernel_ms:.4f} ms on the "
-            f"busiest launch, {int((busy[3] > busy[2]).sum())} of {n} rays "
-            f"active, {n / kernel_ms / 1e3:.3f} Mrays/s; bound "
-            f"{bound_ms:.4f} ms ({bound_by}), "
-            f"{100 * bound_ms / kernel_ms:.2f}% of bound; plain version "
-            f"{plain_ms:.3f} ms on {len(sub[0])} rays")
-        entries.append({
-            "name": f"{name}[instanced_shared]", "route": "cuda",
-            "source": "mitsuba2_tpu_torch/csrc/intersect_kernel.cu",
-            "replaces": "mitsuba2_tpu/ops/intersect_pallas.py:81",
-            "launches": launches[name], "max_abs_err": err,
-            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None})
+        every = tuple(torch.cat(xs) for xs in zip(*[runs[k] for k in at]))
+        entries.append(inst_entry(
+            ik, isx, name, fn, inst, every_kth(every, INST_PARITY_RAYS),
+            full[name], ref, out_bytes, "instanced_shared", launches,
+            f"{len(runs)} launches of one render, rays from launches {at}; "
+            f"timed on the busiest"))
+    return entries
+
+
+def forest_k2_entries(ik, isx):
+    """K2's instance entries on the instance forest (tools/time_paths.py
+    ``forest``: 1,024 instances of the 4,096-face group on a grid, its
+    1,048,576 pinhole rays and their shadow rays): each entry launched
+    once on its rays with the counts at 0, bit for bit against its plain
+    version on FOREST_PARITY_RAYS of them, timed -> the two entries of the
+    kernels line."""
+    t0 = time.perf_counter()
+    ik.reset_launch_counts()
+    inst, cam, shadow = forest("cuda")
+    ik.isect_any_inst(inst, *shadow)
+    torch.cuda.synchronize()
+    launches = {"isect_closest_inst": ik.isect_closest_inst.launches,
+                "isect_any_inst": ik.isect_any_inst.launches}
+    log(f"instanced_forest: {inst.n_instances} instances of a "
+        f"{inst.n_faces[0]}-face group, top tree {inst.top.shape[0]} "
+        f"nodes (stack bound {inst.top_depth}), {len(cam[0])} camera rays "
+        f"and their shadow rays, launches {launches}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    if min(launches.values()) < 1:
+        raise SystemExit("instanced_forest: an instance entry never ran")
+    entries = []
+    for (name, fn, ref, out_bytes), rays in zip(
+            inst_entries(ik, isx, inst), (cam, shadow)):
+        entries.append(inst_entry(
+            ik, isx, name, fn, inst, every_kth(rays, FOREST_PARITY_RAYS),
+            rays,
+            ref, out_bytes, "instanced_forest", launches,
+            "one launch on every ray"))
+    log(f"instanced_forest: {time.perf_counter() - t0:.1f} s")
     return entries
 
 
@@ -2416,8 +2505,9 @@ def run_scene_files(mi, ik, isx, pk, scenes, biggeo):
     on the path kernel's BVH tier; 8 instances of biggeo's 262,144-face
     group (shared by policy) on the path wavefront with K2's instance
     entries (timed, host syncs, spans, peak memory beside 2 instances,
-    the entries bit for bit against their plain version), the small shared
-    scene card against CPU, shared against materialized means; the command
+    the entries bit for bit against their plain version), the same
+    entries on the instance forest, the small shared scene card against
+    CPU, shared against materialized means; the command
     line on the XML file; a Blender quad -> the kernels line's entries.
     ``biggeo`` is biggeo's entry of the kernels line, this run's."""
     from mitsuba2_tpu_torch.models import shapes as shapes_mod
@@ -2579,6 +2669,8 @@ def run_scene_files(mi, ik, isx, pk, scenes, biggeo):
         lambda: scene.integrator.render(scene, seed=SEED, spp=SPP),
         launches)
     del scene
+    torch.cuda.empty_cache()
+    kernels += forest_k2_entries(ik, isx)
     torch.cuda.empty_cache()
     two = mi.load_dict(scenes.instanced_spheres_dict(
         2, None, nu, nv, WIDTH, WIDTH, SPP, MAX_DEPTH))
@@ -3658,13 +3750,9 @@ def main():
     PTXAS.update({("volpath",) + k: v for k, v in report.items()})
     log_ptxas("volpath_kernel", report, {(vk.HAS_HG,)},
               lambda inst: vk.kernel_name(*inst))
-    entry = None
-    for line in build_log("intersect_kernel").splitlines():
-        m = re.search(r"isect_(inst_)?kernelILb([01])E", line)
-        entry = ("isect_any" if m.group(2) == "1" else "isect_closest") \
-            + ("_inst" if m.group(1) else "") if m else entry
-        if entry and "Used" in line:
-            log(f"  ptxas {entry}: {line.split(':', 1)[1].strip()}")
+    ISECT_PTXAS.update(isect_ptxas(build_log("intersect_kernel")))
+    for entry, report in ISECT_PTXAS.items():
+        log(f"  ptxas {entry}: {report}")
     entry = None
     for line in build_log("sweep_kernel").splitlines():
         m = re.search(r"(sweep|box)_kernelILb([01])E", line)

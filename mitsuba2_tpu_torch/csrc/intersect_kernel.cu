@@ -26,20 +26,53 @@
 // The instance entries (isect_closest_inst, isect_any_inst) answer the
 // same queries against shared-geometry instances: mitsuba2_tpu/render/
 // scene.py:613-634 (_instance_closest_hit), which the TPU runs as one
-// face sweep an instance. Each thread loops over the instance rows (a
-// small table read through the read-only path), moves its ray into the
-// instance's group frame (o A^T + b, d A^T: t is kept, so hits compare
-// across instances) and walks that group's own 4-wide tree with the walk
-// above; its maxt is the best t so far, and a later instance replaces the
-// best only at a strictly smaller t, which keeps the reference's order.
-// The any-hit entry stops at the first instance that occludes. The
-// transform is unfused, in the plain version's order (ops/intersect.py
-// to_group), so the entries are closest_hit_instanced_reference and
-// any_hit_instanced_reference bit for bit. A group's tree is built once,
-// however many instances place it.
+// face sweep an instance, every instance in index order. What bounds
+// them on the H100 is the same chain of dependent reads, now in two
+// levels, and the moves into a group's frame (a row of 12 floats, 18
+// products and 15 sums, three reciprocals and the group's root line
+// before its walk can start), not operations. A loop over every
+// instance row pays a move and a root read for each instance, even one
+// the ray misses by metres, and in index order, not depth order, so a
+// farther instance's walk runs to its hit before the nearer one cuts it
+// short; its cost grows with the instance count. The design is a
+// two-level walk:
+// - a top tree over the instances' world boxes (ops/intersect_kernel.py
+//   instance_boxes and top_tree: 4-wide nodes in csrc/bvh.cuh's 128-byte
+//   format, one instance a leaf, a leaf's ref the instance's index),
+//   walked in the world frame as csrc/bvh.cuh walks a group: the world
+//   ray's reciprocals once, child boxes against [mint, best t] with
+//   `<=`, hit children nearest first, the farther ones pushed with their
+//   entry t onto a stack of its own (TOP_STACK entries, apart from the
+//   group walk's; the any-hit walk pushes the node alone, since it reads
+//   no t back) and a pop whose box begins beyond the best t dropped; so
+//   a ray moves only into the instances whose box it enters before its
+//   best hit, nearest first;
+// - at an instance leaf, the move into the group frame (o A^T + b, d A^T:
+//   t is kept, so hits compare across instances; unfused, in the plain
+//   version's order, ops/intersect.py to_group) and the group's own
+//   4-wide walk, its maxt the best t so far;
+// - out of index order the plain version's tie rule (a later instance
+//   replaces the best only at a strictly smaller t) becomes: replace at a
+//   smaller t, or at an equal t from a lower instance index; the group
+//   walk accepts a face at t == maxt, so an equal-t hit of a lower index
+//   visited later is still found;
+// - the any-hit entry walks the same tree against [mint, maxt] and stops
+//   at the first instance that occludes, which does not depend on the
+//   order; a masked ray (maxt < mint, or NaN) returns the miss before any
+//   table read.
+// A world box holds every hit the plain version can find in its instance
+// (ops/intersect_kernel.py INST_PAD), so the entries are
+// closest_hit_instanced_reference and any_hit_instanced_reference bit for
+// bit. A group's tree is built once, however many instances place it. On
+// a forest of instances a ray's cost follows the instances it crosses,
+// not their count; where a few instances overlap and rays graze them, a
+// launch's longest walks set its time and both designs run alike
+// (PERF.md §6).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "bvh.cuh"
 
@@ -63,7 +96,8 @@ struct IsectArgs {
 
 // Field for field ops/intersect_kernel.py::_InstArgs: every group's tree
 // (nodes, Woop rows and face ids, one group after another; a face id is
-// the group's own) and the instance rows.
+// the group's own), the instance rows and the top tree over the
+// instances' world boxes.
 struct InstArgs {
     const float4* nodes;      // (P, 8) the groups' wide nodes
     const float4* woop;       // (F, 3) the groups' Woop rows, tree order
@@ -71,9 +105,15 @@ struct InstArgs {
     const int* group_node;    // (G,) each group's first node
     const int* group_face;    // (G,) each group's first tree position
     const float* rows;        // (I, 24) [A (9) | b (3) | B (9) | group | ..]
+    const float4* top;        // (T, 8) wide nodes over the world boxes, a
+                              // leaf's ref its instance
     int n_instances;
     int g_max;                // a prim id's stride: the largest group
 };
+
+// entries of the top walk's stack (ops/intersect_kernel.py
+// TOP_STACK_DEPTH, the top tree's bound checked on the host)
+constexpr int TOP_STACK = 28;
 
 namespace {
 
@@ -127,36 +167,101 @@ __device__ __forceinline__ bvh::Ray to_group(const float* row, float ox,
     return bvh::make_ray(o[0], o[1], o[2], d[0], d[1], d[2], mint);
 }
 
-// One ray's query against every instance, in order.
+// One ray's query against the instances: the top tree's walk in the
+// world frame, each instance leaf reached moving the ray into its group's
+// frame for the group's walk.
 template <bool ANY>
 __device__ __forceinline__ void query_inst(const IsectArgs& a,
                                            const InstArgs& g, int i) {
-    const float ox = a.o[3 * i], oy = a.o[3 * i + 1], oz = a.o[3 * i + 2];
-    const float dx = a.d[3 * i], dy = a.d[3 * i + 1], dz = a.d[3 * i + 2];
-    const float mint = a.mint[i];
-    float tb = a.maxt[i], ub = 0.0f, vb = 0.0f;
-    int best = -1;
-    for (int k = 0; k < g.n_instances; ++k) {
-        const float* row = g.rows + 24 * k;
-        const int grp = (int)__ldg(row + 21);
-        const int fo = __ldg(g.group_face + grp);
-        const bvh::Tree tree{g.nodes + 8 * __ldg(g.group_node + grp),
-                             g.woop + 3 * fo, g.prim + fo};
-        const bvh::Ray r = to_group(row, ox, oy, oz, dx, dy, dz, mint);
-        if constexpr (ANY) {
-            if (bvh::any_hit<true>(tree, r, tb)) {
-                a.hit[i] = 1;
-                return;
+    const float mint = a.mint[i], maxt = a.maxt[i];
+    // the best t, within FLT_MAX so that a missed child's +inf is never
+    // in range; its instance and prim id
+    float tb = maxt > 3.4028235e38f ? 3.4028235e38f : maxt;
+    float ub = 0.0f, vb = 0.0f;
+    int best = -1, best_k = 0;
+    // a masked ray misses every face, as in the plain version
+    if (maxt >= mint && g.n_instances > 0) {
+        const float ox = a.o[3 * i], oy = a.o[3 * i + 1],
+                    oz = a.o[3 * i + 2];
+        const float dx = a.d[3 * i], dy = a.d[3 * i + 1],
+                    dz = a.d[3 * i + 2];
+        const bvh::Ray w = bvh::make_ray(ox, oy, oz, dx, dy, dz, mint);
+        const bvh::Planes planes = bvh::near_planes(w);
+        // a pending node, with its entry t for closest hit
+        std::conditional_t<ANY, int, int2> stack[TOP_STACK];
+        int sp = 0, node = 0;
+        for (;;) {
+            bvh::Kids k = bvh::test_line(w, planes, g.top + 8 * node, tb);
+            bvh::sort_kids(k);
+            // the hit instances, nearest first
+            unsigned leaves = 0;
+#pragma unroll
+            for (int c = 0; c < bvh::WIDTH; ++c)
+                leaves |= (k.w[c] < 0 && k.t[c] <= tb ? 1u : 0u) << c;
+            while (leaves) {
+                const int c = __ffs(leaves) - 1;
+                leaves &= leaves - 1;
+                const float te = c == 0 ? k.t[0] : c == 1 ? k.t[1]
+                    : c == 2 ? k.t[2] : k.t[3];
+                const int wd = c == 0 ? k.w[0] : c == 1 ? k.w[1]
+                    : c == 2 ? k.w[2] : k.w[3];
+                if (!(te <= tb)) continue;
+                const int inst = ~wd >> bvh::LEAF_BITS;
+                const float* row = g.rows + 24 * inst;
+                const int grp = (int)__ldg(row + 21);
+                const int fo = __ldg(g.group_face + grp);
+                const bvh::Tree tree{g.nodes + 8 * __ldg(g.group_node + grp),
+                                     g.woop + 3 * fo, g.prim + fo};
+                const bvh::Ray r = to_group(row, ox, oy, oz, dx, dy, dz,
+                                            mint);
+                if constexpr (ANY) {
+                    if (bvh::any_hit<true>(tree, r, maxt)) {
+                        a.hit[i] = 1;
+                        return;
+                    }
+                } else {
+                    float t, u, v;
+                    const int f = bvh::closest_hit<true>(tree, r, tb, t, u,
+                                                         v);
+                    // t <= tb: an equal t replaces from a lower index
+                    if (f >= 0 && (best < 0 || t < tb || inst < best_k)) {
+                        tb = t;
+                        ub = u;
+                        vb = v;
+                        best = inst * g.g_max + f;
+                        best_k = inst;
+                    }
+                }
             }
-        } else {
-            float t, u, v;
-            const int f = bvh::closest_hit<true>(tree, r, tb, t, u, v);
-            if (f >= 0 && (best < 0 || t < tb)) {
-                tb = t;
-                ub = u;
-                vb = v;
-                best = k * g.g_max + f;
+            // the interior children in range, farthest pushed first; the
+            // nearest is the next node
+            int next = -1;
+            float t_next = 0.0f;
+#pragma unroll
+            for (int c = bvh::WIDTH - 1; c >= 0; --c) {
+                if (k.w[c] >= 0 && k.t[c] <= tb) {
+                    if constexpr (ANY) {
+                        if (next >= 0) stack[sp++] = next;
+                    } else if (next >= 0) {
+                        stack[sp++] = make_int2(next,
+                                                __float_as_int(t_next));
+                    }
+                    next = k.w[c];
+                    t_next = k.t[c];
+                }
             }
+            // else the nearest pending node whose box begins within the
+            // best t
+            while (next < 0 && sp > 0) {
+                if constexpr (ANY) {
+                    next = stack[--sp];
+                } else {
+                    const int2 e = stack[--sp];
+                    if (__int_as_float(e.y) <= tb) next = e.x;
+                }
+            }
+            if (next < 0) break;
+            node = next;
         }
     }
     if constexpr (ANY) {

@@ -76,6 +76,10 @@ class BVH:
     def _ints(self):
         return self.nodes.view(np.int32)
 
+    def bounds(self):
+        """-> (lo, hi) (3,) float32 of the root's box, every face's."""
+        return self.nodes[0, _LO].copy(), self.nodes[0, _HI].copy()
+
     def leaves(self):
         """Yield (first, count, lo, hi) per leaf, in node order."""
         ints = self._ints()
@@ -120,6 +124,36 @@ def build_bvh(v0, e1, e2, leaf_size: int = 64) -> BVH:
     if written < 0:
         raise RuntimeError(f"bvh_build needs more than {max_nodes} nodes")
     return BVH(buf[:written].copy(), order)
+
+
+def split_leaves(bvh: BVH, lo, hi) -> BVH:
+    """``bvh`` with every leaf of several primitives (the builder keeps up
+    to four times its leaf size, or all of those with one centroid) split
+    into a balanced subtree of one primitive a leaf, built in place of the
+    leaf, its nodes appended; ``lo``, ``hi`` (n, 3) float32 are each
+    primitive's box, by primitive index."""
+    out = list(bvh.nodes)
+
+    def split(first, count):
+        row = np.zeros(_NODE_SLOTS, np.float32)
+        ints = row.view(np.int32)
+        if count == 1:
+            k = bvh.order[first]
+            row[_LO], row[_HI] = lo[k], hi[k]
+            ints[_LEFT], ints[_COUNT], ints[_RIGHT] = first, 1, -1
+            return row
+        kids = (split(first, count // 2),
+                split(first + count // 2, count - count // 2))
+        out.extend(kids)
+        row[_LO] = np.minimum(kids[0][_LO], kids[1][_LO])
+        row[_HI] = np.maximum(kids[0][_HI], kids[1][_HI])
+        ints[_LEFT], ints[_COUNT], ints[_RIGHT] = len(out) - 2, 0, len(out) - 1
+        return row
+
+    ints = bvh._ints()
+    for i in np.flatnonzero(ints[:, _COUNT] > 1):
+        out[i] = split(int(ints[i, _LEFT]), int(ints[i, _COUNT]))
+    return BVH(np.stack(out), bvh.order)
 
 
 def validate_bvh(bvh: BVH, v0, e1, e2) -> None:

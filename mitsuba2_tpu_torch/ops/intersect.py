@@ -28,6 +28,13 @@ runs, and which nodes and face rows it reads (``bytes_read``); the tests
 hold its hits against the sweep's. ``traverse_pairs`` is the binary walk
 over the same leaves (ops/bvh.py ``pack_pairs``), whose counts the kernels'
 bounds keep, and whose hits the wide walk's equal bit for bit.
+
+``traverse_instances`` walks K2's instance entries step for step: the top
+tree over the instances' world boxes nearest first, each instance leaf a
+move into its group's frame, whose walk finds the instance's own hit
+(``instance_hits``) where that lies within the best t; it counts the moves
+and gives the plain version's hits bit for bit. ``traverse_instance_pairs``
+walks the top tree's binary pair nodes the same way, for the bounds.
 """
 
 from __future__ import annotations
@@ -327,19 +334,29 @@ def traverse(nodes, woop, prim, o, d, mint, maxt, any_hit=False, k2=False):
     U and V rows (not dropped by the tie rule), as csrc/bvh.cuh loads them;
     ``node_bytes`` NODE_BYTES. ``k2`` picks K2's face test, else the path
     kernel's (t = -Z / DZ, min-form inside test)."""
-    n, dev = o.shape[0], o.device
     P = nodes.reshape(-1, WIDE_SLOTS)
-    Pi = P.view(torch.int32)
     # the best t within FLT_MAX, so that a missed child's +inf is never in
     # range
     maxt = torch.where(maxt > _FLT_MAX, _FLT_MAX, maxt)
     w = _Walk(woop, prim, o, d, mint, maxt, any_hit, k2, P.shape[0],
               rows_at_once=True)
+    _wide_walk(P, w, o, mint, any_hit)
+    return w.result(NODE_BYTES)
+
+
+def _wide_walk(P, w, o, mint, any_hit, live=None):
+    """csrc/bvh.cuh ``walk``'s loop over wide nodes ``P`` (P, 32), rays
+    vectorised (those of ``live``, else all), the leaves given to
+    ``w.leaf`` (a ``_Walk``, or the top walk's ``_InstanceWalk``)."""
+    n, dev = o.shape[0], o.device
+    Pi = P.view(torch.int32)
     node = torch.zeros(n, dtype=torch.int64, device=dev)
     stack = torch.zeros((n, STACK_DEPTH), dtype=torch.int64, device=dev)
     stack_t = torch.zeros((n, STACK_DEPTH), device=dev)
     sp = torch.zeros(n, dtype=torch.int64, device=dev)
     alive = torch.full((n,), P.shape[0] > 0, dtype=torch.bool, device=dev)
+    if live is not None:
+        alive &= live
     K = WIDTH
     while bool(alive.any()):
         idx = alive.nonzero()[:, 0]
@@ -385,7 +402,125 @@ def traverse(nodes, woop, prim, o, d, mint, maxt, any_hit=False, k2=False):
             nxt[pop] = torch.where(keep, e, -1)
         node[idx] = nxt.clamp(min=0)
         alive[idx[nxt < 0]] = False
-    return w.result(NODE_BYTES)
+
+
+def instance_hits(woops, rows, o, d, mint, maxt, any_hit=False):
+    """Each instance's own hits of rays o, d (n, 3) in [mint, maxt] (n,),
+    by the plain sweep in its group's frame (``woops``, ``rows`` as
+    ``closest_hit_instanced_reference``) -> (t (n, I), uv (n, I, 2), face
+    (n, I) int32, -1 on a miss), or for ``any_hit`` (n, I) bool. The
+    closest hit of a walk in [mint, c] is the instance's own where its t
+    is at most c, so these fix every walk of the instance entries'
+    designs (``traverse_instances``, the bounds' walks)."""
+    hits = []
+    for row in rows.cpu():
+        o_l, d_l = to_group(row.to(o.device), o, d)
+        woop = woops[int(row[21])]
+        hits.append(any_hit_reference(woop, o_l, d_l, mint, maxt) if any_hit
+                    else closest_hit_reference(woop, o_l, d_l, mint, maxt))
+    if any_hit:
+        return torch.stack(hits, 1)
+    return tuple(torch.stack(x, 1) for x in zip(*hits))
+
+
+class _InstanceWalk:
+    """The top walk's per-ray state and its instance leaves
+    (csrc/intersect_kernel.cu ``query_inst``), for ``_wide_walk``: an
+    instance's walk, its maxt the best t so far, finds the instance's own
+    hit (``instance_hits``) where that lies within the best t."""
+
+    def __init__(self, own, g_max, d, maxt, any_hit, n_nodes, order=None):
+        n, dev = d.shape[0], d.device
+        self.own, self.any_hit, self.g_max = own, any_hit, g_max
+        # a leaf's instance: its ref, or ``order`` at its tree position
+        self.order = order
+        self.visits = []
+        self.inv = 1.0 / torch.where(d.abs() > 1e-12, d, 1e-12)
+        self.tb = torch.where(maxt > _FLT_MAX, _FLT_MAX, maxt)
+        self.best = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        self.uv = torch.zeros((n, 2), device=dev)
+        self.found = torch.zeros(n, dtype=torch.bool, device=dev)
+        self.moves = torch.zeros(n, dtype=torch.int64, device=dev)
+        self.boxes = torch.zeros(n, dtype=torch.int64, device=dev)
+        self.nodes = torch.zeros(n, dtype=torch.int64, device=dev)
+        self.node_reads = torch.zeros(n_nodes, dtype=torch.bool, device=dev)
+
+    def leaf(self, rows, inst, cnt):
+        """The instance leaves ``inst`` (one instance each) of rays
+        ``rows``: a move into the group's frame and its walk, the best t
+        so far its maxt."""
+        assert bool((cnt == 1).all())
+        if self.order is not None:
+            inst = self.order[inst]
+        if self.any_hit:
+            rows, inst = rows[~self.found[rows]], inst[~self.found[rows]]
+        self.moves[rows] += 1
+        self.visits.append((rows, inst, self.tb[rows]))
+        if self.any_hit:
+            self.found[rows] |= self.own[rows, inst]
+            return
+        t_own, uv_own, f_own = self.own
+        t, f = t_own[rows, inst], f_own[rows, inst]
+        tb, best = self.tb[rows], self.best[rows]
+        # an equal t replaces from a lower instance index
+        ok = (f >= 0) & (t <= tb) & (
+            (best < 0) | (t < tb) | (inst < best // self.g_max))
+        r = rows[ok]
+        self.tb[r] = t[ok]
+        self.uv[r] = uv_own[r, inst[ok]]
+        self.best[r] = inst[ok] * self.g_max + f[ok].long()
+
+    def result(self):
+        dev = self.moves.device
+        visits = [torch.cat(x) for x in zip(*self.visits)] or [
+            torch.zeros(0, dtype=torch.int64, device=dev)] * 2 + [
+            torch.zeros(0, device=dev)]
+        out = {"moves": self.moves, "boxes": self.boxes,
+               "nodes": self.nodes, "node_reads": self.node_reads,
+               "visits": tuple(visits)}
+        if self.any_hit:
+            out["hit"] = self.found
+        else:
+            hit = self.best >= 0
+            out.update(t=torch.where(hit, self.tb, float("inf")),
+                       uv=torch.where(hit[:, None], self.uv, 0.0),
+                       prim=self.best.to(torch.int32))
+        return out
+
+
+def traverse_instances(top, own, g_max, o, d, mint, maxt, any_hit=False):
+    """K2's instance entries (csrc/intersect_kernel.cu ``query_inst``) step
+    for step, rays vectorised: the top tree ``top`` (T, 32)
+    (ops/intersect_kernel.py ``top_tree``, a leaf's ref its instance)
+    walked in the world frame as ``traverse`` walks a group, each instance
+    leaf reached a move into its group's frame, whose walk finds the
+    instance's hit in ``own`` (``instance_hits`` of the rays) if it lies
+    within the best t; ``g_max`` the prim ids' stride. Masked rays (maxt
+    < mint or NaN) walk nothing -> dict of per-ray tensors: ``t``, ``uv``,
+    ``prim`` of the closest hit (or ``hit``), the plain version's bit for
+    bit; ``moves`` the instances the ray moves into, ``nodes`` and
+    ``boxes`` the top nodes it reads and the box tests it runs;
+    ``node_reads`` (T,) the top nodes any ray reads; ``visits`` (ray,
+    instance, maxt) of every move, in the order made."""
+    P = top.reshape(-1, WIDE_SLOTS)
+    w = _InstanceWalk(own, g_max, d, maxt, any_hit, P.shape[0])
+    _wide_walk(P, w, o, mint, any_hit, live=maxt >= mint)
+    return w.result()
+
+
+def traverse_instance_pairs(pairs, order, own, g_max, o, d, mint, maxt,
+                            any_hit=False):
+    """``traverse_instances`` over the top tree's binary pair nodes
+    (ops/bvh.py ``pack_pairs`` of the top BVH, a leaf's ref its position
+    in ``order``, the BVH's instance order): the walk whose box tests and
+    moves the instance entries' bounds count (chip_smoke.py), as
+    ``traverse_pairs`` is for a group's. Its hits are the plain
+    version's."""
+    P = pairs.reshape(-1, PAIR_SLOTS)
+    w = _InstanceWalk(own, g_max, d, maxt, any_hit, P.shape[0],
+                      order=order)
+    _pair_walk(P, w, o, mint, any_hit, live=maxt >= mint)
+    return w.result()
 
 
 def traverse_pairs(pairs, woop, prim, o, d, mint, maxt, any_hit=False,
@@ -398,15 +533,25 @@ def traverse_pairs(pairs, woop, prim, o, d, mint, maxt, any_hit=False,
     that a bound does not grow with the wide walk's extra box tests. Its
     hits equal ``traverse``'s bit for bit. Arguments and result as
     ``traverse``, ``node_bytes`` PAIR_BYTES."""
-    n, dev = o.shape[0], o.device
     P = pairs.reshape(-1, PAIR_SLOTS)
-    Pi = P.view(torch.int32)
     w = _Walk(woop, prim, o, d, mint, maxt, any_hit, k2, P.shape[0])
+    _pair_walk(P, w, o, mint, any_hit)
+    return w.result(PAIR_BYTES)
+
+
+def _pair_walk(P, w, o, mint, any_hit, live=None):
+    """``traverse_pairs``'s loop over pair nodes ``P`` (P, 16), rays
+    vectorised (those of ``live``, else all), the leaves given to
+    ``w.leaf`` (a ``_Walk``, or an ``_InstanceWalk``)."""
+    n, dev = o.shape[0], o.device
+    Pi = P.view(torch.int32)
     found, tb = w.found, w.tb
     node = torch.zeros(n, dtype=torch.int64, device=dev)
     stack = torch.zeros((n, PAIR_STACK), dtype=torch.int64, device=dev)
     sp = torch.zeros(n, dtype=torch.int64, device=dev)
     alive = torch.full((n,), P.shape[0] > 0, dtype=torch.bool, device=dev)
+    if live is not None:
+        alive &= live
     while bool(alive.any()):
         idx = alive.nonzero()[:, 0]
         w.node_reads[node[idx]] = True
@@ -446,7 +591,6 @@ def traverse_pairs(pairs, woop, prim, o, d, mint, maxt, any_hit=False,
         nxt[pop] = stack[idx[pop], sp[idx[pop]]]
         node[idx] = nxt.clamp(min=0)
         alive[idx[done]] = False
-    return w.result(PAIR_BYTES)
 
 
 def bytes_read(walk) -> int:

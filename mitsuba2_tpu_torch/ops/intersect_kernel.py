@@ -11,8 +11,9 @@ nodes, Woop rows and face ids), which the scene builds once.
 
 ``isect_closest_inst`` and ``isect_any_inst`` are the same queries
 against a scene's shared-geometry instances (``InstanceTables``, built by
-``instance_tables``: each group's own traversal tree, once, and a
-transform row an instance); a closest hit's prim is instance * g_max + the
+``instance_tables``: each group's own traversal tree, once, a transform
+row an instance, and the top tree over the instances' world boxes that
+the kernel walks first); a closest hit's prim is instance * g_max + the
 group's face id.
 
 For tables on a CUDA device each call launches the kernel, each ray walking
@@ -24,6 +25,7 @@ order. A build or launch failure raises.
 from __future__ import annotations
 
 import ctypes
+import itertools
 from typing import NamedTuple
 
 import numpy as np
@@ -44,8 +46,22 @@ class _IsectArgs(ctypes.Structure):
 class _InstArgs(ctypes.Structure):
     """csrc/intersect_kernel.cu's InstArgs, field for field."""
     _fields_ = ([(name, ctypes.c_void_p) for name in (
-        "nodes", "woop", "prim", "group_node", "group_face", "rows")]
+        "nodes", "woop", "prim", "group_node", "group_face", "rows", "top")]
         + [("n_instances", ctypes.c_int), ("g_max", ctypes.c_int)])
+
+
+# entries of the top walk's stack (csrc/intersect_kernel.cu TOP_STACK): a
+# top tree whose stack bound exceeds it is refused before a launch. A
+# 4-wide level pushes at most 3; 28 holds the top trees of 65,536
+# instances on a grid or placed at random, with about a level to spare
+# (tests/test_torch_loop_emulated.py
+# test_top_tree_stack_holds_a_large_forest); a strongly clustered
+# placement builds a deeper tree sooner
+TOP_STACK_DEPTH = 28
+# outward pad of an instance's world box, relative to its coordinates (ten
+# times the group walk's bvh.BOX_PAD), on top of the group box padded by
+# BOX_PAD as the group walk tests it (``instance_boxes``)
+INST_PAD = 1e-4
 
 
 class InstanceTables(NamedTuple):
@@ -56,18 +72,23 @@ class InstanceTables(NamedTuple):
     tree position (``group_node``, ``group_face`` (G,) int32), and a row
     an instance (``rows`` (I, 24) float32: to-group A (9, row-major), b
     (3), to-world B (9), group, shape, 0; mitsuba2_tpu/render/scene.py:
-    400-409). ``g_max`` is the largest group's face count, the stride of
-    an instance's prim ids; ``depth`` the deepest tree's stack bound;
-    ``trees`` the groups' host trees (ops/bvh.py BVH) and ``n_faces`` their
-    face counts."""
+    400-409). ``top`` (T, 32) float32 is the top tree over the instances'
+    world boxes (``top_tree``: ops/bvh.py pack_traversal's 4-wide nodes,
+    one instance a leaf, a leaf's ref the instance's index). ``g_max`` is
+    the largest group's face count, the stride of an instance's prim ids;
+    ``depth`` the deepest group tree's stack bound and ``top_depth`` the
+    top tree's; ``trees`` the groups' host trees (ops/bvh.py BVH) and
+    ``n_faces`` their face counts."""
     nodes: torch.Tensor
     woop: torch.Tensor
     prim: torch.Tensor
     group_node: torch.Tensor
     group_face: torch.Tensor
     rows: torch.Tensor
+    top: torch.Tensor
     g_max: int
     depth: int
+    top_depth: int
     trees: tuple
     n_faces: tuple
 
@@ -80,10 +101,70 @@ class InstanceTables(NamedTuple):
         return self.rows.shape[0]
 
 
+def instance_boxes(trees, rows):
+    """Each instance's world box -> (lo, hi) (I, 3) float32: the root box
+    of its group's tree (``trees[group]``), padded by bvh.BOX_PAD as the
+    group walk pads its boxes, mapped to world through the inverse of the
+    row's to-group map (A, b) in float64 (its eight corners), padded by
+    INST_PAD relative to its coordinates and rounded outward.
+
+    Why that holds every hit the plain version finds in the instance: the
+    hit lies in the group's faces up to the Woop test's rounding, which
+    the group walk's own BOX_PAD covers in the group frame; the world ray
+    differs from the group ray by the move's rounding (a few units of
+    2^-24 of |o| + t |d|, times A's condition number), and the world slab
+    test rounds as the group's does. INST_PAD covers those while the ray's
+    origin lies within some hundreds of times the box's size of it (by a
+    condition number of A near 1): the same kind of bound as the group
+    walk's BOX_PAD, ten times wider."""
+    rows = np.asarray(rows, np.float64)
+    g_lo, g_hi = (np.stack(x).astype(np.float64)
+                  for x in zip(*(t.bounds() for t in trees)))
+    pad = bvh_ops.BOX_PAD * (1.0 + np.maximum(np.abs(g_lo), np.abs(g_hi))
+                             .max(1, keepdims=True))
+    g = rows[:, 21].astype(np.int64)
+    corner = np.array(list(itertools.product((0, 1), repeat=3)), bool)
+    pts = np.where(corner[None], (g_hi + pad)[g][:, None],
+                   (g_lo - pad)[g][:, None])
+    A_inv = np.linalg.inv(rows[:, 0:9].reshape(-1, 3, 3))
+    world = np.einsum("ijk,ilk->ilj", A_inv, pts - rows[:, None, 9:12])
+    lo, hi = world.min(1), world.max(1)
+    pad = INST_PAD * (1.0 + np.maximum(np.abs(lo), np.abs(hi))
+                      .max(1, keepdims=True))
+    lo, hi = lo - pad, hi + pad
+    lo32, hi32 = lo.astype(np.float32), hi.astype(np.float32)
+    lo32 = np.where(lo32 > lo, np.nextafter(lo32, np.float32(-np.inf)), lo32)
+    hi32 = np.where(hi32 < hi, np.nextafter(hi32, np.float32(np.inf)), hi32)
+    return lo32, hi32
+
+
+def top_bvh(lo, hi):
+    """The host tree over boxes lo, hi (I, 3) float32 (ops/bvh.py BVH): the
+    reference's builder over each box as a degenerate face (v0 lo, e1 hi -
+    lo, e2 0), then one box a leaf."""
+    tree = bvh_ops.build_bvh(lo, hi - lo, np.zeros_like(lo), leaf_size=1)
+    return bvh_ops.split_leaves(tree, lo, hi)
+
+
+def top_tree(lo, hi):
+    """The top tree over boxes lo, hi (I, 3) float32 -> (nodes (T, 32)
+    float32, stack bound): ``top_bvh`` packed by ops/bvh.py pack_traversal
+    (each child box padded again by BOX_PAD), a leaf's ref then the box's
+    index instead of its tree position."""
+    tree = top_bvh(lo, hi)
+    nodes, depth = bvh_ops.pack_traversal(tree)
+    W = bvh_ops.WIDTH
+    ints = nodes.view(np.int32)
+    ref, cnt = ints[:, 6 * W:7 * W], ints[:, 7 * W:]
+    ref[cnt > 0] = tree.order[ref[cnt > 0]]
+    return nodes, depth
+
+
 def instance_tables(groups, rows, device) -> InstanceTables:
     """``groups``: each group's faces in its own frame, (v0, e1, e2) (F_g,
     3) float32 in the group's face order; ``rows`` (I, 24) float32 ->
-    InstanceTables on ``device``, a traversal tree built once a group."""
+    InstanceTables on ``device``, a traversal tree built once a group and
+    the top tree over the instances' world boxes."""
     nodes, woop, prim, trees = [], [], [], []
     group_node, group_face = [0], [0]
     depth = 0
@@ -97,6 +178,7 @@ def instance_tables(groups, rows, device) -> InstanceTables:
         group_node.append(group_node[-1] + len(n))
         group_face.append(group_face[-1] + len(v0))
         depth = max(depth, dep)
+    top, top_depth = top_tree(*instance_boxes(trees, rows))
 
     def dev(a, dtype=torch.float32):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
@@ -107,8 +189,8 @@ def instance_tables(groups, rows, device) -> InstanceTables:
         dev(np.concatenate(prim), torch.int32),
         dev(np.asarray(group_node[:-1], np.int32), torch.int32),
         dev(np.asarray(group_face[:-1], np.int32), torch.int32),
-        dev(np.asarray(rows, np.float32)),
-        max(len(g[0]) for g in groups), depth, tuple(trees),
+        dev(np.asarray(rows, np.float32)), dev(top),
+        max(len(g[0]) for g in groups), depth, top_depth, tuple(trees),
         tuple(len(g[0]) for g in groups))
 
 
@@ -129,9 +211,13 @@ def _check_inst(inst):
     if inst.depth > bvh_ops.STACK_DEPTH:
         raise ValueError(f"a group's stack bound {inst.depth} > the "
                          f"kernel's stack of {bvh_ops.STACK_DEPTH}")
-    if inst.nodes.is_cuda and inst.nodes.data_ptr() % 128:
-        raise ValueError("the groups' nodes must be 128-byte aligned on "
-                         "the card")
+    if inst.top_depth > TOP_STACK_DEPTH:
+        raise ValueError(f"the top tree's stack bound {inst.top_depth} > "
+                         f"the kernel's top stack of {TOP_STACK_DEPTH}")
+    if inst.nodes.is_cuda and (inst.nodes.data_ptr() % 128
+                               or inst.top.data_ptr() % 128):
+        raise ValueError("the groups' and the top tree's nodes must be "
+                         "128-byte aligned on the card")
     if inst.n_instances * inst.g_max >= 1 << 31:
         raise ValueError("the instances' prim ids overflow int32")
 
@@ -167,8 +253,8 @@ def _launch(entry, tables, o, d, mint, maxt, t=None, uv=None, prim=None,
         tree = (None, None, None)
         extra = (ctypes.byref(_InstArgs(*(x.data_ptr() for x in (
             tables.nodes, tables.woop, tables.prim, tables.group_node,
-            tables.group_face, tables.rows)), tables.n_instances,
-            tables.g_max)),)
+            tables.group_face, tables.rows, tables.top)),
+            tables.n_instances, tables.g_max)),)
     else:
         check_tree(tables)
         tree = (tables.bvh_nodes, tables.bvh_woop, tables.bvh_prim)

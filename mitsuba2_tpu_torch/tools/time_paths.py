@@ -18,7 +18,17 @@ libraries). ``--isect`` adds the intersection kernel on biggeo at
 chip_smoke.py's shapes: ``isect_closest`` on the 2,097,152 camera rays of
 its 256x256x32 spp image, and ``isect_closest`` and ``isect_any`` on as
 many rays from their hits toward the light (``light_rays``), as
-"isect_closest[camera]", "isect_closest[light]" and "isect_any[light]".
+"isect_closest[camera]", "isect_closest[light]" and "isect_any[light]";
+and its instance entries on instanced_shared's 1,048,576 camera rays
+(256x256 at 16 spp), those of them that hit an instance, those that miss
+and every 64th, and as many light rays ("isect_closest_inst
+[shared_camera]", "[shared_camera_hit]", "[shared_camera_miss]",
+"[shared_camera_every64]", "isect_any_inst[shared_light]"), and on the
+instance forest's (``forest``: "isect_closest_inst[forest_camera]",
+"[forest_camera_every8]", "isect_any_inst[forest_light]"); their outputs
+(t, u, v and prim, or the hits) enter ``--save`` and ``--compare``. Run
+as a file with ``PYTHONPATH`` set to another checkout, it times that
+checkout's kernels on the same calls.
 The volumetric kernel's paths (``VOL_PATHS``, all kept by the name
 "volpath"): the bench slab ("volpath", bench.py's volpath config at
 256x256, 16 spp, depth 16) and the dense slab ("volpath_dense", sigma_t
@@ -62,6 +72,7 @@ import time
 from pathlib import Path
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -330,11 +341,96 @@ def splat_ptxas(build_log):
 
 # the ray queries' rays: biggeo's camera rays and their seed
 ISECT_PATH, ISECT_SEED = "biggeo", 7
+# the instance entries' rays: instanced_shared's camera rays at 256x256 and
+# 16 spp (one pass of its render, chip_smoke.py's busiest launch), and the
+# instance forest (chip_smoke.py's instanced_forest): FOREST_SIDE^2
+# instances of the small instancing group (64 x 33, 4,096 faces, scaled
+# about 0.45) on a unit grid, FOREST_WIDTH^2 pinhole rays across it
+SHARED_WIDTH, SHARED_SPP = 256, 16
+FOREST_SIDE, FOREST_GROUP, FOREST_WIDTH, FOREST_SEED = 32, (64, 33), 1024, 13
+
+
+def forest(device, side=FOREST_SIDE, width=FOREST_WIDTH):
+    """The instance forest, a synthetic probe of how the instance
+    entries' cost scales with the instance count (no published scene
+    stands behind it) -> (InstanceTables on ``device``, camera rays,
+    shadow rays), rays as (o, d, mint, maxt): ``side``^2 instances of one
+    bumpy sphere on a unit grid in the plane y = 0, each scaled by 0.45
+    times a factor in [0.7, 1.3] and turned about y (a seeded numpy
+    generator); ``width``^2 pinhole rays (fov 50, one jittered sample a
+    pixel) from above one corner across the grid, and from each one's
+    closest hit (``isect_closest_inst``) a shadow ray toward a point of a
+    square light above the grid, on the reference's shadow segment
+    (``light_rays``); a ray that missed gets a masked shadow ray (maxt
+    -inf), as the wavefronts mask inactive lanes."""
+    from mitsuba2_tpu_torch.core.math import RayEpsilon, ShadowEpsilon
+    from mitsuba2_tpu_torch.ops import intersect_kernel as ik
+    from mitsuba2_tpu_torch.python.test.scenes import _bumpy_sphere_obj_path
+    from mitsuba2_tpu_torch.utils.io_obj import load_obj
+    v, f, _, _ = load_obj(_bumpy_sphere_obj_path(*FOREST_GROUP))
+    tri = np.asarray(v, np.float32)[f]
+    group = (tri[:, 0], tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    rng = np.random.default_rng(FOREST_SEED)
+    rows = []
+    for i, j in np.ndindex(side, side):
+        a = np.radians(rng.uniform(0.0, 360.0))
+        c, s_ = np.cos(a), np.sin(a)
+        B = 0.45 * rng.uniform(0.7, 1.3) * np.array(
+            [[c, 0.0, s_], [0.0, 1.0, 0.0], [-s_, 0.0, c]])
+        A = np.linalg.inv(B)
+        rows.append(np.concatenate([A.reshape(9), -A @ [i, 0.0, j],
+                                    B.reshape(9), [0, 0, 0]]))
+    inst = ik.instance_tables([group], np.stack(rows).astype(np.float32),
+                              device)
+    g = torch.Generator(device=device).manual_seed(FOREST_SEED)
+    eye = torch.tensor([-3.0, 4.0, -3.0], device=device)
+    ahead = torch.tensor([side / 2, 0.0, side / 2], device=device) - eye
+    ahead = ahead / ahead.norm()
+    right = torch.linalg.cross(ahead, torch.tensor([0.0, 1.0, 0.0],
+                                                   device=device))
+    right = right / right.norm()
+    up = torch.linalg.cross(right, ahead)
+    pix = torch.arange(width * width, device=device)
+    tan = float(np.tan(np.radians(25.0)))
+    sx = (2.0 * ((pix % width).float() + torch.rand(
+        pix.shape, generator=g, device=device)) / width - 1.0) * tan
+    sy = (1.0 - 2.0 * ((pix // width).float() + torch.rand(
+        pix.shape, generator=g, device=device)) / width) * tan
+    d = ahead + sx[:, None] * right + sy[:, None] * up
+    d = (d / d.norm(dim=1, keepdim=True)).contiguous()
+    o = eye.expand_as(d).contiguous()
+    n = o.shape[0]
+    cam = (o, d, torch.zeros(n, device=device),
+           torch.full((n,), float("inf"), device=device))
+    t = ik.isect_closest_inst(inst, *cam)[0]
+    hit = torch.isfinite(t)
+    p = torch.where(hit[:, None], o + d * t[:, None], o)
+    light = torch.tensor([side / 2, 20.0, side / 2], device=device) \
+        + (torch.rand((n, 3), generator=g, device=device) - 0.5) \
+        * torch.tensor([8.0, 0.0, 8.0], device=device)
+    to = light - p
+    dist = to.norm(dim=1)
+    shadow = (p.contiguous(), (to / dist[:, None]).contiguous(),
+              RayEpsilon * (1.0 + p.abs().amax(1)),
+              torch.where(hit, dist * (1.0 - ShadowEpsilon),
+                          float("-inf")))
+    return inst, cam, shadow
+
+
+def isect_out(out):
+    """A ray query's outputs as one (k, n) float32 tensor for ``--save``
+    and ``--compare``: t, u, v and the prim ids (exact in float32 below
+    2^24) of a closest hit, or an any hit's 0 and 1."""
+    if isinstance(out, torch.Tensor):
+        return out.float()[None]
+    t, uv, prim = out
+    return torch.cat([t[:, None], uv, prim[:, None].float()], 1).T
 
 
 def isect_calls(mi, scenes):
-    """The intersection kernel's timed calls on biggeo (``--isect``) ->
-    [(name, call)]."""
+    """The intersection kernel's timed calls (``--isect``): on biggeo, and
+    the instance entries on instanced_shared's rays and on the forest's
+    -> [(name, call)]."""
     from mitsuba2_tpu_torch.core.ray import Ray
     from mitsuba2_tpu_torch.ops import intersect_kernel as ik
     from mitsuba2_tpu_torch.ops import path_kernel as pk
@@ -348,9 +444,40 @@ def isect_calls(mi, scenes):
     hits = scene.ray_intersect_preliminary(cam)
     light = light_rays(scene, Ray, hits, cam, cam.o.shape[0], ISECT_SEED)
     t = scene.tables
-    return [("isect_closest[camera]", lambda: ik.isect_closest(t, *cam)),
-            ("isect_closest[light]", lambda: ik.isect_closest(t, *light)),
-            ("isect_any[light]", lambda: ik.isect_any(t, *light))]
+    calls = [("isect_closest[camera]", lambda: ik.isect_closest(t, *cam)),
+             ("isect_closest[light]", lambda: ik.isect_closest(t, *light)),
+             ("isect_any[light]", lambda: ik.isect_any(t, *light))]
+    shared = mi.load_dict(scenes.instanced_spheres_dict(
+        8, None, 512, 257, SHARED_WIDTH, SHARED_WIDTH, SHARED_SPP, 6))
+    cam = Ray.make(*pk.camera_rays(
+        pk.camera_row(shared.sensors[0], shared.device), SHARED_WIDTH,
+        SHARED_WIDTH, SHARED_SPP, ISECT_SEED))
+    hits = shared.ray_intersect_preliminary(cam)
+    light = light_rays(shared, Ray, hits, cam, cam.o.shape[0], ISECT_SEED)
+    si = shared.inst_tables
+    cam, light = tuple(cam), tuple(light)
+    fi, fcam, fshadow = forest(shared.device)
+    # subsets of the camera rays: those that hit an instance, those that
+    # miss, and a thin sample, which show whether a launch's time follows
+    # its ray count or its longest walks
+    hit = torch.isfinite(ik.isect_closest_inst(si, *cam)[0])
+    rays = {"shared_camera": cam,
+            "shared_camera_hit": tuple(x[hit].contiguous() for x in cam),
+            "shared_camera_miss": tuple(x[~hit].contiguous() for x in cam),
+            "shared_camera_every64": tuple(x[::64].contiguous()
+                                           for x in cam),
+            "forest_camera": fcam,
+            "forest_camera_every8": tuple(x[::8].contiguous()
+                                          for x in fcam)}
+    return calls + [
+        (f"isect_closest_inst[{name}]",
+         lambda ray=ray, inst=fi if name.startswith("forest") else si:
+         ik.isect_closest_inst(inst, *ray))
+        for name, ray in rays.items()] + [
+        ("isect_any_inst[shared_light]",
+         lambda: ik.isect_any_inst(si, *light)),
+        ("isect_any_inst[forest_light]",
+         lambda: ik.isect_any_inst(fi, *fshadow))]
 
 
 def main(argv=None):
@@ -427,7 +554,10 @@ def main(argv=None):
         print(f"volpath: {vk.kernel_name(vk.HAS_HG)}: {ptxas['volpath']}",
               flush=True)
     if args.isect:
-        loaded += isect_calls(mi, scenes)
+        calls = isect_calls(mi, scenes)
+        loaded += calls
+        paths.update((name, lambda call=call: isect_out(call()))
+                     for name, call in calls)
     batched, bars = {}, {}
     if splat:
         log = build.library_path("splat_kernel").with_suffix(".log")

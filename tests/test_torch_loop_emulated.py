@@ -430,37 +430,117 @@ def test_emulated_isect_kernel_matches_plain_version(emulated_isect,
         woop, o, d, mint, maxt))
 
 
-def instanced_groups():
-    """Two groups in their own frames -- the 1,216-face bumpy sphere and a
-    10-face fan -- and five instances: the fan twice under one transform
-    (every ray that hits one ties with the other), the sphere three times
-    (one of them rotated and scaled) -> InstanceTables on the CPU."""
-    from tests.test_torch_bvh import bumpy_triangles
-    from mitsuba2_tpu_torch.core.transform import Transform as T
-    ang = np.linspace(0, 2 * np.pi, 11)
-    rim = np.stack([np.cos(ang), np.sin(ang), np.zeros_like(ang)], 1)
-    fan = (np.zeros((10, 3), np.float32), rim[:-1].astype(np.float32),
-           rim[1:].astype(np.float32))
-    fan = (fan[0], fan[1] - fan[0], fan[2] - fan[0])
-    groups = [tuple(np.asarray(x, np.float32) for x in bumpy_triangles()),
-              fan]
+@pytest.fixture
+def one_thread():
+    """The test's torch ops on one CPU thread (restored afterwards): the
+    instance cases run many small ops, which torch's threads slow down
+    when the test workers share the machine's cores."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def instance_rows(placed):
+    """[(group, Transform)] -> the instances' rows (I, 24) float32, as the
+    scene packs them: to-group A, b, to-world B, group, shape 0, 0."""
     rows = []
-    for g, trafo in ((1, T.translate([0.2, 0.1, 1.5])),
-                     (0, T.translate([-1.0, 0.0, 0.0])),
-                     (1, T.translate([0.2, 0.1, 1.5])),
-                     (0, T.translate([1.2, 0.3, -0.5])
-                      @ T.rotate([0, 1, 1], 30) @ T.scale([0.6, 0.8, 0.7])),
-                     (0, T.translate([0.0, -1.5, 0.2]) @ T.scale(0.5))):
+    for g, trafo in placed:
         M = np.asarray(trafo.matrix, np.float64)
         A = np.linalg.inv(M[:3, :3])
         rows.append(np.concatenate([A.reshape(9), -A @ M[:3, 3],
                                     M[:3, :3].reshape(9), [g, 0, 0]]))
-    return ik.instance_tables(groups, np.stack(rows).astype(np.float32),
-                              "cpu")
+    return np.stack(rows).astype(np.float32)
+
+
+def fan_group():
+    """A 10-face unit fan in the plane z = 0, around the z axis."""
+    ang = np.linspace(0, 2 * np.pi, 11)
+    rim = np.stack([np.cos(ang), np.sin(ang), np.zeros_like(ang)], 1)
+    v0 = np.zeros((10, 3))
+    return tuple(np.asarray(x, np.float32)
+                 for x in (v0, rim[:-1] - v0, rim[1:] - v0))
+
+
+def instanced_placement():
+    """Two groups in their own frames -- the 1,216-face bumpy sphere and a
+    10-face fan -- and five instances: the fan twice under one transform
+    (every ray that hits one ties with the other), the sphere three times
+    (one of them rotated and scaled) -> (groups, placed)."""
+    from tests.test_torch_bvh import bumpy_triangles
+    from mitsuba2_tpu_torch.core.transform import Transform as T
+    groups = [tuple(np.asarray(x, np.float32) for x in bumpy_triangles()),
+              fan_group()]
+    placed = [(1, T.translate([0.2, 0.1, 1.5])),
+              (0, T.translate([-1.0, 0.0, 0.0])),
+              (1, T.translate([0.2, 0.1, 1.5])),
+              (0, T.translate([1.2, 0.3, -0.5])
+               @ T.rotate([0, 1, 1], 30) @ T.scale([0.6, 0.8, 0.7])),
+              (0, T.translate([0.0, -1.5, 0.2]) @ T.scale(0.5))]
+    return groups, placed
+
+
+def instanced_groups():
+    """``instanced_placement``'s InstanceTables on the CPU."""
+    groups, placed = instanced_placement()
+    return ik.instance_tables(groups, instance_rows(placed), "cpu")
+
+
+def inst_args(inst):
+    """``_InstArgs`` of InstanceTables on the CPU."""
+    return ik._InstArgs(*(x.data_ptr() for x in (
+        inst.nodes, inst.woop, inst.prim, inst.group_node, inst.group_face,
+        inst.rows, inst.top)), inst.n_instances, inst.g_max)
+
+
+def run_inst_entries(lib, inst, o, d, mint, maxt):
+    """Both emulated instance entries on the rays, twice, outputs
+    prefilled with NaN, -2 and 2 so that a lost ray shows -> (t, uv, prim,
+    hit) of the first run, the second bit-identical."""
+    n = o.shape[0]
+    iargs = inst_args(inst)
+    runs = []
+    for _ in range(2):
+        t = torch.full((n,), float("nan"))
+        uv = torch.full((n, 2), float("nan"))
+        prim = torch.full((n,), -2, dtype=torch.int32)
+        hit = torch.full((n,), 2, dtype=torch.uint8)
+        for entry, outs in (("isect_closest_inst",
+                             dict(t=t, uv=uv, prim=prim)),
+                            ("isect_any_inst", dict(hit=hit))):
+            args = ik._IsectArgs(*(0 if x is None else x.data_ptr() for x in (
+                None, None, None, o, d, mint, maxt, outs.get("t"),
+                outs.get("uv"), outs.get("prim"), outs.get("hit"))), n)
+            assert getattr(lib, entry)(
+                ctypes.byref(args), ctypes.byref(iargs), None) == 0
+        runs.append((t, uv, prim, hit))
+    for a, b in zip(*runs):
+        assert torch.equal(a.view(torch.int32) if a.is_floating_point()
+                           else a, b.view(torch.int32)
+                           if b.is_floating_point() else b)
+    return runs[0]
+
+
+def assert_inst_plain(inst, o, d, mint, maxt, got):
+    """The entries' outputs ``got`` bit for bit against the plain version
+    -> its prim ids."""
+    t, uv, prim, hit = got
+    woops = ik.group_woops(inst)
+    rt, ruv, rprim = intersect.closest_hit_instanced_reference(
+        woops, inst.rows, inst.g_max, o, d, mint, maxt)
+    assert not bool(torch.isnan(t).any() or torch.isnan(uv).any())
+    assert torch.equal(prim, rprim)
+    assert torch.equal(t.view(torch.int32), rt.view(torch.int32))
+    assert torch.equal(uv.view(torch.int32), ruv.view(torch.int32))
+    assert hit.max() <= 1
+    assert torch.equal(hit.bool(), intersect.any_hit_instanced_reference(
+        woops, inst.rows, o, d, mint, maxt))
+    return rprim
 
 
 @pytest.mark.parametrize("n_rays", [600, 257])
 def test_emulated_isect_instance_entries_match_plain_version(emulated_isect,
+                                                             one_thread,
                                                              n_rays):
     """K2's instance entries (csrc/intersect_kernel.cu) on 2 groups and 5
     instances against their plain version: t, uv and prims bit for bit,
@@ -478,50 +558,286 @@ def test_emulated_isect_instance_entries_match_plain_version(emulated_isect,
     mint = torch.full((n,), 1e-4)
     maxt = torch.full((n,), float("inf"))
     maxt[1::4] = 3.0
-    t = torch.full((n,), float("nan"))
-    uv = torch.full((n, 2), float("nan"))
-    prim = torch.full((n,), -2, dtype=torch.int32)
-    hit = torch.full((n,), 2, dtype=torch.uint8)
-    iargs = ik._InstArgs(*(x.data_ptr() for x in (
-        inst.nodes, inst.woop, inst.prim, inst.group_node, inst.group_face,
-        inst.rows)), inst.n_instances, inst.g_max)
-    runs = []
-    for _ in range(2):
-        for entry, outs in (("isect_closest_inst",
-                             dict(t=t, uv=uv, prim=prim)),
-                            ("isect_any_inst", dict(hit=hit))):
-            args = ik._IsectArgs(*(0 if x is None else x.data_ptr() for x in (
-                None, None, None, o, d, mint, maxt, outs.get("t"),
-                outs.get("uv"), outs.get("prim"), outs.get("hit"))), n)
-            assert getattr(emulated_isect, entry)(
-                ctypes.byref(args), ctypes.byref(iargs), None) == 0
-        runs.append((t.view(torch.int32).clone(),
-                     uv.view(torch.int32).clone(), prim.clone(),
-                     hit.clone()))
-    assert all(torch.equal(a, b) for a, b in zip(*runs))
-    woops = ik.group_woops(inst)
-    rt, ruv, rprim = intersect.closest_hit_instanced_reference(
-        woops, inst.rows, inst.g_max, o, d, mint, maxt)
-    assert not bool(torch.isnan(t).any() or torch.isnan(uv).any())
-    assert torch.equal(prim, rprim)
-    assert torch.equal(t.view(torch.int32), rt.view(torch.int32))
-    assert torch.equal(uv.view(torch.int32), ruv.view(torch.int32))
-    assert torch.equal(hit.bool(), intersect.any_hit_instanced_reference(
-        woops, inst.rows, o, d, mint, maxt))
+    got = run_inst_entries(emulated_isect, inst, o, d, mint, maxt)
+    rprim = assert_inst_plain(inst, o, d, mint, maxt, got)
     # every instance is hit, the fans only through the first of the two
     hit_inst = set((rprim[rprim >= 0] // inst.g_max).tolist())
     assert hit_inst == {0, 1, 3, 4}, hit_inst
     assert 0.2 < float((rprim >= 0).float().mean()) < 0.95
 
 
+def reversed_depth_case():
+    """Eight overlapping spheres 0.4 apart along x (radius 0.45, as
+    instanced_shared), half the rays travelling -x, whose nearest sphere
+    is the last instance, half +x; the spheres' boxes overlap, so a ray
+    reaches a farther one before the nearer one's hit cuts it short."""
+    from tests.test_torch_bvh import bumpy_triangles
+    from mitsuba2_tpu_torch.core.transform import Transform as T
+    groups = [tuple(np.asarray(x, np.float32)
+                    for x in bumpy_triangles(16, 10))]
+    placed = [(0, T.translate([0.4 * k - 1.4, 0.0, 0.0]) @ T.scale(0.45))
+              for k in range(8)]
+    rng = np.random.default_rng(21)
+    n = 512
+    o = np.zeros((n, 3))
+    o[:, 0] = np.where(np.arange(n) % 2, 6.0, -6.0)
+    o[:, 1:] = rng.uniform(-0.5, 0.5, (n, 2))
+    d = np.zeros((n, 3))
+    d[:, 0] = -np.sign(o[:, 0])
+    d[:, 1:] = rng.normal(size=(n, 2)) * 0.02
+    return groups, placed, o, d, {}
+
+
+def coincident_case():
+    """Two instances under one transform whose fans coincide: instance 0
+    the fan alone, instance 1 the fan and a triangle 1 above it and off to
+    the side, which no ray reaches. Rays straight down: instance 1's box
+    begins nearer, so the walk moves into it first, and the equal-t hit of
+    the lower index, reached second, must win."""
+    from mitsuba2_tpu_torch.core.transform import Transform as T
+    fan = fan_group()
+    tri = (np.array([[5.0, 0.0, 1.0]], np.float32),
+           np.array([[1.0, 0.0, 0.0]], np.float32),
+           np.array([[0.0, 1.0, 0.0]], np.float32))
+    groups = [fan, tuple(np.concatenate(x) for x in zip(fan, tri))]
+    trafo = T.translate([0.2, 0.1, 1.5]) @ T.rotate([1, 0, 0], 10)
+    placed = [(0, trafo), (1, trafo)]
+    rng = np.random.default_rng(22)
+    n = 256
+    o = np.concatenate([rng.uniform(-0.8, 0.8, (n, 2)) + [0.2, 0.1],
+                        np.full((n, 1), 4.0)], 1)
+    d = np.tile([[0.0, 0.0, -1.0]], (n, 1))
+    return groups, placed, o, d, {"winners": {0}, "first": 1}
+
+
+def grazing_case():
+    """``instanced_placement``'s five instances and rays that graze their
+    world boxes and their geometry: aimed at each instance's extreme
+    vertices along each axis (the points nearest its box faces) from
+    directions almost parallel to that face, from 3 and from 300 away,
+    lying in the box's face planes, and aimed at its corners and edge
+    midpoints."""
+    groups, placed = instanced_placement()
+    rows = instance_rows(placed)
+    lo, hi = ik.instance_boxes(
+        [bvh.build_bvh(*g, leaf_size=bvh.TRAVERSAL_LEAF) for g in groups],
+        rows)
+    rng = np.random.default_rng(23)
+    o, d = [], []
+    for k, (g, trafo) in enumerate(placed):
+        M = np.asarray(trafo.matrix, np.float64)
+        w = group_vertices(groups[g]) @ M[:3, :3].T + M[:3, 3]
+        for axis in range(3):
+            for p in (w[w[:, axis].argmin()], w[w[:, axis].argmax()]):
+                u = rng.normal(size=(6, 3))
+                u[:, axis] = rng.normal(size=6) * 1e-3
+                u /= np.linalg.norm(u, axis=1, keepdims=True)
+                o.append(p + np.array([[3.0]] * 3 + [[300.0]] * 3) * u)
+                d.append(-u)
+            # in the face planes of the box, parallel to them
+            for plane in (lo[k, axis], hi[k, axis]):
+                q = rng.uniform(lo[k], hi[k], (4, 3))
+                q[:, axis] = plane
+                v = rng.normal(size=(4, 3))
+                v[:, axis] = 0.0
+                o.append(q - 3.0 * v)
+                d.append(v)
+        corners = np.array([[hi[k, j] if c >> j & 1 else lo[k, j]
+                             for j in range(3)] for c in range(8)])
+        mids = 0.5 * (corners[:, None] + corners[None]).reshape(-1, 3)
+        for p in (corners, mids):
+            v = rng.normal(size=p.shape)
+            o.append(p + 3.0 * v)
+            d.append(-v)
+    o, d = np.concatenate(o), np.concatenate(d)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return groups, placed, o, d, {}
+
+
+def masked_case():
+    """``instanced_placement``'s instances, rays aimed at them, most of
+    them masked as the scene masks inactive rays (maxt -inf), with maxt
+    below mint, or with a NaN maxt or mint."""
+    from tests.test_torch_bvh import _rays, bumpy_triangles
+    groups, placed = instanced_placement()
+    o, d = _rays(bumpy_triangles(), 256, 24)
+    n = o.shape[0]
+    mint = torch.full((n,), 1e-4)
+    maxt = torch.full((n,), float("inf"))
+    maxt[0::5] = float("-inf")
+    mint[1::5], maxt[1::5] = 2.0, 1.0
+    maxt[2::5] = float("nan")
+    mint[3::5] = float("nan")
+    return groups, placed, o.numpy(), d.numpy(), {"mint": mint,
+                                                  "maxt": maxt}
+
+
+def grid_case():
+    """64 instances of two groups (a 360-face bumpy sphere and the fan,
+    some rotated and scaled) in a 4 x 4 x 4 grid: a top tree of several
+    levels, rays from outside the grid and from inside it."""
+    from tests.test_torch_bvh import bumpy_triangles
+    from mitsuba2_tpu_torch.core.transform import Transform as T
+    groups = [tuple(np.asarray(x, np.float32)
+                    for x in bumpy_triangles(16, 10)), fan_group()]
+    placed = []
+    for k, (i, j, m) in enumerate(np.ndindex(4, 4, 4)):
+        trafo = T.translate([1.1 * i, 1.1 * j, 1.1 * m]) @ T.rotate(
+            [1, 1, 0], 25.0 * k) @ T.scale(0.3 + 0.05 * (k % 4))
+        placed.append((k % 2, trafo))
+    rng = np.random.default_rng(25)
+    n = 512
+    target = rng.uniform(-0.2, 3.5, (n, 3))
+    o = target + rng.normal(size=(n, 3)) * 4.0
+    o[::4] = rng.uniform(0.0, 3.3, (n // 4, 3))
+    d = target - o + rng.normal(size=(n, 3)) * 0.05
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return groups, placed, o, d, {"levels": 3}
+
+
+def group_vertices(group):
+    """A group's (v0, e1, e2) -> its vertices (3F, 3) in float64."""
+    v0, e1, e2 = (np.asarray(x, np.float64) for x in group)
+    return np.concatenate([v0, v0 + e1, v0 + e2])
+
+
+INSTANCE_CASES = {"reversed_depth": reversed_depth_case,
+                  "coincident_ties": coincident_case,
+                  "grazing": grazing_case, "masked": masked_case,
+                  "grid64": grid_case}
+
+
+@pytest.mark.parametrize("case", list(INSTANCE_CASES))
+def test_emulated_isect_instance_cases_match_plain_version(emulated_isect,
+                                                           one_thread, case):
+    """Both instance entries, a two-level walk (the top tree over the
+    instances' world boxes, nearest first), bit for bit against their
+    plain version, which takes the instances in index order: index order
+    the reverse of depth order, an equal t in two instances whose lower
+    index is reached second, rays grazing the world boxes and the
+    geometry's extremes, masked rays, and 64 instances under a top tree
+    of several levels. The step-for-step walk of ops/intersect.py
+    (``traverse_instances``) gets the same hits and counts the moves."""
+    groups, placed, o, d, extra = INSTANCE_CASES[case]()
+    inst = ik.instance_tables(groups, instance_rows(placed), "cpu")
+    o = torch.as_tensor(o, dtype=torch.float32).contiguous()
+    d = torch.as_tensor(d, dtype=torch.float32).contiguous()
+    n = o.shape[0]
+    mint = extra.get("mint", torch.full((n,), 1e-4))
+    maxt = extra.get("maxt", torch.full((n,), float("inf")))
+    got = run_inst_entries(emulated_isect, inst, o, d, mint, maxt)
+    rprim = assert_inst_plain(inst, o, d, mint, maxt, got)
+    own = intersect.instance_hits(ik.group_woops(inst), inst.rows, o, d,
+                                  mint, maxt)
+    walk = intersect.traverse_instances(inst.top, own, inst.g_max, o, d,
+                                        mint, maxt)
+    assert torch.equal(walk["prim"], rprim)
+    assert torch.equal(walk["t"].view(torch.int32), got[0].view(torch.int32))
+    # the binary two-level walk the bounds count: the same hits
+    top = ik.top_bvh(*ik.instance_boxes(inst.trees, inst.rows.numpy()))
+    pairs = intersect.traverse_instance_pairs(
+        torch.as_tensor(bvh.pack_pairs(top)[0]),
+        torch.as_tensor(top.order).long(), own, inst.g_max, o, d, mint,
+        maxt)
+    assert torch.equal(pairs["prim"], rprim)
+    assert len(pairs["visits"][0]) == int(pairs["moves"].sum())
+    hit_inst = set((rprim[rprim >= 0] // inst.g_max).tolist())
+    share = float((rprim >= 0).float().mean())
+    if case == "masked":
+        live = maxt >= mint
+        assert not bool((rprim[~live] >= 0).any() or got[3][~live].any())
+        assert int(walk["moves"][~live].sum()) == 0
+        assert 0.2 < float((rprim[live] >= 0).float().mean()) < 0.95
+    elif case == "coincident_ties":
+        _, hi = ik.instance_boxes(inst.trees, inst.rows.numpy())
+        assert hi[extra["first"], 2] > hi[0, 2] + 0.5
+        assert hit_inst == extra["winners"] and share > 0.5
+        # both instances reached by every hitting ray
+        assert bool((walk["moves"][rprim >= 0] == 2).all())
+    else:
+        assert 0.1 < share < 0.98, share
+        # most of the instances take part, each ray moving into few
+        assert len(hit_inst) >= 0.5 * inst.n_instances, hit_inst
+        assert float(walk["moves"].float().mean()) < 0.5 * inst.n_instances
+    if case == "grid64":
+        assert inst.top.shape[0] >= 1 + 4 + 16 // 2
+        assert inst.top_depth >= extra["levels"]
+
+
+@pytest.mark.parametrize("case", ["groups"] + list(INSTANCE_CASES))
+def test_instance_boxes_and_top_tree(one_thread, case):
+    """Every instance's world box (ops/intersect_kernel.py
+    ``instance_boxes``) holds all its group's vertices moved to world in
+    float64 with room to spare; the top tree names each instance in
+    exactly one leaf, each leaf's box holds its instance's world box, each
+    interior child's box holds its node's children, and the tree's stack
+    bound within TOP_STACK_DEPTH (a deeper one is refused)."""
+    if case == "groups":
+        groups, placed = instanced_placement()
+    else:
+        groups, placed = INSTANCE_CASES[case]()[:2]
+    inst = ik.instance_tables(groups, instance_rows(placed), "cpu")
+    lo, hi = ik.instance_boxes(inst.trees, inst.rows.numpy())
+    for k, (g, trafo) in enumerate(placed):
+        M = np.asarray(trafo.matrix, np.float64)
+        w = group_vertices(groups[g]) @ M[:3, :3].T + M[:3, 3]
+        room = ik.INST_PAD * (1.0 + np.abs(w).max()) * 0.5
+        assert (w.min(0) - lo[k] >= room).all(), (k, w.min(0) - lo[k])
+        assert (hi[k] - w.max(0) >= room).all(), (k, hi[k] - w.max(0))
+    W = bvh.WIDTH
+    P = inst.top.numpy()
+    ints = P.view(np.int32)
+    ref, cnt = ints[:, 6 * W:7 * W], ints[:, 7 * W:]
+    box_lo = P[:, :3 * W].reshape(-1, 3, W).transpose(0, 2, 1)
+    box_hi = P[:, 3 * W:6 * W].reshape(-1, 3, W).transpose(0, 2, 1)
+    leaf = cnt > 0
+    assert (cnt[leaf] == 1).all()
+    assert sorted(ref[leaf].tolist()) == list(range(inst.n_instances))
+    assert (box_lo[leaf] <= lo[ref[leaf]]).all()
+    assert (box_hi[leaf] >= hi[ref[leaf]]).all()
+    inner = (cnt == 0) & (ref >= 0)
+    for node, c in zip(*np.nonzero(inner)):
+        kid = ref[node, c]
+        used = ref[kid] >= 0
+        assert (box_lo[node, c] <= box_lo[kid][used]).all()
+        assert (box_hi[node, c] >= box_hi[kid][used]).all()
+    assert 0 <= inst.top_depth <= ik.TOP_STACK_DEPTH
+    ik._check_inst(inst)
+    with pytest.raises(ValueError, match="top tree"):
+        ik._check_inst(inst._replace(top_depth=ik.TOP_STACK_DEPTH + 1))
+
+
+@pytest.mark.parametrize("placement", ["grid", "random"])
+def test_top_tree_stack_holds_a_large_forest(placement):
+    """The top tree over 65,536 unit instance boxes, on a 256x256 grid or
+    placed at random in a cube of that side, keeps its stack bound within
+    TOP_STACK_DEPTH, as ops/intersect_kernel.py's note on it says."""
+    side = 256
+    if placement == "grid":
+        ij = np.stack(np.meshgrid(np.arange(side), np.arange(side),
+                                  indexing="ij"), -1).reshape(-1, 2)
+        lo = np.zeros((side * side, 3), np.float32)
+        lo[:, :2] = ij
+    else:
+        lo = np.random.default_rng(7).uniform(
+            0, side, (side * side, 3)).astype(np.float32)
+    nodes, depth = ik.top_tree(lo, lo + np.float32(0.9))
+    refs = nodes.view(np.int32)[:, 6 * bvh.WIDTH:]
+    leaf = refs[:, bvh.WIDTH:] > 0
+    assert leaf.sum() == side * side
+    assert 0 < depth <= ik.TOP_STACK_DEPTH, depth
+
+
 def test_inst_args_match_the_kernel_struct():
     """``struct InstArgs`` and ``struct IsectArgs`` of
     csrc/intersect_kernel.cu field for field against ``_InstArgs`` and
-    ``_IsectArgs``."""
+    ``_IsectArgs``, and its top stack the host's TOP_STACK_DEPTH."""
     from tests.test_torch_persistent import struct_fields
     src = (build.CSRC / "intersect_kernel.cu").read_text()
     assert struct_fields(src, "InstArgs") == ik._InstArgs._fields_
     assert struct_fields(src, "IsectArgs") == ik._IsectArgs._fields_
+    assert re.findall(r"constexpr int TOP_STACK = (\d+);", src) == [
+        str(ik.TOP_STACK_DEPTH)]
 
 
 def test_emulated_box_kernel_matches_plain_version(tmp_path):
