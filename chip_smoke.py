@@ -2496,7 +2496,7 @@ def forest_k2_entries(ik, isx):
     return entries
 
 
-def run_scene_files(mi, ik, isx, pk, scenes, biggeo):
+def run_scene_files(mi, ik, isx, pk, scenes, biggeo, face_rates):
     """Scene files and instancing: the Cornell box through ``load_file``
     (an XML file written by ``dict_to_xml``) on the path kernel, its
     tables within the writer's rounding of the dict scene's; biggeo's
@@ -2509,7 +2509,9 @@ def run_scene_files(mi, ik, isx, pk, scenes, biggeo):
     entries on the instance forest, the small shared scene card against
     CPU, shared against materialized means; the command
     line on the XML file; a Blender quad -> the kernels line's entries.
-    ``biggeo`` is biggeo's entry of the kernels line, this run's."""
+    ``biggeo`` is biggeo's entry of the kernels line, this run's;
+    cornell_xml's face-test rate joins ``face_rates`` (``drive``'s), which
+    the ceiling phase holds against the ceilings."""
     from mitsuba2_tpu_torch.models import shapes as shapes_mod
     from mitsuba2_tpu_torch.utils.io_image import read_image
     t_phase = time.perf_counter()
@@ -2533,11 +2535,12 @@ def run_scene_files(mi, ik, isx, pk, scenes, biggeo):
                                                        sd.face_shape):
         raise SystemExit("cornell_xml: tables beyond 1e-6 of the dict's")
     del sx, sd
-    entries, _ = drive(mi, pk, "cornell_xml", scenes.cornell_xml_path,
-                       WIDTH, SPP, MAX_DEPTH, (0.05, 1.0),
-                       scene_path_route(pk, "cornell_xml", 0),
-                       load=mi.load_file)
+    entries, rates = drive(mi, pk, "cornell_xml", scenes.cornell_xml_path,
+                           WIDTH, SPP, MAX_DEPTH, (0.05, 1.0),
+                           scene_path_route(pk, "cornell_xml", 0),
+                           load=mi.load_file)
     kernels += entries
+    face_rates.update(rates)
 
     # ---- biggeo_ply: the 262,144-face sphere from a PLY file (K1f) ----
     big = next(p for p in PATHS if p.name == "biggeo")
@@ -3799,7 +3802,8 @@ def main():
     kernels += run_surface_wavefronts(mi, ik, isx, pk, scenes)
     kernels += run_sensor_integrator_wavefronts(mi, ik, isx, pk, scenes)
     kernels += run_scene_files(mi, ik, isx, pk, scenes, next(
-        e for e in kernels if e["name"] == pk.kernel_name(pk.HAS_BVH, 3)))
+        e for e in kernels if e["name"] == pk.kernel_name(pk.HAS_BVH, 3)),
+        face_rates)
     kernels += run_polarized_measured(mi, ik, isx, pk, scenes)
     kernels += run_autodiff(mi, ik, isx, pk, scenes)
     kernels += run_multichip(mi, pk, vk, scenes)

@@ -228,13 +228,14 @@ def _bool_index(index):
 # HBM3 at 700.00 W): fp32 outside the tensor cores, and HBM bandwidth
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
 # face tests a second the whole card sustains, the path kernel's test on
-# every pair (tools/shape_ceiling.py at its default shapes through
-# chip_smoke.py, csrc/sweep_kernel.cu; NVIDIA H100 80GB HBM3, 700.00 W,
-# 132 SMs): with the Woop rows in shared memory (2,048 faces, the path
-# kernel's flag-free tier; 3.9023 G a second per SM) and read from L2
-# (262,144 faces, 12.6 MB, as the BVH tier reads them; 2.2085 G per SM)
-PEAK_FACE_SHARED = 515.10e9
-PEAK_FACE_L2 = 291.52e9
+# every pair (tools/shape_ceiling.py at its default shapes, csrc/
+# sweep_kernel.cu, the median of three runs in one call; NVIDIA H100 80GB
+# HBM3, 700.00 W, 132 SMs): with the Woop rows in shared memory (2,048
+# faces, the path kernel's flag-free tier, 512 threads a block; 4.1151 G
+# a second per SM) and read from L2 (262,144 faces, 12.6 MB, as the BVH
+# tier reads them, two faces ahead of their test; 3.1738 G per SM)
+PEAK_FACE_SHARED = 543.19e9
+PEAK_FACE_L2 = 418.95e9
 
 # ---------------------------------------------------------------------------
 # work tallies

@@ -10,9 +10,10 @@
 // with the path kernel's face test (csrc/bvh.cuh face_t<false>,
 // face_uv<false>, the form the flag-free tier and the BVH tier run):
 // [o,1] . w and [d,0] . w for the U, V and Z rows of each face (24
-// multiply-adds, fused), t = -Z / DZ, u = U + t DU, v = V + t DV, for every
-// pair, then keeps the closest face with t >= mint, u >= 0, v >= 0,
-// 1 - u - v >= 0, ties to the lowest face id. Its consumer is that closest
+// multiply-adds, fused), t = -Z / DZ (IEEE division), u = U + t DU,
+// v = V + t DV, for every pair, then keeps the closest face with t >= mint,
+// u >= 0, v >= 0, 1 - u - v >= 0, ties to the lowest face id (each ray
+// scans the faces in order with a strict <). Its consumer is that closest
 // hit, which needs every pair. Iteration k repeats the sweep with
 // mint = k * mint_step, so no two iterations are the same query; each
 // ray's count of iterations that hit is written out, so every iteration
@@ -28,7 +29,12 @@
 // What bounds it: operations. A pair costs 40 float32 operations (the
 // three rows' [o,1] . w and [d,0] . w, 33, the division, u, v and
 // 1 - u - v) plus the range tests and the selects of the closest hit; the
-// table is read once per block and the rays once.
+// table is read once per block and the rays once. What the design does
+// about it: the pair's arithmetic stays the path kernels' (and so does
+// its instruction count, about 50 a pair, the issue floor); the launch
+// gives the SM's schedulers the most independent warps the table allows
+// (shared), and the global rows are loaded two faces ahead of their test,
+// so that an L2 round trip hides behind two faces' tests (Tune below).
 //
 // The box-test ceiling beside it (box_kernel, two instantiations of the
 // same kind): every ray against every child box of a table of the walk's
@@ -87,8 +93,43 @@ __device__ __forceinline__ float4 row(const float4* w, int i) {
     return __ldg(w + i);
 }
 
+// Threads a block and how many faces ahead a face's rows are loaded (0:
+// in the turn that tests it), per instantiation. From the card (PERF.md
+// §6, each layout timed beside a block of 256 threads with no rows ahead,
+// the earlier one, in the same calls): the loop issues about 50
+// instructions a pair whatever the layout (31 of them float32; FCHK and a
+// branch around the division's slow path close each pair's block), so it
+// runs best with the most warps and loads in flight. Shared: 512 threads,
+// two blocks over one 96 KB table an SM (32 warps), each face's rows
+// loaded in its own turn: 1.05x; 2, 4 and 8 rays a thread sharing each
+// face's loads (fewer warps, their pairs' blocks in a row) ran 1.0x, 0.87x
+// and 0.48x, rows a face ahead slower. Global: the rows two faces ahead,
+// 1.44x (one ahead 1.06x; three ahead spilled, 1.09x; four ahead 1.01x;
+// six ahead one block an SM, 0.54x); 2 and 4 rays a thread ran 0.92x and
+// 0.75x.
 template <bool SHARED>
-__global__ void __launch_bounds__(BLOCK) sweep_kernel(const SweepArgs a) {
+struct Tune;
+template <>
+struct Tune<true> {
+    static constexpr int THREADS = 512, AHEAD = 0;
+};
+template <>
+struct Tune<false> {
+    static constexpr int THREADS = 256, AHEAD = 2;
+};
+
+template <bool SHARED>
+__device__ __forceinline__ void face_rows(const float4* w, int f,
+                                          float4 (&q)[3]) {
+    q[0] = row<SHARED>(w, 3 * f);
+    q[1] = row<SHARED>(w, 3 * f + 1);
+    q[2] = row<SHARED>(w, 3 * f + 2);
+}
+
+template <bool SHARED>
+__global__ void __launch_bounds__(Tune<SHARED>::THREADS)
+    sweep_kernel(const SweepArgs a) {
+    constexpr int A = Tune<SHARED>::AHEAD;
     extern __shared__ float4 s_woop[];
     const int n_faces = a.n_faces;
     if constexpr (SHARED) {
@@ -104,20 +145,39 @@ __global__ void __launch_bounds__(BLOCK) sweep_kernel(const SweepArgs a) {
                                      a.d[3 * i + 1], a.d[3 * i + 2], 0.0f);
     int hits = 0, best = -1;
     float tb = 0.0f, ub = 0.0f, vb = 0.0f;
+    // the rows of faces f .. f + A - 1 (past the last face, the last)
+    float4 ring[A > 0 ? A : 1][3];
     for (int it = 0; it < a.iters; ++it) {
         const float mint = (float)it * a.mint_step;
         best = -1;
         tb = __int_as_float(0x7f800000);
         ub = vb = 0.0f;
+#pragma unroll
+        for (int p = 0; p < A; ++p)
+            face_rows<SHARED>(w, min(p, n_faces - 1), ring[p]);
 #pragma unroll 4
         for (int f = 0; f < n_faces; ++f) {
-            const float4 wu = row<SHARED>(w, 3 * f);
-            const float4 wv = row<SHARED>(w, 3 * f + 1);
-            const float4 wz = row<SHARED>(w, 3 * f + 2);
+            float4 q[3];
+            if constexpr (A > 0) {
+                // face f + A's rows in flight while face f is tested
+#pragma unroll
+                for (int c = 0; c < 3; ++c) q[c] = ring[0][c];
+                float4 next[3];
+                face_rows<SHARED>(w, min(f + A, n_faces - 1), next);
+#pragma unroll
+                for (int c = 0; c < 3; ++c) {
+#pragma unroll
+                    for (int p = 0; p + 1 < A; ++p)
+                        ring[p][c] = ring[p + 1][c];
+                    ring[A - 1][c] = next[c];
+                }
+            } else {
+                face_rows<SHARED>(w, f, q);
+            }
             // every pair's full arithmetic, then one branch-free pick
-            const float tf = bvh::face_t<false>(wz, r);
+            const float tf = bvh::face_t<false>(q[2], r);
             float u, v;
-            const bool in = bvh::face_uv<false>(wu, wv, tf, r, u, v);
+            const bool in = bvh::face_uv<false>(q[0], q[1], tf, r, u, v);
             const bool take = in & (tf >= mint) & (tf < tb);
             tb = take ? tf : tb;
             ub = take ? u : ub;
@@ -195,9 +255,30 @@ int launch(const SweepArgs& a, cudaStream_t stream) {
             (int)smem);
         if (err != cudaSuccess) return (int)err;
     }
-    const int grid = (a.n_rays + BLOCK - 1) / BLOCK;
-    sweep_kernel<SHARED><<<grid, BLOCK, smem, stream>>>(a);
+    constexpr int T = Tune<SHARED>::THREADS;
+    const int grid = (a.n_rays + T - 1) / T;
+    sweep_kernel<SHARED><<<grid, T, smem, stream>>>(a);
     return (int)cudaGetLastError();
+}
+
+// info <- threads a block, faces ahead and resident blocks an SM of the
+// instantiation over n_faces faces.
+template <bool SHARED>
+int launch_info(int n_faces, int* info) {
+    const size_t smem = SHARED ? (size_t)n_faces * 3 * sizeof(float4) : 0;
+    cudaError_t err = cudaSuccess;
+    if constexpr (SHARED)
+        err = cudaFuncSetAttribute(
+            sweep_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+    int blocks = 0;
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, sweep_kernel<SHARED>, Tune<SHARED>::THREADS, smem);
+    info[0] = Tune<SHARED>::THREADS;
+    info[1] = Tune<SHARED>::AHEAD;
+    info[2] = blocks;
+    return (int)err;
 }
 
 }  // namespace
@@ -210,6 +291,11 @@ extern "C" int sweep_shared(const SweepArgs* args, void* stream) {
 
 extern "C" int sweep_global(const SweepArgs* args, void* stream) {
     return launch<false>(*args, (cudaStream_t)stream);
+}
+
+extern "C" int sweep_launch_info(int shared, int n_faces, int* info) {
+    return shared ? launch_info<true>(n_faces, info)
+                  : launch_info<false>(n_faces, info);
 }
 
 extern "C" int boxes_shared(const BoxArgs* args, void* stream) {

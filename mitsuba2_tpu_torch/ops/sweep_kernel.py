@@ -19,9 +19,10 @@ hit (int32).
 
 Two instantiations: ``shared=True`` stages the table in shared memory (at
 most MAX_SHARED_FACES faces), ``shared=False`` reads it from device memory
-through the read-only path. For tensors on a CUDA device each call launches
-the kernel; for tensors on the CPU it runs ``sweep_reference``. A build or
-launch failure raises.
+through the read-only path, a thread a ray (``launch_info`` gives the
+instantiation's geometry). For
+tensors on a CUDA device each call launches the kernel; for tensors on the
+CPU it runs ``sweep_reference``. A build or launch failure raises.
 
 ``sweep_product_reference`` is the TPU kernel's product in float32, and
 ``sweep_reference`` the closest hit computed from that product.
@@ -265,6 +266,26 @@ sweep.launches_by_kernel = collections.Counter()
 
 def reset_launch_counts():
     sweep.launches_by_kernel.clear()
+
+
+# what ``launch_info`` returns, in csrc/sweep_kernel.cu's order
+LAUNCH_INFO = ("threads", "faces_ahead", "blocks_per_sm")
+
+
+def launch_info(shared, n_faces):
+    """{LAUNCH_INFO name: value} of a face instantiation over ``n_faces``
+    faces on the current CUDA device: threads a block, how many faces ahead
+    of its test a face's rows are loaded, and resident blocks an SM."""
+    from .build import load
+    fn = load("sweep_kernel").sweep_launch_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * len(LAUNCH_INFO))()
+    err = fn(int(shared), n_faces, info)
+    if err != 0:
+        raise RuntimeError(f"{kernel_name(shared)} launch info: CUDA error "
+                           f"{err}")
+    return dict(zip(LAUNCH_INFO, info))
 
 
 def libraries():

@@ -2,7 +2,8 @@
 code (SASS), on the card's toolkit.
 
     python -m mitsuba2_tpu_torch.tools.sass_loops [--nc 3,4,1] [--lobes 0]
-        [--flags 0,15] [--volpath 1] [--splat] [--isect] [--against DIR]
+        [--flags 0,15] [--volpath 1] [--splat] [--isect] [--sweep]
+        [--against DIR]
 
 Builds csrc/path_kernel.cu's library of each color mode of ``--nc`` with
 the lobes flag as ``--lobes`` says (``--nc ''`` builds none), disassembles
@@ -19,7 +20,13 @@ csrc/splat_kernel.cu's library, its instructions by kind and its loops
 instructions mostly their TEA rounds). ``--isect`` does the same for the
 entries of csrc/intersect_kernel.cu's library (K2: the scene's faces and
 the shared instances), and with ``--against`` names the entries the other
-build lacks. ``--against DIR`` (another
+build lacks. ``--sweep`` prints, for both face instantiations of
+csrc/sweep_kernel.cu's library (the face-test ceiling), the face loop's
+instructions a pair by ``SWEEP_KINDS`` (a pair's division check, FCHK,
+counts the pairs a turn of the loop) and the issue floor they set against
+the FLOP bound; with ``--against`` the same for the other build's, and
+whether each face and box instantiation keeps that build's machine code.
+``--against DIR`` (another
 checkout's ``mitsuba2_tpu_torch/_build``, its libraries built) compares
 every instantiation of each library, addresses and encodings aside, with
 the same library there and prints which differ; for the instantiations
@@ -135,19 +142,101 @@ ISECT_ENTRIES = {("isect_kernel", "0"): "isect_closest",
                  ("isect_inst_kernel", "1"): "isect_any_inst"}
 
 
-def isect_functions(sass):
-    """cuobjdump -sass text -> {entry: [(address, instruction)]} of the
-    intersection library's kernels, by entry point (``ISECT_ENTRIES``)."""
+def named_functions(sass, pattern, names):
+    """cuobjdump -sass text -> {names[groups]: [(address, instruction)]}
+    of the functions whose mangled name matches ``pattern`` (its groups
+    the key of ``names``)."""
     out = {}
     for part in re.split(r"\n\s*Function : ", sass)[1:]:
-        m = re.search(r"(isect_(?:inst_)?kernel)ILb([01])E",
-                      part.split("\n", 1)[0])
+        m = re.search(pattern, part.split("\n", 1)[0])
         if m:
-            out[ISECT_ENTRIES[m.groups()]] = [
+            out[names[m.groups()]] = [
                 (int(a.group(1), 16), a.group(2).strip())
                 for a in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);",
                                      part)]
     return out
+
+
+def isect_functions(sass):
+    """cuobjdump -sass text -> {entry: [(address, instruction)]} of the
+    intersection library's kernels, by entry point (``ISECT_ENTRIES``)."""
+    return named_functions(sass, r"(isect_(?:inst_)?kernel)ILb([01])E",
+                           ISECT_ENTRIES)
+
+
+SWEEP_FUNCS = {("sweep", "1"): "sweep_kernel[shared]",
+               ("sweep", "0"): "sweep_kernel[global]",
+               ("box", "1"): "sweep_kernel[boxes, shared]",
+               ("box", "0"): "sweep_kernel[boxes, global]"}
+
+# the face sweep's instructions by kind (the first that matches)
+SWEEP_KINDS = (("fp32", ("FFMA", "FMUL", "FADD", "MUFU")),
+               ("load", ("LDS", "LDG", "LD.", "LDC", "ULDC")),
+               ("compare and select", ("FSETP", "ISETP", "FSEL", "SEL",
+                                       "PLOP3", "FMNMX", "IMNMX", "FCHK",
+                                       "FSET", "VIMNMX")),
+               ("branch", ("BRA", "CALL", "BSSY", "BSYNC", "RET", "EXIT")))
+
+
+def sweep_kind(text):
+    op = re.sub(r"^@!?U?P\w+\s+", "", text).split(" ", 1)[0]
+    return next((k for k, ops in SWEEP_KINDS if op.startswith(ops)),
+                "other")
+
+
+def sweep_functions(sass):
+    """cuobjdump -sass text -> {name: [(address, instruction)]} of the
+    sweep library's face and box instantiations (``SWEEP_FUNCS``)."""
+    return named_functions(sass, r"(sweep|box)_kernelILb([01])E",
+                           SWEEP_FUNCS)
+
+
+def face_loops(ins):
+    """[(start, end, instructions, pairs, {kind: count})] of the innermost
+    loops of a face instantiation that test pairs (a pair one FCHK), the
+    main loop first; the kinds count the fast path, without the
+    instructions a forward branch skips to a CALL (the division's slow
+    path, taken where FCHK fails)."""
+    found = [(s, e) for s, e, _, _, fchk, _ in loops(ins, 0) if fchk]
+    inner = [(s, e) for s, e in found
+             if not any((s, e) != o and s <= o[0] and o[1] <= e
+                        for o in found)]
+    out = []
+    for s, e in inner:
+        body = [(a, t) for a, t in ins if s <= a <= e]
+        slow = set()
+        for a, t in body:
+            m = re.search(r"BRA (?:!?U?P\d, )?(0x[0-9a-f]+)", t)
+            if m and a < int(m.group(1), 16) <= e:
+                skipped = [(x, u) for x, u in body
+                           if a < x < int(m.group(1), 16)]
+                if any("CALL" in u for _, u in skipped):
+                    slow.update(x for x, _ in skipped)
+        kinds = {k: 0 for k, _ in SWEEP_KINDS}
+        kinds["other"] = 0
+        for a, t in body:
+            if a not in slow:
+                kinds[sweep_kind(t)] += 1
+        out.append((s, e, len(body), sum("FCHK" in t for _, t in body),
+                    kinds))
+    return sorted(out, key=lambda x: -x[3])
+
+
+def print_face_loops(name, ins, pair_slots):
+    """Each pair-testing loop's fast-path instructions a pair by kind, and
+    the share of the FLOP bound the issue of the main loop allows
+    (``pair_slots``: the bound's issue slots a pair, its FLOPs with an FMA
+    2, over 2)."""
+    for i, (s, e, n_all, pairs, kinds) in enumerate(face_loops(ins)):
+        n = sum(kinds.values())
+        print(f"  {name} {'main' if i == 0 else 'other'} loop {s:#x}-{e:#x}: "
+              f"{n_all} instructions, {n} on the fast path, {pairs} pairs, "
+              f"{n / pairs:.2f} a pair ("
+              + ", ".join(f"{k} {v / pairs:.2f}" for k, v in kinds.items())
+              + ")" + (f"; issue floor {n / pairs:.2f} slots a pair against "
+                       f"the bound's {pair_slots:g}: at most "
+                       f"{100 * pair_slots * pairs / n:.2f}% of bound"
+                       if i == 0 else ""), flush=True)
 
 
 def print_loops(name, ins):
@@ -241,6 +330,8 @@ def main(argv=None):
                     help="the splat kernel's instructions and loops")
     ap.add_argument("--isect", action="store_true",
                     help="the intersection kernel's entries")
+    ap.add_argument("--sweep", action="store_true",
+                    help="the face sweep's loop, instructions a pair")
     ap.add_argument("--against", default="",
                     help="another checkout's _build directory")
     args = ap.parse_args(argv)
@@ -261,8 +352,9 @@ def main(argv=None):
     else:
         jobs_splat = []
     jobs_isect = [("intersect_kernel", {})] if args.isect else []
+    jobs_sweep = [("sweep_kernel", {})] if args.sweep else []
     build.build_all(jobs + (vk.libraries() if vflags else []) + jobs_splat
-                    + jobs_isect)
+                    + jobs_isect + jobs_sweep)
     flags = {int(x) for x in args.flags.split(",") if x}
 
     def sass(lib):
@@ -338,6 +430,27 @@ def main(argv=None):
                       flush=True)
         elif args.against:
             print(f"intersect_kernel: no library in {args.against}")
+    if args.sweep:
+        from ..core import profiler as prof
+        slots = prof.SWEEP_PAIR_FLOPS / 2
+        funcs = sweep_functions(sass(build.library_path("sweep_kernel")))
+        others = [p for p in Path(args.against).glob("sweep_kernel-*.so")
+                  if ".tmp." not in p.name] if args.against else []
+        theirs = sweep_functions(sass(others[0])) if len(others) == 1 \
+            else {}
+        if args.against and not theirs:
+            print(f"sweep_kernel: no library in {args.against}")
+        for name, ins in sorted(funcs.items()):
+            print(f"{name}: {len(ins)} instructions", flush=True)
+            if "boxes" not in name:
+                print_face_loops("this build's", ins, slots)
+                if name in theirs:
+                    print_face_loops("the other build's", theirs[name], slots)
+            if name in theirs:
+                same = [t for _, t in ins] == [t for _, t in theirs[name]]
+                state = "the same machine code" if same else "differs"
+                print(f"{name}: {state} against {others[0].name}",
+                      flush=True)
     return 0
 
 

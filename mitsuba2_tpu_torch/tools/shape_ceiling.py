@@ -2,7 +2,8 @@
 slab test of the BVH walk cost on it.
 
     python -m mitsuba2_tpu_torch.tools.shape_ceiling [--chunks 16] \
-        [--iters 64] [--tiles 64]
+        [--iters 64] [--tiles 64] [--save DIR] [--compare DIR]
+    PYTHONPATH=<checkout> python mitsuba2_tpu_torch/tools/shape_ceiling.py
 
 Counterpart of benchmarks/mxu_shape_ceiling.py, which measures the rate
 the TPU sustains on the path kernel's Woop-sweep product. Here
@@ -37,20 +38,38 @@ counted as the TPU tool counts it (2 x 3C x 4 x 2R a chunk, 48 a pair)
 and as a share of the 67 TFLOP/s fp32 peak; and the library call beside
 it: ``torch.matmul`` of the same (3 x 2,048, 4) @ (4, 2 x 2,048)
 product, one tile of 2,048 rays and 2,048 faces a call, with TF32 off.
-The library computes the product only, not the closest hit. Prints the
-card's name and power limit first. Exits non-zero without a CUDA device.
+The library computes the product only, not the closest hit. With each
+face instantiation it prints its registers and spills (ptxas -v, from the
+build's log) and, where the package has ``launch_info``, its threads a
+block, faces ahead and resident blocks an SM.
+
+``--save DIR`` writes the face instantiations' outputs (t, uv, prim, hits)
+to ``DIR/<case>.pt``: the last timed call's at the default shapes
+("shared", "global") and one call's at tests/test_torch_sweep.py's ragged
+shapes ("shared_ragged": 2,048 faces x 4,099 rays x 5 iterations,
+"global_ragged": 20,011 faces x 1,027 rays x 2), each ragged case launched
+twice, which must agree bit for bit; ``--compare DIR`` holds each case
+against the one saved there (by another checkout) bit for bit and exits
+non-zero on any difference. The tool imports the package
+``mitsuba2_tpu_torch`` from the Python path: run as a file with
+``PYTHONPATH`` set to another checkout, it times and saves that
+checkout's kernels (two commits in one call on one card). Prints the
+card's name and power limit and the package's path first. Exits non-zero
+without a CUDA device.
 """
 
 import argparse
+import re
 import statistics
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from ..core import profiler as prof
-from ..ops import sweep_kernel as sk
+from mitsuba2_tpu_torch.core import profiler as prof
+from mitsuba2_tpu_torch.ops import build, sweep_kernel as sk
 
 C, R = 128, 2048
 # the global instantiation's table (biggeo's sphere) and ray tiles
@@ -62,6 +81,10 @@ LIBRARY_FACES = 16 * C
 # each, iterations of the shared one
 BOX_SHARED_LINES, BOX_GLOBAL_LINES = 1024, 24_576
 BOX_SHARED_TILES, BOX_GLOBAL_TILES, BOX_SHARED_ITERS = 64, 32, 16
+# tests/test_torch_sweep.py's ragged shapes: (faces, rays, iterations) of
+# the shared and the global instantiation
+RAGGED = {"shared_ragged": (True, 2048, 4099, 5),
+          "global_ragged": (False, 20011, 1027, 2)}
 
 
 def inputs(n_faces, n_rays, device, seed=SEED):
@@ -73,11 +96,30 @@ def inputs(n_faces, n_rays, device, seed=SEED):
                  for x in (woop, rays[0], rays[1]))
 
 
+def sweep_ptxas(build_log):
+    """-> {shared: 'N registers; ... spill ...'} of the face
+    instantiations, from the compiler's -Xptxas=-v output of the sweep
+    library (its ``.log``)."""
+    out, inst = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"(sweep|box)_kernelILb([01])E", line)
+        if m:
+            inst = bool(int(m.group(2))) if m.group(1) == "sweep" else None
+        if inst is None:
+            continue
+        if "spill" in line:
+            out[inst] = out.get(inst, "") + line.strip()
+        elif "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out[inst] = f"{regs} registers; {out.get(inst, '')}"
+    return out
+
+
 def box_inputs(n_lines, n_rays, device, seed=SEED):
     """-> (lines (L, 32), o (n, 3), d (n, 3)): boxes of N(0,1) centres and
     |N(0, 0.3)| half-extents in the walk's line layout (refs 0, counts 1),
     rays of ``inputs``."""
-    from ..ops.bvh import WIDTH
+    from mitsuba2_tpu_torch.ops.bvh import WIDTH
     rng = np.random.default_rng(seed + 1)
     centre = rng.standard_normal((n_lines, 3, WIDTH), dtype=np.float32)
     half = np.abs(rng.standard_normal((n_lines, 3, WIDTH),
@@ -93,7 +135,7 @@ def box_inputs(n_lines, n_rays, device, seed=SEED):
 def measure_boxes(shared, n_lines, n_rays, iters, runs=RUNS, log=print):
     """One box instantiation at one shape -> dict of its numbers, as
     ``measure``'s."""
-    from ..ops.bvh import WIDTH
+    from mitsuba2_tpu_torch.ops.bvh import WIDTH
     lines, o, d = box_inputs(n_lines, n_rays, "cuda")
     out, times = prof.cuda_times(
         lambda: sk.box_sweep(lines, o, d, iters, shared), runs)
@@ -161,6 +203,13 @@ def measure(shared, n_faces, n_rays, iters, runs=RUNS, log=print):
                           out_bytes=prof.SWEEP_RAY_OUT_BYTES,
                           in_bytes=prof.SWEEP_RAY_IN_BYTES)
     name = sk.kernel_name(shared)
+    log_path = build.library_path("sweep_kernel").with_suffix(".log")
+    ptxas = sweep_ptxas(log_path.read_text()).get(shared) \
+        if log_path.exists() else None
+    # a checkout from before launch_info ran a thread a ray
+    info = sk.launch_info(shared, n_faces) \
+        if hasattr(sk, "launch_info") else "no launch_info in this checkout"
+    log(f"{name}: ptxas {ptxas}; launch {info}")
     r = {"name": name, "faces": n_faces, "rays": n_rays, "iters": iters,
          "replaces": "benchmarks/mxu_shape_ceiling.py:44",
          "ms": ms, "tests_per_s": pairs / (ms / 1e3), "library_ms": lib_ms,
@@ -200,6 +249,51 @@ def run(chunks=16, iters=64, tiles=64, global_iters=1, runs=RUNS,
                                         BOX_GLOBAL_TILES * R, 1, runs, log)}
 
 
+def ragged_outputs(log=print):
+    """{case: outputs} of the face instantiations at ``RAGGED``'s shapes,
+    each launched twice; raises if the two launches differ."""
+    out = {}
+    for case, (shared, n_faces, n_rays, iters) in RAGGED.items():
+        woop, o, d = inputs(n_faces, n_rays, "cuda", seed=10)
+        got = sk.sweep(woop, o, d, iters, shared)
+        again = sk.sweep(woop, o, d, iters, shared)
+        same = all(torch.equal(bits(a), bits(b)) for a, b in zip(got, again))
+        log(f"{case}: {n_faces} faces x {n_rays} rays x {iters} iterations; "
+            f"two launches bit-identical: {same}")
+        if not same:
+            raise SystemExit(f"{case}: two launches differ")
+        out[case] = got
+    return out
+
+
+def bits(x):
+    """A float32 or int32 tensor as its int32 bits (NaN and -0 compare as
+    bits)."""
+    return x.contiguous().view(torch.int32)
+
+
+def save_or_compare(outputs, save="", against="", log=print):
+    """Each case's outputs (t, uv, prim, hits) written to ``save`` and
+    held bit for bit against ``against``'s -> whether all agree."""
+    ok = True
+    for case, got in outputs.items():
+        got = [x.cpu() for x in got]
+        if save:
+            Path(save).mkdir(parents=True, exist_ok=True)
+            torch.save(got, Path(save) / f"{case}.pt")
+        if against:
+            want = torch.load(Path(against) / f"{case}.pt")
+            same = [torch.equal(bits(a), bits(b))
+                    for a, b in zip(got, want)]
+            differ = sum((bits(a) != bits(b)).reshape(len(a), -1).any(1)
+                         for a, b in zip(got, want)) > 0
+            log(f"{case}: t, uv, prim, hits bit-identical to {against}: "
+                f"{same}; rays that differ {int(differ.sum())} of "
+                f"{len(differ)}")
+            ok = ok and all(same)
+    return ok
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--chunks", type=int, default=16,
@@ -208,6 +302,10 @@ def main(argv=None):
     ap.add_argument("--tiles", type=int, default=64,
                     help="ray tiles of 2048 for the shared table")
     ap.add_argument("--global-iters", type=int, default=1)
+    ap.add_argument("--save", default="",
+                    help="directory to write the face outputs to")
+    ap.add_argument("--compare", default="",
+                    help="directory of face outputs to hold these against")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("shape_ceiling: no CUDA device", file=sys.stderr)
@@ -215,11 +313,15 @@ def main(argv=None):
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0])
-    from ..ops import build
+        check=True).stdout.strip().splitlines()[0] + f"; {sk.__file__}",
+        flush=True)
     build.build_all(sk.libraries())
-    run(args.chunks, args.iters, args.tiles, args.global_iters)
-    return 0
+    res = run(args.chunks, args.iters, args.tiles, args.global_iters)
+    if not (args.save or args.compare):
+        return 0
+    outputs = {case: res[case]["outputs"] for case in ("shared", "global")}
+    outputs.update(ragged_outputs())
+    return 0 if save_or_compare(outputs, args.save, args.compare) else 1
 
 
 if __name__ == "__main__":

@@ -840,16 +840,14 @@ def test_inst_args_match_the_kernel_struct():
         str(ik.TOP_STACK_DEPTH)]
 
 
-def test_emulated_box_kernel_matches_plain_version(tmp_path):
-    """The box-test ceiling (csrc/sweep_kernel.cu box_kernel, the walk's
-    ``test_line``: each axis's near and far planes read by the ray's
-    direction) against its plain version (per-axis minima and maxima),
-    bit for bit, in both instantiations, with the ray count ragged."""
-    from mitsuba2_tpu_torch.ops import sweep_kernel as sk
-    from mitsuba2_tpu_torch.tools import shape_ceiling as sc
+@pytest.fixture(scope="module")
+def emulated_sweep(tmp_path_factory):
+    """csrc/sweep_kernel.cu built under the emulation (its launches and
+    its shared tables rewritten) -> the loaded library."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.fail("the emulation needs g++ (the BVH builder's compiler)")
+    d = tmp_path_factory.mktemp("emulated_sweep")
     src = (build.CSRC / "sweep_kernel.cu").read_text()
     counts = []
     for pattern, repl in (
@@ -860,16 +858,26 @@ def test_emulated_box_kernel_matches_plain_version(tmp_path):
         src, n = re.subn(pattern, repl, src)
         counts.append(n)
     assert counts == [2, 2], counts
-    (tmp_path / "cuda_runtime.h").write_text(EMU_HEADER)
-    (tmp_path / "sweep_kernel.cpp").write_text(src)
-    out = tmp_path / "sweep.so"
+    (d / "cuda_runtime.h").write_text(EMU_HEADER)
+    (d / "sweep_kernel.cpp").write_text(src)
+    out = d / "sweep.so"
     subprocess.run(
         [cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-         "-pthread", "-w", f"-I{tmp_path}", f"-I{build.CSRC}",
+         "-pthread", "-w", f"-I{d}", f"-I{build.CSRC}",
          f"-DEMU_SMS={SMS}", f"-DEMU_BLOCKS={BLOCKS_PER_SM}", "-o",
-         str(out), str(tmp_path / "sweep_kernel.cpp")],
+         str(out), str(d / "sweep_kernel.cpp")],
         check=True, capture_output=True)
-    lib = ctypes.CDLL(str(out))
+    return ctypes.CDLL(str(out))
+
+
+def test_emulated_box_kernel_matches_plain_version(emulated_sweep):
+    """The box-test ceiling (csrc/sweep_kernel.cu box_kernel, the walk's
+    ``test_line``: each axis's near and far planes read by the ray's
+    direction) against its plain version (per-axis minima and maxima),
+    bit for bit, in both instantiations, with the ray count ragged."""
+    from mitsuba2_tpu_torch.ops import sweep_kernel as sk
+    from mitsuba2_tpu_torch.tools import shape_ceiling as sc
+    lib = emulated_sweep
     lines, o, d = sc.box_inputs(24, 300, "cpu", seed=4)
     # some rays along an axis: the guarded inverse on both signs
     d[:8] = torch.tensor([[1.0, 0, 0], [-1.0, 0, 0], [0, 1.0, 0],
@@ -888,3 +896,106 @@ def test_emulated_box_kernel_matches_plain_version(tmp_path):
         assert torch.equal(hits, want[1]), entry
         assert torch.equal(near.view(torch.int32), want[0].view(torch.int32))
     assert bool(torch.isfinite(want[0]).any()) and int(want[1].sum()) > 0
+
+
+def numpy_face_sweep(woop, o, d, iters):
+    """Every ray against every face of ``woop`` (F, 12) in numpy float32,
+    each product and sum rounded on its own in csrc/bvh.cuh's order
+    (``dot_o``, ``dot_d``, ``face_t<false>``: t = -Z / DZ, ``inside``:
+    u = U + t DU, 1 - u - v >= 0), the closest face of each iteration
+    k >= mint = k * MINT_STEP, ties to the lowest face id -> the last
+    iteration's (t, uv, prim) and the iterations that hit."""
+    from mitsuba2_tpu_torch.ops import sweep_kernel as sk
+    f32 = np.float32
+    W = woop.reshape(-1, 3, 4)
+    ox, oy, oz = (o[:, c:c + 1] for c in range(3))
+    dx, dy, dz = (d[:, c:c + 1] for c in range(3))
+
+    def dot_o(w):
+        return ((ox * w[:, 0] + oy * w[:, 1]) + oz * w[:, 2]) + w[:, 3]
+
+    def dot_d(w):
+        return (dx * w[:, 0] + dy * w[:, 1]) + dz * w[:, 2]
+
+    with np.errstate(all="ignore"):
+        t = -dot_o(W[:, 2]) / dot_d(W[:, 2])
+        u = dot_o(W[:, 0]) + t * dot_d(W[:, 0])
+        v = dot_o(W[:, 1]) + t * dot_d(W[:, 1])
+        inside = (u >= 0) & (v >= 0) & ((f32(1) - u) - v >= 0)
+    assert t.dtype == u.dtype == v.dtype == np.float32
+    rows = np.arange(len(o))
+    hits = np.zeros(len(o), np.int32)
+    for k in range(iters):
+        ok = inside & (t >= f32(k * sk.MINT_STEP))
+        best = np.where(ok, t, f32(np.inf)).argmin(1)
+        hit = ok[rows, best]
+        hits += hit
+    t_out = np.where(hit, t[rows, best], f32(np.inf))
+    uv = np.where(hit[:, None], np.stack([u[rows, best], v[rows, best]], 1),
+                  f32(0))
+    return t_out, uv, np.where(hit, best, -1).astype(np.int32), hits
+
+
+def test_emulated_sweep_kernel_matches_host_arithmetic(emulated_sweep):
+    """The face-test ceiling (csrc/sweep_kernel.cu sweep_kernel: a thread's
+    ray against each face's rows, the global ones loaded ahead) in both
+    instantiations, at a ray count ragged against a block and a face count
+    against the loop's unroll, 3 iterations, outputs prefilled with NaN
+    and -2: bit for bit a numpy float32 evaluation of the path kernel's
+    face test (the emulation's arithmetic is the host's, unfused), and two
+    runs bit-identical."""
+    from mitsuba2_tpu_torch.ops import sweep_kernel as sk
+    from mitsuba2_tpu_torch.tools import shape_ceiling as sc
+    src = (build.CSRC / "sweep_kernel.cu").read_text()
+    threads = dict(re.findall(
+        r"struct Tune<(true|false)> \{\s*static constexpr int THREADS = "
+        r"(\d+),", src))
+    assert set(threads) == {"true", "false"}, threads
+    n_faces, iters = 37, 3
+    for entry, key in (("sweep_shared", "true"), ("sweep_global", "false")):
+        block = int(threads[key])
+        n = block + block // 3 + 7
+        woop, o, d = sc.inputs(n_faces, n, "cpu", seed=6)
+        # rays from the origin along z (1), y (3) and x (4); faces inside
+        # at u = v = 0.25 for them: at t = 0.0005 along z (hit at mint 0,
+        # not at mint 2^-10), the last face at t = 0.01 along z, two equal
+        # faces at t = 0.02 along y (the tie goes to the lower id), and at
+        # t = 2^-131 / 2^-130 = 0.5 along x (subnormal operands)
+        uv_rows = [0, 0, 0, 0.25, 0, 0, 0, 0.25]
+        for f, z_row in ((5, [0, 0, 1, -0.0005]),
+                         (n_faces - 1, [0, 0, 1, -0.01]),
+                         (8, [0, 1, 0, -0.02]), (20, [0, 1, 0, -0.02]),
+                         (12, [2.0 ** -130, 0, 0, -2.0 ** -131])):
+            woop[f] = torch.tensor(uv_rows + z_row)
+        for k, axis in ((1, 2), (3, 1), (4, 0)):
+            o[k], d[k] = torch.zeros(3), torch.zeros(3)
+            d[k, axis] = 1.0
+        # a ray with no direction hits nothing (t = +-inf or NaN)
+        d[2] = 0.0
+        want = numpy_face_sweep(woop.numpy(), o.numpy(), d.numpy(), iters)
+        fn = getattr(emulated_sweep, entry)
+        fn.argtypes = [ctypes.POINTER(sk._SweepArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        runs = []
+        for _ in range(2):
+            t = torch.full((n,), float("nan"))
+            uv = torch.full((n, 2), float("nan"))
+            prim = torch.full((n,), -2, dtype=torch.int32)
+            hits = torch.full((n,), -2, dtype=torch.int32)
+            args = sk._SweepArgs(*(x.data_ptr() for x in (
+                woop, o, d, t, uv, prim, hits)), n_faces, n, iters,
+                sk.MINT_STEP)
+            assert fn(ctypes.byref(args), None) == 0
+            runs.append([x.numpy().view(np.int32) for x in (t, uv, prim,
+                                                            hits)])
+        for a, b in zip(*runs):
+            np.testing.assert_array_equal(a, b, err_msg=entry)
+        for got, w in zip(runs[0], want):
+            np.testing.assert_array_equal(
+                got, np.ascontiguousarray(w).view(np.int32), err_msg=entry)
+        prims, counts = want[2], want[3]
+        assert (counts == 0).any() and (counts == iters).any(), entry
+        assert counts[2] == 0 and prims[2] == -1
+        assert prims[1] == n_faces - 1 and prims[3] == 8, prims[:5]
+        assert prims[4] == 12 and want[0][4] == 0.5, prims[:5]
+        assert len(set(prims.tolist())) >= 10, entry
