@@ -48,14 +48,23 @@
 // which pick the planes the kernel reads, so the two agree bit for bit
 // (for boxes whose entry t is finite). It prices a node visit of the
 // walk: 12 float32 operations a box test (six subtractions, six
-// multiplications) beside the maxima and minima, 32 B a box.
+// multiplications) beside the maxima and minima, 32 B a box. What bounds
+// it: issue. Test_line's arithmetic and the tally take 26-28 instructions
+// a box test (the bound counts 6 issue slots), so the design keeps the
+// walk's test and read path and gives the schedulers the most warps and
+// loads in flight (BoxTune below): the shared table under one block of
+// 1,024 threads an SM (32 warps), the loop's loads at immediate offsets
+// from a uniform line base; the global lines a line ahead, in registers,
+// through plane pointers that move a line a turn, two rays a thread. Any
+// ray-to-thread mapping and line order keeps the outputs bit for bit (a
+// minimum and an integer sum).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bvh.cuh"
+#include <type_traits>
 
-#define BLOCK 256
+#include "bvh.cuh"
 
 // Field for field ops/sweep_kernel.py::_SweepArgs.
 struct SweepArgs {
@@ -193,8 +202,71 @@ __global__ void __launch_bounds__(Tune<SHARED>::THREADS)
     a.hits[i] = hits;
 }
 
+// Threads a block, how many lines ahead a line's planes are loaded (0: in
+// the turn that tests it, by test_line itself) and rays a thread, per box
+// instantiation. From the card (PERF.md §6, each layout timed beside the
+// earlier one, a block of 256 threads a ray each with no lines ahead, in
+// the same calls): the box loop issues 26-28 instructions a box test
+// whatever the layout (12 float32, 7 minima and maxima, 3 compares and
+// selects, a load and a half), so it runs best with the most warps and
+// loads in flight. Shared: 1,024 threads, 32 warps an SM over the one
+// table: about 1.2x; 512 threads with 2 rays a thread or with a line
+// ahead ran as fast, 4 rays a thread 1.07-1.09x, unroll 4 1.07-1.10x.
+// Global: a line ahead, 2 rays a thread (128 blocks of 512 rays, one an
+// SM at 251 registers): 1.29-1.35x; one ray a thread 1.15-1.24x, with
+// unroll 4 1.26-1.29x or the lines split between two warps a ray
+// 1.27-1.31x; two lines ahead (206 registers, one block of 256 rays an
+// SM) 1.14-1.19x; the split without a line ahead 0.97-0.99x.
 template <bool SHARED>
-__global__ void __launch_bounds__(BLOCK) box_kernel(const BoxArgs a) {
+struct BoxTune;
+template <>
+struct BoxTune<true> {
+    static constexpr int THREADS = 1024, AHEAD = 0, RAYS = 1;
+};
+template <>
+struct BoxTune<false> {
+    static constexpr int THREADS = 256, AHEAD = 1, RAYS = 2;
+};
+
+// A ray's pointers to the six planes its slab tests read from line 0 of
+// `lines`, in test_line's order (near x, y, z, then far x, y, z).
+__device__ __forceinline__ void plane_pointers(const float4* lines,
+                                               const bvh::Planes& p,
+                                               const float4* (&q)[6]) {
+    q[0] = lines + p.x;
+    q[1] = lines + p.y;
+    q[2] = lines + p.z;
+    q[3] = lines + 3 - p.x;
+    q[4] = lines + 5 - p.y;
+    q[5] = lines + 7 - p.z;
+}
+
+// The six planes of line l through a ray's plane pointers, each read as
+// the walk reads it; q[6] and q[7] stand for the children's refs and
+// counts, which the ceiling never uses.
+template <bool SHARED>
+__device__ __forceinline__ void line_planes(const float4* const (&p)[6],
+                                            int l, float4 (&q)[8]) {
+#pragma unroll
+    for (int c = 0; c < 6; ++c) q[c] = row<SHARED>(p[c], 8 * l);
+    q[6] = q[7] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+// One line's four box tests into a ray's hit count and nearest entry t.
+__device__ __forceinline__ void tally(const bvh::Kids& k, int& hits,
+                                      float& near) {
+#pragma unroll
+    for (int c = 0; c < bvh::WIDTH; ++c) {
+        hits += k.t[c] < __int_as_float(0x7f800000);
+        near = fminf(near, k.t[c]);
+    }
+}
+
+template <bool SHARED>
+__global__ void __launch_bounds__(BoxTune<SHARED>::THREADS)
+    box_kernel(const BoxArgs a) {
+    constexpr int T = BoxTune<SHARED>::THREADS, A = BoxTune<SHARED>::AHEAD,
+                  R = BoxTune<SHARED>::RAYS;
     extern __shared__ float4 s_lines[];
     const int n_lines = a.n_lines;
     if constexpr (SHARED) {
@@ -202,34 +274,112 @@ __global__ void __launch_bounds__(BLOCK) box_kernel(const BoxArgs a) {
             s_lines[i] = a.lines[i];
         __syncthreads();
     }
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= a.n_rays) return;
-    bvh::Ray r = bvh::make_ray(a.o[3 * i], a.o[3 * i + 1], a.o[3 * i + 2],
-                               a.d[3 * i], a.d[3 * i + 1], a.d[3 * i + 2],
-                               0.0f);
+    const float4* lines = SHARED ? s_lines : a.lines;
+    // rays first + j * T, j < R (past the last ray, the last: tested, not
+    // written)
+    const int first = blockIdx.x * T * R + threadIdx.x;
+    if (first >= a.n_rays) return;
     const float inf = __int_as_float(0x7f800000);
-    const bvh::Planes planes = bvh::near_planes(r);
-    int hits = 0;
-    float near = inf;
+    // the lines [l_begin, l_end), 0 and n_lines in a form the compiler
+    // does not fold: with constant bounds nvcc rebuilds each load's
+    // address from the line index (27.6 and 28.7 instructions a box test,
+    // the global loop at 187 registers), with these it moves pointers a
+    // turn and loads at immediate offsets from them (26.0 and 27.5, 251
+    // registers), 1.11x shared and 1.25x global (PERF.md §6)
+    const int l_begin = min(0, n_lines);
+    const int l_end = min(l_begin + n_lines, n_lines);
+    bvh::Ray r[R];
+    bvh::Planes planes[R];
+    const float4* plane[R][6];
+    int hits[R];
+    float near[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+        const int i = min(first + j * T, a.n_rays - 1);
+        r[j] = bvh::make_ray(a.o[3 * i], a.o[3 * i + 1], a.o[3 * i + 2],
+                             a.d[3 * i], a.d[3 * i + 1], a.d[3 * i + 2],
+                             0.0f);
+        planes[j] = bvh::near_planes(r[j]);
+        plane_pointers(lines, planes[j], plane[j]);
+        hits[j] = 0;
+        near[j] = inf;
+    }
     for (int it = 0; it < a.iters; ++it) {
-        r.mint = (float)it * a.mint_step;
-        near = inf;
-#pragma unroll 2
-        for (int l = 0; l < n_lines; ++l) {
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+            r[j].mint = (float)it * a.mint_step;
+            near[j] = inf;
+        }
+        if constexpr (A == 0) {
             // a shared line is read with plain loads, a global one
             // through the read-only path, as the walk reads it
-            const bvh::Kids k = bvh::test_line<!SHARED>(
-                r, planes, (SHARED ? s_lines : a.lines) + 8 * l, inf);
+#pragma unroll 2
+            for (int l = l_begin; l < l_end; ++l)
 #pragma unroll
-            for (int c = 0; c < bvh::WIDTH; ++c) {
-                const bool hit = k.t[c] < inf;
-                hits += hit;
-                near = fminf(near, k.t[c]);
+                for (int j = 0; j < R; ++j)
+                    tally(bvh::test_line<!SHARED>(r[j], planes[j],
+                                                  lines + 8 * l, inf),
+                          hits[j], near[j]);
+        } else {
+            // each ray's planes of lines l .. l + A - 1 (past the last
+            // line, the last)
+            float4 ring[A][R][8];
+            // test_line's plane offsets into line_planes' registers
+            const bvh::Planes in_order{0, 1, 2};
+            // ray j's test of the ring's first line, the ring moved up one
+            // line with `next` last
+            const auto ring_step = [&](int j, const float4(&next)[8]) {
+                float4 q[8];
+#pragma unroll
+                for (int c = 0; c < 8; ++c) {
+                    q[c] = ring[0][j][c];
+#pragma unroll
+                    for (int p = 0; p + 1 < A; ++p)
+                        ring[p][j][c] = ring[p + 1][j][c];
+                    ring[A - 1][j][c] = next[c];
+                }
+                tally(bvh::test_line<false>(r[j], in_order, q, inf),
+                      hits[j], near[j]);
+            };
+            // line l + A's planes in flight while line l is tested, read
+            // through plane pointers that move a line a turn (so that the
+            // unrolled turns' loads take immediate offsets)
+            const float4* ahead[R][6];
+#pragma unroll
+            for (int j = 0; j < R; ++j) {
+#pragma unroll
+                for (int p = 0; p < A; ++p)
+                    line_planes<SHARED>(plane[j], min(l_begin + p, l_end - 1),
+                                        ring[p][j]);
+#pragma unroll
+                for (int c = 0; c < 6; ++c)
+                    ahead[j][c] = plane[j][c] + 8 * (l_begin + A);
             }
+            int l = l_begin;
+#pragma unroll 2
+            for (; l < l_end - A; ++l)
+#pragma unroll
+                for (int j = 0; j < R; ++j) {
+                    float4 next[8];
+                    line_planes<SHARED>(ahead[j], 0, next);
+#pragma unroll
+                    for (int c = 0; c < 6; ++c) ahead[j][c] += 8;
+                    ring_step(j, next);
+                }
+            // the last A lines, in the ring already
+            for (; l < l_end; ++l)
+#pragma unroll
+                for (int j = 0; j < R; ++j) ring_step(j, ring[A - 1][j]);
         }
     }
-    a.near[i] = near;
-    a.hits[i] = hits;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+        const int i = first + j * T;
+        if (i < a.n_rays) {
+            a.near[i] = near[j];
+            a.hits[i] = hits[j];
+        }
+    }
 }
 
 template <bool SHARED>
@@ -241,8 +391,10 @@ int launch_boxes(const BoxArgs& a, cudaStream_t stream) {
             (int)smem);
         if (err != cudaSuccess) return (int)err;
     }
-    const int grid = (a.n_rays + BLOCK - 1) / BLOCK;
-    box_kernel<SHARED><<<grid, BLOCK, smem, stream>>>(a);
+    constexpr int T = BoxTune<SHARED>::THREADS;
+    constexpr int RAYS = T * BoxTune<SHARED>::RAYS;
+    const int grid = (a.n_rays + RAYS - 1) / RAYS;
+    box_kernel<SHARED><<<grid, T, smem, stream>>>(a);
     return (int)cudaGetLastError();
 }
 
@@ -261,24 +413,38 @@ int launch(const SweepArgs& a, cudaStream_t stream) {
     return (int)cudaGetLastError();
 }
 
-// info <- threads a block, faces ahead and resident blocks an SM of the
-// instantiation over n_faces faces.
-template <bool SHARED>
-int launch_info(int n_faces, int* info) {
-    const size_t smem = SHARED ? (size_t)n_faces * 3 * sizeof(float4) : 0;
+// *blocks <- resident blocks an SM of kernel at threads a block and smem
+// bytes of dynamic shared memory (those of a shared instantiation set).
+template <class Args>
+int resident_blocks(void (*kernel)(Args), bool shared, size_t smem,
+                    int threads, int* blocks) {
     cudaError_t err = cudaSuccess;
-    if constexpr (SHARED)
+    if (shared)
         err = cudaFuncSetAttribute(
-            sweep_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
-    int blocks = 0;
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &blocks, sweep_kernel<SHARED>, Tune<SHARED>::THREADS, smem);
-    info[0] = Tune<SHARED>::THREADS;
-    info[1] = Tune<SHARED>::AHEAD;
-    info[2] = blocks;
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                            threads, smem);
     return (int)err;
+}
+
+// info <- threads a block, faces (lines) ahead, rays a thread and resident
+// blocks an SM of the face (box) instantiation over n faces (lines).
+template <bool SHARED, bool BOXES>
+int launch_info(int n, int* info) {
+    using Tn = std::conditional_t<BOXES, BoxTune<SHARED>, Tune<SHARED>>;
+    info[0] = Tn::THREADS;
+    info[1] = Tn::AHEAD;
+    info[2] = BOXES ? BoxTune<SHARED>::RAYS : 1;
+    info[3] = 0;
+    if constexpr (BOXES)
+        return resident_blocks(box_kernel<SHARED>, SHARED,
+                               SHARED ? (size_t)n * 8 * sizeof(float4) : 0,
+                               Tn::THREADS, info + 3);
+    else
+        return resident_blocks(sweep_kernel<SHARED>, SHARED,
+                               SHARED ? (size_t)n * 3 * sizeof(float4) : 0,
+                               Tn::THREADS, info + 3);
 }
 
 }  // namespace
@@ -293,9 +459,12 @@ extern "C" int sweep_global(const SweepArgs* args, void* stream) {
     return launch<false>(*args, (cudaStream_t)stream);
 }
 
-extern "C" int sweep_launch_info(int shared, int n_faces, int* info) {
-    return shared ? launch_info<true>(n_faces, info)
-                  : launch_info<false>(n_faces, info);
+extern "C" int sweep_launch_info(int shared, int boxes, int n, int* info) {
+    if (boxes)
+        return shared ? launch_info<true, true>(n, info)
+                      : launch_info<false, true>(n, info);
+    return shared ? launch_info<true, false>(n, info)
+                  : launch_info<false, false>(n, info);
 }
 
 extern "C" int boxes_shared(const BoxArgs* args, void* stream) {

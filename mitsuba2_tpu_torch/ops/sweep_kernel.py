@@ -19,8 +19,8 @@ hit (int32).
 
 Two instantiations: ``shared=True`` stages the table in shared memory (at
 most MAX_SHARED_FACES faces), ``shared=False`` reads it from device memory
-through the read-only path, a thread a ray (``launch_info`` gives the
-instantiation's geometry). For
+through the read-only path (``launch_info`` gives each instantiation's
+geometry: threads a block, rows loaded ahead, rays a thread). For
 tensors on a CUDA device each call launches the kernel; for tensors on the
 CPU it runs ``sweep_reference``. A build or launch failure raises.
 
@@ -269,22 +269,24 @@ def reset_launch_counts():
 
 
 # what ``launch_info`` returns, in csrc/sweep_kernel.cu's order
-LAUNCH_INFO = ("threads", "faces_ahead", "blocks_per_sm")
+LAUNCH_INFO = ("threads", "ahead", "rays_per_thread", "blocks_per_sm")
 
 
-def launch_info(shared, n_faces):
-    """{LAUNCH_INFO name: value} of a face instantiation over ``n_faces``
-    faces on the current CUDA device: threads a block, how many faces ahead
-    of its test a face's rows are loaded, and resident blocks an SM."""
+def launch_info(shared, n, boxes=False):
+    """{LAUNCH_INFO name: value} of a face (``boxes``: box) instantiation
+    over ``n`` faces (lines) on the current CUDA device: threads a block,
+    how many faces (lines) ahead of its test a face's rows (a line's
+    planes) are loaded, rays a thread and resident blocks an SM."""
     from .build import load
     fn = load("sweep_kernel").sweep_launch_info
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     info = (ctypes.c_int * len(LAUNCH_INFO))()
-    err = fn(int(shared), n_faces, info)
+    err = fn(int(shared), int(boxes), n, info)
     if err != 0:
-        raise RuntimeError(f"{kernel_name(shared)} launch info: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"{kernel_name(shared, boxes)} launch info: CUDA "
+                           f"error {err}")
     return dict(zip(LAUNCH_INFO, info))
 
 

@@ -23,8 +23,10 @@ the shared instances), and with ``--against`` names the entries the other
 build lacks. ``--sweep`` prints, for both face instantiations of
 csrc/sweep_kernel.cu's library (the face-test ceiling), the face loop's
 instructions a pair by ``SWEEP_KINDS`` (a pair's division check, FCHK,
-counts the pairs a turn of the loop) and the issue floor they set against
-the FLOP bound; with ``--against`` the same for the other build's, and
+counts the pairs a turn of the loop), for both box instantiations (the
+box-test ceiling) the box loop's instructions a box test by ``BOX_KINDS``
+(six FMUL count a box test), and the issue floor each sets against the
+FLOP bound; with ``--against`` the same for the other build's, and
 whether each face and box instantiation keeps that build's machine code.
 ``--against DIR`` (another
 checkout's ``mitsuba2_tpu_torch/_build``, its libraries built) compares
@@ -67,10 +69,15 @@ KINDS = (("mufu", ("MUFU",)),
                       "UIADD", "UIMAD", "ULOP", "USHF", "ISCADD", "IMUL")))
 
 
+def opcode(text):
+    """The opcode of one instruction, its predicate aside."""
+    return re.sub(r"^@!?U?P\w+\s+", "", text).split(" ", 1)[0]
+
+
 def kind(text):
     """The kind of one instruction (predicate aside), 'other' if none."""
-    op = re.sub(r"^@!?U?P\w+\s+", "", text).split(" ", 1)[0]
-    return next((k for k, ops in KINDS if op.startswith(ops)), "other")
+    return next((k for k, ops in KINDS if opcode(text).startswith(ops)),
+                "other")
 
 
 def functions(sass, kernel="path_kernel"):
@@ -179,9 +186,8 @@ SWEEP_KINDS = (("fp32", ("FFMA", "FMUL", "FADD", "MUFU")),
 
 
 def sweep_kind(text):
-    op = re.sub(r"^@!?U?P\w+\s+", "", text).split(" ", 1)[0]
-    return next((k for k, ops in SWEEP_KINDS if op.startswith(ops)),
-                "other")
+    return next((k for k, ops in SWEEP_KINDS
+                 if opcode(text).startswith(ops)), "other")
 
 
 def sweep_functions(sass):
@@ -237,6 +243,59 @@ def print_face_loops(name, ins, pair_slots):
                        f"the bound's {pair_slots:g}: at most "
                        f"{100 * pair_slots * pairs / n:.2f}% of bound"
                        if i == 0 else ""), flush=True)
+
+
+# the box sweep's instructions by kind (the first that matches)
+BOX_KINDS = (("fp32", ("FFMA", "FMUL", "FADD")),
+             ("load", ("LDS", "LDG", "LD.", "LDC", "ULDC")),
+             ("min/max", ("FMNMX", "IMNMX", "VIMNMX")),
+             ("compare and select", ("FSETP", "ISETP", "FSEL", "SEL",
+                                     "PLOP3", "FSET", "P2R", "R2P")),
+             ("integer", KINDS[3][1] + ("VIADD",)),
+             ("branch", ("BRA", "CALL", "BSSY", "BSYNC", "RET", "EXIT")))
+
+
+def box_kind(text):
+    return next((k for k, ops in BOX_KINDS if opcode(text).startswith(ops)),
+                "other")
+
+
+def box_loops(ins):
+    """[(start, end, instructions, boxes, {kind: count})] of the innermost
+    loops of a box instantiation that test boxes (a box test six FMUL: the
+    slab's three near and three far products), the main loop (the most
+    boxes a turn) first."""
+    found = [(s, e) for s, e, *_ in loops(ins, 0)
+             if any(opcode(t).startswith("FMUL")
+                    for a, t in ins if s <= a <= e)]
+    inner = [(s, e) for s, e in found
+             if not any((s, e) != o and s <= o[0] and o[1] <= e
+                        for o in found)]
+    out = []
+    for s, e in inner:
+        body = [t for a, t in ins if s <= a <= e]
+        kinds = {k: 0 for k, _ in BOX_KINDS}
+        kinds["other"] = 0
+        for t in body:
+            kinds[box_kind(t)] += 1
+        fmul = sum(opcode(t).startswith("FMUL") for t in body)
+        out.append((s, e, len(body), fmul // 6, kinds))
+    return sorted(out, key=lambda x: -x[3])
+
+
+def print_box_loops(name, ins, box_slots):
+    """Each box-testing loop's instructions a box test by kind, and for the
+    main loop the share of the FLOP bound its issue allows (``box_slots``:
+    the bound's issue slots a box test, its FLOPs over 2)."""
+    for i, (s, e, n, boxes, kinds) in enumerate(box_loops(ins)):
+        print(f"  {name} {'main' if i == 0 else 'other'} loop {s:#x}-{e:#x}: "
+              f"{n} instructions, {boxes:g} box tests, {n / boxes:.2f} a "
+              "box (" + ", ".join(f"{k} {v / boxes:.2f}"
+                                  for k, v in kinds.items()) + ")"
+              + (f"; issue floor {n / boxes:.2f} slots a box against the "
+                 f"bound's {box_slots:g}: at most "
+                 f"{100 * box_slots * boxes / n:.2f}% of bound"
+                 if i == 0 else ""), flush=True)
 
 
 def print_loops(name, ins):
@@ -331,7 +390,8 @@ def main(argv=None):
     ap.add_argument("--isect", action="store_true",
                     help="the intersection kernel's entries")
     ap.add_argument("--sweep", action="store_true",
-                    help="the face sweep's loop, instructions a pair")
+                    help="the face and box sweeps' loops, instructions a "
+                    "pair and a box test")
     ap.add_argument("--against", default="",
                     help="another checkout's _build directory")
     args = ap.parse_args(argv)
@@ -433,6 +493,7 @@ def main(argv=None):
     if args.sweep:
         from ..core import profiler as prof
         slots = prof.SWEEP_PAIR_FLOPS / 2
+        box_slots = prof.BOX_FLOPS / 2
         funcs = sweep_functions(sass(build.library_path("sweep_kernel")))
         others = [p for p in Path(args.against).glob("sweep_kernel-*.so")
                   if ".tmp." not in p.name] if args.against else []
@@ -442,11 +503,11 @@ def main(argv=None):
             print(f"sweep_kernel: no library in {args.against}")
         for name, ins in sorted(funcs.items()):
             print(f"{name}: {len(ins)} instructions", flush=True)
-            if "boxes" not in name:
-                print_face_loops("this build's", ins, slots)
-                if name in theirs:
-                    print_face_loops("the other build's", theirs[name], slots)
+            show = print_box_loops if "boxes" in name else print_face_loops
+            per = box_slots if "boxes" in name else slots
+            show("this build's", ins, per)
             if name in theirs:
+                show("the other build's", theirs[name], per)
                 same = [t for _, t in ins] == [t for _, t in theirs[name]]
                 state = "the same machine code" if same else "differs"
                 print(f"{name}: {state} against {others[0].name}",

@@ -2,7 +2,8 @@
 slab test of the BVH walk cost on it.
 
     python -m mitsuba2_tpu_torch.tools.shape_ceiling [--chunks 16] \
-        [--iters 64] [--tiles 64] [--save DIR] [--compare DIR]
+        [--iters 64] [--tiles 64] [--boxes] [--readings 1] [--save DIR] \
+        [--compare DIR]
     PYTHONPATH=<checkout> python mitsuba2_tpu_torch/tools/shape_ceiling.py
 
 Counterpart of benchmarks/mxu_shape_ceiling.py, which measures the rate
@@ -39,26 +40,32 @@ and as a share of the 67 TFLOP/s fp32 peak; and the library call beside
 it: ``torch.matmul`` of the same (3 x 2,048, 4) @ (4, 2 x 2,048)
 product, one tile of 2,048 rays and 2,048 faces a call, with TF32 off.
 The library computes the product only, not the closest hit. With each
-face instantiation it prints its registers and spills (ptxas -v, from the
-build's log) and, where the package has ``launch_info``, its threads a
-block, faces ahead and resident blocks an SM.
+instantiation it prints its registers and spills (ptxas -v, from the
+build's log) and, where the package has ``launch_info`` for it, its
+threads a block, faces or lines ahead, rays a thread and resident blocks
+an SM.
 
-``--save DIR`` writes the face instantiations' outputs (t, uv, prim, hits)
-to ``DIR/<case>.pt``: the last timed call's at the default shapes
-("shared", "global") and one call's at tests/test_torch_sweep.py's ragged
-shapes ("shared_ragged": 2,048 faces x 4,099 rays x 5 iterations,
-"global_ragged": 20,011 faces x 1,027 rays x 2), each ragged case launched
-twice, which must agree bit for bit; ``--compare DIR`` holds each case
-against the one saved there (by another checkout) bit for bit and exits
-non-zero on any difference. The tool imports the package
-``mitsuba2_tpu_torch`` from the Python path: run as a file with
-``PYTHONPATH`` set to another checkout, it times and saves that
-checkout's kernels (two commits in one call on one card). Prints the
+``--save DIR`` writes each instantiation's outputs (t, uv, prim, hits of
+the faces; near, hits of the boxes) to ``DIR/<case>.pt``: the last timed
+call's at the default shapes ("shared", "global", "box_shared",
+"box_global") and one call's at tests/test_torch_sweep.py's ragged shapes
+("shared_ragged": 2,048 faces x 4,099 rays x 5 iterations,
+"global_ragged": 20,011 faces x 1,027 rays x 2, "box_shared_ragged":
+1,023 lines x 4,099 rays x 3, "box_global_ragged": 8,191 lines x 1,027
+rays x 1), each ragged case launched twice, which must agree bit for bit;
+``--compare DIR`` holds each case against the one saved there (by another
+checkout) bit for bit and exits non-zero on any difference. ``--boxes``
+times and saves the box instantiations alone; ``--readings N`` times each
+instantiation N times in turn (the last reading's outputs are saved). The
+tool imports the package ``mitsuba2_tpu_torch`` from the Python path: run
+as a file with ``PYTHONPATH`` set to another checkout, it times and saves
+that checkout's kernels (two commits in one call on one card). Prints the
 card's name and power limit and the package's path first. Exits non-zero
 without a CUDA device.
 """
 
 import argparse
+import inspect
 import re
 import statistics
 import subprocess
@@ -81,10 +88,14 @@ LIBRARY_FACES = 16 * C
 # each, iterations of the shared one
 BOX_SHARED_LINES, BOX_GLOBAL_LINES = 1024, 24_576
 BOX_SHARED_TILES, BOX_GLOBAL_TILES, BOX_SHARED_ITERS = 64, 32, 16
-# tests/test_torch_sweep.py's ragged shapes: (faces, rays, iterations) of
-# the shared and the global instantiation
-RAGGED = {"shared_ragged": (True, 2048, 4099, 5),
-          "global_ragged": (False, 20011, 1027, 2)}
+# tests/test_torch_sweep.py's ragged shapes: (shared, boxes, faces or
+# lines, rays, iterations) of each instantiation, the line counts ragged
+# against the box loop's unroll and lines ahead, the ray counts against a
+# block and its rays a thread
+RAGGED = {"shared_ragged": (True, False, 2048, 4099, 5),
+          "global_ragged": (False, False, 20011, 1027, 2),
+          "box_shared_ragged": (True, True, 1023, 4099, 3),
+          "box_global_ragged": (False, True, 8191, 1027, 1)}
 
 
 def inputs(n_faces, n_rays, device, seed=SEED):
@@ -97,14 +108,14 @@ def inputs(n_faces, n_rays, device, seed=SEED):
 
 
 def sweep_ptxas(build_log):
-    """-> {shared: 'N registers; ... spill ...'} of the face
+    """-> {kernel name: 'N registers; ... spill ...'} of the face and box
     instantiations, from the compiler's -Xptxas=-v output of the sweep
     library (its ``.log``)."""
     out, inst = {}, None
     for line in build_log.splitlines():
         m = re.search(r"(sweep|box)_kernelILb([01])E", line)
         if m:
-            inst = bool(int(m.group(2))) if m.group(1) == "sweep" else None
+            inst = sk.kernel_name(m.group(2) == "1", m.group(1) == "box")
         if inst is None:
             continue
         if "spill" in line:
@@ -132,6 +143,27 @@ def box_inputs(n_lines, n_rays, device, seed=SEED):
     return torch.as_tensor(lines, device=device), o, d
 
 
+def build_info(shared, boxes, n):
+    """'ptxas ...; launch ...' of one instantiation over ``n`` faces or
+    lines: its registers and spills from the build's log, and its
+    ``launch_info`` where the package has one for it."""
+    name = sk.kernel_name(shared, boxes)
+    log_path = build.library_path("sweep_kernel").with_suffix(".log")
+    ptxas = sweep_ptxas(log_path.read_text()).get(name) \
+        if log_path.exists() else None
+    # a checkout from before launch_info ran a thread a ray, one from
+    # before its boxes argument a block of 256 threads a ray each
+    if not hasattr(sk, "launch_info"):
+        info = "no launch_info in this checkout"
+    elif "boxes" in inspect.signature(sk.launch_info).parameters:
+        info = sk.launch_info(shared, n, boxes=boxes)
+    elif not boxes:
+        info = sk.launch_info(shared, n)
+    else:
+        info = "no launch_info for it in this checkout"
+    return f"{name}: ptxas {ptxas}; launch {info}"
+
+
 def measure_boxes(shared, n_lines, n_rays, iters, runs=RUNS, log=print):
     """One box instantiation at one shape -> dict of its numbers, as
     ``measure``'s."""
@@ -147,6 +179,7 @@ def measure_boxes(shared, n_lines, n_rays, iters, runs=RUNS, log=print):
                           out_bytes=prof.BOX_RAY_OUT_BYTES,
                           in_bytes=prof.SWEEP_RAY_IN_BYTES)
     name = sk.kernel_name(shared, boxes=True)
+    log(build_info(shared, True, n_lines))
     # the TPU walk whose box tests it prices (the TPU repo has no box
     # probe)
     r = {"name": name, "boxes": WIDTH * n_lines, "rays": n_rays,
@@ -203,13 +236,7 @@ def measure(shared, n_faces, n_rays, iters, runs=RUNS, log=print):
                           out_bytes=prof.SWEEP_RAY_OUT_BYTES,
                           in_bytes=prof.SWEEP_RAY_IN_BYTES)
     name = sk.kernel_name(shared)
-    log_path = build.library_path("sweep_kernel").with_suffix(".log")
-    ptxas = sweep_ptxas(log_path.read_text()).get(shared) \
-        if log_path.exists() else None
-    # a checkout from before launch_info ran a thread a ray
-    info = sk.launch_info(shared, n_faces) \
-        if hasattr(sk, "launch_info") else "no launch_info in this checkout"
-    log(f"{name}: ptxas {ptxas}; launch {info}")
+    log(build_info(shared, False, n_faces))
     r = {"name": name, "faces": n_faces, "rays": n_rays, "iters": iters,
          "replaces": "benchmarks/mxu_shape_ceiling.py:44",
          "ms": ms, "tests_per_s": pairs / (ms / 1e3), "library_ms": lib_ms,
@@ -235,30 +262,39 @@ def measure(shared, n_faces, n_rays, iters, runs=RUNS, log=print):
 
 
 def run(chunks=16, iters=64, tiles=64, global_iters=1, runs=RUNS,
-        log=print):
-    """The four instantiations at their shapes -> {'shared': numbers,
-    'global': numbers, 'box_shared': ..., 'box_global': ...}
-    (``measure``, ``measure_boxes``)."""
-    return {"shared": measure(True, chunks * C, tiles * R, iters, runs, log),
-            "global": measure(False, GLOBAL_FACES, GLOBAL_TILES * R,
-                              global_iters, runs, log),
-            "box_shared": measure_boxes(True, BOX_SHARED_LINES,
-                                        BOX_SHARED_TILES * R,
-                                        BOX_SHARED_ITERS, runs, log),
-            "box_global": measure_boxes(False, BOX_GLOBAL_LINES,
-                                        BOX_GLOBAL_TILES * R, 1, runs, log)}
+        log=print, faces=True):
+    """The four instantiations at their shapes (without ``faces`` the box
+    ones alone) -> {'shared': numbers, 'global': numbers, 'box_shared':
+    ..., 'box_global': ...} (``measure``, ``measure_boxes``)."""
+    res = {"shared": measure(True, chunks * C, tiles * R, iters, runs, log),
+           "global": measure(False, GLOBAL_FACES, GLOBAL_TILES * R,
+                             global_iters, runs, log)} if faces else {}
+    res["box_shared"] = measure_boxes(True, BOX_SHARED_LINES,
+                                      BOX_SHARED_TILES * R, BOX_SHARED_ITERS,
+                                      runs, log)
+    res["box_global"] = measure_boxes(False, BOX_GLOBAL_LINES,
+                                      BOX_GLOBAL_TILES * R, 1, runs, log)
+    return res
 
 
-def ragged_outputs(log=print):
-    """{case: outputs} of the face instantiations at ``RAGGED``'s shapes,
-    each launched twice; raises if the two launches differ."""
+def ragged_outputs(log=print, faces=True):
+    """{case: outputs} of the instantiations at ``RAGGED``'s shapes (without
+    ``faces`` the box ones alone), each launched twice; raises if the two
+    launches differ."""
     out = {}
-    for case, (shared, n_faces, n_rays, iters) in RAGGED.items():
-        woop, o, d = inputs(n_faces, n_rays, "cuda", seed=10)
-        got = sk.sweep(woop, o, d, iters, shared)
-        again = sk.sweep(woop, o, d, iters, shared)
+    for case, (shared, boxes, n, n_rays, iters) in RAGGED.items():
+        if not (boxes or faces):
+            continue
+        if boxes:
+            table, o, d = box_inputs(n, n_rays, "cuda", seed=10)
+            fn, what = sk.box_sweep, "lines"
+        else:
+            table, o, d = inputs(n, n_rays, "cuda", seed=10)
+            fn, what = sk.sweep, "faces"
+        got = fn(table, o, d, iters, shared)
+        again = fn(table, o, d, iters, shared)
         same = all(torch.equal(bits(a), bits(b)) for a, b in zip(got, again))
-        log(f"{case}: {n_faces} faces x {n_rays} rays x {iters} iterations; "
+        log(f"{case}: {n} {what} x {n_rays} rays x {iters} iterations; "
             f"two launches bit-identical: {same}")
         if not same:
             raise SystemExit(f"{case}: two launches differ")
@@ -273,8 +309,9 @@ def bits(x):
 
 
 def save_or_compare(outputs, save="", against="", log=print):
-    """Each case's outputs (t, uv, prim, hits) written to ``save`` and
-    held bit for bit against ``against``'s -> whether all agree."""
+    """Each case's outputs (t, uv, prim, hits of the faces; near, hits of
+    the boxes) written to ``save`` and held bit for bit against
+    ``against``'s -> whether all agree."""
     ok = True
     for case, got in outputs.items():
         got = [x.cpu() for x in got]
@@ -287,9 +324,9 @@ def save_or_compare(outputs, save="", against="", log=print):
                     for a, b in zip(got, want)]
             differ = sum((bits(a) != bits(b)).reshape(len(a), -1).any(1)
                          for a, b in zip(got, want)) > 0
-            log(f"{case}: t, uv, prim, hits bit-identical to {against}: "
-                f"{same}; rays that differ {int(differ.sum())} of "
-                f"{len(differ)}")
+            what = "near, hits" if len(got) == 2 else "t, uv, prim, hits"
+            log(f"{case}: {what} bit-identical to {against}: {same}; rays "
+                f"that differ {int(differ.sum())} of {len(differ)}")
             ok = ok and all(same)
     return ok
 
@@ -302,10 +339,14 @@ def main(argv=None):
     ap.add_argument("--tiles", type=int, default=64,
                     help="ray tiles of 2048 for the shared table")
     ap.add_argument("--global-iters", type=int, default=1)
+    ap.add_argument("--boxes", action="store_true",
+                    help="the box ceilings alone")
+    ap.add_argument("--readings", type=int, default=1,
+                    help="times each instantiation is timed, in turn")
     ap.add_argument("--save", default="",
-                    help="directory to write the face outputs to")
+                    help="directory to write the outputs to")
     ap.add_argument("--compare", default="",
-                    help="directory of face outputs to hold these against")
+                    help="directory of outputs to hold these against")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("shape_ceiling: no CUDA device", file=sys.stderr)
@@ -316,11 +357,13 @@ def main(argv=None):
         check=True).stdout.strip().splitlines()[0] + f"; {sk.__file__}",
         flush=True)
     build.build_all(sk.libraries())
-    res = run(args.chunks, args.iters, args.tiles, args.global_iters)
+    for _ in range(args.readings):
+        res = run(args.chunks, args.iters, args.tiles, args.global_iters,
+                  faces=not args.boxes)
     if not (args.save or args.compare):
         return 0
-    outputs = {case: res[case]["outputs"] for case in ("shared", "global")}
-    outputs.update(ragged_outputs())
+    outputs = {case: r["outputs"] for case, r in res.items()}
+    outputs.update(ragged_outputs(faces=not args.boxes))
     return 0 if save_or_compare(outputs, args.save, args.compare) else 1
 
 

@@ -27,10 +27,8 @@ from mitsuba2_tpu_torch.core import (bbox as bbox_t, distr_1d as d1_t,
 from mitsuba2_tpu_torch.core.transform import (AnimatedTransform as AnimT,
                                                Transform as TT)
 from tests.test_torch_path_kernel import cpu_device_fixture
-from tests.test_torch_wavefront import one_thread_fixture
 
 _on_cpu = cpu_device_fixture()
-_one_thread = one_thread_fixture()
 
 TOL = 1e-6
 DIFF_TOL = 1e-5

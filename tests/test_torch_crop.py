@@ -19,11 +19,9 @@ import mitsuba2_tpu_torch as mt
 from mitsuba2_tpu_torch.python.test.scenes import cornell_box_dict
 from tests.test_torch_path_kernel import cpu_device_fixture
 from tests.test_torch_volpath_wavefront import jax_image, jax_trips, slab
-from tests.test_torch_wavefront import (cornell, jax_lanes,
-                                        one_thread_fixture, port_lanes)
+from tests.test_torch_wavefront import cornell, jax_lanes, port_lanes
 
 _on_cpu = cpu_device_fixture()
-_one_thread = one_thread_fixture()
 _jax_trips = jax_trips
 
 SEED = 3

@@ -14,11 +14,9 @@ from mitsuba2_tpu_torch.python.test.scenes import cornell_box_dict
 from tests.test_torch_path_kernel import cpu_device_fixture
 from tests.test_torch_volpath_wavefront import jax_trips  # noqa: F401
 from tests.test_torch_volpath_wavefront import slab, volpath_pair
-from tests.test_torch_wavefront import (cornell, one_thread_fixture,
-                                        render_pair)
+from tests.test_torch_wavefront import cornell, render_pair
 
 _on_cpu = cpu_device_fixture()
-_one_thread = one_thread_fixture()
 
 REASON = "double-precision variant"
 

@@ -19,10 +19,9 @@ from mitsuba2_tpu_torch.ops import path_kernel as pk
 from mitsuba2_tpu_torch.python.test.scenes import (_bumpy_sphere_obj_path,
                                                    instanced_spheres_dict)
 from tests.test_torch_path_kernel import cpu_device_fixture
-from tests.test_torch_wavefront import one_thread_fixture, render_pair
+from tests.test_torch_wavefront import render_pair
 
 _on_cpu = cpu_device_fixture()
-_one_thread = one_thread_fixture()
 
 SHARED = "shared-geometry instances (wavefront path only)"
 

@@ -12,10 +12,9 @@ from mitsuba2_tpu_torch.python.test import scenes as scenes_t
 from tests.test_torch_path_kernel import cpu_device_fixture
 from tests.test_torch_sensors import make_of
 from tests.test_torch_surface_plugins_render import card_against_cpu
-from tests.test_torch_wavefront import one_thread_fixture, render_pair
+from tests.test_torch_wavefront import render_pair
 
 _on_cpu = cpu_device_fixture()
-_one_thread = one_thread_fixture()
 
 REASON = "non-path integrator subclass"
 

@@ -430,17 +430,6 @@ def test_emulated_isect_kernel_matches_plain_version(emulated_isect,
         woop, o, d, mint, maxt))
 
 
-@pytest.fixture
-def one_thread():
-    """The test's torch ops on one CPU thread (restored afterwards): the
-    instance cases run many small ops, which torch's threads slow down
-    when the test workers share the machine's cores."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
-
-
 def instance_rows(placed):
     """[(group, Transform)] -> the instances' rows (I, 24) float32, as the
     scene packs them: to-group A, b, to-world B, group, shape 0, 0."""
@@ -540,7 +529,6 @@ def assert_inst_plain(inst, o, d, mint, maxt, got):
 
 @pytest.mark.parametrize("n_rays", [600, 257])
 def test_emulated_isect_instance_entries_match_plain_version(emulated_isect,
-                                                             one_thread,
                                                              n_rays):
     """K2's instance entries (csrc/intersect_kernel.cu) on 2 groups and 5
     instances against their plain version: t, uv and prims bit for bit,
@@ -709,7 +697,7 @@ INSTANCE_CASES = {"reversed_depth": reversed_depth_case,
 
 @pytest.mark.parametrize("case", list(INSTANCE_CASES))
 def test_emulated_isect_instance_cases_match_plain_version(emulated_isect,
-                                                           one_thread, case):
+                                                           case):
     """Both instance entries, a two-level walk (the top tree over the
     instances' world boxes, nearest first), bit for bit against their
     plain version, which takes the instances in index order: index order
@@ -765,7 +753,7 @@ def test_emulated_isect_instance_cases_match_plain_version(emulated_isect,
 
 
 @pytest.mark.parametrize("case", ["groups"] + list(INSTANCE_CASES))
-def test_instance_boxes_and_top_tree(one_thread, case):
+def test_instance_boxes_and_top_tree(case):
     """Every instance's world box (ops/intersect_kernel.py
     ``instance_boxes``) holds all its group's vertices moved to world in
     float64 with room to spare; the top tree names each instance in
@@ -870,32 +858,59 @@ def emulated_sweep(tmp_path_factory):
     return ctypes.CDLL(str(out))
 
 
-def test_emulated_box_kernel_matches_plain_version(emulated_sweep):
+def box_geometry():
+    """{instantiation ('true': shared, 'false': global): (threads a block,
+    lines ahead, rays a thread)} of csrc/sweep_kernel.cu's ``BoxTune``
+    lines."""
+    src = (build.CSRC / "sweep_kernel.cu").read_text()
+    found = re.findall(
+        r"struct BoxTune<(true|false)> \{\s*static constexpr int THREADS = "
+        r"(\d+), AHEAD = (\d+), RAYS = (\d+)", src)
+    assert {k for k, *_ in found} == {"true", "false"}, found
+    return {k: tuple(int(x) for x in v) for k, *v in found}
+
+
+@pytest.mark.parametrize("n_lines", [37, 1])
+def test_emulated_box_kernel_matches_plain_version(emulated_sweep, n_lines):
     """The box-test ceiling (csrc/sweep_kernel.cu box_kernel, the walk's
     ``test_line``: each axis's near and far planes read by the ray's
     direction) against its plain version (per-axis minima and maxima),
-    bit for bit, in both instantiations, with the ray count ragged."""
+    bit for bit, in both instantiations, 3 iterations: the line count
+    ragged against the loop's unroll of 2 and the lines ahead (one line:
+    every line ahead past the last), the ray count against a block's rays
+    (threads times rays a thread), outputs prefilled with NaN and -1, and
+    two runs bit-identical."""
     from mitsuba2_tpu_torch.ops import sweep_kernel as sk
     from mitsuba2_tpu_torch.tools import shape_ceiling as sc
-    lib = emulated_sweep
-    lines, o, d = sc.box_inputs(24, 300, "cpu", seed=4)
-    # some rays along an axis: the guarded inverse on both signs
-    d[:8] = torch.tensor([[1.0, 0, 0], [-1.0, 0, 0], [0, 1.0, 0],
-                          [0, -1.0, 0], [0, 0, 1.0], [0, 0, -1.0],
-                          [-1e-13, 1.0, 0], [1e-13, 0, -1.0]])
-    want = sk.box_sweep_reference(lines, o, d, 3)
-    for entry in ("boxes_shared", "boxes_global"):
-        fn = getattr(lib, entry)
+    iters = 3
+    for entry, key in (("boxes_shared", "true"), ("boxes_global", "false")):
+        threads, _, rays = box_geometry()[key]
+        block = threads * rays
+        n = block + block // 3 + 7
+        lines, o, d = sc.box_inputs(n_lines, n, "cpu", seed=4)
+        # some rays along an axis: the guarded inverse on both signs
+        d[:8] = torch.tensor([[1.0, 0, 0], [-1.0, 0, 0], [0, 1.0, 0],
+                              [0, -1.0, 0], [0, 0, 1.0], [0, 0, -1.0],
+                              [-1e-13, 1.0, 0], [1e-13, 0, -1.0]])
+        want = sk.box_sweep_reference(lines, o, d, iters)
+        fn = getattr(emulated_sweep, entry)
         fn.argtypes = [ctypes.POINTER(sk._BoxArgs), ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        near = torch.full((300,), float("nan"))
-        hits = torch.full((300,), -1, dtype=torch.int32)
-        args = sk._BoxArgs(*(x.data_ptr() for x in (lines, o, d, near, hits)),
-                           24, 300, 3, sk.MINT_STEP)
-        assert fn(ctypes.byref(args), None) == 0
-        assert torch.equal(hits, want[1]), entry
-        assert torch.equal(near.view(torch.int32), want[0].view(torch.int32))
-    assert bool(torch.isfinite(want[0]).any()) and int(want[1].sum()) > 0
+        runs = []
+        for _ in range(2):
+            near = torch.full((n,), float("nan"))
+            hits = torch.full((n,), -1, dtype=torch.int32)
+            args = sk._BoxArgs(*(x.data_ptr() for x in (lines, o, d, near,
+                                                        hits)),
+                               n_lines, n, iters, sk.MINT_STEP)
+            assert fn(ctypes.byref(args), None) == 0
+            runs.append((near.view(torch.int32), hits))
+        for a, b in zip(*runs):
+            assert torch.equal(a, b), entry
+        assert torch.equal(runs[0][1], want[1]), entry
+        assert torch.equal(runs[0][0], want[0].view(torch.int32)), entry
+        assert bool(torch.isfinite(want[0]).any()) and int(want[1].sum()) > 0
+        assert bool((want[1] == 0).any()), entry
 
 
 def numpy_face_sweep(woop, o, d, iters):

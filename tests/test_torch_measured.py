@@ -26,12 +26,10 @@ from mitsuba2_tpu_torch.python.test.scenes import (kaist_pbrdf_path,
 from tests.test_torch_path_kernel import cpu_device_fixture
 from tests.test_torch_polarized_bsdfs import matrices_close
 from tests.test_torch_surface_plugins import N, surface_records, variant
-from tests.test_torch_wavefront import one_thread_fixture
 from tests.test_torch_wavefront_modules import (T, close_lanes, hemisphere,
                                                 rng)
 
 _on_cpu = cpu_device_fixture()
-_one_thread = one_thread_fixture()
 _variant = variant
 
 

@@ -15,10 +15,9 @@ from mitsuba2_tpu_torch.python.test.scenes import BACK_WALL_COLORS
 from mitsuba2_tpu_torch.render.scene import Scene
 from tests.test_torch_path_kernel import cpu_device_fixture
 from tests.test_torch_sensors import make_of
-from tests.test_torch_wavefront import one_thread_fixture, render_pair
+from tests.test_torch_wavefront import render_pair
 
 _on_cpu = cpu_device_fixture()
-_one_thread = one_thread_fixture()
 
 
 def _quad_scene(pkg, attr_name="vertex_color", k=3):

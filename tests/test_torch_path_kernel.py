@@ -30,13 +30,19 @@ PIX_RTOL, PIX_SHARE, MEAN_RTOL = 1e-4, 0.99, 1e-5
 
 def cpu_device_fixture():
     """A module-scoped autouse fixture that loads this module's scenes on
-    the CPU (the port's default device is ``cuda``) and restores the
-    previous device afterwards. Each test_torch_*.py module binds one."""
+    the CPU (the port's default device is ``cuda``) and runs its torch ops
+    on one CPU thread, restoring both afterwards. Each test_torch_*.py
+    module binds one. One thread: the test workers share the machine's
+    cores, and torch's default of a thread per core in every worker
+    oversubscribes them; the tests' tensors are too small for the threads
+    to pay."""
     @pytest.fixture(scope="module", autouse=True)
     def _on_cpu():
-        prev = mt.device()
+        prev, threads = mt.device(), torch.get_num_threads()
         mt.set_device("cpu")
+        torch.set_num_threads(1)
         yield
+        torch.set_num_threads(threads)
         mt.set_device(prev)
     return _on_cpu
 

@@ -19,12 +19,10 @@ import torch
 from tests.test_torch_path_kernel import cpu_device_fixture
 from tests.test_torch_surface_plugins import (N, VARIANTS, load_both,
                                               surface_records, variant)
-from tests.test_torch_wavefront import one_thread_fixture
 from tests.test_torch_wavefront_modules import (T, close, close_lanes,
                                                 hemisphere, rng)
 
 _on_cpu = cpu_device_fixture()
-_one_thread = one_thread_fixture()
 _variant = variant
 
 

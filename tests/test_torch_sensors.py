@@ -11,10 +11,9 @@ import torch
 import mitsuba2_tpu_torch as mt
 from mitsuba2_tpu_torch.python.test import scenes as scenes_t
 from tests.test_torch_path_kernel import cpu_device_fixture
-from tests.test_torch_wavefront import one_thread_fixture, render_pair
+from tests.test_torch_wavefront import render_pair
 
 _on_cpu = cpu_device_fixture()
-_one_thread = one_thread_fixture()
 
 RTOL, ATOL = 1e-6, 1e-6
 N = 512

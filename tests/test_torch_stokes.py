@@ -28,11 +28,9 @@ from tests.test_torch_path_kernel import cpu_device_fixture
 from tests.test_torch_sensors import make_of
 from tests.test_torch_surface_plugins_render import card_against_cpu
 from tests.test_torch_wavefront import (SEED, assert_wavefront_parity,
-                                        jax_lanes, one_thread_fixture,
-                                        port_lanes, render_pair)
+                                        jax_lanes, port_lanes, render_pair)
 
 _on_cpu = cpu_device_fixture()
-_one_thread = one_thread_fixture()
 
 REASON = "non-path integrator subclass"
 

@@ -26,12 +26,10 @@ import torch
 
 import mitsuba2_tpu_torch as mt
 from tests.test_torch_path_kernel import cpu_device_fixture
-from tests.test_torch_wavefront import one_thread_fixture
 from tests.test_torch_wavefront_modules import (T, close, close_lanes,
                                                 hemisphere, rng)
 
 _on_cpu = cpu_device_fixture()
-_one_thread = one_thread_fixture()
 
 VARIANTS = ["scalar_rgb", "scalar_spectral", "scalar_mono"]
 N = 2048

@@ -29,11 +29,9 @@ from tests.test_torch_path_kernel import cpu_device_fixture
 from tests.test_torch_volpath_wavefront import jax_image
 from tests.test_torch_wavefront import (SEED, assert_coplanar_ties,
                                         assert_wavefront_parity, jax_lanes,
-                                        lane_errors, one_thread_fixture,
-                                        port_lanes)
+                                        lane_errors, port_lanes)
 
 _on_cpu = cpu_device_fixture()
-_one_thread = one_thread_fixture()
 
 WIDTH, SPP, MAX_DEPTH = 16, 4, 6
 # the lanes of cornell_surfaces at WIDTH^2 x SPP, seed SEED, that part

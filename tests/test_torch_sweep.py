@@ -237,13 +237,16 @@ def test_box_wrapper_runs_plain_version_on_cpu():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shared", [True, False])
-def test_cuda_box_sweep_matches_plain_version(shared):
+@pytest.mark.parametrize("shared, L", [(True, 1024), (True, 1023),
+                                      (False, 8191), (False, 1)])
+def test_cuda_box_sweep_matches_plain_version(shared, L):
     """Each box instantiation on the card against its plain version, bit
-    for bit, at a ragged ray count."""
+    for bit, at a ragged ray count, the line count whole or ragged against
+    the loop's unroll and lines ahead (one line: every line ahead the
+    last)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    L, n, iters = (1024, 4099, 3) if shared else (8191, 1027, 1)
+    n, iters = (4099, 3) if shared else (1027, 1)
     lines, o, d = sc.box_inputs(L, n, "cuda", seed=12)
     name = sk.kernel_name(shared, boxes=True)
     before = sk.sweep.launches_by_kernel[name]

@@ -39,6 +39,9 @@ from mitsuba2_tpu_torch.python.chi2 import (ChiSquareTest, LineDomain,
 from mitsuba2_tpu_torch.render.spiral import Spiral
 from mitsuba2_tpu_torch.utils.bitmap import PIXEL_FORMATS, Bitmap
 from mitsuba2_tpu_torch import viewer
+from tests.test_torch_path_kernel import cpu_device_fixture
+
+_on_cpu = cpu_device_fixture()
 
 SAMPLES, RES = 80000, 21
 SRGB_TOL = dict(rtol=0.0, atol=2e-5)

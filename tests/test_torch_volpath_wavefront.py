@@ -38,10 +38,9 @@ import mitsuba2_tpu_torch as mt
 from tests.test_torch_path_kernel import cpu_device_fixture
 from tests.test_torch_wavefront import (assert_coplanar_ties,
                                         assert_wavefront_parity, jax_lanes,
-                                        one_thread_fixture, port_lanes)
+                                        port_lanes)
 
 _on_cpu = cpu_device_fixture()
-_one_thread = one_thread_fixture()
 
 SEED = 3
 # the gaussian film's footprint: 2 pixels around a sample's pixel

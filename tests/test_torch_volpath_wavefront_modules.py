@@ -21,10 +21,8 @@ import mitsuba2_tpu_torch as mt
 from mitsuba2_tpu_torch.core.ray import Ray
 from tests.test_torch_path_kernel import cpu_device_fixture
 from tests.test_torch_volpath_wavefront import SEED, slab
-from tests.test_torch_wavefront import one_thread_fixture
 
 _on_cpu = cpu_device_fixture()
-_one_thread = one_thread_fixture()
 
 
 def T(x):

@@ -13,10 +13,8 @@ import mitsuba2_tpu_torch as mt
 from tests.test_torch_path_kernel import cpu_device_fixture
 from tests.test_torch_volpath_wavefront import (jax_trips, slab,
                                                 volpath_pair)
-from tests.test_torch_wavefront import one_thread_fixture
 
 _on_cpu = cpu_device_fixture()
-_one_thread = one_thread_fixture()
 _jax_trips = jax_trips
 
 

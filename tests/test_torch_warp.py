@@ -23,9 +23,9 @@ from mitsuba2_tpu.core import warp as wj
 from mitsuba2_tpu_torch.core import warp as wt
 from mitsuba2_tpu_torch.python.chi2 import (ChiSquareTest, PlanarDomain,
                                             SphericalDomain)
-from tests.test_torch_wavefront import one_thread_fixture
+from tests.test_torch_path_kernel import cpu_device_fixture
 
-_one_thread = one_thread_fixture()
+_on_cpu = cpu_device_fixture()
 
 TOL = 1e-6
 # tests/test_warp.py's chi^2 settings

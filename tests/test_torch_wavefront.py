@@ -33,23 +33,6 @@ from tests.test_torch_path_kernel import cpu_device_fixture, pixel_errors
 _on_cpu = cpu_device_fixture()
 
 
-def one_thread_fixture():
-    """A module-scoped autouse fixture that runs the module's torch ops on
-    one CPU thread (restored afterwards): the test workers share the
-    machine's cores, and the renders here are too small for torch's
-    threads to pay (each op below torch's grain size runs on one thread
-    anyway, so no sum changes its order)."""
-    @pytest.fixture(scope="module", autouse=True)
-    def _one_thread():
-        prev = torch.get_num_threads()
-        torch.set_num_threads(1)
-        yield
-        torch.set_num_threads(prev)
-    return _one_thread
-
-
-_one_thread = one_thread_fixture()
-
 PIX_RTOL, PIX_SHARE, MEAN_RTOL = 1e-4, 0.99, 1e-5
 # a lane that took another branch than the reference's, or whose hit
 # points a chain of grazing bounces pulled apart, departs by more than

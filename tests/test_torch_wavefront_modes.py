@@ -8,11 +8,9 @@ import pytest
 
 import mitsuba2_tpu_torch as mt
 from tests.test_torch_path_kernel import cpu_device_fixture
-from tests.test_torch_wavefront import (cornell, matpreview,
-                                       one_thread_fixture, render_pair)
+from tests.test_torch_wavefront import cornell, matpreview, render_pair
 
 _on_cpu = cpu_device_fixture()
-_one_thread = one_thread_fixture()
 
 
 @pytest.mark.parametrize("variant,force", [("scalar_spectral", True),

@@ -14,10 +14,8 @@ import torch
 
 import mitsuba2_tpu_torch as mt
 from tests.test_torch_path_kernel import cpu_device_fixture
-from tests.test_torch_wavefront import one_thread_fixture
 
 _on_cpu = cpu_device_fixture()
-_one_thread = one_thread_fixture()
 
 RTOL, ATOL = 1e-5, 1e-6
 

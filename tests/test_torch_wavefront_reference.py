@@ -5,15 +5,12 @@ statistical check that does not lean on equal random numbers. A file of
 its own, so that the test workers run it beside the parity files."""
 
 import numpy as np
-import torch
 
 import mitsuba2_tpu_torch as mt
 from mitsuba2_tpu_torch.python.test.scenes import cornell_box_dict as cornell_t
 from tests.test_torch_path_kernel import cpu_device_fixture
-from tests.test_torch_wavefront import one_thread_fixture
 
 _on_cpu = cpu_device_fixture()
-_one_thread = one_thread_fixture()
 
 
 def test_cornell_wavefront_within_reference_tracer_bar():
