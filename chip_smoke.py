@@ -163,7 +163,20 @@ K1 to the wavefront and back, each render bit for bit a fresh load's;
 volpathmis leaves K3 the same way on a 32x32 crop; then the 16 new
 warps,
 ray differentials, uv partials and normal derivatives on the card
-against the CPU within 1e-5. Last comes
+against the CPU within 1e-5. The deep-tree phase (``run_deep_trees``)
+renders the trees the SAH build alone does not fit to the walk
+(ops/bvh.py ``traversal_bvh``): a clustered mesh (262,144 faces at
+log-uniform distances up to 1e4, whose SAH tree needs more than the
+walk's 48 stack entries) in biggeo's scene at 256x256, 32 spp, depth 5
+on the BVH tier, its lanes on every 93rd pixel against the plain version
+and K2's two entries bit for bit on 65,536 of its camera and light rays
+(``path_kernel[clustered_mesh]``, ``isect_closest[clustered_mesh]``,
+``isect_any[clustered_mesh]``); 4,096 shared instances at log-uniform
+distances on the path wavefront, K2's instance entries bit for bit on
+8,192 rays of its launches (``[instance_scatter]``); and 40 coincident
+faces under a constant emitter on the path wavefront, K2 bit for bit on
+its rays (``[coincident_faces]``); each with its stack bound beside the
+SAH tree's, its node reads a ray and its bound. Last comes
 the measurement path: the face-test and box-test ceilings through
 ``tools/shape_ceiling.py`` (the sweep kernel's shared-memory and global
 face instantiations beside ``torch.matmul`` of the same product, and its
@@ -737,16 +750,20 @@ def box_parity(name, got, want):
 
 
 def k2_entry(isx, name, fn, ref, tables, woop, trees, main, out_bytes,
-             launches, max_abs_err):
+             launches, max_abs_err, plain=None):
     """K2's entry ``name`` of the kernels line: the kernel timed on the ray
     set ``main`` (o, d, mint, maxt), its plain twin on ISECT_PARITY_RAYS
-    of them, and the bound from the binary walk's tests and reads over a
-    sample of them (walked on the host; the wide walk the kernel runs is
-    logged beside)."""
+    of them (or ``plain``, (ms, rays) of a call the caller timed on a
+    sample of them), and the bound from the binary walk's tests and reads
+    over a sample of them (walked on the host; the wide walk the kernel
+    runs is logged beside)."""
     n = main[0].shape[0]
-    sub = every_kth(main, ISECT_PARITY_RAYS)
     kernel_ms = timed(lambda: fn(tables, *main))[1]
-    plain_ms = timed(lambda: ref(woop, *sub), repeats=1, warm_up=False)[1]
+    if plain is None:
+        sub = every_kth(main, ISECT_PARITY_RAYS)
+        plain = (timed(lambda: ref(woop, *sub), repeats=1,
+                       warm_up=False)[1], len(sub[0]))
+    plain_ms, plain_rays = plain
     sample = [x.cpu() for x in every_kth(main, ISECT_COUNT_RAYS)]
     for label, walk in (
             ("binary walk (the bound's)", isx.traverse_pairs(
@@ -776,7 +793,7 @@ def k2_entry(isx, name, fn, ref, tables, woop, trees, main, out_bytes,
     log(f"{name}: kernel {kernel_ms:.4f} ms on {n} rays, bound "
         f"{bound_ms:.4f} ms ({bound_by}), "
         f"{100 * bound_ms / kernel_ms:.2f}% of bound; plain twin "
-        f"{plain_ms:.3f} ms on {len(sub[0])} rays")
+        f"{plain_ms:.3f} ms on {plain_rays} rays")
     return {
         "name": name, "route": "cuda",
         "source": "mitsuba2_tpu_torch/csrc/intersect_kernel.cu",
@@ -788,21 +805,32 @@ def k2_entry(isx, name, fn, ref, tables, woop, trees, main, out_bytes,
 
 def run_isect(mi, pk, ik, isx, scenes, big):
     """The scene's ray queries on biggeo (``big``, its ``PATHS`` row)
-    through the intersection kernel: ``Scene.ray_intersect_preliminary``
-    on the 2,097,152 camera rays of its 256^2 x 32 spp image and on as
-    many rays toward the light,
-    ``Scene.ray_test`` on the light rays; each entry point against its
-    plain twin on 65,536 rays of both sets, timed on 2,097,152 -> the two
-    entries of the kernels line."""
-    from mitsuba2_tpu_torch.core.ray import Ray
+    through the intersection kernel (``isect_queries``) -> the two entries
+    of the kernels line."""
     t_phase = time.perf_counter()
     mi.set_variant("scalar_rgb")
     scene = mi.load_dict(big.make(scenes)(big.width, big.width, big.spp,
                                           big.max_depth))
+    entries = isect_queries(pk, ik, isx, scene, "biggeo", big.width,
+                            big.spp)
+    log(f"ray queries: {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
+def isect_queries(pk, ik, isx, scene, label, width, spp, suffix="",
+                  parity_rays=ISECT_PARITY_RAYS):
+    """The ray queries on ``scene`` through the intersection kernel:
+    ``Scene.ray_intersect_preliminary`` on the camera rays of its width^2
+    x spp image and on as many rays toward the light, ``Scene.ray_test``
+    on the light rays; each entry point against its plain twin on
+    ``parity_rays`` rays of both sets (the twin's time that of the call
+    on its main set's), timed on all -> the two entries of the kernels
+    line, named "isect_closest" + ``suffix`` and so on."""
+    from mitsuba2_tpu_torch.core.ray import Ray
     tables = scene.tables
     cam_ray = Ray.make(*pk.camera_rays(
-        pk.camera_row(scene.sensors[0], scene.device), big.width, big.width,
-        big.spp, SEED))
+        pk.camera_row(scene.sensors[0], scene.device), width, width, spp,
+        SEED))
     n = cam_ray.o.shape[0]
 
     # ---- the queries through the user's entry points ----
@@ -829,7 +857,7 @@ def run_isect(mi, pk, ik, isx, scenes, big):
             (torch.isfinite(to_light.t) == occluded).all()):
         raise SystemExit(f"the ray queries are implausible: hits "
                          f"{hit_share}, occluded {occ_share}")
-    log(f"ray queries on biggeo ({F} faces): {n} camera rays, "
+    log(f"ray queries on {label} ({F} faces): {n} camera rays, "
         f"{hit_share:.4f} hit; {n} rays toward the light, {occ_share:.4f} "
         f"occluded; launches {launches}")
 
@@ -845,18 +873,21 @@ def run_isect(mi, pk, ik, isx, scenes, big):
              1)):
         errs = []
         for label, ray in (("camera", cam_ray), ("light", light_ray)):
-            sub = every_kth(ray, ISECT_PARITY_RAYS)
+            sub = every_kth(ray, parity_rays)
             got = fn(tables, *sub)
             torch.cuda.synchronize()
             log(f"  {name}, {label} rays:")
-            errs.append(isect_parity(name, got, ref(woop, *sub)))
+            want, plain_ms = timed(lambda: ref(woop, *sub), repeats=1,
+                                   warm_up=False)
+            errs.append(isect_parity(name, got, want))
+            if ray is main:
+                plain = (plain_ms, len(sub[0]))
             ms = timed(lambda: fn(tables, *ray))[1]
             log(f"    kernel on {n} rays: {ms:.4f} ms, "
                 f"{n / ms / 1e3:.3f} Mrays/s")
-        entries.append(k2_entry(isx, name, fn, ref, tables, woop, trees,
-                                tuple(main), out_bytes, launches[name],
-                                max(errs)))
-    log(f"ray queries: {time.perf_counter() - t_phase:.1f} s")
+        entries.append(k2_entry(isx, name + suffix, fn, ref, tables, woop,
+                                trees, tuple(main), out_bytes,
+                                launches[name], max(errs), plain=plain))
     return entries
 
 
@@ -2441,11 +2472,12 @@ def inst_entries(ik, isx, inst):
                  woops, inst.rows, *a), 1))
 
 
-def inst_k2_entries(ik, isx, scene, render, launches):
+def inst_k2_entries(ik, isx, scene, render, launches,
+                    label="instanced_shared"):
     """K2's instance entries on the rays of one render of ``scene``:
     bit for bit against their plain version on INST_PARITY_RAYS rays
     sampled from INST_LAUNCHES launches of each, timed on the busiest
-    launch -> the two entries of the kernels line."""
+    launch -> the two entries of the kernels line, "<entry>[label]"."""
     samples, full = record_k2(ik, render, per_launch=INST_PARITY_RAYS,
                               busiest=True)
     inst = scene.inst_tables
@@ -2457,7 +2489,7 @@ def inst_k2_entries(ik, isx, scene, render, launches):
         every = tuple(torch.cat(xs) for xs in zip(*[runs[k] for k in at]))
         entries.append(inst_entry(
             ik, isx, name, fn, inst, every_kth(every, INST_PARITY_RAYS),
-            full[name], ref, out_bytes, "instanced_shared", launches,
+            full[name], ref, out_bytes, label, launches,
             f"{len(runs)} launches of one render, rays from launches {at}; "
             f"timed on the busiest"))
     return entries
@@ -3473,6 +3505,262 @@ def run_crop_and_surface(mi, ik, isx, pk, scenes):
     return entries
 
 
+# the deep-tree phase: the clustered mesh at biggeo's shape (its plain
+# version's counts for the bound on every 16th of its held pixels), the
+# instance scatter and the coincident faces on the path wavefront
+DEEP_COUNT_EVERY = 16
+SCATTER_SHAPE, COINCIDENT_SHAPE = (256, 8, 4), (256, 16, 3)
+SCATTER_REASON, COINCIDENT_REASON = SHARED_REASON, \
+    "unsupported emitter ConstantEmitter"
+
+
+def node_reads(pk, isx, label, scene, tables):
+    """Node reads, box and face tests a camera ray of the wide walk and of
+    the binary one (tools/prof_bvh.py ``walk``: 256 warps of camera rays
+    in the kernel's lane order, and the share of lane slots busy in
+    lock-step)."""
+    from mitsuba2_tpu_torch.tools import prof_bvh
+    for name, counts in prof_bvh.walk(pk, isx, scene, tables).items():
+        log(f"  {label} camera-ray {name} walk: " + ", ".join(
+            f"{mean:.2f} {part} ({share:.4f} of lane slots busy)"
+            for part, (mean, share) in zip(
+                ("node reads", "box tests", "face tests"), counts)))
+
+
+def largest_leaf(bvh_ops, tree):
+    """The faces of the largest leaf of a host tree (ops/bvh.py BVH)."""
+    return int(tree._ints()[:, bvh_ops._COUNT].max())
+
+
+def tree_line(bvh_ops, label, scene, t_load):
+    """The scene's traversal tree beside the SAH build's alone, both built
+    again on the host and timed (the rebuilt traversal tree must be the
+    load's) -> (the SAH tree, its leaves split where they exceed the walk's
+    word, which the bare build cannot pack; its stack bound)."""
+    faces = (scene.v0, scene.e1, scene.e2)
+    t0 = time.perf_counter()
+    bare = bvh_ops.build_bvh(*faces, bvh_ops.TRAVERSAL_LEAF)
+    sah_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = bvh_ops.traversal_bvh(*faces)
+    fit_s = time.perf_counter() - t0
+    tree = scene.traversal
+    if not (np.array_equal(again.nodes.view(np.int32),
+                           tree.nodes.view(np.int32))
+            and np.array_equal(again.order, tree.order)):
+        raise SystemExit(f"{label}: traversal_bvh is not deterministic")
+    p = np.stack([scene.v0, scene.v0 + scene.e1, scene.v0 + scene.e2])
+    sah = bvh_ops.split_leaves(bare, p.min(0), p.max(0),
+                               leaf_size=bvh_ops.TRAVERSAL_LEAF,
+                               over=1 << bvh_ops.LEAF_BITS)
+    sah_depth = bvh_ops.pack_traversal(sah)[1]
+    log(f"{label}: host build of the traversal tree: the SAH build alone "
+        f"{sah_s:.3f} s, traversal_bvh {fit_s:.3f} s (the same tree as the "
+        f"load's)")
+    def same(a, b):
+        return np.array_equal(a.nodes.view(np.int32), b.nodes.view(np.int32))
+
+    if tree.by_level:
+        kind = ("the SAH tree collapsed level by level" if same(tree, sah)
+                else "SAH capped at a depth, collapsed level by level")
+    else:
+        kind = ("the SAH tree" if same(tree, bare)
+                else "the SAH tree, its large leaves split")
+    log(f"{label}: {len(scene.v0)} faces, load {t_load:.2f} s; the SAH "
+        f"build's largest leaf {largest_leaf(bvh_ops, bare)} faces; "
+        f"traversal tree {kind}, "
+        f"{scene.tables.bvh_nodes.shape[0]} wide nodes, stack bound "
+        f"{scene.tables.bvh_depth} (the walk's {bvh_ops.STACK_DEPTH}; the "
+        f"SAH tree alone {sah_depth}), binary depth "
+        f"{bvh_ops._interior_depth(tree)} (the SAH tree's "
+        f"{bvh_ops._interior_depth(sah)}), largest leaf "
+        f"{largest_leaf(bvh_ops, tree)} faces")
+    return sah, sah_depth
+
+
+def deep_wavefront(ik, label, scene, reason, band, spp, entries):
+    """One path-wavefront render of ``scene`` with K2's launch counts
+    zeroed before it and read after, checked (engine and gate, each of
+    ``entries`` reached, finite image within ``band``), then timed once
+    -> (K2's launches by entry, render ms)."""
+    integ = scene.integrator
+    ik.reset_launch_counts()
+    img = integ.render(scene, seed=SEED, spp=spp)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in ik.ENTRIES
+                if fn.__name__ in entries}
+    if integ.last_engine != "wavefront" or integ.engine_reason != reason:
+        raise SystemExit(f"{label}: engine {integ.last_engine} "
+                         f"({integ.engine_reason})")
+    if min(launches.values()) < 1:
+        raise SystemExit(f"{label}: the wavefront missed K2: {launches}")
+    mean = float(img.mean())
+    if not (bool(torch.isfinite(img).all()) and band[0] < mean < band[1]):
+        raise SystemExit(f"{label}: implausible image, mean {mean}")
+    _, (ms,) = prof.cuda_times(
+        lambda: integ.render(scene, seed=SEED, spp=spp), runs=1,
+        warm_up=False)
+    w = img.shape[0]
+    log(f"{label} {w}^2 x {spp} spp, depth {integ.max_depth}: engine "
+        f"wavefront (gate: {reason}); image mean {mean:.6f}; render "
+        f"{ms:.1f} ms (one run after the first); K2 launches {launches}")
+    return launches, ms
+
+
+def run_deep_trees(mi, pk, ik, isx, scenes, big, smi):
+    """Traversal trees the SAH build alone does not fit to the walk
+    (ops/bvh.py ``traversal_bvh``): the clustered mesh (262,144 faces at
+    log-uniform distances up to 1e4, ``scenes.clustered_mesh_dict``) at
+    biggeo's shape (``big``) on the path kernel's BVH tier, its lanes on
+    every 93rd pixel against the plain version, its ray queries bit for
+    bit (``isect_queries``); 4,096 shared instances at log-uniform
+    distances (``scenes.instance_scatter_dict``) on the path wavefront,
+    K2's instance entries bit for bit on 8,192 sampled rays; and 40
+    coincident faces (``scenes.coincident_faces_dict``) on the path
+    wavefront, K2 bit for bit on its rays -> the entries of the kernels
+    line."""
+    from mitsuba2_tpu_torch.ops import bvh as bvh_ops
+    t_phase = time.perf_counter()
+    mi.set_variant("scalar_rgb")
+    entries = []
+
+    # ---- the clustered mesh on K1f ----
+    name, w, spp, depth = "clustered_mesh", big.width, big.spp, \
+        big.max_depth
+    t0 = time.perf_counter()
+    scene = mi.load_dict(scenes.clustered_mesh_dict(w, w, spp, depth))
+    torch.cuda.synchronize()
+    sah, sah_depth = tree_line(bvh_ops, name, scene,
+                               time.perf_counter() - t0)
+    tables = scene.tables
+    if not tables.bvh_depth <= bvh_ops.STACK_DEPTH < sah_depth:
+        raise SystemExit(f"{name}: not a tree the SAH build alone misfits")
+    route = scene_path_route(pk, name, pk.HAS_BVH)
+    route.tables(scene)
+    integ = scene.integrator
+    pk.reset_launch_counts()
+    img = integ.render(scene, seed=0, spp=spp)
+    torch.cuda.synchronize()
+    launches = pk.path_radiance.launches_by_kernel[route.key]
+    mean = float(img.mean())
+    if integ.last_engine != "kernel" or launches < 1 \
+            or not bool(torch.isfinite(img).all()) or not 0.01 < mean < 0.5:
+        raise SystemExit(f"{name}: engine {integ.last_engine}, {launches} "
+                         f"launches, image mean {mean}")
+    _, render_ms = timed(lambda: integ.render(scene, seed=0, spp=spp))
+    cam = pk.camera_row(scene.sensors[0], scene.device)
+    args = (tables, cam, 0, 0, spp, w, w, depth, integ.rr_depth)
+    k_rad, kernel_ms = timed(lambda: pk.path_radiance(*args))
+    n_paths = w * w * spp
+    log_launch(name, route, n_paths)
+    if not torch.equal(k_rad, pk.path_radiance(*args)):
+        raise SystemExit(f"{name}: two launches of {route.label} differ")
+    pix = torch.arange(0, w * w, BIG_PLAIN_STRIDE, device=cam.device)
+    lanes = (pix[:, None] * spp + torch.arange(spp, device=cam.device))
+    p_rad, plain_ms = timed(lambda: pk.path_radiance_reference(
+        *args, lanes=lanes.reshape(-1)), repeats=1, warm_up=False)
+    k_rad = k_rad[:, lanes.reshape(-1)]
+    lane_rel = ((k_rad - p_rad).abs() / p_rad.abs().clamp(min=1e-3)).amax(0)
+    log(f"{name} {len(pix)} pixels x {spp} spp: lanes beyond {PIX_RTOL:g} "
+        f"relative {float((lane_rel > PIX_RTOL).float().mean()):.6f}")
+    err = compare(develop(k_rad, len(pix), spp, 1),
+                  develop(p_rad, len(pix), spp, 1),
+                  f"{name} main-path shape")
+    stats, counted = {}, lanes[::DEEP_COUNT_EVERY].reshape(-1)
+    pk.path_radiance_reference(*args, lanes=counted, stats=stats)
+    bound_ms, bound_by = bound(pk, tables, stats, len(counted), n_paths)
+    node_reads(pk, isx, name, scene, tables)
+    # the SAH tree as the walk would take it with a deeper stack: its wide
+    # walk emulated on the host (ops/intersect.py ``traverse``, whose stack
+    # is the kernel's; a ray that would need more raises)
+    from mitsuba2_tpu_torch.tools.prof_bvh import camera_warps
+    o, d = camera_warps(pk, scene)
+    order = torch.as_tensor(sah.order).long()
+    try:
+        sah_walk = isx.traverse(
+            torch.as_tensor(bvh_ops.pack_traversal(sah)[0]),
+            pk.face_woop(tables).cpu()[order], order.to(torch.int32), o, d,
+            torch.zeros(len(o)), torch.full((len(o),), 3.0e38))
+        log(f"  {name} camera-ray wide walk over the SAH tree alone: "
+            f"{float(sah_walk['nodes'].float().mean()):.2f} node reads, "
+            f"{float(sah_walk['boxes'].float().mean()):.2f} box tests, "
+            f"{float(sah_walk['faces'].float().mean()):.2f} face tests")
+    except isx.WalkStackError as e:
+        log(f"  {name} camera-ray wide walk over the SAH tree alone: {e}")
+    log(f"{name}: render {render_ms:.3f} ms, kernel {kernel_ms:.3f} ms "
+        f"({launches} launch of {route.label} in the render), bound "
+        f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / kernel_ms:.2f}% "
+        f"of bound; plain version {plain_ms:.3f} ms for {lanes.numel()} "
+        f"paths; stack bound {tables.bvh_depth}; card {smi}")
+    entries.append({"name": f"path_kernel[{name}]", "route": "cuda",
+                    "source": route.source, "replaces": route.replaces,
+                    "launches": launches, "max_abs_err": err,
+                    "ms": kernel_ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": None})
+    # each entry held on ISECT_PARITY_RAYS rays, half of each set
+    entries += isect_queries(pk, ik, isx, scene, name, w, spp,
+                             suffix=f"[{name}]",
+                             parity_rays=ISECT_PARITY_RAYS // 2)
+    del scene, k_rad, p_rad
+    torch.cuda.empty_cache()
+    log(f"{name}: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- the instance scatter on the path wavefront ----
+    t1 = time.perf_counter()
+    name = "instance_scatter"
+    w, spp, depth = SCATTER_SHAPE
+    scene = mi.load_dict(scenes.instance_scatter_dict(w, w, spp, depth))
+    torch.cuda.synchronize()
+    inst = scene.inst_tables
+    lo, hi = ik.instance_boxes(inst.trees, inst.rows.cpu().numpy())
+    sah = bvh_ops.split_leaves(bvh_ops.build_bvh(
+        lo, hi - lo, np.zeros_like(lo), leaf_size=1), lo, hi)
+    sah_top = bvh_ops.pack_traversal(sah)[1]
+    log(f"{name}: {inst.n_instances} instances of a {inst.n_faces[0]}-face "
+        f"group, load {time.perf_counter() - t1:.2f} s; top tree "
+        f"{inst.top.shape[0]} nodes, stack bound {inst.top_depth} (the top "
+        f"walk's {ik.TOP_STACK_DEPTH}; the SAH tree alone {sah_top}), the "
+        f"group's {inst.depth}")
+    if not inst.top_depth <= ik.TOP_STACK_DEPTH < sah_top:
+        raise SystemExit(f"{name}: not a top tree the SAH build alone "
+                         f"misfits")
+    launches, ms = deep_wavefront(
+        ik, name, scene, SCATTER_REASON, (0.3, 1.0), spp,
+        ("isect_closest_inst", "isect_any_inst"))
+    entries += inst_k2_entries(
+        ik, isx, scene, lambda: scene.integrator.render(
+            scene, seed=SEED, spp=spp), launches, label=name)
+    log(f"{name}: render {ms:.1f} ms; card {smi}; "
+        f"{time.perf_counter() - t1:.1f} s")
+    del scene
+    torch.cuda.empty_cache()
+
+    # ---- the coincident faces on the path wavefront ----
+    t1 = time.perf_counter()
+    name = "coincident_faces"
+    w, spp, depth = COINCIDENT_SHAPE
+    scene = mi.load_dict(scenes.coincident_faces_dict(w, w, spp, depth))
+    torch.cuda.synchronize()
+    tree_line(bvh_ops, name, scene, time.perf_counter() - t1)
+    if largest_leaf(bvh_ops, scene.traversal) > bvh_ops.TRAVERSAL_LEAF:
+        raise SystemExit(f"{name}: a leaf beyond {bvh_ops.TRAVERSAL_LEAF}")
+    pk.check_tree(scene.tables)
+    launches, ms = deep_wavefront(
+        ik, name, scene, COINCIDENT_REASON, (0.5, 1.0), spp,
+        ("isect_closest", "isect_any"))
+    node_reads(pk, isx, name, scene, scene.tables)
+    entries += wavefront_k2_entries(
+        ik, isx, pk, name, scene,
+        lambda: scene.integrator.render(scene, seed=SEED, spp=spp),
+        launches)
+    log(f"{name}: render {ms:.1f} ms, stack bound "
+        f"{scene.tables.bvh_depth}; card {smi}; "
+        f"{time.perf_counter() - t1:.1f} s")
+    log(f"deep trees: {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
 # the multichip phase: a sample-sharded render's bar against the
 # single-device render (tests/test_parallel.py, the JAX package's), the
 # [cuda:0, cpu] mesh's shape, and the forced wavefront's there (32^2 x 4)
@@ -3808,6 +4096,8 @@ def main():
     kernels += run_autodiff(mi, ik, isx, pk, scenes)
     kernels += run_multichip(mi, pk, vk, scenes)
     kernels += run_crop_and_surface(mi, ik, isx, pk, scenes)
+    kernels += run_deep_trees(mi, pk, ik, isx, scenes, next(
+        p for p in PATHS if p.name == "biggeo"), smi)
     check_forced_on_cornell(mi, pk, cornell_box_dict)
     kernels += run_ceiling(mi, pk, sk, cornell_box_dict,
                            cornell_materials_dict, face_rates)

@@ -11,10 +11,18 @@ ctypes. It serves twice:
   array, as the reference does (mitsuba2_tpu/render/scene.py:253-275), so
   face ids, prim ids and exact ties are the reference's;
 - the traversal tree: a second build at ``TRAVERSAL_LEAF`` faces per leaf
-  over the already permuted faces, collapsed by ``pack_traversal`` into
-  the 4-wide nodes that csrc/bvh.cuh walks per ray (the path kernel's BVH
-  tier and the scene's ray queries). Its leaves hold contiguous ranges of
-  its own ``order``, whose entries are the reference's face ids.
+  over the already permuted faces (``traversal_bvh``), collapsed by
+  ``pack_traversal`` into the 4-wide nodes that csrc/bvh.cuh walks per ray
+  (the path kernel's BVH tier and the scene's ray queries). Its leaves
+  hold contiguous ranges of its own ``order``, whose entries are the
+  reference's face ids.
+
+A traversal tree must fit the walk: no leaf above ``2**LEAF_BITS`` faces
+and a stack bound within its stack. ``traversal_bvh`` keeps the SAH tree
+where it fits; where a leaf of faces with one centroid is too large it
+splits that leaf, and where the tree is deeper than the stack it rebuilds
+it with SAH only down to a depth and object medians below
+(csrc/bvh.cpp ``bvh_build_capped``), collapsed level by level.
 
 What bounds the walk on the card is its chain of dependent node reads
 from L2, one per node visited, not its arithmetic: a 4-wide node (one
@@ -52,7 +60,16 @@ LEAF_BITS = 5
 # whose stack bound (``pack_traversal``) exceeds it is refused on the host
 # (ops/path_kernel.py ``check_tree``). WIDTH, LEAF_BITS and STACK_DEPTH
 # must equal csrc/bvh.cuh's constants: tests/test_torch_bvh.py reads them
-# there and holds them equal
+# there and holds them equal.
+# What fits, whatever the geometry: ``traversal_bvh`` falls back as far as
+# the fully median tree, whose n faces at TRAVERSAL_LEAF a leaf make D =
+# ceil(log2(ceil(n / 4))) binary levels above the leaves; collapsed level
+# by level, a wide node pushes at most 3 and reaches 2 levels down, and
+# one whose children are all leaves pushes none, so its bound is at most
+# 3 * floor((D - 1) / 2): 24 at MAX_FACES_HBM = 1,048,576 faces (D = 18),
+# 33 at the 2^26 faces a leaf's word addresses (LEAF_BITS, D = 24). 48
+# holds it for every face count the layout addresses (it would up to
+# 4 * 2^34 faces, D = 34) (tests/test_torch_deep_tree_bounds.py)
 STACK_DEPTH = 48
 # pair-node float32 slots: per child [lo xyz, ref] [hi xyz, count]
 PAIR_SLOTS = 16
@@ -63,11 +80,15 @@ BOX_PAD = 1e-5
 
 class BVH:
     """Flattened BVH: ``nodes`` is (M, 12) float32 with int32 fields viewed
-    in place; ``order`` is the face permutation (leaf-contiguous)."""
+    in place; ``order`` is the face permutation (leaf-contiguous);
+    ``by_level`` whether ``pack_traversal`` collapses it level by level
+    (``traversal_bvh``'s capped trees) instead of by surface area."""
 
-    def __init__(self, nodes: np.ndarray, order: np.ndarray):
+    def __init__(self, nodes: np.ndarray, order: np.ndarray,
+                 by_level: bool = False):
         self.nodes = nodes
         self.order = order
+        self.by_level = by_level
 
     @property
     def n_nodes(self):
@@ -90,21 +111,25 @@ class BVH:
                        self.nodes[i, _LO].copy(), self.nodes[i, _HI].copy())
 
 
-def _native():
-    """csrc/bvh.cpp's ``bvh_build``, built on first use; a failed build
-    raises."""
+def _native(capped=False):
+    """csrc/bvh.cpp's ``bvh_build``, or with ``capped`` its
+    ``bvh_build_capped``, built on first use; a failed build raises."""
     from .build import load
-    fn = load("bvh").bvh_build
+    lib = load("bvh")
+    fn = lib.bvh_build_capped if capped else lib.bvh_build
     fp = ctypes.POINTER(ctypes.c_float)
     fn.restype = ctypes.c_int
-    fn.argtypes = [fp, fp, fp, ctypes.c_int, ctypes.c_int,
-                   ctypes.POINTER(ctypes.c_int32), fp, ctypes.c_int]
+    fn.argtypes = [fp, fp, fp, ctypes.c_int, ctypes.c_int] + (
+        [ctypes.c_int] if capped else []) + [
+        ctypes.POINTER(ctypes.c_int32), fp, ctypes.c_int]
     return fn
 
 
-def build_bvh(v0, e1, e2, leaf_size: int = 64) -> BVH:
+def build_bvh(v0, e1, e2, leaf_size: int = 64, sah_depth=None) -> BVH:
     """BVH over triangles (v0 + u e1 + v e2) by the native binned-SAH
-    builder; no faces give one empty leaf."""
+    builder; no faces give one empty leaf. With ``sah_depth`` the depth-
+    capped build: SAH down to that binary depth, object medians below
+    (csrc/bvh.cpp ``bvh_build_capped``)."""
     v0 = np.ascontiguousarray(v0, np.float32)
     e1 = np.ascontiguousarray(e1, np.float32)
     e2 = np.ascontiguousarray(e2, np.float32)
@@ -117,30 +142,34 @@ def build_bvh(v0, e1, e2, leaf_size: int = 64) -> BVH:
     max_nodes = 4 * n + 4
     buf = np.empty((max_nodes, _NODE_SLOTS), np.float32)
     fp = ctypes.POINTER(ctypes.c_float)
-    written = _native()(
+    capped = () if sah_depth is None else (int(sah_depth),)
+    written = _native(bool(capped))(
         v0.ctypes.data_as(fp), e1.ctypes.data_as(fp), e2.ctypes.data_as(fp),
-        n, leaf_size, order.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        n, leaf_size, *capped,
+        order.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
         buf.ctypes.data_as(fp), max_nodes)
     if written < 0:
         raise RuntimeError(f"bvh_build needs more than {max_nodes} nodes")
     return BVH(buf[:written].copy(), order)
 
 
-def split_leaves(bvh: BVH, lo, hi) -> BVH:
-    """``bvh`` with every leaf of several primitives (the builder keeps up
-    to four times its leaf size, or all of those with one centroid) split
-    into a balanced subtree of one primitive a leaf, built in place of the
-    leaf, its nodes appended; ``lo``, ``hi`` (n, 3) float32 are each
+def split_leaves(bvh: BVH, lo, hi, leaf_size: int = 1, over=None) -> BVH:
+    """``bvh`` with every leaf of more than ``over`` primitives (by default
+    ``leaf_size``; the builder keeps up to four times its leaf size, or all
+    of those with one centroid) split into a balanced subtree of leaves of
+    at most ``leaf_size`` over the same range of ``order``, built in place
+    of the leaf, its nodes appended; ``lo``, ``hi`` (n, 3) float32 are each
     primitive's box, by primitive index."""
+    over = leaf_size if over is None else over
     out = list(bvh.nodes)
 
     def split(first, count):
         row = np.zeros(_NODE_SLOTS, np.float32)
         ints = row.view(np.int32)
-        if count == 1:
-            k = bvh.order[first]
-            row[_LO], row[_HI] = lo[k], hi[k]
-            ints[_LEFT], ints[_COUNT], ints[_RIGHT] = first, 1, -1
+        if count <= leaf_size:
+            k = bvh.order[first:first + count]
+            row[_LO], row[_HI] = lo[k].min(0), hi[k].max(0)
+            ints[_LEFT], ints[_COUNT], ints[_RIGHT] = first, count, -1
             return row
         kids = (split(first, count // 2),
                 split(first + count // 2, count - count // 2))
@@ -151,9 +180,57 @@ def split_leaves(bvh: BVH, lo, hi) -> BVH:
         return row
 
     ints = bvh._ints()
-    for i in np.flatnonzero(ints[:, _COUNT] > 1):
+    for i in np.flatnonzero(ints[:, _COUNT] > over):
         out[i] = split(int(ints[i, _LEFT]), int(ints[i, _COUNT]))
-    return BVH(np.stack(out), bvh.order)
+    return BVH(np.stack(out), bvh.order, bvh.by_level)
+
+
+def traversal_bvh(v0, e1, e2, leaf_size: int = TRAVERSAL_LEAF,
+                  stack: int = STACK_DEPTH, max_leaf: int = 1 << LEAF_BITS,
+                  boxes=None) -> BVH:
+    """The tree a walk reads over triangles (v0 + u e1 + v e2), within its
+    leaf limit ``max_leaf`` and, where it can be, its stack of ``stack``
+    entries (``pack_traversal``'s bound): the SAH tree at ``leaf_size``
+    (``build_bvh``), bit for bit where it fits; else that tree with every
+    leaf above ``max_leaf`` split into leaves of at most ``leaf_size``
+    (``split_leaves``; the builder keeps all faces of one centroid in one
+    leaf); and where that is still deeper than the stack, the depth-capped
+    build (``build_bvh(..., sah_depth=k)``, its leaves split as well)
+    collapsed level by level, at the largest k that a bisection over 0 to
+    the SAH tree's depth finds to fit, or at k = 0 (object medians from the
+    root), which fits every face count STACK_DEPTH's note names; a tree
+    that still does not fit is returned, and the walk's checks refuse it.
+    ``boxes`` (lo, hi) (n, 3) float32 are the primitives' boxes for the
+    split leaves, by default the faces' own."""
+    v0, e1, e2 = (np.ascontiguousarray(x, np.float32) for x in (v0, e1, e2))
+    if boxes is None:
+        p = np.stack([v0, v0 + e1, v0 + e2])
+        boxes = (p.min(0), p.max(0))
+
+    def fitted(tree, by_level=False):
+        tree.by_level = by_level
+        if len(tree.nodes) and tree._ints()[:, _COUNT].max() > max_leaf:
+            tree = split_leaves(tree, *boxes, leaf_size=leaf_size,
+                                over=max_leaf)
+        return tree, pack_traversal(tree)[1]
+
+    tree, depth = fitted(build_bvh(v0, e1, e2, leaf_size))
+    if depth <= stack:
+        return tree
+    # bisect the cap: ``lo`` fits (k = 0 assumed until built), ``hi`` not
+    lo, hi, best = 0, _interior_depth(tree) + 1, None
+    while hi - lo > 1:
+        k = (lo + hi) // 2
+        cand, depth = fitted(build_bvh(v0, e1, e2, leaf_size, sah_depth=k),
+                             by_level=True)
+        if depth <= stack:
+            lo, best = k, cand
+        else:
+            hi = k
+    if best is None:
+        best = fitted(build_bvh(v0, e1, e2, leaf_size, sah_depth=0),
+                      by_level=True)[0]
+    return best
 
 
 def validate_bvh(bvh: BVH, v0, e1, e2) -> None:
@@ -228,13 +305,21 @@ def pack_pairs(bvh: BVH):
         return pairs, 1
     nodes = np.flatnonzero(interior)
     pairs = np.concatenate([child(left[nodes]), child(right[nodes])], 1)
-    # depth in pair nodes, one level of interior children at a time
-    depth, level = 0, np.zeros(1, np.int64)
+    return np.ascontiguousarray(pairs), _interior_depth(bvh)
+
+
+def _interior_depth(bvh: BVH) -> int:
+    """The interior nodes on the longest root-to-leaf chain of ``bvh``,
+    one level of interior children at a time (0 for a single leaf)."""
+    ints = bvh._ints()
+    left, right = ints[:, _LEFT], ints[:, _RIGHT]
+    interior = (ints[:, _COUNT] == 0) & (right >= 0)
+    depth, level = 0, np.flatnonzero(interior[:1])
     while len(level):
         depth += 1
         kids = np.concatenate([left[level], right[level]])
         level = kids[interior[kids]]
-    return np.ascontiguousarray(pairs), depth
+    return depth
 
 
 def pack_traversal(bvh: BVH):
@@ -244,7 +329,9 @@ def pack_traversal(bvh: BVH):
 
     Each wide node takes a binary interior node's two children and, while
     it has fewer than ``WIDTH`` and one of them is interior, replaces the
-    interior child of the largest surface area by its two children. Every
+    interior child of the largest surface area (for a ``by_level`` tree,
+    of the least binary depth below the node, then the largest area) by
+    its two children. Every
     interior child becomes a wide node of its own, level by level, so node
     0 is the root (a single-leaf tree gets one node with one child). The
     leaves are the binary tree's: ``order``, and with it the Woop rows and
@@ -280,14 +367,21 @@ def pack_traversal(bvh: BVH):
             slots[:, 0], slots[:, 1] = left[frontier], right[frontier]
             used = np.full(m, 2)
             rows = np.arange(m)
+            # each slot's binary depth below the wide node
+            below = np.ones((m, WIDTH), np.int64)
             for _ in range(WIDTH - 2):
                 safe = np.maximum(slots, 0)
                 split = (slots >= 0) & interior[safe]
+                if bvh.by_level:
+                    # (a slot lies fewer than WIDTH levels below)
+                    least = np.where(split, below, WIDTH).min(1)
+                    split &= below == least[:, None]
                 k = np.where(split, area[safe], -1.0).argmax(1)
                 r = rows[split[rows, k]]
                 c = slots[r, k[r]]
                 slots[r, k[r]] = left[c]
                 slots[r, used[r]] = right[c]
+                below[r, used[r]] = below[r, k[r]] = below[r, k[r]] + 1
                 used[r] += 1
             levels.append(slots)
             kids = slots[slots >= 0]
@@ -313,12 +407,13 @@ def pack_traversal(bvh: BVH):
     ref[valid] = np.where(leaf, left[c], wide_of[c])
     cnt[valid] = np.where(leaf, count[c], 0)
     # the stack bound: pushes accumulated from the root, level by level
-    # (a node's children come after it)
+    # (a node's parent lies in the level before it)
     pushes = np.maximum((cnt == 0).sum(1) - (ref < 0).sum(1) - 1, 0)
     held = pushes.copy()
     parent = np.full(n, -1, np.int64)
     inner = valid & (cnt == 0) & (ref >= 0)
     parent[ref[inner]] = np.nonzero(inner)[0]
-    for i in range(1, n):
-        held[i] += held[parent[i]]
+    ends = np.cumsum([len(x) for x in levels])
+    for a, b in zip(ends[:-1], ends[1:]):
+        held[a:b] += held[parent[a:b]]
     return nodes, int(held.max())

@@ -51,9 +51,24 @@ _CHUNK_ELEMS = 1 << 24
 # pair node of the binary tree the bounds count (four float4), and of a
 # face position's Z row, face id, and U and V rows (csrc/bvh.cuh ``walk``)
 NODE_BYTES, PAIR_BYTES, FACE_READ_BYTES = 128, 64, (16, 4, 32)
-# entries of the binary walk's stack: the pair tree's depth (the builder's
-# trees stay far below)
+# entries of the binary walk's stack, which holds at most one entry for
+# each pair node above the current one: room for a pair tree of 65 levels,
+# which the trees of tests/test_torch_deep_trees.py's clustered meshes
+# keep within (ops/bvh.py ``traversal_bvh`` caps a tree deeper than the
+# wide walk's stack); a walk that would need more raises WalkStackError
 PAIR_STACK = 64
+
+
+class WalkStackError(RuntimeError):
+    """A walk of ops/intersect.py would push beyond its stack."""
+
+
+def _push_room(sp, size, what):
+    """Raises WalkStackError unless every stack pointer ``sp`` about to
+    push lies below ``size``."""
+    if len(sp) and int(sp.max()) >= size:
+        raise WalkStackError(f"the {what} walk needs more than its {size} "
+                             f"stack entries: the tree is too deep")
 
 
 def _woop_dots(W, o, d):
@@ -385,6 +400,7 @@ def _wide_walk(P, w, o, mint, any_hit, live=None):
             inner = (cnt[:, c] == 0) & (tn[:, c] <= w.tb[idx]) & ~stop
             push = inner & (nxt >= 0)
             r = idx[push]
+            _push_room(sp[r], STACK_DEPTH, "wide")
             stack[r, sp[r]] = nxt[push]
             stack_t[r, sp[r]] = t_nxt[push]
             sp[r] += 1
@@ -579,6 +595,7 @@ def _pair_walk(P, w, o, mint, any_hit, live=None):
         w.leaf(idx[lb], rb[lb], cb[lb])
         ib = hb & (cb == 0)
         push = ib & (nxt >= 0)
+        _push_room(sp[idx[push]], PAIR_STACK, "binary")
         stack[idx[push], sp[idx[push]]] = rb[push]
         sp[idx[push]] += 1
         nxt = torch.where(ib & (nxt < 0), rb, nxt)

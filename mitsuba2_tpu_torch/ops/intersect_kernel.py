@@ -51,12 +51,16 @@ class _InstArgs(ctypes.Structure):
 
 
 # entries of the top walk's stack (csrc/intersect_kernel.cu TOP_STACK): a
-# top tree whose stack bound exceeds it is refused before a launch. A
-# 4-wide level pushes at most 3; 28 holds the top trees of 65,536
-# instances on a grid or placed at random, with about a level to spare
-# (tests/test_torch_loop_emulated.py
-# test_top_tree_stack_holds_a_large_forest); a strongly clustered
-# placement builds a deeper tree sooner
+# top tree whose stack bound exceeds it is refused before a launch.
+# ``top_bvh`` falls back as far as the fully median tree (ops/bvh.py
+# ``traversal_bvh``), one box a leaf. 28 holds it for up to 1,572,864
+# instances, wherever they lie (6 * 2^18: the wide nodes of the even
+# levels 0-16 push 3 entries each, 27, and each node 18 levels down holds
+# at most 6 boxes, so its wide node pushes at most one more), and one
+# more instance needs 29 (tests/test_torch_deep_tree_bounds.py). Clustered
+# placements, such as 4,096 instances at log-uniform distances, fit
+# through the fallback (tests/test_torch_loop_emulated.py
+# test_top_tree_stack_holds_a_large_forest)
 TOP_STACK_DEPTH = 28
 # outward pad of an instance's world box, relative to its coordinates (ten
 # times the group walk's bvh.BOX_PAD), on top of the group box padded by
@@ -141,9 +145,11 @@ def instance_boxes(trees, rows):
 def top_bvh(lo, hi):
     """The host tree over boxes lo, hi (I, 3) float32 (ops/bvh.py BVH): the
     reference's builder over each box as a degenerate face (v0 lo, e1 hi -
-    lo, e2 0), then one box a leaf."""
-    tree = bvh_ops.build_bvh(lo, hi - lo, np.zeros_like(lo), leaf_size=1)
-    return bvh_ops.split_leaves(tree, lo, hi)
+    lo, e2 0), one box a leaf, within TOP_STACK_DEPTH where it can be
+    (ops/bvh.py ``traversal_bvh``)."""
+    return bvh_ops.traversal_bvh(lo, hi - lo, np.zeros_like(lo), leaf_size=1,
+                                 stack=TOP_STACK_DEPTH, max_leaf=1,
+                                 boxes=(lo, hi))
 
 
 def top_tree(lo, hi):
@@ -169,7 +175,7 @@ def instance_tables(groups, rows, device) -> InstanceTables:
     group_node, group_face = [0], [0]
     depth = 0
     for v0, e1, e2 in groups:
-        tree = bvh_ops.build_bvh(v0, e1, e2, leaf_size=bvh_ops.TRAVERSAL_LEAF)
+        tree = bvh_ops.traversal_bvh(v0, e1, e2)
         n, dep = bvh_ops.pack_traversal(tree)
         nodes.append(n)
         woop.append(build_woop(v0, e1, e2)[tree.order])

@@ -749,6 +749,154 @@ def bumpy_sphere_ply_path(nu=64, nv=48):
     return _write_once(path, write)
 
 
+def _log_uniform_centres(rng, n, scale):
+    """``n`` points (float64) at log-uniform distances from the origin:
+    unit directions d, then d * scale**u with u ~ U[0, 1), drawn from
+    ``rng`` in that order."""
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return d * scale ** rng.uniform(0.0, 1.0, (n, 1))
+
+
+def log_uniform_points(n, scale, seed):
+    """``_log_uniform_centres`` of ``np.random.default_rng(seed)`` as
+    float32: each decade of distance holds as many points, so they crowd
+    the origin."""
+    return _log_uniform_centres(np.random.default_rng(seed), n,
+                                scale).astype(np.float32)
+
+
+def log_uniform_mesh(n, scale, seed):
+    """``n`` small triangles at log-uniform distances from the origin ->
+    (v0, e1, e2) (n, 3) float32: centres c as ``log_uniform_points``,
+    then v0 = c + N(0, 0.01), e1, e2 ~ N(0, 0.01), drawn in that order
+    from ``np.random.default_rng(seed)``. The faces crowd the origin: the
+    SAH tree of 16,384 of them at scale 1e4 is already about as deep as
+    the BVH walk's stack (ops/bvh.py ``traversal_bvh``)."""
+    rng = np.random.default_rng(seed)
+    c = _log_uniform_centres(rng, n, scale)
+    v0 = c + rng.normal(0.0, 0.01, (n, 3))
+    e1 = rng.normal(0.0, 0.01, (n, 3))
+    e2 = rng.normal(0.0, 0.01, (n, 3))
+    return tuple(x.astype(np.float32) for x in (v0, e1, e2))
+
+
+def _clustered_mesh_ply_path(n, scale, seed):
+    """``log_uniform_mesh(n, scale, seed)`` as a binary little-endian PLY
+    file (cached in the temp directory), three float32 vertices a face,
+    v0, v0 + e1 and v0 + e2."""
+    import os
+    import tempfile
+    path = os.path.join(tempfile.gettempdir(),
+                        f"mitsuba2_tpu_torch_clustered_{n}_{scale:g}_"
+                        f"{seed}_v1.ply")
+
+    def write(tmp):
+        v0, e1, e2 = log_uniform_mesh(n, scale, seed)
+        verts = np.stack([v0, v0 + e1, v0 + e2], 1).reshape(-1, 3)
+        face = np.zeros(n, np.dtype([("n", "u1"), ("i", "<i4", 3)]))
+        face["n"] = 3
+        face["i"] = np.arange(3 * n, dtype=np.int32).reshape(n, 3)
+        with open(tmp, "wb") as out:
+            out.write(
+                b"ply\nformat binary_little_endian 1.0\n"
+                + f"element vertex {len(verts)}\n".encode()
+                + b"property float x\nproperty float y\nproperty float z\n"
+                + f"element face {n}\n".encode()
+                + b"property list uchar int vertex_indices\nend_header\n")
+            out.write(np.ascontiguousarray(verts, "<f4").tobytes())
+            out.write(face.tobytes())
+
+    return _write_once(path, write)
+
+
+def clustered_mesh_dict(width=256, height=256, spp=32, max_depth=5,
+                        n=262144, scale=1e4, seed=1):
+    """``bumpy_sphere_dict``'s scene (floor, light, camera, box filter)
+    with its sphere replaced by the clustered mesh ``log_uniform_mesh(n,
+    scale, seed)``, loaded from a PLY file: a traversal tree that the SAH
+    build would make deeper than the walk's stack."""
+    d = bumpy_sphere_dict(width, height, spp, max_depth)
+    d["hero"] = {"type": "ply",
+                 "filename": _clustered_mesh_ply_path(n, scale, seed),
+                 "bsdf": d["hero"]["bsdf"]}
+    return d
+
+
+def instance_scatter_dict(width=256, height=256, spp=8, max_depth=4):
+    """4,096 shared instances (materialize false) of one shapegroup, a
+    bumpy sphere (``_bumpy_sphere_obj_path(16, 10)``, 288 faces) scaled by
+    0.45 in diffuse terracotta, at ``log_uniform_points(4096, 100, 0)``,
+    under a ``constant`` emitter, seen from 150 away: a clustered scatter
+    whose SAH top tree is deeper than the instance walk's top stack
+    (ops/intersect_kernel.py ``top_bvh``)."""
+    T = Transform
+    d = {"type": "scene",
+         "integrator": {"type": "path", "max_depth": max_depth},
+         "grp": {"type": "shapegroup", "id": "grp",
+                 "m": {"type": "obj",
+                       "filename": _bumpy_sphere_obj_path(16, 10),
+                       "to_world": T.scale(0.45),
+                       "bsdf": {"type": "diffuse",
+                                "reflectance": {"type": "rgb",
+                                                "value": [0.6, 0.4, 0.3]}}}},
+         "sky": {"type": "constant",
+                 "radiance": {"type": "rgb", "value": 1.0}},
+         "sensor": {"type": "perspective", "fov": 45.0,
+                    "to_world": T.look_at([0, 0, 150], [0, 0, 0],
+                                          [0, 1, 0]),
+                    "film": {"type": "hdrfilm", "width": width,
+                             "height": height, "rfilter": {"type": "box"}},
+                    "sampler": {"type": "independent",
+                                "sample_count": spp}}}
+    for k, p in enumerate(log_uniform_points(4096, 100.0, 0)):
+        d[f"i{k}"] = {"type": "instance", "materialize": False,
+                      "shapegroup": {"type": "ref", "id": "grp"},
+                      "to_world": T.translate(p.tolist())}
+    return d
+
+
+def _coincident_faces_obj_path():
+    """An OBJ file (cached in the temp directory) of one triangle written
+    40 times: faces with one centroid, which the SAH builder keeps in one
+    leaf."""
+    import os
+    import tempfile
+    path = os.path.join(tempfile.gettempdir(),
+                        "mitsuba2_tpu_torch_coincident_40_v1.obj")
+
+    def write(tmp):
+        with open(tmp, "w") as f:
+            f.write("v -1 -1 0\nv 1 -1 0\nv 0 1 0\n")
+            f.write("f 1 2 3\n" * 40)
+
+    return _write_once(path, write)
+
+
+def coincident_faces_dict(width=8, height=8, spp=2, max_depth=3,
+                          T=Transform, filename=None):
+    """40 coincident triangles from one OBJ file (diffuse) under a
+    ``constant`` emitter, seen from 3 away: a leaf of more faces than the
+    walk's leaf word holds, where the traversal tree is not split.
+    ``T`` is the Transform and ``filename`` the OBJ file of the package
+    the dict is for (this package's by default)."""
+    return {"type": "scene",
+            "integrator": {"type": "path", "max_depth": max_depth},
+            "mesh": {"type": "obj",
+                     "filename": filename or _coincident_faces_obj_path(),
+                     "bsdf": {"type": "diffuse"}},
+            "sky": {"type": "constant",
+                    "radiance": {"type": "rgb", "value": 1.0}},
+            "sensor": {"type": "perspective", "fov": 45.0,
+                       "to_world": T.look_at([0, 0, 3], [0, 0, 0],
+                                             [0, 1, 0]),
+                       "film": {"type": "hdrfilm", "width": width,
+                                "height": height,
+                                "rfilter": {"type": "box"}},
+                       "sampler": {"type": "independent",
+                                   "sample_count": spp}}}
+
+
 def instanced_spheres_dict(n_inst=3, materialize=None, nu=40, nv=20,
                            width=24, height=24, spp=32, max_depth=3,
                            T=Transform, filename=None):

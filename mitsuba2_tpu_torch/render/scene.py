@@ -193,8 +193,7 @@ class Scene(Object):
                 x[perm] for x in (v0, e1, e2, ng, uvs, face_shape))
         self.traversal = None
         if len(v0):
-            self.traversal = bvh_ops.build_bvh(
-                v0, e1, e2, leaf_size=bvh_ops.TRAVERSAL_LEAF)
+            self.traversal = bvh_ops.traversal_bvh(v0, e1, e2)
         # per-face host arrays in face order, kept for the tables built
         # after load (the volumetric kernel's, ops/volpath_kernel.py)
         self.face_shape = face_shape

@@ -54,20 +54,28 @@ def path_ms(pk, scene, tables, max_depth):
         scene.integrator.rr_depth))
 
 
-def walk(pk, isx, scene, tables):
-    """Per-ray node reads, box and face tests of the camera rays of WARPS
-    warps, and the lock-step share of lane slots -> {walk: [(mean,
-    share)] for nodes, boxes, faces}, the wide walk and the binary one."""
+def camera_warps(pk, scene):
+    """The camera rays of WARPS warps drawn at random from the WIDTH^2 x
+    SPP image, in the kernel's lane order -> (o, d) (32 WARPS, 3) on the
+    host."""
     cam = pk.camera_row(scene.sensors[0], scene.device)
     o, d = pk.camera_rays(cam, WIDTH, WIDTH, SPP, SEED)
     g = torch.Generator(device=o.device).manual_seed(SEED)
     warps = torch.randperm(o.shape[0] // 32, generator=g,
                            device=o.device)[:WARPS]
     idx = (warps[:, None] * 32 + torch.arange(32, device=o.device)).ravel()
-    n = len(idx)
+    return o[idx].cpu(), d[idx].cpu()
+
+
+def walk(pk, isx, scene, tables):
+    """Per-ray node reads, box and face tests of the camera rays of WARPS
+    warps, and the lock-step share of lane slots -> {walk: [(mean,
+    share)] for nodes, boxes, faces}, the wide walk and the binary one."""
+    o, d = camera_warps(pk, scene)
+    n = len(o)
     trees = pk.walk_trees(tables)
-    rays = (trees.woop, trees.prim, o[idx].cpu(), d[idx].cpu(),
-            torch.zeros(n), torch.full((n,), 3.0e38))
+    rays = (trees.woop, trees.prim, o, d, torch.zeros(n),
+            torch.full((n,), 3.0e38))
     out = {}
     for name, w in (("wide", isx.traverse(trees.nodes, *rays)),
                     ("binary", isx.traverse_pairs(trees.pairs, *rays))):

@@ -520,8 +520,10 @@ def main(argv=None):
         loaded.append((p.name, lambda call=call: pk.path_radiance(*call)))
         insts[p.name] = (tables.flags & pk.TEMPLATE_FLAGS, tables.nc)
     paths = dict(loaded)
-    jobs = [("path_kernel", pk.library_defines(nc, bool(f & pk.HAS_LOBES)))
-            for f, nc in set(insts.values())]
+    # one job a library: several paths share one (nc, lobes) library
+    jobs = [("path_kernel", pk.library_defines(nc, lobes))
+            for nc, lobes in sorted({(nc, bool(f & pk.HAS_LOBES))
+                                     for f, nc in insts.values()})]
     if args.isect:
         from mitsuba2_tpu_torch.ops import intersect_kernel as ik
         jobs += ik.libraries()

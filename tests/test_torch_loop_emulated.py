@@ -36,9 +36,11 @@ from mitsuba2_tpu_torch.ops import build
 from mitsuba2_tpu_torch.ops import path_kernel as pk
 from mitsuba2_tpu_torch.ops import bvh, intersect, intersect_kernel as ik
 from mitsuba2_tpu_torch.python.test.scenes import (bumpy_sphere_dict,
+                                                   clustered_mesh_dict,
                                                    cornell_box_dict,
                                                    cornell_materials_dict,
                                                    hero_serialized_dict,
+                                                   log_uniform_points,
                                                    matpreview_dict)
 from tests.test_torch_path_kernel import (PIX_RTOL, PIX_SHARE, box_develop,
                                           cpu_device_fixture, pixel_errors)
@@ -383,19 +385,53 @@ def emulated_isect(tmp_path_factory):
     return lib
 
 
-@pytest.mark.parametrize("n_rays", [600, 257])
-def test_emulated_isect_kernel_matches_plain_version(emulated_isect,
+def clustered_rays(v0, e1, e2, n, seed):
+    """Rays at a clustered mesh: half aimed at the centroids of faces drawn
+    at random, from 0.5 to 50 away, half from those points in any
+    direction -> (o, d) (n, 3) float32 tensors."""
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, len(v0), n)
+    target = v0[k] + (e1[k] + e2[k]) / 3.0
+    u = rng.normal(size=(n, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    o = target + u * 10.0 ** rng.uniform(-0.3, 1.7, (n, 1))
+    d = -u
+    d[n // 2:] = rng.normal(size=(n - n // 2, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.tensor(o, dtype=torch.float32),
+            torch.tensor(d, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("mesh,n_rays", [
+    pytest.param("bumpy", 600, id="600"), pytest.param("bumpy", 257, id="257"),
+    ("clustered", 300), ("clustered_capped", 300)])
+def test_emulated_isect_kernel_matches_plain_version(emulated_isect, mesh,
                                                      n_rays):
-    """K2 (csrc/intersect_kernel.cu) on a 1,216-face mesh against its plain
-    twin, the linear sweep: face ids, t and uv bit for bit and the same
-    occluded rays, every block of the grid at once, the last one ragged.
-    Outputs prefilled with NaN (and -2 and 2 for the integer ones), so that
-    a lost ray shows; two runs bit-identical."""
+    """K2 (csrc/intersect_kernel.cu) against its plain twin, the linear
+    sweep, on a 1,216-face mesh and on 16,384-face clustered meshes (faces
+    at log-uniform distances up to 1e4, and up to 1e6, whose SAH trees
+    exceed the stack: the walk reads ops/bvh.py ``traversal_bvh``'s tree,
+    the SAH tree collapsed level by level, and for the wider mesh SAH
+    capped at a depth with object medians below): face ids, t and uv bit
+    for bit and the same occluded rays, every block of the grid at once,
+    the last one ragged. Outputs prefilled with NaN (and -2 and 2 for the
+    integer ones), so that a lost ray shows; two runs bit-identical."""
     from tests.test_torch_bvh import _rays, bumpy_triangles
-    scene = mt.load_dict(bumpy_sphere_dict(4, 4, 1, 2, 32, 20))
+    if mesh == "bumpy":
+        scene = mt.load_dict(bumpy_sphere_dict(4, 4, 1, 2, 32, 20))
+        o, d = _rays(bumpy_triangles(), n_rays, 9)
+    else:
+        scale, seed = (1e4, 1) if mesh == "clustered" else (1e6, 0)
+        scene = mt.load_dict(clustered_mesh_dict(4, 4, 1, 2, n=16384,
+                                                 scale=scale, seed=seed))
+        sah = bvh.build_bvh(scene.v0, scene.e1, scene.e2,
+                            bvh.TRAVERSAL_LEAF)
+        assert scene.traversal.by_level
+        assert (bvh._interior_depth(scene.traversal)
+                < bvh._interior_depth(sah)) == (mesh == "clustered_capped")
+        o, d = clustered_rays(scene.v0, scene.e1, scene.e2, n_rays, 9)
     tables = scene.tables
     assert tables.n_faces > 1024 and tables.bvh_depth <= bvh.STACK_DEPTH
-    o, d = _rays(bumpy_triangles(), n_rays, 9)
     n = o.shape[0]
     mint = torch.full((n,), 1e-4)
     maxt = torch.full((n,), float("inf"))
@@ -689,10 +725,40 @@ def group_vertices(group):
     return np.concatenate([v0, v0 + e1, v0 + e2])
 
 
+def sah_top_bound(inst):
+    """The stack bound of the top tree of ``inst``'s instance boxes as the
+    SAH build alone gives it (one box a leaf)."""
+    lo, hi = ik.instance_boxes(inst.trees, inst.rows.numpy())
+    tree = bvh.build_bvh(lo, hi - lo, np.zeros_like(lo), leaf_size=1)
+    return bvh.pack_traversal(bvh.split_leaves(tree, lo, hi))[1]
+
+
+def clustered_scatter_case():
+    """512 instances of the fan, rotated and scaled by 0.45, at log-uniform
+    distances up to 1e4 from the origin (a smaller kin of
+    scenes.instance_scatter_dict's): the SAH top tree's stack bound exceeds
+    TOP_STACK_DEPTH, so the entries walk ops/bvh.py ``traversal_bvh``'s
+    fallback top tree. Half the rays aimed at instances drawn at random,
+    half through the dense middle."""
+    from mitsuba2_tpu_torch.core.transform import Transform as T
+    c = log_uniform_points(512, 1e4, 0)
+    placed = [(0, T.translate(p.tolist()) @ T.rotate([1, 1, 0], 37.0 * k)
+               @ T.scale(0.45)) for k, p in enumerate(c)]
+    rng = np.random.default_rng(26)
+    n = 384
+    target = c[rng.integers(0, len(c), n)].astype(np.float64)
+    target[n // 2:] = rng.normal(size=(n - n // 2, 3)) * 2.0
+    u = rng.normal(size=(n, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    o = target + u * 10.0 ** rng.uniform(0.0, 2.0, (n, 1))
+    return [fan_group()], placed, o, -u, {"sah_top": True}
+
+
 INSTANCE_CASES = {"reversed_depth": reversed_depth_case,
                   "coincident_ties": coincident_case,
                   "grazing": grazing_case, "masked": masked_case,
-                  "grid64": grid_case}
+                  "grid64": grid_case,
+                  "clustered_scatter": clustered_scatter_case}
 
 
 @pytest.mark.parametrize("case", list(INSTANCE_CASES))
@@ -742,6 +808,11 @@ def test_emulated_isect_instance_cases_match_plain_version(emulated_isect,
         assert hit_inst == extra["winners"] and share > 0.5
         # both instances reached by every hitting ray
         assert bool((walk["moves"][rprim >= 0] == 2).all())
+    elif extra.get("sah_top"):
+        assert inst.top_depth <= ik.TOP_STACK_DEPTH < sah_top_bound(inst)
+        assert 0.1 < share < 0.98, share
+        assert len(hit_inst) >= 0.2 * n
+        assert float(walk["moves"].float().mean()) < 0.01 * inst.n_instances
     else:
         assert 0.1 < share < 0.98, share
         # most of the instances take part, each ray moving into few
@@ -795,24 +866,33 @@ def test_instance_boxes_and_top_tree(case):
         ik._check_inst(inst._replace(top_depth=ik.TOP_STACK_DEPTH + 1))
 
 
-@pytest.mark.parametrize("placement", ["grid", "random"])
+@pytest.mark.parametrize("placement", ["grid", "random", "log_uniform-0",
+                                       "log_uniform-1", "log_uniform-2"])
 def test_top_tree_stack_holds_a_large_forest(placement):
     """The top tree over 65,536 unit instance boxes, on a 256x256 grid or
-    placed at random in a cube of that side, keeps its stack bound within
-    TOP_STACK_DEPTH, as ops/intersect_kernel.py's note on it says."""
+    placed at random in a cube of that side, or over 4,096 of them at
+    log-uniform distances up to 100 (seeds 0-2, whose SAH trees exceed the
+    stack), keeps its stack bound within TOP_STACK_DEPTH, as
+    ops/intersect_kernel.py's note on it says."""
     side = 256
     if placement == "grid":
         ij = np.stack(np.meshgrid(np.arange(side), np.arange(side),
                                   indexing="ij"), -1).reshape(-1, 2)
         lo = np.zeros((side * side, 3), np.float32)
         lo[:, :2] = ij
-    else:
+    elif placement == "random":
         lo = np.random.default_rng(7).uniform(
             0, side, (side * side, 3)).astype(np.float32)
+    else:
+        lo = log_uniform_points(4096, 100.0, int(placement[-1]))
+        hi = lo + np.float32(0.9)
+        sah = bvh.build_bvh(lo, hi - lo, np.zeros_like(lo), leaf_size=1)
+        assert bvh.pack_traversal(bvh.split_leaves(sah, lo, hi))[1] \
+            > ik.TOP_STACK_DEPTH
     nodes, depth = ik.top_tree(lo, lo + np.float32(0.9))
     refs = nodes.view(np.int32)[:, 6 * bvh.WIDTH:]
     leaf = refs[:, bvh.WIDTH:] > 0
-    assert leaf.sum() == side * side
+    assert leaf.sum() == len(lo)
     assert 0 < depth <= ik.TOP_STACK_DEPTH, depth
 
 
