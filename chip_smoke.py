@@ -18,20 +18,20 @@ biggeo (a 262,144-face displaced sphere from an OBJ file) and hero (a
 203,776-face .serialized mesh in GGX gold under the sky on a checker
 floor), at 256x256, 32 spp, max_depth 5; and the materials Cornell box
 (glass, plastic, rough plastic and bitmap surfaces, a disk and a cylinder,
-the default gaussian film) under ``scalar_rgb`` and ``scalar_spectral`` at
-256x256, 64 spp, max_depth 6 -- it checks the path's kernel against its
-plain PyTorch version on the card (64x64x16 spp; 32x32x4 spp for the big
-meshes, whose plain version sweeps every face), renders the path through
-``set_variant``, ``load_dict`` and ``scene.integrator.render`` on the
-port's default device, checks that the render went through the path's
-kernel instantiation (and the splat kernel, under a film filter other than
-the box) and that the image is sane, times render, kernel, splat and plain
-version beside the kernel's bound, and holds the kernel's lanes at the main
-shape against the plain version's (for the big meshes, those of every 93rd
-pixel) and the splat kernel's block against its plain version's. The
-materials scene's kernel is also held against its plain version under
-``scalar_mono`` at the parity shape, and its first hits must show every new
-kind on at least 1% of camera rays. Each path kernel and volumetric
+the default gaussian film) under ``scalar_rgb``, ``scalar_spectral`` and
+``scalar_mono`` at 256x256, 64 spp, max_depth 6 -- it checks the path's
+kernel against its plain PyTorch version on the card (64x64x16 spp;
+32x32x4 spp for the big meshes, whose plain version sweeps every face),
+renders the path through ``set_variant``, ``load_dict`` and
+``scene.integrator.render`` on the port's default device, checks that the
+render went through the path's kernel instantiation (and the splat kernel,
+under a film filter other than the box) and that the image is sane, times
+render, kernel, splat and plain version beside the kernel's bound, and
+holds the kernel's lanes at the main shape against the plain version's
+(for the big meshes, those of every 93rd pixel) and the splat kernel's
+block against its plain version's. The materials scene's first hits must
+show every new kind on at least 1% of camera rays in each color mode.
+Each path kernel and volumetric
 kernel launch of the main run prints its grid, which must be the card's
 SMs times the blocks resident on each (every family of both runs
 persistent blocks), its shared memory and ptxas's registers and spills,
@@ -912,47 +912,6 @@ def run_volpath(mi, pk, vk, volpath_slab_dict):
                      "mitsuba2_tpu_torch/csrc/volpath_kernel.cu",
                      "mitsuba2_tpu/ops/volmegakernel.py:186",
                      ptxas_key=("volpath", flags), block=vk.BLOCK))
-
-
-def check_mono_materials(mi, pk, scenes, path):
-    """The materials scene's kernel under ``scalar_mono`` (``path``, its
-    ``PATHS`` row, at the parity shape) against its plain version, and one
-    render through the user's entry points there -> its entry of the
-    kernels line (times and bound at that shape)."""
-    mi.set_variant(path.variant)
-    flags, pw, pspp = pk.HAS_SPHERES | pk.HAS_LOBES, path.width, path.spp
-    scene = mi.load_dict(path.make(scenes)(pw, pw, pspp, path.max_depth))
-    if scene.tables.flags & pk.TEMPLATE_FLAGS != flags:
-        raise SystemExit(f"mono materials: tables carry {scene.tables.flags}")
-    cam = pk.camera_row(scene.sensors[0], scene.device)
-    args = (scene.tables, cam, SEED, 0, pspp, pw, pw, path.max_depth,
-            scene.integrator.rr_depth)
-    got, kernel_ms = timed(lambda: pk.path_radiance(*args))
-    if not torch.equal(got, pk.path_radiance(*args)):
-        raise SystemExit("mono materials: two launches differ")
-    stats = {}
-    want, plain_ms = timed(lambda: pk.path_radiance_reference(
-        *args, stats=stats), repeats=1, warm_up=False)
-    max_abs_err = compare(develop(got, pw, pspp), develop(want, pw, pspp),
-                          "cornell_materials_mono parity")
-    pk.reset_launch_counts()
-    img = scene.integrator.render(scene, seed=0, spp=pspp)
-    torch.cuda.synchronize()
-    launches = pk.path_radiance.launches_by_kernel[(flags, 1)]
-    if launches < 1 or scene.integrator.last_engine != "kernel" \
-            or not bool(torch.isfinite(img).all()):
-        raise SystemExit("mono materials: the render left the kernel")
-    n = pw * pw * pspp
-    bound_ms, bound_by = bound(pk, scene.tables, stats, n, n)
-    log(f"cornell_materials_mono at {pw}^2 x {pspp} spp: kernel "
-        f"{kernel_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); plain "
-        f"version {plain_ms:.3f} ms; image mean {float(img.mean()):.6f}")
-    return {"name": pk.kernel_name(flags, 1), "route": "cuda",
-            "source": "mitsuba2_tpu_torch/csrc/path_kernel.cu",
-            "replaces": "mitsuba2_tpu/ops/megakernel.py:365",
-            "launches": launches, "max_abs_err": max_abs_err,
-            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
 
 
 def run_ceiling(mi, pk, sk, cornell_box_dict, cornell_materials_dict,
@@ -4070,14 +4029,12 @@ def main():
             first_hits=True, mean_rtol=CAUSTIC_MEAN_RTOL)),
         "cornell_materials_spectral": (materials, (0.03, 1.0), dict(
             first_hits=True, mean_rtol=CAUSTIC_MEAN_RTOL)),
+        "cornell_materials_mono": (materials, (0.03, 1.0), dict(
+            first_hits=True, mean_rtol=CAUSTIC_MEAN_RTOL)),
     }
     # the kernels line, and the path kernel's face-test rates by path
     kernels, face_rates = [], {}
     for path in PATHS:
-        if path.name == "cornell_materials_mono":
-            # at the parity shape, against the plain version
-            kernels.append(check_mono_materials(mi, pk, scenes, path))
-            continue
         flags, band, route = checks[path.name]
         entries, rates = run_path(mi, pk, scenes, path, flags, band, **route)
         kernels.extend(entries)

@@ -111,15 +111,18 @@
 //   range and closer than the best so far; the shadow loops stop at the
 //   first occluder.
 // - In the shared-memory families without the lobes flag (the Cornell
-//   box, matpreview; fused() below) a bounce's shadow ray leaves from the
-//   next ray's origin, and the next direction does not depend on whether
-//   it is blocked. So the bounce queues it (direction, maxt and the
-//   radiance the path has if it is unoccluded) and the next iteration
+//   box, matpreview) and in the mono ones with it (the materials box
+//   under scalar_mono; fused() below) a bounce's shadow ray leaves from
+//   the next ray's origin, and the next direction does not depend on
+//   whether it is blocked. So the bounce queues it (direction, maxt and
+//   the radiance the path has if it is unoccluded) and the next iteration
 //   traces both rays in one sweep (trace()): each face's Woop rows are
 //   read from shared memory once, [o, 1] . w is computed once for both,
 //   and the shadow sweep leaves the shading, where it ran under the
-//   shading's divergence and at its register peak. A path that ends with
-//   a shadow ray queued keeps its slot for one more sweep. The queued
+//   shading's divergence and at its register peak (and, in the lobes
+//   loop, stopped at a lane's first occluder, so that warps reached the
+//   block's next barrier at different times). A path that ends with a
+//   shadow ray queued keeps its slot for one more sweep. The queued
 //   radiance is the sum the bounce would have made, in its operations
 //   and order, so the outputs are those of a shadow test in the bounce,
 //   bit for bit. Each ray still pays a correctly rounded division a
@@ -205,14 +208,17 @@ namespace {
 constexpr int F_SPHERES = 1, F_ENV = 2, F_GGX = 4, F_CHECKER = 8;
 constexpr int F_BVH = 16, F_LOBES = 32;
 
-// The fused families: shared-memory faces and no lobes flag (flags within
-// spheres, env, ggx and checker: the Cornell box, matpreview). There a
-// bounce's shadow ray and its next ray leave the same point, so the
-// bounce queues the shadow ray and the next iteration traces both in one
-// sweep (trace below).
-template <int FLAGS>
+// The fused families: shared-memory faces, and no lobes flag (flags
+// within spheres, env, ggx and checker: the Cornell box, matpreview) or
+// the lobes flag in mono mode (the materials box under scalar_mono). There
+// a bounce's shadow ray and its next ray leave the same point (every lobe
+// that takes NEE sends its next ray to the normal's side), so the bounce
+// queues the shadow ray and the next iteration traces both in one sweep
+// (trace below). The rgb and spectral lobes families keep the shadow test
+// in the bounce.
+template <int FLAGS, int NC>
 __host__ __device__ constexpr bool fused() {
-    return !(FLAGS & (F_BVH | F_LOBES));
+    return !(FLAGS & F_BVH) && (!(FLAGS & F_LOBES) || NC == 1);
 }
 
 // attribute float4s per face / sphere / quad (ops/path_kernel.py FA / 4)
@@ -792,15 +798,16 @@ __device__ __forceinline__ Hit closest(const PathArgs& a, const Staged& st,
 // The fused families' sweep (fused()): p's ray (o, d), while the path is
 // alive, for its closest hit as closest() finds it, and the shadow ray its
 // last bounce queued from the same origin, (o, l) on [0, lmaxt], for any
-// hit, in one pass over the staged faces and then the spheres. A face's
-// Woop rows are read once and [o, 1] . w serves both rays; the shadow
-// ray's tests stop at its first occluder. Then the queued radiance
-// replaces p.res if the shadow ray is unoccluded, as the bounce would have
-// added it.
+// hit, in one pass over the staged faces, then the spheres, then (lobes)
+// the disk and cylinder rows. A face's Woop rows are read once and
+// [o, 1] . w serves both rays; the shadow ray's tests stop at its first
+// occluder. Then the queued radiance replaces p.res if the shadow ray is
+// unoccluded, as the bounce would have added it.
 template <int FLAGS, int NC>
 __device__ __forceinline__ Hit trace(const PathArgs& a, const Staged& st,
                                      Path<NC>& p) {
     constexpr bool SPH = FLAGS & F_SPHERES;
+    constexpr bool QUADS = SPH && (FLAGS & F_LOBES);
     const float ox = p.ox, oy = p.oy, oz = p.oz;
     const float dx = p.dx, dy = p.dy, dz = p.dz;
     const float lx = p.ldx, ly = p.ldy, lz = p.ldz, maxt = p.lmaxt;
@@ -858,6 +865,26 @@ __device__ __forceinline__ Hit trace(const PathArgs& a, const Staged& st,
             sphere = -1;
         }
     }
+    int quad = -1;
+    if constexpr (QUADS) {
+        float tq_best = BIG;
+        for (int q = 0; q < a.n_quads; ++q) {
+            const float4* Q = s_more + a.n_spheres + QD4 * q;
+            const float tq = quad_t(Q, ox, oy, oz, dx, dy, dz, BIG);
+            if (tq > 0.0f && tq < tq_best) {
+                tq_best = tq;
+                quad = q;
+            }
+            if (shadow && quad_t(Q, ox, oy, oz, lx, ly, lz, maxt) > 0.0f)
+                occluded = true, shadow = false;
+        }
+        if (tq_best < t) {
+            t = tq_best;
+            face = sphere = -1;
+        } else {
+            quad = -1;
+        }
+    }
     if (maxt > 0.0f) {
         if (!occluded) {
 #pragma unroll
@@ -865,7 +892,7 @@ __device__ __forceinline__ Hit trace(const PathArgs& a, const Staged& st,
         }
         p.lmaxt = 0.0f;
     }
-    return Hit{t, face, sphere, -1, hu, hv};
+    return Hit{t, face, sphere, quad, hu, hv};
 }
 
 // One bounce of p from its hit h: escape, emission, NEE, the BSDF sample
@@ -883,7 +910,7 @@ __device__ __forceinline__ bool bounce(const PathArgs& a, const Staged& st,
     constexpr bool BVH = FLAGS & F_BVH;
     constexpr bool LOBES = FLAGS & F_LOBES;
     constexpr bool QUADS = SPH && LOBES;
-    constexpr bool FUSED = fused<FLAGS>();
+    constexpr bool FUSED = fused<FLAGS, NC>();
     // attributes from global memory, spheres in shared memory
     constexpr bool WIDE = FLAGS != 0;
     constexpr int STAGE = SPEC ? 4 : 3;
@@ -1536,7 +1563,7 @@ __global__ void __launch_bounds__(BLOCK, (min_blocks<FLAGS, NC>()))
     // compiles only into these instantiations
     constexpr bool LOBES = FLAGS & F_LOBES;
     constexpr bool QUADS = SPH && LOBES;
-    constexpr bool FUSED = fused<FLAGS>();
+    constexpr bool FUSED = fused<FLAGS, NC>();
     constexpr bool WIDE = FLAGS != 0;
     // attribute float4s staged per face when !WIDE: [ng, lpdf_w]
     // [albedo, kind] [Le, alpha], and [eta, le_scale] in spectral mode
@@ -1661,6 +1688,9 @@ __global__ void __launch_bounds__(BLOCK, (min_blocks<FLAGS, NC>()))
         using W = std::conditional_t<SPEC, SlotWl<NC>, RegWl<NC>>;
         W w{};
         if constexpr (SPEC) w = SlotWl<NC>{mine + S::WL * BLOCK};
+        // fused: no shadow ray queued in any thread after each sweep, so
+        // a thread that picks up another's path at the regroup holds none
+        if constexpr (FUSED) p.lmaxt = 0.0f;
         for (;;) {
             // ---- refill: one atomicAdd for the block's empty slots ----
             const unsigned empty = __ballot_sync(FULL, p.lane < 0);
@@ -1684,15 +1714,34 @@ __global__ void __launch_bounds__(BLOCK, (min_blocks<FLAGS, NC>()))
                 s_fill = fill;
             }
             __syncthreads();
-            if (p.lane < 0 && rank < s_fill)
+            if (p.lane < 0 && rank < s_fill) {
                 start_path(a, s_spd, (int)(s_base + rank), p, w);
+                if constexpr (FUSED) {
+                    p.lmaxt = 0.0f;
+                    p.alive = true;
+                }
+            }
             PROF(0);
 
-            // ---- closest hit, then the regroup key ----
+            // ---- closest hit (fused: and the queued shadow ray), then
+            // the regroup key ----
             Hit h{BIG, -1, -1, -1, 0.0f, 0.0f};
             int rkey = KEY_EMPTY;
+            if constexpr (FUSED) {
+                // a path whose last bounce ended it with a shadow ray
+                // queued ends once the sweep has traced that ray, and
+                // enters the regroup as an empty slot: the queue never
+                // outlives the sweep, so no slot row carries it
+                if (p.lane >= 0) {
+                    h = trace<FLAGS, NC>(a, st, p);
+                    if (!p.alive) {
+                        finish(a, s_spd, p, w);
+                        p.lane = -1;
+                    }
+                }
+            }
             if (p.lane >= 0) {
-                h = closest<FLAGS, NC>(a, st, p);
+                if constexpr (!FUSED) h = closest<FLAGS, NC>(a, st, p);
                 rkey = KEY_ESCAPED;
                 if (h.face >= 0 || h.sphere >= 0 || h.quad >= 0) {
                     const float4* A = h.sphere >= 0
@@ -1793,6 +1842,8 @@ __global__ void __launch_bounds__(BLOCK, (min_blocks<FLAGS, NC>()))
                 p.thr[c] = mine[(S::THR + c) * BLOCK];
                 p.res[c] = mine[(S::RES + c) * BLOCK];
             }
+            // every path that entered the regroup goes on
+            if constexpr (FUSED) p.alive = true;
             PROF(2);
 
             // ---- shade: warps now hold one kind each but at the seams ----

@@ -7,17 +7,18 @@ Builds csrc/path_kernel.cu's libraries of each path's color mode
 under which each warp sums its clock cycles by phase of the loop (refill,
 which in the lobes loop includes the wait at its first barrier for the
 block's slowest warp; closest hit; regroup; shading; and the shadow ray's
-sweep or walk where the shading still runs it, the BVH and lobes
-families: the warp's longest such sweep, taken out of the shading's
-cycles) and counts its iterations, and runs that build once on each path
-of ``tools/time_paths.py PATHS`` at its main shape (``--scenes`` picks
-some). In the shared-memory families without the lobes flag the shadow
-ray is traced in the closest-hit sweep of the next iteration and counts
-as closest hit. The profiled output must equal the committed kernel's bit
-for bit. Prints the card's name and power limit, then per path the
-profiled build's registers and spills (ptxas) and each phase's share of
-the cycles, and one JSON line {path: {phase: share}}. Exits non-zero
-without a CUDA device.
+sweep or walk where the shading still runs it, the BVH and the rgb and
+spectral lobes families: the warp's longest such sweep, taken out of the
+shading's cycles) and counts its iterations, and runs that build once on
+each path of ``tools/time_paths.py PATHS`` at its main shape
+(``--scenes`` picks some). In the shared-memory families without the
+lobes flag and in the mono lobes ones the shadow ray is traced in the
+closest-hit sweep of the next iteration and counts as closest hit (their
+shadow phase reads 0). The profiled output must equal the committed
+kernel's bit for bit. Prints the card's name and power limit, then per
+path the profiled build's registers and spills (ptxas) and each phase's
+share of the cycles, and one JSON line {path: {phase: share}}. Exits
+non-zero without a CUDA device.
 """
 
 import argparse

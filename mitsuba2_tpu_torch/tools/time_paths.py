@@ -8,8 +8,8 @@ volumetric kernel's (K3) and the ray queries' (K2).
 Loads each path scene of ``PATHS`` (the table chip_smoke.py drives) at
 its main shape (the Cornell box in rgb, spectral and mono mode, matpreview
 in rgb and spectral, 256x256 at 64 spp, depth 6; biggeo and hero at 32
-spp, depth 5; the materials box in rgb and spectral at 64 spp, depth 6,
-and in mono at 64x64 at 16 spp) and prints the CUDA-event median of
+spp, depth 5; the materials box in rgb, spectral and mono at 64 spp,
+depth 6) and prints the CUDA-event median of
 ``--repeats`` launches of ``ops/path_kernel.py path_radiance`` after a
 warm-up, ``--rounds`` times over the scenes, then one JSON line {"card":
 ..., "ms": {path: [median of each round]}, "ptxas": {path: registers and
@@ -95,7 +95,7 @@ class PathScene(NamedTuple):
 
 
 # bench.py's shapes (256x256 at 64 spp, depth 6; the big meshes at 32 spp,
-# depth 5, biggeo at 512x257), the materials box in mono at the parity shape
+# depth 5, biggeo at 512x257)
 PATHS = (
     PathScene("cornell", "scalar_rgb", "cornell_box_dict", 256, 64, 6),
     PathScene("matpreview", "scalar_rgb", "matpreview_dict", 256, 64, 6),
@@ -112,7 +112,7 @@ PATHS = (
     PathScene("cornell_materials_spectral", "scalar_spectral",
               "cornell_materials_dict", 256, 64, 6),
     PathScene("cornell_materials_mono", "scalar_mono",
-              "cornell_materials_dict", 64, 16, 6),
+              "cornell_materials_dict", 256, 64, 6),
 )
 
 

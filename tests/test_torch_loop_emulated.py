@@ -17,7 +17,10 @@ plain version. The fused families (the shared-memory loops without the
 lobes flag, which trace each bounce's shadow ray in the next iteration's
 sweep) run in every color mode, at a depth whose last iteration traces a
 queued shadow ray, and with a black wall, on which paths end with their
-shadow ray still queued. The same emulation runs the scene's ray queries
+shadow ray still queued; so does the mono lobes family, the one lobes
+family that queues the shadow ray, whose sweep then also runs the disk and
+cylinder rows and whose paths that end after queuing enter the regroup as
+empty slots. The same emulation runs the scene's ray queries
 (csrc/intersect_kernel.cu, K2) and the box-test ceiling
 (csrc/sweep_kernel.cu), each held bit for bit against its plain
 version."""
@@ -274,6 +277,26 @@ def cornell_black_wall(width, height, spp, max_depth):
     return d
 
 
+def materials_depth_2(width, height, spp, max_depth):
+    """The materials box at max_depth 2: the first bounce's queued shadow
+    ray (mono) is traced in the last iteration's sweep, before the
+    regroup."""
+    return cornell_materials_dict(width, height, spp,
+                                  materials_depth_2.max_depth)
+
+
+materials_depth_2.max_depth = 2
+
+
+def materials_black_wall(width, height, spp, max_depth):
+    """The materials box with a black left wall: a mono path that reaches
+    it queues its shadow ray and ends at the BSDF sample, so its slot
+    traces the shadow ray alone and enters the next regroup empty."""
+    d = cornell_materials_dict(width, height, spp, max_depth)
+    d["left"]["bsdf"]["reflectance"]["value"] = [0.0, 0.0, 0.0]
+    return d
+
+
 @pytest.mark.parametrize("variant, make_dict, width, spp, force", [
     ("scalar_rgb", cornell_box_dict, 8, 4, 0),           # warp refill
     ("scalar_rgb", cornell_box_dict, 5, 3, pk.HAS_LOBES),  # regroup, 75
@@ -292,6 +315,10 @@ def cornell_black_wall(width, height, spp, max_depth):
     ("scalar_mono", cornell_box_dict, 8, 4, 0),
     ("scalar_rgb", cornell_depth_2, 8, 4, 0),
     ("scalar_rgb", cornell_black_wall, 8, 4, 0),
+    # the mono lobes family: the regroup with the queued shadow ray
+    ("scalar_mono", cornell_materials_dict, 12, 4, 0),
+    ("scalar_mono", materials_depth_2, 12, 4, 0),
+    ("scalar_mono", materials_black_wall, 12, 4, 0),
 ])
 def test_emulated_loop_matches_plain_version(emulated, variant, make_dict,
                                              width, spp, force):
@@ -305,7 +332,8 @@ def test_emulated_loop_matches_plain_version(emulated, variant, make_dict,
               else scene.tables._replace(flags=scene.tables.flags | force))
     if make_dict not in (cornell_box_dict, cornell_materials_dict,
                          matpreview_dict, cornell_depth_2,
-                         cornell_black_wall):
+                         cornell_black_wall, materials_depth_2,
+                         materials_black_wall):
         assert tables.flags & pk.HAS_BVH and tables.n_faces > 1024
     cam = pk.camera_row(scene.sensors[0], scene.device)
     fn = emulated(tables.nc, bool(tables.flags & pk.HAS_LOBES))
@@ -323,11 +351,13 @@ def test_emulated_loop_matches_plain_version(emulated, variant, make_dict,
 
 
 @pytest.mark.parametrize("variant, make_dict", [
-    ("scalar_rgb", cornell_box_dict), ("scalar_rgb", cornell_materials_dict)])
+    ("scalar_rgb", cornell_box_dict), ("scalar_rgb", cornell_materials_dict),
+    ("scalar_mono", cornell_materials_dict)])
 def test_emulated_band_is_the_films_rows(emulated, variant, make_dict):
     """A band of film rows (``pixel_base``, parallel/mesh.py's pixel axis):
     its lanes are those rows of the whole film's launch, bit for bit, in
-    the shared-memory and the lobes families."""
+    the shared-memory and the lobes families (the mono one with its
+    queued shadow ray)."""
     width, spp, row0, n_rows = 8, 3, 3, 4
     mt.set_variant(variant)
     try:
